@@ -1,0 +1,66 @@
+"""Attention projections and scaled-dot-product attention.
+
+Counterpart of ``repro/models/attention.py`` for what paged serving
+runs: ``project_qkv`` (with qk-norm and RoPE), ``sdpa`` and ``attn_out``,
+in the reference's (B, S, H, hd) layout.  ``sdpa`` goes through the
+Hopper flash-attention kernel on CUDA tensors (its plain version, in the
+reference's rounding order, on CPU tensors); GQA is handled inside it,
+without expanding KV heads.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+from repro_torch.models.layers import Spec, apply_rope, rms_norm, rms_norm_spec
+
+Params = Dict[str, Any]
+
+
+def attn_specs(cfg: ModelConfig) -> Params:
+    d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    p = {"wq": Spec((d, h, hd)), "wk": Spec((d, kv, hd)),
+         "wv": Spec((d, kv, hd)), "wo": Spec((h, hd, d))}
+    if cfg.use_qk_norm:
+        p["q_norm"] = rms_norm_spec(hd)
+        p["k_norm"] = rms_norm_spec(hd)
+    return p
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum('bsd,dnh->bsnh') as one matmul over the flattened heads."""
+    d, n, hd = w.shape
+    return torch.matmul(x, w.reshape(d, n * hd)).unflatten(-1, (n, hd))
+
+
+def project_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    q = _project(x, p["wq"])
+    k = _project(x, p["wk"])
+    v = _project(x, p["wv"])
+    if cfg.use_qk_norm:
+        q = rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = rms_norm(k, p["k_norm"], cfg.norm_eps)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+         window: int = 0, q_offset: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd).  Query
+    row i sits at position ``q_offset + i``, key j at position j."""
+    o, _ = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
+                               v.transpose(1, 2), causal=causal,
+                               window=window, q_offset=q_offset)
+    return o.transpose(1, 2)
+
+
+def attn_out(p: Params, o: torch.Tensor) -> torch.Tensor:
+    h, hd, d = p["wo"].shape
+    return torch.matmul(o.reshape(*o.shape[:-2], h * hd),
+                        p["wo"].reshape(h * hd, d))

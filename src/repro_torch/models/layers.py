@@ -1,0 +1,112 @@
+"""Shared building blocks: norms, rotary embeddings, MLPs, embeddings.
+
+Counterpart of ``repro/models/layers.py``.  Plain functions on tensors
+over plain parameter dictionaries, in the reference's layouts, so the
+tests compare like with like.  ``rms_norm`` goes through the Hopper
+RMSNorm kernel on CUDA tensors; the large products stay ``torch.matmul``
+(the reference leaves them to XLA).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.rmsnorm import rmsnorm
+
+Params = Dict[str, Any]
+
+
+class Spec(NamedTuple):
+    """Parameter leaf spec: shape + init std (0 = zeros)."""
+    shape: Tuple[int, ...]
+    std: float = 0.02
+
+
+def init_from_specs(specs, generator: torch.Generator,
+                    device: torch.device, dtype=torch.bfloat16) -> Params:
+    """Materialize a parameter tree from a spec tree, leaves in sorted key
+    order: zeros for std 0 (the ``(1+g)`` norm gains), else
+    normal(0, std) drawn in fp32 and cast."""
+    out = {}
+    for key in sorted(specs):
+        spec = specs[key]
+        if isinstance(spec, dict):
+            out[key] = init_from_specs(spec, generator, device, dtype)
+        elif spec.std == 0.0:
+            out[key] = torch.zeros(spec.shape, dtype=dtype, device=device)
+        else:
+            out[key] = (torch.randn(spec.shape, generator=generator,
+                                    device=device, dtype=torch.float32)
+                        * spec.std).to(dtype)
+    return out
+
+
+def rms_norm_spec(d: int) -> Spec:
+    return Spec((d,), std=0.0)       # zero-init: (1+g) parameterization
+
+
+def rms_norm(x: torch.Tensor, gain: torch.Tensor,
+             eps: float = 1e-6) -> torch.Tensor:
+    return rmsnorm(x, gain, eps)
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device: torch.device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, H, hd); positions: broadcastable to (..., S).
+    Half-split rotation computed in fp32."""
+    if theta <= 0:
+        return x
+    hd = x.shape[-1]
+    ang = positions[..., :, None].float() * rope_freqs(hd, theta, x.device)
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x32 = x.float()
+    x1, x2 = x32[..., : hd // 2], x32[..., hd // 2:]
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def gated_mlp_specs(d_model: int, d_ff: int) -> Params:
+    return {"wi_gate": Spec((d_model, d_ff)), "wi_up": Spec((d_model, d_ff)),
+            "wo": Spec((d_ff, d_model))}
+
+
+def gated_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    g = torch.matmul(x, p["wi_gate"])
+    u = torch.matmul(x, p["wi_up"])
+    return torch.matmul(F.silu(g) * u, p["wo"])
+
+
+def embed_specs(vocab: int, d_model: int, tie: bool) -> Params:
+    out = {"tok": Spec((vocab, d_model))}
+    if not tie:
+        out["head"] = Spec((d_model, vocab))
+    return out
+
+
+def embed(p: Params, tokens: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    x = p["tok"][tokens]
+    if scale != 1.0:
+        x = (x.float() * scale).to(x.dtype)
+    return x
+
+
+def unembed(p: Params, x: torch.Tensor,
+            softcap: Optional[float] = 0.0) -> torch.Tensor:
+    if "head" in p:
+        logits = torch.matmul(x, p["head"])
+    else:
+        logits = torch.matmul(x, p["tok"].t())
+    logits = logits.float()
+    if softcap:
+        logits = torch.tanh(logits / softcap) * softcap
+    return logits

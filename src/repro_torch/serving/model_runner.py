@@ -1,0 +1,322 @@
+"""Model execution backend of the port's serving engine.
+
+Counterpart of ``repro/serving/model_runner.py``.  The engine owns
+admission, paging and preemption; a :class:`ModelRunner` owns the device
+state and the two entry points the engine drives:
+
+* ``prefill(req)``  -- forward over the prompt, writing its KV into the
+  request's pages, and the first token;
+* ``decode(running)`` -- one batched greedy decode step.
+
+:class:`PagedRunner` keeps KV in per-layer ``(pool_pages + 1, PAGE_SIZE,
+KV, hd)`` bf16 page tensors (the last page is a write-only trash page for
+padded batch lanes) and runs three Hopper kernels: the flash-attention
+forward for prefill, the paged-attention decode, and RMSNorm.  Prompts of
+at most ``chunk_pages`` pages prefill natively; longer ones in chunks of
+``chunk_pages`` pages, each attending over the earlier pages gathered in
+front of it (``q_offset`` = the chunk's start).  Decode pads the batch to
+``max_batch`` and buckets the table width to a power of two, as the
+reference does (the shapes a later CUDA-graph capture will key on).
+
+Where the reference donates its page arrays to ``jit`` so XLA updates them
+in place, the port writes the page tensors in place (``index_put_``).
+
+This slice serves pure-global stacks from a private pool.  Sliding-window
+ring pages (``ATTN_LOCAL``), the prefix cache, a pod-shared
+``KVArrayStore``, park/unpark and replica migration, and the dense runner
+come with later slices: asking for them raises ``ValueError``.
+"""
+
+from __future__ import annotations
+
+import zlib
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+from repro_torch.configs.base import ATTN_LOCAL, ModelConfig
+from repro_torch.kernels.paged_attention import paged_attention
+from repro_torch.models import attention as attn
+from repro_torch.models import layers as L
+from repro_torch.models.model import (check_family, embed_tokens,
+                                      init_params, layer_params)
+from repro_torch.serving.kv_cache import PAGE_SIZE, Request, page_table
+
+KV_DTYPE = torch.bfloat16
+
+
+class KVArrayStore:
+    """The page tensors of one runner: per layer one K and one V tensor of
+    ``(pool_pages + 1, PAGE_SIZE, KV, hd)``, the last page being trash.
+    (The reference's store is also the aliasing unit of pod-shared
+    tenants; the port's is private until that slice.)"""
+
+    def __init__(self, num_layers: int, pool_pages: int, kv_heads: int,
+                 head_dim: int, device: torch.device, dtype=KV_DTYPE):
+        self.page_shape = (pool_pages + 1, PAGE_SIZE, kv_heads, head_dim)
+        self.k_pages = [torch.zeros(self.page_shape, dtype=dtype,
+                                    device=device)
+                        for _ in range(num_layers)]
+        self.v_pages = [torch.zeros(self.page_shape, dtype=dtype,
+                                    device=device)
+                        for _ in range(num_layers)]
+
+
+def synth_prompt(req_id: str, prompt_len: int, vocab: int) -> torch.Tensor:
+    """Deterministic synthetic prompt (CPU int64, (1, prompt_len)) from a
+    stable digest of the request id.  Not the reference's tokens (that
+    uses ``jax.random``): parity runs pass ``prompt_tokens``."""
+    gen = torch.Generator().manual_seed(zlib.crc32(req_id.encode()) % 2**31)
+    return torch.randint(0, vocab, (1, prompt_len), generator=gen)
+
+
+def prompt_for(req: Request, vocab: int) -> torch.Tensor:
+    """(1, prompt_len) prompt tokens: explicit ``req.prompt_tokens`` win."""
+    if req.prompt_tokens is not None:
+        if len(req.prompt_tokens) != req.prompt_len:
+            raise ValueError(f"{req.req_id}: {len(req.prompt_tokens)} prompt "
+                             f"tokens for prompt_len {req.prompt_len}")
+        return torch.tensor(req.prompt_tokens, dtype=torch.long)[None, :]
+    return synth_prompt(req.req_id, req.prompt_len, vocab)
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+class ModelRunner:
+    """Backend interface the engine's step functions are bound to."""
+
+    backend = "null"
+
+    def __init__(self):
+        self.engine = None
+        self.generated: Dict[str, List[int]] = {}
+
+    def bind(self, engine) -> None:
+        self.engine = engine
+
+    def prefill(self, req: Request) -> None:
+        raise NotImplementedError
+
+    def decode(self, running: List[Request]) -> None:
+        raise NotImplementedError
+
+    def finish(self, req: Request) -> None:
+        """Completion hook: hand the tokens back to the request and evict
+        the runner's entry for it."""
+        toks = self.generated.pop(req.req_id, None)
+        if toks is not None:
+            req.output_tokens = toks
+
+
+class PagedRunner(ModelRunner):
+    """KV in pool pages; prefill through the flash-attention kernel and
+    decode through the paged-attention kernel."""
+
+    backend = "paged"
+
+    def __init__(self, cfg: ModelConfig, *, seed: int = 0,
+                 pool_pages: int = 128, max_batch: int = 4,
+                 prefix_cache=None, chunk_pages: int = 4,
+                 params: Optional[dict] = None, device: DeviceLike = None,
+                 record_margins: bool = False):
+        super().__init__()
+        if cfg.rope_theta <= 0:
+            raise ValueError(f"backend='paged' needs RoPE; {cfg.name} has "
+                             f"rope_theta={cfg.rope_theta}")
+        check_family(cfg)
+        if ATTN_LOCAL in cfg.pattern:
+            raise ValueError(
+                f"{cfg.name}: sliding-window (ATTN_LOCAL) ring pages come "
+                "with a later slice of the port; it serves pure-global "
+                "stacks")
+        if prefix_cache is not None:
+            raise ValueError("the prefix cache comes with a later slice of "
+                             "the port")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.max_batch = max_batch
+        self.chunk_pages = max(int(chunk_pages), 1)
+        self.params = (init_params(cfg, seed, self.device) if params is None
+                       else params)
+        self.layers = layer_params(self.params, cfg)
+        self.num_layers = cfg.num_layers
+        self.pool_pages = pool_pages
+        self.trash_page = pool_pages            # padded lanes write here
+        self.store = KVArrayStore(self.num_layers, pool_pages,
+                                  cfg.num_kv_heads, cfg.head_dim, self.device)
+        # forwards over prompt chunks (a native prefill is one chunk)
+        self.prefill_chunks = 0
+        # parity checks: the top-1 minus top-2 logit gap of every emitted
+        # token, per request (a near-tie may flip under other roundings)
+        self.margins: Optional[Dict[str, List[float]]] = (
+            {} if record_margins else None)
+
+    def _ids(self, ids) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
+
+    def _block_forward(self, bp, x, positions, mix):
+        """One layer: the body shared by prefill and decode.  ``mix(q, k,
+        v) -> (B, S, H, hd)`` carries the phase-specific part (KV
+        writes and attention through the layer's pages)."""
+        cfg = self.cfg
+        h = L.rms_norm(x, bp["ln1"]["g"], cfg.norm_eps)
+        q, k, v = attn.project_qkv(bp["attn"], h, cfg, positions)
+        x = x + attn.attn_out(bp["attn"], mix(q, k, v))
+        h = L.rms_norm(x, bp["ln2"]["g"], cfg.norm_eps)
+        return x + L.gated_mlp(bp["mlp"], h)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = L.rms_norm(x, self.params["ln_f"]["g"], self.cfg.norm_eps)
+        return L.unembed(self.params["embed"], x, self.cfg.logit_softcap)
+
+    def _record_margins(self, reqs: List[Request], logits: torch.Tensor):
+        if self.margins is None:
+            return
+        top = logits.topk(2, dim=-1).values
+        for req, gap in zip(reqs, (top[:, 0] - top[:, 1]).tolist()):
+            self.margins.setdefault(req.req_id, []).append(gap)
+
+    # -- prefill -------------------------------------------------------------
+    def _chunk_forward(self, toks: torch.Tensor, base: int,
+                       write_ids: torch.Tensor, ctx_ids: torch.Tensor):
+        """Forward over one page-aligned chunk of prompt tokens starting at
+        absolute position ``base``: scatter its KV into ``write_ids``
+        pages and attend over the ``ctx_ids`` pages (the prompt's earlier
+        pages, none for a native prefill) plus the chunk itself.  Returns
+        the final hidden states (1, S, d)."""
+        cfg = self.cfg
+        s = toks.shape[1]
+        n_pg = s // PAGE_SIZE
+        positions = base + torch.arange(s, device=self.device)
+        x = embed_tokens(cfg, self.params, toks)
+        for layer, bp in enumerate(self.layers):
+            kp, vp = self.store.k_pages[layer], self.store.v_pages[layer]
+
+            def mix(q, k, v, kp=kp, vp=vp):
+                kpg = k[0].reshape(n_pg, PAGE_SIZE, cfg.num_kv_heads,
+                                   cfg.head_dim)
+                vpg = v[0].reshape(n_pg, PAGE_SIZE, cfg.num_kv_heads,
+                                   cfg.head_dim)
+                kp[write_ids] = kpg.to(KV_DTYPE)     # in place
+                vp[write_ids] = vpg.to(KV_DTYPE)
+                if ctx_ids.numel():
+                    # the context pages are strictly earlier than the
+                    # chunk's, so the gather sees earlier-chunk KV only
+                    ctx_k = kp[ctx_ids].reshape(1, -1, cfg.num_kv_heads,
+                                                cfg.head_dim).to(k.dtype)
+                    ctx_v = vp[ctx_ids].reshape(1, -1, cfg.num_kv_heads,
+                                                cfg.head_dim).to(v.dtype)
+                    k = torch.cat([ctx_k, k], dim=1)
+                    v = torch.cat([ctx_v, v], dim=1)
+                return attn.sdpa(q, k, v, causal=True, q_offset=base)
+
+            x = self._block_forward(bp, x, positions, mix)
+        self.prefill_chunks += 1
+        return x
+
+    def prefill(self, req: Request) -> None:
+        """Forward over the prompt, writing its KV page by page into the
+        request's granted pages (page p holds tokens [p*PAGE, (p+1)*PAGE)).
+        Prompts longer than ``chunk_pages`` pages go in chunks that end on
+        multiples of ``chunk_pages``, as the reference's chunked path."""
+        if not req.pages:
+            raise RuntimeError(f"{req.req_id}: prefill before admission")
+        total_pg = -(-req.prompt_len // PAGE_SIZE)
+        if len(req.pages) < total_pg:
+            raise RuntimeError(f"{req.req_id}: {len(req.pages)} pages < "
+                               f"prompt {total_pg}")
+        toks = torch.zeros((1, total_pg * PAGE_SIZE), dtype=torch.long)
+        toks[:, :req.prompt_len] = prompt_for(req, self.cfg.vocab_size)
+        toks = toks.to(self.device)
+        n_native = total_pg if total_pg <= self.chunk_pages else 0
+        p = 0
+        while p < total_pg:
+            n_pg = n_native or min(self.chunk_pages - p % self.chunk_pages,
+                                   total_pg - p)
+            s0 = p * PAGE_SIZE
+            x = self._chunk_forward(toks[:, s0:s0 + n_pg * PAGE_SIZE], s0,
+                                    self._ids(req.pages[p:p + n_pg]),
+                                    self._ids(req.pages[:p]))
+            p += n_pg
+        last = req.prompt_len - 1 - s0
+        logits = self._logits(x[:, last:last + 1])[:, -1]
+        self._record_margins([req], logits)
+        self.generated[req.req_id] = [int(logits[0].argmax())]
+
+    # -- decode --------------------------------------------------------------
+    def decode(self, running: List[Request]) -> None:
+        if not running:
+            return
+        b = self.max_batch
+        if len(running) > b:
+            raise RuntimeError(f"{len(running)} running > max_batch {b}")
+        cfg = self.cfg
+        pos = [r.length for r in running]              # write positions
+        for r, p in zip(running, pos):
+            if p // PAGE_SIZE >= len(r.pages):
+                raise RuntimeError(
+                    f"{r.req_id}: token {p} beyond granted pages "
+                    f"({len(r.pages)}) -- engine must grow with horizon=1")
+        # padded to max_batch: idle lanes write into the trash page with an
+        # all -1 table and valid length 1, so they attend to nothing and
+        # the kernel writes zeros for them
+        maxp_b = _next_pow2(max(max(len(r.pages) for r in running), 1))
+        toks = np.zeros((b, 1), np.int64)
+        positions = np.zeros((b, 1), np.int64)
+        offs = np.zeros(b, np.int64)
+        vlen = np.ones(b, np.int32)
+        phys = np.full(b, self.trash_page, np.int64)
+        table = np.full((b, maxp_b), -1, np.int32)
+        table[:len(running)] = page_table(running, maxp_b)
+        for i, (r, p) in enumerate(zip(running, pos)):
+            toks[i, 0] = self.generated[r.req_id][-1]
+            positions[i, 0] = p
+            offs[i] = p % PAGE_SIZE
+            vlen[i] = p + 1
+            phys[i] = r.pages[p // PAGE_SIZE]
+        dev = self.device
+        toks_t = torch.from_numpy(toks).to(dev)
+        positions_t = torch.from_numpy(positions).to(dev)
+        offs_t = torch.from_numpy(offs).to(dev)
+        vlen_t = torch.from_numpy(vlen).to(dev)
+        phys_t = torch.from_numpy(phys).to(dev)
+        table_t = torch.from_numpy(table).to(dev)
+        x = embed_tokens(cfg, self.params, toks_t)
+        for layer, bp in enumerate(self.layers):
+            kp, vp = self.store.k_pages[layer], self.store.v_pages[layer]
+
+            def mix(q, k, v, kp=kp, vp=vp):
+                kp[phys_t, offs_t] = k[:, 0].to(KV_DTYPE)   # in place
+                vp[phys_t, offs_t] = v[:, 0].to(KV_DTYPE)
+                return paged_attention(q[:, 0], kp, vp, table_t,
+                                       vlen_t)[:, None]
+
+            x = self._block_forward(bp, x, positions_t, mix)
+        logits = self._logits(x)[:, -1]
+        self._record_margins(running, logits)
+        # the one batched device->host fetch of the step
+        nxt = logits.argmax(-1).tolist()
+        for i, req in enumerate(running):
+            self.generated[req.req_id].append(nxt[i])
+
+
+def build_runner(backend: str, cfg: ModelConfig, *, seed: int = 0,
+                 max_batch: int = 4, pool_pages: int = 128,
+                 prefix_cache=None, chunk_pages: int = 4,
+                 params: Optional[dict] = None, device: DeviceLike = None,
+                 record_margins: bool = False) -> ModelRunner:
+    """Factory keyed by the serving backend name."""
+    if backend == "paged":
+        return PagedRunner(cfg, seed=seed, pool_pages=pool_pages,
+                           max_batch=max_batch, prefix_cache=prefix_cache,
+                           chunk_pages=chunk_pages, params=params,
+                           device=device, record_margins=record_margins)
+    if backend == "dense":
+        raise ValueError("backend='dense' comes with a later slice of the "
+                         "port; serve with backend='paged'")
+    raise ValueError(f"unknown serving backend {backend!r} "
+                     "(the port serves 'paged')")
