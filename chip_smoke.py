@@ -1,18 +1,21 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/Hopper port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py            # everything, on one card
+    python3 chip_smoke.py            # every phase, on one card
 
 Phases, each of which must pass (any failure exits nonzero):
 
 1. build: every CUDA source under ``src/repro_torch/csrc`` is compiled by
    ``nvcc`` for ``sm_90a`` (one process per source, all together) and the
    Triton RMSNorm is compiled on its first call;
-2. kernels: each hand-written kernel, on the card, at a small shape and at
-   the tinyllama-1.1b shapes of the serving path, is held against its plain
-   PyTorch version on the same inputs within the stated tolerance, and
-   timed beside the plain version and one PyTorch library call computing
-   the same function (the port itself never calls those);
+2. kernels: each hand-written kernel, on the card, at small shapes and at
+   the tinyllama-1.1b shapes of the serving and training paths (K2 and K3
+   at the training path's q (2,32,4096,64) and 8192 rows too), is held
+   against its plain PyTorch version on the same inputs within the stated
+   tolerance, and timed beside the plain version and one PyTorch library
+   call computing the same function (the port itself never calls those);
+   the autograd Functions of K2+K5 and K3 are held against autograd
+   through the plain forwards;
 3. serve: full-width tinyllama-1.1b (random weights from seed 0) serves 8
    requests with prompts of 64..1024 tokens (native and chunked prefill)
    and 32 new tokens each through the port's engine; every request must
@@ -23,15 +26,28 @@ Phases, each of which must pass (any failure exits nonzero):
 4. parity: reduced tinyllama-1.1b serves the same prompts with the same
    weights on the card and on the CPU (the plain versions) in this process;
    the greedy tokens must be equal except where the CPU run's top-2 logit
-   gap is below ``TIE_GAP`` (then that request stops being compared).
+   gap is below ``TIE_GAP`` (then that request stops being compared);
+5. train: full-width tinyllama-1.1b (random weights from seed 0) takes 4
+   AdamW steps at sequence 4096, global batch 8 in 4 microbatches under
+   full remat; every loss must be finite and the last below the first,
+   every step-1 gradient finite and not all zero (computed here, before
+   the run, from the same weights and batch as the run's first step), and
+   every kernel's launch count what the path implies; then one more step
+   under ``torch.profiler``;
+6. parity: reduced tinyllama-1.1b trains 3 steps from the same weights on
+   the same batches on the card and on the CPU; losses, final params and
+   step-1 gradients must agree within ``TRAIN_*_RTOL``.
 
-The second-to-last lines are the kernels' JSON record and the card's name
-and power limit; the last line is the run's JSON verdict.
+A kernel's ``launches`` in the JSON record is its count over the serve
+(phase 3) and train (phase 5) runs.  The second-to-last lines are the
+kernels' JSON record and the card's name and power limit; the last line
+is the run's JSON verdict.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -86,8 +102,11 @@ def main() -> None:
     launches = serve_full(torch)
     profile_serve(torch)
     parity_reduced(torch)
+    for name, n in train_full(torch).items():
+        launches[name] = launches.get(name, 0) + n
+    parity_train_reduced(torch)
     for rec in records:
-        rec["launches"] = launches[rec["name"]]
+        rec["launches"] = launches.get(rec["name"])
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -173,8 +192,9 @@ def check_kernels(torch):
 
     # -- K3 rmsnorm ---------------------------------------------------------
     errs = []
+    # 8192 rows of 2048: a norm of the training path (B=2 x S=4096)
     for rows, d, dtype in ((33, 128, f32), (8, 64, bf16), (8, 2048, bf16),
-                           (512, 2048, bf16)):
+                           (512, 2048, bf16), (8192, 2048, bf16)):
         x, g = randn(rows, d, dtype=dtype), randn(d, dtype=f32, scale=0.1)
         errs.append(compare(torch, f"rmsnorm rows={rows} d={d} {dtype}",
                             rmsnorm(x, g), rmsnorm_ref(x, g), *tol[dtype]))
@@ -322,12 +342,184 @@ def check_kernels(torch):
                         bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                         shape=f"B=1 H=32 KV=4 D=64 Sq={sq} Sk={sk} "
                               f"q_offset={off} causal"))
+    bwd_records, fwd_errs = check_backward(torch, randn, tol)
+    records[-1]["max_abs_err"] = max(errs + fwd_errs)
+    records += bwd_records
+    check_functions(torch, randn)
     for rec in records:
         print(f"[time] {rec['name']} ({rec['shape']}): kernel "
               f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
               f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']})", flush=True)
     return records
+
+
+def check_backward(torch, randn, tol):
+    """K5a (dQ) and K5b (dK/dV) against the plain backward, on the same
+    bf16 or fp32 inputs: both compute in fp32 from the same saved lse and
+    round their outputs once, so the bf16 tolerance is one bf16 ulp.
+    The K2 output they start from is first held against the plain forward
+    on fp32 copies, as in :func:`check_kernels`, at every case's shape
+    (the training shape included).  Returns the K5 records and the K2
+    errors."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_dkv_ref, flash_attention_dq_ref, flash_attention_fwd,
+        flash_attention_fwd_ref)
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ("small causal ragged GQA b=2 h=4/2 s=200 d=64", 2, 4, 2, 200, 200,
+         64, True, 0, 0, bf16),
+        ("windowed=64 fp32 h=4/1 s=256 d=32", 1, 4, 1, 256, 256, 32, True, 64,
+         0, f32),
+        ("non-causal ragged h=2/2 s=130 d=16", 1, 2, 2, 130, 130, 16, False,
+         0, 0, bf16),
+        ("windowed=100 ragged h=8/2 s=333 d=64", 1, 8, 2, 333, 333, 64, True,
+         100, 0, bf16),
+        ("d=128 q_offset=64 h=4/2 sq=128 sk=192", 1, 4, 2, 128, 192, 128,
+         True, 0, 64, bf16),
+        ("training shape b=2 h=32/4 s=4096 d=64", 2, 32, 4, 4096, 4096, 64,
+         True, 0, 0, bf16),
+    ]
+    errs = {"dq": [], "dkv": [], "fwd": []}
+    for (label, b, h, kvh, sq, sk, d, causal, window, off, dtype) in cases:
+        kw = dict(causal=causal, window=window, q_offset=off)
+        q = randn(b, sq, h, d, dtype=dtype).transpose(1, 2)   # model layout
+        k = randn(b, sk, kvh, d, dtype=dtype).transpose(1, 2)
+        v = randn(b, sk, kvh, d, dtype=dtype).transpose(1, 2)
+        do = randn(b, sq, h, d, dtype=dtype).transpose(1, 2)
+        o, lse = flash_attention_fwd(q, k, v, **kw)
+        o_r, lse_r = flash_attention_fwd_ref(q.float(), k.float(), v.float(),
+                                             **kw)
+        errs["fwd"].append(compare(torch, f"flash_attention_fwd o {label}",
+                                   o, o_r, *tol[dtype]))
+        compare(torch, f"flash_attention_fwd lse {label}", lse, lse_r, 1e-4,
+                1e-5)
+        del o_r, lse_r
+        torch.cuda.empty_cache()
+        dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, lse, delta, do, **kw)
+        torch.cuda.synchronize()
+        dq_r, delta_r = flash_attention_dq_ref(q, k, v, o, lse, do, **kw)
+        errs["dq"].append(compare(torch, f"flash_attention_bwd dq {label}",
+                                  dq, dq_r, *tol[dtype]))
+        compare(torch, f"flash_attention_bwd delta {label}", delta, delta_r,
+                1e-4, 1e-5)
+        del dq_r
+        dk_r, dv_r = flash_attention_dkv_ref(q, k, v, lse, delta_r, do, **kw)
+        errs["dkv"].append(max(
+            compare(torch, f"flash_attention_bwd dk {label}", dk, dk_r,
+                    *tol[dtype]),
+            compare(torch, f"flash_attention_bwd dv {label}", dv, dv_r,
+                    *tol[dtype])))
+        del dk_r, dv_r, delta_r
+        torch.cuda.empty_cache()
+    # timed at the training shape (last case); the plain versions and the
+    # library call materialize (B, H, S, S) fp32 scores, so fewer calls
+    few = dict(iters=3, reps=3)
+    kw = dict(causal=True)
+    ms_dq = timed_ms(torch, lambda: flash_attention_bwd_dq(q, k, v, o, lse,
+                                                           do, **kw))
+    ms_dkv = timed_ms(torch, lambda: flash_attention_bwd_dkv(
+        q, k, v, lse, delta, do, **kw))
+    ms_fwd = timed_ms(torch, lambda: flash_attention_fwd(q, k, v, **kw))
+    plain_fwd = timed_ms(torch, lambda: flash_attention_fwd_ref(q, k, v, **kw),
+                         **few)
+    plain_dq = timed_ms(torch, lambda: flash_attention_dq_ref(
+        q, k, v, o, lse, do, **kw), **few)
+    plain_dkv = timed_ms(torch, lambda: flash_attention_dkv_ref(
+        q, k, v, lse, delta, do, **kw), **few)
+    g = h // kvh
+    qe, ke, ve = (t.detach().requires_grad_(True) for t in
+                  (q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)))
+
+    def lib_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
+
+    def lib_fwd_bwd():
+        out = F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
+        torch.autograd.grad(out, (qe, ke, ve), do)
+
+    lib_f = timed_ms(torch, lib_fwd, **few)
+    lib = timed_ms(torch, lib_fwd_bwd, **few) - lib_f
+    # the function's work at these inputs: every visible (query, key) pair
+    # of every head; the forward does 2 products of 2*D operations per
+    # pair, dQ 3 (q.k, dO.v, ds.k), dK/dV 4 (q.k, dO.v, p^T dO, ds^T q)
+    pairs = b * h * sum(min(sk, i + 1) for i in range(sq))
+    e = 2                                                  # bf16 bytes
+    n_q, n_kv, rows = q.numel(), k.numel(), b * h * sq
+    fwd_bound, fwd_by = bound(e * (2 * n_q + 2 * n_kv) + 4 * rows,
+                              2 * 2 * d * pairs, H100_BF16_FLOPS)
+    print(f"[time] flash_attention_fwd at the training shape: kernel "
+          f"{ms_fwd:.4f} ms, plain {plain_fwd:.4f} ms, library {lib_f:.4f} "
+          f"ms (SDPA forward, expanded KV heads), bound {fwd_bound:.4f} ms "
+          f"({fwd_by})", flush=True)
+    dq_bytes = e * (3 * n_q + 2 * n_kv + n_q) + 4 * rows * 2
+    dkv_bytes = e * (2 * n_q + 2 * n_kv + 2 * n_kv) + 4 * rows * 2
+    shape = (f"B={b} H={h} KV={kvh} D={d} S={sq} causal; library_ms is "
+             "SDPA's whole backward on expanded KV heads")
+    out = []
+    for name, ms, plain, nbytes, prods, at in (
+            ("flash_attention_bwd_dq", ms_dq, plain_dq, dq_bytes, 3, 229),
+            ("flash_attention_bwd_dkv", ms_dkv, plain_dkv, dkv_bytes, 4,
+             255)):
+        b_ms, b_by = bound(nbytes, prods * 2 * d * pairs, H100_BF16_FLOPS)
+        out.append(dict(name=name, route="cuda",
+                        source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                        replaces=f"src/repro/kernels/flash_attention.py:{at}",
+                        max_abs_err=max(errs[name.rsplit("_", 1)[1]]),
+                        ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                        library_ms=lib, shape=shape))
+    print(f"[time] flash attention backward at the training shape: dQ + "
+          f"dK/dV {ms_dq + ms_dkv:.4f} ms vs SDPA backward {lib:.4f} ms",
+          flush=True)
+    del qe, ke, ve
+    torch.cuda.empty_cache()
+    return out, errs["fwd"]
+
+
+def check_functions(torch, randn):
+    """The autograd Functions on CUDA against autograd through the plain
+    forwards, on fp32 copies of the same inputs.  Both sides compute in
+    fp32 with different formulas (softmax's autograd vs the flash form
+    from lse; autograd of the norm vs its closed form), so the tolerance
+    is the fp32 one of the kernel checks, 2e-5 + 2e-5*|ref|."""
+    from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                     flash_attention_fwd_ref)
+    from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm_ref
+    for label, (b, h, kvh, s, d, window) in (
+            ("causal GQA b=2 h=4/2 s=200 d=64", (2, 4, 2, 200, 64, 0)),
+            ("windowed=100 h=8/2 s=333 d=32", (1, 8, 2, 333, 32, 100))):
+        q = randn(b, s, h, d, dtype=torch.float32).transpose(1, 2)
+        k = randn(b, s, kvh, d, dtype=torch.float32).transpose(1, 2)
+        v = randn(b, s, kvh, d, dtype=torch.float32).transpose(1, 2)
+        do = randn(b, h, s, d, dtype=torch.float32)
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = FlashAttention.apply(*ins, True, window, 0)
+        if out.grad_fn is None:
+            fail("FlashAttention: no grad_fn on CUDA")
+        got = torch.autograd.grad(out, ins, do)
+        ref_ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        ref_out, _ = flash_attention_fwd_ref(*ref_ins, causal=True,
+                                             window=window)
+        want = torch.autograd.grad(ref_out, ref_ins, do)
+        for n, a, w in zip(("dq", "dk", "dv"), got, want):
+            compare(torch, f"FlashAttention grad {n} {label}", a, w, 2e-5,
+                    2e-5)
+    x = randn(512, 2048, dtype=torch.float32)
+    g = randn(2048, dtype=torch.float32, scale=0.1)
+    dy = randn(512, 2048, dtype=torch.float32)
+    xa, ga = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+    y = RMSNorm.apply(xa, ga, 1e-6)
+    if y.grad_fn is None:
+        fail("RMSNorm: no grad_fn on CUDA")
+    got = torch.autograd.grad(y, (xa, ga), dy)
+    xr, gr = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+    want = torch.autograd.grad(rmsnorm_ref(xr, gr), (xr, gr), dy)
+    for n, a, w in zip(("dx", "dgain"), got, want):
+        compare(torch, f"RMSNorm grad {n} rows=512 d=2048", a, w, 2e-5, 2e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -395,25 +587,10 @@ def profile_serve(torch):
                     seed=0, verbose=False)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
-    dev_us = {e.key: getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0))
-              for e in kernels}
-    total_ms = sum(dev_us.values()) / 1e3
-    if total_ms <= 0:
-        print("[profile] device time not measured: the profiler recorded "
-              "no CUDA kernel time", flush=True)
-        return
     stats = out["stats"]
-    print(f"[profile] serve 8 req x 8 new: wall {wall * 1e3:.3f} ms "
-          f"(under the profiler), device busy {total_ms:.3f} ms, busy "
-          f"share {total_ms / (wall * 1e3):.4f}, decode_steps "
-          f"{stats.decode_steps}, prefill chunks "
-          f"{out['runner'].prefill_chunks}", flush=True)
-    for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]:
-        print(f"[profile]   {us / 1e3:10.3f} ms  {100 * us / 1e3 / total_ms:5.1f}%"
-              f"  {key[:90]}", flush=True)
+    report_profile(prof, wall, f"serve 8 req x 8 new (decode_steps "
+                               f"{stats.decode_steps}, prefill chunks "
+                               f"{out['runner'].prefill_chunks})")
 
 
 # ---------------------------------------------------------------------------
@@ -462,6 +639,235 @@ def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def step_grads(torch, model, plan, params, batch):
+    """The gradients one train step takes (``make_train_step``'s
+    arithmetic: microbatch i takes rows i::mb, fp32 sums divided by mb),
+    computed here with ``model.loss_fn`` and autograd -> a list of fp32
+    tensors in the params' leaf order."""
+    from repro_torch.training.optimizer import leaves, tree_map
+    mb = max(plan.microbatch, 1)
+    acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+           for p in leaves(params)]
+    for i in range(mb):
+        tracked = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss, _ = model.loss_fn(tracked, {k: v[i::mb]
+                                          for k, v in batch.items()})
+        for a, g in zip(acc, torch.autograd.grad(loss, leaves(tracked))):
+            a.add_(g)
+    return [a.div_(mb) for a in acc]
+
+
+def _train_kernels():
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq,
+                                                     flash_attention_fwd)
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    return {"flash_attention_fwd": flash_attention_fwd,
+            "flash_attention_bwd_dq": flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
+            "rmsnorm": rmsnorm}
+
+
+# ---------------------------------------------------------------------------
+# phase 5: full-width tinyllama-1.1b training
+# ---------------------------------------------------------------------------
+
+def train_full(torch):
+    """tinyllama-1.1b at full width (random weights from seed 0), sequence
+    4096 with the global batch cut from 256 to 8, 4 microbatches of 2
+    under full remat, 4 AdamW steps.  Returns the launch counts."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_paths
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.materializer import Plan
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.training.optimizer import OptimizerConfig, leaves
+    from repro_torch.training.train_step import impl_from_plan
+    kernels = _train_kernels()
+    shape = ShapeConfig("train_4k_b8", "train", 4096, 8)
+    plan = Plan(microbatch=4, remat="full")
+    ocfg = OptimizerConfig(warmup_steps=1)
+    steps = 4
+
+    # step 1's gradients: train() below starts from init_params(cfg, 0)
+    # and the data's batch 0
+    cfg = get_config("tinyllama-1.1b")
+    params = init_params(cfg, 0, "cuda")
+    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(
+        DataConfig(cfg.vocab_size, shape.seq_len, shape.global_batch))
+        .batch_at(0).items()}
+    grads = step_grads(torch, Model(cfg, impl_from_plan(plan)), plan, params,
+                       batch)
+    bad = [key for (key, _), g in zip(_flatten_with_paths(params), grads)
+           if not bool(torch.isfinite(g).all()) or not bool(g.any())]
+    checked = len(grads)
+    del params, batch, grads
+    if bad:
+        fail(f"train: step 1 gradients of {bad} (of {checked} leaves) are "
+             "not finite or all zero")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    out = train("tinyllama-1.1b", shape=shape, plan=plan, opt_cfg=ocfg,
+                device="cuda", steps=steps, seed=0)
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    cfg = out["model"].cfg
+    losses = [m["loss"] for m in out["metrics"]]
+    n_layers, mb = cfg.num_layers, plan.microbatch
+    per_mb = {"flash_attention_fwd": 2 * n_layers,      # forward + recompute
+              "flash_attention_bwd_dq": n_layers,
+              "flash_attention_bwd_dkv": n_layers,
+              "rmsnorm": 2 * (2 * n_layers) + 1}        # ln_f not recomputed
+    want = {k: v * mb * steps for k, v in per_mb.items()}
+    print(f"[train] tinyllama-1.1b full width, seq {shape.seq_len} x batch "
+          f"{shape.global_batch}, {plan}, losses {losses}, launches="
+          f"{launches} expected={want}, step-1 gradients finite and "
+          f"nonzero on all {checked} leaves", flush=True)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"train: losses {losses} not finite or not decreasing")
+    if launches != want:
+        fail("train: kernel launch counts differ from what the path implies")
+    walls = sorted(m["wall_s"] for m in out["metrics"][1:])
+    step_s = walls[len(walls) // 2]
+    tokens = shape.seq_len * shape.global_batch
+    params = out["params"]
+    n_matmul = sum(p.numel() for p in leaves(params)) - \
+        params["embed"]["tok"].numel()            # the embedding is a gather
+    attn_flops = (3 * 2 * 2 * cfg.head_dim * cfg.num_heads * n_layers
+                  * shape.global_batch * shape.seq_len * (shape.seq_len + 1)
+                  / 2)                            # causal pairs, fwd + bwd
+    model_flops = 6 * n_matmul * tokens + attn_flops
+    print(f"[train] step {step_s:.4f} s (median of steps 2-{steps}; all "
+          f"{[round(m['wall_s'], 4) for m in out['metrics']]}), "
+          f"{tokens / step_s:.1f} tokens/s, peak memory "
+          f"{peak / 2**30:.3f} GiB, model FLOPs {model_flops:.4e} per step "
+          f"= {model_flops / step_s / H100_BF16_FLOPS:.4f} of the bf16 peak "
+          f"| {card_line()}", flush=True)
+    profile_train(torch, out, ocfg)
+    del out, params
+    torch.cuda.empty_cache()
+    return launches
+
+
+def profile_train(torch, out, ocfg):
+    """One more step of the run above under ``torch.profiler``: the
+    device's busy share and device time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.training.train_step import make_train_step
+    shape, cfg = out["shape"], out["model"].cfg
+    step = make_train_step(out["model"], out["plan"], ocfg)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, shape.seq_len,
+                                  shape.global_batch))
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in data.batch_at(out["cursor"]).items()}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, m = step(out["params"], out["opt_state"], batch)
+        float(m["loss"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_profile(prof, wall, "train 1 step")
+
+
+def report_profile(prof, wall, what):
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    dev_us = {e.key: getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0))
+              for e in kernels}
+    total_ms = sum(dev_us.values()) / 1e3
+    if total_ms <= 0:
+        print("[profile] device time not measured: the profiler recorded "
+              "no CUDA kernel time", flush=True)
+        return
+    print(f"[profile] {what}: wall {wall * 1e3:.3f} ms (under the "
+          f"profiler), device busy {total_ms:.3f} ms, busy share "
+          f"{total_ms / (wall * 1e3):.4f}", flush=True)
+    for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]:
+        print(f"[profile]   {us / 1e3:10.3f} ms  "
+              f"{100 * us / 1e3 / total_ms:5.1f}%  {key[:90]}", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 6: reduced training, CUDA against CPU, same weights and batches
+# ---------------------------------------------------------------------------
+
+# Tolerances of phase 6.  The kernels keep attention probabilities in fp32
+# where the plain versions round them to bf16 as the reference does; run on
+# the CPU with fp32 probabilities, the same 3 steps moved the losses by
+# 6e-6 (relative), the params by 7e-4 and the step-1 gradients by at most
+# 2.5e-3 (relative norm).  The rest is the bf16 products' accumulation order
+# (cuBLAS against the CPU), about one bf16 ulp (4e-3) per rounding.
+TRAIN_LOSS_RTOL = 2e-3
+TRAIN_PARAM_RTOL = 1e-2          # relative norm over all parameters
+TRAIN_GRAD_RTOL = 5e-2           # relative norm of each step-1 gradient
+
+
+def parity_train_reduced(torch):
+    from repro_torch.checkpoint.checkpointer import _flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.core.materializer import Plan
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import impl_from_plan, make_train_step
+
+    cfg = reduced_config(get_config("tinyllama-1.1b"), num_layers=2)
+    plan = Plan(microbatch=2, remat="full")
+    model = Model(cfg, impl_from_plan(plan))
+    params0 = init_params(cfg, 0, "cpu")
+    # sequence 160: ragged over the kernels' 64-row tiles
+    data = SyntheticLM(DataConfig(cfg.vocab_size, 160, 8))
+    ocfg = opt.OptimizerConfig(warmup_steps=1)
+
+    def run(device):
+        step = make_train_step(model, plan, ocfg)
+        params = _tree_to(params0, device)
+        state = opt.init_opt_state(params)
+        losses, grads = [], None
+        for i in range(3):
+            batch = {k: torch.from_numpy(v).to(device)
+                     for k, v in data.batch_at(i).items()}
+            if grads is None:
+                grads = [g.cpu() for g in step_grads(torch, model, plan,
+                                                     params, batch)]
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+        return losses, _tree_to(params, "cpu"), grads
+
+    cuda_losses, cuda_params, cuda_grads = run("cuda")
+    cpu_losses, cpu_params, cpu_grads = run("cpu")
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(cuda_losses,
+                                                      cpu_losses))
+    num = sum(float((a.float() - b.float()).square().sum()) for a, b in
+              zip(opt.leaves(cuda_params), opt.leaves(cpu_params)))
+    den = sum(float(b.float().square().sum())
+              for b in opt.leaves(cpu_params))
+    param_err = (num / den) ** 0.5
+    grad_errs = {key: float((a - b).norm() / b.norm())
+                 for (key, _), a, b in zip(_flatten_with_paths(params0),
+                                           cuda_grads, cpu_grads)}
+    worst = max(grad_errs, key=grad_errs.get)
+    print(f"[parity] reduced tinyllama-1.1b training cuda vs cpu, 3 steps: "
+          f"losses {cuda_losses} vs {cpu_losses} (max rel {loss_err:.3e} <= "
+          f"{TRAIN_LOSS_RTOL}), params rel norm {param_err:.3e} <= "
+          f"{TRAIN_PARAM_RTOL}, step-1 grads worst rel norm "
+          f"{grad_errs[worst]:.3e} ({worst}) <= {TRAIN_GRAD_RTOL}",
+          flush=True)
+    if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_RTOL
+            and grad_errs[worst] <= TRAIN_GRAD_RTOL):
+        fail("parity: CUDA training disagrees with the CPU's plain path")
 
 
 def check_parity(ref_toks, toks, ref_margins, tie_gap) -> int:

@@ -1,11 +1,14 @@
-"""PyTorch/CUDA port of the Zenix serving data plane, for NVIDIA Hopper.
+"""PyTorch/CUDA port of the Zenix serving data plane and training path,
+for NVIDIA Hopper.
 
 The JAX package ``repro`` is the reference; this package keeps its
-module names (``configs``, ``core.sizing``, ``serving.kv_cache``,
-``serving.engine``, ``serving.model_runner``, ``models.*``, ``kernels.*``,
-``launch.serve``) so each counterpart is easy to find.  It imports
-``torch``, numpy and the standard library only -- never ``jax`` and never
-a module of ``repro`` -- and keeps its own copies of what it needs.
+module names (``configs``, ``core.sizing``, ``core.materializer``,
+``serving.kv_cache``, ``serving.engine``, ``serving.model_runner``,
+``models.*``, ``kernels.*``, ``training.*``, ``data.pipeline``,
+``checkpoint.checkpointer``, ``launch.serve``, ``launch.train``) so each
+counterpart is easy to find.  It imports ``torch``, numpy and the
+standard library only -- never ``jax`` and never a module of ``repro`` --
+and keeps its own copies of what it needs.
 
 Entry points run on CUDA unless the caller asks for the CPU
 (``device="cpu"``, as the tests do); on a CPU tensor every kernel wrapper

@@ -1,7 +1,9 @@
 """Architecture registry of the port.  Importing this package registers
-the architectures the port serves (tinyllama-1.1b in this slice)."""
+the architectures the port serves and trains (tinyllama-1.1b so far)."""
 
-from repro_torch.configs.base import ModelConfig, get_config, list_archs
+from repro_torch.configs.base import (SHAPES, ModelConfig, ShapeConfig,
+                                      get_config, list_archs)
 from repro_torch.configs import tinyllama_1_1b  # noqa: F401
 
-__all__ = ["ModelConfig", "get_config", "list_archs"]
+__all__ = ["SHAPES", "ModelConfig", "ShapeConfig", "get_config",
+           "list_archs"]

@@ -1,10 +1,11 @@
 """Architecture configuration: a copy of ``repro/configs/base.py``.
 
 The port keeps its own copy (it imports nothing of the JAX package).
-What it carries is what the paged serving path reads: ``ModelConfig``,
-the block-kind constants and the ``register``/``get_config`` registry.
-The invocation shapes, cell enumeration and analytic parameter counts of
-the reference stay there until a later slice needs them.
+What it carries is what the paged serving and training paths read:
+``ModelConfig``, the block-kind constants, the ``register``/``get_config``
+registry, and the invocation shapes (``ShapeConfig``, ``SHAPES``).  The
+cell enumeration and analytic parameter counts of the reference stay
+there until a later slice needs them.
 """
 
 from __future__ import annotations
@@ -102,6 +103,26 @@ class ModelConfig:
     def scaled(self, **overrides) -> "ModelConfig":
         """Return a reduced copy (smoke tests)."""
         return dataclasses.replace(self, **overrides)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    kind: str                          # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4_096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32_768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32_768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524_288, 1),
+}
 
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}

@@ -1,1 +1,1 @@
-"""Sizing policy of the port (a copy of the reference's)."""
+"""Sizing policy and training plan of the port (copies of the reference's)."""

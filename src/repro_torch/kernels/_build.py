@@ -35,7 +35,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
-CUDA_SOURCES = ("paged_attention", "flash_attention_fwd")
+CUDA_SOURCES = ("paged_attention", "flash_attention_fwd",
+                "flash_attention_bwd")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

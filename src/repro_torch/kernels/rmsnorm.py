@@ -12,6 +12,12 @@ thing that matters for that: each program holds one whole row in
 registers, so the row is read once and written once, with the reduction
 and the scale in between (no second pass over device memory).  Ragged
 widths are masked, so any ``D`` up to the block works.
+
+:class:`RMSNorm` is the ``torch.autograd.Function`` the model calls on
+CUDA tensors: its forward is the kernel, its backward
+:func:`rmsnorm_bwd_ref` in plain tensor ops.  The reference has no Pallas
+backward for the norm -- its training gradient is XLA's autodiff of jnp
+``rms_norm`` -- so plain ops are the counterpart here, not a fallback.
 """
 
 from __future__ import annotations
@@ -90,3 +96,40 @@ def rmsnorm(x: torch.Tensor, gain: torch.Tensor,
 
 
 rmsnorm.launches = 0
+
+
+def rmsnorm_bwd_ref(dy: torch.Tensor, x: torch.Tensor, gain: torch.Tensor,
+                    eps: float = 1e-6):
+    """Gradients of :func:`rmsnorm_ref` -> (dx in x's dtype, dgain in
+    gain's dtype), in fp32.  With r = rsqrt(mean(x^2) + eps) and
+    w = dy * (1 + g): dx = r * (w - x * r^2 * mean(w * x)) per row, and
+    dg = sum over rows of dy * x * r (the ``(1+g)`` parameterization:
+    d(1+g)/dg = 1)."""
+    d = x.shape[-1]
+    x32 = x.float().reshape(-1, d)
+    dy32 = dy.float().reshape(-1, d)
+    r = torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
+    w = dy32 * (1.0 + gain.float())
+    dx = r * (w - x32 * r.square() * (w * x32).mean(-1, keepdim=True))
+    dg = (dy32 * x32 * r).sum(0)
+    return dx.reshape(x.shape).to(x.dtype), dg.to(gain.dtype)
+
+
+class RMSNorm(torch.autograd.Function):
+    """y = rmsnorm(x, gain) with a gradient: forward is the kernel
+    (:func:`rmsnorm`), backward :func:`rmsnorm_bwd_ref`, recomputing the
+    per-row statistic from the saved ``x``.
+
+    ``RMSNorm.apply(x, gain, eps)``."""
+
+    @staticmethod
+    def forward(ctx, x, gain, eps=1e-6):
+        ctx.save_for_backward(x, gain)
+        ctx.eps = eps
+        return rmsnorm(x, gain, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, gain = ctx.saved_tensors
+        dx, dg = rmsnorm_bwd_ref(dy, x, gain, ctx.eps)
+        return dx, dg, None

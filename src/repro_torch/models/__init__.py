@@ -1,1 +1,2 @@
-"""Model forward of the port for the RoPE attention-only families."""
+"""Model forward and training loss of the port for the RoPE attention-only
+families."""

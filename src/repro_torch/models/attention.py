@@ -1,11 +1,15 @@
 """Attention projections and scaled-dot-product attention.
 
-Counterpart of ``repro/models/attention.py`` for what paged serving
-runs: ``project_qkv`` (with qk-norm and RoPE), ``sdpa`` and ``attn_out``,
-in the reference's (B, S, H, hd) layout.  ``sdpa`` goes through the
-Hopper flash-attention kernel on CUDA tensors (its plain version, in the
-reference's rounding order, on CPU tensors); GQA is handled inside it,
-without expanding KV heads.
+Counterpart of ``repro/models/attention.py`` for what paged serving and
+training run: ``project_qkv`` (with qk-norm and RoPE), ``sdpa``,
+``attn_out`` and ``self_attention_train``, in the reference's
+(B, S, H, hd) layout.  ``sdpa`` goes through the Hopper flash-attention
+kernels on CUDA tensors -- the forward kernel, and the two backward
+kernels when a gradient is taken (``FlashAttention``; the forward
+kernel's wrapper alone when none is, as in serving) -- and through the
+plain forward, in the reference's rounding order and differentiated by
+autograd, on CPU tensors.  GQA is handled inside the kernels, without
+expanding KV heads.
 """
 
 from __future__ import annotations
@@ -15,8 +19,10 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.flash_attention import flash_attention_fwd
-from repro_torch.models.layers import Spec, apply_rope, rms_norm, rms_norm_spec
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 flash_attention_fwd)
+from repro_torch.models.layers import (Spec, apply_rope, needs_grad, rms_norm,
+                                       rms_norm_spec)
 
 Params = Dict[str, Any]
 
@@ -54,9 +60,12 @@ def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
          window: int = 0, q_offset: int = 0) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd).  Query
     row i sits at position ``q_offset + i``, key j at position j."""
-    o, _ = flash_attention_fwd(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), causal=causal,
-                               window=window, q_offset=q_offset)
+    q, k, v = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if q.device.type != "cpu" and needs_grad(q, k, v):
+        o = FlashAttention.apply(q, k, v, causal, window, q_offset)
+    else:
+        o, _ = flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
     return o.transpose(1, 2)
 
 
@@ -64,3 +73,15 @@ def attn_out(p: Params, o: torch.Tensor) -> torch.Tensor:
     h, hd, d = p["wo"].shape
     return torch.matmul(o.reshape(*o.shape[:-2], h * hd),
                         p["wo"].reshape(h * hd, d))
+
+
+def self_attention_train(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                         causal: bool = True, window: int = 0
+                         ) -> torch.Tensor:
+    """x: (B, S, d) at positions 0..S-1 -> (B, S, d): projections, RoPE,
+    attention (the kernels on CUDA, whatever the reference's ``impl``
+    would pick), and the output projection."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v = project_qkv(p, x, cfg, positions)
+    o = sdpa(q, k, v, causal=causal, window=window)
+    return attn_out(p, o)

@@ -3,8 +3,11 @@
 Counterpart of ``repro/models/layers.py``.  Plain functions on tensors
 over plain parameter dictionaries, in the reference's layouts, so the
 tests compare like with like.  ``rms_norm`` goes through the Hopper
-RMSNorm kernel on CUDA tensors; the large products stay ``torch.matmul``
-(the reference leaves them to XLA).
+RMSNorm kernel's autograd Function on CUDA tensors (its plain version,
+differentiated by autograd, on CPU tensors); the large products stay
+``torch.matmul`` (the reference leaves them to XLA).  Where no gradient
+is taken (serving), ``rms_norm`` calls the kernel's wrapper directly and
+builds no autograd node.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.rmsnorm import rmsnorm
+from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm
 
 Params = Dict[str, Any]
 
@@ -50,7 +53,14 @@ def rms_norm_spec(d: int) -> Spec:
 
 def rms_norm(x: torch.Tensor, gain: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
+    if x.device.type != "cpu" and needs_grad(x, gain):
+        return RMSNorm.apply(x, gain, eps)
     return rmsnorm(x, gain, eps)
+
+
+def needs_grad(*ts: torch.Tensor) -> bool:
+    """Will autograd record an op on these tensors."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
 def rope_freqs(head_dim: int, theta: float,
@@ -110,3 +120,25 @@ def unembed(p: Params, x: torch.Tensor,
     if softcap:
         logits = torch.tanh(logits / softcap) * softcap
     return logits
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-position negative log-likelihood, fp32: logsumexp minus the
+    label logit."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    return lse - logits.gather(-1, labels.long()[..., None])[..., 0]
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """Mean CE over valid positions (:func:`token_nll`).  logits fp32
+    (..., V); labels (...) integer; mask (...) or None.  (The reference
+    contracts with a one-hot to keep a vocab-sharded gather off its SPMD
+    partitioner; a gather is exact and the port is not sharded.)"""
+    nll = token_nll(logits, labels)
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / mask.sum().clamp(min=1.0)
+    return nll.mean()

@@ -1,6 +1,7 @@
-"""Parameter tree, init and embedding of the RoPE attention-only
-families: the counterpart of the parts of ``repro/models/model.py`` and
-``repro/models/transformer.py`` that paged serving reads.
+"""Parameter tree, init, embedding and the training loss of the RoPE
+attention-only families: the counterpart of the parts of
+``repro/models/model.py`` and ``repro/models/transformer.py`` that paged
+serving and training read.
 
 The tree keeps the reference's layout -- ``params["blocks"]
 [f"p{i}_{kind}"]`` with a leading stacked-blocks dim, ``params["embed"]``
@@ -12,14 +13,17 @@ encoder-decoder and vision prefixes) come with later slices.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+from repro_torch.models.transformer import ImplConfig
 
 Params = Dict[str, Any]
 SUPPORTED_KINDS = (ATTN_GLOBAL, ATTN_LOCAL)
@@ -66,15 +70,27 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     return L.init_from_specs(param_specs(cfg), gen, dev)
 
 
+def _unstack(tree: Params, n: int) -> List[Params]:
+    """The ``n`` slices of a tree of stacked leaves, as views.  One
+    ``unbind`` per leaf, so the gradient of the stacked leaf is one
+    ``stack`` and not ``n`` scatters into full-size zeros."""
+    out: List[Params] = [{} for _ in range(n)]
+    for key, leaf in tree.items():
+        parts = _unstack(leaf, n) if isinstance(leaf, dict) \
+            else leaf.unbind(0)
+        for j in range(n):
+            out[j][key] = parts[j]
+    return out
+
+
 def layer_params(params: Params, cfg: ModelConfig) -> List[Params]:
     """Per-layer views of the stacked block tree, in stack order."""
-    def take(tree, j):
-        return {k: take(v, j) if isinstance(v, dict) else v[j]
-                for k, v in tree.items()}
+    blocks = {key: _unstack(tree, cfg.num_blocks)
+              for key, tree in params["blocks"].items()}
     out = []
     for layer in range(cfg.num_layers):
         j, i = divmod(layer, len(cfg.pattern))
-        out.append(take(params["blocks"][f"p{i}_{cfg.pattern[i]}"], j))
+        out.append(blocks[f"p{i}_{cfg.pattern[i]}"][j])
     return out
 
 
@@ -84,3 +100,69 @@ def embed_tokens(cfg: ModelConfig, params: Params,
     gemma's scale."""
     scale = math.sqrt(cfg.d_model) if cfg.scale_embed else 1.0
     return L.embed(params["embed"], tokens, scale)
+
+
+class Model:
+    """The training entry point of the reference's ``Model``: pure
+    functions over a parameter tree, with the execution strategy of an
+    :class:`ImplConfig`."""
+
+    def __init__(self, cfg: ModelConfig, impl: Optional[ImplConfig] = None):
+        check_family(cfg)
+        self.cfg = cfg
+        self.impl = impl or ImplConfig()
+
+    def _run_blocks_train(self, params: Params,
+                          x: torch.Tensor) -> torch.Tensor:
+        """The stack as a Python loop over pattern blocks; under
+        ``remat="full"`` each pattern block keeps only its input and is
+        recomputed in the backward."""
+        cfg = self.cfg
+
+        def block_body(x, bp):
+            for i, kind in enumerate(cfg.pattern):
+                x = T.apply_block_train(cfg, kind, bp[f"p{i}_{kind}"], x)
+            return x
+
+        body = T._remat(block_body, self.impl.remat)
+        for bp in _unstack(params["blocks"], cfg.num_blocks):
+            x = body(x, bp)
+        return x
+
+    def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Mean next-token CE of ``batch`` ({"tokens", "labels"[, "mask"]},
+        (B, S) each) -> (loss, {"ce", "aux"}).  ``aux`` is the MoE balance
+        loss, 0 for the families the port trains."""
+        cfg = self.cfg
+        x = embed_tokens(cfg, params, batch["tokens"])
+        x = self._run_blocks_train(params, x)
+        x = T.apply_norm(cfg, params["ln_f"], x)
+        ce = self._cross_entropy(params, x, batch["labels"],
+                                 batch.get("mask"))
+        return ce, {"ce": ce, "aux": torch.zeros_like(ce)}
+
+    def _cross_entropy(self, params: Params, x: torch.Tensor,
+                       labels: torch.Tensor,
+                       mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """CE over the vocab head.  With ``impl.loss_chunk`` > 0 dividing
+        the sequence, the unembed and CE run over sequence chunks, each
+        recomputed in the backward, so the fp32 logits (B, S, V) never
+        exist at once."""
+        cfg = self.cfg
+        c = self.impl.loss_chunk
+        s = x.shape[1]
+        if c <= 0 or s <= c or s % c:
+            logits = L.unembed(params["embed"], x, cfg.logit_softcap)
+            return L.softmax_cross_entropy(logits, labels, mask)
+        m = (mask.float() if mask is not None
+             else torch.ones(labels.shape, device=x.device))
+
+        def chunk(xi, li, mi):
+            logits = L.unembed(params["embed"], xi, cfg.logit_softcap)
+            return (L.token_nll(logits, li) * mi).sum()
+
+        tot = sum(checkpoint(chunk, x[:, i:i + c], labels[:, i:i + c],
+                             m[:, i:i + c], use_reentrant=False)
+                  for i in range(0, s, c))
+        return tot / m.sum().clamp(min=1.0)

@@ -104,3 +104,40 @@ def test_kernel_build_is_keyed_by_source_hash(tmp_path, monkeypatch):
 def test_every_cuda_source_is_built():
     names = {p.stem for p in (PORT / "csrc").glob("*.cu")}
     assert names == set(_build.CUDA_SOURCES)
+
+
+def test_port_trains_with_jax_absent():
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "from repro_torch.launch.train import train\n"
+            "out = train(reduced=True, device='cpu', steps=2, verbose=False)\n"
+            "assert len(out['metrics']) == 2\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_train_raises_without_cuda(monkeypatch):
+    from repro_torch.launch.train import train
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train(reduced=True, steps=1, verbose=False)
+
+
+def test_cpu_gradients_take_the_plain_versions_and_count_no_launch():
+    from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                     flash_attention_bwd_dkv,
+                                                     flash_attention_bwd_dq)
+    from repro_torch.kernels.rmsnorm import RMSNorm
+    counters = (flash_attention_fwd, flash_attention_bwd_dq,
+                flash_attention_bwd_dkv, rmsnorm)
+    before = [fn.launches for fn in counters]
+    q = torch.randn(1, 2, 8, 16, requires_grad=True)
+    FlashAttention.apply(q, q, q, True, 0, 0).sum().backward()
+    x = torch.randn(3, 16, requires_grad=True)
+    RMSNorm.apply(x, torch.zeros(16), 1e-6).sum().backward()
+    assert q.grad is not None and x.grad is not None
+    assert [fn.launches for fn in counters] == before
