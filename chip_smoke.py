@@ -36,12 +36,26 @@ Phases, each of which must pass (any failure exits nonzero):
    under ``torch.profiler``;
 6. parity: reduced tinyllama-1.1b trains 3 steps from the same weights on
    the same batches on the card and on the CPU; losses, final params and
-   step-1 gradients must agree within ``TRAIN_*_RTOL``.
+   step-1 gradients must agree within ``TRAIN_*_RTOL``;
+7. dense serve: full-width zamba2-2.7b (random weights from seed 0)
+   serves 8 requests with prompts of 64..1024 tokens and 32 new tokens
+   each through the dense backend (cache_len 2048); every request must
+   complete and the launch counts of K2, K3, K4 and K7 must equal what the
+   path implies; then the same traffic with 8 new tokens under
+   ``torch.profiler`` gives the busy share;
+8. dense serve: full-width rwkv6-7b, the same traffic, K3 and K6;
+9. parity: reduced zamba2-2.7b, rwkv6-7b and tinyllama-1.1b serve mixed
+   prompts (9..200 tokens) densely with the same weights on the card and
+   on the CPU; greedy tokens equal under the ``TIE_GAP`` rule.
+
+Phase 2 also holds K4 (decode attention), K6 (RWKV-6 WKV), K7 (Mamba-2
+SSD scan) and K2 at head dim 80 against their plain versions, at small
+shapes and at the full-width shapes of phases 7 and 8.
 
 A kernel's ``launches`` in the JSON record is its count over the serve
-(phase 3) and train (phase 5) runs.  The second-to-last lines are the
-kernels' JSON record and the card's name and power limit; the last line
-is the run's JSON verdict.
+(phases 3, 7, 8) and train (phase 5) runs.  The second-to-last lines are
+the kernels' JSON record and the card's name and power limit; the last
+line is the run's JSON verdict.
 """
 
 from __future__ import annotations
@@ -105,6 +119,10 @@ def main() -> None:
     for name, n in train_full(torch).items():
         launches[name] = launches.get(name, 0) + n
     parity_train_reduced(torch)
+    for arch in ("zamba2-2.7b", "rwkv6-7b"):
+        for name, n in serve_dense_full(torch, arch).items():
+            launches[name] = launches.get(name, 0) + n
+    parity_dense_reduced(torch)
     for rec in records:
         rec["launches"] = launches.get(rec["name"])
     print(json.dumps({"kernels": records}))
@@ -193,8 +211,14 @@ def check_kernels(torch):
     # -- K3 rmsnorm ---------------------------------------------------------
     errs = []
     # 8192 rows of 2048: a norm of the training path (B=2 x S=4096)
+    # 1000 and 8 rows of 2560 (zamba2), 5120 (its Mamba-2 inner norm) and
+    # 4096 (rwkv6): a ragged prefill and a decode step of the dense path,
+    # 2560 and 5120 through the kernel's masked tail
     for rows, d, dtype in ((33, 128, f32), (8, 64, bf16), (8, 2048, bf16),
-                           (512, 2048, bf16), (8192, 2048, bf16)):
+                           (512, 2048, bf16), (8192, 2048, bf16),
+                           (1000, 2560, bf16), (8, 2560, bf16),
+                           (1000, 5120, bf16), (8, 5120, bf16),
+                           (1000, 4096, bf16), (8, 4096, bf16)):
         x, g = randn(rows, d, dtype=dtype), randn(d, dtype=f32, scale=0.1)
         errs.append(compare(torch, f"rmsnorm rows={rows} d={d} {dtype}",
                             rmsnorm(x, g), rmsnorm_ref(x, g), *tol[dtype]))
@@ -305,6 +329,10 @@ def check_kernels(torch):
         ("q_offset=512 h=32/4 sq=256 sk=768 d=64", 1, 32, 4, 256, 768, 64,
          True, 0, 512, bf16),
         ("d=128 causal s=192", 1, 2, 1, 192, 192, 128, True, 0, 0, bf16),
+        ("d=80 fp32 q_offset=40 h=4/2 sq=90 sk=130", 1, 4, 2, 90, 130, 80,
+         True, 0, 40, f32),
+        ("zamba2 prefill d=80 h=32/32 s=1000", 1, 32, 32, 1000, 1000, 80,
+         True, 0, 0, bf16),
         ("tinyllama native s=512 h=32/4 d=64", 1, 32, 4, 512, 512, 64, True,
          0, 0, bf16),
         ("tinyllama chunk q_offset=512 sq=512 sk=1024", 1, 32, 4, 512, 1024,
@@ -323,6 +351,8 @@ def check_kernels(torch):
                             o_ref, *tol[dtype]))
         compare(torch, f"flash_attention_fwd lse {label}", lse, lse_ref,
                 1e-4, 1e-5)
+        if label.startswith("zamba2"):
+            time_fwd_d80(torch, q, k, v)
     # timed at the chunked-prefill shape of the serving run (last case)
     ms = timed_ms(torch, lambda: flash_attention_fwd(q, k, v, q_offset=off))
     plain = timed_ms(torch, lambda: flash_attention_fwd_ref(q, k, v,
@@ -346,12 +376,211 @@ def check_kernels(torch):
     records[-1]["max_abs_err"] = max(errs + fwd_errs)
     records += bwd_records
     check_functions(torch, randn)
+    records += check_dense_kernels(torch, randn, tol)
     for rec in records:
+        lib_txt = ("none" if rec["library_ms"] is None
+                   else f"{rec['library_ms']:.4f} ms")
         print(f"[time] {rec['name']} ({rec['shape']}): kernel "
               f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library "
-              f"{rec['library_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"{lib_txt}, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']})", flush=True)
     return records
+
+
+def time_fwd_d80(torch, q, k, v):
+    """K2 at zamba2's prefill shape (head dim 80): one ``[time]`` line."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_fwd_ref)
+    b, h, sq, d = q.shape
+    ms = timed_ms(torch, lambda: flash_attention_fwd(q, k, v))
+    plain = timed_ms(torch, lambda: flash_attention_fwd_ref(q, k, v))
+    lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, enable_gqa=True))
+    pairs = b * h * sq * (sq + 1) // 2
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * h * sq
+    b_ms, b_by = bound(nbytes, 4 * d * pairs, H100_BF16_FLOPS)
+    print(f"[time] flash_attention_fwd at zamba2's prefill shape (B={b} "
+          f"H={h} KV={k.shape[1]} D={d} S={sq} causal): kernel {ms:.4f} ms, "
+          f"plain {plain:.4f} ms, library {lib:.4f} ms (SDPA), bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 2, dense path: K4, K6, K7 against their plain versions
+# ---------------------------------------------------------------------------
+
+# K6/K7 at the full-width shapes: both sides compute in fp32 from the same
+# inputs, the kernel token by token and the plain version in chunks of 128
+# (another summation order, and products of decays where the chunked form
+# takes differences of log-decay sums); the gate is the relative norm
+SCAN_REL_NORM = 2e-3
+
+
+def check_dense_kernels(torch, randn, tol):
+    """K4 on fp32 copies (the plain version rounds probabilities to bf16 as
+    the reference does; the kernel keeps them in fp32), K6 and K7 on the
+    same inputs (both compute in fp32).  Returns their records."""
+    return [check_decode(torch, randn, tol), check_ssd(torch, randn),
+            check_wkv(torch, randn)]
+
+
+def rel_norm(torch, name, got, want, limit):
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        fail(f"{name}: kernel output not finite")
+    err = float((got - want).norm() / want.norm())
+    worst = float((got - want).abs().max())
+    ok = err <= limit
+    print(f"[kernel] {name}: relative norm {err:.3e} (limit {limit:g}), "
+          f"max_abs={worst:.3e} -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{name}: kernel disagrees with its plain version")
+    return worst
+
+
+def check_decode(torch, randn, tol):
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [
+        ("small fp32 h=8/2 s=300 d=32", 2, 8, 2, 300, 32, [300, 17], f32),
+        ("d=16 h=4/4 s=129", 3, 4, 4, 129, 16, [129, 1, 64], bf16),
+        ("d=128 h=4/1 s=1000", 2, 4, 1, 1000, 128, [1000, 333], bf16),
+        ("vlen 0 and beyond S d=64", 2, 4, 2, 200, 64, [0, 500], bf16),
+        ("tinyllama G=8 h=32/4 d=64 s=2048", 8, 32, 4, 2048, 64,
+         [898, 693, 572, 340, 376, 120, 2048, 1], bf16),
+        ("zamba2 G=1 h=32/32 d=80 s=2048", 8, 32, 32, 2048, 80,
+         [897] * 8, bf16),
+    ]
+    errs = []
+    for label, b, h, kvh, s, d, vlens, dtype in cases:
+        q = randn(b, h, d, dtype=dtype)
+        k, v = randn(b, kvh, s, d, dtype=dtype), randn(b, kvh, s, d,
+                                                         dtype=dtype)
+        vlen = torch.tensor(vlens, dtype=torch.int32, device=dev)
+        got = decode_attention(q, k, v, vlen)
+        want = decode_attention_ref(q.float(), k.float(), v.float(), vlen)
+        errs.append(compare(torch, f"decode_attention {label}", got, want,
+                            *tol[dtype]))
+        if 0 in vlens and float(got[vlens.index(0)].abs().max()) != 0.0:
+            fail("decode_attention: a lane of valid length 0 must return "
+                 "zeros")
+    # timed at zamba2's decode shape (last case): every lane at the shared
+    # position 896 of the serve run's longest prompt, cache 2048
+    ms = timed_ms(torch, lambda: decode_attention(q, k, v, vlen))
+    plain = timed_ms(torch, lambda: decode_attention_ref(q, k, v, vlen))
+    mask = (torch.arange(s, device=dev)[None, :] < vlen[:, None])
+    lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask[:, None, None], enable_gqa=True))
+    attended = int(vlen.clamp(max=s).sum())
+    nbytes = 2 * q.numel() * 2 + vlen.numel() * 4 + 2 * attended * kvh * d * 2
+    b_ms, b_by = bound(nbytes, 4 * h * d * attended, H100_BF16_FLOPS)
+    return dict(name="decode_attention", route="cuda",
+                source="src/repro_torch/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:63",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib,
+                shape=f"B={b} H={h} KV={kvh} D={d} S={s}, vlen {vlens[0]} "
+                      "every lane; library_ms is SDPA with a length mask")
+
+
+def _ssd_inputs(torch, randn, b, h, s, p, n, dtype):
+    """The model's layouts: x (B, S, H, P) and B, C slices of one (B, S,
+    H*P + 2N) activation, dt and a (B, S, H); returned as the kernel's
+    (B, H, S, .) views."""
+    xbc = randn(b, s, h * p + 2 * n, dtype=dtype, scale=0.5)
+    x = xbc[..., :h * p].unflatten(-1, (h, p)).transpose(1, 2)
+    bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt = torch.nn.functional.softplus(randn(b, s, h, dtype=torch.float32))
+    a = -torch.exp(randn(h, dtype=torch.float32, scale=0.5)) * dt
+    return x, dt.transpose(1, 2), a.transpose(1, 2), bm, cm
+
+
+def check_ssd(torch, randn):
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("small fp32 h=2 s=64 p=8 n=4", 1, 2, 64, 8, 4, f32),
+             ("ragged b=2 h=3 s=77 p=16 n=8", 2, 3, 77, 16, 8, bf16),
+             ("p=64 n=64 h=4 s=200", 1, 4, 200, 64, 64, bf16),
+             ("p=24 n=128 h=2 s=33", 1, 2, 33, 24, 128, f32)]
+    errs = []
+    for label, b, h, s, p, n, dtype in cases:
+        ins = _ssd_inputs(torch, randn, b, h, s, p, n, dtype)
+        (y, st), (y_r, st_r) = ssd_scan(*ins), ssd_scan_ref(*ins)
+        errs.append(compare(torch, f"ssd_scan y {label}", y, y_r, 1e-4, 1e-4))
+        compare(torch, f"ssd_scan state {label}", st, st_r, 1e-4, 1e-4)
+    # zamba2's prefill shape: 80 heads of P 64, N 64, a ragged 1000 tokens
+    b, h, s, p, n = 1, 80, 1000, 64, 64
+    ins = _ssd_inputs(torch, randn, b, h, s, p, n, bf16)
+    (y, st), (y_r, st_r) = ssd_scan(*ins), ssd_scan_ref(*ins)
+    errs.append(rel_norm(torch, "ssd_scan y zamba2 h=80 s=1000 p=64 n=64", y,
+                         y_r, SCAN_REL_NORM))
+    rel_norm(torch, "ssd_scan state zamba2", st, st_r, SCAN_REL_NORM)
+    ms = timed_ms(torch, lambda: ssd_scan(*ins))
+    plain = timed_ms(torch, lambda: ssd_scan_ref(*ins), iters=3, reps=3)
+    nbytes = (b * h * s * p * 2 + 2 * b * h * s * 4 + 2 * b * s * n * 2
+              + b * h * s * p * 4 + b * h * p * n * 4)
+    # per token and state element: h*exp(a) + (x dt) B (3), y += C h (2);
+    # bf16 inputs: the bf16 matrix peak, at which a chunked form runs them
+    b_ms, b_by = bound(nbytes, 5 * b * h * s * p * n, H100_BF16_FLOPS)
+    return dict(name="ssd_scan", route="cuda",
+                source="src/repro_torch/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan.py:69",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                shape=f"x (B={b}, H={h}, S={s}, P={p}) bf16 strided, N={n}")
+
+
+def _wkv_inputs(torch, randn, b, h, s, hd, dtype, decay=1.0):
+    """The model's layout (B, S, H, hd), returned as (B, H, S, hd) views;
+    logw = -exp(noise - shift) about -``decay`` per token."""
+    r, k, v = (randn(b, s, h, hd, dtype=dtype, scale=0.5).transpose(1, 2)
+               for _ in range(3))
+    logw = -torch.exp(randn(b, s, h, hd, dtype=torch.float32, scale=0.5)
+                      + math.log(decay)).transpose(1, 2)
+    u = randn(h, hd, dtype=dtype, scale=0.3)
+    return r, k, v, logw, u
+
+
+def check_wkv(torch, randn):
+    from repro_torch.kernels.rwkv6_scan import rwkv6_wkv, rwkv6_wkv_ref
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [("small fp32 h=2 s=64 hd=8", 1, 2, 64, 8, f32),
+             ("ragged b=2 h=3 s=77 hd=16", 2, 3, 77, 16, bf16),
+             ("hd=64 h=4 s=200", 1, 4, 200, 64, bf16),
+             ("hd=32 h=2 s=33 fp32", 1, 2, 33, 32, f32)]
+    errs = []
+    for label, b, h, s, hd, dtype in cases:
+        ins = _wkv_inputs(torch, randn, b, h, s, hd, dtype)
+        (o, st), (o_r, st_r) = rwkv6_wkv(*ins), rwkv6_wkv_ref(*ins)
+        errs.append(compare(torch, f"rwkv6_wkv o {label}", o, o_r, 1e-4,
+                            1e-4))
+        compare(torch, f"rwkv6_wkv state {label}", st, st_r, 1e-4, 1e-4)
+    # rwkv6-7b's prefill shape: 64 heads of 64, a ragged 1000 tokens
+    b, h, s, hd = 1, 64, 1000, 64
+    ins = _wkv_inputs(torch, randn, b, h, s, hd, bf16)
+    (o, st), (o_r, st_r) = rwkv6_wkv(*ins), rwkv6_wkv_ref(*ins)
+    errs.append(rel_norm(torch, "rwkv6_wkv o rwkv6 h=64 s=1000 hd=64", o, o_r,
+                         SCAN_REL_NORM))
+    rel_norm(torch, "rwkv6_wkv state rwkv6", st, st_r, SCAN_REL_NORM)
+    ms = timed_ms(torch, lambda: rwkv6_wkv(*ins))
+    plain = timed_ms(torch, lambda: rwkv6_wkv_ref(*ins), iters=3, reps=3)
+    nbytes = (3 * b * h * s * hd * 2 + 2 * b * h * s * hd * 4 + h * hd * 2
+              + b * h * hd * hd * 4)
+    # per token and state element: r S (2), S w + k v (3); the bonus
+    # (r . u k) v is per channel, not per state element.  bf16 inputs: the
+    # bf16 matrix peak, at which a chunked form runs these products
+    b_ms, b_by = bound(nbytes, 5 * b * h * s * hd * hd, H100_BF16_FLOPS)
+    return dict(name="rwkv6_wkv", route="cuda",
+                source="src/repro_torch/csrc/rwkv6_scan.cu",
+                replaces="src/repro/kernels/rwkv6_scan.py:73",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None,
+                shape=f"r,k,v (B={b}, H={h}, S={s}, hd={hd}) bf16 strided, "
+                      "logw fp32")
 
 
 def check_backward(torch, randn, tol):
@@ -868,6 +1097,155 @@ def parity_train_reduced(torch):
     if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_RTOL
             and grad_errs[worst] <= TRAIN_GRAD_RTOL):
         fail("parity: CUDA training disagrees with the CPU's plain path")
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: full-width zamba2-2.7b and rwkv6-7b on the dense backend
+# ---------------------------------------------------------------------------
+
+def _dense_kernels():
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.rwkv6_scan import rwkv6_wkv
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return {"flash_attention_fwd": flash_attention_fwd,
+            "rmsnorm": rmsnorm, "decode_attention": decode_attention,
+            "ssd_scan": ssd_scan, "rwkv6_wkv": rwkv6_wkv,
+            "paged_attention": paged_attention}
+
+
+def _expected_dense(cfg, prefills, decode_steps):
+    """Launches the dense path implies: per prefill and per decode step,
+    one RMSNorm launch per norm of each block plus ln_f; per prefill, K2
+    in each shared-attention application, K7 in each Mamba-2 block and K6
+    in each RWKV-6 block; per decode step K4 in each attention block."""
+    from repro_torch.configs.base import ATTN_SHARED, MAMBA2, RWKV6
+    nb = cfg.num_blocks
+    count = {k: nb * cfg.pattern.count(k) for k in (MAMBA2, RWKV6,
+                                                    ATTN_SHARED)}
+    norms = 2 * count[MAMBA2] + 2 * count[RWKV6] + 3 * count[ATTN_SHARED] + 1
+    return {"flash_attention_fwd": count[ATTN_SHARED] * prefills,
+            "rmsnorm": norms * (prefills + decode_steps),
+            "decode_attention": count[ATTN_SHARED] * decode_steps,
+            "ssd_scan": count[MAMBA2] * prefills,
+            "rwkv6_wkv": count[RWKV6] * prefills,
+            "paged_attention": 0}
+
+
+def serve_dense_full(torch, arch):
+    """``arch`` at full width (random weights from seed 0) through
+    ``serve(backend="dense")``: 8 requests, prompts 64..1024 (seed 0), 32
+    new tokens, max batch 8, a 2048-token cache per slot.  Returns the launch counts of
+    the kernels this path runs; then a profiled run of the same traffic
+    with 8 new tokens on the same runner."""
+    import gc
+    from repro_torch.launch.serve import serve
+    kernels = _dense_kernels()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = serve(arch, backend="dense", device="cuda", requests=8,
+                max_batch=8, prompt_range=(64, 1024), max_new=32, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    stats, runner, reqs = out["stats"], out["runner"], out["requests"]
+    cfg = runner.cfg
+    for r in reqs:
+        toks = r.output_tokens or []
+        if len(toks) != 33 or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"serve {arch}: {r.req_id} returned {len(toks)} tokens "
+                 f"(expected 1 + 32 in [0, {cfg.vocab_size}))")
+    want = _expected_dense(cfg, stats.prefills, stats.decode_steps)
+    print(f"[serve] {arch} full width, dense, prompts "
+          f"{[r.prompt_len for r in reqs]}, prefills={stats.prefills} "
+          f"decode_steps={stats.decode_steps} launches={launches} "
+          f"expected={want}", flush=True)
+    if launches != want or not all(n for name, n in launches.items()
+                                   if want[name]):
+        fail(f"serve {arch}: kernel launch counts differ from what the "
+             "path implies")
+    print(f"[serve] {arch} mean_ttft={stats.mean_ttft_s * 1e3:.3f} ms "
+          f"mean_decode_step={stats.mean_decode_step_s * 1e3:.3f} ms "
+          f"tokens/s={stats.tokens_generated / stats.wall_s:.2f} "
+          f"wall={wall:.3f} s (weights init included) peak_mem="
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | "
+          f"{card_line()}", flush=True)
+    profile_dense(torch, arch, runner)
+    del out, runner, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {name: n for name, n in launches.items() if want[name]}
+
+
+def profile_dense(torch, arch, runner):
+    """The phase's traffic with 8 new tokens, on the same runner, under
+    ``torch.profiler``: busy share and device time by kernel."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.kv_cache import PagePool, Request
+    rng = np.random.default_rng(0)
+    reqs = [Request(f"r{i}", int(rng.integers(64, 1025)), 8)
+            for i in range(8)]
+    eng = ServingEngine(PagePool(128), max_batch=8, runner=runner)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        stats = eng.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_profile(prof, wall, f"{arch} dense serve 8 req x 8 new "
+                               f"(decode_steps {stats.decode_steps})")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: reduced dense serving, CUDA against CPU, same weights and prompts
+# ---------------------------------------------------------------------------
+
+def parity_dense_reduced(torch):
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.kv_cache import PagePool, Request
+    from repro_torch.serving.model_runner import DenseRunner
+    lens = [200, 9, 77, 130]
+    for arch in ("zamba2-2.7b", "rwkv6-7b", "tinyllama-1.1b"):
+        cfg = reduced_config(get_config(arch))
+        params = init_params(cfg, seed=0, device="cpu")
+        rng = np.random.default_rng(2)
+        prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, n))
+                   for n in lens]
+
+        def run(device):
+            runner = DenseRunner(cfg, max_batch=4, cache_len=256,
+                                 params=_tree_to(params, device),
+                                 device=device, record_margins=True)
+            eng = ServingEngine(PagePool(32, policy="fixed"), max_batch=4,
+                                runner=runner)
+            reqs = [Request(f"d{i}", n, 8, prompt_tokens=p)
+                    for i, (n, p) in enumerate(zip(lens, prompts))]
+            for r in reqs:
+                eng.submit(r)
+            eng.run_to_completion()
+            return {r.req_id: r.output_tokens for r in reqs}, runner.margins
+
+        cuda_toks, _ = run("cuda")
+        cpu_toks, margins = run("cpu")
+        flips = check_parity(cpu_toks, cuda_toks, margins, TIE_GAP)
+        print(f"[parity] reduced {arch} dense cuda vs cpu: {len(lens)} "
+              f"requests, near-tie flips={flips}, min gap "
+              f"{min(min(m) for m in margins.values()):.3e}", flush=True)
 
 
 def check_parity(ref_toks, toks, ref_margins, tie_gap) -> int:

@@ -1,7 +1,7 @@
 """Architecture configuration: a copy of ``repro/configs/base.py``.
 
 The port keeps its own copy (it imports nothing of the JAX package).
-What it carries is what the paged serving and training paths read:
+What it carries is what the serving and training paths read:
 ``ModelConfig``, the block-kind constants, the ``register``/``get_config``
 registry, and the invocation shapes (``ShapeConfig``, ``SHAPES``).  The
 cell enumeration and analytic parameter counts of the reference stay

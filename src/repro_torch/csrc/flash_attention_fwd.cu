@@ -238,6 +238,9 @@ int dispatch(int D, const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<T, 64>(q, k, v, o, lse, B, H, KVH, Sq, Sk, sq, sk, sv, so,
                            causal, window, q_offset, scale, stream);
+    case 80:  // zamba2-2.7b's shared attention
+      return launch<T, 80>(q, k, v, o, lse, B, H, KVH, Sq, Sk, sq, sk, sv, so,
+                           causal, window, q_offset, scale, stream);
     case 128:
       return launch<T, 128>(q, k, v, o, lse, B, H, KVH, Sq, Sk, sq, sk, sv, so,
                             causal, window, q_offset, scale, stream);

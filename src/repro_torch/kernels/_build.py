@@ -36,7 +36,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 CUDA_SOURCES = ("paged_attention", "flash_attention_fwd",
-                "flash_attention_bwd")
+                "flash_attention_bwd", "decode_attention", "ssd_scan",
+                "rwkv6_scan")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 

@@ -1,0 +1,102 @@
+"""Decode attention over a contiguous KV cache: the CUDA kernel's wrapper
+and its plain version.
+
+Counterpart of ``repro/kernels/decode_attention.py``.  The kernel
+(``csrc/decode_attention.cu``) replaces the Pallas ``decode_attention``;
+its source note says what bounds it on the H100 and how the design
+answers.  The dense serving path reaches it through
+``models/attention.gqa_decode_sdpa``, the function the reference computes
+in jnp.
+
+:func:`decode_attention_ref` is the plain PyTorch version: the port's CPU
+path and the yardstick the kernel is held against on the card.  It
+follows the reference ``gqa_decode_sdpa``'s order of operations and
+roundings -- scores from the products in the input dtype, softmax in
+fp32, probs cast back to the input dtype before the value product -- so
+the port's CPU path reproduces the reference's bf16 numbers.  The kernel
+keeps scores and probabilities in fp32 throughout, so on bf16 inputs it
+differs from that version by the reference's own roundings; on the card
+the two are compared on fp32 copies.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+HEAD_DIMS = (16, 32, 64, 80, 128)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURE = {"decode_attention": (_P,) * 5 + (_I,) * 5 + (_F, _I, _P)}
+_DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def _lengths(valid_len, b: int, device) -> torch.Tensor:
+    """``valid_len`` as a (B,) int32 tensor on ``device`` (a scalar is
+    every lane's length)."""
+    return torch.as_tensor(valid_len, dtype=torch.int32,
+                           device=device).expand(b)
+
+
+def decode_attention_ref(q, k, v, valid_len):
+    """q: (B, H, D); k, v: (B, KV, S, D); valid_len: scalar or (B,) ->
+    (B, H, D) in q's dtype, in the reference ``gqa_decode_sdpa``'s rounding
+    order.  A lane with valid length 0 returns zeros, as the kernel does."""
+    b, h, d = q.shape
+    kvh, s = k.shape[1], k.shape[2]
+    g = h // kvh
+    qg = q.reshape(b, kvh, g, d)
+    scores = torch.matmul(qg, k.transpose(-1, -2)).float() * (d ** -0.5)
+    vlen = _lengths(valid_len, b, q.device)
+    ok = torch.arange(s, device=q.device)[None, :] < vlen[:, None]
+    ok = ok[:, None, None, :]                            # (B, 1, 1, S)
+    scores = torch.where(ok, scores, NEG_INF)
+    probs = torch.where(ok, torch.softmax(scores, dim=-1), 0.0)
+    out = torch.matmul(probs.to(q.dtype), v)             # (B, KV, G, D)
+    return out.reshape(b, h, d)
+
+
+def decode_attention(q, k, v, valid_len):
+    """q: (B, H, D); k, v: (B, KV, S, D) bf16 or fp32; valid_len: scalar or
+    (B,) int32.  Attends over positions ``[0, valid_len)`` of each lane,
+    the G = H / KV query heads of a KV head together.  Returns (B, H, D) in
+    q's dtype.
+
+    On CPU tensors this is :func:`decode_attention_ref`; on CUDA tensors
+    it launches the kernel or raises."""
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k, v, valid_len)
+    b, h, d = q.shape
+    kvh, s = k.shape[1], k.shape[2]
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"decode_attention: q on {q.device}, k on "
+                         f"{k.device}, v on {v.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"decode_attention: dtypes q={q.dtype} k={k.dtype} "
+                         f"v={v.dtype}; the kernel takes one of "
+                         "bfloat16/float32 for all three")
+    if d not in HEAD_DIMS or h % kvh or k.shape != (b, kvh, s, d) \
+            or v.shape != k.shape:
+        raise ValueError(f"decode_attention: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)}; head_dim "
+                         f"must be one of {HEAD_DIMS}")
+    vlen = _lengths(valid_len, b, q.device).contiguous()
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("decode_attention: q, k and v must be 16-byte "
+                         "aligned")
+    out = torch.empty_like(q)
+    lib = _build.library("decode_attention", _SIGNATURE)
+    code = lib.decode_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), vlen.data_ptr(),
+        out.data_ptr(), b, h, kvh, s, d, d ** -0.5, _DTYPES[q.dtype],
+        _build.stream_ptr(q))
+    _build.check(code, "decode_attention")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0

@@ -36,7 +36,10 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+# the forward kernel also takes zamba2-2.7b's head dim; the backward kernels
+# are built and checked at the training path's head dims only
+HEAD_DIMS = (16, 32, 64, 80, 128)
+BWD_HEAD_DIMS = (16, 32, 64, 128)
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 _FWD = {"flash_attention_fwd":
@@ -76,7 +79,7 @@ def flash_attention_fwd_ref(q, k, v, *, causal: bool = True, window: int = 0,
     return torch.matmul(probs, v), lse
 
 
-def _check(name, q, k, v, q_offset, *others):
+def _check(name, q, k, v, q_offset, *others, head_dims=HEAD_DIMS):
     """Raise on what the CUDA kernels do not take."""
     b, h, sq, d = q.shape
     kvh = k.shape[1]
@@ -85,11 +88,11 @@ def _check(name, q, k, v, q_offset, *others):
     if q.dtype not in _DTYPES or any(t.dtype != q.dtype for t in (k, v)):
         raise ValueError(f"{name}: dtypes {q.dtype}/{k.dtype}/{v.dtype}; "
                          "the kernel takes bfloat16 or float32")
-    if d not in HEAD_DIMS or h % kvh or v.shape != k.shape \
+    if d not in head_dims or h % kvh or v.shape != k.shape \
             or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}; head_dim must be one of "
-                         f"{HEAD_DIMS}")
+                         f"{head_dims}")
     if q_offset < 0:
         raise ValueError(f"{name}: q_offset {q_offset} < 0")
 
@@ -222,7 +225,8 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     if q.device.type == "cpu":
         return flash_attention_dq_ref(q, k, v, o, lse, do, **kw)
-    _check("flash_attention_bwd_dq", q, k, v, q_offset, o, do, lse)
+    _check("flash_attention_bwd_dq", q, k, v, q_offset, o, do, lse,
+           head_dims=BWD_HEAD_DIMS)
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
@@ -255,7 +259,8 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, *, causal: bool = True,
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     if q.device.type == "cpu":
         return flash_attention_dkv_ref(q, k, v, lse, delta, do, **kw)
-    _check("flash_attention_bwd_dkv", q, k, v, q_offset, do, lse, delta)
+    _check("flash_attention_bwd_dkv", q, k, v, q_offset, do, lse, delta,
+           head_dims=BWD_HEAD_DIMS)
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
     if do.shape != q.shape or do.dtype != q.dtype \

@@ -1,15 +1,23 @@
-"""Attention projections and scaled-dot-product attention.
+"""Attention projections, scaled-dot-product attention and the dense KV
+cache.
 
-Counterpart of ``repro/models/attention.py`` for what paged serving and
-training run: ``project_qkv`` (with qk-norm and RoPE), ``sdpa``,
-``attn_out`` and ``self_attention_train``, in the reference's
-(B, S, H, hd) layout.  ``sdpa`` goes through the Hopper flash-attention
-kernels on CUDA tensors -- the forward kernel, and the two backward
-kernels when a gradient is taken (``FlashAttention``; the forward
-kernel's wrapper alone when none is, as in serving) -- and through the
-plain forward, in the reference's rounding order and differentiated by
-autograd, on CPU tensors.  GQA is handled inside the kernels, without
-expanding KV heads.
+Counterpart of ``repro/models/attention.py`` for what paged serving,
+dense serving and training run: ``project_qkv`` (with qk-norm and RoPE),
+``sdpa``, ``attn_out``, ``self_attention_train``, and the dense path's
+``kv_cache_specs``, ``gqa_decode_sdpa``,
+``self_attention_decode`` and ``self_attention_prefill``, in the
+reference's layouts: activations (B, S, H, hd), the dense cache (B, KV,
+S, hd).  ``sdpa`` goes through the Hopper flash-attention kernels on CUDA
+tensors -- the forward kernel, and the two backward kernels when a
+gradient is taken (``FlashAttention``; the forward kernel's wrapper alone
+when none is, as in serving) -- and through the plain forward, in the
+reference's rounding order and differentiated by autograd, on CPU
+tensors.  ``gqa_decode_sdpa`` goes through the decode-attention kernel
+(its plain version on CPU tensors).  GQA is handled inside the kernels,
+without expanding KV heads.
+
+Where the reference returns an updated copy of the dense cache, the port
+writes the new token's K and V into the cache tensors in place.
 """
 
 from __future__ import annotations
@@ -19,10 +27,11 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention_fwd)
-from repro_torch.models.layers import (Spec, apply_rope, needs_grad, rms_norm,
-                                       rms_norm_spec)
+from repro_torch.models.layers import (CacheSpec, Spec, apply_rope,
+                                       needs_grad, rms_norm, rms_norm_spec)
 
 Params = Dict[str, Any]
 
@@ -85,3 +94,56 @@ def self_attention_train(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     q, k, v = project_qkv(p, x, cfg, positions)
     o = sdpa(q, k, v, causal=causal, window=window)
     return attn_out(p, o)
+
+
+# ---------------------------------------------------------------------------
+# dense serving: a per-slot KV cache laid out (B, KV, S, hd)
+# ---------------------------------------------------------------------------
+
+def kv_cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
+                   dtype=torch.bfloat16) -> Params:
+    """One layer's dense KV cache, laid out (B, KV, S, hd) as the
+    reference's (the decode kernel reads each (lane, KV head) run of S
+    keys contiguously)."""
+    shape = (batch, cfg.num_kv_heads, cache_len, cfg.head_dim)
+    return {"k": CacheSpec(shape, dtype), "v": CacheSpec(shape, dtype)}
+
+
+def gqa_decode_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    valid_len) -> torch.Tensor:
+    """Decode attention without expanding KV heads.  q: (B, 1, H, hd); k,
+    v: (B, KV, S, hd); valid_len: scalar or (B,) int32 -- each lane
+    attends over cache positions ``[0, valid_len)``.  Returns (B, 1, H,
+    hd).  (The reference passes a (S,) validity mask; on its dense path
+    that mask is always a prefix, ``idx <= pos``.)"""
+    return decode_attention(q[:, 0], k, v, valid_len)[:, None]
+
+
+def self_attention_decode(p: Params, x: torch.Tensor, cache: Params,
+                          pos: int, cfg: ModelConfig
+                          ) -> Tuple[torch.Tensor, Params]:
+    """One-token decode at the shared position ``pos``, global attention
+    (a sliding window's ring mask is not a prefix; it comes with the rings
+    slice).  x: (B, 1, d); cache k/v: (B, KV, S, hd), written in place at
+    slot ``pos`` for every lane.  Every lane attends over slots ``[0,
+    pos]``.  Returns (out, cache)."""
+    s_cache = cache["k"].shape[2]
+    if not 0 <= pos < s_cache:
+        raise ValueError(f"decode position {pos} outside the dense cache of "
+                         f"{s_cache} slots")
+    positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
+    q, k, v = project_qkv(p, x, cfg, positions)
+    cache["k"][:, :, pos] = k[:, 0].to(cache["k"].dtype)     # in place
+    cache["v"][:, :, pos] = v[:, 0].to(cache["v"].dtype)
+    o = gqa_decode_sdpa(q, cache["k"], cache["v"], pos + 1)
+    return attn_out(p, o), cache
+
+
+def self_attention_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig
+                           ) -> Tuple[torch.Tensor, Params]:
+    """Forward over a prompt at positions 0..S-1, global attention -> (out
+    (B, S, d), its KV {"k", "v"} laid out (B, KV, S, hd))."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v = project_qkv(p, x, cfg, positions)
+    o = sdpa(q, k, v, causal=True)
+    return attn_out(p, o), {"k": k.transpose(1, 2), "v": v.transpose(1, 2)}

@@ -1,4 +1,4 @@
-"""Shared building blocks: norms, rotary embeddings, MLPs, embeddings.
+"""Shared building blocks: norms, positions, MLPs, embeddings.
 
 Counterpart of ``repro/models/layers.py``.  Plain functions on tensors
 over plain parameter dictionaries, in the reference's layouts, so the
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -28,11 +29,19 @@ class Spec(NamedTuple):
     std: float = 0.02
 
 
+class CacheSpec(NamedTuple):
+    """Decode-state leaf spec: shape + dtype (the reference's
+    ``jax.ShapeDtypeStruct``); materialized as zeros."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
 def init_from_specs(specs, generator: torch.Generator,
                     device: torch.device, dtype=torch.bfloat16) -> Params:
     """Materialize a parameter tree from a spec tree, leaves in sorted key
-    order: zeros for std 0 (the ``(1+g)`` norm gains), else
-    normal(0, std) drawn in fp32 and cast."""
+    order, by the reference's rules: zeros for std 0 (the ``(1+g)`` norm
+    gains, biases), ones for an unstacked std-1 gain (a vector or a square
+    matrix), else normal(0, std) drawn in fp32 and cast."""
     out = {}
     for key in sorted(specs):
         spec = specs[key]
@@ -40,6 +49,9 @@ def init_from_specs(specs, generator: torch.Generator,
             out[key] = init_from_specs(spec, generator, device, dtype)
         elif spec.std == 0.0:
             out[key] = torch.zeros(spec.shape, dtype=dtype, device=device)
+        elif spec.std == 1.0 and (len(spec.shape) == 1 or (
+                len(spec.shape) == 2 and spec.shape[0] == spec.shape[1])):
+            out[key] = torch.ones(spec.shape, dtype=dtype, device=device)
         else:
             out[key] = (torch.randn(spec.shape, generator=generator,
                                     device=device, dtype=torch.float32)
@@ -56,6 +68,30 @@ def rms_norm(x: torch.Tensor, gain: torch.Tensor,
     if x.device.type != "cpu" and needs_grad(x, gain):
         return RMSNorm.apply(x, gain, eps)
     return rmsnorm(x, gain, eps)
+
+
+def group_norm_heads(x: torch.Tensor, gain: torch.Tensor,
+                     eps: float = 64e-5) -> torch.Tensor:
+    """Per-head group norm over the last dim of (..., H, hd) (RWKV-6's
+    ``ln_x``), fp32 statistics; plain ops (no Pallas counterpart)."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * gain.float()).to(x.dtype)
+
+
+def sinusoidal_positions(seq_len: int, d_model: int,
+                         device: torch.device) -> torch.Tensor:
+    """(seq_len, d_model) fp32 sin/cos positions, computed in float64 with
+    numpy as the reference does and rounded once."""
+    pos = np.arange(seq_len)[:, None]
+    dim = np.arange(0, d_model, 2)[None, :]
+    ang = pos / np.power(10_000.0, dim / d_model)
+    out = np.zeros((seq_len, d_model), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return torch.from_numpy(out).to(device)
 
 
 def needs_grad(*ts: torch.Tensor) -> bool:

@@ -1,13 +1,14 @@
-"""Parameter tree, init, embedding and the training loss of the RoPE
-attention-only families: the counterpart of the parts of
-``repro/models/model.py`` and ``repro/models/transformer.py`` that paged
-serving and training read.
+"""Parameter tree, init, embedding, the training loss and the dense
+serving entry points: the counterpart of ``repro/models/model.py`` (and
+of the parts of ``repro/models/transformer.py`` that build the tree).
 
 The tree keeps the reference's layout -- ``params["blocks"]
-[f"p{i}_{kind}"]`` with a leading stacked-blocks dim, ``params["embed"]``
-and ``params["ln_f"]`` -- so bridged reference weights drop in as they
-are.  The families with other block kinds (MoE, RWKV-6, Mamba-2, the
-encoder-decoder and vision prefixes) come with later slices.
+[f"p{i}_{kind}"]`` with a leading stacked-blocks dim, ``params["embed"]``,
+``params["ln_f"]`` and, for zamba2, the unstacked ``params["shared_attn"]``
+-- so bridged reference weights drop in as they are.  The port trains the
+RoPE attention stacks and serves those, Mamba-2, RWKV-6 and zamba2's
+hybrid stack; the MoE, encoder-decoder and vision families come with
+later slices.
 """
 
 from __future__ import annotations
@@ -19,23 +20,23 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
-from repro_torch.models import attention as attn
+from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, ATTN_SHARED,
+                                      MAMBA2, RWKV6, ModelConfig)
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import ImplConfig
 
 Params = Dict[str, Any]
-SUPPORTED_KINDS = (ATTN_GLOBAL, ATTN_LOCAL)
+SUPPORTED_KINDS = (ATTN_GLOBAL, ATTN_LOCAL, MAMBA2, RWKV6, ATTN_SHARED)
 
 
 def check_family(cfg: ModelConfig) -> None:
     if (any(k not in SUPPORTED_KINDS for k in cfg.pattern)
             or cfg.is_encdec or cfg.family in ("vlm", "audio")):
         raise ValueError(
-            f"the port's model covers RoPE global/sliding-window attention "
-            f"stacks; {cfg.name} has pattern={cfg.pattern} "
-            f"family={cfg.family}")
+            f"the port's model covers global/sliding-window attention, "
+            f"Mamba-2, RWKV-6 and shared-attention stacks; {cfg.name} has "
+            f"pattern={cfg.pattern} family={cfg.family}")
 
 
 def _stack(specs, nb: int):
@@ -47,17 +48,16 @@ def _stack(specs, nb: int):
 def param_specs(cfg: ModelConfig) -> Params:
     """Full parameter spec tree (the reference's ``model_specs``)."""
     check_family(cfg)
-    block = {"ln1": {"g": L.rms_norm_spec(cfg.d_model)},
-             "attn": attn.attn_specs(cfg),
-             "ln2": {"g": L.rms_norm_spec(cfg.d_model)},
-             "mlp": L.gated_mlp_specs(cfg.d_model, cfg.d_ff)}
-    return {
+    out = {
         "embed": L.embed_specs(cfg.vocab_size, cfg.d_model,
                                cfg.tie_embeddings),
-        "blocks": {f"p{i}_{kind}": _stack(block, cfg.num_blocks)
+        "blocks": {f"p{i}_{kind}": _stack(T.block_specs(cfg, kind),
+                                          cfg.num_blocks)
                    for i, kind in enumerate(cfg.pattern)},
-        "ln_f": {"g": L.rms_norm_spec(cfg.d_model)},
+        "ln_f": T.norm_specs(cfg),
     }
+    out.update(T.shared_specs(cfg))
+    return out
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -102,15 +102,90 @@ def embed_tokens(cfg: ModelConfig, params: Params,
     return L.embed(params["embed"], tokens, scale)
 
 
+def _shared(params: Params) -> Params:
+    return {k: params[k] for k in ("shared_attn",) if k in params}
+
+
 class Model:
-    """The training entry point of the reference's ``Model``: pure
-    functions over a parameter tree, with the execution strategy of an
-    :class:`ImplConfig`."""
+    """The reference's ``Model``: the training loss and the dense serving
+    entry points (``prefill``, ``decode_step``), functions over a
+    parameter tree with the execution strategy of an :class:`ImplConfig`.
+    The serving entry points write into a dense cache tree in place."""
 
     def __init__(self, cfg: ModelConfig, impl: Optional[ImplConfig] = None):
         check_family(cfg)
         self.cfg = cfg
         self.impl = impl or ImplConfig()
+
+    # -- positions (non-RoPE stacks: rwkv6) ----------------------------------
+    def _add_positional(self, x: torch.Tensor, offset: int = 0
+                        ) -> torch.Tensor:
+        """Sinusoidal positions for stacks without RoPE."""
+        if self.cfg.rope_theta > 0:
+            return x
+        pos = L.sinusoidal_positions(x.shape[1] + offset, self.cfg.d_model,
+                                     x.device)[offset:]
+        return (x.float() + pos).to(x.dtype)
+
+    def _add_positional_decode(self, x: torch.Tensor, pos: int
+                               ) -> torch.Tensor:
+        if self.cfg.rope_theta > 0:
+            return x
+        d = self.cfg.d_model
+        i = torch.arange(0, d, 2, dtype=torch.float32, device=x.device)
+        ang = float(pos) * torch.pow(10_000.0, -i / d)
+        pe = torch.zeros(d, dtype=torch.float32, device=x.device)
+        pe[0::2] = torch.sin(ang)
+        pe[1::2] = torch.cos(ang)
+        return (x.float() + pe).to(x.dtype)
+
+    # -- dense cache ---------------------------------------------------------
+    def init_cache(self, batch: int, cache_len: int,
+                   device: DeviceLike = None) -> Params:
+        return T.init_cache(self.cfg, batch, cache_len,
+                            resolve_device(device))
+
+    # -- entry point: prefill ------------------------------------------------
+    def prefill(self, params: Params, tokens: torch.Tensor, cache_len: int,
+                cache: Optional[Params] = None, slot: int = 0
+                ) -> Tuple[torch.Tensor, Params]:
+        """Forward over the prompt ``tokens`` (B, S) -> (last-token logits
+        (B, 1, V) fp32, cache).  The decode state after the prompt (KV
+        rows past S zeroed) is written in place into ``cache`` at batch
+        rows ``slot .. slot + B`` (a new cache of B rows and ``cache_len``
+        positions when none is given)."""
+        cfg = self.cfg
+        if cache is None:
+            cache = self.init_cache(tokens.shape[0], cache_len, tokens.device)
+        rows = slice(slot, slot + tokens.shape[0])
+        x = self._add_positional(embed_tokens(cfg, params, tokens))
+        shared = _shared(params)
+        for j, bp in enumerate(_unstack(params["blocks"], cfg.num_blocks)):
+            for i, kind in enumerate(cfg.pattern):
+                key = f"p{i}_{kind}"
+                bc = {leaf: t[j, rows] for leaf, t in cache[key].items()}
+                x, _ = T.apply_block_prefill(cfg, kind, bp[key], x, shared,
+                                             bc)
+        x = T.apply_norm(cfg, params["ln_f"], x[:, -1:])
+        return L.unembed(params["embed"], x, cfg.logit_softcap), cache
+
+    # -- entry point: decode (one token) -------------------------------------
+    def decode_step(self, params: Params, tokens: torch.Tensor,
+                    cache: Params, pos: int) -> Tuple[torch.Tensor, Params]:
+        """tokens (B, 1) at the shared position ``pos`` -> (logits (B, 1,
+        V) fp32, cache updated in place)."""
+        cfg = self.cfg
+        x = self._add_positional_decode(embed_tokens(cfg, params, tokens),
+                                        pos)
+        shared = _shared(params)
+        for j, bp in enumerate(_unstack(params["blocks"], cfg.num_blocks)):
+            for i, kind in enumerate(cfg.pattern):
+                key = f"p{i}_{kind}"
+                bc = {leaf: t[j] for leaf, t in cache[key].items()}
+                x, _ = T.apply_block_decode(cfg, kind, bp[key], x, bc, pos,
+                                            shared)
+        x = T.apply_norm(cfg, params["ln_f"], x)
+        return L.unembed(params["embed"], x, cfg.logit_softcap), cache
 
     def _run_blocks_train(self, params: Params,
                           x: torch.Tensor) -> torch.Tensor:

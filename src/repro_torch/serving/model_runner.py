@@ -21,9 +21,19 @@ reference does (the shapes a later CUDA-graph capture will key on).
 Where the reference donates its page arrays to ``jit`` so XLA updates them
 in place, the port writes the page tensors in place (``index_put_``).
 
-This slice serves pure-global stacks from a private pool.  Sliding-window
-ring pages (``ATTN_LOCAL``), the prefix cache, a pod-shared
-``KVArrayStore``, park/unpark and replica migration, and the dense runner
+:class:`DenseRunner` keeps a preallocated per-slot dense cache of
+``cache_len`` tokens (KV laid out (B, KV, S, hd); Mamba-2 and RWKV-6
+states) and drives ``Model.prefill`` and ``Model.decode_step``, which
+write into it in place.  It serves global-attention, Mamba-2, RWKV-6 and
+zamba2's hybrid stacks through the flash-attention forward (prefill),
+the decode-attention kernel, the SSD and WKV scan kernels, and RMSNorm.
+It copies the reference's behaviour exactly, since token parity depends
+on it: prompts are never padded, and decode runs the whole slot batch at
+one shared position.
+
+The paged runner serves pure-global stacks from a private pool.
+Sliding-window ring pages (``ATTN_LOCAL``, on either backend), the prefix
+cache, a pod-shared ``KVArrayStore``, park/unpark and replica migration
 come with later slices: asking for them raises ``ValueError``.
 """
 
@@ -36,12 +46,13 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.configs.base import ATTN_LOCAL, ModelConfig
+from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
-from repro_torch.models.model import (check_family, embed_tokens,
+from repro_torch.models.model import (Model, check_family, embed_tokens,
                                       init_params, layer_params)
+from repro_torch.models.transformer import ImplConfig
 from repro_torch.serving.kv_cache import PAGE_SIZE, Request, page_table
 
 KV_DTYPE = torch.bfloat16
@@ -91,9 +102,13 @@ class ModelRunner:
 
     backend = "null"
 
-    def __init__(self):
+    def __init__(self, record_margins: bool = False):
         self.engine = None
         self.generated: Dict[str, List[int]] = {}
+        # parity checks: the top-1 minus top-2 logit gap of every emitted
+        # token, per request (a near-tie may flip under other roundings)
+        self.margins: Optional[Dict[str, List[float]]] = (
+            {} if record_margins else None)
 
     def bind(self, engine) -> None:
         self.engine = engine
@@ -111,6 +126,91 @@ class ModelRunner:
         if toks is not None:
             req.output_tokens = toks
 
+    def _record_margins(self, reqs: List[Request], logits: torch.Tensor):
+        """logits: one (V,) row per request in ``reqs``."""
+        if self.margins is None:
+            return
+        top = logits.topk(2, dim=-1).values
+        for req, gap in zip(reqs, (top[:, 0] - top[:, 1]).tolist()):
+            self.margins.setdefault(req.req_id, []).append(gap)
+
+
+class DenseRunner(ModelRunner):
+    """Slot-indexed dense cache; prefill through ``Model.prefill`` and
+    decode through ``Model.decode_step`` (the reference's
+    ``DenseRunner``)."""
+
+    backend = "dense"
+
+    def __init__(self, cfg: ModelConfig, *, seed: int = 0,
+                 max_batch: int = 4, cache_len: int = 256,
+                 params: Optional[dict] = None, device: DeviceLike = None,
+                 record_margins: bool = False):
+        super().__init__(record_margins)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.max_batch = max_batch
+        self.cache_len = cache_len
+        self.model = Model(cfg, ImplConfig(remat="none"))
+        # first: it refuses the kinds the dense path does not serve yet
+        # (the sliding-window ring cache) before any weight is made
+        self.cache = self.model.init_cache(max_batch, cache_len, self.device)
+        self.params = (init_params(cfg, seed, self.device) if params is None
+                       else params)
+        self.slots: Dict[str, tuple] = {}      # req_id -> (slot, prompt_len)
+
+    def prefill(self, req: Request) -> None:
+        """Forward over the whole prompt -- never padded or bucketed: the
+        recurrent state after padded tokens cannot be masked back out --
+        writing its decode state into the request's slot."""
+        toks = prompt_for(req, self.cfg.vocab_size).to(self.device)
+        # evict slots of preempted requests (the engine re-queues them;
+        # only completion frees a slot via finish) before picking one
+        running_ids = {r.req_id for r in self.engine.running}
+        for rid in list(self.slots):
+            if rid not in running_ids:
+                del self.slots[rid]
+        if req.req_id in self.slots:      # re-admission after preemption
+            slot = self.slots[req.req_id][0]
+        else:
+            slot = min(set(range(self.max_batch))
+                       - {s for s, _ in self.slots.values()})
+        self.slots[req.req_id] = (slot, req.prompt_len)
+        logits, _ = self.model.prefill(self.params, toks, self.cache_len,
+                                       cache=self.cache, slot=slot)
+        self._record_margins([req], logits[:, -1])
+        self.generated[req.req_id] = [int(logits[0, -1].argmax())]
+
+    def decode(self, running: List[Request]) -> None:
+        """One step for the whole slot batch at ONE shared position, the
+        largest ``prompt_len + generated`` of the running requests, as the
+        reference does: every lane's KV is written at that slot and every
+        lane attends over ``[0, pos]`` (a shorter request's cache holds
+        zero K/V rows in between, which take part in its softmax), and
+        RWKV-6's sinusoidal position is that ``pos`` too.  Idle slots run
+        token 0; their state is overwritten by the next prefill."""
+        if not running:
+            return
+        toks = np.zeros((self.max_batch, 1), np.int64)
+        pos = 0
+        for req in running:
+            slot, plen = self.slots[req.req_id]
+            toks[slot, 0] = self.generated[req.req_id][-1]
+            pos = max(pos, plen + req.generated)
+        logits, _ = self.model.decode_step(
+            self.params, torch.from_numpy(toks).to(self.device), self.cache,
+            pos)
+        slots = [self.slots[r.req_id][0] for r in running]
+        self._record_margins(running, logits[slots, -1])
+        # the one batched device->host fetch of the step
+        nxt = logits[:, -1].argmax(-1).tolist()
+        for req, slot in zip(running, slots):
+            self.generated[req.req_id].append(nxt[slot])
+
+    def finish(self, req: Request) -> None:
+        super().finish(req)
+        self.slots.pop(req.req_id, None)
+
 
 class PagedRunner(ModelRunner):
     """KV in pool pages; prefill through the flash-attention kernel and
@@ -123,11 +223,16 @@ class PagedRunner(ModelRunner):
                  prefix_cache=None, chunk_pages: int = 4,
                  params: Optional[dict] = None, device: DeviceLike = None,
                  record_margins: bool = False):
-        super().__init__()
+        super().__init__(record_margins)
         if cfg.rope_theta <= 0:
             raise ValueError(f"backend='paged' needs RoPE; {cfg.name} has "
                              f"rope_theta={cfg.rope_theta}")
         check_family(cfg)
+        if any(k not in (ATTN_GLOBAL, ATTN_LOCAL) for k in cfg.pattern):
+            raise ValueError(
+                f"backend='paged' serves RoPE global/sliding-window "
+                f"attention stacks; {cfg.name} has pattern={cfg.pattern} "
+                "(serve it with backend='dense')")
         if ATTN_LOCAL in cfg.pattern:
             raise ValueError(
                 f"{cfg.name}: sliding-window (ATTN_LOCAL) ring pages come "
@@ -150,10 +255,6 @@ class PagedRunner(ModelRunner):
                                   cfg.num_kv_heads, cfg.head_dim, self.device)
         # forwards over prompt chunks (a native prefill is one chunk)
         self.prefill_chunks = 0
-        # parity checks: the top-1 minus top-2 logit gap of every emitted
-        # token, per request (a near-tie may flip under other roundings)
-        self.margins: Optional[Dict[str, List[float]]] = (
-            {} if record_margins else None)
 
     def _ids(self, ids) -> torch.Tensor:
         return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
@@ -172,13 +273,6 @@ class PagedRunner(ModelRunner):
     def _logits(self, x: torch.Tensor) -> torch.Tensor:
         x = L.rms_norm(x, self.params["ln_f"]["g"], self.cfg.norm_eps)
         return L.unembed(self.params["embed"], x, self.cfg.logit_softcap)
-
-    def _record_margins(self, reqs: List[Request], logits: torch.Tensor):
-        if self.margins is None:
-            return
-        top = logits.topk(2, dim=-1).values
-        for req, gap in zip(reqs, (top[:, 0] - top[:, 1]).tolist()):
-            self.margins.setdefault(req.req_id, []).append(gap)
 
     # -- prefill -------------------------------------------------------------
     def _chunk_forward(self, toks: torch.Tensor, base: int,
@@ -305,18 +399,27 @@ class PagedRunner(ModelRunner):
 
 
 def build_runner(backend: str, cfg: ModelConfig, *, seed: int = 0,
-                 max_batch: int = 4, pool_pages: int = 128,
-                 prefix_cache=None, chunk_pages: int = 4,
-                 params: Optional[dict] = None, device: DeviceLike = None,
+                 max_batch: int = 4, cache_len: int = 256,
+                 pool_pages: int = 128, prefix_cache=None,
+                 chunk_pages: int = 4, params: Optional[dict] = None,
+                 device: DeviceLike = None,
                  record_margins: bool = False) -> ModelRunner:
-    """Factory keyed by the serving backend name."""
+    """Factory keyed by the serving backend name.  ``prefix_cache`` is
+    refused on the dense backend (it has no page identity to share), as
+    the reference refuses it, rather than silently dropped."""
+    if backend == "dense":
+        if prefix_cache is not None:
+            raise ValueError(
+                "backend='dense' cannot serve prefix_cache=True: the "
+                "dense KV cache has no shareable page identity; use "
+                "backend='paged' or drop the option")
+        return DenseRunner(cfg, seed=seed, max_batch=max_batch,
+                           cache_len=cache_len, params=params, device=device,
+                           record_margins=record_margins)
     if backend == "paged":
         return PagedRunner(cfg, seed=seed, pool_pages=pool_pages,
                            max_batch=max_batch, prefix_cache=prefix_cache,
                            chunk_pages=chunk_pages, params=params,
                            device=device, record_margins=record_margins)
-    if backend == "dense":
-        raise ValueError("backend='dense' comes with a later slice of the "
-                         "port; serve with backend='paged'")
     raise ValueError(f"unknown serving backend {backend!r} "
-                     "(the port serves 'paged')")
+                     "(expected 'dense' or 'paged')")

@@ -14,6 +14,7 @@ reference's on the same request mixes.
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.configs.reduced import reduced_config as jax_reduced
@@ -23,8 +24,9 @@ from repro.serving.kv_cache import Request as JaxRequest
 from repro.serving.model_runner import build_runner as jax_build_runner
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ATTN_LOCAL
+from repro_torch.configs.base import ATTN_LOCAL, MAMBA2, RWKV6
 from repro_torch.configs.reduced import reduced_config
+from repro_torch.models import transformer as T
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.kv_cache import (PAGE_SIZE, PagePool, Request,
                                          page_table, pool_pages_for_budget)
@@ -182,18 +184,27 @@ def _cfg():
 
 
 def test_runner_refuses_what_later_slices_bring():
+    """The dense backend serves (``test_torch_dense.py``); what still
+    raises: rings on either backend, the prefix cache on either backend,
+    and training the recurrent families."""
     cfg = _cfg()
     local = cfg.scaled(pattern=(ATTN_LOCAL,), sliding_window=8)
     with pytest.raises(ValueError, match="later slice"):
         PagedRunner(local, device="cpu")
+    with pytest.raises(ValueError, match="rings slice"):
+        build_runner("dense", local, device="cpu")
     with pytest.raises(ValueError, match="prefix cache"):
         PagedRunner(cfg, prefix_cache=object(), device="cpu")
-    with pytest.raises(ValueError, match="dense"):
-        build_runner("dense", cfg, device="cpu")
+    with pytest.raises(ValueError, match="prefix_cache"):
+        build_runner("dense", cfg, prefix_cache=object(), device="cpu")
     with pytest.raises(ValueError, match="backend"):
         build_runner("sparse", cfg, device="cpu")
     with pytest.raises(ValueError, match="paged"):
         PagedRunner(cfg.scaled(rope_theta=0.0), device="cpu")
+    x = torch.zeros(1, 4, cfg.d_model, dtype=torch.bfloat16)
+    for kind in (MAMBA2, RWKV6):
+        with pytest.raises(ValueError, match="training a .* later slice"):
+            T.apply_block_train(cfg, kind, {}, x)
 
 
 def test_paged_preemption_readmission_and_state_eviction():
