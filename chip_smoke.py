@@ -14,7 +14,15 @@ Phases, each of which must pass (any failure exits nonzero):
    against its plain PyTorch version on the same inputs within the stated
    tolerance, and timed beside the plain version and one PyTorch library
    call computing the same function (the port itself never calls those);
-   the autograd Functions of K2+K5 and K3 are held against autograd
+   the bf16 flash backward (K5a, K5b), which runs on tensor cores and
+   rounds p and ds to bf16 as operands, is held by relative norm against
+   its plain version with bf16 operands (``BWD_KERNEL_REL_NORM``) and the
+   fp32 plain version (``BWD_FP32_REL_NORM``), with SDPA's backward's
+   relative norm printed beside it at the training shape; there its two
+   launches must give bit-equal results, both kernels are timed causal
+   and non-causal (the ratio printed), and, where ``cuobjdump`` is found,
+   every bf16 backward kernel must show HMMA/HGMMA instructions in its
+   SASS; the autograd Functions of K2+K5 and K3 are held against autograd
    through the plain forwards;
 3. serve: full-width tinyllama-1.1b (random weights from seed 0) serves 8
    requests with prompts of 64..1024 tokens (native and chunked prefill)
@@ -163,7 +171,10 @@ def timed_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
     return sorted(times)[reps // 2]
 
 
-def compare(torch, name, got, want, atol, rtol):
+def compare(torch, name, got, want, atol, rtol, gate=True):
+    """Elementwise |got - want| <= atol + rtol |want|; fails unless
+    ``gate`` is False (then the worst err/tol is printed for information).
+    Returns the max abs error."""
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
         fail(f"{name}: kernel output not finite")
@@ -172,10 +183,11 @@ def compare(torch, name, got, want, atol, rtol):
     max_rel = float((err / want.abs().clamp(min=1e-6)).max())
     used = float((err / (atol + rtol * want.abs())).max())
     ok = used <= 1.0
+    verdict = ("ok" if ok else "FAIL") if gate else "not gated"
     print(f"[kernel] {name}: max_abs={max_abs:.3e} max_rel={max_rel:.3e} "
           f"tol=atol {atol:g} + rtol {rtol:g}*|ref|, worst err/tol="
-          f"{used:.3f} -> {'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
+          f"{used:.3f} -> {verdict}", flush=True)
+    if gate and not ok:
         fail(f"{name}: kernel disagrees with its plain version")
     return max_abs
 
@@ -583,20 +595,97 @@ def check_wkv(torch, randn):
                       "logw fp32")
 
 
+# bf16 backward: the tensor-core kernels round p and ds to bf16 where they
+# become operands of the second products.  Against the plain version that
+# rounds at the same places they differ only by fp32 summation order and
+# the rare bf16 rounding that flips with it; against the fp32 plain
+# version by the rounding itself (relative norm 2.5e-3 to 2.7e-3 on the
+# CPU at five shapes), so that limit is about 4x what was measured.
+BWD_KERNEL_REL_NORM = 1e-3
+BWD_FP32_REL_NORM = 1e-2
+
+
+def check_bf16_grad(torch, name, got, want_bf16, want_fp32, tol):
+    """One gradient of a bf16 backward kernel: gated by relative norm
+    against both plain versions; the worst elementwise err/tol against the
+    bf16-operand one is printed for information.  Returns the max abs
+    error against that one and the relative norm against the fp32 one."""
+    worst = rel_norm(torch, f"{name} vs plain (bf16 operands)", got,
+                     want_bf16, BWD_KERNEL_REL_NORM)
+    compare(torch, f"{name} vs plain (bf16 operands), information only",
+            got, want_bf16, *tol, gate=False)
+    rel_norm(torch, f"{name} vs plain (fp32)", got, want_fp32,
+             BWD_FP32_REL_NORM)
+    err = float((got.float() - want_fp32.float()).norm()
+                / want_fp32.float().norm())
+    return worst, err
+
+
+def sdpa_grads(torch, q, k, v, do, causal):
+    """SDPA's own backward on KV heads expanded to the query heads, dK and
+    dV summed back over each KV head's G query heads: the yardstick."""
+    import torch.nn.functional as F
+    kvh, g = k.shape[1], q.shape[1] // k.shape[1]
+    ins = [t.detach().requires_grad_(True) for t in
+           (q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1))]
+    out = F.scaled_dot_product_attention(*ins, is_causal=causal)
+    dq, dk, dv = torch.autograd.grad(out, ins, do)
+    return dq, *(t.float().unflatten(1, (kvh, g)).sum(2) for t in (dk, dv))
+
+
+def tensor_core_sass():
+    """HMMA/HGMMA instructions in the SASS of each bf16 backward kernel of
+    the built library, counted by ``cuobjdump``; fails on a kernel with
+    none.  Skipped, with a note, where ``cuobjdump`` is not found."""
+    import shutil
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        print("[sass] cuobjdump not found: tensor-core instructions not "
+              "counted", flush=True)
+        return
+    out = subprocess.run([tool, "-sass",
+                          str(_build.lib_path("flash_attention_bwd"))],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode != 0:
+        fail(f"cuobjdump: {out.stderr.strip()[:500]}")
+    counts, fn = {}, None
+    for line in out.stdout.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+            counts[fn] += 1
+    for fn, n in sorted(counts.items()):
+        route = "bf16" if "_tc" in fn else "fp32"
+        print(f"[sass] {route} {fn}: {n} HMMA/HGMMA", flush=True)
+    tc = {fn: n for fn, n in counts.items() if "_tc" in fn}
+    if len(tc) != 8 or min(tc.values()) == 0:
+        fail(f"flash_attention_bwd: {len(tc)} bf16 kernels in the SASS, "
+             "expected 8 (dq and dkv at 4 head dims), each with HMMA")
+
+
 def check_backward(torch, randn, tol):
-    """K5a (dQ) and K5b (dK/dV) against the plain backward, on the same
-    bf16 or fp32 inputs: both compute in fp32 from the same saved lse and
-    round their outputs once, so the bf16 tolerance is one bf16 ulp.
-    The K2 output they start from is first held against the plain forward
-    on fp32 copies, as in :func:`check_kernels`, at every case's shape
-    (the training shape included).  Returns the K5 records and the K2
-    errors."""
+    """K5a (dQ) and K5b (dK/dV) against their plain versions on the same
+    inputs.  fp32 cases: both compute in fp32 from the same saved lse and
+    round once, so the tolerance is the fp32 one.  bf16 cases: the
+    tensor-core kernels round p and ds to bf16 as operands, so each of dQ,
+    dK and dV is held by relative norm against the plain version that
+    rounds at the same places (``BWD_KERNEL_REL_NORM``) and against the
+    fp32 plain version (``BWD_FP32_REL_NORM``).  The K2 output they start
+    from is first held against the plain forward on fp32 copies, as in
+    :func:`check_kernels`, at every case's shape (the training shape
+    included).  At the training shape SDPA's own backward is held against
+    the same fp32 plain version for comparison, the bf16 kernels run twice
+    for bit-equal results, and both kernels are timed causal and not.
+    Returns the K5 records and the K2 errors."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq,
         flash_attention_dkv_ref, flash_attention_dq_ref, flash_attention_fwd,
         flash_attention_fwd_ref)
     bf16, f32 = torch.bfloat16, torch.float32
+    tensor_core_sass()
     cases = [
         ("small causal ragged GQA b=2 h=4/2 s=200 d=64", 2, 4, 2, 200, 200,
          64, True, 0, 0, bf16),
@@ -608,16 +697,26 @@ def check_backward(torch, randn, tol):
          100, 0, bf16),
         ("d=128 q_offset=64 h=4/2 sq=128 sk=192", 1, 4, 2, 128, 192, 128,
          True, 0, 64, bf16),
+        # q and dO rows 4 elements apart from 16-byte alignment: the
+        # wrappers copy them for the kernels' cp.async
+        ("d=32 non-causal GQA sq=100 sk=300 h=4/1 unaligned q/dO", 1, 4, 1,
+         100, 300, 32, False, 0, 0, bf16),
         ("training shape b=2 h=32/4 s=4096 d=64", 2, 32, 4, 4096, 4096, 64,
          True, 0, 0, bf16),
     ]
     errs = {"dq": [], "dkv": [], "fwd": []}
     for (label, b, h, kvh, sq, sk, d, causal, window, off, dtype) in cases:
         kw = dict(causal=causal, window=window, q_offset=off)
-        q = randn(b, sq, h, d, dtype=dtype).transpose(1, 2)   # model layout
+        pad = 4 if "unaligned" in label else 0
+
+        def query_rows():  # model layout, rows h*d + pad elements apart
+            return (randn(b, sq, h * d + pad, dtype=dtype)[..., :h * d]
+                    .unflatten(-1, (h, d)).transpose(1, 2))
+
+        q = query_rows()
         k = randn(b, sk, kvh, d, dtype=dtype).transpose(1, 2)
         v = randn(b, sk, kvh, d, dtype=dtype).transpose(1, 2)
-        do = randn(b, sq, h, d, dtype=dtype).transpose(1, 2)
+        do = query_rows()
         o, lse = flash_attention_fwd(q, k, v, **kw)
         o_r, lse_r = flash_attention_fwd_ref(q.float(), k.float(), v.float(),
                                              **kw)
@@ -627,27 +726,69 @@ def check_backward(torch, randn, tol):
                 1e-5)
         del o_r, lse_r
         torch.cuda.empty_cache()
+        training = label.startswith("training")
+        lib = sdpa_grads(torch, q, k, v, do, causal) if training else None
         dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)
         dk, dv = flash_attention_bwd_dkv(q, k, v, lse, delta, do, **kw)
         torch.cuda.synchronize()
         dq_r, delta_r = flash_attention_dq_ref(q, k, v, o, lse, do, **kw)
-        errs["dq"].append(compare(torch, f"flash_attention_bwd dq {label}",
-                                  dq, dq_r, *tol[dtype]))
         compare(torch, f"flash_attention_bwd delta {label}", delta, delta_r,
                 1e-4, 1e-5)
-        del dq_r
-        dk_r, dv_r = flash_attention_dkv_ref(q, k, v, lse, delta_r, do, **kw)
-        errs["dkv"].append(max(
-            compare(torch, f"flash_attention_bwd dk {label}", dk, dk_r,
-                    *tol[dtype]),
-            compare(torch, f"flash_attention_bwd dv {label}", dv, dv_r,
-                    *tol[dtype])))
-        del dk_r, dv_r, delta_r
+        name = f"flash_attention_bwd {{}} {label}"
+        if dtype == f32:
+            errs["dq"].append(compare(torch, name.format("dq"), dq, dq_r,
+                                      *tol[dtype]))
+            dk_r, dv_r = flash_attention_dkv_ref(q, k, v, lse, delta_r, do,
+                                                 **kw)
+            errs["dkv"].append(max(
+                compare(torch, name.format("dk"), dk, dk_r, *tol[dtype]),
+                compare(torch, name.format("dv"), dv, dv_r, *tol[dtype])))
+            del dq_r, dk_r, dv_r, delta_r
+            continue
+        # bf16: one plain version at a time, the training shape's are large
+        want_b, _ = flash_attention_dq_ref(q, k, v, o, lse, do,
+                                           operand_dtype=bf16, **kw)
+        worst, err = check_bf16_grad(torch, name.format("dq"), dq, want_b,
+                                     dq_r, tol[dtype])
+        errs["dq"].append(worst)
+        kernel_err = {"dq": err}
+        del dq_r, want_b
         torch.cuda.empty_cache()
-    # timed at the training shape (last case); the plain versions and the
-    # library call materialize (B, H, S, S) fp32 scores, so fewer calls
-    few = dict(iters=3, reps=3)
+        got = {"dk": dk, "dv": dv}
+        want_f = dict(zip(("dk", "dv"), flash_attention_dkv_ref(
+            q, k, v, lse, delta_r, do, **kw)))
+        want_b = dict(zip(("dk", "dv"), flash_attention_dkv_ref(
+            q, k, v, lse, delta_r, do, operand_dtype=bf16, **kw)))
+        for n in ("dk", "dv"):
+            worst, kernel_err[n] = check_bf16_grad(
+                torch, name.format(n), got[n], want_b[n], want_f[n],
+                tol[dtype])
+            errs["dkv"].append(worst)
+        if training:
+            want_f["dq"], _ = flash_attention_dq_ref(q, k, v, o, lse, do,
+                                                     **kw)
+            for n, t in zip(("dq", "dk", "dv"), lib):
+                e = float((t.float() - want_f[n].float()).norm()
+                          / want_f[n].float().norm())
+                print(f"[kernel] {n} relative norm to the fp32 plain version "
+                      f"at the training shape: kernel {kernel_err[n]:.3e}, "
+                      f"SDPA's backward {e:.3e}", flush=True)
+        del want_f, want_b, delta_r, lib
+        torch.cuda.empty_cache()
+    # the training shape (last case): the bf16 kernels are deterministic
     kw = dict(causal=True)
+    dq2, delta2 = flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)
+    dk2, dv2 = flash_attention_bwd_dkv(q, k, v, lse, delta2, do, **kw)
+    same = all(torch.equal(a, w) for a, w in
+               ((dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)))
+    print(f"[kernel] flash_attention_bwd at the training shape, launched "
+          f"twice: dq, delta, dk, dv bit-equal: {same}", flush=True)
+    if not same:
+        fail("flash_attention_bwd: two launches on the same inputs differ")
+    del dq2, delta2, dk2, dv2
+    # timed there; the plain versions and the library call materialize
+    # (B, H, S, S) fp32 scores, so fewer calls
+    few = dict(iters=3, reps=3)
     ms_dq = timed_ms(torch, lambda: flash_attention_bwd_dq(q, k, v, o, lse,
                                                            do, **kw))
     ms_dkv = timed_ms(torch, lambda: flash_attention_bwd_dkv(
@@ -656,23 +797,39 @@ def check_backward(torch, randn, tol):
     plain_fwd = timed_ms(torch, lambda: flash_attention_fwd_ref(q, k, v, **kw),
                          **few)
     plain_dq = timed_ms(torch, lambda: flash_attention_dq_ref(
-        q, k, v, o, lse, do, **kw), **few)
+        q, k, v, o, lse, do, operand_dtype=bf16, **kw), **few)
     plain_dkv = timed_ms(torch, lambda: flash_attention_dkv_ref(
-        q, k, v, lse, delta, do, **kw), **few)
+        q, k, v, lse, delta, do, operand_dtype=bf16, **kw), **few)
     g = h // kvh
     qe, ke, ve = (t.detach().requires_grad_(True) for t in
                   (q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)))
 
-    def lib_fwd():
+    def lib_fwd(causal=True):
         with torch.no_grad():
-            F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
+            F.scaled_dot_product_attention(qe, ke, ve, is_causal=causal)
 
-    def lib_fwd_bwd():
-        out = F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
+    def lib_fwd_bwd(causal=True):
+        out = F.scaled_dot_product_attention(qe, ke, ve, is_causal=causal)
         torch.autograd.grad(out, (qe, ke, ve), do)
 
     lib_f = timed_ms(torch, lib_fwd, **few)
     lib = timed_ms(torch, lib_fwd_bwd, **few) - lib_f
+    # non-causal at the same shape: twice the work of causal, so a
+    # balanced causal grid takes about half the time
+    o_n, lse_n = flash_attention_fwd(q, k, v, causal=False)
+    _, delta_n = flash_attention_bwd_dq(q, k, v, o_n, lse_n, do, causal=False)
+    ms_dq_n = timed_ms(torch, lambda: flash_attention_bwd_dq(
+        q, k, v, o_n, lse_n, do, causal=False))
+    ms_dkv_n = timed_ms(torch, lambda: flash_attention_bwd_dkv(
+        q, k, v, lse_n, delta_n, do, causal=False))
+    lib_n = (timed_ms(torch, lambda: lib_fwd_bwd(False), **few)
+             - timed_ms(torch, lambda: lib_fwd(False), **few))
+    print(f"[time] flash attention backward at the training shape, causal / "
+          f"non-causal: dQ {ms_dq:.4f} / {ms_dq_n:.4f} ms (ratio "
+          f"{ms_dq / ms_dq_n:.4f}), dK/dV {ms_dkv:.4f} / {ms_dkv_n:.4f} ms "
+          f"(ratio {ms_dkv / ms_dkv_n:.4f}), SDPA backward {lib:.4f} / "
+          f"{lib_n:.4f} ms", flush=True)
+    del o_n, lse_n, delta_n
     # the function's work at these inputs: every visible (query, key) pair
     # of every head; the forward does 2 products of 2*D operations per
     # pair, dQ 3 (q.k, dO.v, ds.k), dK/dV 4 (q.k, dO.v, p^T dO, ds^T q)
@@ -688,7 +845,8 @@ def check_backward(torch, randn, tol):
     dq_bytes = e * (3 * n_q + 2 * n_kv + n_q) + 4 * rows * 2
     dkv_bytes = e * (2 * n_q + 2 * n_kv + 2 * n_kv) + 4 * rows * 2
     shape = (f"B={b} H={h} KV={kvh} D={d} S={sq} causal; library_ms is "
-             "SDPA's whole backward on expanded KV heads")
+             "SDPA's whole backward on expanded KV heads; plain_ms is the "
+             "plain version with bf16 operands")
     out = []
     for name, ms, plain, nbytes, prods, at in (
             ("flash_attention_bwd_dq", ms_dq, plain_dq, dq_bytes, 3, 229),

@@ -17,30 +17,67 @@
 // the same stream.
 //
 // What bounds it on the H100: operations.  At the training shape (S 4096,
-// D 64, causal) the seven S x S x D products of the two passes do ~3,000
-// operations per byte of Q/K/V/O/dO read and dQ/dK/dV written, ten times
-// the card's ~295 per byte at the bf16 tensor-core peak.
+// D 64, causal) the seven S x S x D products of the two passes (dQ: q.k,
+// dO.v, ds.k; dK/dV: the same two scores again, p^T.dO, ds^T.q) do
+// ~3,000 operations per byte of Q/K/V/O/dO read and dQ/dK/dV written,
+// ten times the card's ~295 per byte at the bf16 tensor-core peak.  The
+// two-pass design recomputes the scores in each pass (7 products against
+// a one-pass design's 5) and buys with that a result without atomics:
+// deterministic, bit-equal from launch to launch.
 //
-// What this first design does about it: little yet, on purpose -- it is
-// right and simple first.  Both passes are the flash recurrence on the
-// SIMT cores in fp32, shaped like K2: 256 threads per block, each thread
-// owning a 4 x 4 tile of scores and 4 rows x D/16 columns of its output;
-// tiles of 64 rows staged in shared memory as fp32 (transposed, so the
-// score products read float4s); tiles outside the causal / window band
-// never loaded.
-// - dQ: one block per (64-query tile, head, batch), looping over the live
-//   64-key tiles; dQ accumulates in registers and is written once.
-// - dK/dV: one block per (64-key tile, KV head, batch), looping over the G
-//   query heads of that KV head and, for each, over the live 64-query
-//   tiles -- the Pallas grid (b, kvh, nk, nq, g) with its scratch held
-//   over q and g becomes that loop.  dK and dV accumulate in registers
-//   and are written once: no atomics, so the result is deterministic.
-// A thread's output columns are tx + 16 j, so the products that read the
-// transposed tiles by column conflict at most two ways in shared memory
-// and the final stores are coalesced.  Scores, probabilities and every
-// accumulator are fp32; the outputs are rounded once.  Moving the
-// products onto `mma`/`wgmma` with bf16 operands is later work, measured
-// against this one.
+// Two routes, chosen by the dtype the caller passes:
+// - bfloat16 (every call of the model, whose dtype is bf16): the
+//   tensor-core kernels `flash_bwd_dq_tc` and `flash_bwd_dkv_tc` below.
+// - float32 (only the checks use it): the SIMT kernels `flash_bwd_dq_kernel`
+//   and `flash_bwd_dkv_kernel`, which compute every product in fp32 FMAs
+//   and so agree with the fp32 plain versions to summation order.  The
+//   tensor cores take no fp32 operands short of TF32, which would round
+//   the inputs; the fp32 route keeps the reference's arithmetic.
+//
+// The bf16 design, FlashAttention-2 shaped on `mma.sync.m16n8k16` (bf16
+// operands, fp32 accumulators; chosen over `wgmma` + TMA because its
+// fragments let the two score products feed the next two products from
+// registers with no shared-memory round trip, and because it is simpler
+// to make right first).  128 threads a block: 4 warps, each owning 16 of
+// the block's 64 rows.  Tiles sit in shared memory as bf16, one copy
+// each, rows padded by 8 elements (16 bytes) so that the 8 row addresses
+// of every `ldmatrix` fall in distinct bank groups; `ldmatrix` reads an
+// operand in its stored orientation and `ldmatrix.trans` transposed, so
+// each of Q, K, V, dO is read both ways from that one copy.  The loop's
+// tiles are double-buffered with `cp.async` (16 bytes a thread, zero-fill
+// past the ragged tail): tile i + 1 loads while tile i is computed.
+// - dK/dV (`flash_bwd_dkv_tc`): one block per (64-key tile, KV head,
+//   batch); K and V stay in shared memory; the block loops over the G
+//   query heads and, for each, over the live query tiles.  Each warp
+//   computes S^T = K Q^T and dP^T = V dO^T (16 keys x the tile's queries),
+//   then P^T = exp2((S^T scale - lse) log2e) and dS^T = P^T (dP^T - delta)
+//   scale in registers, and dV += P^T dO, dK += dS^T Q with P^T and
+//   dS^T taken straight from the accumulator registers, repacked as bf16
+//   A fragments; Q and dO come through `ldmatrix.trans`.  dK and dV stay
+//   in fp32 registers and are written once.  The grid is one dimension
+//   with the key tile slowest, so under a causal mask the heaviest blocks
+//   (the first keys, which every later query sees) are dispatched first
+//   and the light ones fill the tail.
+// - dQ (`flash_bwd_dq_tc`): one block per (64-query tile, head, batch);
+//   Q and dO stay in shared memory, K and V tiles are double-buffered.
+//   delta = rowsum(dO * O) first, then per key tile S = Q K^T, dP = dO
+//   V^T, dS = P (dP - delta) scale, and dQ += dS K with dS from registers
+//   and K through `ldmatrix.trans`.  Causal grids dispatch the last query
+//   tiles, the heaviest, first.
+// The loop's tile is 64 rows at head dims up to 64 and 32 at 128, which
+// keeps dK + dV (128 fp32 a thread at D 128) and the score tiles in
+// registers.  Only tiles that cross the causal / window band or the
+// ragged tail evaluate the mask; tiles outside the band are never loaded.
+// Rounding: S and dP are exact bf16 products summed in fp32; the exponent
+// s scale - lse is formed as the plain version forms it, so that P and dS
+// round to the same bf16 values as there except where the two fp32 values
+// straddle a rounding boundary.  P and dS
+// are rounded to bf16 where they become operands of dV += P^T dO, dK +=
+// dS^T Q and dQ += dS K -- as every tensor-core flash backward does --
+// and dS is formed from the fp32 P, not the rounded one.  The Pallas
+// kernel keeps them in fp32; the plain versions round them at the same
+// two places when called with `operand_dtype=torch.bfloat16`.  Outputs
+// are rounded once from fp32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -48,20 +85,14 @@
 
 namespace {
 
-constexpr int kB = 64;           // rows of every tile, queries and keys
-constexpr int kThreads = 256;    // 16 x 16: 4 rows x 4 columns each
+constexpr int kB = 64;           // rows of a block's own tile, both routes
+constexpr int kThreads = 256;    // SIMT: 16 x 16, 4 rows x 4 columns each
 constexpr int kLT = kB + 4;      // padded row of a transposed (D x 64) tile
 constexpr int kLS = kB + 1;      // padded row of a (64 x 64) score tile
 constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 struct Strides {
   long long b, h, s;  // in elements; the head dim is contiguous
@@ -77,6 +108,10 @@ struct Mask {
     return true;
   }
 };
+
+// ===========================================================================
+// fp32: the SIMT kernels, every product in fp32 FMAs
+// ===========================================================================
 
 // rows [row0, row0 + 64) of one (S, D) matrix -> dst[d * kLT + r] as fp32,
 // zeros past `rows`
@@ -345,6 +380,437 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ===========================================================================
+// bf16: the tensor-core kernels
+// ===========================================================================
+
+using bf16 = __nv_bfloat16;
+constexpr int kTcThreads = 128;  // 4 warps, 16 of the block's 64 rows each
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct Tile {
+  static constexpr int kPitch = D + 8;  // bf16 a shared row: 16 bytes of pad
+  static constexpr int kInner = D <= 64 ? 64 : 32;  // rows of a loop tile
+  // shared memory: the two 64-row tiles held, the two double-buffered ones
+  static constexpr size_t kSmem =
+      sizeof(bf16) * (2 * kB + 4 * kInner) * kPitch;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, asynchronously; zeros when !ok (nothing read)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8 x 8 bf16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8.  Without .trans lane l receives row l / 4,
+// columns 2 (l % 4) and 2 (l % 4) + 1 of each matrix; with .trans, the
+// same of the transposed matrix.
+__device__ __forceinline__ void ldsm4(uint32_t r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm4_t(uint32_t r[4], const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c (16 x 8 fp32) += a (16 x 16 bf16) . b (16 x 8 bf16)
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo: low half
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// rows [row0, row0 + ROWS) of one (S, D) bf16 matrix -> dst (ROWS x pitch),
+// zeros past `rows`
+template <int ROWS, int D>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          long long stride, int row0,
+                                          int rows) {
+  constexpr int kChunks = D / 8;  // 16-byte pieces of a row
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += kTcThreads) {
+    const int r = i / kChunks, c = (i % kChunks) * 8;
+    const int row = row0 + r;
+    const bool ok = row < rows;
+    cp_async16(dst + r * Tile<D>::kPitch + c,
+               src + (ok ? row : 0) * stride + c, ok);
+  }
+}
+
+// ROWS fp32 of one (S,) vector, zeros past `rows`
+template <int ROWS>
+__device__ __forceinline__ void load_vec(float* dst, const float* src,
+                                         int row0, int rows) {
+  for (int i = threadIdx.x; i < ROWS; i += kTcThreads) {
+    const int row = row0 + i;
+    const bool ok = row < rows;
+    cp_async4(dst + i, src + (ok ? row : 0), ok);
+  }
+}
+
+// acc (16 x 8 NT) += a . b^T over D: a is 16 rows, b is 8 NT rows, both
+// (rows x D) row-major in shared memory, read as stored
+template <int D, int NT>
+__device__ __forceinline__ void mma_abt(float (*acc)[4], const bf16* a,
+                                        const bf16* b, int lane) {
+  constexpr int P = Tile<D>::kPitch;
+#pragma unroll
+  for (int kc = 0; kc < D / 16; ++kc) {
+    uint32_t af[4];
+    ldsm4(af, a + (lane & 15) * P + kc * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int n = 0; n < NT / 2; ++n) {
+      uint32_t bf[4];
+      ldsm4(bf, b + (n * 16 + (lane & 7) + ((lane >> 4) << 3)) * P +
+                    kc * 16 + ((lane >> 3) & 1) * 8);
+      mma16816(acc[2 * n], af, bf[0], bf[1]);
+      mma16816(acc[2 * n + 1], af, bf[2], bf[3]);
+    }
+  }
+}
+
+// acc (16 x D) += a . b: a is 16 x 16 KC as A fragments in registers, b
+// is 16 KC rows x D row-major in shared memory, read transposed
+template <int D, int KC>
+__device__ __forceinline__ void mma_ab(float (*acc)[4], uint32_t (*a)[4],
+                                       const bf16* b, int lane) {
+  constexpr int P = Tile<D>::kPitch;
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+    for (int n = 0; n < D / 16; ++n) {
+      uint32_t bf[4];
+      ldsm4_t(bf, b + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
+                      n * 16 + (lane >> 4) * 8);
+      mma16816(acc[2 * n], a[kc], bf[0], bf[1]);
+      mma16816(acc[2 * n + 1], a[kc], bf[2], bf[3]);
+    }
+  }
+}
+
+// a 16 x 16 KC fp32 accumulator (2 KC tiles of 16 x 8) rounded to bf16 A
+// fragments: tiles 2j and 2j + 1 hold columns [16 j, 16 j + 16) in exactly
+// the places of each lane that the A operand of one m16n8k16 takes them
+template <int KC>
+__device__ __forceinline__ void to_a_frags(uint32_t (*a)[4], float (*c)[4]) {
+#pragma unroll
+  for (int j = 0; j < KC; ++j) {
+    a[j][0] = pack_bf16(c[2 * j][0], c[2 * j][1]);
+    a[j][1] = pack_bf16(c[2 * j][2], c[2 * j][3]);
+    a[j][2] = pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]);
+    a[j][3] = pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3]);
+  }
+}
+
+// every pair of queries [q0, q0 + nq) x keys [k0, k0 + nk) visible: the
+// tile needs no mask
+__device__ __forceinline__ bool tile_full(const Mask& m, int q0, int nq,
+                                          int k0, int nk) {
+  if (q0 + nq > m.Sq || k0 + nk > m.Sk) return false;
+  const int qpos = m.q_offset + q0;
+  if (m.causal && k0 + nk - 1 > qpos) return false;
+  if (m.window > 0 && k0 <= qpos + nq - 1 - m.window) return false;
+  return true;
+}
+
+// a warp's 16 x D fp32 accumulator -> rows row0 + lane / 4 and row0 +
+// lane / 4 + 8 of `out` (row stride `stride`), rows past `rows` dropped
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* out, long long stride,
+                                           float (*acc)[4], int row0,
+                                           int rows, int lane) {
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = row0 + (lane >> 2) + half * 8;
+    if (row >= rows) continue;
+    bf16* dst = out + row * stride + (lane & 3) * 2;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
+          __floats2bfloat162_rn(acc[n][2 * half], acc[n][2 * half + 1]);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// dQ (and delta): a 1-D grid of ceil(Sq / 64) x H x B blocks
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                const bf16* __restrict__ v, const bf16* __restrict__ o,
+                const bf16* __restrict__ dout, const float* __restrict__ lse,
+                float* __restrict__ delta, bf16* __restrict__ dq, int B,
+                int H, int KVH, Mask mask, Strides sq, Strides sk, Strides sv,
+                Strides so, Strides sdo, Strides sdq, float scale) {
+  constexpr int P = Tile<D>::kPitch, N = Tile<D>::kInner;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);  // 64 x P    Q
+  bf16* dos = qs + kB * P;                      // 64 x P    dO
+  bf16* ks = dos + kB * P;                      // 2 x N x P K tiles
+  bf16* vs = ks + 2 * N * P;                    // 2 x N x P V tiles
+  __shared__ float lse_s[kB], delta_s[kB];
+
+  const int Sq = mask.Sq, Sk = mask.Sk;
+  // causal: the last query tiles see the most keys; dispatch them first
+  const int n_qt = (Sq + kB - 1) / kB;
+  const int t = blockIdx.x / (H * B), hb = blockIdx.x % (H * B);
+  const int q_start = (mask.causal ? n_qt - 1 - t : t) * kB;
+  const int h = hb % H, b = hb / H;
+  const int kvh = h / (H / KVH);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const size_t row_base = ((size_t)b * H + h) * Sq;
+  const bf16* kb = k + b * sk.b + kvh * sk.h;
+  const bf16* vb = v + b * sv.b + kvh * sv.h;
+
+  load_rows<kB, D>(qs, q + b * sq.b + h * sq.h, sq.s, q_start, Sq);
+  load_rows<kB, D>(dos, dout + b * sdo.b + h * sdo.h, sdo.s, q_start, Sq);
+  load_vec<kB>(lse_s, lse + row_base, q_start, Sq);
+  cp_async_commit();
+
+  // key tiles any row of this tile can see (the Pallas `_tile_live`)
+  const int q_last = min(q_start + kB, Sq) - 1;
+  const int k_end = mask.causal ? min(Sk, mask.q_offset + q_last + 1) : Sk;
+  const int k_begin =
+      mask.window > 0 ? max(0, mask.q_offset + q_start - mask.window + 1) : 0;
+  const int k_first = (k_begin / N) * N;
+  const int n_tiles = k_end > k_first ? (k_end - k_first + N - 1) / N : 0;
+  auto issue = [&](int it) {
+    const int s = it & 1, k0 = k_first + it * N;
+    load_rows<N, D>(ks + s * N * P, kb, sk.s, k0, Sk);
+    load_rows<N, D>(vs + s * N * P, vb, sv.s, k0, Sk);
+  };
+  if (n_tiles > 0) issue(0);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q, dO and lse have landed; the first K/V may not
+  __syncthreads();
+
+  {  // delta = rowsum(dO * O): 2 threads a row, D / 2 columns each
+    const int r = threadIdx.x >> 1, c0 = (threadIdx.x & 1) * (D / 2);
+    const int qi = q_start + r;
+    float acc = 0.f;
+    if (qi < Sq) {
+      const bf16* orow = o + b * so.b + h * so.h + qi * so.s + c0;
+      const bf16* drow = dos + r * P + c0;
+#pragma unroll
+      for (int d = 0; d < D / 2; d += 2) {
+        const float2 of = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(orow + d));
+        const float2 df = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(drow + d));
+        acc = fmaf(of.x, df.x, acc);
+        acc = fmaf(of.y, df.y, acc);
+      }
+    }
+    acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+    if ((threadIdx.x & 1) == 0) {
+      delta_s[r] = acc;
+      if (qi < Sq) delta[row_base + qi] = acc;
+    }
+  }
+  __syncthreads();
+
+  // this lane's two rows of the warp's 16: lane / 4 and lane / 4 + 8
+  const int r0 = warp * 16 + (lane >> 2);
+  const float ls[2] = {lse_s[r0], lse_s[r0 + 8]};
+  const float dl[2] = {delta_s[r0], delta_s[r0 + 8]};
+  const bf16* qw = qs + warp * 16 * P;
+  const bf16* dow = dos + warp * 16 * P;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile `it` landed; all are done with tile it - 1
+    if (it + 1 < n_tiles) issue(it + 1);
+    cp_async_commit();
+    const int k0 = k_first + it * N;
+    const bf16* kt = ks + (it & 1) * N * P;
+    const bf16* vt = vs + (it & 1) * N * P;
+
+    float s[N / 8][4], dp[N / 8][4];
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    mma_abt<D, N / 8>(s, qw, kt, lane);    // S = Q K^T
+    mma_abt<D, N / 8>(dp, dow, vt, lane);  // dP = dO V^T
+
+    const bool full = tile_full(mask, q_start + warp * 16, 16, k0, N);
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = exp2f((s[n][e] * scale - ls[i]) * kLog2e);
+        if (!full && !mask.visible(q_start + r0 + 8 * i,
+                                   k0 + n * 8 + (lane & 3) * 2 + (e & 1)))
+          p = 0.f;
+        dp[n][e] = p * (dp[n][e] - dl[i]) * scale;  // dS
+      }
+    uint32_t ds[N / 16][4];
+    to_a_frags<N / 16>(ds, dp);
+    mma_ab<D, N / 16>(acc, ds, kt, lane);  // dQ += dS K
+  }
+  cp_async_wait<0>();
+
+  store_rows<D>(dq + b * sdq.b + h * sdq.h, sdq.s, acc, q_start + warp * 16,
+                Sq, lane);
+}
+
+// ---------------------------------------------------------------------------
+// dK, dV: a 1-D grid of ceil(Sk / 64) x KVH x B blocks
+// ---------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dk,
+                 bf16* __restrict__ dv, int B, int H, int KVH, Mask mask,
+                 Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
+                 Strides sdv, float scale) {
+  constexpr int P = Tile<D>::kPitch, N = Tile<D>::kInner;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* ks = reinterpret_cast<bf16*>(tc_smem);  // 64 x P    K
+  bf16* vs = ks + kB * P;                       // 64 x P    V
+  bf16* qs = vs + kB * P;                       // 2 x N x P Q tiles
+  bf16* dos = qs + 2 * N * P;                   // 2 x N x P dO tiles
+  __shared__ float lse_s[2][N], delta_s[2][N];
+
+  const int Sq = mask.Sq, Sk = mask.Sk;
+  // the key tile is the slowest index: under a causal mask the first keys,
+  // which every later query sees, make the heaviest blocks and go first
+  const int kvb = blockIdx.x % (KVH * B);
+  const int k_start = (blockIdx.x / (KVH * B)) * kB;
+  const int kvh = kvb % KVH, b = kvb / KVH;
+  const int G = H / KVH;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  load_rows<kB, D>(ks, k + b * sk.b + kvh * sk.h, sk.s, k_start, Sk);
+  load_rows<kB, D>(vs, v + b * sv.b + kvh * sv.h, sv.s, k_start, Sk);
+
+  // query tiles that can see any key of this tile (the Pallas `_tile_live`)
+  const int k_last = min(k_start + kB, Sk) - 1;
+  const int q_begin = mask.causal ? max(0, k_start - mask.q_offset) : 0;
+  const int q_end = mask.window > 0
+                        ? min(Sq, k_last - mask.q_offset + mask.window)
+                        : Sq;
+  const int q_first = (q_begin / N) * N;
+  const int n_tiles = q_end > q_first ? (q_end - q_first + N - 1) / N : 0;
+  const int total = G * n_tiles;  // (query head, query tile) pairs
+  auto issue = [&](int it) {
+    const int s = it & 1, h = kvh * G + it / n_tiles;
+    const int q0 = q_first + (it % n_tiles) * N;
+    const size_t row_base = ((size_t)b * H + h) * Sq;
+    load_rows<N, D>(qs + s * N * P, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
+    load_rows<N, D>(dos + s * N * P, dout + b * sdo.b + h * sdo.h, sdo.s,
+                    q0, Sq);
+    load_vec<N>(lse_s[s], lse + row_base, q0, Sq);
+    load_vec<N>(delta_s[s], delta + row_base, q0, Sq);
+  };
+  if (total > 0) issue(0);
+  cp_async_commit();
+
+  const int kw = k_start + warp * 16;  // this warp's first key
+  const bf16* kws = ks + warp * 16 * P;
+  const bf16* vws = vs + warp * 16 * P;
+  float acc_k[D / 8][4], acc_v[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
+
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile `it` landed; all are done with tile it - 1
+    if (it + 1 < total) issue(it + 1);
+    cp_async_commit();
+    const int s = it & 1;
+    const int q0 = q_first + (it % n_tiles) * N;
+    const bf16* qt = qs + s * N * P;
+    const bf16* dot = dos + s * N * P;
+
+    float st[N / 8][4], dpt[N / 8][4];
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+    mma_abt<D, N / 8>(st, kws, qt, lane);    // S^T = K Q^T
+    mma_abt<D, N / 8>(dpt, vws, dot, lane);  // dP^T = V dO^T
+
+    const bool full = tile_full(mask, q0, N, kw, 16);
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = n * 8 + (lane & 3) * 2 + (e & 1);  // query in tile
+        float p = exp2f((st[n][e] * scale - lse_s[s][c]) * kLog2e);
+        if (!full && !mask.visible(q0 + c, kw + (lane >> 2) + (e >> 1) * 8))
+          p = 0.f;
+        st[n][e] = p;                                         // P^T
+        dpt[n][e] = p * (dpt[n][e] - delta_s[s][c]) * scale;  // dS^T
+      }
+    uint32_t pa[N / 16][4], dsa[N / 16][4];
+    to_a_frags<N / 16>(pa, st);
+    to_a_frags<N / 16>(dsa, dpt);
+    mma_ab<D, N / 16>(acc_v, pa, dot, lane);  // dV += P^T dO
+    mma_ab<D, N / 16>(acc_k, dsa, qt, lane);  // dK += dS^T Q
+  }
+  cp_async_wait<0>();
+
+  store_rows<D>(dk + b * sdk.b + kvh * sdk.h, sdk.s, acc_k, kw, Sk, lane);
+  store_rows<D>(dv + b * sdv.b + kvh * sdv.h, sdv.s, acc_v, kw, Sk, lane);
+}
+
+// ===========================================================================
+// launchers
+// ===========================================================================
+
 // Raise the opt-in shared-memory limit of one kernel once per device (the
 // attribute is per device; this also keeps the call out of CUDA-graph
 // captures after the first launch).
@@ -374,53 +840,91 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
+// fp32: the SIMT kernels
+template <int D>
 int launch_dq(const Args& a) {
   const size_t smem = sizeof(float) * (4 * (size_t)D * kLT + kB * kLS);
   static size_t configured[kMaxDevices];
-  cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, D>, smem, configured);
+  cudaError_t e = allow_smem(flash_bwd_dq_kernel<float, D>, smem, configured);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((a.mask.Sq + kB - 1) / kB, a.H, a.B);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.o),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<float*>(a.delta), static_cast<T*>(a.dq), a.H, a.KVH, a.mask,
-      a.s[0], a.s[1], a.s[2], a.s[3], a.s[4], a.s[5], a.scale);
+  flash_bwd_dq_kernel<float, D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.o),
+      static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<float*>(a.delta), static_cast<float*>(a.dq), a.H, a.KVH,
+      a.mask, a.s[0], a.s[1], a.s[2], a.s[3], a.s[4], a.s[5], a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dkv(const Args& a) {
   const size_t smem =
       sizeof(float) * (4 * (size_t)D * kLT + 2 * kB * kLS);
   static size_t configured[kMaxDevices];
-  cudaError_t e = allow_smem(flash_bwd_dkv_kernel<T, D>, smem, configured);
+  cudaError_t e =
+      allow_smem(flash_bwd_dkv_kernel<float, D>, smem, configured);
   if (e != cudaSuccess) return (int)e;
   dim3 grid((a.mask.Sk + kB - 1) / kB, a.KVH, a.B);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout),
+  flash_bwd_dkv_kernel<float, D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
-      static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.H, a.KVH, a.mask,
-      a.s[0], a.s[1], a.s[2], a.s[3], a.s[4], a.s[5], a.scale);
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.H, a.KVH,
+      a.mask, a.s[0], a.s[1], a.s[2], a.s[3], a.s[4], a.s[5], a.scale);
   return (int)cudaGetLastError();
 }
 
-template <bool DQ, typename T>
-int by_dim(int D, const Args& a) {
-  switch (D) {
-    case 16: return DQ ? launch_dq<T, 16>(a) : launch_dkv<T, 16>(a);
-    case 32: return DQ ? launch_dq<T, 32>(a) : launch_dkv<T, 32>(a);
-    case 64: return DQ ? launch_dq<T, 64>(a) : launch_dkv<T, 64>(a);
-    case 128: return DQ ? launch_dq<T, 128>(a) : launch_dkv<T, 128>(a);
-    default: return (int)cudaErrorInvalidValue;
-  }
+// bf16: the tensor-core kernels
+template <int D>
+int launch_dq_tc(const Args& a) {
+  static size_t configured[kMaxDevices];
+  cudaError_t e =
+      allow_smem(flash_bwd_dq_tc<D>, Tile<D>::kSmem, configured);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (a.mask.Sq + kB - 1) / kB * a.H * a.B;
+  flash_bwd_dq_tc<D><<<blocks, kTcThreads, Tile<D>::kSmem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.o),
+      static_cast<const bf16*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<float*>(a.delta), static_cast<bf16*>(a.dq), a.B, a.H,
+      a.KVH, a.mask, a.s[0], a.s[1], a.s[2], a.s[3], a.s[4], a.s[5],
+      a.scale);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_tc(const Args& a) {
+  static size_t configured[kMaxDevices];
+  cudaError_t e =
+      allow_smem(flash_bwd_dkv_tc<D>, Tile<D>::kSmem, configured);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (a.mask.Sk + kB - 1) / kB * a.KVH * a.B;
+  flash_bwd_dkv_tc<D><<<blocks, kTcThreads, Tile<D>::kSmem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv), a.B, a.H, a.KVH,
+      a.mask, a.s[0], a.s[1], a.s[2], a.s[3], a.s[4], a.s[5], a.scale);
+  return (int)cudaGetLastError();
+}
+
+// dtype 0 (bf16) -> the tensor-core kernels, 1 (fp32) -> the SIMT ones
+template <bool DQ, int D>
+int launch(int dtype, const Args& a) {
+  if (dtype == 0) return DQ ? launch_dq_tc<D>(a) : launch_dkv_tc<D>(a);
+  return DQ ? launch_dq<D>(a) : launch_dkv<D>(a);
 }
 
 template <bool DQ>
-int by_type(int dtype, int D, const Args& a) {
-  return dtype == 0 ? by_dim<DQ, __nv_bfloat16>(D, a) : by_dim<DQ, float>(D, a);
+int by_dim(int dtype, int D, const Args& a) {
+  switch (D) {
+    case 16: return launch<DQ, 16>(dtype, a);
+    case 32: return launch<DQ, 32>(dtype, a);
+    case 64: return launch<DQ, 64>(dtype, a);
+    case 128: return launch<DQ, 128>(dtype, a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 Args make_args(int B, int H, int KVH, int Sq, int Sk, const long long* st,
@@ -442,8 +946,10 @@ Args make_args(int B, int H, int KVH, int Sq, int Sk, const long long* st,
 // Both entry points: `strides` is a host array of 18 int64, the (batch,
 // head, sequence) element strides of six tensors in the order named
 // below; every head dim is contiguous, lse and delta are contiguous
-// (B, H, Sq) fp32.  dtype: 0 = bfloat16, 1 = float32.  Returns
-// cudaGetLastError() after the launch.
+// (B, H, Sq) fp32.  dtype: 0 = bfloat16 (the tensor-core kernels, whose
+// `cp.async` needs every input row 16-byte aligned: base pointers and the
+// three strides multiples of 8 elements), 1 = float32 (the SIMT kernels).
+// Returns cudaGetLastError() after the launch.
 
 // dQ and delta.  Stride order: q, k, v, o, dO, dQ.
 extern "C" int flash_attention_bwd_dq(
@@ -455,7 +961,7 @@ extern "C" int flash_attention_bwd_dq(
                      scale, stream);
   a.q = q; a.k = k; a.v = v; a.o = o; a.dout = dout; a.lse = lse;
   a.delta = delta; a.dq = dq;
-  return by_type<true>(dtype, D, a);
+  return by_dim<true>(dtype, D, a);
 }
 
 // dK and dV, from the delta the dQ pass wrote.  Stride order: q, k, v, dO,
@@ -469,5 +975,5 @@ extern "C" int flash_attention_bwd_dkv(
                      scale, stream);
   a.q = q; a.k = k; a.v = v; a.dout = dout; a.lse = lse;
   a.delta = const_cast<void*>(delta); a.dk = dk; a.dv = dv;
-  return by_type<false>(dtype, D, a);
+  return by_dim<false>(dtype, D, a);
 }

@@ -23,8 +23,16 @@ reproduces the reference's bf16 numbers.  The kernels keep scores and
 probabilities in fp32 throughout, so on bf16 inputs the forward differs
 from that version by the reference's own bf16 roundings (about 1e-2).
 :func:`flash_attention_bwd_ref` is the Pallas backward's arithmetic:
-fp32 throughout from the saved ``lse``, outputs rounded once, as the
-kernels do.
+fp32 throughout from the saved ``lse``, outputs rounded once.
+
+The backward kernels (``csrc/flash_attention_bwd.cu``) take two routes
+by dtype.  bf16 inputs -- every call of the model -- go to tensor-core
+kernels (``mma.sync`` with bf16 operands, fp32 accumulators), which
+round P and dS to bf16 where they become operands of dV = P^T dO,
+dK = dS^T Q and dQ = dS K, as every tensor-core flash backward does; the
+plain versions do the same with ``operand_dtype=torch.bfloat16``.  fp32
+inputs go to SIMT kernels that keep every product in fp32, as the plain
+versions' default ``operand_dtype=None`` does.
 """
 
 from __future__ import annotations
@@ -102,6 +110,18 @@ def _unit_last(*ts):
     return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in ts)
 
 
+def _rows_aligned(*ts):
+    """bf16 tensors for the backward's ``cp.async``: each (batch, head,
+    sequence) row 16-byte aligned, copied only where the base pointer or a
+    stride is not (the model's layouts always are)."""
+    def ok(t):
+        return t.data_ptr() % 16 == 0 and all(
+            s % 8 == 0 for s in t.stride()[:3])
+    return tuple(t if t.dtype != torch.bfloat16 or ok(t)
+                 else t.clone(memory_format=torch.contiguous_format)
+                 for t in ts)
+
+
 def _model_layout(b, s, n, d, like):
     """(B, n, S, D) output stored in (B, S, n, D) memory order, the
     model's layout, so the model's ``transpose(1, 2)`` back is free."""
@@ -148,6 +168,12 @@ flash_attention_fwd.launches = 0
 # Backward: plain versions
 # ---------------------------------------------------------------------------
 
+def _operand(x, dtype):
+    """``x`` rounded to ``dtype`` (a tensor-core product's operand type)
+    and back to fp32; ``None``: ``x`` as it is."""
+    return x if dtype is None else x.to(dtype).float()
+
+
 def _bwd_probs(q, k, v, lse, delta, do, causal, window, q_offset):
     """fp32 p and ds (B, H, Sq, Sk) recomputed from ``lse``, with the KV
     heads expanded to the query heads; also the fp32 q, expanded k, dO."""
@@ -165,33 +191,41 @@ def _bwd_probs(q, k, v, lse, delta, do, causal, window, q_offset):
 
 
 def flash_attention_dq_ref(q, k, v, o, lse, do, *, causal: bool = True,
-                           window: int = 0, q_offset: int = 0):
+                           window: int = 0, q_offset: int = 0,
+                           operand_dtype=None):
     """Plain version of the dQ pass -> (dq in q's dtype, delta (B, H, Sq)
-    fp32 = rowsum(dO * O))."""
+    fp32 = rowsum(dO * O)).  fp32 arithmetic; ``operand_dtype=
+    torch.bfloat16`` rounds ds before ds.K, as the bf16 kernel does."""
     delta = (do.float() * o.float()).sum(-1)
     _, ds, _, k32, _ = _bwd_probs(q, k, v, lse, delta, do, causal, window,
                                   q_offset)
-    return torch.matmul(ds, k32).to(q.dtype), delta
+    return (torch.matmul(_operand(ds, operand_dtype), k32).to(q.dtype),
+            delta)
 
 
 def flash_attention_dkv_ref(q, k, v, lse, delta, do, *, causal: bool = True,
-                            window: int = 0, q_offset: int = 0):
+                            window: int = 0, q_offset: int = 0,
+                            operand_dtype=None):
     """Plain version of the dK/dV pass -> (dk, dv) in k's dtype, each
-    summed over the G query heads of its KV head."""
+    summed over the G query heads of its KV head.  fp32 arithmetic;
+    ``operand_dtype=torch.bfloat16`` rounds p and ds (ds formed from the
+    unrounded p) before p^T.dO and ds^T.Q, as the bf16 kernel does."""
     kvh = k.shape[1]
     g = q.shape[1] // kvh
     p, ds, q32, _, do32 = _bwd_probs(q, k, v, lse, delta, do, causal, window,
                                      q_offset)
-    dv = torch.matmul(p.transpose(-1, -2), do32)
-    dk = torch.matmul(ds.transpose(-1, -2), q32)
+    dv = torch.matmul(_operand(p, operand_dtype).transpose(-1, -2), do32)
+    dk = torch.matmul(_operand(ds, operand_dtype).transpose(-1, -2), q32)
     return (dk.unflatten(1, (kvh, g)).sum(2).to(k.dtype),
             dv.unflatten(1, (kvh, g)).sum(2).to(v.dtype))
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
-                            window: int = 0, q_offset: int = 0):
+                            window: int = 0, q_offset: int = 0,
+                            operand_dtype=None):
     """Plain version of the whole backward -> (dq, dk, dv)."""
-    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              operand_dtype=operand_dtype)
     dq, delta = flash_attention_dq_ref(q, k, v, o, lse, do, **kw)
     return (dq,) + flash_attention_dkv_ref(q, k, v, lse, delta, do, **kw)
 
@@ -219,9 +253,12 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
     stored in (B, Sq, H, D) order, delta (B, H, Sq) fp32).
 
     Any strides with a contiguous head dim are read in place (a tensor
-    whose head dim is strided is copied).  On CPU tensors this is
-    :func:`flash_attention_dq_ref`; on CUDA tensors it launches the
-    kernel or raises."""
+    whose head dim is strided is copied, and a bf16 one whose rows are not
+    16-byte aligned).  bf16 launches the tensor-core kernel, which rounds
+    ds to bf16 for ds.K (its plain version: ``operand_dtype=
+    torch.bfloat16``); fp32 the SIMT kernel, fp32 throughout.  On CPU
+    tensors this is :func:`flash_attention_dq_ref` in fp32; on CUDA
+    tensors it launches the kernel or raises."""
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     if q.device.type == "cpu":
         return flash_attention_dq_ref(q, k, v, o, lse, do, **kw)
@@ -233,7 +270,7 @@ def flash_attention_bwd_dq(q, k, v, o, lse, do, *, causal: bool = True,
             or do.dtype != q.dtype or lse.shape != (b, h, sq):
         raise ValueError("flash_attention_bwd_dq: o and do must match q, "
                          "lse be (B, H, Sq)")
-    q, k, v, o, do = _unit_last(q, k, v, o, do)
+    q, k, v, o, do = _rows_aligned(*_unit_last(q, k, v, o, do))
     lse = lse.float().contiguous()
     dq = _model_layout(b, sq, h, d, q)
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
@@ -252,10 +289,11 @@ flash_attention_bwd_dq.launches = 0
 def flash_attention_bwd_dkv(q, k, v, lse, delta, do, *, causal: bool = True,
                             window: int = 0, q_offset: int = 0):
     """The dK/dV pass, from the ``delta`` of the dQ pass -> (dk, dv)
-    (B, KVH, Sk, D), stored in (B, Sk, KVH, D) order.  Strides as
-    :func:`flash_attention_bwd_dq`.  On CPU tensors this is
-    :func:`flash_attention_dkv_ref`; on CUDA tensors it launches the
-    kernel or raises."""
+    (B, KVH, Sk, D), stored in (B, Sk, KVH, D) order.  Strides and the
+    two routes as :func:`flash_attention_bwd_dq`; the bf16 kernel rounds p
+    and ds for p^T.dO and ds^T.Q.  On CPU tensors this is
+    :func:`flash_attention_dkv_ref` in fp32; on CUDA tensors it launches
+    the kernel or raises."""
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     if q.device.type == "cpu":
         return flash_attention_dkv_ref(q, k, v, lse, delta, do, **kw)
@@ -267,7 +305,7 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, *, causal: bool = True,
             or lse.shape != (b, h, sq) or delta.shape != (b, h, sq):
         raise ValueError("flash_attention_bwd_dkv: do must match q, lse and "
                          "delta be (B, H, Sq)")
-    q, k, v, do = _unit_last(q, k, v, do)
+    q, k, v, do = _rows_aligned(*_unit_last(q, k, v, do))
     lse, delta = lse.float().contiguous(), delta.float().contiguous()
     dk, dv = _model_layout(b, sk, kvh, d, k), _model_layout(b, sk, kvh, d, v)
     if sk == 0:

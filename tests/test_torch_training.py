@@ -38,6 +38,7 @@ from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention_bwd_dq,
                                                  flash_attention_bwd_ref,
                                                  flash_attention_fwd_ref)
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm_ref
 from repro_torch.launch.train import train
 from repro_torch.models import layers as TL
@@ -91,6 +92,61 @@ def test_flash_attention_bwd_ref_matches_pallas(b, kvh, s, d, causal,
         assert torch.equal(g, w)
 
 
+# ---------------------------------------------------------------------------
+# K5 with bf16 operands: the plain versions round p and ds where the bf16
+# tensor-core kernels do
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,h,kvh,sq,sk,d,causal,window,q_offset", [
+    (2, 4, 2, 192, 192, 64, True, 0, 0),       # causal GQA
+    (1, 2, 2, 128, 128, 16, False, 0, 0),      # non-causal, head dim 16
+    (1, 8, 2, 256, 256, 64, True, 100, 0),     # sliding window
+    (1, 4, 2, 128, 192, 128, True, 0, 64),     # q_offset, head dim 128
+])
+def test_flash_attention_bwd_ref_bf16_operands(b, h, kvh, sq, sk, d, causal,
+                                               window, q_offset):
+    """bf16 inputs.  The plain backward with ``operand_dtype=torch.bfloat16``
+    lies within 1e-2 relative norm of the fp32 plain version and of the
+    Pallas backward (interpreted, fp32 on the same values), and more than
+    1e-4 from the fp32 plain version, so the rounding is applied (measured
+    ~2.6e-3); ``operand_dtype=None`` is the default call, bit for bit.
+    The Pallas kernels take Sq == Sk and no offset: the ``q_offset``
+    rows before the queries are zero queries with zero dO, which add
+    nothing to dK or dV."""
+    rng = np.random.default_rng(sq + sk + d + window)
+
+    def bf16(shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(torch.bfloat16)
+
+    q, do = bf16((b, h, sq, d)), bf16((b, h, sq, d))
+    k, v = bf16((b, kvh, sk, d)), bf16((b, kvh, sk, d))
+    pad = np.zeros((b, h, sk - sq, d), np.float32)
+
+    def padded(t):
+        return jnp.asarray(np.concatenate([pad, t.float().numpy()], axis=2))
+
+    kw = dict(causal=causal, window=window, block_q=64, block_k=64)
+    kj, vj = jnp.asarray(k.float().numpy()), jnp.asarray(v.float().numpy())
+    o_j, lse_j = jax_fwd(padded(q), kj, vj, **kw)
+    o = t32(np.asarray(o_j)[:, :, sk - sq:]).to(torch.bfloat16)
+    lse = t32(np.asarray(lse_j)[:, :, sk - sq:])
+    pallas = jax_bwd(padded(q), kj, vj, padded(o), lse_j, padded(do), **kw)
+    pallas = (np.asarray(pallas[0])[:, :, sk - sq:],) + tuple(pallas[1:])
+
+    args = (q, k, v, o, lse, do)
+    opts = dict(causal=causal, window=window, q_offset=q_offset)
+    fp32 = flash_attention_bwd_ref(*args, **opts)
+    rounded = flash_attention_bwd_ref(*args, operand_dtype=torch.bfloat16,
+                                      **opts)
+    for got, want, ref in zip(rounded, fp32, pallas):
+        assert got.dtype == torch.bfloat16
+        assert 1e-4 < rel_err(got, want.float().numpy()) <= 1e-2
+        assert rel_err(got, ref) <= 1e-2
+    unrounded = flash_attention_bwd_ref(*args, operand_dtype=None, **opts)
+    assert all(torch.equal(a, w) for a, w in zip(unrounded, fp32))
+
+
 @pytest.mark.parametrize("kvh,sq,sk,causal,window,q_offset", [
     (2, 96, 96, True, 0, 0), (1, 80, 80, True, 24, 0),
     (4, 48, 112, True, 0, 64), (2, 40, 40, False, 0, 0)])
@@ -129,6 +185,25 @@ def test_flash_attention_bwd_wrappers_refuse_unsupported_shapes():
     k = torch.empty(1, 2, 128, 32, device="meta")
     with pytest.raises(ValueError, match="o and do"):
         flash_attention_bwd_dq(q, k, k, q[:, :2], lse, q)
+
+
+def test_flash_attention_bwd_copies_only_unaligned_bf16_rows():
+    """The bf16 backward kernels load rows by 16-byte ``cp.async``: the
+    wrappers pass the model's layouts through and copy a bf16 tensor whose
+    base or (batch, head, sequence) stride breaks the alignment; fp32
+    tensors, which take the SIMT kernels, are never copied."""
+    model = torch.zeros(2, 64, 4, 32, dtype=torch.bfloat16).transpose(1, 2)
+    wide = torch.zeros(2, 64, 4 * 32 + 4, dtype=torch.bfloat16)
+    strided = wide[..., :128].unflatten(-1, (4, 32)).transpose(1, 2)
+    offset = torch.zeros(2 * 4 * 64 * 32 + 1, dtype=torch.bfloat16)[1:] \
+        .view(2, 4, 64, 32)
+    fp32 = torch.zeros(2, 64, 4 * 32 + 1)[..., :128].unflatten(
+        -1, (4, 32)).transpose(1, 2)
+    out = fa._rows_aligned(model, strided, offset, fp32)
+    assert out[0] is model and out[3] is fp32
+    for t, src in zip(out[1:3], (strided, offset)):
+        assert t is not src and t.is_contiguous() and torch.equal(t, src)
+        assert t.data_ptr() % 16 == 0
 
 
 # ---------------------------------------------------------------------------
