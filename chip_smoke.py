@@ -14,15 +14,17 @@ Phases, each of which must pass (any failure exits nonzero):
    against its plain PyTorch version on the same inputs within the stated
    tolerance, and timed beside the plain version and one PyTorch library
    call computing the same function (the port itself never calls those);
-   the bf16 flash backward (K5a, K5b), which runs on tensor cores and
-   rounds p and ds to bf16 as operands, is held by relative norm against
-   its plain version with bf16 operands (``BWD_KERNEL_REL_NORM``) and the
-   fp32 plain version (``BWD_FP32_REL_NORM``), with SDPA's backward's
-   relative norm printed beside it at the training shape; there its two
-   launches must give bit-equal results, both kernels are timed causal
-   and non-causal (the ratio printed), and, where ``cuobjdump`` is found,
-   every bf16 backward kernel must show HMMA/HGMMA instructions in its
-   SASS; the autograd Functions of K2+K5 and K3 are held against autograd
+   the bf16 flash kernels, which run on tensor cores and round p (K2, K5a,
+   K5b) and ds (K5a, K5b) to bf16 as operands, are held by relative norm
+   against their plain versions with bf16 operands (``*_KERNEL_REL_NORM``)
+   and the fp32 plain versions (``*_FP32_REL_NORM``), with SDPA's relative
+   norm printed beside them at the training shape; there their two
+   launches must give bit-equal results, all three are timed causal and
+   non-causal (the ratios printed), and, where ``cuobjdump`` is found,
+   every bf16 forward and backward kernel must show HMMA/HGMMA
+   instructions in its SASS; K1 prints its split of the lanes' tables
+   and is held with lanes of 1, 4 and 16 live pages and an all -1 lane;
+   the autograd Functions of K2+K5 and K3 are held against autograd
    through the plain forwards;
 3. serve: full-width tinyllama-1.1b (random weights from seed 0) serves 8
    requests with prompts of 64..1024 tokens (native and chunked prefill)
@@ -61,7 +63,9 @@ SSD scan) and K2 at head dim 80 against their plain versions, at small
 shapes and at the full-width shapes of phases 7 and 8.
 
 A kernel's ``launches`` in the JSON record is its count over the serve
-(phases 3, 7, 8) and train (phase 5) runs.  The second-to-last lines are
+(phases 3, 7, 8) and train (phase 5) runs.  Those runs also fail if a
+flash-attention wrapper copied an operand to align its rows for the
+tensor-core kernels' ``cp.async`` (the model's layouts need no copy).  The second-to-last lines are
 the kernels' JSON record and the card's name and power limit; the last
 line is the run's JSON verdict.
 """
@@ -73,6 +77,7 @@ import math
 import subprocess
 import sys
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -96,6 +101,39 @@ def card_line() -> str:
         f"nvidia-smi failed: {out.stderr.strip()}"
 
 
+def short_name(demangled: str) -> str:
+    """A demangled kernel name without its namespace and parameters, as
+    ``c++filt`` ("(anonymous namespace)::f<64>(...)") or ``cu++filt``
+    ("<unnamed>::f<(int)64>(...)") prints it."""
+    for noise in ("(anonymous namespace)::", "<unnamed>::", "(int)"):
+        demangled = demangled.replace(noise, "")
+    return demangled.split("(")[0]
+
+
+def print_ptxas(name: str, log: str) -> None:
+    """One line per kernel of nvcc's ``-Xptxas -v`` report: its name
+    (demangled by ``cu++filt`` or ``c++filt`` where found), registers and
+    spills."""
+    import shutil
+    entries, fn, spills = [], None, ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "spill" in line:
+            spills = line.split(":", 1)[-1].strip()
+        elif "registers" in line and fn is not None:
+            entries.append((fn, line.split(":", 1)[1].strip(), spills))
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    names = [fn for fn, _, _ in entries]
+    if tool and names:
+        out = subprocess.run([tool], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        if out.returncode == 0 and len(out.stdout.splitlines()) == len(names):
+            names = [short_name(n) for n in out.stdout.splitlines()]
+    for short, (_, regs, spill) in zip(names, entries):
+        print(f"[ptxas {name}] {short}: {regs}; {spill}")
+
+
 def main() -> None:
     if not (SRC / "repro_torch").is_dir():
         fail("src/repro_torch not found beside chip_smoke.py: run it from "
@@ -114,9 +152,7 @@ def main() -> None:
     t0 = time.perf_counter()
     reports = _build.build()
     for name, log in reports.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[ptxas {name}] {line.strip()}")
+        print_ptxas(name, log)
     print(f"[build] nvcc {sorted(reports) or 'cached'} "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
 
@@ -198,11 +234,39 @@ def bound(nbytes: float, flops: float, peak_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+@contextmanager
+def row_copies():
+    """Count the operands that the flash wrappers copy for the tensor-core
+    kernels' 16-byte ``cp.async`` rows (``_rows_aligned``) while the block
+    runs; the model's layouts need none."""
+    from repro_torch.kernels import flash_attention as fa
+    plain, seen = fa._rows_aligned, {"copies": 0}
+
+    def counting(*ts):
+        out = plain(*ts)
+        seen["copies"] += sum(a is not b for a, b in zip(ts, out))
+        return out
+
+    fa._rows_aligned = counting
+    try:
+        yield seen
+    finally:
+        fa._rows_aligned = plain
+
+
+def no_row_copies(what, seen):
+    print(f"[{what}] operands copied for cp.async alignment: "
+          f"{seen['copies']}", flush=True)
+    if seen["copies"]:
+        fail(f"{what}: the main path copied operands for the flash kernels")
+
+
 def check_kernels(torch):
     from repro_torch.kernels.flash_attention import (flash_attention_fwd,
                                                      flash_attention_fwd_ref)
     from repro_torch.kernels.paged_attention import (paged_attention,
-                                                     paged_attention_ref)
+                                                     paged_attention_ref,
+                                                     split_pages)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
     import torch.nn.functional as F
     dev = torch.device("cuda")
@@ -276,6 +340,11 @@ def check_kernels(torch):
         ("window=200", (2, 4, 2, 64, 12, 4, [450, 130]), dict(window=200)),
         ("ring+window=200 ring=3", (2, 4, 2, 64, 12, 3, [1000, 300]),
          dict(window=200, ring=True)),
+        # lanes of 1, 4 and 16 live pages and an all -1 lane: splits past a
+        # lane's length, and a lane with no live split at all
+        ("live pages 1/4/16 + all -1 lane h=32/4 d=64", (4, 32, 4, 64, 32, 16,
+                                                        [128, 512, 2048, 1]),
+         dict(empty_lane=True)),
         ("tinyllama b=8 h=32/4 d=64", (8, 32, 4, 64, 128, 16,
                                        [898, 693, 572, 340, 376, 120, 1, 1]),
          dict(empty_lane=True)),
@@ -293,6 +362,12 @@ def check_kernels(torch):
                             *tol[dtype]))
         if kw.get("empty_lane") and float(got[-1].abs().max()) != 0.0:
             fail("paged_attention: an all -1 lane must return zeros")
+    pps, splits = split_pages(b, kvh, maxp,
+                              torch.cuda.get_device_properties(0)
+                              .multi_processor_count)
+    print(f"[kernel] paged_attention split at the serving shape: B={b} "
+          f"KV={kvh} table width {maxp} -> {splits} splits of {pps} "
+          f"page(s), {b * kvh * splits} blocks", flush=True)
     # time at the tinyllama decode shape of the serving run (last case)
     ms = timed_ms(torch, lambda: paged_attention(q, kp, vp, table, vlen))
     plain = timed_ms(torch, lambda: paged_attention_ref(q, kp, vp, table,
@@ -327,9 +402,8 @@ def check_kernels(torch):
                               f"{[int(v) for v in vlen]}"))
 
     # -- K2 flash attention forward -------------------------------------------
-    # held against the plain version on fp32 copies of the same inputs:
-    # the plain version rounds scores and probs to bf16 as the reference
-    # does, the kernel keeps them in fp32 and rounds its output once
+    # fp32 cases elementwise against the plain version; bf16 cases (the
+    # tensor-core kernel) by relative norm, see check_fwd
     errs = []
     fcases = [
         ("small causal ragged b=2 h=4/2 s=200 d=64", 2, 4, 2, 200, 200, 64,
@@ -343,6 +417,10 @@ def check_kernels(torch):
         ("d=128 causal s=192", 1, 2, 1, 192, 192, 128, True, 0, 0, bf16),
         ("d=80 fp32 q_offset=40 h=4/2 sq=90 sk=130", 1, 4, 2, 90, 130, 80,
          True, 0, 40, f32),
+        ("d=80 windowed=50 ragged h=4/2 sq=70 sk=170 q_offset=100", 1, 4, 2,
+         70, 170, 80, True, 50, 100, bf16),
+        ("d=32 non-causal h=4/1 sq=100 sk=300", 1, 4, 1, 100, 300, 32, False,
+         0, 0, bf16),
         ("zamba2 prefill d=80 h=32/32 s=1000", 1, 32, 32, 1000, 1000, 80,
          True, 0, 0, bf16),
         ("tinyllama native s=512 h=32/4 d=64", 1, 32, 4, 512, 512, 64, True,
@@ -354,21 +432,14 @@ def check_kernels(torch):
         q = randn(b, sq, h, d, dtype=dtype).transpose(1, 2)   # model layout
         k = randn(b, sk, kvh, d, dtype=dtype).transpose(1, 2)
         v = randn(b, sk, kvh, d, dtype=dtype).transpose(1, 2)
-        o, lse = flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                     q_offset=off)
-        o_ref, lse_ref = flash_attention_fwd_ref(
-            q.float(), k.float(), v.float(), causal=causal, window=window,
-            q_offset=off)
-        errs.append(compare(torch, f"flash_attention_fwd o {label}", o,
-                            o_ref, *tol[dtype]))
-        compare(torch, f"flash_attention_fwd lse {label}", lse, lse_ref,
-                1e-4, 1e-5)
+        errs.append(check_fwd(torch, label, q, k, v, dict(
+            causal=causal, window=window, q_offset=off), tol)[0])
         if label.startswith("zamba2"):
             time_fwd_d80(torch, q, k, v)
     # timed at the chunked-prefill shape of the serving run (last case)
     ms = timed_ms(torch, lambda: flash_attention_fwd(q, k, v, q_offset=off))
-    plain = timed_ms(torch, lambda: flash_attention_fwd_ref(q, k, v,
-                                                            q_offset=off))
+    plain = timed_ms(torch, lambda: flash_attention_fwd_ref(
+        q, k, v, q_offset=off, operand_dtype=bf16))
     kpos = torch.arange(sk, device=dev)
     qpos = off + torch.arange(sq, device=dev)
     mask = kpos[None, :] <= qpos[:, None]
@@ -383,7 +454,8 @@ def check_kernels(torch):
                         max_abs_err=max(errs), ms=ms, plain_ms=plain,
                         bound_ms=b_ms, bound_by=b_by, library_ms=lib,
                         shape=f"B=1 H=32 KV=4 D=64 Sq={sq} Sk={sk} "
-                              f"q_offset={off} causal"))
+                              f"q_offset={off} causal; plain_ms is the "
+                              "plain version with bf16 operands"))
     bwd_records, fwd_errs = check_backward(torch, randn, tol)
     records[-1]["max_abs_err"] = max(errs + fwd_errs)
     records += bwd_records
@@ -399,6 +471,63 @@ def check_kernels(torch):
     return records
 
 
+# bf16 forward: the tensor-core kernel rounds p to bf16 where it becomes
+# the operand of p.V.  Against the plain version that rounds at the same
+# place over the kernel's key tiles they differ by fp32 summation order and
+# the rare bf16 rounding that flips with it; against the fp32 plain version
+# by the rounding itself (relative norm 1.1e-3 to 1.4e-3 on the CPU at four
+# shapes) and the output's own bf16 rounding, so that limit is ~4x that.
+FWD_KERNEL_REL_NORM = 1e-3
+FWD_FP32_REL_NORM = 1e-2
+
+
+def check_fwd(torch, label, q, k, v, kw, tol):
+    """K2 on one case.  lse elementwise at (1e-4, 1e-5) against the fp32
+    plain version.  fp32 inputs (the SIMT kernel): o elementwise at the
+    fp32 tolerance.  bf16 inputs (the tensor-core kernel): o by relative
+    norm against the plain version with bf16 operands and the kernel's key
+    tile (``FWD_KERNEL_REL_NORM``, the worst elementwise err/tol printed
+    for information) and against the fp32 plain version
+    (``FWD_FP32_REL_NORM``), SDPA's relative norm to the latter printed
+    beside it.  Returns the max abs error against the first plain
+    version, and the kernel's o and lse."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        FWD_BLOCK_K, _visible, flash_attention_fwd, flash_attention_fwd_ref)
+    name = f"flash_attention_fwd o {label}"
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+    o_f, lse_f = flash_attention_fwd_ref(q.float(), k.float(), v.float(),
+                                         **kw)
+    compare(torch, f"flash_attention_fwd lse {label}", lse, lse_f, 1e-4,
+            1e-5)
+    if q.dtype == torch.float32:
+        return compare(torch, name, o, o_f, *tol[torch.float32]), o, lse
+    del lse_f
+    o_b, _ = flash_attention_fwd_ref(q, k, v, operand_dtype=torch.bfloat16,
+                                     block_k=FWD_BLOCK_K, **kw)
+    worst = rel_norm(torch, f"{name} vs plain (bf16 operands)", o, o_b,
+                     FWD_KERNEL_REL_NORM)
+    compare(torch, f"{name} vs plain (bf16 operands), information only", o,
+            o_b, *tol[torch.bfloat16], gate=False)
+    del o_b
+    torch.cuda.empty_cache()
+    rel_norm(torch, f"{name} vs plain (fp32)", o, o_f, FWD_FP32_REL_NORM)
+    ok = _visible(q.shape[2], k.shape[2], kw["causal"], kw["window"],
+                  kw["q_offset"], q.device)
+    # on contiguous copies: on rows 4 elements off 16-byte alignment SDPA
+    # returned a wrong result (relative norm 1.1) on the card
+    ref = F.scaled_dot_product_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), attn_mask=ok,
+        enable_gqa=True)
+    err = float((o.float() - o_f).norm() / o_f.norm())
+    lib = float((ref.float() - o_f).norm() / o_f.norm())
+    print(f"[kernel] {name}: relative norm to the fp32 plain version: "
+          f"kernel {err:.3e}, SDPA {lib:.3e}", flush=True)
+    del o_f, ref
+    torch.cuda.empty_cache()
+    return worst, o, lse
+
+
 def time_fwd_d80(torch, q, k, v):
     """K2 at zamba2's prefill shape (head dim 80): one ``[time]`` line."""
     import torch.nn.functional as F
@@ -406,7 +535,8 @@ def time_fwd_d80(torch, q, k, v):
                                                      flash_attention_fwd_ref)
     b, h, sq, d = q.shape
     ms = timed_ms(torch, lambda: flash_attention_fwd(q, k, v))
-    plain = timed_ms(torch, lambda: flash_attention_fwd_ref(q, k, v))
+    plain = timed_ms(torch, lambda: flash_attention_fwd_ref(
+        q, k, v, operand_dtype=torch.bfloat16))
     lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(
         q, k, v, is_causal=True, enable_gqa=True))
     pairs = b * h * sq * (sq + 1) // 2
@@ -414,8 +544,8 @@ def time_fwd_d80(torch, q, k, v):
     b_ms, b_by = bound(nbytes, 4 * d * pairs, H100_BF16_FLOPS)
     print(f"[time] flash_attention_fwd at zamba2's prefill shape (B={b} "
           f"H={h} KV={k.shape[1]} D={d} S={sq} causal): kernel {ms:.4f} ms, "
-          f"plain {plain:.4f} ms, library {lib:.4f} ms (SDPA), bound "
-          f"{b_ms:.4f} ms ({b_by})", flush=True)
+          f"plain {plain:.4f} ms (bf16 operands), library {lib:.4f} ms "
+          f"(SDPA), bound {b_ms:.4f} ms ({b_by})", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -634,9 +764,11 @@ def sdpa_grads(torch, q, k, v, do, causal):
 
 
 def tensor_core_sass():
-    """HMMA/HGMMA instructions in the SASS of each bf16 backward kernel of
-    the built library, counted by ``cuobjdump``; fails on a kernel with
-    none.  Skipped, with a note, where ``cuobjdump`` is not found."""
+    """HMMA/HGMMA instructions in the SASS of each bf16 kernel of the
+    built flash-attention libraries (the forward at five head dims, the
+    backward's dQ and dK/dV at four), counted by ``cuobjdump``; fails on a
+    kernel with none.  Skipped, with a note, where ``cuobjdump`` is not
+    found."""
     import shutil
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -644,25 +776,25 @@ def tensor_core_sass():
         print("[sass] cuobjdump not found: tensor-core instructions not "
               "counted", flush=True)
         return
-    out = subprocess.run([tool, "-sass",
-                          str(_build.lib_path("flash_attention_bwd"))],
-                         capture_output=True, text=True, timeout=300)
-    if out.returncode != 0:
-        fail(f"cuobjdump: {out.stderr.strip()[:500]}")
-    counts, fn = {}, None
-    for line in out.stdout.splitlines():
-        if "Function : " in line:
-            fn = line.split("Function : ", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and ("HMMA" in line or "HGMMA" in line):
-            counts[fn] += 1
-    for fn, n in sorted(counts.items()):
-        route = "bf16" if "_tc" in fn else "fp32"
-        print(f"[sass] {route} {fn}: {n} HMMA/HGMMA", flush=True)
-    tc = {fn: n for fn, n in counts.items() if "_tc" in fn}
-    if len(tc) != 8 or min(tc.values()) == 0:
-        fail(f"flash_attention_bwd: {len(tc)} bf16 kernels in the SASS, "
-             "expected 8 (dq and dkv at 4 head dims), each with HMMA")
+    for lib, want in (("flash_attention_fwd", 5), ("flash_attention_bwd", 8)):
+        out = subprocess.run([tool, "-sass", str(_build.lib_path(lib))],
+                             capture_output=True, text=True, timeout=300)
+        if out.returncode != 0:
+            fail(f"cuobjdump: {out.stderr.strip()[:500]}")
+        counts, fn = {}, None
+        for line in out.stdout.splitlines():
+            if "Function : " in line:
+                fn = line.split("Function : ", 1)[1].strip()
+                counts[fn] = 0
+            elif fn is not None and ("HMMA" in line or "HGMMA" in line):
+                counts[fn] += 1
+        for fn, n in sorted(counts.items()):
+            route = "bf16" if "_tc" in fn else "fp32"
+            print(f"[sass] {lib} {route} {fn}: {n} HMMA/HGMMA", flush=True)
+        tc = {fn: n for fn, n in counts.items() if "_tc" in fn}
+        if len(tc) != want or min(tc.values()) == 0:
+            fail(f"{lib}: {len(tc)} bf16 kernels in the SASS, expected "
+                 f"{want} (one a head dim and pass), each with HMMA")
 
 
 def check_backward(torch, randn, tol):
@@ -717,15 +849,8 @@ def check_backward(torch, randn, tol):
         k = randn(b, sk, kvh, d, dtype=dtype).transpose(1, 2)
         v = randn(b, sk, kvh, d, dtype=dtype).transpose(1, 2)
         do = query_rows()
-        o, lse = flash_attention_fwd(q, k, v, **kw)
-        o_r, lse_r = flash_attention_fwd_ref(q.float(), k.float(), v.float(),
-                                             **kw)
-        errs["fwd"].append(compare(torch, f"flash_attention_fwd o {label}",
-                                   o, o_r, *tol[dtype]))
-        compare(torch, f"flash_attention_fwd lse {label}", lse, lse_r, 1e-4,
-                1e-5)
-        del o_r, lse_r
-        torch.cuda.empty_cache()
+        err, o, lse = check_fwd(torch, label, q, k, v, kw, tol)
+        errs["fwd"].append(err)
         training = label.startswith("training")
         lib = sdpa_grads(torch, q, k, v, do, causal) if training else None
         dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)
@@ -786,6 +911,13 @@ def check_backward(torch, randn, tol):
     if not same:
         fail("flash_attention_bwd: two launches on the same inputs differ")
     del dq2, delta2, dk2, dv2
+    o2, lse2 = flash_attention_fwd(q, k, v, **kw)
+    same = torch.equal(o, o2) and torch.equal(lse, lse2)
+    print(f"[kernel] flash_attention_fwd at the training shape, launched "
+          f"twice: o, lse bit-equal: {same}", flush=True)
+    if not same:
+        fail("flash_attention_fwd: two launches on the same inputs differ")
+    del o2, lse2
     # timed there; the plain versions and the library call materialize
     # (B, H, S, S) fp32 scores, so fewer calls
     few = dict(iters=3, reps=3)
@@ -794,8 +926,10 @@ def check_backward(torch, randn, tol):
     ms_dkv = timed_ms(torch, lambda: flash_attention_bwd_dkv(
         q, k, v, lse, delta, do, **kw))
     ms_fwd = timed_ms(torch, lambda: flash_attention_fwd(q, k, v, **kw))
-    plain_fwd = timed_ms(torch, lambda: flash_attention_fwd_ref(q, k, v, **kw),
-                         **few)
+    ms_fwd_n = timed_ms(torch, lambda: flash_attention_fwd(q, k, v,
+                                                           causal=False))
+    plain_fwd = timed_ms(torch, lambda: flash_attention_fwd_ref(
+        q, k, v, operand_dtype=bf16, **kw), **few)
     plain_dq = timed_ms(torch, lambda: flash_attention_dq_ref(
         q, k, v, o, lse, do, operand_dtype=bf16, **kw), **few)
     plain_dkv = timed_ms(torch, lambda: flash_attention_dkv_ref(
@@ -813,6 +947,7 @@ def check_backward(torch, randn, tol):
         torch.autograd.grad(out, (qe, ke, ve), do)
 
     lib_f = timed_ms(torch, lib_fwd, **few)
+    lib_f_n = timed_ms(torch, lambda: lib_fwd(False), **few)
     lib = timed_ms(torch, lib_fwd_bwd, **few) - lib_f
     # non-causal at the same shape: twice the work of causal, so a
     # balanced causal grid takes about half the time
@@ -822,8 +957,7 @@ def check_backward(torch, randn, tol):
         q, k, v, o_n, lse_n, do, causal=False))
     ms_dkv_n = timed_ms(torch, lambda: flash_attention_bwd_dkv(
         q, k, v, lse_n, delta_n, do, causal=False))
-    lib_n = (timed_ms(torch, lambda: lib_fwd_bwd(False), **few)
-             - timed_ms(torch, lambda: lib_fwd(False), **few))
+    lib_n = timed_ms(torch, lambda: lib_fwd_bwd(False), **few) - lib_f_n
     print(f"[time] flash attention backward at the training shape, causal / "
           f"non-causal: dQ {ms_dq:.4f} / {ms_dq_n:.4f} ms (ratio "
           f"{ms_dq / ms_dq_n:.4f}), dK/dV {ms_dkv:.4f} / {ms_dkv_n:.4f} ms "
@@ -839,9 +973,15 @@ def check_backward(torch, randn, tol):
     fwd_bound, fwd_by = bound(e * (2 * n_q + 2 * n_kv) + 4 * rows,
                               2 * 2 * d * pairs, H100_BF16_FLOPS)
     print(f"[time] flash_attention_fwd at the training shape: kernel "
-          f"{ms_fwd:.4f} ms, plain {plain_fwd:.4f} ms, library {lib_f:.4f} "
-          f"ms (SDPA forward, expanded KV heads), bound {fwd_bound:.4f} ms "
-          f"({fwd_by})", flush=True)
+          f"{ms_fwd:.4f} ms, plain {plain_fwd:.4f} ms (bf16 operands), "
+          f"library {lib_f:.4f} ms (SDPA forward, expanded KV heads), bound "
+          f"{fwd_bound:.4f} ms ({fwd_by}); "
+          f"{2 * 2 * d * pairs / ms_fwd / 1e9:.1f} TFLOP/s counted",
+          flush=True)
+    print(f"[time] flash_attention_fwd at the training shape, causal / "
+          f"non-causal: {ms_fwd:.4f} / {ms_fwd_n:.4f} ms (ratio "
+          f"{ms_fwd / ms_fwd_n:.4f}), SDPA forward {lib_f:.4f} / "
+          f"{lib_f_n:.4f} ms", flush=True)
     dq_bytes = e * (3 * n_q + 2 * n_kv + n_q) + 4 * rows * 2
     dkv_bytes = e * (2 * n_q + 2 * n_kv + 2 * n_kv) + 4 * rows * 2
     shape = (f"B={b} H={h} KV={kvh} D={d} S={sq} causal; library_ms is "
@@ -925,11 +1065,14 @@ def serve_full(torch):
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    out = serve("tinyllama-1.1b", device="cuda", requests=8, max_batch=8,
-                pool_pages=128, prompt_range=(64, 1024), max_new=32, seed=0)
-    torch.cuda.synchronize()
+    with row_copies() as seen:
+        out = serve("tinyllama-1.1b", device="cuda", requests=8, max_batch=8,
+                    pool_pages=128, prompt_range=(64, 1024), max_new=32,
+                    seed=0)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
+    no_row_copies("serve", seen)
     stats, runner, reqs = out["stats"], out["runner"], out["requests"]
     vocab = runner.cfg.vocab_size
     for r in reqs:
@@ -1100,10 +1243,12 @@ def train_full(torch):
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
-    out = train("tinyllama-1.1b", shape=shape, plan=plan, opt_cfg=ocfg,
-                device="cuda", steps=steps, seed=0)
-    torch.cuda.synchronize()
+    with row_copies() as seen:
+        out = train("tinyllama-1.1b", shape=shape, plan=plan, opt_cfg=ocfg,
+                    device="cuda", steps=steps, seed=0)
+        torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in kernels.items()}
+    no_row_copies("train", seen)
     peak = torch.cuda.max_memory_allocated()
     cfg = out["model"].cfg
     losses = [m["loss"] for m in out["metrics"]]
@@ -1307,11 +1452,13 @@ def serve_dense_full(torch, arch):
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    out = serve(arch, backend="dense", device="cuda", requests=8,
-                max_batch=8, prompt_range=(64, 1024), max_new=32, seed=0)
-    torch.cuda.synchronize()
+    with row_copies() as seen:
+        out = serve(arch, backend="dense", device="cuda", requests=8,
+                    max_batch=8, prompt_range=(64, 1024), max_new=32, seed=0)
+        torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in kernels.items()}
+    no_row_copies(f"serve {arch}", seen)
     stats, runner, reqs = out["stats"], out["runner"], out["requests"]
     cfg = runner.cfg
     for r in reqs:

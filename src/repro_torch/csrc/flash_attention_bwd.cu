@@ -45,7 +45,9 @@
 // operand in its stored orientation and `ldmatrix.trans` transposed, so
 // each of Q, K, V, dO is read both ways from that one copy.  The loop's
 // tiles are double-buffered with `cp.async` (16 bytes a thread, zero-fill
-// past the ragged tail): tile i + 1 loads while tile i is computed.
+// past the ragged tail): tile i + 1 loads while tile i is computed.  The
+// device helpers (copies, `ldmatrix`, `mma`, fragment repacking) are in
+// `mma_bf16.cuh`, shared with the forward's tensor-core kernel.
 // - dK/dV (`flash_bwd_dkv_tc`): one block per (64-key tile, KV head,
 //   batch); K and V stay in shared memory; the block loops over the G
 //   query heads and, for each, over the live query tiles.  Each warp
@@ -79,9 +81,7 @@
 // two places when called with `operand_dtype=torch.bfloat16`.  Outputs
 // are rounded once from fp32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -89,25 +89,9 @@ constexpr int kB = 64;           // rows of a block's own tile, both routes
 constexpr int kThreads = 256;    // SIMT: 16 x 16, 4 rows x 4 columns each
 constexpr int kLT = kB + 4;      // padded row of a transposed (D x 64) tile
 constexpr int kLS = kB + 1;      // padded row of a (64 x 64) score tile
-constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-
-struct Strides {
-  long long b, h, s;  // in elements; the head dim is contiguous
-};
-
-struct Mask {
-  int Sq, Sk, causal, window, q_offset;
-  __device__ __forceinline__ bool visible(int qi, int kj) const {
-    if (qi >= Sq || kj >= Sk) return false;
-    const int qpos = q_offset + qi;
-    if (causal && kj > qpos) return false;
-    if (window > 0 && kj <= qpos - window) return false;
-    return true;
-  }
-};
 
 // ===========================================================================
 // fp32: the SIMT kernels, every product in fp32 FMAs
@@ -384,97 +368,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // bf16: the tensor-core kernels
 // ===========================================================================
 
-using bf16 = __nv_bfloat16;
-constexpr int kTcThreads = 128;  // 4 warps, 16 of the block's 64 rows each
-constexpr float kLog2e = 1.4426950408889634f;
-
 template <int D>
 struct Tile {
-  static constexpr int kPitch = D + 8;  // bf16 a shared row: 16 bytes of pad
   static constexpr int kInner = D <= 64 ? 64 : 32;  // rows of a loop tile
   // shared memory: the two 64-row tiles held, the two double-buffered ones
   static constexpr size_t kSmem =
-      sizeof(bf16) * (2 * kB + 4 * kInner) * kPitch;
+      sizeof(bf16) * (2 * kB + 4 * kInner) * kPitch<D>;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, asynchronously; zeros when !ok (nothing read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// wait until at most N committed groups of this thread are in flight
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// four 8 x 8 bf16 matrices from shared memory; lane i gives the address of
-// row i % 8 of matrix i / 8.  Without .trans lane l receives row l / 4,
-// columns 2 (l % 4) and 2 (l % 4) + 1 of each matrix; with .trans, the
-// same of the transposed matrix.
-__device__ __forceinline__ void ldsm4(uint32_t r[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm4_t(uint32_t r[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// c (16 x 8 fp32) += a (16 x 16 bf16) . b (16 x 8 bf16)
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo: low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// rows [row0, row0 + ROWS) of one (S, D) bf16 matrix -> dst (ROWS x pitch),
-// zeros past `rows`
-template <int ROWS, int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          long long stride, int row0,
-                                          int rows) {
-  constexpr int kChunks = D / 8;  // 16-byte pieces of a row
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kTcThreads) {
-    const int r = i / kChunks, c = (i % kChunks) * 8;
-    const int row = row0 + r;
-    const bool ok = row < rows;
-    cp_async16(dst + r * Tile<D>::kPitch + c,
-               src + (ok ? row : 0) * stride + c, ok);
-  }
-}
 
 // ROWS fp32 of one (S,) vector, zeros past `rows`
 template <int ROWS>
@@ -484,89 +384,6 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src,
     const int row = row0 + i;
     const bool ok = row < rows;
     cp_async4(dst + i, src + (ok ? row : 0), ok);
-  }
-}
-
-// acc (16 x 8 NT) += a . b^T over D: a is 16 rows, b is 8 NT rows, both
-// (rows x D) row-major in shared memory, read as stored
-template <int D, int NT>
-__device__ __forceinline__ void mma_abt(float (*acc)[4], const bf16* a,
-                                        const bf16* b, int lane) {
-  constexpr int P = Tile<D>::kPitch;
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    uint32_t af[4];
-    ldsm4(af, a + (lane & 15) * P + kc * 16 + (lane >> 4) * 8);
-#pragma unroll
-    for (int n = 0; n < NT / 2; ++n) {
-      uint32_t bf[4];
-      ldsm4(bf, b + (n * 16 + (lane & 7) + ((lane >> 4) << 3)) * P +
-                    kc * 16 + ((lane >> 3) & 1) * 8);
-      mma16816(acc[2 * n], af, bf[0], bf[1]);
-      mma16816(acc[2 * n + 1], af, bf[2], bf[3]);
-    }
-  }
-}
-
-// acc (16 x D) += a . b: a is 16 x 16 KC as A fragments in registers, b
-// is 16 KC rows x D row-major in shared memory, read transposed
-template <int D, int KC>
-__device__ __forceinline__ void mma_ab(float (*acc)[4], uint32_t (*a)[4],
-                                       const bf16* b, int lane) {
-  constexpr int P = Tile<D>::kPitch;
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-#pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      uint32_t bf[4];
-      ldsm4_t(bf, b + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
-                      n * 16 + (lane >> 4) * 8);
-      mma16816(acc[2 * n], a[kc], bf[0], bf[1]);
-      mma16816(acc[2 * n + 1], a[kc], bf[2], bf[3]);
-    }
-  }
-}
-
-// a 16 x 16 KC fp32 accumulator (2 KC tiles of 16 x 8) rounded to bf16 A
-// fragments: tiles 2j and 2j + 1 hold columns [16 j, 16 j + 16) in exactly
-// the places of each lane that the A operand of one m16n8k16 takes them
-template <int KC>
-__device__ __forceinline__ void to_a_frags(uint32_t (*a)[4], float (*c)[4]) {
-#pragma unroll
-  for (int j = 0; j < KC; ++j) {
-    a[j][0] = pack_bf16(c[2 * j][0], c[2 * j][1]);
-    a[j][1] = pack_bf16(c[2 * j][2], c[2 * j][3]);
-    a[j][2] = pack_bf16(c[2 * j + 1][0], c[2 * j + 1][1]);
-    a[j][3] = pack_bf16(c[2 * j + 1][2], c[2 * j + 1][3]);
-  }
-}
-
-// every pair of queries [q0, q0 + nq) x keys [k0, k0 + nk) visible: the
-// tile needs no mask
-__device__ __forceinline__ bool tile_full(const Mask& m, int q0, int nq,
-                                          int k0, int nk) {
-  if (q0 + nq > m.Sq || k0 + nk > m.Sk) return false;
-  const int qpos = m.q_offset + q0;
-  if (m.causal && k0 + nk - 1 > qpos) return false;
-  if (m.window > 0 && k0 <= qpos + nq - 1 - m.window) return false;
-  return true;
-}
-
-// a warp's 16 x D fp32 accumulator -> rows row0 + lane / 4 and row0 +
-// lane / 4 + 8 of `out` (row stride `stride`), rows past `rows` dropped
-template <int D>
-__device__ __forceinline__ void store_rows(bf16* out, long long stride,
-                                           float (*acc)[4], int row0,
-                                           int rows, int lane) {
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int row = row0 + (lane >> 2) + half * 8;
-    if (row >= rows) continue;
-    bf16* dst = out + row * stride + (lane & 3) * 2;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
-          __floats2bfloat162_rn(acc[n][2 * half], acc[n][2 * half + 1]);
   }
 }
 
@@ -582,7 +399,7 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 float* __restrict__ delta, bf16* __restrict__ dq, int B,
                 int H, int KVH, Mask mask, Strides sq, Strides sk, Strides sv,
                 Strides so, Strides sdo, Strides sdq, float scale) {
-  constexpr int P = Tile<D>::kPitch, N = Tile<D>::kInner;
+  constexpr int P = kPitch<D>, N = Tile<D>::kInner;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* qs = reinterpret_cast<bf16*>(tc_smem);  // 64 x P    Q
   bf16* dos = qs + kB * P;                      // 64 x P    dO
@@ -714,7 +531,7 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  bf16* __restrict__ dv, int B, int H, int KVH, Mask mask,
                  Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
                  Strides sdv, float scale) {
-  constexpr int P = Tile<D>::kPitch, N = Tile<D>::kInner;
+  constexpr int P = kPitch<D>, N = Tile<D>::kInner;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* ks = reinterpret_cast<bf16*>(tc_smem);  // 64 x P    K
   bf16* vs = ks + kB * P;                       // 64 x P    V
@@ -810,25 +627,6 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ===========================================================================
 // launchers
 // ===========================================================================
-
-// Raise the opt-in shared-memory limit of one kernel once per device (the
-// attribute is per device; this also keeps the call out of CUDA-graph
-// captures after the first launch).
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem, size_t* configured) {
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 && smem > configured[dev]) {
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return e;
-    configured[dev] = smem;
-  }
-  return cudaSuccess;
-}
 
 struct Args {
   const void *q, *k, *v, *o, *dout, *lse;

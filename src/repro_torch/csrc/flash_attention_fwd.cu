@@ -13,23 +13,45 @@
 // masked instead of dropped.
 //
 // What bounds it on the H100: operations.  A 512-token tinyllama chunk
-// over ~1k keys does ~1k operations per byte of Q/K/V, above the card's
-// ~295 operations per byte, so the arithmetic is the limit.
+// over ~1k keys does ~1k operations per byte of Q/K/V, and the training
+// shape (S 4096, D 64, causal) ~8k, above the card's ~295 operations per
+// byte at the bf16 tensor-core peak, so the arithmetic is the limit.
 //
-// What this first design does about it: little yet, on purpose.  It is
-// the flash recurrence on the SIMT cores in fp32: one block of 256
-// threads per (64-query tile, head, batch); each thread owns a 4x4 tile
-// of scores and 4 x D/16 outputs; K/V tiles of 64 keys are staged in
-// shared memory as fp32 and shared by the block; GQA indexes the KV head
-// as h / G, so KV is never expanded in memory; tiles outside the causal
-// / window band are never loaded.  It runs at the fp32 SIMT rate, well
-// under the bf16 tensor-core peak the bound is computed against: moving
-// the two products onto `mma`/`wgmma` with bf16 operands is the work of a
-// later change, measured against this one.
+// Two routes, chosen by the dtype the caller passes:
+// - bfloat16 (every call of the model): the tensor-core kernel
+//   `flash_fwd_tc` below.
+// - float32 (only the checks use it): the SIMT kernel `flash_fwd_kernel`,
+//   every product in fp32 FMAs, so it agrees with the fp32 plain version
+//   to summation order: one block of 256 threads per (64-query tile,
+//   head, batch), each thread a 4x4 tile of scores and 4 x D/16 outputs,
+//   K/V tiles of 64 keys staged in shared memory as fp32.
+//
+// The bf16 design, FlashAttention-2 shaped on `mma.sync.m16n8k16` (bf16
+// operands, fp32 accumulators) with the helpers of `mma_bf16.cuh` that the
+// backward uses too.  One block of 4 warps per (64-query tile, head,
+// batch), 16 query rows a warp.  Q is copied once with `cp.async` and held
+// as A fragments in registers for the whole key loop.  K and V tiles of 64
+// keys are double-buffered in shared memory as padded bf16 rows with
+// `cp.async`: tile i + 1 loads while tile i is computed.  S = Q K^T takes
+// K through `ldmatrix`; the online softmax runs in registers (each row's
+// max and sum over the four lanes of a quad, p = exp2(s scale log2e -
+// m scale log2e)); O += P V takes P straight from the score accumulators,
+// repacked as bf16 A fragments, and V through `ldmatrix.trans`, so P never
+// touches shared memory.  GQA indexes the KV head as h / G, so KV is never
+// expanded in memory; key tiles outside the causal / window band are
+// never loaded, and only tiles that cross the band's edge or the ragged
+// tail evaluate the mask.  The grid is one dimension with the query tile
+// slowest and, under a causal mask, reversed: the last query tiles, which
+// see the most keys, are dispatched first and the light ones fill the
+// tail.
+// Rounding: S is exact bf16 products summed in fp32, and l sums the fp32
+// p; p is rounded to bf16 where it becomes the operand of P V, as every
+// tensor-core flash forward does.  The Pallas kernel keeps p in fp32; the
+// plain version rounds it at the same place when called with
+// `operand_dtype=torch.bfloat16` and the kernel's key tile (`block_k` 64).
+// The output is rounded once from fp32.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_bf16.cuh"
 
 namespace {
 
@@ -37,20 +59,13 @@ constexpr float kNegInf = -1e30f;
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
 constexpr int kThreads = 256;  // 16 x 16: 4 query rows x 4 keys each
-constexpr int kMaxDevices = 64;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
-struct Strides {
-  long long b, h, s;  // in elements; the head dim is contiguous
-};
+// ===========================================================================
+// fp32: the SIMT kernel
+// ===========================================================================
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
@@ -192,68 +207,225 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           int B, int H, int KVH, int Sq, int Sk, Strides sq, Strides sk,
-           Strides sv, Strides so, int causal, int window, int q_offset,
-           float scale, cudaStream_t stream) {
+// ===========================================================================
+// bf16: the tensor-core kernel
+// ===========================================================================
+
+// shared memory: the 64-row Q tile and the double-buffered K and V tiles
+template <int D>
+constexpr size_t kTcSmem = sizeof(bf16) * (kBQ + 4 * kBK) * kPitch<D>;
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads)
+flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+             const bf16* __restrict__ v, bf16* __restrict__ o,
+             float* __restrict__ lse, int B, int H, int KVH, Mask mask,
+             Strides sq, Strides sk, Strides sv, Strides so, float scale) {
+  constexpr int P = kPitch<D>, N = kBK;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  bf16* qs = reinterpret_cast<bf16*>(tc_smem);  // 64 x P    Q
+  bf16* ks = qs + kBQ * P;                      // 2 x N x P K tiles
+  bf16* vs = ks + 2 * N * P;                    // 2 x N x P V tiles
+
+  const int Sq = mask.Sq, Sk = mask.Sk;
+  // causal: the last query tiles see the most keys; dispatch them first
+  const int n_qt = (Sq + kBQ - 1) / kBQ;
+  const int t = blockIdx.x / (H * B), hb = blockIdx.x % (H * B);
+  const int q_start = (mask.causal ? n_qt - 1 - t : t) * kBQ;
+  const int h = hb % H, b = hb / H;
+  const int kvh = h / (H / KVH);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bf16* kb = k + b * sk.b + kvh * sk.h;
+  const bf16* vb = v + b * sv.b + kvh * sv.h;
+
+  load_rows<kBQ, D>(qs, q + b * sq.b + h * sq.h, sq.s, q_start, Sq);
+  cp_async_commit();
+
+  // key tiles any row of this tile can see (the Pallas `_tile_live`)
+  const int q_last = min(q_start + kBQ, Sq) - 1;
+  const int k_end = mask.causal ? min(Sk, mask.q_offset + q_last + 1) : Sk;
+  const int k_begin =
+      mask.window > 0 ? max(0, mask.q_offset + q_start - mask.window + 1) : 0;
+  const int k_first = (k_begin / N) * N;
+  const int n_tiles = k_end > k_first ? (k_end - k_first + N - 1) / N : 0;
+  auto issue = [&](int it) {
+    const int s = it & 1, k0 = k_first + it * N;
+    load_rows<N, D>(ks + s * N * P, kb, sk.s, k0, Sk);
+    load_rows<N, D>(vs + s * N * P, vb, sv.s, k0, Sk);
+  };
+  if (n_tiles > 0) issue(0);
+  cp_async_commit();
+  cp_async_wait<1>();  // Q has landed; the first K/V may not
+  __syncthreads();
+
+  uint32_t qf[D / 16][4];  // this warp's 16 rows of Q, A fragments
+  load_a_frags<D>(qf, qs + warp * 16 * P, lane);
+
+  // this lane's two rows of the warp's 16: lane / 4 and lane / 4 + 8; the
+  // running max m (of the unscaled scores) and this lane's part of the
+  // running sum l, reduced over the quad once at the end
+  const int r0 = q_start + warp * 16 + (lane >> 2);
+  const float sl2 = scale * kLog2e;
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile `it` landed; all are done with tile it - 1
+    if (it + 1 < n_tiles) issue(it + 1);
+    cp_async_commit();
+    const int k0 = k_first + it * N;
+    const bf16* kt = ks + (it & 1) * N * P;
+    const bf16* vt = vs + (it & 1) * N * P;
+
+    float s[N / 8][4];
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < D / 16; ++kc)
+      mma_abt_step<D, N / 8>(s, qf[kc], kt, kc, lane);  // S = Q K^T
+
+    if (!tile_full(mask, q_start + warp * 16, 16, k0, N)) {
+#pragma unroll
+      for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!mask.visible(r0 + 8 * (e >> 1),
+                            k0 + n * 8 + (lane & 3) * 2 + (e & 1)))
+            s[n][e] = -INFINITY;
+    }
+
+    float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    float ms[2], alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      // a row that has seen no visible key yet keeps m = -inf: its p and
+      // alpha must come out 0, not exp2(-inf + inf)
+      ms[i] = mx[i] == -INFINITY ? 0.f : mx[i] * sl2;
+      alpha[i] = exp2f(m_r[i] * sl2 - ms[i]);
+      m_r[i] = mx[i];
+    }
+#pragma unroll
+    for (int n = 0; n < N / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = exp2f(fmaf(s[n][e], sl2, -ms[e >> 1]));
+        s[n][e] = p;
+        rs[e >> 1] += p;
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l_r[i] = l_r[i] * alpha[i] + rs[i];
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      acc[n][0] *= alpha[0];
+      acc[n][1] *= alpha[0];
+      acc[n][2] *= alpha[1];
+      acc[n][3] *= alpha[1];
+    }
+    uint32_t pa[N / 16][4];
+    to_a_frags<N / 16>(pa, s);
+    mma_ab<D, N / 16>(acc, pa, vt, lane);  // O += P V
+  }
+  cp_async_wait<0>();
+
+  float lc[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+    l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+    lc[i] = fmaxf(l_r[i], 1e-30f);
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] /= lc[e >> 1];
+  store_rows<D>(o + b * so.b + h * so.h, so.s, acc, q_start + warp * 16, Sq,
+                lane);
+  if ((lane & 3) == 0) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + 8 * i;
+      if (row < Sq)
+        lse[((size_t)b * H + h) * Sq + row] =
+            (m_r[i] == -INFINITY ? kNegInf : m_r[i] * scale) + logf(lc[i]);
+    }
+  }
+}
+
+// ===========================================================================
+// launchers
+// ===========================================================================
+
+struct Args {
+  const void *q, *k, *v;
+  void *o, *lse;
+  int B, H, KVH;
+  Mask mask;
+  Strides sq, sk, sv, so;
+  float scale;
+  cudaStream_t stream;
+};
+
+// fp32: the SIMT kernel
+template <int D>
+int launch_simt(const Args& a) {
   const size_t smem = sizeof(float) * (2 * (size_t)D * (kBQ + 4) +
                                        (size_t)kBK * (D + 4) +
                                        (size_t)kBQ * (kBK + 1));
-  // raise the opt-in shared-memory limit once per instantiation and
-  // device (the attribute is per device; this also keeps the call out of
-  // CUDA-graph captures after the first launch)
   static size_t configured[kMaxDevices];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e = allow_smem(flash_fwd_kernel<float, D>, smem, configured);
   if (e != cudaSuccess) return (int)e;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 && smem > configured[dev]) {
-    e = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    configured[dev] = smem;
-  }
-  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
-      H, KVH, Sq, Sk, sq, sk, sv, so, causal, window, q_offset, scale);
+  dim3 grid((a.mask.Sq + kBQ - 1) / kBQ, a.H, a.B);
+  flash_fwd_kernel<float, D><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<float*>(a.o),
+      static_cast<float*>(a.lse), a.H, a.KVH, a.mask.Sq, a.mask.Sk, a.sq,
+      a.sk, a.sv, a.so, a.mask.causal, a.mask.window, a.mask.q_offset,
+      a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int D, const void* q, const void* k, const void* v, void* o,
-             void* lse, int B, int H, int KVH, int Sq, int Sk, Strides sq,
-             Strides sk, Strides sv, Strides so, int causal, int window,
-             int q_offset, float scale, cudaStream_t stream) {
-  switch (D) {
-    case 16:
-      return launch<T, 16>(q, k, v, o, lse, B, H, KVH, Sq, Sk, sq, sk, sv, so,
-                           causal, window, q_offset, scale, stream);
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, B, H, KVH, Sq, Sk, sq, sk, sv, so,
-                           causal, window, q_offset, scale, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, B, H, KVH, Sq, Sk, sq, sk, sv, so,
-                           causal, window, q_offset, scale, stream);
-    case 80:  // zamba2-2.7b's shared attention
-      return launch<T, 80>(q, k, v, o, lse, B, H, KVH, Sq, Sk, sq, sk, sv, so,
-                           causal, window, q_offset, scale, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, B, H, KVH, Sq, Sk, sq, sk, sv, so,
-                            causal, window, q_offset, scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+// bf16: the tensor-core kernel
+template <int D>
+int launch_tc(const Args& a) {
+  static size_t configured[kMaxDevices];
+  cudaError_t e = allow_smem(flash_fwd_tc<D>, kTcSmem<D>, configured);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (a.mask.Sq + kBQ - 1) / kBQ * a.H * a.B;
+  flash_fwd_tc<D><<<blocks, kTcThreads, kTcSmem<D>, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<bf16*>(a.o),
+      static_cast<float*>(a.lse), a.B, a.H, a.KVH, a.mask, a.sq, a.sk, a.sv,
+      a.so, a.scale);
+  return (int)cudaGetLastError();
+}
+
+// dtype 0 (bf16) -> the tensor-core kernel, 1 (fp32) -> the SIMT one
+template <int D>
+int launch(int dtype, const Args& a) {
+  return dtype == 0 ? launch_tc<D>(a) : launch_simt<D>(a);
 }
 
 }  // namespace
 
 // Strides are in elements, (batch, head, sequence) for each of q, k, v, o;
 // the head dim of each is contiguous and lse is a contiguous (B, H, Sq).
-// dtype: 0 = bfloat16, 1 = float32.  Returns cudaGetLastError().
+// dtype: 0 = bfloat16 (the tensor-core kernel, whose `cp.async` needs
+// every q, k, v row 16-byte aligned: base pointers and the three strides
+// multiples of 8 elements), 1 = float32 (the SIMT kernel).  Returns
+// cudaGetLastError() after the launch.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int KVH, int Sq, int Sk, int D, long long qb, long long qh,
@@ -261,12 +433,16 @@ extern "C" int flash_attention_fwd(
     long long vh, long long vs, long long ob, long long oh, long long os,
     int causal, int window, int q_offset, float scale, int dtype,
     void* stream) {
-  const Strides sq{qb, qh, qs}, sk{kb, kh, ks}, sv{vb, vh, vs}, so{ob, oh, os};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return dispatch<__nv_bfloat16>(D, q, k, v, o, lse, B, H, KVH, Sq, Sk, sq,
-                                   sk, sv, so, causal, window, q_offset, scale,
-                                   s);
-  return dispatch<float>(D, q, k, v, o, lse, B, H, KVH, Sq, Sk, sq, sk, sv, so,
-                         causal, window, q_offset, scale, s);
+  const Args a{q, k, v, o, lse, B, H, KVH,
+               Mask{Sq, Sk, causal, window, q_offset},
+               Strides{qb, qh, qs}, Strides{kb, kh, ks}, Strides{vb, vh, vs},
+               Strides{ob, oh, os}, scale, static_cast<cudaStream_t>(stream)};
+  switch (D) {
+    case 16: return launch<16>(dtype, a);
+    case 32: return launch<32>(dtype, a);
+    case 64: return launch<64>(dtype, a);
+    case 80: return launch<80>(dtype, a);  // zamba2-2.7b's shared attention
+    case 128: return launch<128>(dtype, a);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -14,37 +14,64 @@
 // the lane once and does 4 operations per (query head, key, dim) -- with
 // G = 8 that is ~8 operations per byte of bf16 KV, far below the ~295
 // operations per byte at which the tensor cores would become the limit.
+// So it stays on the SIMT cores in fp32, and the design is about keeping
+// enough bytes in flight.
 //
-// What the design does about it: one block per (lane, KV head) holds all
-// G query rows of the group, so each K/V page is read from device memory
-// once for the whole group (not once per query head, which is what
-// expanding KV heads would cost).  The block walks the lane's table
-// itself (the TPU kernel's scalar prefetch), stops at the lane's valid
-// length for linear tables, stages each page's K and V rows in shared
-// memory with 16-byte loads (rows padded by 16 bytes so the per-token
-// 16-byte reads of the score loop hit distinct banks), and keeps the
-// running max, sum and fp32 accumulator in shared memory across pages.
-// No tensor cores, TMA or split over pages yet: at small batch the grid
-// (lanes x KV heads) under-fills the 132 SMs, which is the next thing to
-// fix (split-K "flash decoding") once this simple kernel has its numbers.
+// What the design does about it ("flash decoding"): the lane's table is
+// cut into splits of `pages_per_split` entries, chosen on the host from
+// the table width and the SM count, and the grid is (lane, KV head,
+// split), so a few lanes still spread over all 132 SMs.  A split past a
+// linear lane's valid length, or whose entries are all -1, writes an empty
+// partial and exits at once.  Inside a split, one block of 4 warps holds
+// all G query rows of its KV head, so each K/V row is read from device
+// memory once for the whole group.  K and V are staged in shared memory
+// in tiles of 64 tokens with `cp.async`, double-buffered: the next tile
+// of the split's live pages loads while this one is scored.  A token is
+// scored by D / 8 lanes (16 bytes of bf16 K each), which hold q for all G
+// rows in registers and sum their dot products with `__shfl_xor_sync`; a
+// warp scores 32 / (D / 8) tokens at once.  Each lane keeps the running
+// max, sum and fp32 accumulator of its tokens in registers; the lanes of
+// a warp merge theirs with shuffles, the warps through shared memory, and
+// the split writes its partial (m, l, acc) in fp32 to a workspace the
+// wrapper allocates.  A second small kernel combines the splits of each
+// (lane, query head) and writes o; a split that saw no live token has
+// m = -inf and l = 0 and adds nothing.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mma_bf16.cuh"
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
-constexpr int kMaxDevices = 64;
+constexpr int kThreads = 128;  // 4 warps
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 64;     // tokens of a staged K / V tile
+
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+// 16 bytes of shared memory as fp32: 8 bf16 or 4 fp32 values
+__device__ __forceinline__ void load16(float* f, const __nv_bfloat16* p) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 x = __bfloat1622float2(h[j]);
+    f[2 * j] = x.x;
+    f[2 * j + 1] = x.y;
+  }
+}
+__device__ __forceinline__ void load16(float* f, const float* p) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  f[0] = x.x;
+  f[1] = x.y;
+  f[2] = x.z;
+  f[3] = x.w;
+}
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
 }
 
 __device__ __forceinline__ int positive_mod(int a, int n) {
@@ -62,177 +89,308 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T>
+// the softmax state (m, l, acc) of two disjoint token sets, merged into the
+// first; either may be empty (m = -inf, l = 0, acc = 0)
+template <int V>
+__device__ __forceinline__ void merge(float& m, float& l, float* acc,
+                                      float mo, float lo, const float* acco) {
+  const float mm = fmaxf(m, mo);
+  const float a = m == -INFINITY ? 0.f : expf(m - mm);
+  const float c = mo == -INFINITY ? 0.f : expf(mo - mm);
+  l = l * a + lo * c;
+#pragma unroll
+  for (int j = 0; j < V; ++j) acc[j] = acc[j] * a + acco[j] * c;
+  m = mm;
+}
+
+// One split of one (lane, KV head): GT query rows at a time (G > GT loops
+// over groups of GT rows; rows past G are zeros and never written).
+template <typename T, int D, int GT>
 __global__ void __launch_bounds__(kThreads)
-paged_decode_kernel(const T* __restrict__ q,        // (B, H, D)
-                    const T* __restrict__ k_pages,  // (P, page, KV, D)
-                    const T* __restrict__ v_pages,  // (P, page, KV, D)
-                    const int* __restrict__ table,  // (B, maxp)
-                    const int* __restrict__ valid_len,  // (B,)
-                    T* __restrict__ out,            // (B, H, D)
-                    int H, int KV, int D, int page, int maxp, int window,
-                    int ring, float scale) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int b = blockIdx.x;
-  const int kvh = blockIdx.y;
+paged_split_kernel(const T* __restrict__ q,        // (B, H, D)
+                   const T* __restrict__ k_pages,  // (P, page, KV, D)
+                   const T* __restrict__ v_pages,  // (P, page, KV, D)
+                   const int* __restrict__ table,  // (B, maxp)
+                   const int* __restrict__ valid_len,  // (B,)
+                   float* __restrict__ ws_ml,      // (B, H, splits, 2)
+                   float* __restrict__ ws_acc,     // (B, H, splits, D)
+                   int H, int KV, int page, int maxp, int pps, int window,
+                   int ring, float scale) {
+  constexpr int kVec = 16 / sizeof(T);  // elements of 16 bytes
+  constexpr int kLanes = D / kVec;      // lanes that score one token
+  constexpr int kTok = 32 / kLanes;     // tokens a warp scores at once
+  constexpr int kLd = D + kVec;         // padded shared row, in elements
+  constexpr int kRed = D + 2;           // a row's acc, m, l in `red`
+  const int b = blockIdx.x, kvh = blockIdx.y, split = blockIdx.z;
+  const int splits = gridDim.z;
   const int G = H / KV;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nwarps = blockDim.x >> 5;
-  const int ld = D + kVec;  // padded shared row, in elements
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sub = lane % kLanes, grp = lane / kLanes;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);             // page x ld
-  T* vs = ks + page * ld;                         // page x ld
-  float* qs = reinterpret_cast<float*>(vs + page * ld);  // G x D
-  float* sc = qs + G * D;                         // G x page scores / probs
-  float* acc = sc + G * page;                     // G x D
-  float* m_s = acc + G * D;                       // G running max
-  float* l_s = m_s + G;                           // G running sum
-  float* a_s = l_s + G;                           // G rescale of this page
+  T* ks = reinterpret_cast<T*>(smem);             // 2 x kChunk x kLd
+  T* vs = ks + 2 * kChunk * kLd;                  // 2 x kChunk x kLd
+  float* red = reinterpret_cast<float*>(vs + 2 * kChunk * kLd);  // warps x GT
 
-  const size_t q_base = ((size_t)b * H + (size_t)kvh * G) * D;
-  for (int i = tid; i < G * D; i += blockDim.x) {
-    qs[i] = to_float(q[q_base + i]);
-    acc[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += blockDim.x) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
-  }
   const int vlen = valid_len[b];
   const int last = vlen - 1;
   const int ring_tokens = maxp * page;
-  const int vec_per_row = D / kVec;
-  __syncthreads();
+  const int* tb = table + (size_t)b * maxp;
+  // units: (table entry, 64-token tile of its page) pairs of this split;
+  // a linear table holds nothing at or past the valid length, a ring page
+  // can hold live tokens whatever its index
+  const int cpp = (page + kChunk - 1) / kChunk;
+  int e_end = min(maxp, (split + 1) * pps);
+  if (!ring) e_end = min(e_end, vlen > 0 ? (vlen + page - 1) / page : 0);
+  const int u_end = e_end * cpp;
+  auto next_live = [&](int u) {
+    while (u < u_end && tb[u / cpp] < 0) u = (u / cpp + 1) * cpp;
+    return u;
+  };
+  const int u_first = next_live(split * pps * cpp);
+  const size_t row_base = (size_t)b * H + (size_t)kvh * G;  // (b, h) of g 0
 
-  for (int pi = 0; pi < maxp; ++pi) {
-    const int pid = table[(size_t)b * maxp + pi];
-    const int s_start = pi * page;
-    // a ring page can hold live tokens whatever its table index, so the
-    // beyond-the-length exit applies to linear tables only
-    if (pid < 0 || (!ring && s_start >= vlen)) continue;  // block-uniform
-
-    for (int i = tid; i < page * vec_per_row; i += blockDim.x) {
-      const int t = i / vec_per_row;
-      const int c = (i - t * vec_per_row) * kVec;
-      const size_t g_off = (((size_t)pid * page + t) * KV + kvh) * D + c;
-      *reinterpret_cast<uint4*>(ks + t * ld + c) =
-          *reinterpret_cast<const uint4*>(k_pages + g_off);
-      *reinterpret_cast<uint4*>(vs + t * ld + c) =
-          *reinterpret_cast<const uint4*>(v_pages + g_off);
+  if (u_first >= u_end) {  // no live entry: an empty partial
+    for (int g = threadIdx.x; g < G; g += kThreads) {
+      const size_t row = (row_base + g) * splits + split;
+      ws_ml[2 * row] = -INFINITY;
+      ws_ml[2 * row + 1] = 0.f;
     }
-    __syncthreads();
-
-    for (int t = tid; t < page; t += blockDim.x) {
-      const int slot = s_start + t;
-      const int pos = ring ? last - positive_mod(last - slot, ring_tokens) : slot;
-      const bool ok = pos >= 0 && pos <= last && (window <= 0 || pos > last - window);
-      for (int g = 0; g < G; ++g) {
-        float s = kNegInf;
-        if (ok) {
-          float dot = 0.f;
-          for (int c = 0; c < D; c += kVec) {
-            const uint4 raw = *reinterpret_cast<const uint4*>(ks + t * ld + c);
-            const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-            for (int j = 0; j < kVec; ++j) dot += qs[g * D + c + j] * to_float(e[j]);
-          }
-          s = dot * scale;
-        }
-        sc[g * page + t] = s;
-      }
-    }
-    __syncthreads();
-
-    for (int g = warp; g < G; g += nwarps) {
-      float mx = kNegInf;
-      for (int t = lane; t < page; t += 32) mx = fmaxf(mx, sc[g * page + t]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < page; t += 32) {
-        const float s = sc[g * page + t];
-        const float p = s > kNegInf ? expf(s - m_new) : 0.f;
-        sc[g * page + t] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < G * D; i += blockDim.x) {
-      const int g = i / D;
-      const int d = i - g * D;
-      const float* p = sc + g * page;
-      float a = acc[i] * a_s[g];
-      for (int t = 0; t < page; ++t) a += p[t] * to_float(vs[t * ld + d]);
-      acc[i] = a;
-    }
-    __syncthreads();
+    return;
   }
 
-  for (int i = tid; i < G * D; i += blockDim.x) {
-    const int g = i / D;
-    store(out + q_base + i, acc[i] / fmaxf(l_s[g], 1e-30f));
+  auto issue = [&](int u, int buf) {
+    const int pid = tb[u / cpp];
+    const int t0 = (u % cpp) * kChunk;
+    const int rows = min(kChunk, page - t0);
+    T* kd = ks + buf * kChunk * kLd;
+    T* vd = vs + buf * kChunk * kLd;
+    for (int i = threadIdx.x; i < kChunk * kLanes; i += kThreads) {
+      const int r = i / kLanes, c = (i % kLanes) * kVec;
+      const bool ok = r < rows;
+      const size_t off =
+          ok ? (((size_t)pid * page + t0 + r) * KV + kvh) * D + c : 0;
+      cp_async16(kd + r * kLd + c, k_pages + off, ok);
+      cp_async16(vd + r * kLd + c, v_pages + off, ok);
+    }
+  };
+
+  for (int g0 = 0; g0 < G; g0 += GT) {
+    float qv[GT][kVec];
+#pragma unroll
+    for (int g = 0; g < GT; ++g)
+#pragma unroll
+      for (int j = 0; j < kVec; ++j)
+        qv[g][j] = g0 + g < G
+                       ? to_float(q[(row_base + g0 + g) * D + sub * kVec + j])
+                       : 0.f;
+    float m[GT], l[GT], acc[GT][kVec];
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      m[g] = -INFINITY;
+      l[g] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) acc[g][j] = 0.f;
+    }
+
+    int u = u_first;
+    issue(u, 0);
+    cp_async_commit();
+    for (int it = 0; u < u_end; ++it) {
+      const int nxt = next_live(u + 1);
+      cp_async_wait<0>();
+      __syncthreads();  // tile `it` landed; all are done with tile it - 1
+      if (nxt < u_end) issue(nxt, (it + 1) & 1);
+      cp_async_commit();
+      const T* kt = ks + (it & 1) * kChunk * kLd;
+      const T* vt = vs + (it & 1) * kChunk * kLd;
+      const int t0 = (u % cpp) * kChunk;
+      const int slot0 = (u / cpp) * page + t0;
+      const int rows = min(kChunk, page - t0);
+      for (int r0 = warp * kTok; r0 < kChunk; r0 += kWarps * kTok) {
+        const int r = r0 + grp;
+        float kf[kVec];
+        load16(kf, kt + r * kLd + sub * kVec);
+        float sc[GT];
+#pragma unroll
+        for (int g = 0; g < GT; ++g) {
+          float dot = 0.f;
+#pragma unroll
+          for (int j = 0; j < kVec; ++j) dot = fmaf(qv[g][j], kf[j], dot);
+#pragma unroll
+          for (int o = 1; o < kLanes; o <<= 1)
+            dot += __shfl_xor_sync(0xffffffffu, dot, o);
+          sc[g] = dot * scale;
+        }
+        const int slot = slot0 + r;
+        const int pos =
+            ring ? last - positive_mod(last - slot, ring_tokens) : slot;
+        const bool ok = r < rows && pos >= 0 && pos <= last &&
+                        (window <= 0 || pos > last - window);
+        if (ok) {
+          float vf[kVec];
+          load16(vf, vt + r * kLd + sub * kVec);
+#pragma unroll
+          for (int g = 0; g < GT; ++g) {
+            const float mn = fmaxf(m[g], sc[g]);
+            const float alpha = expf(m[g] - mn);  // 0 when m was -inf
+            const float p = expf(sc[g] - mn);
+            l[g] = l[g] * alpha + p;
+#pragma unroll
+            for (int j = 0; j < kVec; ++j)
+              acc[g][j] = fmaf(acc[g][j], alpha, p * vf[j]);
+            m[g] = mn;
+          }
+        }
+      }
+      u = nxt;
+    }
+    cp_async_wait<0>();
+
+    // the warp's token groups (lanes kLanes apart hold the same dims)
+#pragma unroll
+    for (int o = kLanes; o < 32; o <<= 1) {
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        float ao[kVec];
+#pragma unroll
+        for (int j = 0; j < kVec; ++j)
+          ao[j] = __shfl_xor_sync(0xffffffffu, acc[g][j], o);
+        const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
+        const float lo = __shfl_xor_sync(0xffffffffu, l[g], o);
+        merge<kVec>(m[g], l[g], acc[g], mo, lo, ao);
+      }
+    }
+    if (grp == 0) {
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        float* rw = red + (warp * GT + g) * kRed;
+#pragma unroll
+        for (int j = 0; j < kVec; ++j) rw[sub * kVec + j] = acc[g][j];
+        if (sub == 0) {
+          rw[D] = m[g];
+          rw[D + 1] = l[g];
+        }
+      }
+    }
+    __syncthreads();
+    // the warps, one (row, dim) a thread -> the split's partial
+    for (int i = threadIdx.x; i < GT * D; i += kThreads) {
+      const int g = i / D, d = i - g * D;
+      if (g0 + g >= G) continue;
+      float mm = -INFINITY, ll = 0.f, a = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float* rw = red + (w * GT + g) * kRed;
+        merge<1>(mm, ll, &a, rw[D], rw[D + 1], rw + d);
+      }
+      const size_t row = (row_base + g0 + g) * splits + split;
+      ws_acc[row * D + d] = a;
+      if (d == 0) {
+        ws_ml[2 * row] = mm;
+        ws_ml[2 * row + 1] = ll;
+      }
+    }
+    __syncthreads();  // `red` and the tiles are free for the next rows
   }
 }
 
+// One warp per (lane, query head): o = sum_s w_s acc_s / sum_s w_s l_s
+// with w_s = exp(m_s - max m); splits with m_s = -inf are skipped, and a
+// row with no live split gets 0 / 1e-30 = 0.
 template <typename T>
-int launch(const void* q, const void* k_pages, const void* v_pages,
-           const void* table, const void* valid_len, void* out, int B, int H,
-           int KV, int D, int page, int maxp, int window, int ring,
-           float scale, cudaStream_t stream) {
-  const int G = H / KV;
-  const int ld = D + 16 / (int)sizeof(T);
-  const size_t smem = 2 * (size_t)page * ld * sizeof(T) +
-                      sizeof(float) * ((size_t)G * D * 2 + (size_t)G * page + 3 * G);
-  // raise the opt-in shared-memory limit once per instantiation and
-  // device (the attribute is per device; this also keeps the call out of
-  // CUDA-graph captures after the first launch); an oversize request
-  // returns the attribute call's error
-  static size_t configured[kMaxDevices];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (smem > 48 * 1024 && smem > configured[dev]) {
-    e = cudaFuncSetAttribute(paged_decode_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-    if (e != cudaSuccess) return (int)e;
-    configured[dev] = smem;
+__global__ void __launch_bounds__(kThreads)
+paged_combine_kernel(const float* __restrict__ ws_ml,
+                     const float* __restrict__ ws_acc, T* __restrict__ out,
+                     int rows, int D, int splits) {
+  const int lane = threadIdx.x & 31;
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (row >= rows) return;
+  const float* ml = ws_ml + (size_t)row * splits * 2;
+  float mm = -INFINITY;
+  for (int s = lane; s < splits; s += 32) mm = fmaxf(mm, ml[2 * s]);
+  mm = warp_max(mm);
+  float ll = 0.f;
+  for (int s = lane; s < splits; s += 32)
+    if (ml[2 * s] != -INFINITY) ll += expf(ml[2 * s] - mm) * ml[2 * s + 1];
+  ll = fmaxf(warp_sum(ll), 1e-30f);
+  const float* ac = ws_acc + (size_t)row * splits * D;
+  for (int d = lane; d < D; d += 32) {
+    float a = 0.f;
+    for (int s = 0; s < splits; ++s)
+      if (ml[2 * s] != -INFINITY) a += expf(ml[2 * s] - mm) * ac[s * D + d];
+    store(out + (size_t)row * D + d, a / ll);
   }
-  dim3 grid(B, KV);
-  paged_decode_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pages),
-      static_cast<const T*>(v_pages), static_cast<const int*>(table),
-      static_cast<const int*>(valid_len), static_cast<T*>(out), H, KV, D,
-      page, maxp, window, ring, scale);
+}
+
+struct Args {
+  const void *q, *k_pages, *v_pages, *table, *valid_len;
+  void *out, *ws_ml, *ws_acc;
+  int B, H, KV, D, page, maxp, pps, splits, window, ring;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, int GT>
+int launch_split(const Args& a) {
+  constexpr int kLd = D + 16 / (int)sizeof(T);
+  const size_t smem = 4 * (size_t)kChunk * kLd * sizeof(T) +
+                      sizeof(float) * kWarps * GT * (D + 2);
+  static size_t configured[kMaxDevices];
+  cudaError_t e = allow_smem(paged_split_kernel<T, D, GT>, smem, configured);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(a.B, a.KV, a.splits);
+  paged_split_kernel<T, D, GT><<<grid, kThreads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k_pages),
+      static_cast<const T*>(a.v_pages), static_cast<const int*>(a.table),
+      static_cast<const int*>(a.valid_len), static_cast<float*>(a.ws_ml),
+      static_cast<float*>(a.ws_acc), a.H, a.KV, a.page, a.maxp, a.pps,
+      a.window, a.ring, a.scale);
+  return (int)cudaGetLastError();
+}
+
+// GQA groups of up to 4 query rows a KV head take the 4-row kernel, larger
+// ones the 8-row kernel (in groups of 8)
+template <typename T, int D>
+int launch_rows(const Args& a) {
+  return a.H / a.KV <= 4 ? launch_split<T, D, 4>(a)
+                         : launch_split<T, D, 8>(a);
+}
+
+template <typename T>
+int launch(const Args& a) {
+  int code;
+  switch (a.D) {
+    case 16: code = launch_rows<T, 16>(a); break;
+    case 32: code = launch_rows<T, 32>(a); break;
+    case 64: code = launch_rows<T, 64>(a); break;
+    case 128: code = launch_rows<T, 128>(a); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (code != 0) return code;
+  const int rows = a.B * a.H;
+  paged_combine_kernel<T><<<(rows + kWarps - 1) / kWarps, kThreads, 0,
+                            a.stream>>>(
+      static_cast<const float*>(a.ws_ml), static_cast<const float*>(a.ws_acc),
+      static_cast<T*>(a.out), rows, a.D, a.splits);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = bfloat16, 1 = float32.  Returns cudaGetLastError().
-extern "C" int paged_attention_decode(const void* q, const void* k_pages,
-                                      const void* v_pages, const void* table,
-                                      const void* valid_len, void* out, int B,
-                                      int H, int KV, int D, int page, int maxp,
-                                      int window, int ring, float scale,
-                                      int dtype, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<__nv_bfloat16>(q, k_pages, v_pages, table, valid_len, out,
-                                 B, H, KV, D, page, maxp, window, ring, scale, s);
-  return launch<float>(q, k_pages, v_pages, table, valid_len, out, B, H, KV, D,
-                       page, maxp, window, ring, scale, s);
+// The split kernel and then the combine kernel, on `stream`.  `ws_ml`
+// (B, H, splits, 2) and `ws_acc` (B, H, splits, D) are fp32 workspaces of
+// the caller; splits = ceil(maxp / pages_per_split).  dtype: 0 =
+// bfloat16, 1 = float32.  Returns cudaGetLastError().
+extern "C" int paged_attention_decode(
+    const void* q, const void* k_pages, const void* v_pages,
+    const void* table, const void* valid_len, void* out, void* ws_ml,
+    void* ws_acc, int B, int H, int KV, int D, int page, int maxp,
+    int pages_per_split, int splits, int window, int ring, float scale,
+    int dtype, void* stream) {
+  const Args a{q, k_pages, v_pages, table, valid_len, out, ws_ml, ws_acc,
+               B, H, KV, D, page, maxp, pages_per_split, splits, window,
+               ring, scale, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return launch<__nv_bfloat16>(a);
+  return launch<float>(a);
 }

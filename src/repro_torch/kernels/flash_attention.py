@@ -19,20 +19,23 @@ The plain versions: :func:`flash_attention_fwd_ref` follows the
 reference ``sdpa``'s order of operations and roundings exactly -- scores
 from the products in the input dtype, softmax in fp32, probs cast back
 to the input dtype before the value product -- so the port's CPU path
-reproduces the reference's bf16 numbers.  The kernels keep scores and
-probabilities in fp32 throughout, so on bf16 inputs the forward differs
-from that version by the reference's own bf16 roundings (about 1e-2).
-:func:`flash_attention_bwd_ref` is the Pallas backward's arithmetic:
-fp32 throughout from the saved ``lse``, outputs rounded once.
+reproduces the reference's bf16 numbers.  Called with
+``operand_dtype=torch.bfloat16`` it runs the bf16 forward kernel's
+arithmetic instead: the online softmax over key tiles of ``block_k``
+(the kernel's ``FWD_BLOCK_K``), fp32 throughout except that p is rounded
+to bf16 before the value product.  :func:`flash_attention_bwd_ref` is
+the Pallas backward's arithmetic: fp32 throughout from the saved
+``lse``, outputs rounded once.
 
-The backward kernels (``csrc/flash_attention_bwd.cu``) take two routes
-by dtype.  bf16 inputs -- every call of the model -- go to tensor-core
-kernels (``mma.sync`` with bf16 operands, fp32 accumulators), which
-round P and dS to bf16 where they become operands of dV = P^T dO,
-dK = dS^T Q and dQ = dS K, as every tensor-core flash backward does; the
+Both kernels take two routes by dtype.  bf16 inputs -- every call of the
+model -- go to tensor-core kernels (``mma.sync`` with bf16 operands,
+fp32 accumulators), which round P (forward and backward) and dS
+(backward) to bf16 where they become operands of O = P V, dV = P^T dO,
+dK = dS^T Q and dQ = dS K, as every tensor-core flash kernel does; the
 plain versions do the same with ``operand_dtype=torch.bfloat16``.  fp32
 inputs go to SIMT kernels that keep every product in fp32, as the plain
-versions' default ``operand_dtype=None`` does.
+versions' default ``operand_dtype=None`` does (the forward's default
+then rounds only where its input dtype does, which fp32 does not).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ NEG_INF = -1e30
 # are built and checked at the training path's head dims only
 HEAD_DIMS = (16, 32, 64, 80, 128)
 BWD_HEAD_DIMS = (16, 32, 64, 128)
+FWD_BLOCK_K = 64            # keys of the bf16 forward kernel's loop tile
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 _FWD = {"flash_attention_fwd":
@@ -72,9 +76,17 @@ def _visible(sq: int, sk: int, causal: bool, window: int, q_offset: int,
 
 
 def flash_attention_fwd_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                            q_offset: int = 0):
+                            q_offset: int = 0, operand_dtype=None,
+                            block_k: int = FWD_BLOCK_K):
     """q: (B, H, Sq, D); k, v: (B, KVH, Sk, D) -> (o (B, H, Sq, D),
-    lse (B, H, Sq) fp32), in the reference ``sdpa``'s rounding order."""
+    lse (B, H, Sq) fp32), in the reference ``sdpa``'s rounding order.
+
+    ``operand_dtype`` (e.g. ``torch.bfloat16``): the bf16 kernel's
+    arithmetic instead (:func:`_fwd_tiles`), p rounded to that dtype
+    before the value product, over key tiles of ``block_k``."""
+    if operand_dtype is not None:
+        return _fwd_tiles(q, k, v, causal, window, q_offset, operand_dtype,
+                          block_k)
     sq, d = q.shape[2], q.shape[3]
     g = q.shape[1] // k.shape[1]
     k = k.repeat_interleave(g, dim=1)
@@ -85,6 +97,38 @@ def flash_attention_fwd_ref(q, k, v, *, causal: bool = True, window: int = 0,
     lse = torch.logsumexp(scores, dim=-1)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     return torch.matmul(probs, v), lse
+
+
+def _fwd_tiles(q, k, v, causal, window, q_offset, operand_dtype, block_k):
+    """The online softmax over key tiles of ``block_k`` aligned at key 0,
+    in fp32: running max m, p = exp(s - m) (0 where masked), l summed from
+    the fp32 p, p rounded to ``operand_dtype`` for p.V; o = acc / l and
+    lse = m + log(l), l clamped at 1e-30 (m taken as -1e30 for a row that
+    sees no key)."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    g = h // k.shape[1]
+    q32 = q.float()
+    k32 = k.float().repeat_interleave(g, dim=1)
+    v32 = v.float().repeat_interleave(g, dim=1)
+    ok = _visible(sq, sk, causal, window, q_offset, q.device)
+    m = torch.full((b, h, sq, 1), -torch.inf, device=q.device)
+    l = torch.zeros((b, h, sq, 1), device=q.device)
+    acc = torch.zeros((b, h, sq, d), device=q.device)
+    for k0 in range(0, sk, block_k):
+        s = torch.matmul(q32, k32[:, :, k0:k0 + block_k].transpose(-1, -2))
+        s = torch.where(ok[:, k0:k0 + block_k], s * (d ** -0.5), -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        m_safe = torch.where(m_new == -torch.inf, 0.0, m_new)
+        p = torch.exp(s - m_safe)
+        alpha = torch.exp(m - m_safe)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(_operand(p, operand_dtype),
+                                         v32[:, :, k0:k0 + block_k])
+        m = m_new
+    lc = l.clamp(min=1e-30)
+    lse = torch.where(m == -torch.inf, NEG_INF, m) + torch.log(lc)
+    return (acc / lc).to(q.dtype), lse[..., 0]
 
 
 def _check(name, q, k, v, q_offset, *others, head_dims=HEAD_DIMS):
@@ -111,9 +155,9 @@ def _unit_last(*ts):
 
 
 def _rows_aligned(*ts):
-    """bf16 tensors for the backward's ``cp.async``: each (batch, head,
-    sequence) row 16-byte aligned, copied only where the base pointer or a
-    stride is not (the model's layouts always are)."""
+    """bf16 tensors for the tensor-core kernels' ``cp.async``: each
+    (batch, head, sequence) row 16-byte aligned, copied only where the base
+    pointer or a stride is not (the model's layouts always are)."""
     def ok(t):
         return t.data_ptr() % 16 == 0 and all(
             s % 8 == 0 for s in t.stride()[:3])
@@ -135,16 +179,19 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
     contiguous head dim -> (o (B, H, Sq, D), lse (B, H, Sq) fp32).
 
     On CUDA the output is stored in (B, Sq, H, D) memory order (the
-    model layout) and returned as a (B, H, Sq, D) view.  On CPU tensors
-    this is :func:`flash_attention_fwd_ref`; on CUDA tensors it launches
-    the kernel or raises."""
+    model layout) and returned as a (B, H, Sq, D) view.  bf16 launches
+    the tensor-core kernel, which rounds p to bf16 for p.V (its plain
+    version: ``operand_dtype=torch.bfloat16``; a bf16 tensor whose rows
+    are not 16-byte aligned is copied first); fp32 the SIMT kernel, fp32
+    throughout.  On CPU tensors this is :func:`flash_attention_fwd_ref`;
+    on CUDA tensors it launches the kernel or raises."""
     if q.device.type == "cpu":
         return flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
                                        q_offset=q_offset)
     _check("flash_attention_fwd", q, k, v, q_offset)
     b, h, sq, d = q.shape
     kvh, sk = k.shape[1], k.shape[2]
-    q, k, v = _unit_last(q, k, v)
+    q, k, v = _rows_aligned(*_unit_last(q, k, v))
     o = _model_layout(b, sq, h, d, q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     if sq == 0:

@@ -1,16 +1,21 @@
-"""Paged-attention decode: the CUDA kernel's wrapper and its plain version.
+"""Paged-attention decode: the CUDA kernel's wrapper and its plain versions.
 
 Counterpart of ``repro/kernels/paged_attention.py``.  The kernel
 (``csrc/paged_attention.cu``) replaces the Pallas ``paged_attention``;
 its source note says what bounds it on the H100 and how the design
-answers.  :func:`paged_attention_ref` is the plain PyTorch version with
-the reference oracle's semantics: the CPU path of the port and the
-yardstick the kernel is held against on the card.
+answers: the lane's table is cut into splits of ``pages_per_split``
+entries (:func:`split_pages`), each split writes a partial softmax state
+and a second kernel combines them.  :func:`paged_attention_ref` is the
+plain PyTorch version with the reference oracle's semantics: the CPU path
+of the port and the yardstick the kernel is held against on the card.
+:func:`paged_attention_split_ref` repeats the kernel's split and combine
+in plain PyTorch.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -18,10 +23,27 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
+# blocks a split grid aims at per SM: a linear lane's splits past its
+# valid length exit at once, so the grid is over-provisioned
+BLOCKS_PER_SM = 4
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURE = {"paged_attention_decode":
-              (_P,) * 6 + (_I,) * 8 + (_F, _I, _P)}
+              (_P,) * 8 + (_I,) * 10 + (_F, _I, _P)}
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
+
+
+def split_pages(b: int, kvh: int, max_pages: int, sms: int):
+    """(pages_per_split, splits) of the kernel's (lane, KV head, split)
+    grid: enough splits that ``b * kvh * splits`` reaches
+    ``BLOCKS_PER_SM * sms`` blocks, at most one split per table entry."""
+    want = -(-BLOCKS_PER_SM * sms // max(b * kvh, 1))
+    pps = max(1, max_pages // want)
+    return pps, -(-max_pages // pps)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _slot_positions(slot, last, *, window: int, ring: bool, ring_tokens: int):
@@ -37,9 +59,9 @@ def _slot_positions(slot, last, *, window: int, ring: bool, ring_tokens: int):
     return pos, ok
 
 
-def paged_attention_ref(q, k_pages, v_pages, page_table, valid_len, *,
-                        window: int = 0, ring: bool = False):
-    """Gather-based plain version (the reference oracle's math, in fp32)."""
+def _gathered(q, k_pages, v_pages, page_table, valid_len, window, ring):
+    """fp32 scores (B, H, S), the (B, 1, S) mask of live slots and the
+    gathered values (B, S, H, D), S = max_pages * page."""
     b, h, d = q.shape
     _, page, kvh, _ = k_pages.shape
     max_pages = page_table.shape[1]
@@ -54,11 +76,51 @@ def paged_attention_ref(q, k_pages, v_pages, page_table, valid_len, *,
     in_page = (page_table >= 0).repeat_interleave(page, dim=1)[:, None, :]
     _, ok = _slot_positions(slot, vlen[:, None, None] - 1, window=window,
                             ring=ring, ring_tokens=max_pages * page)
-    mask = ok & in_page
+    return scores, ok & in_page, v
+
+
+def paged_attention_ref(q, k_pages, v_pages, page_table, valid_len, *,
+                        window: int = 0, ring: bool = False):
+    """Gather-based plain version (the reference oracle's math, in fp32)."""
+    scores, mask, v = _gathered(q, k_pages, v_pages, page_table, valid_len,
+                                window, ring)
     scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1)
     probs = torch.where(mask, probs, 0.0)   # fully-masked rows stay finite
     return torch.einsum("bhs,bshd->bhd", probs, v.float()).to(q.dtype)
+
+
+def paged_attention_split_ref(q, k_pages, v_pages, page_table, valid_len, *,
+                              window: int = 0, ring: bool = False,
+                              pages_per_split: int = 1):
+    """The kernel's split and combine in plain PyTorch: each run of
+    ``pages_per_split`` table entries gives a partial (m, l, acc) in fp32
+    (m = -inf, l = 0 where it holds no live token), and the partials are
+    combined with weights exp(m - max m), empty ones adding nothing."""
+    b, h, d = q.shape
+    page, max_pages = k_pages.shape[1], page_table.shape[1]
+    scores, mask, v = _gathered(q, k_pages, v_pages, page_table, valid_len,
+                                window, ring)
+    splits = -(-max_pages // pages_per_split)
+    pad = splits * pages_per_split * page - max_pages * page
+    width = pages_per_split * page
+    scores = torch.nn.functional.pad(scores, (0, pad)).unflatten(
+        -1, (splits, width))
+    mask = torch.nn.functional.pad(mask, (0, pad)).unflatten(
+        -1, (splits, width))
+    v = torch.nn.functional.pad(v.float(), (0, 0, 0, 0, 0, pad)).unflatten(
+        1, (splits, width))
+    scores = torch.where(mask, scores, -torch.inf)
+    m = scores.amax(-1)                                     # (B, H, splits)
+    p = torch.exp(scores - torch.where(m == -torch.inf, 0.0, m)[..., None])
+    l = p.sum(-1)
+    acc = torch.einsum("bhcs,bcshd->bhcd", p, v)
+    top = m.amax(-1, keepdim=True)
+    w = torch.where(m == -torch.inf, 0.0,
+                    torch.exp(m - torch.where(top == -torch.inf, 0.0, top)))
+    out = (w[..., None] * acc).sum(2) / (w * l).sum(-1, keepdim=True).clamp(
+        min=1e-30)
+    return out.to(q.dtype)
 
 
 def paged_attention(q, k_pages, v_pages, page_table, valid_len, *,
@@ -67,7 +129,9 @@ def paged_attention(q, k_pages, v_pages, page_table, valid_len, *,
     (B, max_pages) int32 physical page ids, -1 padded; valid_len: (B,)
     int32 total tokens.  ``window > 0`` masks keys outside the last
     ``window`` positions; ``ring=True`` reads the table as a
-    position-modular ring.  Returns (B, H, D) in q's dtype.
+    position-modular ring.  Returns (B, H, D) in q's dtype.  The kernel
+    splits each lane's table as :func:`split_pages` says, into fp32
+    workspaces allocated here.
 
     On CPU tensors this is :func:`paged_attention_ref`; on CUDA tensors
     it launches the kernel or raises."""
@@ -99,12 +163,20 @@ def paged_attention(q, k_pages, v_pages, page_table, valid_len, *,
         v_pages.contiguous()
     page_table, valid_len = page_table.contiguous(), valid_len.contiguous()
     out = torch.empty_like(q)
+    if b == 0 or max_pages == 0:
+        return out.zero_()
+    pps, splits = split_pages(b, kvh, max_pages, _sm_count(q.device.index))
+    ws_ml = torch.empty((b, h, splits, 2), dtype=torch.float32,
+                        device=q.device)
+    ws_acc = torch.empty((b, h, splits, d), dtype=torch.float32,
+                         device=q.device)
     lib = _build.library("paged_attention", _SIGNATURE)
     code = lib.paged_attention_decode(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         page_table.data_ptr(), valid_len.data_ptr(), out.data_ptr(),
-        b, h, kvh, d, page, max_pages, int(window), int(bool(ring)),
-        d ** -0.5, _DTYPES[q.dtype], _build.stream_ptr(q))
+        ws_ml.data_ptr(), ws_acc.data_ptr(), b, h, kvh, d, page, max_pages,
+        pps, splits, int(window), int(bool(ring)), d ** -0.5,
+        _DTYPES[q.dtype], _build.stream_ptr(q))
     _build.check(code, "paged_attention")
     paged_attention.launches += 1
     return out
