@@ -52,7 +52,8 @@ Phases, each of which must pass (any failure exits nonzero):
    each through the dense backend (cache_len 2048); every request must
    complete and the launch counts of K2, K3, K4 and K7 must equal what the
    path implies; then the same traffic with 8 new tokens under
-   ``torch.profiler`` gives the busy share;
+   ``torch.profiler`` gives the busy share and the device time of K7's
+   kernels summed;
 8. dense serve: full-width rwkv6-7b, the same traffic, K3 and K6;
 9. parity: reduced zamba2-2.7b, rwkv6-7b and tinyllama-1.1b serve mixed
    prompts (9..200 tokens) densely with the same weights on the card and
@@ -60,7 +61,14 @@ Phases, each of which must pass (any failure exits nonzero):
 
 Phase 2 also holds K4 (decode attention), K6 (RWKV-6 WKV), K7 (Mamba-2
 SSD scan) and K2 at head dim 80 against their plain versions, at small
-shapes and at the full-width shapes of phases 7 and 8.
+shapes and at the full-width shapes of phases 7 and 8.  K6 and K7, whose
+bf16 routes run the chunked form on tensor cores in three CUDA launches
+a call, are held elementwise at 1e-4 on small cases (lengths 1 to 1000
+around the chunk of 64, two batch rows, a decay of about -4 per token,
+rows 4 and 2 bytes off 16-byte alignment) and by ``SCAN_REL_NORM`` at
+full width, where two launches must give bit-equal results and each
+CUDA kernel's time per call is printed; where ``cuobjdump`` is found,
+each of their bf16 kernels must show HMMA instructions.
 
 A kernel's ``launches`` in the JSON record is its count over the serve
 (phases 3, 7, 8) and train (phase 5) runs.  Those runs also fail if a
@@ -553,16 +561,19 @@ def time_fwd_d80(torch, q, k, v):
 # ---------------------------------------------------------------------------
 
 # K6/K7 at the full-width shapes: both sides compute in fp32 from the same
-# inputs, the kernel token by token and the plain version in chunks of 128
-# (another summation order, and products of decays where the chunked form
-# takes differences of log-decay sums); the gate is the relative norm
+# inputs (the kernels' fp32 operands split into two TF32 parts), the bf16
+# kernels in chunks of 64 and the plain versions in chunks of 128: another
+# summation order over 1000 tokens; the gate is the relative norm
 SCAN_REL_NORM = 2e-3
 
 
 def check_dense_kernels(torch, randn, tol):
     """K4 on fp32 copies (the plain version rounds probabilities to bf16 as
     the reference does; the kernel keeps them in fp32), K6 and K7 on the
-    same inputs (both compute in fp32).  Returns their records."""
+    same inputs (both compute in fp32), after counting the tensor-core
+    instructions of the bf16 K6 and K7 kernels (the chunk and inter-chunk
+    launches at four head dims).  Returns their records."""
+    tensor_core_sass({"ssd_scan": 8, "rwkv6_scan": 8})
     return [check_decode(torch, randn, tol), check_ssd(torch, randn),
             check_wkv(torch, randn)]
 
@@ -629,28 +640,87 @@ def check_decode(torch, randn, tol):
                       "every lane; library_ms is SDPA with a length mask")
 
 
-def _ssd_inputs(torch, randn, b, h, s, p, n, dtype):
+def _ssd_inputs(torch, randn, b, h, s, p, n, dtype, decay=None, pad=0):
     """The model's layouts: x (B, S, H, P) and B, C slices of one (B, S,
-    H*P + 2N) activation, dt and a (B, S, H); returned as the kernel's
-    (B, H, S, .) views."""
-    xbc = randn(b, s, h * p + 2 * n, dtype=dtype, scale=0.5)
+    H*P + 2N + pad) activation (``pad`` elements at the end of each row
+    move the rows off 16-byte alignment), dt and a (B, S, H); returned as
+    the kernel's (B, H, S, .) views.  a = -exp(noise) dt, or about
+    -``decay`` per token."""
+    f32 = torch.float32
+    xbc = randn(b, s, h * p + 2 * n + pad, dtype=dtype, scale=0.5)
     x = xbc[..., :h * p].unflatten(-1, (h, p)).transpose(1, 2)
-    bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
-    dt = torch.nn.functional.softplus(randn(b, s, h, dtype=torch.float32))
-    a = -torch.exp(randn(h, dtype=torch.float32, scale=0.5)) * dt
+    bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:h * p + 2 * n]
+    dt = torch.nn.functional.softplus(randn(b, s, h, dtype=f32))
+    if decay is None:
+        a = -torch.exp(randn(h, dtype=f32, scale=0.5)) * dt
+    else:
+        a = -decay * torch.exp(randn(b, s, h, dtype=f32, scale=0.1))
     return x, dt.transpose(1, 2), a.transpose(1, 2), bm, cm
+
+
+def _scan_cases(dim_names):
+    """The bf16 cases both scans add to their first four: the lengths
+    around the kernels' chunk of 64 and 1000 at the full-width head dims,
+    two batch rows at the reduced models' dims, a decay of about -4 per
+    token (a chunk's log-decay passes -30 inside one sub-chunk of 16), and
+    rows 4 and 2 bytes off 16-byte alignment.  Each case: (label, b, h,
+    s, dims, decay, pad)."""
+    cases = [(f"s={s} h=2 {dim_names} 64", 1, 2, s, 64, None, 0)
+             for s in (1, 15, 16, 17, 63, 64, 65, 1000)]
+    cases += [
+        (f"b=2 h=4 s=130 {dim_names} 8/16 (reduced)", 2, 4, 130, None, None,
+         0),
+        (f"strong decay ~-4/token h=2 s=200 {dim_names} 64", 1, 2, 200, 64,
+         4.0, 0),
+        (f"strong decay ~-4/token b=2 h=2 s=1000 {dim_names} 64", 2, 2, 1000,
+         64, 4.0, 0),
+        (f"rows 4-byte aligned h=2 s=100 {dim_names} 64", 1, 2, 100, 64, None,
+         2),
+        (f"rows 2-byte aligned h=2 s=100 {dim_names} 64", 1, 2, 100, 64, None,
+         1),
+    ]
+    return cases
+
+
+def kernel_split(torch, fn, what, calls=10):
+    """Device time per call of each CUDA kernel that ``fn`` launches,
+    from ``torch.profiler`` over ``calls`` calls (printed only)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if us > 0:
+            print(f"[time] {what}: {us / 1e3 / calls:.4f} ms a call in "
+                  f"{short_name(e.key)[:80]}", flush=True)
+
+
+def same_twice(torch, name, fn):
+    """Two launches on the same inputs must give bit-equal results."""
+    first, second = fn(), fn()
+    same = all(torch.equal(a, b) for a, b in zip(first, second))
+    print(f"[kernel] {name}, launched twice: bit-equal: {same}", flush=True)
+    if not same:
+        fail(f"{name}: two launches on the same inputs differ")
 
 
 def check_ssd(torch, randn):
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [("small fp32 h=2 s=64 p=8 n=4", 1, 2, 64, 8, 4, f32),
-             ("ragged b=2 h=3 s=77 p=16 n=8", 2, 3, 77, 16, 8, bf16),
-             ("p=64 n=64 h=4 s=200", 1, 4, 200, 64, 64, bf16),
-             ("p=24 n=128 h=2 s=33", 1, 2, 33, 24, 128, f32)]
+    cases = [("small fp32 h=2 s=64 p=8 n=4", 1, 2, 64, 8, 4, f32, None, 0),
+             ("ragged b=2 h=3 s=77 p=16 n=8", 2, 3, 77, 16, 8, bf16, None, 0),
+             ("p=64 n=64 h=4 s=200", 1, 4, 200, 64, 64, bf16, None, 0),
+             ("p=24 n=128 h=2 s=33", 1, 2, 33, 24, 128, f32, None, 0)]
+    cases += [(label, b, h, s, d or 8, d or 8, bf16, decay, pad)
+              for label, b, h, s, d, decay, pad in _scan_cases("p/n")]
     errs = []
-    for label, b, h, s, p, n, dtype in cases:
-        ins = _ssd_inputs(torch, randn, b, h, s, p, n, dtype)
+    for label, b, h, s, p, n, dtype, decay, pad in cases:
+        ins = _ssd_inputs(torch, randn, b, h, s, p, n, dtype, decay, pad)
         (y, st), (y_r, st_r) = ssd_scan(*ins), ssd_scan_ref(*ins)
         errs.append(compare(torch, f"ssd_scan y {label}", y, y_r, 1e-4, 1e-4))
         compare(torch, f"ssd_scan state {label}", st, st_r, 1e-4, 1e-4)
@@ -661,13 +731,23 @@ def check_ssd(torch, randn):
     errs.append(rel_norm(torch, "ssd_scan y zamba2 h=80 s=1000 p=64 n=64", y,
                          y_r, SCAN_REL_NORM))
     rel_norm(torch, "ssd_scan state zamba2", st, st_r, SCAN_REL_NORM)
+    del y_r, st_r
+    same_twice(torch, "ssd_scan at zamba2's shape", lambda: ssd_scan(*ins))
     ms = timed_ms(torch, lambda: ssd_scan(*ins))
     plain = timed_ms(torch, lambda: ssd_scan_ref(*ins), iters=3, reps=3)
+    x, dt, a, bm, cm = ins
+    ins32 = (x.float(), dt, a, bm.float(), cm.float())
+    fp32 = timed_ms(torch, lambda: ssd_scan(*ins32), iters=3, reps=3)
+    kernel_split(torch, lambda: ssd_scan(*ins), "ssd_scan at zamba2's shape")
     nbytes = (b * h * s * p * 2 + 2 * b * h * s * 4 + 2 * b * s * n * 2
               + b * h * s * p * 4 + b * h * p * n * 4)
     # per token and state element: h*exp(a) + (x dt) B (3), y += C h (2);
     # bf16 inputs: the bf16 matrix peak, at which a chunked form runs them
     b_ms, b_by = bound(nbytes, 5 * b * h * s * p * n, H100_BF16_FLOPS)
+    print(f"[time] ssd_scan at zamba2's shape: kernel {ms:.4f} ms (bf16, "
+          f"chunked, tensor cores), fp32 route {fp32:.4f} ms (token by "
+          f"token), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+          flush=True)
     return dict(name="ssd_scan", route="cuda",
                 source="src/repro_torch/csrc/ssd_scan.cu",
                 replaces="src/repro/kernels/ssd_scan.py:69",
@@ -676,11 +756,13 @@ def check_ssd(torch, randn):
                 shape=f"x (B={b}, H={h}, S={s}, P={p}) bf16 strided, N={n}")
 
 
-def _wkv_inputs(torch, randn, b, h, s, hd, dtype, decay=1.0):
+def _wkv_inputs(torch, randn, b, h, s, hd, dtype, decay=1.0, pad=0):
     """The model's layout (B, S, H, hd), returned as (B, H, S, hd) views;
-    logw = -exp(noise - shift) about -``decay`` per token."""
-    r, k, v = (randn(b, s, h, hd, dtype=dtype, scale=0.5).transpose(1, 2)
-               for _ in range(3))
+    r, k and v rows of H*hd + ``pad`` elements (a pad moves them off
+    16-byte alignment); logw = -exp(noise - shift) about -``decay`` per
+    token."""
+    r, k, v = (randn(b, s, h * hd + pad, dtype=dtype, scale=0.5)[..., :h * hd]
+               .unflatten(-1, (h, hd)).transpose(1, 2) for _ in range(3))
     logw = -torch.exp(randn(b, s, h, hd, dtype=torch.float32, scale=0.5)
                       + math.log(decay)).transpose(1, 2)
     u = randn(h, hd, dtype=dtype, scale=0.3)
@@ -690,13 +772,15 @@ def _wkv_inputs(torch, randn, b, h, s, hd, dtype, decay=1.0):
 def check_wkv(torch, randn):
     from repro_torch.kernels.rwkv6_scan import rwkv6_wkv, rwkv6_wkv_ref
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [("small fp32 h=2 s=64 hd=8", 1, 2, 64, 8, f32),
-             ("ragged b=2 h=3 s=77 hd=16", 2, 3, 77, 16, bf16),
-             ("hd=64 h=4 s=200", 1, 4, 200, 64, bf16),
-             ("hd=32 h=2 s=33 fp32", 1, 2, 33, 32, f32)]
+    cases = [("small fp32 h=2 s=64 hd=8", 1, 2, 64, 8, f32, 1.0, 0),
+             ("ragged b=2 h=3 s=77 hd=16", 2, 3, 77, 16, bf16, 1.0, 0),
+             ("hd=64 h=4 s=200", 1, 4, 200, 64, bf16, 1.0, 0),
+             ("hd=32 h=2 s=33 fp32", 1, 2, 33, 32, f32, 1.0, 0)]
+    cases += [(label, b, h, s, d or 16, bf16, decay or 1.0, pad)
+              for label, b, h, s, d, decay, pad in _scan_cases("hd")]
     errs = []
-    for label, b, h, s, hd, dtype in cases:
-        ins = _wkv_inputs(torch, randn, b, h, s, hd, dtype)
+    for label, b, h, s, hd, dtype, decay, pad in cases:
+        ins = _wkv_inputs(torch, randn, b, h, s, hd, dtype, decay, pad)
         (o, st), (o_r, st_r) = rwkv6_wkv(*ins), rwkv6_wkv_ref(*ins)
         errs.append(compare(torch, f"rwkv6_wkv o {label}", o, o_r, 1e-4,
                             1e-4))
@@ -708,14 +792,26 @@ def check_wkv(torch, randn):
     errs.append(rel_norm(torch, "rwkv6_wkv o rwkv6 h=64 s=1000 hd=64", o, o_r,
                          SCAN_REL_NORM))
     rel_norm(torch, "rwkv6_wkv state rwkv6", st, st_r, SCAN_REL_NORM)
+    del o_r, st_r
+    same_twice(torch, "rwkv6_wkv at rwkv6-7b's shape",
+               lambda: rwkv6_wkv(*ins))
     ms = timed_ms(torch, lambda: rwkv6_wkv(*ins))
     plain = timed_ms(torch, lambda: rwkv6_wkv_ref(*ins), iters=3, reps=3)
+    r, k, v, logw, u = ins
+    ins32 = (r.float(), k.float(), v.float(), logw, u)
+    fp32 = timed_ms(torch, lambda: rwkv6_wkv(*ins32), iters=3, reps=3)
+    kernel_split(torch, lambda: rwkv6_wkv(*ins),
+                 "rwkv6_wkv at rwkv6-7b's shape")
     nbytes = (3 * b * h * s * hd * 2 + 2 * b * h * s * hd * 4 + h * hd * 2
               + b * h * hd * hd * 4)
     # per token and state element: r S (2), S w + k v (3); the bonus
     # (r . u k) v is per channel, not per state element.  bf16 inputs: the
     # bf16 matrix peak, at which a chunked form runs these products
     b_ms, b_by = bound(nbytes, 5 * b * h * s * hd * hd, H100_BF16_FLOPS)
+    print(f"[time] rwkv6_wkv at rwkv6-7b's shape: kernel {ms:.4f} ms (bf16, "
+          f"chunked, tensor cores), fp32 route {fp32:.4f} ms (token by "
+          f"token), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
+          flush=True)
     return dict(name="rwkv6_wkv", route="cuda",
                 source="src/repro_torch/csrc/rwkv6_scan.cu",
                 replaces="src/repro/kernels/rwkv6_scan.py:73",
@@ -763,12 +859,12 @@ def sdpa_grads(torch, q, k, v, do, causal):
     return dq, *(t.float().unflatten(1, (kvh, g)).sum(2) for t in (dk, dv))
 
 
-def tensor_core_sass():
-    """HMMA/HGMMA instructions in the SASS of each bf16 kernel of the
-    built flash-attention libraries (the forward at five head dims, the
-    backward's dQ and dK/dV at four), counted by ``cuobjdump``; fails on a
-    kernel with none.  Skipped, with a note, where ``cuobjdump`` is not
-    found."""
+def tensor_core_sass(libs):
+    """HMMA/HGMMA instructions in the SASS of each bf16 kernel (``_tc`` in
+    its name) of the built libraries ``libs`` ({source: number of bf16
+    kernels}), counted by ``cuobjdump``; fails on a kernel with none or on
+    another number of them.  Skipped, with a note, where ``cuobjdump`` is
+    not found."""
     import shutil
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -776,7 +872,7 @@ def tensor_core_sass():
         print("[sass] cuobjdump not found: tensor-core instructions not "
               "counted", flush=True)
         return
-    for lib, want in (("flash_attention_fwd", 5), ("flash_attention_bwd", 8)):
+    for lib, want in libs.items():
         out = subprocess.run([tool, "-sass", str(_build.lib_path(lib))],
                              capture_output=True, text=True, timeout=300)
         if out.returncode != 0:
@@ -794,7 +890,8 @@ def tensor_core_sass():
         tc = {fn: n for fn, n in counts.items() if "_tc" in fn}
         if len(tc) != want or min(tc.values()) == 0:
             fail(f"{lib}: {len(tc)} bf16 kernels in the SASS, expected "
-                 f"{want} (one a head dim and pass), each with HMMA")
+                 f"{want} (one a head dim and pass or launch), each with "
+                 "HMMA")
 
 
 def check_backward(torch, randn, tol):
@@ -817,7 +914,8 @@ def check_backward(torch, randn, tol):
         flash_attention_dkv_ref, flash_attention_dq_ref, flash_attention_fwd,
         flash_attention_fwd_ref)
     bf16, f32 = torch.bfloat16, torch.float32
-    tensor_core_sass()
+    # the forward at five head dims, the backward's dQ and dK/dV at four
+    tensor_core_sass({"flash_attention_fwd": 5, "flash_attention_bwd": 8})
     cases = [
         ("small causal ragged GQA b=2 h=4/2 s=200 d=64", 2, 4, 2, 200, 200,
          64, True, 0, 0, bf16),
@@ -1328,6 +1426,13 @@ def report_profile(prof, wall, what):
     for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]:
         print(f"[profile]   {us / 1e3:10.3f} ms  "
               f"{100 * us / 1e3 / total_ms:5.1f}%  {key[:90]}", flush=True)
+    # K6 and K7 run as three CUDA kernels a call each
+    for name, mark in (("K7 ssd_scan", "ssd_"), ("K6 rwkv6_wkv", "wkv_")):
+        us = sum(t for key, t in dev_us.items() if mark in key)
+        if us:
+            print(f"[profile]   {us / 1e3:10.3f} ms  "
+                  f"{100 * us / 1e3 / total_ms:5.1f}%  {name}, all its "
+                  "kernels", flush=True)
 
 
 # ---------------------------------------------------------------------------

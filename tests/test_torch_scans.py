@@ -11,6 +11,11 @@ takes the chunk boundaries and padded tails that ``test_kernels.py`` gives
 the Pallas kernels.  Tolerance rtol = atol = 1e-4, as ``test_kernels.py``
 holds the Pallas scans to their oracles.  Ragged lengths, which the Pallas
 wrappers drop by integer division, are held against the oracles only.
+
+The bf16 CUDA kernels' block decompositions, in plain PyTorch
+(``ssd_scan_mirror``, ``rwkv6_wkv_mirror``), are held against the same
+oracles at the same tolerance, decays that overflow a factorization
+without reference points included.
 """
 
 import jax.numpy as jnp
@@ -173,3 +178,78 @@ def test_cpu_scans_take_the_plain_versions_and_count_no_launch():
     decode_attention(q, torch.randn(1, 1, 5, 16), torch.randn(1, 1, 5, 16), 3)
     assert (rwkv6_wkv.launches, ssd_scan.launches,
             decode_attention.launches) == before
+
+
+# ---------------------------------------------------------------------------
+# The bf16 kernels' block decompositions (plain mirrors) against the
+# per-step oracles: chunks of 64 (K6 in sub-chunks of 16), ragged tails,
+# and decays strong enough that a factorization without reference points
+# overflows
+# ---------------------------------------------------------------------------
+
+def _strong_wkv(rng, b, h, s, hd, per_token):
+    r, k, v, _, u = _wkv_inputs(rng, b, h, s, hd)
+    logw = -per_token * np.exp(ra(rng, b, h, s, hd, scale=0.1))
+    return r, k, v, logw.astype(np.float32), u
+
+
+def _strong_ssd(rng, b, h, s, p, n, per_token):
+    x, dt, _, bm, cm = _ssd_inputs(rng, b, h, s, p, n)
+    a = -per_token * np.exp(ra(rng, b, h, s, scale=0.1))
+    return x, dt, a.astype(np.float32), bm, cm
+
+
+@pytest.mark.parametrize("b,h,s,hd,chunk,sub", [
+    (1, 2, 1, 16, 64, 16), (1, 2, 63, 16, 64, 16), (2, 2, 64, 8, 64, 16),
+    (1, 3, 65, 16, 64, 16), (2, 2, 200, 32, 64, 16), (1, 2, 77, 16, 32, 8)])
+def test_wkv_mirror_matches_oracle(b, h, s, hd, chunk, sub):
+    rng = np.random.default_rng(100 + s)
+    ins_j, ins_t = both(*_wkv_inputs(rng, b, h, s, hd))
+    o, st = trs.rwkv6_wkv_mirror(*ins_t, chunk=chunk, sub=sub)
+    o_ref, st_ref = ref.rwkv6_wkv_ref(*ins_j)
+    close(o, o_ref)
+    close(st, st_ref)
+
+
+@pytest.mark.parametrize("per_token,s", [(10.0, 64), (10.0, 150), (4.0, 130)])
+def test_wkv_mirror_strong_decay_needs_reference_points(per_token, s):
+    """At about -10 (or -4) per token a chunk's log-decay sum reaches ~-640
+    (~-256), so exp(-csum) overflows fp32 and any factorization without
+    reference points fails; the mirror's factors never exceed 1 and it
+    stays exact."""
+    rng = np.random.default_rng(7)
+    ins_j, ins_t = both(*_strong_wkv(rng, 1, 2, s, 16, per_token))
+    csum = ins_t[3][:, :, :trs.KERNEL_CHUNK].cumsum(2)
+    assert torch.isinf(torch.exp(-csum)).any()
+    o, st = trs.rwkv6_wkv_mirror(*ins_t)
+    assert torch.isfinite(o).all() and torch.isfinite(st).all()
+    o_ref, st_ref = ref.rwkv6_wkv_ref(*ins_j)
+    close(o, o_ref)
+    close(st, st_ref)
+
+
+@pytest.mark.parametrize("b,h,s,p,n,chunk", [
+    (1, 2, 1, 8, 8, 64), (1, 2, 63, 16, 8, 64), (2, 2, 64, 8, 4, 64),
+    (1, 3, 65, 8, 16, 64), (2, 2, 200, 32, 32, 64), (1, 2, 77, 8, 8, 16)])
+def test_ssd_mirror_matches_oracle(b, h, s, p, n, chunk):
+    rng = np.random.default_rng(200 + s)
+    ins_j, ins_t = both(*_ssd_inputs(rng, b, h, s, p, n))
+    y, st = tss.ssd_scan_mirror(*ins_t, chunk=chunk)
+    y_ref, st_ref = ref.ssd_ref(*ins_j)
+    close(y, y_ref)
+    close(st, st_ref)
+
+
+@pytest.mark.parametrize("per_token,s", [(10.0, 64), (10.0, 150), (4.0, 130)])
+def test_ssd_mirror_strong_decay_needs_reference_points(per_token, s):
+    """The SSD form at about -10 per token: exp(-csum) over one chunk
+    overflows, the mirror's exponents are never above 0 and it is exact."""
+    rng = np.random.default_rng(8)
+    ins_j, ins_t = both(*_strong_ssd(rng, 2, 2, s, 8, 8, per_token))
+    csum = ins_t[2][:, :, :tss.KERNEL_CHUNK].cumsum(2)
+    assert torch.isinf(torch.exp(-csum)).any()
+    y, st = tss.ssd_scan_mirror(*ins_t)
+    assert torch.isfinite(y).all() and torch.isfinite(st).all()
+    y_ref, st_ref = ref.ssd_ref(*ins_j)
+    close(y, y_ref)
+    close(st, st_ref)
