@@ -7,7 +7,7 @@ Phases, each of which must pass (any failure exits nonzero):
 
 1. build: every CUDA source under ``src/repro_torch/csrc`` is compiled by
    ``nvcc`` for ``sm_90a`` (one process per source, all together) and the
-   Triton RMSNorm is compiled on its first call;
+   Triton RMSNorm forward and backward are compiled on their first call;
 2. kernels: each hand-written kernel, on the card, at small shapes and at
    the tinyllama-1.1b shapes of the serving and training paths (K2 and K3
    at the training path's q (2,32,4096,64) and 8192 rows too), is held
@@ -25,7 +25,13 @@ Phases, each of which must pass (any failure exits nonzero):
    instructions in its SASS; K1 prints its split of the lanes' tables
    and is held with lanes of 1, 4 and 16 live pages and an all -1 lane;
    the autograd Functions of K2+K5 and K3 are held against autograd
-   through the plain forwards;
+   through the plain forwards (K3's at 512 and 8192 rows); K3's forward
+   is timed at every shape class of the main paths (a decode step's 8
+   rows, a prefill's 1000, a training norm's 8192, at widths 2048-5120)
+   and its backward (``rmsnorm_bwd``) held against ``rmsnorm_bwd_ref`` at
+   8192 x 2048, 1000 x 2560 and 1000 x 5120 in bf16 (dx at one bf16 ulp,
+   dgain at one ulp and, from an fp32 gain, by ``RMS_DGAIN_REL_NORM``) and
+   33 x 128 in fp32, two launches bit-equal;
 3. serve: full-width tinyllama-1.1b (random weights from seed 0) serves 8
    requests with prompts of 64..1024 tokens (native and chunked prefill)
    and 32 new tokens each through the port's engine; every request must
@@ -42,8 +48,10 @@ Phases, each of which must pass (any failure exits nonzero):
    full remat; every loss must be finite and the last below the first,
    every step-1 gradient finite and not all zero (computed here, before
    the run, from the same weights and batch as the run's first step), and
-   every kernel's launch count what the path implies; then one more step
-   under ``torch.profiler``;
+   every kernel's launch count what the path implies (K3's backward once
+   per norm and microbatch); then one more step under ``torch.profiler``,
+   which also gives K3's forward kernels and the device time under the
+   norm's autograd node;
 6. parity: reduced tinyllama-1.1b trains 3 steps from the same weights on
    the same batches on the card and on the CPU; losses, final params and
    step-1 gradients must agree within ``TRAIN_*_RTOL``;
@@ -61,7 +69,11 @@ Phases, each of which must pass (any failure exits nonzero):
 
 Phase 2 also holds K4 (decode attention), K6 (RWKV-6 WKV), K7 (Mamba-2
 SSD scan) and K2 at head dim 80 against their plain versions, at small
-shapes and at the full-width shapes of phases 7 and 8.  K6 and K7, whose
+shapes and at the full-width shapes of phases 7 and 8.  K4, split over
+the cache and combined in a second kernel, is held with a ragged cache,
+valid lengths 0, 1 and S+5 in one call and every lane inside the first
+split, two launches bit-equal, and timed at zamba2's and tinyllama's
+decode shapes.  K6 and K7, whose
 bf16 routes run the chunked form on tensor cores in three CUDA launches
 a call, are held elementwise at 1e-4 on small cases (lengths 1 to 1000
 around the chunk of 64, two batch rows, a decay of about -4 per token,
@@ -71,7 +83,9 @@ CUDA kernel's time per call is printed; where ``cuobjdump`` is found,
 each of their bf16 kernels must show HMMA instructions.
 
 A kernel's ``launches`` in the JSON record is its count over the serve
-(phases 3, 7, 8) and train (phase 5) runs.  Those runs also fail if a
+(phases 3, 7, 8) and train (phase 5) runs; K3's are also printed by shape
+class.  ``ab_train`` (not run by ``main``) runs phase 5 and K3's timings
+for a second checkout and this one in turns on one card.  Those runs also fail if a
 flash-attention wrapper copied an operand to align its rows for the
 tensor-core kernels' ``cp.async`` (the model's layouts need no copy).  The second-to-last lines are
 the kernels' JSON record and the card's name and power limit; the last
@@ -177,6 +191,9 @@ def main() -> None:
     parity_dense_reduced(torch)
     for rec in records:
         rec["launches"] = launches.get(rec["name"])
+    print(f"[launches] rmsnorm by shape class over the main paths: "
+          f"{RMS_LAUNCHES} (decode: rows <= 8; prefill: a prompt or chunk; "
+          f"train: 8192 rows)", flush=True)
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -275,7 +292,6 @@ def check_kernels(torch):
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_ref,
                                                      split_pages)
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_ref
     import torch.nn.functional as F
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -292,33 +308,8 @@ def check_kernels(torch):
 
     records = []
 
-    # -- K3 rmsnorm ---------------------------------------------------------
-    errs = []
-    # 8192 rows of 2048: a norm of the training path (B=2 x S=4096)
-    # 1000 and 8 rows of 2560 (zamba2), 5120 (its Mamba-2 inner norm) and
-    # 4096 (rwkv6): a ragged prefill and a decode step of the dense path,
-    # 2560 and 5120 through the kernel's masked tail
-    for rows, d, dtype in ((33, 128, f32), (8, 64, bf16), (8, 2048, bf16),
-                           (512, 2048, bf16), (8192, 2048, bf16),
-                           (1000, 2560, bf16), (8, 2560, bf16),
-                           (1000, 5120, bf16), (8, 5120, bf16),
-                           (1000, 4096, bf16), (8, 4096, bf16)):
-        x, g = randn(rows, d, dtype=dtype), randn(d, dtype=f32, scale=0.1)
-        errs.append(compare(torch, f"rmsnorm rows={rows} d={d} {dtype}",
-                            rmsnorm(x, g), rmsnorm_ref(x, g), *tol[dtype]))
-    x, g = randn(512, 2048), randn(2048, scale=0.1)
-    ms = timed_ms(torch, lambda: rmsnorm(x, g))
-    plain = timed_ms(torch, lambda: rmsnorm_ref(x, g))
-    w = 1.0 + g
-    lib = timed_ms(torch, lambda: F.rms_norm(x, (2048,), weight=w, eps=1e-6))
-    b_ms, b_by = bound(2 * x.numel() * 2 + g.numel() * 2, 4 * x.numel(),
-                       H100_FP32_FLOPS)
-    records.append(dict(name="rmsnorm", route="triton",
-                        source="src/repro_torch/kernels/rmsnorm.py",
-                        replaces="src/repro/kernels/rmsnorm.py:24",
-                        max_abs_err=max(errs), ms=ms, plain_ms=plain,
-                        bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-                        shape="x (512, 2048) bf16"))
+    # -- K3 rmsnorm, forward and backward ----------------------------------
+    records += check_rmsnorm(torch, randn, tol)
 
     # -- K1 paged attention -------------------------------------------------
     def paged_case(b, h, kvh, d, pool, maxp, vlens, dtype, window=0,
@@ -479,6 +470,152 @@ def check_kernels(torch):
     return records
 
 
+# K3's shape classes on the main paths: a decode step's 8 rows and a
+# prefill's ~1000 rows at the four widths (tinyllama 2048, zamba2 2560 and
+# its Mamba-2 inner norm 5120, rwkv6 4096), and a training norm's 8192
+# rows of 2048 (B=2 x S=4096)
+RMS_CLASSES = ([("decode", 8, d) for d in (2048, 2560, 4096, 5120)]
+               + [("prefill", 1000, d) for d in (2048, 2560, 4096, 5120)]
+               + [("train", 8192, 2048)])
+# K3's launches on the main paths by shape class, summed by phases 3, 5,
+# 7 and 8
+RMS_LAUNCHES = {"decode": 0, "prefill": 0, "train": 0}
+# K3 backward: fp32 sums of dy * x * r over 8192 rows in another order
+# than the plain version's (per program, then the partials in order)
+RMS_DGAIN_REL_NORM = 1e-4
+
+
+def rms_bound(rows, d, itemsize, tensors, vectors, ops_per_element):
+    """K3's bound: ``tensors`` row tensors of ``rows`` x ``d`` (x and y;
+    x, dy and dx) and ``vectors`` of ``d`` (the gain; and dgain) moved
+    once each, against the fp32 operations on the SIMT cores."""
+    nbytes = (tensors * rows * d + vectors * d) * itemsize
+    return bound(nbytes, ops_per_element * rows * d, H100_FP32_FLOPS)
+
+
+def cuda_kernels_per_call(torch, fn):
+    """The number of CUDA kernels one call of ``fn`` launches, from
+    ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA"))
+
+
+def time_rmsnorm_classes(torch, rms, gen):
+    """K3's forward at every shape class (bf16 x and gain, as the model
+    keeps them): kernel, plain and ``F.rms_norm`` ms beside the bound;
+    and the plain backward at the training shape: its ms and the CUDA
+    kernels it launches a call.  ``rms`` is a tree's
+    ``repro_torch.kernels.rmsnorm`` module.  Printed; returns the record
+    fields of the training shape."""
+    import torch.nn.functional as F
+    dev = torch.device("cuda")
+    out = {}
+    for label, rows, d in RMS_CLASSES:
+        x = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
+        g = (torch.randn((d,), generator=gen, device=dev) * 0.1).to(x.dtype)
+        w = 1.0 + g
+        ms = timed_ms(torch, lambda: rms.rmsnorm(x, g))
+        plain = timed_ms(torch, lambda: rms.rmsnorm_ref(x, g))
+        lib = timed_ms(torch, lambda: F.rms_norm(x, (d,), weight=w,
+                                                 eps=1e-6))
+        b_ms, b_by = rms_bound(rows, d, 2, 2, 1, 4)
+        print(f"[time] rmsnorm {label} x ({rows}, {d}) bf16: kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms "
+              f"(F.rms_norm), bound {b_ms:.6f} ms ({b_by}), share of bound "
+              f"{b_ms / ms:.3f}", flush=True)
+        out = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms,
+                   bound_by=b_by)
+    dy = torch.randn((rows, d), generator=gen, device=dev).to(x.dtype)
+    plain = timed_ms(torch, lambda: rms.rmsnorm_bwd_ref(dy, x, g), iters=3,
+                     reps=3)
+    n = cuda_kernels_per_call(torch, lambda: rms.rmsnorm_bwd_ref(dy, x, g))
+    print(f"[time] rmsnorm_bwd_ref (plain backward) x ({rows}, {d}) bf16: "
+          f"{plain:.4f} ms, {n} CUDA kernels a call", flush=True)
+    return out
+
+
+def check_rmsnorm(torch, randn, tol):
+    """K3's forward against ``rmsnorm_ref`` over the paths' shapes, and its
+    backward against ``rmsnorm_bwd_ref``: dx elementwise (both fp32 from
+    the same inputs, rounded once: one bf16 ulp), dgain elementwise in the
+    gain's bf16 and, from an fp32 copy of the same gain, by relative norm
+    (``RMS_DGAIN_REL_NORM``); two backward launches bit-equal.  Timed at
+    every shape class.  Returns the forward's and the backward's records."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import rmsnorm as rms
+    bf16, f32 = torch.bfloat16, torch.float32
+    errs = []
+    # 8192 rows of 2048: a norm of the training path (B=2 x S=4096)
+    # 1000 and 8 rows of 2560 (zamba2), 5120 (its Mamba-2 inner norm) and
+    # 4096 (rwkv6): a ragged prefill and a decode step of the dense path,
+    # 2560 and 5120 through the kernel's masked tail
+    for rows, d, dtype in ((33, 128, f32), (8, 64, bf16), (8, 2048, bf16),
+                           (512, 2048, bf16), (8192, 2048, bf16),
+                           (1000, 2560, bf16), (8, 2560, bf16),
+                           (1000, 5120, bf16), (8, 5120, bf16),
+                           (1000, 4096, bf16), (8, 4096, bf16)):
+        x, g = randn(rows, d, dtype=dtype), randn(d, dtype=f32, scale=0.1)
+        errs.append(compare(torch, f"rmsnorm rows={rows} d={d} {dtype}",
+                            rms.rmsnorm(x, g), rms.rmsnorm_ref(x, g),
+                            *tol[dtype]))
+    fwd = dict(name="rmsnorm", route="triton",
+               source="src/repro_torch/kernels/rmsnorm.py",
+               replaces="src/repro/kernels/rmsnorm.py:24",
+               max_abs_err=max(errs), shape="x (8192, 2048) bf16")
+    fwd.update(time_rmsnorm_classes(torch, rms, torch.Generator(
+        device="cuda").manual_seed(11)))
+
+    errs = []
+    for rows, d, dtype in ((8192, 2048, bf16), (1000, 2560, bf16),
+                           (1000, 5120, bf16), (33, 128, f32)):
+        x, dy = randn(rows, d, dtype=dtype), randn(rows, d, dtype=dtype)
+        g = randn(d, dtype=dtype, scale=0.1)
+        label = f"rows={rows} d={d} {dtype}"
+        dx, dg = rms.rmsnorm_bwd(dy, x, g)
+        want_dx, want_dg = rms.rmsnorm_bwd_ref(dy, x, g)
+        errs.append(compare(torch, f"rmsnorm_bwd dx {label}", dx, want_dx,
+                            *tol[dtype]))
+        compare(torch, f"rmsnorm_bwd dgain {label}", dg, want_dg, *tol[dtype])
+        if dtype == bf16:
+            g32 = g.float()
+            rel_norm(torch, f"rmsnorm_bwd dgain {label}, fp32 gain",
+                     rms.rmsnorm_bwd(dy, x, g32)[1],
+                     rms.rmsnorm_bwd_ref(dy, x, g32)[1], RMS_DGAIN_REL_NORM)
+        if rows == 8192:
+            same_twice(torch, f"rmsnorm_bwd {label}",
+                       lambda: rms.rmsnorm_bwd(dy, x, g))
+            ms = timed_ms(torch, lambda: rms.rmsnorm_bwd(dy, x, g))
+            kernel_split(torch, lambda: rms.rmsnorm_bwd(dy, x, g),
+                         f"rmsnorm_bwd {label}")
+            plain = timed_ms(torch, lambda: rms.rmsnorm_bwd_ref(dy, x, g),
+                             iters=3, reps=3)
+            xl, gl = x.clone().requires_grad_(True), \
+                g.clone().requires_grad_(True)
+            yl = F.rms_norm(xl, (d,), weight=1.0 + gl, eps=1e-6)
+            lib = timed_ms(torch, lambda: torch.autograd.grad(
+                yl, (xl, gl), dy, retain_graph=True))
+            del xl, gl, yl
+            b_ms, b_by = rms_bound(rows, d, 2, 3, 2, 12)
+            shape = f"x, dy ({rows}, {d}) bf16"
+    bwd = dict(name="rmsnorm_bwd", route="triton",
+               source="src/repro_torch/kernels/rmsnorm.py",
+               replaces="src/repro/models/layers.py:90",
+               max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib,
+               shape=shape + "; replaces XLA's autodiff of the reference's "
+                             "rms_norm (no Pallas kernel); library_ms is "
+                             "autograd's backward through F.rms_norm")
+    print(f"[time] rmsnorm_bwd {shape}: share of bound {b_ms / ms:.3f}, "
+          f"kernel / plain {ms / plain:.4f}", flush=True)
+    return [fwd, bwd]
+
+
 # bf16 forward: the tensor-core kernel rounds p to bf16 where it becomes
 # the operand of p.V.  Against the plain version that rounds at the same
 # place over the kernel's key tiles they differ by fp32 summation order and
@@ -593,22 +730,39 @@ def rel_norm(torch, name, got, want, limit):
 
 
 def check_decode(torch, randn, tol):
+    """K4 against ``decode_attention_ref`` on fp32 copies, at the
+    unchanged tolerance: the earlier six cases, a ragged S (1000, not a
+    whole number of splits), valid lengths 0, 1 and S+5 in one call, and
+    every lane inside the first split at zamba2's shape; a lane of valid
+    length 0 must return exact zeros and two launches must be bit-equal.
+    Timed at zamba2's decode shape (the record) and tinyllama's G = 8."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (decode_attention,
-                                                      decode_attention_ref)
+                                                      decode_attention_ref,
+                                                      split_keys)
     dev = torch.device("cuda")
     bf16, f32 = torch.bfloat16, torch.float32
+    kps, splits = split_keys(8, 32, 2048, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    print(f"[kernel] decode_attention split at zamba2's decode shape: B=8 "
+          f"KV=32 S=2048 -> {splits} splits of {kps} keys, "
+          f"{8 * 32 * splits} blocks", flush=True)
     cases = [
         ("small fp32 h=8/2 s=300 d=32", 2, 8, 2, 300, 32, [300, 17], f32),
         ("d=16 h=4/4 s=129", 3, 4, 4, 129, 16, [129, 1, 64], bf16),
         ("d=128 h=4/1 s=1000", 2, 4, 1, 1000, 128, [1000, 333], bf16),
         ("vlen 0 and beyond S d=64", 2, 4, 2, 200, 64, [0, 500], bf16),
+        ("ragged S=1000 h=8/2 d=64", 2, 8, 2, 1000, 64, [1000, 611], bf16),
+        ("vlen 0, 1 and S+5 h=4/1 d=80 s=300", 3, 4, 1, 300, 80,
+         [0, 1, 305], bf16),
+        ("every lane inside the first split, zamba2 shape", 8, 32, 32, 2048,
+         80, [1, 2, 17, 64, 65, kps // 2, kps - 1, kps], bf16),
         ("tinyllama G=8 h=32/4 d=64 s=2048", 8, 32, 4, 2048, 64,
          [898, 693, 572, 340, 376, 120, 2048, 1], bf16),
         ("zamba2 G=1 h=32/32 d=80 s=2048", 8, 32, 32, 2048, 80,
          [897] * 8, bf16),
     ]
-    errs = []
+    errs, timed = [], {}
     for label, b, h, kvh, s, d, vlens, dtype in cases:
         q = randn(b, h, d, dtype=dtype)
         k, v = randn(b, kvh, s, d, dtype=dtype), randn(b, kvh, s, d,
@@ -618,26 +772,50 @@ def check_decode(torch, randn, tol):
         want = decode_attention_ref(q.float(), k.float(), v.float(), vlen)
         errs.append(compare(torch, f"decode_attention {label}", got, want,
                             *tol[dtype]))
-        if 0 in vlens and float(got[vlens.index(0)].abs().max()) != 0.0:
-            fail("decode_attention: a lane of valid length 0 must return "
-                 "zeros")
-    # timed at zamba2's decode shape (last case): every lane at the shared
-    # position 896 of the serve run's longest prompt, cache 2048
-    ms = timed_ms(torch, lambda: decode_attention(q, k, v, vlen))
-    plain = timed_ms(torch, lambda: decode_attention_ref(q, k, v, vlen))
-    mask = (torch.arange(s, device=dev)[None, :] < vlen[:, None])
-    lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(
-        q[:, :, None], k, v, attn_mask=mask[:, None, None], enable_gqa=True))
-    attended = int(vlen.clamp(max=s).sum())
-    nbytes = 2 * q.numel() * 2 + vlen.numel() * 4 + 2 * attended * kvh * d * 2
-    b_ms, b_by = bound(nbytes, 4 * h * d * attended, H100_BF16_FLOPS)
+        for i, n in enumerate(vlens):
+            if n == 0 and float(got[i].abs().max()) != 0.0:
+                fail("decode_attention: a lane of valid length 0 must "
+                     "return zeros")
+        timed[label.split()[0]] = (q, k, v, vlen)
+    same_twice(torch, "decode_attention zamba2 G=1",
+               lambda: (decode_attention(q, k, v, vlen),))
+
+    def times(q, k, v, vlen):
+        b, kvh, s, d = k.shape
+        h = q.shape[1]
+        ms = timed_ms(torch, lambda: decode_attention(q, k, v, vlen))
+        plain = timed_ms(torch, lambda: decode_attention_ref(q, k, v, vlen))
+        mask = (torch.arange(s, device=dev)[None, :] < vlen[:, None])
+        lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k, v, attn_mask=mask[:, None, None],
+            enable_gqa=True))
+        attended = int(vlen.clamp(max=s).sum())
+        nbytes = (2 * q.numel() * 2 + vlen.numel() * 4
+                  + 2 * attended * kvh * d * 2)
+        b_ms, b_by = bound(nbytes, 4 * h * d * attended, H100_BF16_FLOPS)
+        return ms, plain, lib, b_ms, b_by
+
+    ms, plain, lib, b_ms, b_by = times(*timed["tinyllama"])
+    print(f"[time] decode_attention at tinyllama's G=8 shape (B=8 H=32 KV=4 "
+          f"D=64 S=2048, vlen 120-2048): kernel {ms:.4f} ms, plain "
+          f"{plain:.4f} ms, library {lib:.4f} ms (SDPA, length mask), bound "
+          f"{b_ms:.4f} ms ({b_by}), share of bound {b_ms / ms:.3f}",
+          flush=True)
+    # the record: zamba2's decode shape (last case), every lane at the
+    # shared position 896 of the serve run's longest prompt, cache 2048
+    ms, plain, lib, b_ms, b_by = times(q, k, v, vlen)
+    kernel_split(torch, lambda: decode_attention(q, k, v, vlen),
+                 "decode_attention at zamba2's decode shape")
+    print(f"[time] decode_attention at zamba2's decode shape: share of "
+          f"bound {b_ms / ms:.3f}, kernel / SDPA {ms / lib:.3f}", flush=True)
     return dict(name="decode_attention", route="cuda",
                 source="src/repro_torch/csrc/decode_attention.cu",
                 replaces="src/repro/kernels/decode_attention.py:63",
                 max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib,
-                shape=f"B={b} H={h} KV={kvh} D={d} S={s}, vlen {vlens[0]} "
-                      "every lane; library_ms is SDPA with a length mask")
+                shape=f"B=8 H=32 KV=32 D=80 S=2048, vlen 897 every lane, "
+                      f"{splits} splits of {kps} keys; library_ms is SDPA "
+                      "with a length mask")
 
 
 def _ssd_inputs(torch, randn, b, h, s, p, n, dtype, decay=None, pad=0):
@@ -1133,18 +1311,30 @@ def check_functions(torch, randn):
         for n, a, w in zip(("dq", "dk", "dv"), got, want):
             compare(torch, f"FlashAttention grad {n} {label}", a, w, 2e-5,
                     2e-5)
-    x = randn(512, 2048, dtype=torch.float32)
-    g = randn(2048, dtype=torch.float32, scale=0.1)
-    dy = randn(512, 2048, dtype=torch.float32)
-    xa, ga = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
-    y = RMSNorm.apply(xa, ga, 1e-6)
-    if y.grad_fn is None:
-        fail("RMSNorm: no grad_fn on CUDA")
-    got = torch.autograd.grad(y, (xa, ga), dy)
-    xr, gr = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
-    want = torch.autograd.grad(rmsnorm_ref(xr, gr), (xr, gr), dy)
-    for n, a, w in zip(("dx", "dgain"), got, want):
-        compare(torch, f"RMSNorm grad {n} rows=512 d=2048", a, w, 2e-5, 2e-5)
+    # K3's Function (the Triton forward and backward) at 512 rows and at
+    # the training shape, 8192 rows of 2048.  There dgain is a sum over
+    # 8192 rows whose partial sums are far larger than the result, so the
+    # two summation orders differ by more than 2e-5 of it elementwise: it
+    # is held by relative norm (``RMS_DGAIN_REL_NORM``), dx elementwise
+    for rows in (512, 8192):
+        x = randn(rows, 2048, dtype=torch.float32)
+        g = randn(2048, dtype=torch.float32, scale=0.1)
+        dy = randn(rows, 2048, dtype=torch.float32)
+        xa, ga = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+        y = RMSNorm.apply(xa, ga, 1e-6)
+        if y.grad_fn is None:
+            fail("RMSNorm: no grad_fn on CUDA")
+        got = torch.autograd.grad(y, (xa, ga), dy)
+        xr, gr = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+        want = torch.autograd.grad(rmsnorm_ref(xr, gr), (xr, gr), dy)
+        compare(torch, f"RMSNorm grad dx rows={rows} d=2048", got[0],
+                want[0], 2e-5, 2e-5)
+        if rows == 512:
+            compare(torch, f"RMSNorm grad dgain rows={rows} d=2048", got[1],
+                    want[1], 2e-5, 2e-5)
+        else:
+            rel_norm(torch, f"RMSNorm grad dgain rows={rows} d=2048", got[1],
+                     want[1], RMS_DGAIN_REL_NORM)
 
 
 # ---------------------------------------------------------------------------
@@ -1193,6 +1383,9 @@ def serve_full(torch):
           f"expected={want}", flush=True)
     if launches != want or not all(launches.values()):
         fail("serve: kernel launch counts differ from what the path implies")
+    RMS_LAUNCHES["prefill"] += (2 * n_layers * runner.prefill_chunks
+                                + stats.prefills)
+    RMS_LAUNCHES["decode"] += (2 * n_layers + 1) * stats.decode_steps
     print(f"[serve] mean_ttft={stats.mean_ttft_s * 1e3:.3f} ms "
           f"mean_decode_step={stats.mean_decode_step_s * 1e3:.3f} ms "
           f"tokens/s={stats.tokens_generated / stats.wall_s:.2f} "
@@ -1291,11 +1484,11 @@ def _train_kernels():
     from repro_torch.kernels.flash_attention import (flash_attention_bwd_dkv,
                                                      flash_attention_bwd_dq,
                                                      flash_attention_fwd)
-    from repro_torch.kernels.rmsnorm import rmsnorm
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
     return {"flash_attention_fwd": flash_attention_fwd,
             "flash_attention_bwd_dq": flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
-            "rmsnorm": rmsnorm}
+            "rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_bwd}
 
 
 # ---------------------------------------------------------------------------
@@ -1307,18 +1500,13 @@ def train_full(torch):
     4096 with the global batch cut from 256 to 8, 4 microbatches of 2
     under full remat, 4 AdamW steps.  Returns the launch counts."""
     from repro_torch.checkpoint.checkpointer import _flatten_with_paths
-    from repro_torch.configs import ShapeConfig, get_config
-    from repro_torch.core.materializer import Plan
+    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch.train import train
     from repro_torch.models.model import Model, init_params
-    from repro_torch.training.optimizer import OptimizerConfig, leaves
     from repro_torch.training.train_step import impl_from_plan
     kernels = _train_kernels()
-    shape = ShapeConfig("train_4k_b8", "train", 4096, 8)
-    plan = Plan(microbatch=4, remat="full")
-    ocfg = OptimizerConfig(warmup_steps=1)
-    steps = 4
+    shape, plan, ocfg, steps = _train_setup()
 
     # step 1's gradients: train() below starts from init_params(cfg, 0)
     # and the data's batch 0
@@ -1354,7 +1542,8 @@ def train_full(torch):
     per_mb = {"flash_attention_fwd": 2 * n_layers,      # forward + recompute
               "flash_attention_bwd_dq": n_layers,
               "flash_attention_bwd_dkv": n_layers,
-              "rmsnorm": 2 * (2 * n_layers) + 1}        # ln_f not recomputed
+              "rmsnorm": 2 * (2 * n_layers) + 1,        # ln_f not recomputed
+              "rmsnorm_bwd": 2 * n_layers + 1}
     want = {k: v * mb * steps for k, v in per_mb.items()}
     print(f"[train] tinyllama-1.1b full width, seq {shape.seq_len} x batch "
           f"{shape.global_batch}, {plan}, losses {losses}, launches="
@@ -1364,6 +1553,32 @@ def train_full(torch):
         fail(f"train: losses {losses} not finite or not decreasing")
     if launches != want:
         fail("train: kernel launch counts differ from what the path implies")
+    RMS_LAUNCHES["train"] += launches["rmsnorm"]
+    report_train(torch, out, peak, ocfg)
+    del out
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _train_setup():
+    """Phase 5's run: sequence 4096, global batch 8 in 4 microbatches under
+    full remat, AdamW with one warmup step, 4 steps -> (shape, plan,
+    optimizer config, steps)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core.materializer import Plan
+    from repro_torch.training.optimizer import OptimizerConfig
+    return (ShapeConfig("train_4k_b8", "train", 4096, 8),
+            Plan(microbatch=4, remat="full"),
+            OptimizerConfig(warmup_steps=1), 4)
+
+
+def report_train(torch, out, peak, ocfg):
+    """The step time (median of steps 2 on), tokens/s, peak memory and the
+    model-FLOPs share of a ``train`` run; then one more step under
+    ``torch.profiler``."""
+    from repro_torch.training.optimizer import leaves
+    shape, cfg, steps = out["shape"], out["model"].cfg, len(out["metrics"])
+    n_layers = cfg.num_layers
     walls = sorted(m["wall_s"] for m in out["metrics"][1:])
     step_s = walls[len(walls) // 2]
     tokens = shape.seq_len * shape.global_batch
@@ -1380,15 +1595,20 @@ def train_full(torch):
           f"{peak / 2**30:.3f} GiB, model FLOPs {model_flops:.4e} per step "
           f"= {model_flops / step_s / H100_BF16_FLOPS:.4f} of the bf16 peak "
           f"| {card_line()}", flush=True)
-    profile_train(torch, out, ocfg)
-    del out, params
-    torch.cuda.empty_cache()
-    return launches
+    busy = profile_train(torch, out, ocfg)
+    # the profiled step's wall carries the profiler's host overhead, which
+    # varies from run to run; the device time against the unprofiled step
+    # does not
+    if busy is not None:
+        print(f"[train] device busy {busy:.3f} ms of the profiled step / "
+              f"unprofiled step {step_s * 1e3:.3f} ms = busy share "
+              f"{busy / (step_s * 1e3):.4f}", flush=True)
 
 
 def profile_train(torch, out, ocfg):
     """One more step of the run above under ``torch.profiler``: the
-    device's busy share and device time by kernel."""
+    device's busy share and device time by kernel; returns the device
+    busy ms."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.training.train_step import make_train_step
@@ -1406,10 +1626,12 @@ def profile_train(torch, out, ocfg):
         float(m["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    report_profile(prof, wall, "train 1 step")
+    return report_profile(prof, wall, "train 1 step")
 
 
 def report_profile(prof, wall, what):
+    """Busy share and device time by kernel of a profiled window; returns
+    the device busy ms (None when not measured)."""
     kernels = [e for e in prof.key_averages()
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     dev_us = {e.key: getattr(e, "self_device_time_total",
@@ -1419,13 +1641,27 @@ def report_profile(prof, wall, what):
     if total_ms <= 0:
         print("[profile] device time not measured: the profiler recorded "
               "no CUDA kernel time", flush=True)
-        return
+        return None
     print(f"[profile] {what}: wall {wall * 1e3:.3f} ms (under the "
           f"profiler), device busy {total_ms:.3f} ms, busy share "
           f"{total_ms / (wall * 1e3):.4f}", flush=True)
     for key, us in sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]:
         print(f"[profile]   {us / 1e3:10.3f} ms  "
               f"{100 * us / 1e3 / total_ms:5.1f}%  {key[:90]}", flush=True)
+    # K3: its forward kernels by name, and the device time under the
+    # norm's autograd node (the fused backward, or the plain ops it
+    # replaced); 0 on a path that takes no gradient
+    fwd_us = sum(t for key, t in dev_us.items() if "rmsnorm" in key
+                 and "bwd" not in key and "dgain" not in key)
+    bwd_us = max((getattr(e, "device_time_total",
+                          getattr(e, "cuda_time_total", 0.0))
+                  for e in prof.key_averages()
+                  if "RMSNormBackward" in e.key), default=0.0)
+    for name, us in (("K3 rmsnorm forward kernels", fwd_us),
+                     ("K3 norm backward (under RMSNormBackward)", bwd_us)):
+        if us:
+            print(f"[profile]   {us / 1e3:10.3f} ms  "
+                  f"{100 * us / 1e3 / total_ms:5.1f}%  {name}", flush=True)
     # K6 and K7 run as three CUDA kernels a call each
     for name, mark in (("K7 ssd_scan", "ssd_"), ("K6 rwkv6_wkv", "wkv_")):
         us = sum(t for key, t in dev_us.items() if mark in key)
@@ -1433,6 +1669,47 @@ def report_profile(prof, wall, what):
             print(f"[profile]   {us / 1e3:10.3f} ms  "
                   f"{100 * us / 1e3 / total_ms:5.1f}%  {name}, all its "
                   "kernels", flush=True)
+    return total_ms
+
+
+def ab_train(parent_root: str) -> None:
+    """Phase 5's run and K3's per-class times for another tree of the port
+    (``parent_root``, a checkout holding ``src/repro_torch``) and this
+    tree, in turns on one card: parent, this, this, parent, each in its
+    own process, through this script's harness (``ab_child``)::
+
+        python3 -c "import chip_smoke; chip_smoke.ab_train('build/parent')"
+    """
+    for root in (parent_root, ROOT, ROOT, parent_root):
+        src = str(Path(root).resolve() / "src")
+        print(f"[ab] --- {src}", flush=True)
+        subprocess.run([sys.executable, "-c", "import sys; sys.path.insert("
+                        f"0, {str(ROOT)!r}); import chip_smoke; "
+                        f"chip_smoke.ab_child({src!r})"], check=True,
+                       timeout=900)
+
+
+def ab_child(src: str) -> None:
+    """One turn of ``ab_train``: the port under ``src`` builds its kernels,
+    times K3 at every shape class, and runs phase 5's training (no launch
+    checks) with its step time and profile."""
+    sys.path.insert(0, src)
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.launch.train import train
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[ab] {rms.__file__} | {card_line()}", flush=True)
+    _build.build()
+    time_rmsnorm_classes(torch, rms, torch.Generator(
+        device="cuda").manual_seed(11))
+    shape, plan, ocfg, steps = _train_setup()
+    torch.cuda.reset_peak_memory_stats()
+    out = train("tinyllama-1.1b", shape=shape, plan=plan, opt_cfg=ocfg,
+                device="cuda", steps=steps, seed=0)
+    torch.cuda.synchronize()
+    report_train(torch, out, torch.cuda.max_memory_allocated(), ocfg)
 
 
 # ---------------------------------------------------------------------------
@@ -1580,6 +1857,9 @@ def serve_dense_full(torch, arch):
                                    if want[name]):
         fail(f"serve {arch}: kernel launch counts differ from what the "
              "path implies")
+    norms = want["rmsnorm"] // (stats.prefills + stats.decode_steps)
+    RMS_LAUNCHES["prefill"] += norms * stats.prefills
+    RMS_LAUNCHES["decode"] += norms * stats.decode_steps
     print(f"[serve] {arch} mean_ttft={stats.mean_ttft_s * 1e3:.3f} ms "
           f"mean_decode_step={stats.mean_decode_step_s * 1e3:.3f} ms "
           f"tokens/s={stats.tokens_generated / stats.wall_s:.2f} "

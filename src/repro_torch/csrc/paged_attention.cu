@@ -35,9 +35,11 @@
 // the split writes its partial (m, l, acc) in fp32 to a workspace the
 // wrapper allocates.  A second small kernel combines the splits of each
 // (lane, query head) and writes o; a split that saw no live token has
-// m = -inf and l = 0 and adds nothing.
+// m = -inf and l = 0 and adds nothing.  The combine and the softmax-state
+// helpers are shared with the contiguous-cache decode (K4) in
+// split_decode.cuh.
 
-#include "mma_bf16.cuh"
+#include "split_decode.cuh"
 
 namespace {
 
@@ -45,62 +47,9 @@ constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kChunk = 64;     // tokens of a staged K / V tile
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
-// 16 bytes of shared memory as fp32: 8 bf16 or 4 fp32 values
-__device__ __forceinline__ void load16(float* f, const __nv_bfloat16* p) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float2 x = __bfloat1622float2(h[j]);
-    f[2 * j] = x.x;
-    f[2 * j + 1] = x.y;
-  }
-}
-__device__ __forceinline__ void load16(float* f, const float* p) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  f[0] = x.x;
-  f[1] = x.y;
-  f[2] = x.z;
-  f[3] = x.w;
-}
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 __device__ __forceinline__ int positive_mod(int a, int n) {
   int r = a % n;
   return r < 0 ? r + n : r;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// the softmax state (m, l, acc) of two disjoint token sets, merged into the
-// first; either may be empty (m = -inf, l = 0, acc = 0)
-template <int V>
-__device__ __forceinline__ void merge(float& m, float& l, float* acc,
-                                      float mo, float lo, const float* acco) {
-  const float mm = fmaxf(m, mo);
-  const float a = m == -INFINITY ? 0.f : expf(m - mm);
-  const float c = mo == -INFINITY ? 0.f : expf(mo - mm);
-  l = l * a + lo * c;
-#pragma unroll
-  for (int j = 0; j < V; ++j) acc[j] = acc[j] * a + acco[j] * c;
-  m = mm;
 }
 
 // One split of one (lane, KV head): GT query rows at a time (G > GT loops
@@ -295,34 +244,6 @@ paged_split_kernel(const T* __restrict__ q,        // (B, H, D)
   }
 }
 
-// One warp per (lane, query head): o = sum_s w_s acc_s / sum_s w_s l_s
-// with w_s = exp(m_s - max m); splits with m_s = -inf are skipped, and a
-// row with no live split gets 0 / 1e-30 = 0.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-paged_combine_kernel(const float* __restrict__ ws_ml,
-                     const float* __restrict__ ws_acc, T* __restrict__ out,
-                     int rows, int D, int splits) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (row >= rows) return;
-  const float* ml = ws_ml + (size_t)row * splits * 2;
-  float mm = -INFINITY;
-  for (int s = lane; s < splits; s += 32) mm = fmaxf(mm, ml[2 * s]);
-  mm = warp_max(mm);
-  float ll = 0.f;
-  for (int s = lane; s < splits; s += 32)
-    if (ml[2 * s] != -INFINITY) ll += expf(ml[2 * s] - mm) * ml[2 * s + 1];
-  ll = fmaxf(warp_sum(ll), 1e-30f);
-  const float* ac = ws_acc + (size_t)row * splits * D;
-  for (int d = lane; d < D; d += 32) {
-    float a = 0.f;
-    for (int s = 0; s < splits; ++s)
-      if (ml[2 * s] != -INFINITY) a += expf(ml[2 * s] - mm) * ac[s * D + d];
-    store(out + (size_t)row * D + d, a / ll);
-  }
-}
-
 struct Args {
   const void *q, *k_pages, *v_pages, *table, *valid_len;
   void *out, *ws_ml, *ws_acc;
@@ -368,12 +289,8 @@ int launch(const Args& a) {
     default: return (int)cudaErrorInvalidValue;
   }
   if (code != 0) return code;
-  const int rows = a.B * a.H;
-  paged_combine_kernel<T><<<(rows + kWarps - 1) / kWarps, kThreads, 0,
-                            a.stream>>>(
-      static_cast<const float*>(a.ws_ml), static_cast<const float*>(a.ws_acc),
-      static_cast<T*>(a.out), rows, a.D, a.splits);
-  return (int)cudaGetLastError();
+  return launch_combine<T>(a.ws_ml, a.ws_acc, a.out, a.B * a.H, a.D,
+                           a.splits, a.stream);
 }
 
 }  // namespace

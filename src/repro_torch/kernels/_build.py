@@ -22,6 +22,7 @@ launch and :func:`check` raises when that is not 0.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -113,6 +114,13 @@ def library(name: str, signatures: Dict[str, Sequence]) -> ctypes.CDLL:
 def stream_ptr(t: torch.Tensor) -> int:
     """PyTorch's current stream on the tensor's device, as an int."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device_index: int) -> int:
+    """The number of SMs of a CUDA device (the split kernels size their
+    grids by it)."""
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def check(code: int, what: str) -> None:

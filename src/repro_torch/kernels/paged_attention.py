@@ -15,7 +15,6 @@ in plain PyTorch.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -39,11 +38,6 @@ def split_pages(b: int, kvh: int, max_pages: int, sms: int):
     want = -(-BLOCKS_PER_SM * sms // max(b * kvh, 1))
     pps = max(1, max_pages // want)
     return pps, -(-max_pages // pps)
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _slot_positions(slot, last, *, window: int, ring: bool, ring_tokens: int):
@@ -165,7 +159,8 @@ def paged_attention(q, k_pages, v_pages, page_table, valid_len, *,
     out = torch.empty_like(q)
     if b == 0 or max_pages == 0:
         return out.zero_()
-    pps, splits = split_pages(b, kvh, max_pages, _sm_count(q.device.index))
+    pps, splits = split_pages(b, kvh, max_pages,
+                              _build.sm_count(q.device.index))
     ws_ml = torch.empty((b, h, splits, 2), dtype=torch.float32,
                         device=q.device)
     ws_acc = torch.empty((b, h, splits, d), dtype=torch.float32,
