@@ -34,7 +34,9 @@ Phases, each of which must pass (any failure exits nonzero):
    33 x 128 in fp32, two launches bit-equal;
 3. serve: full-width tinyllama-1.1b (random weights from seed 0) serves 8
    requests with prompts of 64..1024 tokens (native and chunked prefill)
-   and 32 new tokens each through the port's engine; every request must
+   and 32 new tokens each through ``launch.serve``, that is
+   ``Cluster.submit`` (sizing, placement, the ladder) and the
+   ``TorchExecutor``'s engine behind the pod's router; every request must
    complete and every kernel's launch count must equal what the path
    implies (counts are zeroed just before and read just after); then the
    same serve, 8 new tokens each, under ``torch.profiler`` gives the
@@ -45,7 +47,11 @@ Phases, each of which must pass (any failure exits nonzero):
    gap is below ``TIE_GAP`` (then that request stops being compared);
 5. train: full-width tinyllama-1.1b (random weights from seed 0) takes 4
    AdamW steps at sequence 4096, global batch 8 in 4 microbatches under
-   full remat; every loss must be finite and the last below the first,
+   full remat, through ``launch.train`` (``Cluster.submit`` with those
+   two fields as overrides of the ladder's plan; the ladder's own plan
+   and its estimate are printed beside the measured peak, which the
+   job's grant must cover); every loss must be finite and the last
+   below the first,
    every step-1 gradient finite and not all zero (computed here, before
    the run, from the same weights and batch as the run's first step), and
    every kernel's launch count what the path implies (K3's backward once
@@ -57,7 +63,8 @@ Phases, each of which must pass (any failure exits nonzero):
    step-1 gradients must agree within ``TRAIN_*_RTOL``;
 7. dense serve: full-width zamba2-2.7b (random weights from seed 0)
    serves 8 requests with prompts of 64..1024 tokens and 32 new tokens
-   each through the dense backend (cache_len 2048); every request must
+   each through the dense backend (cache_len 2048), by ``launch.serve``
+   and so ``Cluster.submit``; every request must
    complete and the launch counts of K2, K3, K4 and K7 must equal what the
    path implies; then the same traffic with 8 new tokens under
    ``torch.profiler`` gives the busy share and the device time of K7's
@@ -65,7 +72,19 @@ Phases, each of which must pass (any failure exits nonzero):
 8. dense serve: full-width rwkv6-7b, the same traffic, K3 and K6;
 9. parity: reduced zamba2-2.7b, rwkv6-7b and tinyllama-1.1b serve mixed
    prompts (9..200 tokens) densely with the same weights on the card and
-   on the CPU; greedy tokens equal under the ``TIE_GAP`` rule.
+   on the CPU; greedy tokens equal under the ``TIE_GAP`` rule;
+10. history: the §9.3 loop on the card -- phase 3's serving application
+   is submitted to one ``Cluster`` whose ``HistoryStore`` lives in a
+   fresh temporary directory, run and released, then submitted again and
+   run on the same requests; the greedy tokens must be equal, the history
+   must hold the first run's observations, and the second submission's
+   demand (``SizingSolution``) and its pool's grants must come from
+   ``policy="history"`` over that non-empty history; each run's launch
+   counts are checked as in phase 3; each run's grant (the job's bytes
+   in the scheduler, grown by the ``TorchExecutor`` to what the app
+   holds) must cover its measured peak, and the history must record the
+   first run's grant; the sizing, demand, grants, plan and both runs'
+   peak memory are printed.
 
 Phase 2 also holds K4 (decode attention), K6 (RWKV-6 WKV), K7 (Mamba-2
 SSD scan) and K2 at head dim 80 against their plain versions, at small
@@ -85,7 +104,8 @@ each of their bf16 kernels must show HMMA instructions.
 A kernel's ``launches`` in the JSON record is its count over the serve
 (phases 3, 7, 8) and train (phase 5) runs; K3's are also printed by shape
 class.  ``ab_train`` (not run by ``main``) runs phase 5 and K3's timings
-for a second checkout and this one in turns on one card.  Those runs also fail if a
+for a second checkout and this one in turns on one card; ``ab_serve``
+does the same for phase 3's mean TTFT and decode step.  Those runs also fail if a
 flash-attention wrapper copied an operand to align its rows for the
 tensor-core kernels' ``cp.async`` (the model's layouts need no copy).  The second-to-last lines are
 the kernels' JSON record and the card's name and power limit; the last
@@ -94,6 +114,7 @@ line is the run's JSON verdict.
 
 from __future__ import annotations
 
+import inspect
 import json
 import math
 import subprocess
@@ -189,6 +210,7 @@ def main() -> None:
         for name, n in serve_dense_full(torch, arch).items():
             launches[name] = launches.get(name, 0) + n
     parity_dense_reduced(torch)
+    history_loop(torch)
     for rec in records:
         rec["launches"] = launches.get(rec["name"])
     print(f"[launches] rmsnorm by shape class over the main paths: "
@@ -1342,13 +1364,8 @@ def check_functions(torch, randn):
 # ---------------------------------------------------------------------------
 
 def serve_full(torch):
-    from repro_torch.kernels.flash_attention import flash_attention_fwd
-    from repro_torch.kernels.paged_attention import paged_attention
-    from repro_torch.kernels.rmsnorm import rmsnorm
     from repro_torch.launch.serve import serve
-    kernels = {"paged_attention": paged_attention,
-               "flash_attention_fwd": flash_attention_fwd,
-               "rmsnorm": rmsnorm}
+    kernels = _paged_kernels()
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
@@ -1372,11 +1389,7 @@ def serve_full(torch):
     if not (min(lens) <= 512 < max(lens)):
         fail(f"serve: prompts {lens} do not exercise both prefill paths")
     n_layers = runner.cfg.num_layers
-    want = {"paged_attention": n_layers * stats.decode_steps,
-            "flash_attention_fwd": n_layers * runner.prefill_chunks,
-            "rmsnorm": (2 * n_layers * (runner.prefill_chunks
-                                        + stats.decode_steps)
-                        + stats.prefills + stats.decode_steps)}
+    want = _expected_paged(runner, stats)
     print(f"[serve] tinyllama-1.1b full width, prompts {lens}, "
           f"prefills={stats.prefills} chunks={runner.prefill_chunks} "
           f"decode_steps={stats.decode_steps} launches={launches} "
@@ -1392,6 +1405,27 @@ def serve_full(torch):
           f"wall={wall:.3f} s peak_mem="
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
     return launches
+
+
+def _paged_kernels():
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.paged_attention import paged_attention
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    return {"paged_attention": paged_attention,
+            "flash_attention_fwd": flash_attention_fwd,
+            "rmsnorm": rmsnorm}
+
+
+def _expected_paged(runner, stats):
+    """Launches the paged path implies: K1 in every layer of every decode
+    step, K2 in every layer of every prefill chunk, K3 at each block's two
+    norms of every chunk and step plus ln_f once a prefill and a step."""
+    n_layers = runner.cfg.num_layers
+    return {"paged_attention": n_layers * stats.decode_steps,
+            "flash_attention_fwd": n_layers * runner.prefill_chunks,
+            "rmsnorm": (2 * n_layers * (runner.prefill_chunks
+                                        + stats.decode_steps)
+                        + stats.prefills + stats.decode_steps)}
 
 
 def profile_serve(torch):
@@ -1498,19 +1532,24 @@ def _train_kernels():
 def train_full(torch):
     """tinyllama-1.1b at full width (random weights from seed 0), sequence
     4096 with the global batch cut from 256 to 8, 4 microbatches of 2
-    under full remat, 4 AdamW steps.  Returns the launch counts."""
+    under full remat (``overrides`` on the ladder's plan), 4 AdamW steps,
+    through ``Cluster.submit``.  Prints the ladder's own plan and its
+    estimate beside the measured peak.  Returns the launch counts."""
     from repro_torch.checkpoint.checkpointer import _flatten_with_paths
     from repro_torch.configs import get_config
+    from repro_torch.core.materializer import H100, materialize
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch.train import train
     from repro_torch.models.model import Model, init_params
     from repro_torch.training.train_step import impl_from_plan
     kernels = _train_kernels()
-    shape, plan, ocfg, steps = _train_setup()
+    shape, overrides, ocfg, steps = _train_setup()
+    cfg = get_config("tinyllama-1.1b")
+    plan = materialize(cfg, shape, H100, overrides=overrides)
+    ladder = materialize(cfg, shape, H100)
 
     # step 1's gradients: train() below starts from init_params(cfg, 0)
     # and the data's batch 0
-    cfg = get_config("tinyllama-1.1b")
     params = init_params(cfg, 0, "cuda")
     batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(
         DataConfig(cfg.vocab_size, shape.seq_len, shape.global_batch))
@@ -1527,16 +1566,32 @@ def train_full(torch):
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     for fn in kernels.values():
         fn.launches = 0
     with row_copies() as seen:
-        out = train("tinyllama-1.1b", shape=shape, plan=plan, opt_cfg=ocfg,
-                    device="cuda", steps=steps, seed=0)
+        out = train("tinyllama-1.1b", shape=shape, overrides=overrides,
+                    opt_cfg=ocfg, device="cuda", steps=steps, seed=0)
         torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in kernels.items()}
     no_row_copies("train", seen)
     peak = torch.cuda.max_memory_allocated()
-    cfg = out["model"].cfg
+    if out["plan"].describe() != plan.describe():
+        fail(f"train: the cluster's plan {out['plan'].describe()} is not "
+             f"the ladder's with {overrides}")
+    print(f"[train] the ladder's own plan for {shape.name}: remat="
+          f"{ladder.remat} microbatch={ladder.microbatch} est "
+          f"{ladder.est_bytes_per_device / 2**30:.3f} GiB/device "
+          f"({ladder.notes}); the run's plan (overrides {overrides}): est "
+          f"{plan.est_bytes_per_device / 2**30:.3f} GiB/device, measured "
+          f"peak {peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated); "
+          f"the job's grant {out['grant'] / 2**30:.3f} GiB over "
+          f"{out['held'] / 2**30:.3f} GiB held ("
+          f"{base / 2**30:.3f} GiB allocated before) | {card_line()}",
+          flush=True)
+    if not out["grant"] >= out["held"] >= peak - base:
+        fail(f"train: the job's grant {out['grant']} does not cover the "
+             f"measured peak {peak} ({out['held']} held)")
     losses = [m["loss"] for m in out["metrics"]]
     n_layers, mb = cfg.num_layers, plan.microbatch
     per_mb = {"flash_attention_fwd": 2 * n_layers,      # forward + recompute
@@ -1546,7 +1601,8 @@ def train_full(torch):
               "rmsnorm_bwd": 2 * n_layers + 1}
     want = {k: v * mb * steps for k, v in per_mb.items()}
     print(f"[train] tinyllama-1.1b full width, seq {shape.seq_len} x batch "
-          f"{shape.global_batch}, {plan}, losses {losses}, launches="
+          f"{shape.global_batch}, remat={plan.remat} microbatch="
+          f"{plan.microbatch}, losses {losses}, launches="
           f"{launches} expected={want}, step-1 gradients finite and "
           f"nonzero on all {checked} leaves", flush=True)
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
@@ -1562,13 +1618,12 @@ def train_full(torch):
 
 def _train_setup():
     """Phase 5's run: sequence 4096, global batch 8 in 4 microbatches under
-    full remat, AdamW with one warmup step, 4 steps -> (shape, plan,
-    optimizer config, steps)."""
+    full remat, AdamW with one warmup step, 4 steps -> (shape, plan
+    overrides, optimizer config, steps)."""
     from repro_torch.configs import ShapeConfig
-    from repro_torch.core.materializer import Plan
     from repro_torch.training.optimizer import OptimizerConfig
     return (ShapeConfig("train_4k_b8", "train", 4096, 8),
-            Plan(microbatch=4, remat="full"),
+            {"remat": "full", "microbatch": 4},
             OptimizerConfig(warmup_steps=1), 4)
 
 
@@ -1704,12 +1759,58 @@ def ab_child(src: str) -> None:
     _build.build()
     time_rmsnorm_classes(torch, rms, torch.Generator(
         device="cuda").manual_seed(11))
-    shape, plan, ocfg, steps = _train_setup()
+    shape, overrides, ocfg, steps = _train_setup()
     torch.cuda.reset_peak_memory_stats()
-    out = train("tinyllama-1.1b", shape=shape, plan=plan, opt_cfg=ocfg,
-                device="cuda", steps=steps, seed=0)
+    if "overrides" in inspect.signature(train).parameters:
+        kw = {"overrides": overrides}
+    else:                                 # a tree before the runtime port
+        from repro_torch.core.materializer import Plan
+        kw = {"plan": Plan(**overrides)}
+    out = train("tinyllama-1.1b", shape=shape, opt_cfg=ocfg, device="cuda",
+                steps=steps, seed=0, **kw)
     torch.cuda.synchronize()
     report_train(torch, out, torch.cuda.max_memory_allocated(), ocfg)
+
+
+def ab_serve(parent_root: str) -> None:
+    """Phase 3's serve (8 requests, prompts 64..1024, 32 new tokens) for
+    another tree of the port (``parent_root``) and this tree, in turns on
+    one card: parent, this, this, parent, each in its own process, each
+    printing its mean TTFT and mean decode step::
+
+        python3 -c "import chip_smoke; chip_smoke.ab_serve('build/parent')"
+    """
+    for root in (parent_root, ROOT, ROOT, parent_root):
+        src = str(Path(root).resolve() / "src")
+        print(f"[ab] --- {src}", flush=True)
+        subprocess.run([sys.executable, "-c", "import sys; sys.path.insert("
+                        f"0, {str(ROOT)!r}); import chip_smoke; "
+                        f"chip_smoke.ab_serve_child({src!r})"], check=True,
+                       timeout=900)
+
+
+def ab_serve_child(src: str) -> None:
+    """One turn of ``ab_serve``: the port under ``src`` builds its
+    kernels, serves phase 3's traffic once with 2 new tokens (first calls
+    of the kernels) and then three times as phase 3 does, printing each
+    run's mean TTFT and mean decode step."""
+    sys.path.insert(0, src)
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import serve as launch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f"[ab] {launch.__file__} | {card_line()}", flush=True)
+    _build.build()
+    kw = dict(device="cuda", requests=8, max_batch=8, pool_pages=128,
+              prompt_range=(64, 1024), seed=0, verbose=False)
+    launch.serve("tinyllama-1.1b", max_new=2, **kw)
+    for i in range(3):
+        stats = launch.serve("tinyllama-1.1b", max_new=32, **kw)["stats"]
+        print(f"[ab] serve {i}: mean_ttft={stats.mean_ttft_s * 1e3:.3f} ms "
+              f"mean_decode_step={stats.mean_decode_step_s * 1e3:.3f} ms "
+              f"decode_steps={stats.decode_steps} wall="
+              f"{stats.wall_s:.3f} s", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1731,14 +1832,14 @@ def parity_train_reduced(torch):
     from repro_torch.checkpoint.checkpointer import _flatten_with_paths
     from repro_torch.configs import get_config
     from repro_torch.configs.reduced import reduced_config
-    from repro_torch.core.materializer import Plan
+    from repro_torch.core.materializer import H100, Plan
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.models.model import Model, init_params
     from repro_torch.training import optimizer as opt
     from repro_torch.training.train_step import impl_from_plan, make_train_step
 
     cfg = reduced_config(get_config("tinyllama-1.1b"), num_layers=2)
-    plan = Plan(microbatch=2, remat="full")
+    plan = Plan(cfg.name, "reduced_160", H100, microbatch=2, remat="full")
     model = Model(cfg, impl_from_plan(plan))
     params0 = init_params(cfg, 0, "cpu")
     # sequence 160: ragged over the kernels' 64-row tiles
@@ -1936,6 +2037,147 @@ def parity_dense_reduced(torch):
         print(f"[parity] reduced {arch} dense cuda vs cpu: {len(lens)} "
               f"requests, near-tie flips={flips}, min gap "
               f"{min(min(m) for m in margins.values()):.3e}", flush=True)
+
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the §9.3 loop on the card -- a second submission sized from
+# the first one's history
+# ---------------------------------------------------------------------------
+
+def history_loop(torch):
+    """Full-width tinyllama-1.1b paged serving (8 requests, prompts
+    64..1024 from seed 0, 32 new tokens) submitted twice under one app
+    name to one ``Cluster`` whose ``HistoryStore`` lives in a fresh
+    temporary directory: run, release, submit again, run the same
+    requests.  Fails unless the greedy tokens are equal, the history
+    holds the first run's observations, and the second submission and
+    its pool were sized by ``policy="history"`` over that non-empty
+    history; each run's launch counts are what the path implies."""
+    import gc
+    import tempfile
+    import numpy as np
+    from repro_torch.core.history import HistoryStore
+    from repro_torch.core.materializer import H100
+    from repro_torch.core.sizing import solve_init_step
+    from repro_torch.launch.serve import DENSE_CACHE_LEN, serve_shape
+    from repro_torch.runtime import (Application, Cluster, ServeOptions,
+                                     TorchExecutor)
+    from repro_torch.runtime.cluster import SIZING_QUANTUM
+    from repro_torch.serving.kv_cache import Request
+    kernels = _paged_kernels()
+    rng = np.random.default_rng(0)
+    lens = [int(rng.integers(64, 1025)) for _ in range(8)]
+    with tempfile.TemporaryDirectory() as tmp:
+        hist = HistoryStore(tmp)
+        cluster = Cluster(pods=1, mesh=H100, history=hist,
+                          executor=TorchExecutor(device="cuda", seed=0))
+        opts = ServeOptions(backend="paged", max_batch=8, pool_pages=128,
+                            cache_len=DENSE_CACHE_LEN, private_pool=True)
+        runs = []
+        for rnd in range(2):
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            job = hist.get("tinyllama-1.1b:serve", "job", "bytes")
+            job_seen = job.samples() if job else []
+            job_last = job.last if job else None
+            app = Application.serve(
+                "tinyllama-1.1b", shape=serve_shape("paged", 8, 128),
+                serve=opts)
+            sized = cluster.size(app)[0]
+            h = cluster.submit(app)
+            placed = h.job.demand_bytes
+            name, pool = h.app.name, h.engine.pool
+            seen = hist.get(name, "request", "pages")
+            seen = (seen.count, seen.samples()) if seen else (0, [])
+            sz = pool.sizing()
+            for fn in kernels.values():
+                fn.launches = 0
+            reqs = [Request(f"h{i}", n, 32) for i, n in enumerate(lens)]
+            for r in reqs:
+                h.submit_request(r)
+            h.run()
+            torch.cuda.synchronize()
+            launches = {k: fn.launches for k, fn in kernels.items()}
+            want = _expected_paged(h.runner, h.engine.stats)
+            if launches != want or not all(launches.values()):
+                fail(f"history loop run {rnd + 1}: launches {launches}, "
+                     f"expected {want}")
+            runs.append({
+                "tokens": [r.output_tokens for r in reqs],
+                "sizing": h.sizing, "demand": sized, "placed": placed,
+                "grant": h.job.demand_bytes,
+                "held": cluster.executor.footprint(h),
+                "job_seen": job_seen, "job_last": job_last,
+                "floor": h.app.structural_floor(), "plan": h.plan,
+                "pool_sizing": sz, "seen": seen, "policy": pool.policy,
+                "grants": dict(pool.stats),
+                "peak": torch.cuda.max_memory_allocated() - base,
+                "stats": h.engine.stats})
+            h.release()
+        hist.save()
+        saved = HistoryStore(tmp)
+    first, second = runs
+    card = card_line()
+    sol = second["sizing"]
+    print(f"[history] second submission's SizingSolution: init "
+          f"{sol.init / 2**30:.3f} GiB step {sol.step / 2**30:.3f} GiB "
+          f"feasible={sol.feasible} expected_scaleups="
+          f"{sol.expected_scaleups:.4f} (first submission: "
+          f"{first['sizing']}) | {card}", flush=True)
+    for i, run in enumerate(runs, 1):
+        psz, g = run["pool_sizing"], run["grants"]
+        print(f"[history] run {i}: demand {run['demand'] / 2**30:.3f} GiB "
+              f"(structural floor {run['floor'] / 2**30:.3f} GiB), grant "
+              f"{run['placed'] / 2**30:.3f} GiB once bound, "
+              f"{run['grant'] / 2**30:.3f} GiB after the run over "
+              f"{run['held'] / 2**30:.3f} GiB held, pool "
+              f"policy={run['policy']} over {run['seen'][0]} observations: "
+              f"init {psz.init:.0f} pages step {psz.step:.0f}, grants "
+              f"{g['grants']} of {g['grant_pages']} pages, scaleups "
+              f"{g['scaleups']}, mean_ttft "
+              f"{run['stats'].mean_ttft_s * 1e3:.3f} ms mean_decode_step "
+              f"{run['stats'].mean_decode_step_s * 1e3:.3f} ms, peak "
+              f"memory {run['peak'] / 2**30:.3f} GiB over what was "
+              f"allocated before the submission | {card}", flush=True)
+    print(f"[history] plan: {second['plan'].describe()}", flush=True)
+    h_pages = saved.get(name, "request", "pages")
+    h_job = saved.get(name, "job", "bytes")
+    if second["tokens"] != first["tokens"] or not all(
+            len(t or []) == 33 for t in first["tokens"]):
+        fail("history loop: the second run's greedy tokens differ from "
+             "the first's")
+    # one page observation a release (completion or preemption), one job
+    # observation a finished submission
+    releases = [8 + run["stats"].preempted for run in runs]
+    if not (h_pages and h_pages.count == sum(releases) and h_job
+            and h_job.count == 2 and second["seen"][0] == releases[0]):
+        fail(f"history loop: the history does not hold the runs' "
+             f"observations ({h_pages}, {h_job}, second saw "
+             f"{second['seen'][0]})")
+    want_pool = solve_init_step(second["seen"][1], quantum=1.0)
+    want_job = solve_init_step(second["job_seen"],
+                               quantum=float(SIZING_QUANTUM))
+    if not (first["sizing"] is None and sol is not None and sol.feasible
+            and second["job_seen"] and sol == want_job
+            and second["demand"] == max(int(sol.init), second["floor"])
+            and second["policy"] == "history" and second["seen"][1]
+            and (second["pool_sizing"].init, second["pool_sizing"].step)
+            == (want_pool.init, want_pool.step)):
+        fail("history loop: the second submission was not sized by "
+             "policy='history' over the first run's history")
+    # the scheduler accounts what the app held on the card: each run's
+    # grant covers its measured peak, and the history the second
+    # submission was sized from holds the first run's
+    if not all(run["grant"] >= run["held"] >= run["peak"] for run in runs):
+        fail(f"history loop: a grant is below the measured peak "
+             f"{[(r['grant'], r['held'], r['peak']) for r in runs]}")
+    if not second["job_last"] == first["grant"] >= first["peak"]:
+        fail(f"history loop: the history's last job observation "
+             f"{second['job_last']} is not the first run's grant "
+             f"{first['grant']} over its peak {first['peak']}")
 
 
 def check_parity(ref_toks, toks, ref_margins, tie_gap) -> int:

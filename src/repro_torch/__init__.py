@@ -2,11 +2,12 @@
 for NVIDIA Hopper.
 
 The JAX package ``repro`` is the reference; this package keeps its
-module names (``configs``, ``core.sizing``, ``core.materializer``,
-``serving.kv_cache``, ``serving.engine``, ``serving.model_runner``,
+module names (``configs``, ``core.*``, ``runtime.*``, ``serving.*``,
 ``models.*``, ``kernels.*``, ``training.*``, ``data.pipeline``,
-``checkpoint.checkpointer``, ``launch.serve``, ``launch.train``) so each
-counterpart is easy to find.  It imports ``torch``, numpy and the
+``checkpoint.*``, ``obs.*``, ``launch.serve``, ``launch.train``) so each
+counterpart is easy to find.  The launchers submit applications to the
+resource-centric runtime (``runtime.Cluster`` with a
+``runtime.TorchExecutor``), as the reference's do.  It imports ``torch``, numpy and the
 standard library only -- never ``jax`` and never a module of ``repro`` --
 and keeps its own copies of what it needs.
 

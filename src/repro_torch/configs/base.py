@@ -4,8 +4,8 @@ The port keeps its own copy (it imports nothing of the JAX package).
 What it carries is what the serving and training paths read:
 ``ModelConfig``, the block-kind constants, the ``register``/``get_config``
 registry, and the invocation shapes (``ShapeConfig``, ``SHAPES``).  The
-cell enumeration and analytic parameter counts of the reference stay
-there until a later slice needs them.
+analytic parameter counts live in ``core/profiles.py``; the cell
+enumeration of the reference stays there until a later slice needs it.
 """
 
 from __future__ import annotations
@@ -99,6 +99,10 @@ class ModelConfig:
     @property
     def is_encdec(self) -> bool:
         return self.family in ("encdec", "audio") and self.num_encoder_layers > 0
+
+    @property
+    def is_attention_free(self) -> bool:
+        return all(k in (RWKV6, MAMBA2) for k in self.pattern)
 
     def scaled(self, **overrides) -> "ModelConfig":
         """Return a reduced copy (smoke tests)."""

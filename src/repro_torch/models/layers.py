@@ -59,6 +59,17 @@ def init_from_specs(specs, generator: torch.Generator,
     return out
 
 
+def param_count(specs) -> int:
+    """Elements of every ``Spec`` leaf of a spec tree."""
+    if isinstance(specs, Spec):
+        return int(np.prod(specs.shape))
+    return sum(param_count(v) for v in specs.values())
+
+
+def param_bytes(specs, bytes_per_param: int = 2) -> int:
+    return param_count(specs) * bytes_per_param
+
+
 def rms_norm_spec(d: int) -> Spec:
     return Spec((d,), std=0.0)       # zero-init: (1+g) parameterization
 

@@ -3,17 +3,18 @@
 
 A request's KV footprint is input-dependent (prompt + generation length),
 so per-request allocation follows the paper's §9.3 policy: an initial
-page grant plus incremental grants on growth, solved from the history of
-observed request lengths (``core/sizing.py``).  Pages are the allocation
-quantum; the device side is one ``(pool_pages + 1, PAGE_SIZE, KV, hd)``
-tensor per layer indexed by page tables (``serving/model_runner.py``).
+page grant plus incremental grants on growth, both solved from the
+decayed history of observed request lengths (``core/history.py``,
+``core/sizing.py``).  Pages are the allocation quantum; the device side
+is one ``(pool_pages + 1, PAGE_SIZE, KV, hd)`` tensor per layer indexed
+by page tables (``serving/model_runner.py``).
 
-This slice carries the *private* pool of one replica.  Left for later
+This port carries the *private* pool of one replica.  Left for later
 slices, with the features that need them: the sliding-window ring id
 space (``PageGroups`` is here so the runner can refuse ring stacks), the
 prefix-cache lifecycle (``cow_grant``, ``cache_donate``,
-``prefix_detach``), park/unpark (``reclaim``, ``regrant``), the
-view-local id remap of pod-shared pools, and the runtime sanitizer hooks.
+``prefix_detach``), the view-local id remap of pod-shared pools, and the
+runtime sanitizer hooks.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.configs.base import ATTN_LOCAL
+from repro_torch.core.history import HistoryStore
 from repro_torch.core.sizing import SizingSolution, solve_init_step
 
 PAGE_SIZE = 128  # tokens per page
@@ -83,14 +85,10 @@ class Request:
 
 
 class PagePool:
-    """Fixed pool of KV pages; per-request grants follow the sizing policy.
+    """Fixed pool of KV pages; per-request grants follow the sizing policy."""
 
-    ``history`` is any object with the reference ``HistoryStore``'s
-    ``get(app, component, metric)`` and ``observe(app, component, metric,
-    value)``; the port has no store of its own yet, so it is usually None
-    and ``policy="history"`` then solves over an empty history."""
-
-    def __init__(self, num_pages: int, history=None, app: str = "serve",
+    def __init__(self, num_pages: int, history: Optional[HistoryStore] = None,
+                 app: str = "serve",
                  policy: str = "history", fixed_init_pages: int = 2,
                  fixed_step_pages: int = 1):
         if policy not in ("history", "fixed", "peak"):
@@ -99,6 +97,9 @@ class PagePool:
         self.free: List[int] = list(range(num_pages))
         self.history = history
         self.app = app
+        # sizing-history identity: replicas of one app carry distinct view
+        # names (``app``) but must read/write ONE per-app history series
+        self.history_key = app
         self.policy = policy
         self.fixed = (fixed_init_pages, fixed_step_pages)
         self._sizing: Optional[SizingSolution] = None
@@ -114,7 +115,7 @@ class PagePool:
             self._solve_counter = 0
             hist = []
             if self.history is not None:
-                h = self.history.get(self.app, "request", "pages")
+                h = self.history.get(self.history_key, "request", "pages")
                 if h is not None:
                     hist = h.samples()
             if self.policy == "peak":
@@ -176,10 +177,40 @@ class PagePool:
         self.free.extend(req.pages)
         self.stats["released"] += 1
         if self.history is not None:
-            self.history.observe(self.app, "request", "pages",
+            self.history.observe(self.history_key, "request", "pages",
                                  max(len(req.pages), 1))
         req.pages = []
         req.state = "done"
+
+    def reclaim(self, req: Request) -> Tuple[List[int], List[int]]:
+        """Return a request's pages WITHOUT completing it (the engine's
+        ``drain``): no history sample, since the request resumes with the
+        same footprint, and no 'released' count.  Returns the physical
+        (global, local-ring) page ids it held; a private pool's ids are
+        physical and it has no ring pages."""
+        held, req.pages = req.pages, []
+        self.free.extend(held)
+        req.state = "parked"
+        return list(held), []
+
+    def regrant(self, req: Request, n: int, n_local: int = 0) -> bool:
+        """Re-grant exactly a drained request's page count (the sizing
+        policy already spoke when the pages were first granted).  A
+        private pool has no ring pages, so ``n_local`` must be 0."""
+        if n_local:
+            raise ValueError("a private pool has no ring pages to regrant")
+        got = self._alloc(n)
+        if got is None:
+            self.stats["denials"] += 1
+            return False
+        req.pages = got
+        req.state = "running"
+        return True
+
+    @property
+    def physical_pages(self) -> int:
+        """Size of the backing physical pool (the runner's page-array dim)."""
+        return self.num_pages
 
     @property
     def utilization(self) -> float:

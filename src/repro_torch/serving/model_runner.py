@@ -74,6 +74,11 @@ class KVArrayStore:
                                     device=device)
                         for _ in range(num_layers)]
 
+    def device_bytes(self) -> int:
+        """Bytes of the page tensors (the stats view's gauge)."""
+        return sum(t.numel() * t.element_size()
+                   for t in self.k_pages + self.v_pages)
+
 
 def synth_prompt(req_id: str, prompt_len: int, vocab: int) -> torch.Tensor:
     """Deterministic synthetic prompt (CPU int64, (1, prompt_len)) from a

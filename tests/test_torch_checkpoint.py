@@ -147,7 +147,9 @@ def test_resume_from_a_cut_replays_identically(tmp_path):
     ckpt = str(tmp_path / "ckpt")
     first = train("tinyllama-1.1b", steps=3, ckpt_dir=ckpt, ckpt_every=3,
                   **kw)
-    assert latest_step(ckpt) == 3 and first["cursor"] == 3
+    # the executor keeps each application's cuts under its name
+    assert latest_step(os.path.join(ckpt, "tinyllama-1.1b:train")) == 3
+    assert first["cursor"] == 3
     resumed = train("tinyllama-1.1b", steps=6, ckpt_dir=ckpt, resume=True,
                     **kw)
     assert len(resumed["metrics"]) == 3 and resumed["cursor"] == 6

@@ -1,8 +1,8 @@
 """Import and device hygiene of the port.
 
 The port (``src/repro_torch``) and ``chip_smoke.py`` import nothing of JAX
-and nothing of the JAX package; the port imports and serves with JAX
-absent; its entry points run on CUDA unless the CPU is asked for, and
+and nothing of the JAX package; the port imports, serves and trains
+through ``Cluster.submit`` with JAX absent; its entry points run on CUDA unless the CPU is asked for, and
 raise when there is no CUDA device instead of carrying on on the CPU.
 """
 
@@ -48,7 +48,8 @@ def test_port_imports_and_serves_with_jax_absent():
             "from repro_torch.launch.serve import serve\n"
             "out = serve(reduced=True, device='cpu', requests=2, "
             "max_batch=2, prompt_range=(20, 140), max_new=2, verbose=False)\n"
-            "assert out['stats'].completed == 2\n")
+            "assert out['stats'].completed == 2\n"
+            "assert out['plan'].mesh.name == 'h100'  # via Cluster.submit\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"},
@@ -112,7 +113,8 @@ def test_port_trains_with_jax_absent():
             "sys.modules['repro'] = None\n"
             "from repro_torch.launch.train import train\n"
             "out = train(reduced=True, device='cpu', steps=2, verbose=False)\n"
-            "assert len(out['metrics']) == 2\n")
+            "assert len(out['metrics']) == 2\n"
+            "assert out['plan'].mesh.name == 'h100'  # via Cluster.submit\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"},

@@ -170,9 +170,44 @@ def test_page_table_and_budget():
     assert pool_pages_for_budget(per_page * 10, 22, 256) == 10
 
 
-def test_engine_refuses_history_store():
-    with pytest.raises(ValueError, match="history"):
-        ServingEngine(PagePool(4), history=object())
+@pytest.mark.parametrize("policy", ["history", "peak"])
+def test_engine_and_pool_with_history_match_reference(policy):
+    """Engine + pool with a history store, each package with its own
+    ``HistoryStore``: two rounds of one request trace (the second sized
+    from the first's observations, under the app's ``history_key``) give
+    the same grants, scale-ups, stats and histories as the reference.
+    Exact equality."""
+    from repro.core.history import HistoryStore as JaxHistory
+    from repro_torch.core.history import HistoryStore
+    rng = np.random.default_rng(11)
+    specs = [(int(rng.integers(1, 500)), int(rng.integers(1, 300)))
+             for _ in range(12)]
+
+    def rounds(engine_cls, pool_cls, req_cls, hist):
+        out = []
+        for rnd in range(2):
+            pool = pool_cls(24, history=hist, app="app@r1", policy=policy)
+            pool.history_key = "app"
+            eng = engine_cls(pool, max_batch=3, history=hist)
+            for i, (plen, new) in enumerate(specs):
+                eng.submit(req_cls(f"q{rnd}.{i}", plen, new))
+            stats = eng.run_to_completion(max_steps=10_000)
+            sz = pool.sizing()
+            out.append(({k: getattr(stats, k) for k in stats.COUNTERS
+                         if not k.endswith("_s_sum")},
+                        {k: pool.stats[k] for k in ("grants", "grant_pages",
+                                                    "denials", "scaleups",
+                                                    "released")},
+                        (sz.init, sz.step), sorted(pool.free)))
+        h = hist.get("app", "request", "pages")
+        assert hist.get("app@r1", "request", "pages") is None
+        return out, (h.count, h.weights)
+
+    want = rounds(JaxEngine, JaxPool, JaxRequest, JaxHistory())
+    got = rounds(ServingEngine, PagePool, Request, HistoryStore())
+    assert got == want
+    (first, second), _ = got
+    assert second[2] != first[2], "the second round is sized from history"
 
 
 # ---------------------------------------------------------------------------

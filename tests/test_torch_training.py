@@ -30,7 +30,7 @@ from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, MOE, RWKV6
 from repro_torch.configs.reduced import reduced_config
-from repro_torch.core.materializer import Plan
+from repro_torch.core.materializer import H100, Plan
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
 from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention_bwd,
@@ -421,7 +421,8 @@ def test_train_step_matches_reference():
     jstep = jax.jit(jax_make_train_step(jmodel, jplan,
                                         jopt.OptimizerConfig(**ocfg)))
     tstep = make_train_step(Model(tcfg, ImplConfig(remat="none")),
-                            Plan(microbatch=2, grad_compression="int8"),
+                            Plan("t", "train_4k", H100, microbatch=2,
+                                 grad_compression="int8"),
                             topt.OptimizerConfig(**ocfg))
     jp = jax.tree.map(jnp.asarray, jparams)
     jst = jopt.init_opt_state(jp)
@@ -466,12 +467,14 @@ def test_train_entry_point_lowers_the_loss():
 
 def test_train_takes_a_config_a_shape_and_a_plan():
     """A ``ModelConfig``, a ``ShapeConfig`` with a cut batch and an
-    explicit plan, as the chip smoke passes them: microbatches of 2 rows
-    under full remat."""
+    explicit plan (overrides of the ladder's), as the chip smoke passes
+    them: 2 microbatches under full remat."""
     from repro_torch.configs import ShapeConfig
     cfg = reduced_config(get_config("tinyllama-1.1b"), num_layers=2)
     out = train(cfg, shape=ShapeConfig("tiny", "train", 32, 4),
-                plan=Plan(microbatch=2, remat="full"), device="cpu", steps=2,
+                overrides={"microbatch": 2, "remat": "full"},
+                device="cpu", steps=2,
                 opt_cfg=topt.OptimizerConfig(warmup_steps=1), verbose=False)
     assert out["shape"].name == "tiny" and len(out["metrics"]) == 2
     assert out["model"].impl.remat == "full" and out["model"].cfg == cfg
+    assert (out["plan"].microbatch, out["plan"].mesh) == (2, H100)
