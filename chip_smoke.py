@@ -84,7 +84,28 @@ Phases, each of which must pass (any failure exits nonzero):
    in the scheduler, grown by the ``TorchExecutor`` to what the app
    holds) must cover its measured peak, and the history must record the
    first run's grant; the sizing, demand, grants, plan and both runs'
-   peak memory are printed.
+   peak memory are printed;
+11. gemma3: full-width gemma3-12b (48 layers, 40 of them sliding-window
+   with window 1024, head dim 256; random bf16 weights from seed 0)
+   serves 8 requests with prompts of 64..2048 tokens (two past the ring
+   of 9 x 128 tokens) and 32 new tokens each through ``launch.serve`` on
+   the paged backend with ring pages; every request must complete, the
+   launch counts of K1, K2 and K3 must equal what the path implies, and
+   the ring pages held must never pass 9 per running request; TTFT,
+   decode step and peak memory against the plan's estimate are printed,
+   then a profiled serve gives the busy share; the same weights then
+   serve 2 requests of 1500-token prompts and 80 new tokens on the paged
+   backend and on the dense backend (K4 over the ring cache), whose
+   greedy tokens must be equal under the ``TIE_GAP`` rule; last, the
+   ladder's plans of full-width mistral-nemo-12b and command-r-35b on
+   the card's mesh are printed (host arithmetic).
+
+Phase 2 also holds K1, K2 and K4 at gemma3-12b's head dim 256 (K1 over
+a global table of ~2000 tokens a lane and a wrapped 9-page ring with
+window 1024, K2 at the 2048-token prefill with window 1024 and without,
+K4 over a full 1024-slot ring) and times K3 at gemma3's widths (3840,
+and 256 for q_norm/k_norm); phase 4 also serves reduced gemma3-12b on
+ring pages, CUDA against CPU, past the ring wrap.
 
 Phase 2 also holds K4 (decode attention), K6 (RWKV-6 WKV), K7 (Mamba-2
 SSD scan) and K2 at head dim 80 against their plain versions, at small
@@ -102,8 +123,9 @@ CUDA kernel's time per call is printed; where ``cuobjdump`` is found,
 each of their bf16 kernels must show HMMA instructions.
 
 A kernel's ``launches`` in the JSON record is its count over the serve
-(phases 3, 7, 8) and train (phase 5) runs; K3's are also printed by shape
-class.  ``ab_train`` (not run by ``main``) runs phase 5 and K3's timings
+(phases 3, 7, 8, 11) and train (phase 5) runs; K3's are also printed by
+shape class; the ``*_d256`` records count phase 11's runs only.
+``ab_train`` (not run by ``main``) runs phase 5 and K3's timings
 for a second checkout and this one in turns on one card; ``ab_serve``
 does the same for phase 3's mean TTFT and decode step.  Those runs also fail if a
 flash-attention wrapper copied an operand to align its rows for the
@@ -211,11 +233,15 @@ def main() -> None:
             launches[name] = launches.get(name, 0) + n
     parity_dense_reduced(torch)
     history_loop(torch)
+    gemma3 = serve_gemma3_full(torch)
+    for name, n in gemma3.items():
+        launches[name] = launches.get(name, 0) + n
+        launches[f"{name}_d256"] = n
     for rec in records:
         rec["launches"] = launches.get(rec["name"])
     print(f"[launches] rmsnorm by shape class over the main paths: "
-          f"{RMS_LAUNCHES} (decode: rows <= 8; prefill: a prompt or chunk; "
-          f"train: 8192 rows)", flush=True)
+          f"{RMS_LAUNCHES} (decode: a decode step's; prefill: a prompt's "
+          f"or chunk's; train: 8192 rows)", flush=True)
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -438,6 +464,8 @@ def check_kernels(torch):
         ("d=128 causal s=192", 1, 2, 1, 192, 192, 128, True, 0, 0, bf16),
         ("d=80 fp32 q_offset=40 h=4/2 sq=90 sk=130", 1, 4, 2, 90, 130, 80,
          True, 0, 40, f32),
+        ("d=256 fp32 windowed=50 h=4/2 s=200", 1, 4, 2, 200, 200, 256, True,
+         50, 0, f32),
         ("d=80 windowed=50 ragged h=4/2 sq=70 sk=170 q_offset=100", 1, 4, 2,
          70, 170, 80, True, 50, 100, bf16),
         ("d=32 non-causal h=4/1 sq=100 sk=300", 1, 4, 1, 100, 300, 32, False,
@@ -482,6 +510,7 @@ def check_kernels(torch):
     records += bwd_records
     check_functions(torch, randn)
     records += check_dense_kernels(torch, randn, tol)
+    records += check_head_dim_256(torch, randn, tol)
     for rec in records:
         lib_txt = ("none" if rec["library_ms"] is None
                    else f"{rec['library_ms']:.4f} ms")
@@ -494,17 +523,29 @@ def check_kernels(torch):
 
 # K3's shape classes on the main paths: a decode step's 8 rows and a
 # prefill's ~1000 rows at the four widths (tinyllama 2048, zamba2 2560 and
-# its Mamba-2 inner norm 5120, rwkv6 4096), and a training norm's 8192
-# rows of 2048 (B=2 x S=4096)
-RMS_CLASSES = ([("decode", 8, d) for d in (2048, 2560, 4096, 5120)]
+# its Mamba-2 inner norm 5120, rwkv6 4096), gemma3-12b's 3840 (8 rows, and
+# a 2048-token prompt) and its q_norm over 256-wide heads (8 lanes x 16
+# heads a decode step, 2048 tokens x 16 heads a prompt), and a training
+# norm's 8192 rows of 2048 (B=2 x S=4096)
+RMS_CLASSES = ([("decode", 8, d) for d in (2048, 2560, 4096, 5120, 3840)]
+               + [("decode", 128, 256)]
                + [("prefill", 1000, d) for d in (2048, 2560, 4096, 5120)]
+               + [("prefill", 2048, 3840), ("prefill", 32768, 256)]
                + [("train", 8192, 2048)])
 # K3's launches on the main paths by shape class, summed by phases 3, 5,
-# 7 and 8
+# 7, 8 and 11
 RMS_LAUNCHES = {"decode": 0, "prefill": 0, "train": 0}
 # K3 backward: fp32 sums of dy * x * r over 8192 rows in another order
 # than the plain version's (per program, then the partials in order)
 RMS_DGAIN_REL_NORM = 1e-4
+
+
+def l2_sets(torch, set_bytes):
+    """How many input sets of ``set_bytes`` hold twice the card's L2
+    together (at least 2), so that timing calls that cycle through them
+    read HBM and not L2."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    return max(2, -(-2 * l2 // set_bytes))
 
 
 def rms_bound(rows, d, itemsize, tensors, vectors, ops_per_element):
@@ -532,20 +573,31 @@ def time_rmsnorm_classes(torch, rms, gen):
     """K3's forward at every shape class (bf16 x and gain, as the model
     keeps them): kernel, plain and ``F.rms_norm`` ms beside the bound;
     and the plain backward at the training shape: its ms and the CUDA
-    kernels it launches a call.  ``rms`` is a tree's
-    ``repro_torch.kernels.rmsnorm`` module.  Printed; returns the record
-    fields of the training shape."""
+    kernels it launches a call.  Each timed call takes the next of
+    ``l2_sets`` input sets, which together hold twice the card's L2, so
+    a call reads its input from HBM as the path does and not from L2.
+    ``rms`` is a tree's ``repro_torch.kernels.rmsnorm`` module.  Printed;
+    returns the record fields of the training shape."""
+    import itertools
     import torch.nn.functional as F
     dev = torch.device("cuda")
     out = {}
     for label, rows, d in RMS_CLASSES:
-        x = torch.randn((rows, d), generator=gen, device=dev).to(torch.bfloat16)
-        g = (torch.randn((d,), generator=gen, device=dev) * 0.1).to(x.dtype)
-        w = 1.0 + g
-        ms = timed_ms(torch, lambda: rms.rmsnorm(x, g))
-        plain = timed_ms(torch, lambda: rms.rmsnorm_ref(x, g))
-        lib = timed_ms(torch, lambda: F.rms_norm(x, (d,), weight=w,
-                                                 eps=1e-6))
+        n = l2_sets(torch, rows * d * 2)
+        xs = torch.randn((n, rows, d), generator=gen,
+                         device=dev).to(torch.bfloat16)
+        gs = (torch.randn((n, d), generator=gen, device=dev) * 0.1).to(xs.dtype)
+        ws = 1.0 + gs
+        sets = list(zip(xs, gs, ws))
+        x, g, _ = sets[-1]
+
+        def cycled(fn):
+            it = itertools.cycle(sets)
+            return lambda: fn(*next(it))
+        ms = timed_ms(torch, cycled(lambda x, g, w: rms.rmsnorm(x, g)))
+        plain = timed_ms(torch, cycled(lambda x, g, w: rms.rmsnorm_ref(x, g)))
+        lib = timed_ms(torch, cycled(lambda x, g, w: F.rms_norm(
+            x, (d,), weight=w, eps=1e-6)))
         b_ms, b_by = rms_bound(rows, d, 2, 2, 1, 4)
         print(f"[time] rmsnorm {label} x ({rows}, {d}) bf16: kernel "
               f"{ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms "
@@ -576,12 +628,16 @@ def check_rmsnorm(torch, randn, tol):
     # 8192 rows of 2048: a norm of the training path (B=2 x S=4096)
     # 1000 and 8 rows of 2560 (zamba2), 5120 (its Mamba-2 inner norm) and
     # 4096 (rwkv6): a ragged prefill and a decode step of the dense path,
-    # 2560 and 5120 through the kernel's masked tail
+    # 2560 and 5120 through the kernel's masked tail; gemma3-12b's 3840
+    # (a 2048-token prompt, a decode step) and its q_norm/k_norm over
+    # 256-wide heads (2048 tokens x 16 heads, 8 lanes x 16 heads)
     for rows, d, dtype in ((33, 128, f32), (8, 64, bf16), (8, 2048, bf16),
                            (512, 2048, bf16), (8192, 2048, bf16),
                            (1000, 2560, bf16), (8, 2560, bf16),
                            (1000, 5120, bf16), (8, 5120, bf16),
-                           (1000, 4096, bf16), (8, 4096, bf16)):
+                           (1000, 4096, bf16), (8, 4096, bf16),
+                           (2048, 3840, bf16), (8, 3840, bf16),
+                           (32768, 256, bf16), (128, 256, bf16)):
         x, g = randn(rows, d, dtype=dtype), randn(d, dtype=f32, scale=0.1)
         errs.append(compare(torch, f"rmsnorm rows={rows} d={d} {dtype}",
                             rms.rmsnorm(x, g), rms.rmsnorm_ref(x, g),
@@ -660,7 +716,7 @@ def check_fwd(torch, label, q, k, v, kw, tol):
     version, and the kernel's o and lse."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
-        FWD_BLOCK_K, _visible, flash_attention_fwd, flash_attention_fwd_ref)
+        _visible, flash_attention_fwd, flash_attention_fwd_ref, fwd_block_k)
     name = f"flash_attention_fwd o {label}"
     o, lse = flash_attention_fwd(q, k, v, **kw)
     o_f, lse_f = flash_attention_fwd_ref(q.float(), k.float(), v.float(),
@@ -671,7 +727,7 @@ def check_fwd(torch, label, q, k, v, kw, tol):
         return compare(torch, name, o, o_f, *tol[torch.float32]), o, lse
     del lse_f
     o_b, _ = flash_attention_fwd_ref(q, k, v, operand_dtype=torch.bfloat16,
-                                     block_k=FWD_BLOCK_K, **kw)
+                                     block_k=fwd_block_k(q.shape[-1]), **kw)
     worst = rel_norm(torch, f"{name} vs plain (bf16 operands)", o, o_b,
                      FWD_KERNEL_REL_NORM)
     compare(torch, f"{name} vs plain (bf16 operands), information only", o,
@@ -838,6 +894,181 @@ def check_decode(torch, randn, tol):
                 shape=f"B=8 H=32 KV=32 D=80 S=2048, vlen 897 every lane, "
                       f"{splits} splits of {kps} keys; library_ms is SDPA "
                       "with a length mask")
+
+
+# ---------------------------------------------------------------------------
+# phase 2, head dim 256: K1, K2 and K4 at gemma3-12b's shapes
+# ---------------------------------------------------------------------------
+
+def check_head_dim_256(torch, randn, tol):
+    """K1, K2 and K4 at gemma3-12b's head dim 256 (16 query heads over 8
+    KV heads), bf16, against their plain versions at phase 2's
+    tolerances: K1 with q (8,16,256) over pages (193,128,8,256), a global
+    table of ~2000 live tokens a lane and a 9-page ring read with window
+    1024 after it has wrapped; K2 at the 2048-token prefill, causal, with
+    window 1024 (the local layers) and without (the global ones), by
+    relative norm as ``check_fwd`` holds every bf16 case; K4 with q
+    (8,16,256) over a (8,8,1024,256) cache, valid length 1024 (the dense
+    ring, full).  Each is timed beside its plain version and SDPA on
+    contiguous copies, with its bound from what the inputs need.
+    Returns their records (named ``*_d256``; their launches are phase
+    11's)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_fwd_ref,
+                                                     fwd_block_k)
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_ref,
+                                                     split_pages)
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(256)
+    b, h, kvh, d, pool, page = 8, 16, 8, 256, 192, 128
+    records = []
+
+    # -- K1: a global table, and a wrapped ring ---------------------------
+    kp, vp = randn(pool + 1, page, kvh, d), randn(pool + 1, page, kvh, d)
+    q = randn(b, h, d)
+    perm = torch.randperm(pool, generator=g, device=dev).int()
+    glob = [2000, 1990, 2048, 1900, 1999, 2010, 1950, 2020]
+    table = torch.full((b, 16), -1, dtype=torch.int32, device=dev)
+    for i, n in enumerate(glob):
+        table[i, :-(-n // page)] = perm[16 * i:16 * i + -(-n // page)]
+    vlen = torch.tensor(glob, dtype=torch.int32, device=dev)
+    ring_t = perm[:72].view(b, 9).contiguous()
+    ring_v = torch.tensor([1500, 2000, 1153, 3000, 1800, 1200, 2500, 1700],
+                          dtype=torch.int32, device=dev)
+    errs = []
+    for label, tb, vl, kw in (("global table ~2000 tokens", table, vlen, {}),
+                              ("9-page ring, window 1024, wrapped", ring_t,
+                               ring_v, dict(window=1024, ring=True))):
+        errs.append(compare(
+            torch, f"paged_attention d=256 {label}",
+            paged_attention(q, kp, vp, tb, vl, **kw),
+            paged_attention_ref(q, kp, vp, tb, vl, **kw), *tol[bf16]))
+    pps, splits = split_pages(b, kvh, 16, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+
+    def k1_times(tb, vl, window, ring):
+        ms = timed_ms(torch, lambda: paged_attention(
+            q, kp, vp, tb, vl, window=window, ring=ring))
+        plain = timed_ms(torch, lambda: paged_attention_ref(
+            q, kp, vp, tb, vl, window=window, ring=ring), iters=5, reps=3)
+        # the lanes' live tokens gathered into a contiguous cache, with the
+        # same mask
+        safe = tb.clamp(min=0).long()
+        kc = kp[safe].flatten(1, 2).transpose(1, 2).contiguous()
+        vc = vp[safe].flatten(1, 2).transpose(1, 2).contiguous()
+        slot = torch.arange(kc.shape[2], device=dev)[None, :]
+        last = vl[:, None] - 1
+        pos = last - torch.remainder(last - slot, kc.shape[2]) if ring \
+            else slot
+        mask = (pos >= 0) & (pos <= last) & tb.repeat_interleave(
+            page, dim=1).ge(0)
+        if window:
+            mask &= pos > last - window
+        lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kc, vc, attn_mask=mask[:, None, None],
+            enable_gqa=True))
+        attended = int(mask.sum())
+        nbytes = (2 * q.numel() * 2 + tb.numel() * 4 + vl.numel() * 4
+                  + 2 * attended * kvh * d * 2)
+        b_ms, b_by = bound(nbytes, 4 * h * d * attended, H100_BF16_FLOPS)
+        return ms, plain, lib, b_ms, b_by
+
+    ms, plain, lib, b_ms, b_by = k1_times(ring_t, ring_v, 1024, True)
+    print(f"[time] paged_attention d=256 ring (B=8 H=16 KV=8, 9-page ring, "
+          f"window 1024): kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+          f"{lib:.4f} ms (SDPA, gathered, ring mask), bound {b_ms:.4f} ms "
+          f"({b_by}), share of bound {b_ms / ms:.3f}", flush=True)
+    ms, plain, lib, b_ms, b_by = k1_times(table, vlen, 0, False)
+    records.append(dict(
+        name="paged_attention_d256", route="cuda",
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:111",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib,
+        shape=f"gemma3-12b decode: B=8 H=16 KV=8 D=256, global table, vlen "
+              f"{glob}, {splits} splits of {pps} page(s); library_ms is "
+              "SDPA on the gathered cache"))
+
+    # -- K2: the 2048-token prefill, window 1024 and none -------------------
+    errs = []
+    for window in (1024, 0):
+        q2 = randn(1, 2048, h, d).transpose(1, 2)             # model layout
+        k2 = randn(1, 2048, kvh, d).transpose(1, 2)
+        v2 = randn(1, 2048, kvh, d).transpose(1, 2)
+        errs.append(check_fwd(torch, f"d=256 gemma3 prefill s=2048 window="
+                                     f"{window}", q2, k2, v2, dict(
+                                         causal=True, window=window,
+                                         q_offset=0), tol)[0])
+    # the kernel on the model's layout, SDPA on contiguous copies
+    qc, kc, vc = q2.contiguous(), k2.contiguous(), v2.contiguous()
+    for window in (0, 1024):                   # the record: window 1024
+        ms = timed_ms(torch, lambda: flash_attention_fwd(
+            q2, k2, v2, causal=True, window=window))
+        plain = timed_ms(torch, lambda: flash_attention_fwd_ref(
+            q2, k2, v2, causal=True, window=window, operand_dtype=bf16,
+            block_k=fwd_block_k(d)), iters=3, reps=3)
+        ok = torch.ones(2048, 2048, dtype=torch.bool, device=dev).tril()
+        if window:
+            ok = ok.triu(-(window - 1))
+        lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, attn_mask=ok, enable_gqa=True))
+        pairs = int(ok.sum())
+        nbytes = 2 * (2 * q2.numel() + k2.numel() + v2.numel()) \
+            + 4 * 2048 * h
+        b_ms, b_by = bound(nbytes, 4 * h * d * pairs, H100_BF16_FLOPS)
+        print(f"[time] flash_attention_fwd d=256 (B=1 H=16 KV=8 S=2048 causal "
+              f"window={window}): kernel {ms:.4f} ms, plain {plain:.4f} ms "
+              f"(bf16 operands), library {lib:.4f} ms (SDPA), bound "
+              f"{b_ms:.4f} ms ({b_by}), share of bound {b_ms / ms:.3f}",
+              flush=True)
+    records.append(dict(
+        name="flash_attention_fwd_d256", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_fwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:96",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib,
+        shape="gemma3-12b prefill: B=1 H=16 KV=8 D=256 S=2048 causal "
+              "window=1024 (a local layer); plain_ms is the plain version "
+              "with bf16 operands"))
+    del q2, k2, v2, qc, kc, vc
+    torch.cuda.empty_cache()
+
+    # -- K4: the dense ring, full -------------------------------------------
+    q4 = randn(b, h, d)
+    k4, v4 = randn(b, kvh, 1024, d), randn(b, kvh, 1024, d)
+    vl4 = torch.full((b,), 1024, dtype=torch.int32, device=dev)
+    errs = [compare(torch, "decode_attention d=256 gemma3 ring valid 1024",
+                    decode_attention(q4, k4, v4, vl4),
+                    decode_attention_ref(q4.float(), k4.float(), v4.float(),
+                                         vl4), *tol[bf16])]
+    ragged = torch.tensor([1024, 1, 0, 500, 1000, 129, 700, 1029],
+                          dtype=torch.int32, device=dev)
+    errs.append(compare(torch, "decode_attention d=256 lengths 0-1029",
+                        decode_attention(q4, k4, v4, ragged),
+                        decode_attention_ref(q4.float(), k4.float(),
+                                             v4.float(), ragged),
+                        *tol[bf16]))
+    ms = timed_ms(torch, lambda: decode_attention(q4, k4, v4, vl4))
+    plain = timed_ms(torch, lambda: decode_attention_ref(q4, k4, v4, vl4))
+    lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(
+        q4[:, :, None], k4, v4, enable_gqa=True))
+    attended = b * 1024
+    nbytes = 2 * q4.numel() * 2 + b * 4 + 2 * attended * kvh * d * 2
+    b_ms, b_by = bound(nbytes, 4 * h * d * attended, H100_BF16_FLOPS)
+    records.append(dict(
+        name="decode_attention_d256", route="cuda",
+        source="src/repro_torch/csrc/decode_attention.cu",
+        replaces="src/repro/kernels/decode_attention.py:63",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib,
+        shape="gemma3-12b dense decode: B=8 H=16 KV=8 D=256 S=1024 (a "
+              "local layer's full ring), valid 1024; library_ms is SDPA"))
+    return records
 
 
 def _ssd_inputs(torch, randn, b, h, s, p, n, dtype, decay=None, pad=0):
@@ -1114,8 +1345,8 @@ def check_backward(torch, randn, tol):
         flash_attention_dkv_ref, flash_attention_dq_ref, flash_attention_fwd,
         flash_attention_fwd_ref)
     bf16, f32 = torch.bfloat16, torch.float32
-    # the forward at five head dims, the backward's dQ and dK/dV at four
-    tensor_core_sass({"flash_attention_fwd": 5, "flash_attention_bwd": 8})
+    # the forward at six head dims, the backward's dQ and dK/dV at four
+    tensor_core_sass({"flash_attention_fwd": 6, "flash_attention_bwd": 8})
     cases = [
         ("small causal ragged GQA b=2 h=4/2 s=200 d=64", 2, 4, 2, 200, 200,
          64, True, 0, 0, bf16),
@@ -1416,15 +1647,21 @@ def _paged_kernels():
             "rmsnorm": rmsnorm}
 
 
+def _norms_per_layer(cfg):
+    """K3 launches of one attention layer: its two norms, and q_norm and
+    k_norm where the config has them (gemma3)."""
+    return 4 if cfg.use_qk_norm else 2
+
+
 def _expected_paged(runner, stats):
     """Launches the paged path implies: K1 in every layer of every decode
-    step, K2 in every layer of every prefill chunk, K3 at each block's two
+    step, K2 in every layer of every prefill chunk, K3 at each block's
     norms of every chunk and step plus ln_f once a prefill and a step."""
     n_layers = runner.cfg.num_layers
+    norms = _norms_per_layer(runner.cfg) * n_layers
     return {"paged_attention": n_layers * stats.decode_steps,
             "flash_attention_fwd": n_layers * runner.prefill_chunks,
-            "rmsnorm": (2 * n_layers * (runner.prefill_chunks
-                                        + stats.decode_steps)
+            "rmsnorm": (norms * (runner.prefill_chunks + stats.decode_steps)
                         + stats.prefills + stats.decode_steps)}
 
 
@@ -1488,6 +1725,53 @@ def parity_reduced(torch):
     print(f"[parity] reduced tinyllama-1.1b cuda vs cpu: {len(lens)} "
           f"requests, near-tie flips={flips}, min gap "
           f"{min(min(m) for m in margins.values()):.3e}", flush=True)
+    parity_rings_reduced(torch)
+
+
+def parity_rings_reduced(torch):
+    """Reduced gemma3-12b (5 local : 1 global, window 8, rings of 2 pages)
+    on the paged backend with ring pages, CUDA against CPU, the same
+    weights and prompts: prompts of 200 and 90 tokens and 70 new, so the
+    generations pass the ring of 2 x 128 tokens and wrap it; tokens equal
+    under the ``TIE_GAP`` rule."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.models.model import init_params
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.kv_cache import PageGroups, PagePool, Request
+    from repro_torch.serving.model_runner import PagedRunner
+
+    cfg = reduced_config(get_config("gemma3-12b"))
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(4)
+    lens = [200, 90]
+    prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, n))
+               for n in lens]
+
+    def run(device):
+        runner = PagedRunner(cfg, pool_pages=32, max_batch=4,
+                             params=_tree_to(params, device), device=device,
+                             record_margins=True)
+        eng = ServingEngine(PagePool(32, policy="fixed",
+                                     groups=PageGroups.from_config(cfg)),
+                            max_batch=4, runner=runner)
+        reqs = [Request(f"g{i}", n, 70, prompt_tokens=p)
+                for i, (n, p) in enumerate(zip(lens, prompts))]
+        for r in reqs:
+            eng.submit(r)
+        eng.run_to_completion()
+        if not runner.use_rings or eng.pool.used_local:
+            fail("parity: reduced gemma3 did not serve from ring pages, or "
+                 "left ring pages held")
+        return {r.req_id: r.output_tokens for r in reqs}, runner.margins
+
+    cuda_toks, _ = run("cuda")
+    cpu_toks, margins = run("cpu")
+    flips = check_parity(cpu_toks, cuda_toks, margins, TIE_GAP)
+    print(f"[parity] reduced gemma3-12b rings cuda vs cpu: prompts {lens}, "
+          f"70 new (past the ring of 256 tokens), near-tie flips={flips}, "
+          f"min gap {min(min(m) for m in margins.values()):.3e}", flush=True)
 
 
 def _tree_to(tree, device):
@@ -1905,16 +2189,22 @@ def _dense_kernels():
 def _expected_dense(cfg, prefills, decode_steps):
     """Launches the dense path implies: per prefill and per decode step,
     one RMSNorm launch per norm of each block plus ln_f; per prefill, K2
-    in each shared-attention application, K7 in each Mamba-2 block and K6
-    in each RWKV-6 block; per decode step K4 in each attention block."""
-    from repro_torch.configs.base import ATTN_SHARED, MAMBA2, RWKV6
+    in each attention block or shared-attention application, K7 in each
+    Mamba-2 block and K6 in each RWKV-6 block; per decode step K4 in each
+    attention block or application."""
+    from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL,
+                                          ATTN_SHARED, MAMBA2, RWKV6)
     nb = cfg.num_blocks
     count = {k: nb * cfg.pattern.count(k) for k in (MAMBA2, RWKV6,
-                                                    ATTN_SHARED)}
-    norms = 2 * count[MAMBA2] + 2 * count[RWKV6] + 3 * count[ATTN_SHARED] + 1
-    return {"flash_attention_fwd": count[ATTN_SHARED] * prefills,
+                                                    ATTN_SHARED, ATTN_GLOBAL,
+                                                    ATTN_LOCAL)}
+    attn = count[ATTN_GLOBAL] + count[ATTN_LOCAL]
+    qk = 2 if cfg.use_qk_norm else 0
+    norms = (2 * count[MAMBA2] + 2 * count[RWKV6]
+             + (3 + qk) * count[ATTN_SHARED] + (2 + qk) * attn + 1)
+    return {"flash_attention_fwd": (count[ATTN_SHARED] + attn) * prefills,
             "rmsnorm": norms * (prefills + decode_steps),
-            "decode_attention": count[ATTN_SHARED] * decode_steps,
+            "decode_attention": (count[ATTN_SHARED] + attn) * decode_steps,
             "ssd_scan": count[MAMBA2] * prefills,
             "rwkv6_wkv": count[RWKV6] * prefills,
             "paged_attention": 0}
@@ -2178,6 +2468,249 @@ def history_loop(torch):
         fail(f"history loop: the history's last job observation "
              f"{second['job_last']} is not the first run's grant "
              f"{first['grant']} over its peak {first['peak']}")
+
+
+# ---------------------------------------------------------------------------
+# phase 11: full-width gemma3-12b -- ring pages on the paged backend, the
+# ring cache on the dense one, and the pure-global configs' plans
+# ---------------------------------------------------------------------------
+
+GEMMA3_POOL_PAGES = 192          # 48 MiB a page over the 48 layers: 9 GiB
+
+
+@contextmanager
+def ring_watch():
+    """At every paged decode step: the ring pages the pool holds and the
+    requests running, which must hold at most ``ring_pages`` each.
+    Yields {"peak": ring pages, "running": requests then, "ring": ring
+    pages a request, "steps": steps seen}."""
+    from repro_torch.serving.model_runner import PagedRunner
+    plain, seen = PagedRunner.decode, {"peak": 0, "running": 0, "ring": 0,
+                                       "steps": 0}
+
+    def decode(self, running):
+        pool = self.engine.pool
+        ring = self.groups.ring_pages
+        if pool.used_local > ring * len(running):
+            fail(f"rings: {pool.used_local} ring pages held by "
+                 f"{len(running)} requests of {ring} at most")
+        if pool.used_local > seen["peak"]:
+            seen.update(peak=pool.used_local, running=len(running))
+        seen.update(ring=ring, steps=seen["steps"] + 1)
+        return plain(self, running)
+
+    PagedRunner.decode = decode
+    try:
+        yield seen
+    finally:
+        PagedRunner.decode = plain
+
+
+def serve_gemma3_full(torch):
+    """(a) full-width gemma3-12b (random bf16 weights from seed 0) serves 8
+    requests, prompts 64..2048 tokens from seed 0 (two past 1152, so
+    their rings wrap at prefill), 32 new tokens, max batch 8, through
+    ``launch.serve`` (``Cluster.submit`` on the paged backend, ring pages
+    on 40 of 48 layers, a pool of ``GEMMA3_POOL_PAGES``); every request
+    completes, launch counts equal what the path implies, the ring pages
+    held never pass ``ring_pages`` a running request; TTFT, decode step,
+    peak memory against the plan's estimate.  Then the same serve with 8
+    new tokens on the same weights under ``torch.profiler`` (busy
+    share).  (b) those weights on ``PagedRunner`` and ``DenseRunner``: 2
+    requests of 1500-token prompts, 80 new tokens, greedy tokens equal
+    under the ``TIE_GAP`` rule.  (c) the ladder's plans of full-width
+    mistral-nemo-12b and command-r-35b on the card's mesh (host
+    arithmetic).  Returns the launches of (a) and (b) by kernel name."""
+    import gc
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime import TorchExecutor
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels = _dense_kernels()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with row_copies() as seen, ring_watch() as rings:
+        out = serve_gemma3(max_new=32)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    no_row_copies("gemma3 serve", seen)
+    stats, runner, reqs = out["stats"], out["runner"], out["requests"]
+    cfg = runner.cfg
+    for r in reqs:
+        toks = r.output_tokens or []
+        if len(toks) != 33 or not all(0 <= t < cfg.vocab_size for t in toks):
+            fail(f"gemma3 serve: {r.req_id} returned {len(toks)} tokens "
+                 f"(expected 1 + 32 in [0, {cfg.vocab_size}))")
+    lens = [r.prompt_len for r in reqs]
+    ring_tokens = runner.groups.ring_pages * 128
+    if sum(n > ring_tokens for n in lens) < 2:
+        fail(f"gemma3 serve: prompts {lens}: fewer than two wrap the ring "
+             f"of {ring_tokens} tokens")
+    if not runner.use_rings or out["pool"].groups is None:
+        fail("gemma3 serve: the paged runner did not serve from ring pages")
+    want = dict(_expected_paged(runner, stats), decode_attention=0,
+                ssd_scan=0, rwkv6_wkv=0)
+    print(f"[gemma3] full width, prompts {lens}, prefills={stats.prefills} "
+          f"chunks={runner.prefill_chunks} decode_steps="
+          f"{stats.decode_steps} launches={launches} expected={want}",
+          flush=True)
+    if launches != want:
+        fail("gemma3 serve: kernel launch counts differ from what the path "
+             "implies")
+    norms = _norms_per_layer(cfg) * cfg.num_layers
+    RMS_LAUNCHES["prefill"] += norms * runner.prefill_chunks + stats.prefills
+    RMS_LAUNCHES["decode"] += (norms + 1) * stats.decode_steps
+    plan = out["plan"]
+    print(f"[gemma3] mean_ttft={stats.mean_ttft_s * 1e3:.3f} ms "
+          f"mean_decode_step={stats.mean_decode_step_s * 1e3:.3f} ms "
+          f"tokens/s={stats.tokens_generated / stats.wall_s:.2f} "
+          f"wall={wall:.3f} s; peak_mem {peak / 2**30:.3f} GiB against the "
+          f"plan's est_bytes_per_device "
+          f"{plan.est_bytes_per_device / 2**30:.3f} GiB ({plan.shape}, "
+          f"{plan.notes})", flush=True)
+    print(f"[gemma3] ring pages: peak pool_used_local_pages={rings['peak']} "
+          f"with {rings['running']} running (at most {rings['ring']} x "
+          f"{rings['running']} = {rings['ring'] * rings['running']}), over "
+          f"{rings['steps']} decode steps", flush=True)
+    params = runner.params
+    del out, runner, reqs
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    class Held(TorchExecutor):
+        """Binds the weights already on the card, so that the profiled
+        window holds the serve and not their making."""
+
+        def init_params(self, handle):
+            return params
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        stats = serve_gemma3(8, Held(device="cuda", seed=0))["stats"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    report_profile(prof, wall, f"gemma3-12b serve 8 req x 8 new on the same "
+                               f"weights (decode_steps {stats.decode_steps},"
+                               f" prefills {stats.prefills})")
+    del prof
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, n in parity_gemma3_full(torch, cfg, params).items():
+        launches[name] += n
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print_pure_global_plans()
+    print(f"[gemma3] phase 11: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+def serve_gemma3(max_new, executor=None):
+    """Phase 11 (a)'s traffic through ``launch.serve``: 8 requests, prompts
+    64..2048 tokens from seed 0, ``max_new`` new tokens, max batch 8,
+    ``GEMMA3_POOL_PAGES``; bound by ``executor`` when one is given."""
+    from repro_torch.launch.serve import serve
+    return serve("gemma3-12b", device="cuda", requests=8, max_batch=8,
+                 pool_pages=GEMMA3_POOL_PAGES, prompt_range=(64, 2048),
+                 max_new=max_new, seed=0, executor=executor)
+
+
+def parity_gemma3_full(torch, cfg, params):
+    """Phase 11 (b): paged (ring pages) against dense (ring cache) at full
+    width on the same weights: 2 requests of 1500-token prompts from seed
+    0 (equal lengths: the dense path decodes at one shared position), 80
+    new tokens; equal tokens under the ``TIE_GAP`` rule, the dense run's
+    margins deciding.  Returns both runs' launches by kernel name, each
+    run's checked against what its path implies."""
+    import numpy as np
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.kv_cache import PageGroups, PagePool, Request
+    from repro_torch.serving.model_runner import DenseRunner, PagedRunner
+    rng = np.random.default_rng(0)
+    prompts = [tuple(int(t) for t in rng.integers(0, cfg.vocab_size, 1500))
+               for _ in range(2)]
+    kernels = _dense_kernels()
+    total = {name: 0 for name in kernels}
+    toks, margins = {}, {}
+    for backend in ("paged", "dense"):
+        if backend == "paged":
+            runner = PagedRunner(cfg, pool_pages=32, max_batch=2,
+                                 params=params, device="cuda",
+                                 record_margins=True)
+            pool = PagePool(32, policy="fixed",
+                            groups=PageGroups.from_config(cfg))
+        else:
+            runner = DenseRunner(cfg, max_batch=2, cache_len=2048,
+                                 params=params, device="cuda",
+                                 record_margins=True)
+            pool = PagePool(32, policy="fixed")
+        eng = ServingEngine(pool, max_batch=2, runner=runner)
+        reqs = [Request(f"q{i}", len(p), 80, prompt_tokens=p)
+                for i, p in enumerate(prompts)]
+        for fn in kernels.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        st = eng.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {name: fn.launches for name, fn in kernels.items()}
+        if backend == "paged":
+            want = dict(_expected_paged(runner, st), decode_attention=0,
+                        ssd_scan=0, rwkv6_wkv=0)
+        else:
+            want = _expected_dense(cfg, st.prefills, st.decode_steps)
+        print(f"[gemma3 parity] {backend}: decode_steps={st.decode_steps} "
+              f"mean_ttft={st.mean_ttft_s * 1e3:.3f} ms mean_decode_step="
+              f"{st.mean_decode_step_s * 1e3:.3f} ms wall={wall:.3f} s "
+              f"launches={got} expected={want}", flush=True)
+        if got != want:
+            fail(f"gemma3 parity: {backend} launch counts differ from what "
+                 "the path implies")
+        for name, n in got.items():
+            total[name] += n
+        norms = _norms_per_layer(cfg) * cfg.num_layers
+        RMS_LAUNCHES["prefill"] += (norms + 1) * st.prefills
+        RMS_LAUNCHES["decode"] += (norms + 1) * st.decode_steps
+        toks[backend] = {r.req_id: r.output_tokens for r in reqs}
+        margins[backend] = runner.margins
+        del runner, eng
+        torch.cuda.empty_cache()
+    flips = check_parity(toks["dense"], toks["paged"], margins["dense"],
+                         TIE_GAP)
+    print(f"[gemma3 parity] paged (rings) vs dense (ring cache), 2 x 1500 "
+          f"tokens + 80 new: near-tie flips={flips}, min gap "
+          f"{min(min(m) for m in margins['dense'].values()):.3e}",
+          flush=True)
+    return total
+
+
+def print_pure_global_plans():
+    """Phase 11 (c): the ladder's plan on the card's mesh for full-width
+    mistral-nemo-12b and command-r-35b at phase 11's serve shape, host
+    arithmetic only, with the parameter count and its bf16 bytes."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.materializer import H100, materialize
+    from repro_torch.core.profiles import model_param_count
+    from repro_torch.launch.serve import serve_shape
+    shape = serve_shape("paged", 8, GEMMA3_POOL_PAGES)
+    for arch in ("mistral-nemo-12b", "command-r-35b"):
+        cfg = get_config(arch)
+        plan = materialize(cfg, shape, H100)
+        n = model_param_count(cfg)
+        print(f"[plans] {arch} full width at {shape.name} on {H100.name}: "
+              f"{n / 1e9:.3f} B parameters ({2 * n / 1e9:.2f} GB bf16), "
+              f"est_bytes_per_device {plan.est_bytes_per_device / 2**30:.3f} "
+              f"GiB, remat={plan.remat} fsdp={plan.fsdp} tp={plan.tp} "
+              f"({plan.notes})", flush=True)
 
 
 def check_parity(ref_toks, toks, ref_margins, tie_gap) -> int:

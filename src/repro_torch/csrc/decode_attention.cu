@@ -49,6 +49,13 @@
 //   launched as a programmatic dependent so that its launch overlaps the
 //   split kernel's tail.
 // - Deterministic: no atomics, a fixed order of every sum.
+//
+// Head dim 256 (gemma3-12b's dense ring) in bf16: a row is 32 units of 16
+// bytes at a pitch of 34, a warp's step buffer 2 x 16 x 272 bf16 = 17 KB,
+// so `kStages` is 2 (136 KB for the four warps' rings, plus q and `red`:
+// ~146 KB at gemma3's G = 2, one block an SM); each lane scores 16 units
+// of its key and owns 4 pairs of dims in P.V.  fp32 at 256 would need 264
+// KB of rings: it is not built, and the wrapper refuses it.
 
 #include "split_decode.cuh"
 
@@ -299,12 +306,14 @@ int launch_split(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// G = 1 (zamba2) takes the one-row kernel, G <= 4 the 4-row kernel, larger
-// groups the 8-row kernel (in groups of 8)
+// G = 1 (zamba2) takes the one-row kernel, G = 2 (gemma3) the 2-row
+// kernel, G <= 4 the 4-row kernel, larger groups the 8-row kernel (in
+// groups of 8)
 template <typename T, int D>
 int launch_rows(const Args& a) {
   const int G = a.H / a.KV;
   if (G == 1) return launch_split<T, D, 1>(a);
+  if (G == 2) return launch_split<T, D, 2>(a);
   return G <= 4 ? launch_split<T, D, 4>(a) : launch_split<T, D, 8>(a);
 }
 
@@ -317,6 +326,13 @@ int launch(const Args& a) {
     case 64: code = launch_rows<T, 64>(a); break;
     case 80: code = launch_rows<T, 80>(a); break;
     case 128: code = launch_rows<T, 128>(a); break;
+    case 256:  // gemma3-12b; bf16 only (see the note at the top)
+      if constexpr (sizeof(T) == 2) {
+        code = launch_rows<T, 256>(a);
+        break;
+      } else {
+        return (int)cudaErrorInvalidValue;
+      }
     default: return (int)cudaErrorInvalidValue;
   }
   if (code != 0) return code;

@@ -50,6 +50,14 @@
 // plain version rounds it at the same place when called with
 // `operand_dtype=torch.bfloat16` and the kernel's key tile (`block_k` 64).
 // The output is rounded once from fp32.
+//
+// Head dim 256 (gemma3-12b): the output accumulator of a warp's 16 rows is
+// then 128 fp32 registers a thread, and Q's fragments would be 64 more, so
+// at D = 256 Q stays in shared memory and each k-step loads its fragment
+// there (`ldmatrix`, `mma_abt`), and the key tile is 32 keys instead of 64
+// (`kTcBK`): 16 score registers instead of 32, and shared memory of
+// (64 + 4 x 32) rows x 264 bf16 = 99 KB, so two blocks fit an SM.  The
+// plain version repeats the tile with `block_k = fwd_block_k(256) = 32`.
 
 #include "mma_bf16.cuh"
 
@@ -211,9 +219,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // bf16: the tensor-core kernel
 // ===========================================================================
 
+// the key tile of the bf16 kernel: 64 keys, 32 at head dim 256
+template <int D>
+constexpr int kTcBK = D > 128 ? 32 : 64;
+// Q's A fragments held in registers for the whole key loop, or (head dim
+// 256) loaded from shared memory at each k-step
+template <int D>
+constexpr bool kQInRegs = D <= 128;
+
 // shared memory: the 64-row Q tile and the double-buffered K and V tiles
 template <int D>
-constexpr size_t kTcSmem = sizeof(bf16) * (kBQ + 4 * kBK) * kPitch<D>;
+constexpr size_t kTcSmem = sizeof(bf16) * (kBQ + 4 * kTcBK<D>) * kPitch<D>;
 
 template <int D>
 __global__ void __launch_bounds__(kTcThreads)
@@ -221,7 +237,7 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, bf16* __restrict__ o,
              float* __restrict__ lse, int B, int H, int KVH, Mask mask,
              Strides sq, Strides sk, Strides sv, Strides so, float scale) {
-  constexpr int P = kPitch<D>, N = kBK;
+  constexpr int P = kPitch<D>, N = kTcBK<D>;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* qs = reinterpret_cast<bf16*>(tc_smem);  // 64 x P    Q
   bf16* ks = qs + kBQ * P;                      // 2 x N x P K tiles
@@ -258,8 +274,10 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   cp_async_wait<1>();  // Q has landed; the first K/V may not
   __syncthreads();
 
-  uint32_t qf[D / 16][4];  // this warp's 16 rows of Q, A fragments
-  load_a_frags<D>(qf, qs + warp * 16 * P, lane);
+  // this warp's 16 rows of Q, as A fragments in registers (D <= 128)
+  const bf16* qw = qs + warp * 16 * P;
+  uint32_t qf[kQInRegs<D> ? D / 16 : 1][4];
+  if constexpr (kQInRegs<D>) load_a_frags<D>(qf, qw, lane);
 
   // this lane's two rows of the warp's 16: lane / 4 and lane / 4 + 8; the
   // running max m (of the unscaled scores) and this lane's part of the
@@ -287,9 +305,13 @@ flash_fwd_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < N / 8; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+    if constexpr (kQInRegs<D>) {
 #pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
-      mma_abt_step<D, N / 8>(s, qf[kc], kt, kc, lane);  // S = Q K^T
+      for (int kc = 0; kc < D / 16; ++kc)
+        mma_abt_step<D, N / 8>(s, qf[kc], kt, kc, lane);  // S = Q K^T
+    } else {
+      mma_abt<D, N / 8>(s, qw, kt, lane);  // S = Q K^T, Q from shared
+    }
 
     if (!tile_full(mask, q_start + warp * 16, 16, k0, N)) {
 #pragma unroll
@@ -443,6 +465,7 @@ extern "C" int flash_attention_fwd(
     case 64: return launch<64>(dtype, a);
     case 80: return launch<80>(dtype, a);  // zamba2-2.7b's shared attention
     case 128: return launch<128>(dtype, a);
+    case 256: return launch<256>(dtype, a);  // gemma3-12b
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -38,6 +38,14 @@
 // m = -inf and l = 0 and adds nothing.  The combine and the softmax-state
 // helpers are shared with the contiguous-cache decode (K4) in
 // split_decode.cuh.
+//
+// Head dim 256 (gemma3-12b) in bf16: 32 lanes score a token (kTok = 1),
+// each holding 8 of its dims; the staged K/V tiles are 32 tokens
+// (`kChunkOf`), 4 x 32 x 264 bf16 = 66 KB of shared memory, and `red` 4 x
+// 2 x 258 floats at gemma3's G = 2, so three blocks fit an SM.  In fp32 a
+// token would need 64 lanes of 16 bytes, more than a warp: that
+// instantiation is not built, and the wrapper refuses fp32 pages at 256
+// (the pages are bf16 on every path).
 
 #include "split_decode.cuh"
 
@@ -45,7 +53,10 @@ namespace {
 
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 64;     // tokens of a staged K / V tile
+// tokens of a staged K / V tile: 64, and 32 at head dim 256, where a
+// 64-token tile pair would hold one block an SM
+template <int D>
+constexpr int kChunkOf = D > 128 ? 32 : 64;
 
 __device__ __forceinline__ int positive_mod(int a, int n) {
   int r = a % n;
@@ -68,8 +79,10 @@ paged_split_kernel(const T* __restrict__ q,        // (B, H, D)
   constexpr int kVec = 16 / sizeof(T);  // elements of 16 bytes
   constexpr int kLanes = D / kVec;      // lanes that score one token
   constexpr int kTok = 32 / kLanes;     // tokens a warp scores at once
+  static_assert(kLanes <= 32, "a token's 16-byte vectors must fit a warp");
   constexpr int kLd = D + kVec;         // padded shared row, in elements
   constexpr int kRed = D + 2;           // a row's acc, m, l in `red`
+  constexpr int kChunk = kChunkOf<D>;
   const int b = blockIdx.x, kvh = blockIdx.y, split = blockIdx.z;
   const int splits = gridDim.z;
   const int G = H / KV;
@@ -255,7 +268,7 @@ struct Args {
 template <typename T, int D, int GT>
 int launch_split(const Args& a) {
   constexpr int kLd = D + 16 / (int)sizeof(T);
-  const size_t smem = 4 * (size_t)kChunk * kLd * sizeof(T) +
+  const size_t smem = 4 * (size_t)kChunkOf<D> * kLd * sizeof(T) +
                       sizeof(float) * kWarps * GT * (D + 2);
   static size_t configured[kMaxDevices];
   cudaError_t e = allow_smem(paged_split_kernel<T, D, GT>, smem, configured);
@@ -270,12 +283,14 @@ int launch_split(const Args& a) {
   return (int)cudaGetLastError();
 }
 
-// GQA groups of up to 4 query rows a KV head take the 4-row kernel, larger
-// ones the 8-row kernel (in groups of 8)
+// GQA groups of up to 2 query rows a KV head (gemma3's 16 / 8) take the
+// 2-row kernel, up to 4 the 4-row kernel, larger ones the 8-row kernel (in
+// groups of 8)
 template <typename T, int D>
 int launch_rows(const Args& a) {
-  return a.H / a.KV <= 4 ? launch_split<T, D, 4>(a)
-                         : launch_split<T, D, 8>(a);
+  const int G = a.H / a.KV;
+  if (G <= 2) return launch_split<T, D, 2>(a);
+  return G <= 4 ? launch_split<T, D, 4>(a) : launch_split<T, D, 8>(a);
 }
 
 template <typename T>
@@ -286,6 +301,13 @@ int launch(const Args& a) {
     case 32: code = launch_rows<T, 32>(a); break;
     case 64: code = launch_rows<T, 64>(a); break;
     case 128: code = launch_rows<T, 128>(a); break;
+    case 256:  // gemma3-12b; bf16 only (see the note at the top)
+      if constexpr (sizeof(T) == 2) {
+        code = launch_rows<T, 256>(a);
+        break;
+      } else {
+        return (int)cudaErrorInvalidValue;
+      }
     default: return (int)cudaErrorInvalidValue;
   }
   if (code != 0) return code;

@@ -32,7 +32,9 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 80, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+# fp32 at head dim 256 would need more shared memory than a block has
+FP32_HEAD_DIMS = (16, 32, 64, 80, 128)
 # a split is a whole number of these keys: two steps of the split
 # kernel's 4 warps x 16 keys, so each warp has a load in flight behind its
 # first step
@@ -142,6 +144,11 @@ def decode_attention(q, k, v, valid_len):
         raise ValueError(f"decode_attention: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}; head_dim "
                          f"must be one of {HEAD_DIMS}")
+    if q.dtype == torch.float32 and d not in FP32_HEAD_DIMS:
+        raise ValueError(f"decode_attention: float32 at head_dim {d} (q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}): the kernel "
+                         f"takes fp32 at head dims {FP32_HEAD_DIMS} and "
+                         f"bfloat16 at {HEAD_DIMS}")
     vlen = _lengths(valid_len, b, q.device).contiguous()
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if any(t.data_ptr() % 16 for t in (q, k, v)):

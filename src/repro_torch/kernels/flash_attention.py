@@ -22,7 +22,7 @@ to the input dtype before the value product -- so the port's CPU path
 reproduces the reference's bf16 numbers.  Called with
 ``operand_dtype=torch.bfloat16`` it runs the bf16 forward kernel's
 arithmetic instead: the online softmax over key tiles of ``block_k``
-(the kernel's ``FWD_BLOCK_K``), fp32 throughout except that p is rounded
+(the kernel's, :func:`fwd_block_k`), fp32 throughout except that p is rounded
 to bf16 before the value product.  :func:`flash_attention_bwd_ref` is
 the Pallas backward's arithmetic: fp32 throughout from the saved
 ``lse``, outputs rounded once.
@@ -47,11 +47,18 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-# the forward kernel also takes zamba2-2.7b's head dim; the backward kernels
-# are built and checked at the training path's head dims only
-HEAD_DIMS = (16, 32, 64, 80, 128)
+# the forward kernel also takes zamba2-2.7b's head dim 80 and gemma3-12b's
+# 256; the backward kernels are built and checked at the training path's
+# head dims only (gemma3 training, K5 at 256, is a later slice)
+HEAD_DIMS = (16, 32, 64, 80, 128, 256)
 BWD_HEAD_DIMS = (16, 32, 64, 128)
 FWD_BLOCK_K = 64            # keys of the bf16 forward kernel's loop tile
+FWD_BLOCK_K_WIDE = 32       # ... at head dim 256, where registers are short
+
+
+def fwd_block_k(head_dim: int) -> int:
+    """Keys of the bf16 forward kernel's loop tile at ``head_dim``."""
+    return FWD_BLOCK_K_WIDE if head_dim > 128 else FWD_BLOCK_K
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
     ctypes.c_longlong
 _FWD = {"flash_attention_fwd":

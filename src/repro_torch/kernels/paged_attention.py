@@ -21,7 +21,9 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
+# a token's D / 4 fp32 vectors of 16 bytes must fit a warp's 32 lanes
+FP32_HEAD_DIMS = (16, 32, 64, 128)
 # blocks a split grid aims at per SM: a linear lane's splits past its
 # valid length exit at once, so the grid is over-provisioned
 BLOCKS_PER_SM = 4
@@ -149,6 +151,12 @@ def paged_attention(q, k_pages, v_pages, page_table, valid_len, *,
         raise ValueError(f"paged_attention: head_dim {d} (supported "
                          f"{HEAD_DIMS}), heads {h}/{kvh}, pages "
                          f"{tuple(k_pages.shape)}/{tuple(v_pages.shape)}")
+    if q.dtype == torch.float32 and d not in FP32_HEAD_DIMS:
+        raise ValueError(f"paged_attention: float32 pages at head_dim {d} "
+                         f"(q {tuple(q.shape)}, pages "
+                         f"{tuple(k_pages.shape)}): the kernel takes fp32 "
+                         f"at head dims {FP32_HEAD_DIMS} and bfloat16 at "
+                         f"{HEAD_DIMS}")
     if page_table.dtype != torch.int32 or page_table.shape[0] != b \
             or valid_len.dtype != torch.int32 or valid_len.shape != (b,):
         raise ValueError("paged_attention: page_table must be (B, maxp) "

@@ -31,7 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
-from repro_torch import DeviceLike, resolve_device
+from repro_torch import DeviceLike
 from repro_torch.configs import ShapeConfig
 from repro_torch.core.history import HistoryStore
 from repro_torch.core.materializer import H100
@@ -59,23 +59,27 @@ def serve(arch: str = "tinyllama-1.1b", *, backend: str = "paged",
           requests: int = 8, max_batch: int = 8, pool_pages: int = 128,
           prompt_range: Tuple[int, int] = (64, 1024),
           max_new: int = 32, seed: int = 0, policy: str = "history",
-          verbose: bool = True,
-          history_dir: Optional[str] = None) -> Dict[str, Any]:
+          verbose: bool = True, history_dir: Optional[str] = None,
+          executor: Optional[TorchExecutor] = None) -> Dict[str, Any]:
     """Serve ``requests`` requests, prompt lengths drawn uniformly from
     ``prompt_range`` (inclusive) with numpy from ``seed``, ``max_new``
     new tokens each, on ``backend`` ("paged", or "dense" with a cache of
     ``DENSE_CACHE_LEN`` tokens per slot), weights random from ``seed``.
     The sizing history lives in ``history_dir`` (loaded, and saved at the
-    end) or, when None, in memory for this call only.  Returns the engine
-    stats, the pool, the runner, the completed requests, the device and
-    the plan."""
-    dev = resolve_device(device)
+    end) or, when None, in memory for this call only.  ``executor``
+    binds the application (default: a ``TorchExecutor`` on ``device``
+    from ``seed``; one whose ``init_params`` returns weights already on
+    the card serves them again, and its device wins).  Returns the
+    engine stats, the pool, the runner, the completed requests, the
+    device and the plan."""
+    executor = executor or TorchExecutor(device=device, seed=seed)
+    dev = executor.device
     history = HistoryStore(history_dir)
     opts = ServeOptions(backend=backend, max_batch=max_batch,
                         cache_len=DENSE_CACHE_LEN, pool_pages=pool_pages,
                         policy=policy, private_pool=True)
     cluster = Cluster(pods=1, mesh=H100, history=history,
-                      executor=TorchExecutor(device=dev, seed=seed))
+                      executor=executor)
     handle = cluster.submit(Application.serve(
         arch, shape=serve_shape(backend, max_batch, pool_pages),
         reduced=reduced, serve=opts))

@@ -101,11 +101,13 @@ def self_attention_train(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 
 def kv_cache_specs(cfg: ModelConfig, batch: int, cache_len: int,
-                   dtype=torch.bfloat16) -> Params:
+                   window: int = 0, dtype=torch.bfloat16) -> Params:
     """One layer's dense KV cache, laid out (B, KV, S, hd) as the
     reference's (the decode kernel reads each (lane, KV head) run of S
-    keys contiguously)."""
-    shape = (batch, cfg.num_kv_heads, cache_len, cfg.head_dim)
+    keys contiguously); a ring of ``min(cache_len, window)`` slots when
+    ``window > 0``."""
+    s = min(cache_len, window) if window > 0 else cache_len
+    shape = (batch, cfg.num_kv_heads, s, cfg.head_dim)
     return {"k": CacheSpec(shape, dtype), "v": CacheSpec(shape, dtype)}
 
 
@@ -120,30 +122,47 @@ def gqa_decode_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def self_attention_decode(p: Params, x: torch.Tensor, cache: Params,
-                          pos: int, cfg: ModelConfig
+                          pos: int, cfg: ModelConfig, *, window: int = 0
                           ) -> Tuple[torch.Tensor, Params]:
-    """One-token decode at the shared position ``pos``, global attention
-    (a sliding window's ring mask is not a prefix; it comes with the rings
-    slice).  x: (B, 1, d); cache k/v: (B, KV, S, hd), written in place at
-    slot ``pos`` for every lane.  Every lane attends over slots ``[0,
-    pos]``.  Returns (out, cache)."""
+    """One-token decode at the shared position ``pos``.  x: (B, 1, d);
+    cache k/v: (B, KV, S, hd), written in place at slot ``pos`` for every
+    lane, or at ``pos % S`` when ``window > 0`` (a ring of S = min(cache_len,
+    window) slots).  Returns (out, cache).
+
+    Every lane attends over slots ``[0, min(pos + 1, S))``.  For the ring
+    that is the reference's mask: slot i holds position ``pos - ((pos -
+    i) % S)``, which always lies in ``(pos - S, pos]`` with ``S <=
+    window``, so the window never masks a written slot, and a slot is
+    written once ``pos >= i``.  The slots are not in position order, and
+    need not be: RoPE was applied before the write."""
     s_cache = cache["k"].shape[2]
-    if not 0 <= pos < s_cache:
+    if window > 0:
+        slot = pos % max(s_cache, 1)
+    elif 0 <= pos < s_cache:
+        slot = pos
+    else:
         raise ValueError(f"decode position {pos} outside the dense cache of "
                          f"{s_cache} slots")
     positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
     q, k, v = project_qkv(p, x, cfg, positions)
-    cache["k"][:, :, pos] = k[:, 0].to(cache["k"].dtype)     # in place
-    cache["v"][:, :, pos] = v[:, 0].to(cache["v"].dtype)
-    o = gqa_decode_sdpa(q, cache["k"], cache["v"], pos + 1)
+    cache["k"][:, :, slot] = k[:, 0].to(cache["k"].dtype)     # in place
+    cache["v"][:, :, slot] = v[:, 0].to(cache["v"].dtype)
+    o = gqa_decode_sdpa(q, cache["k"], cache["v"], min(pos + 1, s_cache))
     return attn_out(p, o), cache
 
 
-def self_attention_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig
-                           ) -> Tuple[torch.Tensor, Params]:
-    """Forward over a prompt at positions 0..S-1, global attention -> (out
-    (B, S, d), its KV {"k", "v"} laid out (B, KV, S, hd))."""
-    positions = torch.arange(x.shape[1], device=x.device)
+def self_attention_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                           window: int = 0) -> Tuple[torch.Tensor, Params]:
+    """Forward over a prompt at positions 0..S-1 -> (out (B, S, d), its KV
+    {"k", "v"} laid out (B, KV, S', hd)).  With ``window > 0`` and S >
+    window the KV is the prompt's last ``window`` entries, rolled by ``S %
+    window`` so that position p sits at slot ``p % window`` (the ring
+    decode's layout), as the reference keeps it."""
+    s = x.shape[1]
+    positions = torch.arange(s, device=x.device)
     q, k, v = project_qkv(p, x, cfg, positions)
-    o = sdpa(q, k, v, causal=True)
+    o = sdpa(q, k, v, causal=True, window=window)
+    if window > 0 and s > window:
+        k = torch.roll(k[:, -window:], s % window, dims=1)
+        v = torch.roll(v[:, -window:], s % window, dims=1)
     return attn_out(p, o), {"k": k.transpose(1, 2), "v": v.transpose(1, 2)}

@@ -1,7 +1,9 @@
 """Block application: the counterpart of ``repro/models/transformer.py``
 for training (global and sliding-window attention blocks) and for dense
-serving (prefill and one-token decode of global attention, Mamba-2,
-RWKV-6 and zamba2's weight-shared attention blocks).
+serving (prefill and one-token decode of global and sliding-window
+attention, Mamba-2, RWKV-6 and zamba2's weight-shared attention blocks;
+a sliding-window block's cache is a ring of ``min(cache_len, window)``
+slots).
 
 ``ImplConfig`` carries the execution-strategy fields the train step and
 the dense path read.  ``attn_impl`` and ``attn_chunk`` are kept so a plan
@@ -44,8 +46,6 @@ _LATER = {
     DEC_ATTN: "the encoder-decoder (whisper) slice",
 }
 _SERVED_ONLY = (RWKV6, MAMBA2, ATTN_SHARED)
-# the dense path's sliding-window ring cache
-_RINGS = "the rings slice"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,12 +124,15 @@ def block_cache_specs(cfg: ModelConfig, kind: str, batch: int,
                       cache_len: int) -> Params:
     if kind in (ATTN_GLOBAL, ATTN_SHARED):
         return attn.kv_cache_specs(cfg, batch, cache_len)
+    if kind == ATTN_LOCAL:
+        return attn.kv_cache_specs(cfg, batch, cache_len,
+                                   window=cfg.sliding_window)
     if kind == RWKV6:
         return rw.rwkv_state_specs(cfg, batch)
     if kind == MAMBA2:
         return m2.mamba_state_specs(cfg, batch)
     raise ValueError(f"a dense cache for {kind!r} blocks comes with "
-                     f"{_dense_later(kind)} of the port")
+                     f"{_LATER.get(kind, 'a later slice')} of the port")
 
 
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Params:
@@ -154,10 +157,6 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 # dense serving: decode-step and prefill block application
 # ---------------------------------------------------------------------------
 
-def _dense_later(kind: str) -> str:
-    return _RINGS if kind == ATTN_LOCAL else _LATER.get(kind, "a later slice")
-
-
 def _store(cache: Params, new: Params) -> Params:
     """Write a block's new decode state into its cache tensors in place."""
     for k, v in new.items():
@@ -170,9 +169,11 @@ def apply_block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, 
     """One token through one block at the shared position ``pos``.  x:
     (B, 1, d); ``cache`` holds this block's (B, ...) state and is updated
     in place.  Returns (x, cache)."""
-    if kind == ATTN_GLOBAL:
+    if kind in (ATTN_GLOBAL, ATTN_LOCAL):
+        window = cfg.sliding_window if kind == ATTN_LOCAL else 0
         h = apply_norm(cfg, p["ln1"], x)
-        y, cache = attn.self_attention_decode(p["attn"], h, cache, pos, cfg)
+        y, cache = attn.self_attention_decode(p["attn"], h, cache, pos, cfg,
+                                              window=window)
         x = x + y
         h = apply_norm(cfg, p["ln2"], x)
         return x + L.gated_mlp(p["mlp"], h), cache
@@ -196,7 +197,7 @@ def apply_block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, 
         h2 = apply_norm(cfg, sp["ln2"], h + y)
         return x + y + L.gated_mlp(sp["mlp"], h2), cache
     raise ValueError(f"decoding a {kind!r} block comes with "
-                     f"{_dense_later(kind)} of the port")
+                     f"{_LATER.get(kind, 'a later slice')} of the port")
 
 
 def apply_block_prefill(cfg: ModelConfig, kind: str, p: Params,
@@ -204,14 +205,16 @@ def apply_block_prefill(cfg: ModelConfig, kind: str, p: Params,
                         ) -> Tuple[torch.Tensor, Params]:
     """A whole prompt through one block.  x: (B, S, d); ``cache`` holds
     this block's (B, ...) decode state, which is overwritten in place with
-    the state after the prompt (KV rows past S zeroed).  Returns (x,
-    cache)."""
-    if kind == ATTN_GLOBAL:
+    the state after the prompt (KV rows past S zeroed; a sliding-window
+    block's ring holds the prompt's last ``window`` positions).  Returns
+    (x, cache)."""
+    if kind in (ATTN_GLOBAL, ATTN_LOCAL):
+        window = cfg.sliding_window if kind == ATTN_LOCAL else 0
         h = apply_norm(cfg, p["ln1"], x)
-        y, kv = attn.self_attention_prefill(p["attn"], h, cfg)
+        y, kv = attn.self_attention_prefill(p["attn"], h, cfg, window=window)
         x = x + y
         h = apply_norm(cfg, p["ln2"], x)
-        return x + L.gated_mlp(p["mlp"], h), _store_kv(cache, kv)
+        return x + L.gated_mlp(p["mlp"], h), _store_kv(cache, kv, window)
     if kind == RWKV6:
         h = apply_norm(cfg, p["ln1"], x)
         y, wkv = rw.time_mix_prefill(p["rwkv"], h, cfg)
@@ -233,17 +236,21 @@ def apply_block_prefill(cfg: ModelConfig, kind: str, p: Params,
         x = x + y + L.gated_mlp(sp["mlp"], h2)
         return x, _store_kv(cache, kv)
     raise ValueError(f"prefilling a {kind!r} block comes with "
-                     f"{_dense_later(kind)} of the port")
+                     f"{_LATER.get(kind, 'a later slice')} of the port")
 
 
-def _store_kv(cache: Params, kv: Params) -> Params:
+def _store_kv(cache: Params, kv: Params, window: int = 0) -> Params:
     """Write prefill KV ((B, KV, S, hd) layout) into the front of the
-    cache's sequence axis and zero the rest, in place."""
+    cache's sequence axis and zero the rest, in place (the reference's
+    ``_pad_cache``).  A ring cache (``window > 0``) of S' slots takes the
+    first S' entries of the prefill's ring layout."""
     for name, a in kv.items():
         s, cache_len = a.shape[2], cache[name].shape[2]
         if s > cache_len:
-            raise ValueError(f"a prompt of {s} tokens does not fit the dense "
-                             f"cache of {cache_len}")
+            if window <= 0:
+                raise ValueError(f"a prompt of {s} tokens does not fit the "
+                                 f"dense cache of {cache_len}")
+            a, s = a[:, :, :cache_len], cache_len
         cache[name][:, :, :s].copy_(a)
         cache[name][:, :, s:].zero_()
     return cache

@@ -30,7 +30,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.core.compile_cache import CompileCache, plan_layout_key
 from repro_torch.runtime.options import ServeOptions
 from repro_torch.serving.engine import ServingEngine
-from repro_torch.serving.kv_cache import PagePool
+from repro_torch.serving.kv_cache import PageGroups, PagePool
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.runtime.cluster import AppHandle
@@ -101,11 +101,22 @@ class Executor:
         """The application's private KV page pool, keyed by the app name
         in the sizing history: every replica feeds one series.  (The
         reference's replica views onto a pod-shared pool come with queue
-        item A6.)"""
+        item A6.)
+
+        When the app serves through the paged backend on a mixed
+        global/sliding-window stack, the pool carries the model's
+        :class:`PageGroups`, so local layers are charged a bounded ring
+        instead of the growing table (``swa_rings=False`` opts out)."""
         opts = self.serve_opts(handle)
         pages = int(opts.pool_pages or self.default_pool_pages)
+        groups = None
+        if (opts.backend == "paged" and handle.app.config is not None
+                and opts.swa_rings):
+            g = PageGroups.from_config(handle.app.config)
+            groups = g if g.local_layers else None
         return PagePool(pages, history=handle.cluster.history,
-                        app=handle.app.name, policy=opts.policy)
+                        app=handle.app.name, policy=opts.policy,
+                        groups=groups)
 
     def build_replica(self, handle: "AppHandle", idx: int) -> "Replica":
         from repro_torch.serving.router import Replica
@@ -320,6 +331,7 @@ class TorchExecutor(Executor):
                               max_batch=runner_batch,
                               cache_len=opts.cache_len,
                               pool_pages=pool.physical_pages,
+                              use_rings=opts.swa_rings,
                               chunk_pages=opts.chunk_pages or 4,
                               params=params, device=self.device)
         eng = ServingEngine(pool, max_batch=max_batch, runner=runner,

@@ -4,7 +4,10 @@
 Admits requests against the page pool (sizing policy from history), runs
 prefill for new requests and batched decode for running ones, grows KV
 grants on demand, and preempts under pool pressure (re-queued:
-at-least-once re-execution).  Model execution is carried by a
+at-least-once re-execution).  On a sliding-window stack the pool grants
+each request's ring pages beside its growing table: admission grants the
+prompt's, growth tops the ring up to ``ring_pages`` and no further,
+release, preemption and ``drain`` return both id spaces.  Model execution is carried by a
 ``ModelRunner`` (``runner=``) or a raw ``step_fns`` (prefill, decode)
 pair, so the control-plane tests can run it with neither.
 

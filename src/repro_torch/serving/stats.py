@@ -95,9 +95,7 @@ class StatsView:
         if getattr(pools[0], "groups", None) is not None:
             # sliding-window stacks: ring (local-group) pages are charged
             # separately from the growing tables (see PageGroups)
-            out["pool_used_local_pages"] = sum(
-                getattr(p, "used_local", p._local_space() - len(p.free_local))
-                for p in pools)
+            out["pool_used_local_pages"] = sum(p.used_local for p in pools)
 
         runners = [r.runner for r in reps if r.runner is not None] or (
             [h.runner] if h.runner is not None else [])

@@ -306,8 +306,10 @@ def test_dense_refusals():
     with pytest.raises(ValueError, match="prefix_cache"):
         build_runner("dense", tcfg, prefix_cache=object(), device="cpu")
     local = tcfg.scaled(pattern=(ATTN_LOCAL,), sliding_window=8)
-    with pytest.raises(ValueError, match="rings slice"):
-        build_runner("dense", local, device="cpu")
+    # a sliding-window stack serves now, from a ring of min(cache_len,
+    # window) slots; a global layer's cache still bounds the position
+    assert build_runner("dense", local, cache_len=320, device="cpu").cache[
+        "p0_attn_local"]["k"].shape[3] == 8
     _, zcfg = cfgs("zamba2-2.7b")
     with pytest.raises(ValueError, match="dense"):
         build_runner("paged", zcfg, device="cpu")

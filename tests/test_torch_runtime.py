@@ -545,3 +545,24 @@ def test_torch_executor_binds_one_card_only(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         TorchExecutor()
+
+
+def test_serve_binds_the_executor_it_is_given():
+    """``launch.serve(executor=)`` binds through that executor: one whose
+    ``init_params`` returns weights already made serves them, with the
+    same traffic and tokens as a serve that makes them from the seed."""
+    from repro_torch.launch.serve import serve
+    kw = dict(reduced=True, device="cpu", requests=2, max_batch=2,
+              prompt_range=(20, 140), max_new=3, verbose=False)
+    first = serve(**kw)
+    held, calls = first["runner"].params, []
+
+    class Held(TorchExecutor):
+        def init_params(self, handle):
+            calls.append(handle.app.name)
+            return held
+
+    again = serve(**kw, executor=Held(device="cpu"))
+    assert calls and again["runner"].params is held
+    assert ([(r.prompt_len, r.output_tokens) for r in again["requests"]]
+            == [(r.prompt_len, r.output_tokens) for r in first["requests"]])

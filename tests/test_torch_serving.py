@@ -219,15 +219,17 @@ def _cfg():
 
 
 def test_runner_refuses_what_later_slices_bring():
-    """The dense backend serves (``test_torch_dense.py``); what still
-    raises: rings on either backend, the prefix cache on either backend,
-    and training the recurrent families."""
+    """The dense backend serves (``test_torch_dense.py``), and so do
+    sliding-window stacks on both backends (``test_torch_rings.py``); what
+    still raises: a sliding-window layer without a window, the prefix
+    cache on either backend, and training the recurrent families."""
     cfg = _cfg()
     local = cfg.scaled(pattern=(ATTN_LOCAL,), sliding_window=8)
-    with pytest.raises(ValueError, match="later slice"):
-        PagedRunner(local, device="cpu")
-    with pytest.raises(ValueError, match="rings slice"):
-        build_runner("dense", local, device="cpu")
+    assert PagedRunner(local, device="cpu").use_rings
+    assert build_runner("dense", local, device="cpu").cache[
+        "p0_attn_local"]["k"].shape[3] == 8
+    with pytest.raises(ValueError, match="sliding_window"):
+        PagedRunner(local.scaled(sliding_window=0), device="cpu")
     with pytest.raises(ValueError, match="prefix cache"):
         PagedRunner(cfg, prefix_cache=object(), device="cpu")
     with pytest.raises(ValueError, match="prefix_cache"):
