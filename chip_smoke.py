@@ -98,7 +98,34 @@ Phases, each of which must pass (any failure exits nonzero):
    backend and on the dense backend (K4 over the ring cache), whose
    greedy tokens must be equal under the ``TIE_GAP`` rule; last, the
    ladder's plans of full-width mistral-nemo-12b and command-r-35b on
-   the card's mesh are printed (host arithmetic).
+   the card's mesh are printed (host arithmetic);
+12. mistral: full-width mistral-nemo-12b (40 layers, d 5120, 32/8 heads
+   of 128; random bf16 weights from seed 0, made once) serves 8
+   requests, each a shared 1500-token system prompt and its own 64..512
+   tokens (seed 0), 32 new tokens, through ``launch.serve``'s
+   ``submit_app`` (``Cluster.submit``, the ``TorchExecutor``, a view of
+   the pod's shared pool of 192 pages, ``chunk_pages`` 4, max batch 8):
+   request 0 alone, then the other 7 together.  (a) cold, no prefix
+   cache; (b) warm, the prefix cache on: tokens equal to (a)'s under the
+   ``TIE_GAP`` rule, hit rate 7/8, at least one copy-on-write, fewer
+   prefill pages computed; TTFT, decode step, peak memory and the plan's
+   estimate printed, then (b)'s traffic with 8 new tokens under
+   ``torch.profiler`` (busy share); (c) a pod pool of 48 pages: request
+   2 decodes through its pinned prefix pages while a full-width
+   tinyllama-1.1b co-tenant's 3 requests overshoot the free list, so
+   refcount-0 cache pages are evicted, and request 2's tokens equal a
+   calm run's; (d) 2 replicas on one store and one set of weights,
+   replica 1 drained mid-decode: its requests migrate with their KV and
+   prefix, none requeued, tokens equal to (b)'s.  Every run's launch
+   counts are what its path implies; every release returns the store's
+   bytes, and no run's peak passes (a)'s by more than 1 GiB.
+
+Phase 2 also holds K1 and K2 at mistral-nemo-12b's head dim 128 (K1
+over 8 lanes of 1600..2012 tokens whose tables lead with the same 12
+physical pages, with its byte bound over the unique pages and over the
+pages each lane reads; K2 at the three chunk shapes of phase 12: a
+first chunk of 512, the warm lead chunk of 128 at offset 1408 over 1536
+keys, a suffix chunk of 512 at offset 1536 over 2048 keys).
 
 Phase 2 also holds K1, K2 and K4 at gemma3-12b's head dim 256 (K1 over
 a global table of ~2000 tokens a lane and a wrapped 9-page ring with
@@ -123,8 +150,9 @@ CUDA kernel's time per call is printed; where ``cuobjdump`` is found,
 each of their bf16 kernels must show HMMA instructions.
 
 A kernel's ``launches`` in the JSON record is its count over the serve
-(phases 3, 7, 8, 11) and train (phase 5) runs; K3's are also printed by
-shape class; the ``*_d256`` records count phase 11's runs only.
+(phases 3, 7, 8, 11, 12) and train (phase 5) runs; K3's are also printed
+by shape class; the ``*_d256`` records count phase 11's runs only, the
+``*_d128`` records phase 12's mistral-nemo-12b runs only.
 ``ab_train`` (not run by ``main``) runs phase 5 and K3's timings
 for a second checkout and this one in turns on one card; ``ab_serve``
 does the same for phase 3's mean TTFT and decode step.  Those runs also fail if a
@@ -237,6 +265,10 @@ def main() -> None:
     for name, n in gemma3.items():
         launches[name] = launches.get(name, 0) + n
         launches[f"{name}_d256"] = n
+    mistral, mistral_d128 = serve_mistral_full(torch)
+    for name, n in mistral.items():
+        launches[name] = launches.get(name, 0) + n
+    launches.update(mistral_d128)
     for rec in records:
         rec["launches"] = launches.get(rec["name"])
     print(f"[launches] rmsnorm by shape class over the main paths: "
@@ -511,6 +543,7 @@ def check_kernels(torch):
     check_functions(torch, randn)
     records += check_dense_kernels(torch, randn, tol)
     records += check_head_dim_256(torch, randn, tol)
+    records += check_head_dim_128(torch, randn, tol)
     for rec in records:
         lib_txt = ("none" if rec["library_ms"] is None
                    else f"{rec['library_ms']:.4f} ms")
@@ -1068,6 +1101,144 @@ def check_head_dim_256(torch, randn, tol):
         bound_by=b_by, library_ms=lib,
         shape="gemma3-12b dense decode: B=8 H=16 KV=8 D=256 S=1024 (a "
               "local layer's full ring), valid 1024; library_ms is SDPA"))
+    return records
+
+
+def check_head_dim_128(torch, randn, tol):
+    """K1 and K2 at mistral-nemo-12b's head dim 128 (32 query heads over 8
+    KV heads), bf16, against their plain versions at phase 2's
+    tolerances, as phase 12's prefix-cached serve runs them.  K1 with q
+    (8,32,128) over pages (193,128,8,128): 8 lanes of 1600..2012 tokens
+    whose tables all start with the SAME 12 physical pages (the cached
+    system prompt), and again with a ninth lane of -1.  K2, by relative
+    norm as ``check_fwd`` holds every bf16 case, at the three chunk
+    shapes of a warm or cold prompt of ~1500 + 512 tokens: a first chunk
+    q (1,32,512,128) causal at offset 0; the warm lead chunk q
+    (1,32,128,128) over k/v (1,8,1536,128) at ``q_offset=1408``; a suffix
+    chunk q (1,32,512,128) over k/v (1,8,2048,128) at ``q_offset=1536``.
+    Each is timed beside its plain version and SDPA on contiguous
+    copies.  K1's byte bound is stated both ways: over the unique pages
+    (each input read once, the record's) and over the pages each lane
+    reads.  Returns their records (named ``*_d128``; their launches are
+    phase 12's)."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_attention_fwd_ref,
+                                                     fwd_block_k)
+    from repro_torch.kernels.paged_attention import (paged_attention,
+                                                     paged_attention_ref,
+                                                     split_pages)
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(128)
+    b, h, kvh, d, pool, page, shared = 8, 32, 8, 128, 192, 128, 12
+    records = []
+
+    # -- K1: every lane's table leads with the same 12 physical pages ------
+    kp, vp = randn(pool + 1, page, kvh, d), randn(pool + 1, page, kvh, d)
+    q = randn(b + 1, h, d)
+    perm = torch.randperm(pool, generator=g, device=dev).int()
+    lens = [2012, 1600, 1890, 1700, 1999, 1650, 1801, 1950]
+    table = torch.full((b + 1, 16), -1, dtype=torch.int32, device=dev)
+    used = shared
+    for i, n in enumerate(lens):
+        n_pg = -(-n // page)
+        table[i, :shared] = perm[:shared]
+        table[i, shared:n_pg] = perm[used:used + n_pg - shared]
+        used += n_pg - shared
+    vlen = torch.tensor(lens + [1], dtype=torch.int32, device=dev)
+    errs = []
+    for label, nb in (("8 lanes sharing 12 leading pages", b),
+                      ("the same + a lane of -1", b + 1)):
+        got = paged_attention(q[:nb], kp, vp, table[:nb], vlen[:nb])
+        errs.append(compare(
+            torch, f"paged_attention d=128 {label}", got,
+            paged_attention_ref(q[:nb], kp, vp, table[:nb], vlen[:nb]),
+            *tol[bf16]))
+        if nb > b and float(got[-1].abs().max()) != 0.0:
+            fail("paged_attention d=128: an all -1 lane must return zeros")
+    q, table, vlen = q[:b], table[:b].contiguous(), vlen[:b].contiguous()
+    pps, splits = split_pages(b, kvh, 16, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    ms = timed_ms(torch, lambda: paged_attention(q, kp, vp, table, vlen))
+    plain = timed_ms(torch, lambda: paged_attention_ref(q, kp, vp, table,
+                                                        vlen))
+    safe = table.clamp(min=0).long()
+    kc = kp[safe].flatten(1, 2).transpose(1, 2).contiguous()
+    vc = vp[safe].flatten(1, 2).transpose(1, 2).contiguous()
+    slot = torch.arange(kc.shape[2], device=dev)[None, :]
+    mask = (slot < vlen[:, None]) & table.repeat_interleave(page, dim=1).ge(0)
+    lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kc, vc, attn_mask=mask[:, None, None],
+        enable_gqa=True))
+    attended = int(mask.sum())
+    # each input read once: the shared pages' tokens count once, whatever
+    # number of lanes attend to them
+    unique = attended - (b - 1) * shared * page
+    small = 2 * q.numel() * 2 + table.numel() * 4 + vlen.numel() * 4
+    b_ms, b_by = bound(small + 2 * unique * kvh * d * 2,
+                       4 * h * d * attended, H100_BF16_FLOPS)
+    lane_ms, lane_by = bound(small + 2 * attended * kvh * d * 2,
+                             4 * h * d * attended, H100_BF16_FLOPS)
+    print(f"[time] paged_attention d=128 (B=8 H=32 KV=8, {attended} tokens "
+          f"attended, the first {shared} pages of every lane shared): "
+          f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library {lib:.4f} ms "
+          f"(SDPA, gathered); bound over the unique pages {b_ms:.4f} ms "
+          f"({b_by}, share {b_ms / ms:.3f}), over the pages each lane "
+          f"reads {lane_ms:.4f} ms ({lane_by}, share {lane_ms / ms:.3f}); "
+          f"{splits} splits of {pps} page(s)", flush=True)
+    records.append(dict(
+        name="paged_attention_d128", route="cuda",
+        source="src/repro_torch/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:111",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib,
+        shape=f"mistral-nemo-12b decode: B=8 H=32 KV=8 D=128, vlen {lens}, "
+              f"12 shared leading pages; bound_ms over the unique pages "
+              f"(over the pages each lane reads: {lane_ms:.4f} ms); "
+              "library_ms is SDPA on the gathered cache"))
+    del kp, vp, kc, vc
+    torch.cuda.empty_cache()
+
+    # -- K2: the three chunk shapes of a ~2000-token prompt -----------------
+    errs = []
+    for label, sq, sk, off in (("first chunk s=512", 512, 512, 0),
+                               ("warm lead chunk sq=128 sk=1536 "
+                                "q_offset=1408", 128, 1536, 1408),
+                               ("suffix chunk sq=512 sk=2048 "
+                                "q_offset=1536", 512, 2048, 1536)):
+        q2 = randn(1, sq, h, d).transpose(1, 2)              # model layout
+        k2 = randn(1, sk, kvh, d).transpose(1, 2)
+        v2 = randn(1, sk, kvh, d).transpose(1, 2)
+        kw = dict(causal=True, window=0, q_offset=off)
+        errs.append(check_fwd(torch, f"d=128 mistral {label}", q2, k2, v2,
+                              kw, tol)[0])
+        ms = timed_ms(torch, lambda: flash_attention_fwd(q2, k2, v2, **kw))
+        plain = timed_ms(torch, lambda: flash_attention_fwd_ref(
+            q2, k2, v2, operand_dtype=bf16, block_k=fwd_block_k(d), **kw))
+        qc, kc, vc = q2.contiguous(), k2.contiguous(), v2.contiguous()
+        ok = (torch.arange(sk, device=dev)[None, :]
+              <= off + torch.arange(sq, device=dev)[:, None])
+        lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, attn_mask=ok, enable_gqa=True))
+        pairs = int(ok.sum())
+        nbytes = 2 * (2 * q2.numel() + k2.numel() + v2.numel()) + 4 * sq * h
+        b_ms, b_by = bound(nbytes, 4 * h * d * pairs, H100_BF16_FLOPS)
+        print(f"[time] flash_attention_fwd d=128 (B=1 H=32 KV=8 {label}): "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms (bf16 operands), "
+              f"library {lib:.4f} ms (SDPA), bound {b_ms:.4f} ms ({b_by}), "
+              f"share of bound {b_ms / ms:.3f}", flush=True)
+        del q2, k2, v2, qc, kc, vc
+        torch.cuda.empty_cache()
+    records.append(dict(
+        name="flash_attention_fwd_d128", route="cuda",
+        source="src/repro_torch/csrc/flash_attention_fwd.cu",
+        replaces="src/repro/kernels/flash_attention.py:96",
+        max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib,
+        shape="mistral-nemo-12b suffix chunk: B=1 H=32 KV=8 D=128 Sq=512 "
+              "Sk=2048 q_offset=1536 causal; plain_ms is the plain version "
+              "with bf16 operands"))
     return records
 
 
@@ -2711,6 +2882,444 @@ def print_pure_global_plans():
               f"est_bytes_per_device {plan.est_bytes_per_device / 2**30:.3f} "
               f"GiB, remat={plan.remat} fsdp={plan.fsdp} tp={plan.tp} "
               f"({plan.notes})", flush=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: full-width mistral-nemo-12b on the pod's shared KV memory --
+# the prefix cache warm against cold, eviction under co-tenant pressure,
+# and replica migration on one aliased store
+# ---------------------------------------------------------------------------
+
+MISTRAL_POOL_PAGES = 192         # 20 MiB a page over the 40 layers: 3.77 GiB
+MISTRAL_SHARED_PREFIX = 1500     # 11 full pages and 92 tokens: a COW lead
+MISTRAL_PRESSURE_PAGES = 48
+LEAK_BYTES = 64 << 20
+
+
+def _mistral_executor(params, margins=True, kv_watch=None):
+    """A ``TorchExecutor`` that binds mistral-nemo-12b with ``params``
+    (made once on the card) and any other config with random weights
+    from seed 0; with ``margins`` each runner records its top-2 logit
+    gaps (the ``TIE_GAP`` rule's evidence); with ``kv_watch`` (a dict)
+    each mistral prefill is followed by :func:`_watch_prefix_kv`."""
+    from repro_torch.runtime import TorchExecutor
+
+    class Held(TorchExecutor):
+        def init_params(self, handle):
+            if handle.app.config.name == "mistral-nemo-12b":
+                return params
+            return super().init_params(handle)
+
+        def build_replica(self, handle, idx):
+            rep = super().build_replica(handle, idx)
+            if margins:
+                rep.runner.margins = {}
+            if kv_watch is not None and handle.app.config.name == \
+                    "mistral-nemo-12b":
+                plain, runner = rep.runner.prefill, rep.runner
+
+                def prefill(req):
+                    plain(req)
+                    _watch_prefix_kv(runner, req, kv_watch)
+
+                rep.engine.step_fns = (prefill, rep.engine.step_fns[1])
+            return rep
+
+    return Held(device="cuda", seed=0)
+
+
+def _watch_prefix_kv(runner, req, watch):
+    """Right after ``req``'s prefill: its K and V at the shared system
+    prompt's positions ``[0, MISTRAL_SHARED_PREFIX)``, read through its
+    own table (the cache's pages and its private copy-on-write lead when
+    warm, its own pages when cold), on the first, middle and last layer,
+    against the first watched request's, elementwise on the device (one
+    flag a request; nothing waits here).  Those positions' tokens are the
+    same in every request, and the computation that produced them is the
+    same row for row (chunks on the same grid), so they must be BIT-equal:
+    a wrong page, a wrong lead or a stale cache page would not be."""
+    import torch
+    n = MISTRAL_SHARED_PREFIX
+    table = list(req.shared_pages) + runner._phys(req.pages)
+    pages = runner._ids(table[:-(-n // 128)])
+    layers = (0, runner.num_layers // 2, runner.num_layers - 1)
+    got = [t[layer][pages].flatten(0, 1)[:n]
+           for layer in layers
+           for t in (runner.store.k_pages, runner.store.v_pages)]
+    if "ref" not in watch:
+        watch["ref"] = [g.clone() for g in got]
+        watch["flags"] = []
+    same = torch.stack([(g.view(torch.int16) == r.view(torch.int16)).all()
+                        for g, r in zip(got, watch["ref"])])
+    watch["flags"].append((req.req_id, same.all()))
+
+
+def _mistral_requests(vocab, max_new=32):
+    """Phase 12's traffic: 8 prompts of one shared 1500-token system
+    prompt and each its own 64..512-token suffix (seed 0), ``max_new``
+    new tokens."""
+    from repro_torch.launch.serve import synth_requests
+    return synth_requests(8, vocab, prompt_range=(
+        MISTRAL_SHARED_PREFIX + 64, MISTRAL_SHARED_PREFIX + 512),
+        max_new=max_new, seed=0, shared_prefix=MISTRAL_SHARED_PREFIX)
+
+
+def _sum_launches(*dicts):
+    out = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _mistral_run(torch, params, *, prefix_cache, max_new=32, replicas=1,
+                 drain_after=None, margins=True, kv_watch=None,
+                 chunk_pages=4):
+    """One serve of phase 12's traffic through ``launch.serve``'s
+    ``submit_app`` (``Cluster.submit`` -> the ``TorchExecutor`` on a view
+    of the pod's shared pool of ``MISTRAL_POOL_PAGES``, ``chunk_pages``
+    4 unless given, max batch 8): request 0 alone, then the other 7
+    together; with ``drain_after`` the highest replica is removed after
+    that many steps of the 7.  Checks the launch counts against what the
+    path implies and that the release returns the store's bytes.  Returns
+    what it saw."""
+    import types
+    from repro_torch.configs import get_config
+    from repro_torch.core.history import HistoryStore
+    from repro_torch.core.materializer import H100
+    from repro_torch.launch.serve import submit_app
+    from repro_torch.runtime import Cluster
+    kernels = _paged_kernels()
+    cluster = Cluster(pods=1, mesh=H100, history=HistoryStore(),
+                      executor=_mistral_executor(params, margins, kv_watch))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    h = submit_app(cluster, "mistral-nemo-12b", max_batch=8,
+                   pool_pages=MISTRAL_POOL_PAGES, prefix_cache=prefix_cache,
+                   replicas=replicas, chunk_pages=chunk_pages)
+    reps = list(h.replica_set.replicas)
+    runners = [r.runner for r in reps]
+    store = runners[0].store
+    shared = cluster.pod_pool("pod0")
+    if replicas > 1 and not (
+            len({id(r.store) for r in runners}) == 1
+            and len({id(r.params["embed"]["tok"]) for r in runners}) == 1
+            and shared.kv_device_bytes() == store.device_bytes()):
+        fail("mistral: replicas do not alias one store and one set of "
+             "weights")
+    reqs = _mistral_requests(get_config("mistral-nemo-12b").vocab_size,
+                             max_new)
+    for fn in kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    h.submit_request(reqs[0])
+    h.run()
+    for r in reqs[1:]:
+        h.submit_request(r)
+    receipt = None
+    if drain_after is not None:
+        for _ in range(drain_after):
+            h.step()
+        receipt = h.remove_replica()
+    h.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    view = h.stats_view.cumulative()
+    stats = types.SimpleNamespace(prefills=view["prefills"],
+                                  decode_steps=view["decode_steps"])
+    want = _expected_paged(types.SimpleNamespace(
+        cfg=runners[0].cfg,
+        prefill_chunks=sum(r.prefill_chunks for r in runners)), stats)
+    if launches != want or not all(launches.values()):
+        fail(f"mistral serve: launches {launches}, expected {want}")
+    out = {"tokens": {r.req_id: r.output_tokens for r in reqs},
+           "margins": _sum_margins(runners), "view": view,
+           "rms_decode": ((_norms_per_layer(runners[0].cfg)
+                           * runners[0].cfg.num_layers + 1)
+                          * view["decode_steps"]),
+           "launches": launches, "wall": wall, "receipt": receipt,
+           "ttft0": reqs[0].first_token_at - reqs[0].submitted_at,
+           "ttft7": sum(r.first_token_at - r.submitted_at
+                        for r in reqs[1:]) / 7,
+           "lens": [r.prompt_len for r in reqs], "plan": h.plan,
+           "store_bytes": store.device_bytes(),
+           "footprint": cluster.executor.footprint(h),
+           "peak": torch.cuda.max_memory_allocated() - base}
+    for r in reqs:
+        toks = r.output_tokens or []
+        if len(toks) != 1 + max_new or not all(
+                0 <= t < runners[0].cfg.vocab_size for t in toks):
+            fail(f"mistral serve: {r.req_id} returned {len(toks)} tokens")
+    h.release()
+    torch.cuda.synchronize()
+    out["after"] = torch.cuda.memory_allocated() - base
+    if out["after"] > LEAK_BYTES or store.device_bytes():
+        fail(f"mistral serve: {out['after'] / 2**20:.1f} MiB still held "
+             f"after the release (store {store.device_bytes()} bytes)")
+    return out
+
+
+def _sum_margins(runners):
+    out = {}
+    for r in runners:
+        for rid, gaps in (r.margins or {}).items():
+            out.setdefault(rid, []).extend(gaps)
+    return out
+
+
+def _pressure_run(torch, params, pressure, kv_watch):
+    """(c): a pod pool of ``MISTRAL_PRESSURE_PAGES``.  The prefix-cached
+    mistral app serves requests 0 and 1 one after the other (their pages
+    stay cached, refcount 0), then request 2 is pinned, prefilled and
+    decodes through its 12 pinned prefix pages while, with ``pressure``,
+    a full-width tinyllama-1.1b co-tenant (another KV shape, so another
+    store) submits 3 requests at once whose demand overshoots the free
+    list, though any one of them fits: the pool must evict refcount-0
+    cache pages and never a pinned one.  Returns request 2's tokens and
+    margins, the evictions, and the launches checked against both apps'
+    paths."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.history import HistoryStore
+    from repro_torch.core.materializer import H100
+    from repro_torch.launch.serve import submit_app
+    from repro_torch.runtime import Cluster
+    from repro_torch.serving.kv_cache import Request
+    kernels = _paged_kernels()
+    cluster = Cluster(pods=1, mesh=H100, history=HistoryStore(),
+                      executor=_mistral_executor(params,
+                                                 kv_watch=kv_watch),
+                      pool_pages=MISTRAL_PRESSURE_PAGES)
+    a = submit_app(cluster, "mistral-nemo-12b", max_batch=8,
+                   pool_pages=MISTRAL_PRESSURE_PAGES, prefix_cache=True,
+                   name="cached-a")
+    shared = cluster.pod_pool("pod0")
+    reqs = _mistral_requests(get_config("mistral-nemo-12b").vocab_size)
+    for fn in kernels.values():
+        fn.launches = 0
+    for r in reqs[:2]:
+        a.submit_request(r)
+        a.run()
+    ra = reqs[2]
+    a.submit_request(ra)
+    a.step()                               # pin + prefill, mid-decode
+    out = {"evicted": 0, "cached": a.runner.prefix.num_pages,
+           "pinned": sum(1 for n in a.runner.prefix.nodes if n.refs),
+           "free": len(shared.free)}
+    apps = [a]
+    if pressure:
+        b = submit_app(cluster, "tinyllama-1.1b", max_batch=8,
+                       pool_pages=MISTRAL_PRESSURE_PAGES, policy="fixed",
+                       name="greedy-b")
+        apps.append(b)
+        k = out["free"] // 3 + 2               # 3k > free; k alone fits
+        out["co_tenant_pages"] = k
+        if not (3 * k > out["free"]
+                and k <= shared.num_pages - out["pinned"]
+                - len(a.engine.running[0].pages)):
+            fail(f"pressure: {k} pages a request cannot both overshoot "
+                 f"{out['free']} free pages and fit alone")
+        for i in range(3):
+            b.submit_request(Request(f"big{i}", k * 128 - 10, 4))
+        while b.step()["alive"]:
+            pass
+        out["co_tenant_done"] = b.engine.stats.completed
+        out["evicted"] = shared.stats["prefix_evictions"]
+    a.run()
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    want = _sum_launches(*(_expected_paged(h.runner, h.engine.stats)
+                           for h in apps))
+    out["mistral_launches"] = _expected_paged(a.runner, a.engine.stats)
+    out["rms_decode"] = sum(
+        (_norms_per_layer(h.runner.cfg) * h.runner.cfg.num_layers + 1)
+        * h.engine.stats.decode_steps for h in apps)
+    if launches != want:
+        fail(f"pressure: launches {launches}, expected {want}")
+    out.update(tokens={ra.req_id: ra.output_tokens},
+               margins={ra.req_id: a.runner.margins[ra.req_id]},
+               launches=launches)
+    for h in apps[::-1]:
+        h.release()
+    return out
+
+
+def _parting(ref, run):
+    """Where each request's greedy tokens part from ``ref``'s: {req id:
+    (step, ref's top-2 logit gap there)} for the requests that part."""
+    out = {}
+    for rid, want in ref["tokens"].items():
+        got = run["tokens"][rid]
+        for j, (a, b) in enumerate(zip(want, got)):
+            if a != b:
+                out[rid] = (j, ref["margins"][rid][j])
+                break
+    return out
+
+
+def serve_mistral_full(torch):
+    """Phase 12.  Full-width mistral-nemo-12b (40 layers, d 5120, 32/8
+    heads of 128, random bf16 weights from seed 0, made once) served
+    through ``Cluster.submit`` on the pod's shared page pool: (a) cold,
+    no prefix cache; (b) warm, the prefix cache on: hit rate 7/8, at least
+    one copy-on-write, fewer prefill pages; then (b)'s traffic with 8 new
+    tokens under ``torch.profiler`` (busy share); (c) eviction under a
+    tinyllama-1.1b co-tenant's pressure, request 2's tokens equal to a
+    calm run's; (d) 2 replicas on one aliased store, replica 1 drained
+    mid-decode, its requests migrated with none requeued and tokens equal
+    to (b)'s.  Every mistral prefill of (a)-(d) must leave the shared
+    prompt's K and V bit-equal to the first one's (``_watch_prefix_kv``).
+    Warm against cold tokens are printed, not gated: they part where the
+    prefill's chunks hold other rows (cuBLAS rounds those GEMMs
+    otherwise), and so does a cold run at ``chunk_pages=2`` (the control,
+    also printed), by more than ``TIE_GAP`` at this width.  Every release
+    returns the store's bytes, and no run's peak passes (a)'s by more
+    than 1 GiB.  Returns the launches by kernel name, the ``*_d128``
+    entries counting mistral's only."""
+    import gc
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_line()
+    cfg = get_config("mistral-nemo-12b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, "cuda")
+    torch.cuda.synchronize()
+    print(f"[mistral] weights made on the card in "
+          f"{time.perf_counter() - t0:.2f} s: "
+          f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated",
+          flush=True)
+    launches, d128, watch = {}, {}, {}
+
+    def count(run, mistral=None):
+        run_launches = run["launches"]
+        for k, v in run_launches.items():
+            launches[k] = launches.get(k, 0) + v
+        RMS_LAUNCHES["decode"] += run["rms_decode"]
+        RMS_LAUNCHES["prefill"] += run_launches["rmsnorm"] - run["rms_decode"]
+        for k, v in (mistral or run_launches).items():
+            if k != "rmsnorm":
+                d128[f"{k}_d128"] = d128.get(f"{k}_d128", 0) + v
+
+    cold = _mistral_run(torch, params, prefix_cache=False, kv_watch=watch)
+    count(cold)
+    cold_peak = cold["peak"]
+    control = _mistral_run(torch, params, prefix_cache=False, chunk_pages=2)
+    count(control)
+    warm = _mistral_run(torch, params, prefix_cache=True, kv_watch=watch)
+    count(warm)
+    for label, run in (("cold", cold), ("cold, chunk_pages=2", control),
+                       ("warm", warm)):
+        v = run["view"]
+        print(f"[mistral] ({label}) prompts {run['lens']}: TTFT request 0 "
+              f"{run['ttft0'] * 1e3:.3f} ms, mean TTFT of the 7 together "
+              f"{run['ttft7'] * 1e3:.3f} ms, mean decode step "
+              f"{v['mean_decode_step_s'] * 1e3:.3f} ms, prefill pages "
+              f"computed {v['prefill_pages_computed']}, prefix hit rate "
+              f"{v.get('prefix_hit_rate')}, cow_copies "
+              f"{v.get('cow_copies')}, shared_pages {v.get('shared_pages')}, "
+              f"launches {run['launches']}, peak "
+              f"{run['peak'] / 2**30:.3f} GiB over the weights held "
+              f"before (plan est_bytes_per_device "
+              f"{run['plan'].est_bytes_per_device / 2**30:.3f} GiB for "
+              f"the whole app, {run['plan'].shape}), store "
+              f"{run['store_bytes'] / 2**30:.3f} GiB, footprint "
+              f"{run['footprint'] / 2**30:.3f} GiB, wall "
+              f"{run['wall']:.3f} s | {card}", flush=True)
+    wv, cv = warm["view"], cold["view"]
+    if not (wv["prefix_hit_rate"] == 7 / 8 and wv["cow_copies"] >= 1
+            and wv["prefill_pages_computed"] < cv["prefill_pages_computed"]):
+        fail(f"mistral warm: hit rate {wv['prefix_hit_rate']}, cow "
+             f"{wv['cow_copies']}, prefill pages "
+             f"{wv['prefill_pages_computed']} vs cold "
+             f"{cv['prefill_pages_computed']}")
+    for label, run in (("warm", warm), ("cold at chunk_pages=2", control)):
+        parts = _parting(cold, run)
+        print(f"[mistral] {label} vs cold tokens: {8 - len(parts)}/8 "
+              f"requests exactly equal; parted (step, cold's top-2 gap): "
+              f"{ {k: (j, round(g, 5)) for k, (j, g) in parts.items()} }",
+              flush=True)
+    print(f"[mistral] prefill pages warm/cold {wv['prefill_pages_computed']}"
+          f"/{cv['prefill_pages_computed']} = "
+          f"{wv['prefill_pages_computed'] / cv['prefill_pages_computed']:.3f}",
+          flush=True)
+    del cold, control
+    gc.collect()
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        prof_run = _mistral_run(torch, params, prefix_cache=True, max_new=8,
+                                margins=False)
+        wall = time.perf_counter() - t0
+    report_profile(prof, wall, f"mistral-nemo-12b warm serve 8 req x 8 new "
+                               f"(decode_steps "
+                               f"{prof_run['view']['decode_steps']}, prefill "
+                               f"chunks "
+                               f"{prof_run['launches']['flash_attention_fwd'] // cfg.num_layers})")
+    del prof, prof_run
+    gc.collect()
+
+    calm = _pressure_run(torch, params, False, watch)
+    count(calm)
+    pressed = _pressure_run(torch, params, True, watch)
+    count(pressed, pressed["mistral_launches"])
+    print(f"[mistral] (c) pressure: pool {MISTRAL_PRESSURE_PAGES} pages, "
+          f"{pressed['cached']} cached of which {pressed['pinned']} pinned, "
+          f"{pressed['free']} free; co-tenant 3 x "
+          f"{pressed['co_tenant_pages']} pages, completed "
+          f"{pressed['co_tenant_done']}; prefix_evictions "
+          f"{pressed['evicted']} (calm {calm['evicted']}); request 2's "
+          f"tokens equal to the calm run's: "
+          f"{calm['tokens'] == pressed['tokens']}", flush=True)
+    if pressed["evicted"] <= 0 or pressed["co_tenant_done"] != 3:
+        fail("pressure: the co-tenant's demand evicted no cached page")
+    if calm["tokens"] != pressed["tokens"]:
+        fail("pressure: request 2's tokens changed under eviction")
+
+    mig = _mistral_run(torch, params, prefix_cache=True, replicas=2,
+                       drain_after=3, kv_watch=watch)
+    count(mig)
+    rc = mig["receipt"]
+    print(f"[mistral] (d) 2 replicas, one store of "
+          f"{mig['store_bytes'] / 2**30:.3f} GiB, footprint "
+          f"{mig['footprint'] / 2**30:.3f} GiB (one replica: "
+          f"{warm['footprint'] / 2**30:.3f}): drained replica 1 -> {rc}; "
+          f"tokens equal to (b)'s: {mig['tokens'] == warm['tokens']}; "
+          f"peak {mig['peak'] / 2**30:.3f} GiB | {card}", flush=True)
+    if rc["migrated_requests"] < 1 or rc["requeued_requests"] != 0:
+        fail(f"migration: receipt {rc}")
+    if mig["tokens"] != warm["tokens"]:
+        fail("migration: the migrated requests' tokens differ from (b)'s")
+    if mig["footprint"] != warm["footprint"]:
+        fail("migration: two replicas hold more than one store and one set "
+             "of weights")
+    flags = [(rid, bool(ok)) for rid, ok in watch["flags"]]   # one wait
+    bad = [rid for rid, ok in flags if not ok]
+    print(f"[mistral] shared prompt's K/V (layers 0, 20, 39) bit-equal to "
+          f"the first prefill's in {len(flags) - len(bad)} of {len(flags)} "
+          f"prefills of (a)-(d)", flush=True)
+    if bad:
+        fail(f"mistral: the shared prompt's K/V differs in {bad}")
+    # a store left behind by a release would add its 3.77 GiB here
+    for label, run in (("warm", warm), ("migration", mig)):
+        if run["peak"] > cold_peak + (1 << 30):
+            fail(f"mistral {label}: peak {run['peak']} grew past the cold "
+                 f"run's {cold_peak} by more than 1 GiB")
+    print(f"[mistral] peaks over the weights: cold "
+          f"{cold_peak / 2**30:.3f}, warm {warm['peak'] / 2**30:.3f}, "
+          f"migration {mig['peak'] / 2**30:.3f} GiB; bytes held after "
+          f"each release <= {LEAK_BYTES >> 20} MiB", flush=True)
+    del params, warm, mig, watch
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[mistral] phase 12: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, d128
 
 
 def check_parity(ref_toks, toks, ref_margins, tie_gap) -> int:

@@ -26,10 +26,12 @@ Insufficient capacity queues the application (``handle.state ==
 "pending"``); releasing other applications drains the queue and the
 handle binds lazily on its first step.
 
-Not in this port yet, each raising ``NotImplementedError`` with the queue
-item that brings it: the pod-shared page pool (``pod_pool``, A6), the
-autoscale control plane (``enable_autoscale``, A6) and idle parking
-(``park``/``unpark``, A6).
+Each pod has one shared KV page pool (``pod_pool``, created lazily and
+sized by ``pool_pages`` or its first tenant), which serve apps draw
+from through views unless they ask for a private pool.  Not in this port
+yet, each raising ``NotImplementedError`` with the queue item that
+brings it: the autoscale control plane (``enable_autoscale``) and idle
+parking (``park``/``unpark``), both queue item A6's second part.
 """
 
 from __future__ import annotations
@@ -45,16 +47,18 @@ from repro_torch.core.materializer import (H100, MESHES, MeshSpec, Plan,
 from repro_torch.core.scheduler import GlobalScheduler, Job, PodState
 from repro_torch.core.sizing import SizingSolution, solve_init_step
 from repro_torch.runtime.application import Application
-from repro_torch.runtime.executors import (SHARED_POOL_LATER, Executor,
-                                           NullExecutor, TorchExecutor)
+from repro_torch.runtime.executors import (Executor, NullExecutor,
+                                           TorchExecutor)
 from repro_torch.serving.kv_cache import Request
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.serving.router import RequestRouter
     from repro_torch.serving.stats import StatsView
+    from repro_torch.serving.tenancy import SharedPagePool
 
 AUTOSCALE_LATER = ("the autoscale control plane (enable_autoscale, park, "
-                   "unpark) comes with queue item A6 of the port")
+                   "unpark) comes with queue item A6 of the port (its "
+                   "autoscale and parking part)")
 
 GB = 1 << 30
 SIZING_QUANTUM = 64 << 20          # 64 MiB allocation granularity
@@ -109,8 +113,8 @@ class AppHandle:
         return len(rset.replicas)
 
     def add_replica(self):
-        """Scale out by one engine replica (aliased params; on a private
-        pool it also costs a second pool's KV pages)."""
+        """Scale out by one engine replica (shared KV page tensors and
+        params: the cost is compute slots, not memory)."""
         rset = self.replica_set
         if rset is None:
             raise RuntimeError(f"{self.app.name}: no replica set "
@@ -118,9 +122,9 @@ class AppHandle:
         return rset.add_replica()
 
     def remove_replica(self) -> Dict:
-        """Scale in by one replica; its in-flight requests move to a
-        survivor (requeued from scratch where the runner cannot migrate
-        its KV)."""
+        """Scale in by one replica; its in-flight requests migrate
+        token-identically to a survivor (or requeue where the runner
+        cannot migrate its KV)."""
         rset = self.replica_set
         if rset is None:
             raise RuntimeError(f"{self.app.name}: no replica set "
@@ -298,7 +302,8 @@ class Cluster:
     def __init__(self, pods: Union[int, List[PodState]] = 1, *,
                  mesh: Union[str, MeshSpec] = H100,
                  history: Optional[HistoryStore] = None,
-                 executor: Optional[Executor] = None):
+                 executor: Optional[Executor] = None,
+                 pool_pages: Optional[int] = None):
         self.mesh = MESHES[mesh] if isinstance(mesh, str) else mesh
         npods = pods if isinstance(pods, int) else len(pods)
         if npods > 1 and isinstance(executor, TorchExecutor):
@@ -315,13 +320,25 @@ class Cluster:
         self.executor = executor or NullExecutor()
         self.handles: Dict[str, AppHandle] = {}
         self._job_ids = itertools.count()
+        # per-pod physical KV pools (multi-tenant serving); sized by
+        # ``pool_pages`` when given, else by the first tenant's request
+        self.pool_pages = pool_pages
+        self._pod_pools: Dict[str, "SharedPagePool"] = {}
         # per-pod front-end request routers, created lazily
         self._routers: Dict[str, "RequestRouter"] = {}
 
-    def pod_pool(self, pod: str, *, default_pages: int = 256):
-        """The pod's single shared KV page pool: queue item A6 of the
-        port (every serve app binds a private pool until then)."""
-        raise NotImplementedError(SHARED_POOL_LATER)
+    def pod_pool(self, pod: str, *, default_pages: int = 256
+                 ) -> "SharedPagePool":
+        """The pod's single shared KV page pool (created lazily).  Every
+        serve application placed on ``pod`` gets a quota/weight view onto
+        this one physical pool unless it opts into a private pool."""
+        from repro_torch.serving.tenancy import SharedPagePool
+        sp = self._pod_pools.get(pod)
+        if sp is None:
+            sp = SharedPagePool(self.pool_pages or default_pages,
+                                history=self.history)
+            self._pod_pools[pod] = sp
+        return sp
 
     def router(self, pod: str) -> "RequestRouter":
         """The pod's front-end request router (created lazily).  Every

@@ -14,11 +14,12 @@ The port's copy of ``repro/runtime/executors.py``.
 Executors keep all per-application state on ``handle.exec_state`` so one
 executor instance can drive many applications on one cluster.
 
-This port serves one replica set per app on *private* page pools; what it
-does not bring yet raises ``NotImplementedError`` naming the queue item
-(``ROADMAP.md``) that brings it: the pod-shared pool and its KV aliasing
-(A6), the prefix cache (A3), and a plan on more than one device (a
-multi-card slice).
+A serve app's pool is a view of the pod's shared page pool by default
+(``private_pool=True`` gives it a private pool); same-shape paged tenants
+and an app's replicas alias one ``KVArrayStore`` and, with
+``prefix_cache=True``, one pod-global prefix cache.  ``TorchExecutor``
+refuses a plan on more than one device with ``NotImplementedError``
+naming the slice that brings it (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -37,13 +38,6 @@ if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.serving.router import Replica
 
 DEFAULT_POOL_PAGES = 256
-
-SHARED_POOL_LATER = (
-    "the pod-shared page pool (ServeOptions.private_pool=False, "
-    "Cluster.pod_pool, and the KV aliasing of alias_kv across its tenants) "
-    "comes with queue item A6 of the port; pass private_pool=True")
-PREFIX_CACHE_LATER = ("the prefix cache (ServeOptions.prefix_cache=True) "
-                      "comes with queue item A3 of the port")
 
 
 class Executor:
@@ -64,24 +58,17 @@ class Executor:
         Application was built without one)."""
         return handle.app.serve_options or ServeOptions()
 
-    @staticmethod
-    def check_supported(opts: ServeOptions) -> None:
-        """Refuse the serve options this port does not bring yet."""
-        if not opts.private_pool:
-            raise NotImplementedError(SHARED_POOL_LATER)
-        if opts.prefix_cache:
-            raise NotImplementedError(PREFIX_CACHE_LATER)
-
     def _bind_serve(self, handle: "AppHandle") -> None:
         """Serve data plane: a ReplicaSet of engines registered with the
         pod's RequestRouter.  ``exec_state['engine']`` stays the primary
         replica's engine."""
         from repro_torch.serving.router import ReplicaSet
         opts = self.serve_opts(handle)
-        self.check_supported(opts)
         rset = ReplicaSet(handle.app.name,
                           lambda idx: self.build_replica(handle, idx),
-                          initial=opts.replicas)
+                          initial=opts.replicas, app_weight=opts.weight,
+                          quota_pages=opts.quota_pages
+                          if isinstance(opts.quota_pages, int) else None)
         try:
             handle.cluster.router(handle.pod).register(handle.app.name, rset)
         except Exception:
@@ -97,11 +84,19 @@ class Executor:
         """Bring the job's grant up to what the app holds on its device.
         Binds no device here, so there is nothing to account."""
 
-    def build_pool(self, handle: "AppHandle") -> PagePool:
-        """The application's private KV page pool, keyed by the app name
-        in the sizing history: every replica feeds one series.  (The
-        reference's replica views onto a pod-shared pool come with queue
-        item A6.)
+    def build_pool(self, handle: "AppHandle",
+                   view_name: Optional[str] = None) -> PagePool:
+        """The application's KV page pool.
+
+        Default: a quota/weight-scoped view onto the pod's single
+        ``SharedPagePool`` (``serving/tenancy.py``), so every serve app
+        placed on one pod draws from one physical pool (the paper's
+        resource sharing).  ``ServeOptions.private_pool`` opts out into
+        one pool per app, provisioned for its peak.
+
+        Replica views carry suffixed names (``view_name``) but one
+        per-app ``history_key``, so N replicas feed one sizing-history
+        series.
 
         When the app serves through the paged backend on a mixed
         global/sliding-window stack, the pool carries the model's
@@ -114,14 +109,22 @@ class Executor:
                 and opts.swa_rings):
             g = PageGroups.from_config(handle.app.config)
             groups = g if g.local_layers else None
-        return PagePool(pages, history=handle.cluster.history,
-                        app=handle.app.name, policy=opts.policy,
-                        groups=groups)
+        if opts.private_pool:
+            return PagePool(pages, history=handle.cluster.history,
+                            app=handle.app.name, policy=opts.policy,
+                            groups=groups)
+        shared = handle.cluster.pod_pool(handle.pod, default_pages=pages)
+        return shared.view(view_name or handle.app.name,
+                           quota=opts.quota_pages, weight=opts.weight,
+                           policy=opts.policy, groups=groups,
+                           history_key=handle.app.name)
 
     def build_replica(self, handle: "AppHandle", idx: int) -> "Replica":
-        from repro_torch.serving.router import Replica
+        from repro_torch.serving.router import Replica, replica_view_name
         opts = self.serve_opts(handle)
-        eng = ServingEngine(self.build_pool(handle),
+        pool = self.build_pool(
+            handle, view_name=replica_view_name(handle.app.name, idx))
+        eng = ServingEngine(pool,
                             max_batch=opts.max_batch or self.default_max_batch,
                             history=handle.cluster.history)
         return Replica(idx, eng)
@@ -308,8 +311,12 @@ class TorchExecutor(Executor):
     default_max_batch = 4
 
     def build_replica(self, handle: "AppHandle", idx: int) -> "Replica":
-        from repro_torch.serving.model_runner import build_runner
-        from repro_torch.serving.router import Replica
+        from repro_torch.serving.model_runner import (KVArrayStore,
+                                                      PagedRunner,
+                                                      build_runner,
+                                                      kv_shape_key)
+        from repro_torch.serving.prefix_cache import PrefixCache
+        from repro_torch.serving.router import Replica, replica_view_name
 
         app = handle.app
         opts = self.serve_opts(handle)
@@ -320,20 +327,72 @@ class TorchExecutor(Executor):
         runner_batch = max_batch
         if opts.scale is not None and opts.scale.batch_max is not None:
             runner_batch = max(runner_batch, opts.scale.batch_max)
-        pool = self.build_pool(handle)
-        prim = handle.exec_state.get("runner")
-        # replicas serve one model: alias the primary's weights so a
-        # replica costs compute slots, not a second params copy
-        params = (prim.params if idx > 0 and prim is not None
-                  and prim.backend == opts.backend
-                  else self.init_params(handle))
-        runner = build_runner(opts.backend, app.config, seed=self.seed,
-                              max_batch=runner_batch,
-                              cache_len=opts.cache_len,
-                              pool_pages=pool.physical_pages,
-                              use_rings=opts.swa_rings,
-                              chunk_pages=opts.chunk_pages or 4,
-                              params=params, device=self.device)
+        pool = self.build_pool(
+            handle, view_name=replica_view_name(app.name, idx))
+        try:
+            prim = handle.exec_state.get("runner")
+            # replicas serve one model: alias the primary's weights so a
+            # replica costs compute slots, not a second params copy.  The
+            # weights come before the page tensors, so that their init's
+            # temporaries do not stack on a store already held
+            params = (prim.params if idx > 0 and prim is not None
+                      and prim.backend == opts.backend
+                      else self.init_params(handle))
+            kv_store = None
+            if (opts.backend == "paged"
+                    and getattr(pool, "shared", None) is not None
+                    and opts.alias_kv
+                    and all(k in PagedRunner.SUPPORTED_KINDS
+                            for k in app.config.pattern)):
+                # physical aliasing: every same-KV-shape paged tenant on
+                # this pod -- and every replica of one app -- reads and
+                # writes ONE set of page tensors, keyed by shape
+                # (mismatched shapes get their own store; alias_kv=False
+                # opts out)
+                key = kv_shape_key(app.config, pool.physical_pages,
+                                   use_rings=opts.swa_rings)
+                kv_store = pool.shared.kv_store(
+                    key, lambda: KVArrayStore(key, self.device))
+                pool.bind_kv_store(kv_store)
+            prefix_cache = None
+            if opts.prefix_cache:
+                if kv_store is not None:
+                    # pod-global cache keyed by (kv shape, model, seed):
+                    # same-weights tenants share cached prefixes, and the
+                    # cache's pages return to the POD free list
+                    ck = (kv_store.key, app.config.name, self.seed)
+                    shared = pool.shared
+                    prefix_cache = shared.prefix_cache(
+                        ck, lambda: PrefixCache(ck, shared._give))
+                    prefix_cache.users.add(app.name)
+                else:
+                    # a private pool (or an unaliased tenant) keeps a
+                    # private cache; evicted pages return to the free
+                    # list that granted them: the pod's for a view, the
+                    # pool's own otherwise
+                    shared = getattr(pool, "shared", None)
+                    free_fn = (shared._give if shared is not None
+                               else pool._give)
+                    prefix_cache = PrefixCache(
+                        (None, app.config.name, self.seed), free_fn)
+                pool.prefix_cache = prefix_cache
+            runner = build_runner(opts.backend, app.config, seed=self.seed,
+                                  max_batch=runner_batch,
+                                  cache_len=opts.cache_len,
+                                  pool_pages=pool.physical_pages,
+                                  use_rings=opts.swa_rings,
+                                  kv_store=kv_store,
+                                  prefix_cache=prefix_cache,
+                                  chunk_pages=opts.chunk_pages or 4,
+                                  params=params, device=self.device)
+        except Exception:
+            # the pool view is already registered on the pod: an orphan
+            # would dilute every tenant's fair share (close also unbinds
+            # the kv store, dropping it with its last user)
+            close = getattr(pool, "close", None)
+            if close is not None:
+                close()
+            raise
         eng = ServingEngine(pool, max_batch=max_batch, runner=runner,
                             history=handle.cluster.history)
         if idx == 0:

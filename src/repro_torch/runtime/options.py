@@ -13,10 +13,11 @@ predictive-unpark knob.  The app states bounds and targets; the
 autoscale control plane (the reference's ``repro/autoscale``, not ported
 yet) moves within them.
 
-The port's executor serves one replica on a private pool; what it cannot
-serve yet (``private_pool=False``, ``prefix_cache``, ``alias_kv``, a
-``scale`` policy) is refused at bind time with the queue item that brings
-it, not here: the options stay the reference's, field for field.
+The port serves every field: the pod-shared pool with aliased KV and the
+prefix cache, replicas, rings.  A ``scale`` policy's batch ceiling sizes
+the runners; the controller that would move within its bounds is not
+ported (``Cluster.enable_autoscale`` refuses, naming its queue item).
+The options stay the reference's, field for field.
 """
 
 from dataclasses import dataclass

@@ -11,10 +11,17 @@ release, preemption and ``drain`` return both id spaces.  Model execution is car
 ``ModelRunner`` (``runner=``) or a raw ``step_fns`` (prefill, decode)
 pair, so the control-plane tests can run it with neither.
 
+Multi-tenancy: the ``pool`` may be a private ``PagePool`` or a
+``PoolView`` onto a pod-shared pool (``serving/tenancy.py``), where
+requests carry view-local page ids and same-KV-shape tenants alias one
+physical set of page tensors.  Under pressure the engine first asks the
+pool to arbitrate (``preempt_any``: cross-app fair-share preemption,
+which with aliasing moves physical pages between apps), falling back to
+preempting its own newest request.  A runner with a prefix cache pins a
+request's cached prefix just before admission (``prefix_attach``).
+
 The tracing and metrics hooks are the reference's (``repro_torch.obs``,
-off unless enabled).  Left for later slices: the runtime sanitizer,
-cross-app arbitration on a pod-shared pool (``preempt_any``) and
-prefix-cache attach.
+off unless enabled); its runtime sanitizer is not ported.
 """
 
 from __future__ import annotations
@@ -105,6 +112,9 @@ class ServingEngine:
         # observability lane label: the pool's app name (obs is off
         # unless enabled)
         self._obs_app = getattr(pool, "app", None) or "serve"
+        attach = getattr(pool, "attach", None)
+        if attach is not None:          # tenancy view: register for cross-app
+            attach(self)                # victim selection
 
     def submit(self, req: Request, *,
                submitted_at: Optional[float] = None) -> None:
@@ -121,6 +131,7 @@ class ServingEngine:
 
     def _admit(self) -> List[Request]:
         admitted = []
+        attach = getattr(self.runner, "prefix_attach", None)
         t = obs_trace.TRACER
         m = obs_metrics.METRICS
         while self.queue and len(self.running) < self.max_batch:
@@ -136,7 +147,14 @@ class ServingEngine:
                               {"cause": "inadmissible",
                                "prompt_len": req.prompt_len})
                 continue
+            if attach is not None:
+                # prefix-cache lookup+pin BEFORE the grant: a hit shrinks
+                # the private-page need try_admit charges the quota for
+                attach(req)
             if not self.pool.try_admit(req):
+                # no grant, no pin: a queued request must not hold cache
+                # pages against eviction while it waits
+                self.pool.prefix_detach(req)
                 break
             self.queue.popleft()
             self.running.append(req)
@@ -179,7 +197,9 @@ class ServingEngine:
     def drain(self) -> List[Tuple[Request, Tuple[List[int], List[int]]]]:
         """Reclaim every running request's pages without completing it.
         Returns (request, (global page ids, local ring page ids)) in
-        running order; the page *contents* are untouched.  Replica removal
+        running order; the ids are physical (``reclaim`` translates a
+        view's ids before freeing them) and the page *contents* are
+        untouched until the ids are granted again.  Replica removal
         uses it (``serving/router.py``)."""
         drained = []
         for req in list(self.running):
@@ -188,9 +208,13 @@ class ServingEngine:
         return drained
 
     def _reclaim(self) -> bool:
-        """Free pages under pressure: on a private pool, by preempting
-        this engine's own newest request.  (The reference first asks a
-        pod-shared pool to arbitrate across apps; queue item A6.)"""
+        """Free pages under pressure.  A shared-pool view arbitrates across
+        every app on the pod (fair-share victim selection); a private pool
+        falls back to this engine's own newest request."""
+        preempt_any = getattr(self.pool, "preempt_any", None)
+        if preempt_any is not None:
+            if preempt_any():
+                return True
         return self.preempt_newest()
 
     def step(self) -> bool:
@@ -289,8 +313,12 @@ class ServingEngine:
         return self.stats
 
     def shutdown(self) -> None:
-        """Release every held page (called on application release)."""
+        """Release every held page and detach from a shared pool (called on
+        application release so co-tenants get the pages back)."""
         for req in list(self.running):
             self.pool.release(req)
         self.running.clear()
         self.queue.clear()
+        close = getattr(self.pool, "close", None)
+        if close is not None:
+            close()

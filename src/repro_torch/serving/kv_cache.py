@@ -9,14 +9,16 @@ decayed history of observed request lengths (``core/history.py``,
 is one ``(pool_pages + 1, PAGE_SIZE, KV, hd)`` tensor per layer indexed
 by page tables (``serving/model_runner.py``).
 
-This port carries the *private* pool of one replica, with the
-sliding-window ring group (:class:`PageGroups`): a mixed global/local
-stack's local layers index their page tensors through a second id space
-of the same size (``free_local``), and a request holds at most
-``ring_pages`` of those however long it grows.  Left for later slices,
-with the features that need them: the prefix-cache lifecycle
-(``cow_grant``, ``cache_donate``, ``prefix_detach``), the view-local id
-remap of pod-shared pools, and the runtime sanitizer hooks.
+:class:`PagePool` is one replica's private pool, and the base of the
+pod-shared pool's per-app view (``serving/tenancy.py``'s ``PoolView``,
+which overrides the physical allocation primitives and the id
+translation).  The sliding-window ring group (:class:`PageGroups`) gives
+a mixed global/local stack's local layers a second id space of the same
+size (``free_local``); a request holds at most ``ring_pages`` of those
+however long it grows.  The prefix-cache lifecycle (``cow_grant``,
+``cache_donate``, ``prefix_detach``, refcount-0 eviction in ``_alloc``)
+serves ``serving/prefix_cache.py``.  The reference's runtime sanitizer
+hooks are not ported.
 """
 
 from __future__ import annotations
@@ -81,7 +83,7 @@ class Request:
     max_new_tokens: int
     generated: int = 0
     pages: List[int] = field(default_factory=list)
-    state: str = "queued"     # queued|running|done|rejected
+    state: str = "queued"     # queued|running|done|rejected|parked
     submitted_at: float = 0.0
     first_token_at: Optional[float] = None
     # completed output (prefill token + decoded tokens); the runner hands
@@ -93,6 +95,21 @@ class Request:
     # sliding-window ring pages (only when the pool has a local group);
     # capped at PageGroups.ring_pages regardless of sequence length
     local_pages: List[int] = field(default_factory=list)
+    # -- global prefix cache (serving/prefix_cache.py) -----------------------
+    # PHYSICAL page ids of the read-only cached-prefix pages this request
+    # references (never view-local: cache pages belong to no view).  They
+    # lead the decode page table, ahead of the view-translated private
+    # pages, and are not charged to the request's quota.
+    shared_pages: List[int] = field(default_factory=list)
+    # prompt tokens covered by the cache at attach time (prefill skips them)
+    cached_len: int = 0
+    # physical page to copy-on-write the partial lead from (cached_len %
+    # PAGE_SIZE tokens land in the request's first private page)
+    cow_src_page: Optional[int] = None
+    # pinned PrefixNode chain; the pool unpins on release/reclaim
+    prefix_nodes: Optional[list] = None
+    # how many shared pages a drained request must re-pin to resume
+    parked_shared: int = 0
 
     @property
     def length(self) -> int:
@@ -134,21 +151,40 @@ class PagePool:
         self._sizing: Optional[SizingSolution] = None
         self._solve_counter = 0
         self.stats = {"grants": 0, "grant_pages": 0, "denials": 0,
-                      "scaleups": 0, "released": 0}
+                      "scaleups": 0, "released": 0, "prefix_unpinned": 0,
+                      "prefix_evictions": 0}
+        # bound by the executor when the app opts into prefix caching; a
+        # private pool owns its cache outright, a PoolView aliases the
+        # pod-level one registered on the SharedPagePool
+        self.prefix_cache = None
         # per-layer-group accounting (sliding-window rings): the local
         # group's pages index the local layers' own page tensors, so they
-        # come from their own id space over the same pool size (the
-        # runner's local page tensors are pool-sized, like the global ones)
+        # come from their own id space
+        self.groups = None
+        self.free_local: Optional[List[int]] = None
+        if groups is not None:
+            self.set_groups(groups)
+
+    def set_groups(self, groups: Optional[PageGroups]) -> None:
+        """Attach (or refresh) the layer-group split.  Must happen while
+        no request holds pages: the id spaces are being (re)defined."""
         self.groups = groups if (groups and groups.local_layers) else None
-        self.free_local: Optional[List[int]] = (
-            list(range(num_pages)) if self.groups else None)
+        self.free_local = (list(range(self._local_space()))
+                           if self.groups else None)
+
+    def _local_space(self) -> int:
+        """Size of the local-group page-id space (the runner's local page
+        tensors are pool-sized, like the global ones)."""
+        return self.num_pages
 
     def _global_need(self, req: Request, horizon: int = 0) -> int:
-        """Pages the growing (global-group) table needs; zero for a stack
-        with no global layers at all."""
+        """PRIVATE pages the growing (global-group) table needs; zero for
+        a stack with no global layers at all.  Prefix-cache shared pages
+        already back the leading table entries, so they are not charged
+        to the request (or its view's quota) again."""
         if self.groups is not None and self.groups.global_layers == 0:
             return 0
-        return req.pages_needed(horizon)
+        return max(req.pages_needed(horizon) - len(req.shared_pages), 0)
 
     # -- sizing policy ------------------------------------------------------
     def sizing(self) -> SizingSolution:
@@ -168,11 +204,27 @@ class PagePool:
                 self._sizing = solve_init_step(hist, quantum=1.0)
         return self._sizing
 
-    # -- allocation ---------------------------------------------------------
+    # -- physical allocation primitives (overridden by tenancy.PoolView) ----
     def _alloc(self, n: int) -> Optional[List[int]]:
+        """Take n physical pages, or None when they cannot be granted.
+        Under pool pressure refcount-0 prefix-cache pages are the first
+        victims (LRU): cold cached prefixes yield to live requests, but
+        pinned nodes are never touched."""
+        if n > len(self.free) and self.prefix_cache is not None:
+            freed = self.prefix_cache.evict_lru(n - len(self.free))
+            self.stats["prefix_evictions"] += freed
         if n > len(self.free):
             return None
         return [self.free.pop() for _ in range(n)]
+
+    def _dealloc(self, pages: List[int]) -> None:
+        self.free.extend(pages)
+
+    def _give(self, pages: List[int]) -> None:
+        """Return PHYSICAL pages straight to the free list: the prefix
+        cache's eviction path (cache pages were donated out of request
+        accounting, so they come back without touching it)."""
+        self.free.extend(pages)
 
     def _alloc_local(self, n: int) -> Optional[List[int]]:
         """Take n ring pages from the local id space."""
@@ -185,6 +237,55 @@ class PagePool:
         if pages:
             self.free_local.extend(pages)
 
+    def _page_cap(self) -> int:
+        """Hard page ceiling a single request can ever hold."""
+        return self.num_pages
+
+    # -- prefix-cache lifecycle (serving/prefix_cache.py) --------------------
+    def cow_grant(self) -> Optional[List[int]]:
+        """One page for a copy-on-write split: the caller copies a cached
+        page's lead slots here before writing past them.  Returns the
+        granted id list (view-local under a PoolView), or None under
+        pressure."""
+        return self._alloc(1)
+
+    def cache_donate(self, ids: Sequence[int]) -> List[int]:
+        """Move pages out of request accounting into prefix-cache
+        ownership, returning their PHYSICAL ids.  A private pool's ids
+        are physical and the pages simply stay off the free list (the
+        cache's ``free_fn`` puts them back on eviction); a PoolView also
+        uncharges its quota and forgets the remap."""
+        return list(ids)
+
+    def prefix_detach(self, req: Request, keep: bool = False) -> int:
+        """Unpin a request's prefix-cache nodes (idempotent).  Returns
+        how many nodes dropped to refcount 0, folded into stats.  With
+        ``keep`` (a drain) the bookkeeping needed to re-attach survives;
+        otherwise the request forgets its cached prefix entirely."""
+        released = 0
+        if req.prefix_nodes and self.prefix_cache is not None:
+            released = self.prefix_cache.unpin(req.prefix_nodes)
+            self.stats["prefix_unpinned"] += released
+        req.prefix_nodes = None
+        req.shared_pages = []
+        req.cow_src_page = None
+        if not keep:
+            req.cached_len = 0
+            req.parked_shared = 0
+        return released
+
+    # -- id translation (overridden by tenancy.PoolView) ---------------------
+    def to_physical(self, ids: Sequence[int]) -> List[int]:
+        """Physical page ids backing ``ids``.  A private pool's ids ARE
+        physical (they index the runner's own pool-sized tensors); a
+        ``PoolView`` stores view-local ids on requests and remaps them
+        onto the pod's shared page tensors here."""
+        return list(ids)
+
+    def to_physical_local(self, ids: Sequence[int]) -> List[int]:
+        """Physical ids of local-group (sliding-window ring) pages."""
+        return list(ids)
+
     def admissible(self, req: Request) -> bool:
         """False when the request could never complete under the pool's
         hard cap: the engine rejects it instead of retrying forever."""
@@ -193,7 +294,7 @@ class PagePool:
             if self.groups.global_layers == 0:
                 need = 0
             need = max(need, self.groups.ring_pages)
-        if need <= self.num_pages:
+        if need <= self._page_cap():
             return True
         self.stats["denials"] += 1
         return False
@@ -223,7 +324,7 @@ class PagePool:
         else:
             need = self._global_need(req)
             want = max(need, min(max(need, int(self.sizing().init)),
-                                 self.num_pages))
+                                 self._page_cap()))
         got = self._alloc(want)
         if got is None:
             self.stats["denials"] += 1
@@ -231,7 +332,7 @@ class PagePool:
         req.pages = got
         if not self._grant_local(req):
             req.pages = []
-            self.free.extend(got)
+            self._dealloc(got)
             self.stats["denials"] += 1
             return False
         req.state = "running"
@@ -253,7 +354,7 @@ class PagePool:
         if need <= 0:
             return True
         want = max(need, min(max(int(self.sizing().step), need),
-                             self.num_pages - len(req.pages)))
+                             self._page_cap() - len(req.pages)))
         got = self._alloc(want)
         if got is None:
             grown = req.local_pages[held_local:]
@@ -266,7 +367,8 @@ class PagePool:
         return True
 
     def release(self, req: Request) -> None:
-        self.free.extend(req.pages)
+        self.prefix_detach(req)
+        self._dealloc(req.pages)
         self._dealloc_local(req.local_pages)
         self.stats["released"] += 1
         if self.history is not None:
@@ -279,15 +381,22 @@ class PagePool:
     def reclaim(self, req: Request) -> Tuple[List[int], List[int]]:
         """Return a request's pages WITHOUT completing it (the engine's
         ``drain``): no history sample, since the request resumes with the
-        same footprint, and no 'released' count.  Returns the physical
-        (global, local-ring) page ids it held; a private pool's ids are
-        physical."""
+        same footprint, and no 'released' count.  Returns the PHYSICAL
+        (global, local-ring) page ids it held, translated before the ids
+        are freed (a PoolView forgets the remap on dealloc), so the
+        drained KV can be gathered and restored into fresh grants.  The
+        shared prefix pages are unpinned (``parked_shared`` remembers how
+        many to re-pin: ``PagedRunner.prefix_reattach``)."""
         held, req.pages = req.pages, []
         held_local, req.local_pages = req.local_pages, []
-        self.free.extend(held)
+        phys = self.to_physical(held)
+        phys_local = self.to_physical_local(held_local)
+        self._dealloc(held)
         self._dealloc_local(held_local)
+        req.parked_shared = len(req.shared_pages)
+        self.prefix_detach(req, keep=True)
         req.state = "parked"
-        return list(held), list(held_local)
+        return phys, phys_local
 
     def regrant(self, req: Request, n: int, n_local: int = 0) -> bool:
         """Re-grant exactly a drained request's page counts (the sizing
@@ -300,7 +409,7 @@ class PagePool:
         if n_local:
             got_local = self._alloc_local(n_local)
             if got_local is None:
-                self.free.extend(got)
+                self._dealloc(got)
                 self.stats["denials"] += 1
                 return False
         req.pages = got
@@ -318,7 +427,7 @@ class PagePool:
         """Ring pages held (0 without a local group)."""
         if self.free_local is None:
             return 0
-        return self.num_pages - len(self.free_local)
+        return self._local_space() - len(self.free_local)
 
     @property
     def utilization(self) -> float:
@@ -337,7 +446,8 @@ class PagePool:
 def page_table(requests: Sequence[Request], max_pages: int,
                pages: Optional[Sequence[Sequence[int]]] = None) -> np.ndarray:
     """(B, max_pages) int32 page table (-1 padded) for the decode kernel;
-    ``pages`` overrides each request's id list."""
+    ``pages`` overrides each request's id list (the runner passes the
+    physical ids: shared prefix pages, then ``pool.to_physical``)."""
     out = np.full((len(requests), max_pages), -1, np.int32)
     for i, r in enumerate(requests):
         ids = r.pages if pages is None else pages[i]

@@ -9,17 +9,23 @@ The port's copy of ``repro/serving/router.py``.
   batch.  Every app has its own queue and its own replicas, and
   ``step()`` services every app each round.
 
-* :class:`ReplicaSet` -- N :class:`ServingEngine` replicas of ONE app,
-  each on its own private pool, all feeding the app's one sizing-history
-  series; past the first replica the model params are aliased.
+* :class:`ReplicaSet` -- N :class:`ServingEngine` replicas of ONE app.
+  Each replica is its own ``PoolView`` (named ``app@rN`` past the first,
+  all feeding the app's one sizing-history series), but all replicas
+  share the pod's ``SharedPagePool``, ``KVArrayStore`` page tensors and
+  prefix cache, and past the first replica the model params are aliased:
+  a replica costs compute slots, not a second copy of KV or weights.
 
-Removing a replica drains the victim engine (pages reclaimed) and hands
-its requests to a survivor.  Token-identical migration needs one
-physical KV array set behind every replica (the pod-shared pool, queue
-item A6); until then every runner-backed request falls back to the
-at-least-once path: requeued at the router, re-executed from scratch,
-still deterministic.  The runtime sanitizer hooks of the reference stay
-out (item M9).
+Removing a replica drains the victim engine (pages reclaimed, contents
+intact on the card), the runner gathers the drained KV
+(``migrate_out``), the requests re-pin their prefix and re-acquire pages
+on a survivor's view, and the KV is written back at the new grants
+(``migrate_in``): a token-identical continuation, because every replica
+decodes through the same page tensors.  Requests that do not fit the
+survivor (batch slots, pages, or a dense cache, which cannot migrate)
+fall back to the at-least-once path: requeued at the router,
+re-executed from scratch, still deterministic.  The runtime sanitizer
+hooks of the reference stay out (item M9).
 """
 
 from __future__ import annotations
@@ -32,6 +38,12 @@ from typing import Callable, Deque, Dict, List, Optional
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.engine import EngineStats, ServingEngine
 from repro_torch.serving.kv_cache import Request
+
+
+def replica_view_name(app: str, idx: int) -> str:
+    """Replica 0 keeps the bare app name (the handle's primary engine,
+    stable across scaling); later replicas get suffixed view names."""
+    return app if idx == 0 else f"{app}@r{idx}"
 
 
 @dataclass
@@ -60,11 +72,14 @@ class ReplicaSet:
     """
 
     def __init__(self, app: str, build: Callable[[int], Replica], *,
-                 initial: int = 1):
+                 initial: int = 1, app_weight: float = 1.0,
+                 quota_pages: Optional[int] = None):
         self.app = app
         self._build = build
         self._next_idx = 0
         self.replicas: List[Replica] = []
+        self.app_weight = app_weight
+        self.quota_pages = quota_pages if isinstance(quota_pages, int) else None
         self.router: Optional["RequestRouter"] = None
         #: counters of replicas removed since birth (aggregated stats must
         #: stay monotonic when a replica's engine is discarded)
@@ -90,6 +105,7 @@ class ReplicaSet:
         self._next_idx += 1
         self.replicas.append(rep)
         self.replicas_added += 1
+        self._rebalance()
         t = obs_trace.TRACER
         if t is not None:
             t.instant("autoscale", "replica_add", self.app,
@@ -109,8 +125,9 @@ class ReplicaSet:
         for f in EngineStats.COUNTERS:
             setattr(self.retired, f, getattr(self.retired, f)
                     + getattr(victim.engine.stats, f))
-        victim.engine.shutdown()        # frees nothing: drained above
+        victim.engine.shutdown()        # frees nothing (drained); closes view
         self.replicas_removed += 1
+        self._rebalance()
         t = obs_trace.TRACER
         if t is not None:
             t.instant("autoscale", "replica_remove", self.app,
@@ -149,14 +166,29 @@ class ReplicaSet:
     def max_batch(self) -> int:
         return min((r.engine.max_batch for r in self.replicas), default=0)
 
+    def _rebalance(self) -> None:
+        """Replica views split the app's tenancy evenly: the app's weight
+        (and integer quota, when one was set) is divided across its
+        replicas so scaling out never grows the app's fair share at
+        co-tenants' expense."""
+        n = len(self.replicas)
+        if n == 0:
+            return
+        for r in self.replicas:
+            view = r.engine.pool
+            if hasattr(view, "weight"):
+                view.weight = self.app_weight / n
+            if self.quota_pages is not None and hasattr(view, "resize_quota"):
+                view.resize_quota(max(self.quota_pages // n, 1))
+
     # -- replica-to-replica migration ----------------------------------------
     def _migrate(self, victim: Replica) -> Dict:
         """Hand the victim's work to survivors: queued requests go back to
-        the router front; running ones drain (pages reclaimed) and either
-        re-grant on the least-loaded survivor or requeue from scratch.  A
-        runner moves its drained KV only when it says it can
-        (``can_migrate``); the port's runners keep private page arrays,
-        so their requests requeue."""
+        the router front; running ones drain (pages reclaimed, KV intact)
+        and either re-grant + write back on the least-loaded survivor
+        (token-identical) or requeue from scratch.  A runner moves its
+        drained KV only when it says it can (``can_migrate``: the paged
+        runner, whose replicas share one set of page tensors)."""
         target = min(self.replicas, key=lambda r: r.load)
         veng, teng = victim.engine, target.engine
         queued = list(veng.queue)
@@ -166,17 +198,26 @@ class ReplicaSet:
                       or getattr(victim.runner, "can_migrate", False))
         state = (victim.runner.migrate_out(drained)
                  if victim.runner is not None and migratable else None)
+        reattach = getattr(target.runner, "prefix_reattach", None)
         restored: List[Request] = []
         requeued: List[Request] = []
         for req, (g_ids, l_ids) in drained:
             ok = False
             if (migratable
                     and len(teng.running) + len(restored) < teng.max_batch):
-                ok = teng.pool.regrant(req, len(g_ids), len(l_ids))
-                while not ok:
-                    if not teng._reclaim():
-                        break
+                # prefix re-pin first (the drained KV is the private pages
+                # only), then the exact-count re-grant on the TARGET view,
+                # reclaiming under pressure
+                if reattach is None or reattach(req):
                     ok = teng.pool.regrant(req, len(g_ids), len(l_ids))
+                    while not ok:
+                        if not teng._reclaim():
+                            break
+                        ok = teng.pool.regrant(req, len(g_ids), len(l_ids))
+                    if not ok:
+                        teng.pool.prefix_detach(req)
+                else:
+                    teng.pool.prefix_detach(req)
             (restored if ok else requeued).append(req)
         if victim.runner is not None and restored:
             target.runner.migrate_in(state, restored)
@@ -203,8 +244,8 @@ class ReplicaSet:
                 "requeued_requests": len(requeued) + len(queued)}
 
     def shutdown(self) -> None:
-        # primary last, as the reference does (there the primary's view
-        # close drops a pod-shared KV store exactly once)
+        # primary last: if it is the store's final active user, its view
+        # close drops the shared page tensors exactly once
         for r in sorted(self.replicas, key=lambda r: -r.idx):
             r.engine.shutdown()
         self.replicas.clear()

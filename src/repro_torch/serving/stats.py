@@ -15,9 +15,8 @@ explicit temporal modes:
   tagged ``windowed=True`` and refused as markers (deltas of deltas are
   garbage).
 
-The pod-shared pool, prefix-cache and aliased-KV keys of the reference
-appear only where the serving path has them, which in this port it does
-not yet.
+The pod-shared pool (``shared_pool``), aliased-KV and prefix-cache keys
+appear where the app's serving path has them, as in the reference.
 """
 
 from __future__ import annotations
@@ -101,10 +100,13 @@ class StatsView:
             [h.runner] if h.runner is not None else [])
         runner = runners[0] if runners else None
         if runner is not None and getattr(runner, "store", None) is not None:
-            # live device bytes of this app's KV arrays (gauge; the port's
-            # stores are private, so neither aliased nor keyed)
+            # live device bytes of this app's KV tensors (gauge).  Replicas
+            # AND aliased same-shape tenants report the SAME store: one
+            # read, never a sum (the pod-level total is
+            # shared_pool.kv_device_bytes below)
             out["kv_device_bytes"] = runner.store.device_bytes()
-            out["kv_aliased"] = False
+            out["kv_aliased"] = bool(getattr(runner, "shared_kv", False))
+            out["kv_store_key"] = runner.store.key
         if runner is not None and hasattr(runner, "prefill_pages_computed"):
             # pages actually computed by prefill (cache hits subtract)
             out["prefill_pages_computed"] = sum(
@@ -112,7 +114,9 @@ class StatsView:
                 if hasattr(r, "prefill_pages_computed"))
         cache = getattr(runner, "prefix", None)
         if cache is not None:
-            # global prefix cache: lifetime counters plus two gauges
+            # global prefix cache: lifetime counters plus two gauges.
+            # shared_pages counts cache-owned PHYSICAL pages: outside
+            # every view's quota but inside the pod's used_pages
             out["prefix"] = dict(cache.stats)
             out["prefix_lookups"] = cache.stats["lookups"]
             out["prefix_hits"] = cache.stats["hits"]

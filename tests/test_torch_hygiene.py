@@ -1,8 +1,10 @@
 """Import and device hygiene of the port.
 
-The port (``src/repro_torch``) and ``chip_smoke.py`` import nothing of JAX
-and nothing of the JAX package; the port imports, serves and trains
-through ``Cluster.submit`` with JAX absent; its entry points run on CUDA unless the CPU is asked for, and
+The port (``src/repro_torch``, its serving modules ``prefix_cache`` and
+``tenancy`` among them) and ``chip_smoke.py`` import nothing of JAX and
+nothing of the JAX package; the port imports, serves (on the pod-shared
+pool, with the prefix cache too) and trains through ``Cluster.submit``
+with JAX absent; its entry points run on CUDA unless the CPU is asked for, and
 raise when there is no CUDA device instead of carrying on on the CPU.
 """
 
@@ -35,6 +37,8 @@ def _imported_modules(path: Path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    for module in ("serving/prefix_cache.py", "serving/tenancy.py"):
+        assert PORT / module in files
     bad = [(f.relative_to(ROOT), m) for f in files
            for m in _imported_modules(f)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
@@ -49,6 +53,11 @@ def test_port_imports_and_serves_with_jax_absent():
             "out = serve(reduced=True, device='cpu', requests=2, "
             "max_batch=2, prompt_range=(20, 140), max_new=2, verbose=False)\n"
             "assert out['stats'].completed == 2\n"
+            "out = serve(reduced=True, device='cpu', requests=2, "
+            "max_batch=2, prompt_range=(150, 200), max_new=2, verbose=False,"
+            " prefix_cache=True, shared_prefix=140)\n"
+            "assert out['view']['completed'] == 2\n"
+            "assert out['pool'].shared is not None  # the pod's shared pool\n"
             "assert out['plan'].mesh.name == 'h100'  # via Cluster.submit\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),

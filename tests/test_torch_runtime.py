@@ -10,8 +10,9 @@ reduced tinyllama-1.1b served through ``Cluster.submit`` with bridged
 weights and explicit prompts gives EQUAL greedy tokens, a second
 submission is sized from the first one's history exactly as the
 reference sizes it, and reduced training gives losses within 1e-3
-relative.  Last, every path this port does not bring yet raises
-``NotImplementedError`` naming its queue item.
+relative.  The options the port once refused (the pod-shared pool, KV
+aliasing, the prefix cache) serve like the reference's; what it still
+does not bring raises ``NotImplementedError`` naming its queue item.
 """
 
 import dataclasses
@@ -248,16 +249,13 @@ def test_escalate_moves_the_plan_up_the_ladder():
 # ---------------------------------------------------------------------------
 
 def _untimed(d):
-    """A stats dict without its wall-clock values and without the
-    prefix-cache pool counters (the reference's pool carries them; the
-    port's prefix cache is queue item A3)."""
+    """A stats dict without its wall-clock values."""
     if isinstance(d, list):
         return [_untimed(x) for x in d]
     if not isinstance(d, dict):
         return d
     return {k: _untimed(v) for k, v in d.items()
-            if not (k.endswith("_s") or k.endswith("_s_sum")
-                    or k.startswith("prefix_"))}
+            if not (k.endswith("_s") or k.endswith("_s_sum"))}
 
 
 def _serve_null(p, opts_cls):
@@ -498,31 +496,91 @@ def test_cluster_is_one_card_with_the_torch_executor():
 
 
 # ---------------------------------------------------------------------------
-# what this port refuses, each naming the queue item that brings it
+# the options the port once refused serve now; what it still refuses names
+# the queue item that brings it
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("executor", ["null", "torch"])
-@pytest.mark.parametrize("kw,item", [
+_SERVED_ONCE_REFUSED = [
     ({"backend": "paged"}, "A6"),                       # pod-shared pool
     ({"backend": "paged", "alias_kv": True}, "alias_kv"),
     ({"backend": "paged", "private_pool": True, "prefix_cache": True},
      "A3"),
-])
+]
+
+
+def _serve_both(kw, executor):
+    """Reduced tinyllama-1.1b served with options ``kw`` through the
+    reference's Cluster and the port's, three explicit prompts (the last
+    two sharing the first's leading 160 tokens), one after another.
+    ``executor`` "null": the NullExecutor in both (admission and paging
+    only); "torch": the JaxExecutor, and the TorchExecutor on the CPU with
+    the reference's weights.  Returns (reference, port), each (tokens,
+    untimed stats, apps running after the release); the two meshes
+    differ, so byte capacities are not compared."""
+    rng = np.random.default_rng(3)
+    base = [int(t) for t in rng.integers(0, 256, 160)]
+    prompts = [tuple(base + [int(t) for t in rng.integers(0, 256, n)])
+               for n in (40, 90, 200)]
+    out, jparams = [], None
+    for pkg in ("jax", "torch"):
+        if pkg == "jax":
+            ex = JaxNull() if executor == "null" else JaxExecutor(seed=0)
+            c = JaxCluster(pods=1, history=JaxHistory(), executor=ex,
+                           pool_pages=48)
+            app, opts, req = JaxApp, JaxOpts, JaxRequest
+        else:
+            ex = NullExecutor() if executor == "null" else BridgedExecutor(
+                jparams, device="cpu")
+            c = Cluster(pods=1, history=HistoryStore(), executor=ex,
+                        pool_pages=48)
+            app, opts, req = Application, ServeOptions, Request
+        h = c.submit(app.serve("tinyllama-1.1b", reduced=True, name="svc",
+                               serve=opts(max_batch=2, policy="fixed",
+                                          **kw)))
+        if jparams is None and executor == "torch":
+            jparams = _np_tree(h.runner.params)
+        reqs = [req(f"p{i}", len(p), 5, prompt_tokens=p)
+                for i, p in enumerate(prompts)]
+        for r in reqs:
+            h.submit_request(r)
+            h.run(max_steps=500)
+        stats = _untimed(h.stats_view.cumulative())
+        for k in ("kv_store_key", "kv_device_bytes", "shared_pool"):
+            stats.pop(k, None)      # device bytes: jax vs torch layouts
+        h.release()
+        out.append(([r.output_tokens for r in reqs], stats,
+                    c.capacity()["pod0"]["running"]))
+    return out
+
+
+@pytest.mark.parametrize("executor", ["null", "torch"])
+@pytest.mark.parametrize("kw,item", _SERVED_ONCE_REFUSED)
 def test_serve_refusals_name_their_queue_item(executor, kw, item):
-    ex = NullExecutor() if executor == "null" else TorchExecutor(
-        device="cpu")
-    c = Cluster(pods=1, executor=ex)
-    cap0 = c.capacity()
-    with pytest.raises(NotImplementedError, match=item):
-        c.submit(Application.serve("tinyllama-1.1b", reduced=True,
-                                   serve=ServeOptions(**kw)))
-    assert c.capacity() == cap0 and not c.handles
+    """Each of these options was refused until its queue item came (the
+    pod-shared pool and KV aliasing with A6, the prefix cache with A3):
+    each now serves, with the same tokens, stats and capacity as the
+    reference."""
+    want, got = _serve_both(kw, executor)
+    assert got == want
+    toks, stats, running = got
+    assert stats["completed"] == 3 and running == 0
+    if executor == "torch":
+        assert all(len(t) == 6 for t in toks)
+        assert stats["kv_aliased"] is (not kw.get("private_pool", False))
+        if kw.get("prefix_cache"):
+            assert stats["prefix_hit_rate"] == pytest.approx(2 / 3)
 
 
 def test_control_plane_refusals_name_their_queue_item():
-    c = Cluster(pods=1, executor=NullExecutor())
-    with pytest.raises(NotImplementedError, match="A6"):
-        c.pod_pool("pod0")
+    """``pod_pool`` returns the pod's shared pool now (sized by the
+    cluster's ``pool_pages``, as the reference's); the autoscale control
+    plane and parking still raise, naming their queue item."""
+    c = Cluster(pods=1, executor=NullExecutor(), pool_pages=40)
+    jc = JaxCluster(pods=1, executor=JaxNull(), pool_pages=40)
+    pool, jpool = c.pod_pool("pod0"), jc.pod_pool("pod0")
+    assert pool is c.pod_pool("pod0")
+    assert (pool.num_pages, pool.used_pages, pool.views) == (
+        jpool.num_pages, jpool.used_pages, jpool.views) == (40, 0, {})
     with pytest.raises(NotImplementedError, match="A6"):
         c.enable_autoscale()
     assert c.tick() == []

@@ -220,9 +220,11 @@ def _cfg():
 
 def test_runner_refuses_what_later_slices_bring():
     """The dense backend serves (``test_torch_dense.py``), and so do
-    sliding-window stacks on both backends (``test_torch_rings.py``); what
-    still raises: a sliding-window layer without a window, the prefix
-    cache on either backend, and training the recurrent families."""
+    sliding-window stacks on both backends (``test_torch_rings.py``) and
+    the prefix cache on pure-global stacks (``test_torch_prefix.py``);
+    what still raises: a sliding-window layer without a window, the
+    prefix cache on a sliding-window stack (with the reference's message)
+    and on the dense backend, and training the recurrent families."""
     cfg = _cfg()
     local = cfg.scaled(pattern=(ATTN_LOCAL,), sliding_window=8)
     assert PagedRunner(local, device="cpu").use_rings
@@ -230,8 +232,9 @@ def test_runner_refuses_what_later_slices_bring():
         "p0_attn_local"]["k"].shape[3] == 8
     with pytest.raises(ValueError, match="sliding_window"):
         PagedRunner(local.scaled(sliding_window=0), device="cpu")
-    with pytest.raises(ValueError, match="prefix cache"):
-        PagedRunner(cfg, prefix_cache=object(), device="cpu")
+    with pytest.raises(ValueError, match="needs a pure-global attention "
+                       "stack: .* sliding-window layers"):
+        PagedRunner(local, prefix_cache=object(), device="cpu")
     with pytest.raises(ValueError, match="prefix_cache"):
         build_runner("dense", cfg, prefix_cache=object(), device="cpu")
     with pytest.raises(ValueError, match="backend"):
