@@ -1,17 +1,26 @@
-"""Windowed serving stats: the port's copy of ``stats_delta`` and its
-counter lists from ``repro/autoscale/metrics.py``.
+"""Metrics windows: cumulative serving counters -> decayed per-window
+rates.  The port's copy of ``repro/autoscale/metrics.py``.
 
 :func:`stats_delta` turns two cumulative stats snapshots
 (``AppHandle.stats_view.cumulative()``) into the counters of the window
-between them, gauges taken as-of-now.  It backs
-``StatsView.windowed``.  The reference's ``MetricsWindow`` (EWMA rates
-for the autoscale controller) comes with the autoscale slice (queue
-item A6).
+between them, gauges taken as-of-now.  It backs ``StatsView.windowed``
+and ``AppHandle.serving_stats(since=...)``.
+
+:class:`MetricsWindow` is what the autoscale controller keeps per
+application: fed one raw stats snapshot per control-plane tick, it holds
+
+* ``window`` -- the raw deltas of the just-closed window (counters
+  subtracted, gauges passed through),
+* ``rates`` -- EWMA-smoothed derived signals (``ttft_s``,
+  ``decode_step_s``, ``denials_per_s``, ``tokens_per_s``,
+  ``utilization``, ``queue_len``, ``num_running``), the paper's decayed
+  history applied to the control loop, and
+* idleness tracking (``idle_s``) for the parking policy.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 from repro_torch.obs.metrics import hist_delta
 from repro_torch.serving.engine import EngineStats
@@ -97,3 +106,93 @@ def stats_delta(cur: Dict, since: Dict) -> Dict:
         out["hist"] = {name: hist_delta(h, shist.get(name))
                        for name, h in cur["hist"].items()}
     return out
+class MetricsWindow:
+    """Per-application window state for the autoscale controller.
+
+    ``observe(stats, now)`` closes one window: the first call only
+    establishes the baseline; every later call computes deltas against
+    the previous raw snapshot and folds the derived rates into an EWMA
+    with weight ``alpha`` on the new window (the §4.2 decaying-histogram
+    idea applied to control signals).
+    """
+
+    def __init__(self, alpha: float = 0.5):
+        self.alpha = float(alpha)
+        self.window: Dict = {}          # raw deltas of the last window
+        self.rates: Dict[str, float] = {}   # EWMA-smoothed signals
+        self.now: Optional[float] = None
+        self.last_active_t: Optional[float] = None
+        #: last observation that carried new arrivals (router submissions
+        #: or engine admissions) -- the predictive unparker's anchor
+        self.last_arrival_t: Optional[float] = None
+        self._raw: Optional[Dict] = None
+        self._t: Optional[float] = None
+
+    def _smooth(self, key: str, value: Optional[float]) -> None:
+        if value is None:
+            return                       # no sample this window: hold
+        prev = self.rates.get(key)
+        self.rates[key] = (value if prev is None
+                           else self.alpha * value
+                           + (1.0 - self.alpha) * prev)
+
+    def observe(self, stats: Dict, now: float) -> Dict:
+        """Fold one raw ``serving_stats()`` snapshot taken at ``now``.
+        Returns the smoothed ``rates`` dict."""
+        now = float(now)
+        self.now = now
+        if self._raw is None:            # baseline window
+            self._raw, self._t = stats, now
+            self.last_active_t = now
+            return self.rates
+        dt = max(now - self._t, 1e-9)
+        d = stats_delta(stats, self._raw)
+        self.window = d
+        self._raw, self._t = stats, now
+
+        pool = d.get("pool", {}) if isinstance(d.get("pool"), dict) else {}
+        self._smooth("ttft_s", d["mean_ttft_s"]
+                     if d.get("ttft_count", 0) > 0 else None)
+        self._smooth("decode_step_s", d["mean_decode_step_s"]
+                     if d.get("decode_steps", 0) > 0 else None)
+        self._smooth("denials_per_s", pool.get("denials", 0) / dt)
+        self._smooth("tokens_per_s", d.get("tokens_generated", 0) / dt)
+        self._smooth("admitted_per_s", d.get("admitted", 0) / dt)
+        # arrival forecasting: front-end submissions when the app serves
+        # through a router (admissions lag the router queue), else engine
+        # admissions.  The smoothed inter-arrival gap is the predictive
+        # unparker's periodicity estimate.
+        router = d.get("router") if isinstance(d.get("router"), dict) else None
+        arrivals = (router.get("submitted", 0) if router is not None
+                    else d.get("admitted", 0))
+        if arrivals > 0:
+            if self.last_arrival_t is not None:
+                self._smooth("arrival_gap_s",
+                             (now - self.last_arrival_t) / arrivals)
+            self.last_arrival_t = now
+        self._smooth("submitted_per_s", arrivals / dt)
+        # gauges: tracked un-smoothed (the current truth matters)
+        for g in ("queue_len", "num_running", "pool_utilization",
+                  "pool_used_pages", "pool_quota_pages"):
+            if g in d:
+                self.rates[g] = d[g]
+        if router is not None:
+            self.rates["num_replicas"] = router.get("num_replicas", 1)
+            self.rates["max_batch"] = router.get("max_batch", 0)
+            self.rates["router_queue_len"] = router.get("queue_len", 0)
+
+        active = (arrivals > 0
+                  or d.get("admitted", 0) > 0 or d.get("prefills", 0) > 0
+                  or d.get("decode_steps", 0) > 0
+                  or d.get("queue_len", 0) > 0
+                  or d.get("num_running", 0) > 0)
+        if active or self.last_active_t is None:
+            self.last_active_t = now
+        return self.rates
+
+    @property
+    def idle_s(self) -> float:
+        """Seconds of observed inactivity (0 until two observations)."""
+        if self.now is None or self.last_active_t is None:
+            return 0.0
+        return max(self.now - self.last_active_t, 0.0)

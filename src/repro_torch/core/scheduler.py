@@ -6,9 +6,8 @@ racks; each rack-level scheduler places components on servers and keeps an
 exact view of per-server free resources.  On accelerators: the global
 scheduler balances *jobs* (training runs / serving replicas) across pods;
 each pod scheduler places a job's resource-graph components onto devices
-via the materializer and tracks HBM/device occupancy.  (The reference's
-event-driven trace replay, ``repro/runtime/simulate.py``, drives the same
-objects; it is not ported yet.)
+via the materializer and tracks HBM/device occupancy.  (The event-driven
+trace replay, ``runtime/simulate.py``, drives the same objects.)
 
 Placement policy (§5.1.1): locality-greedy best-fit -- choose the pod with
 the *smallest* sufficient free capacity, leaving larger pods free for

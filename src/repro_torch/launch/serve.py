@@ -33,6 +33,26 @@ fit one card for tinyllama-1.1b or zamba2-2.7b.
 with explicit ``prompt_tokens``) gives every synthetic prompt the same
 first N tokens, as a service whose requests all begin with one system
 prompt sends them.
+
+The reference's control-plane and observability flags:
+
+* ``--autoscale`` turns the autoscale control plane on and serves the
+  requests in two bursts: the first half, then 6 idle ticks of an
+  injected clock (one a second) under ``idle_park_s=3.0``, in which the
+  idle parker parks the app (weights and KV to the host), then the
+  second half, whose first request unparks it transparently;
+* ``--max-replicas N`` lets the controller move the replica count up to
+  N (a ``ScalePolicy``);
+* ``--trace PATH`` records the request-lifecycle trace and writes it
+  (``.jsonl``: one event a line; else Chrome/Perfetto trace JSON), which
+  ``python -m repro_torch.obs PATH`` summarizes;
+* ``--metrics-dump`` records the latency histograms and prints their
+  Prometheus exposition at the end; ``--metrics-port P`` serves it at
+  ``http://127.0.0.1:P/metrics`` while the run lasts (0: any free port).
+
+    python -m repro_torch.launch.serve --reduced --device cpu \
+        --autoscale --trace /tmp/t.json
+    python -m repro_torch.obs /tmp/t.json
 """
 
 from __future__ import annotations
@@ -42,12 +62,12 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch import DeviceLike
+from repro_torch import DeviceLike, obs
 from repro_torch.configs import ShapeConfig
 from repro_torch.core.history import HistoryStore
 from repro_torch.core.materializer import H100
-from repro_torch.runtime import (Application, Cluster, ServeOptions,
-                                 TorchExecutor)
+from repro_torch.runtime import (Application, Cluster, ScalePolicy,
+                                 ServeOptions, TorchExecutor)
 from repro_torch.serving.kv_cache import PAGE_SIZE, Request
 
 # the dense backend's cache per slot: a 1024-token prompt and its new
@@ -71,6 +91,7 @@ def submit_app(cluster: Cluster, arch: str, *, backend: str = "paged",
                private_pool: bool = False, alias_kv: bool = True,
                prefix_cache: bool = False, replicas: int = 1,
                chunk_pages: Optional[int] = None,
+               scale: Optional[ScalePolicy] = None,
                name: Optional[str] = None):
     """Submit one serving application of ``arch`` to ``cluster`` at the
     traffic's decode shape (:func:`serve_shape`); returns its handle,
@@ -79,7 +100,8 @@ def submit_app(cluster: Cluster, arch: str, *, backend: str = "paged",
                         cache_len=DENSE_CACHE_LEN, pool_pages=pool_pages,
                         policy=policy, private_pool=private_pool,
                         alias_kv=alias_kv, prefix_cache=prefix_cache,
-                        replicas=replicas, chunk_pages=chunk_pages)
+                        replicas=replicas, chunk_pages=chunk_pages,
+                        scale=scale)
     handle = cluster.submit(Application.serve(
         arch, shape=serve_shape(backend, max_batch, pool_pages),
         reduced=reduced, name=name, serve=opts))
@@ -123,7 +145,9 @@ def serve(arch: str = "tinyllama-1.1b", *, backend: str = "paged",
           max_new: int = 32, seed: int = 0, policy: str = "history",
           private_pool: bool = False, alias_kv: bool = True,
           prefix_cache: bool = False, replicas: int = 1,
-          shared_prefix: int = 0,
+          shared_prefix: int = 0, autoscale: bool = False,
+          max_replicas: Optional[int] = None, trace: Optional[str] = None,
+          metrics_dump: bool = False, metrics_port: Optional[int] = None,
           verbose: bool = True, history_dir: Optional[str] = None,
           executor: Optional[TorchExecutor] = None) -> Dict[str, Any]:
     """Serve ``requests`` requests (:func:`synth_requests`) on ``backend``
@@ -134,19 +158,32 @@ def serve(arch: str = "tinyllama-1.1b", *, backend: str = "paged",
     when None, in memory for this call only.  ``executor`` binds the
     application (default: a ``TorchExecutor`` on ``device`` from
     ``seed``; one whose ``init_params`` returns weights already on the
-    card serves them again, and its device wins).  Returns the engine
-    stats, the serving stats view's cumulative dict, the pool, the
-    runner, the completed requests, the device and the plan."""
+    card serves them again, and its device wins).  ``autoscale``,
+    ``max_replicas``, ``trace``, ``metrics_dump`` and ``metrics_port``
+    are the flags of the module docstring.  Returns the engine stats,
+    the serving stats view's cumulative dict, the pool, the runner, the
+    completed requests, the device and the plan, and with ``autoscale``
+    what the control plane did (:func:`_two_bursts`)."""
+    tracer = obs.enable() if trace else None
+    if metrics_dump or metrics_port is not None:
+        obs.enable_metrics()
+    metrics_srv = None
+    if metrics_port is not None:
+        metrics_srv = obs.serve_metrics(port=metrics_port)
+        if verbose:
+            print(f"[metrics] http://127.0.0.1:{metrics_srv.port}/metrics")
     executor = executor or TorchExecutor(device=device, seed=seed)
     dev = executor.device
     history = HistoryStore(history_dir)
     cluster = Cluster(pods=1, mesh=H100, history=history,
                       executor=executor)
+    scale = (ScalePolicy(min_replicas=1, max_replicas=max_replicas)
+             if max_replicas is not None else None)
     handle = submit_app(cluster, arch, backend=backend, reduced=reduced,
                         max_batch=max_batch, pool_pages=pool_pages,
                         policy=policy, private_pool=private_pool,
                         alias_kv=alias_kv, prefix_cache=prefix_cache,
-                        replicas=replicas)
+                        replicas=replicas, scale=scale)
     if verbose:
         print(f"[placed] {handle.app.name} {handle.app.shape.name} "
               f"pod={handle.pod} demand="
@@ -155,12 +192,22 @@ def serve(arch: str = "tinyllama-1.1b", *, backend: str = "paged",
     reqs = synth_requests(requests, handle.app.config.vocab_size,
                           prompt_range=prompt_range, max_new=max_new,
                           seed=seed, shared_prefix=shared_prefix)
-    for r in reqs:
-        handle.submit_request(r)
-    handle.run()
+    auto = None
+    if autoscale:
+        auto = _two_bursts(cluster, handle, reqs, verbose)
+    else:
+        for r in reqs:
+            handle.submit_request(r)
+        handle.run()
     stats, pool, runner = handle.engine.stats, handle.engine.pool, \
         handle.runner
     view = handle.stats_view.cumulative()
+    if verbose and (replicas > 1 or max_replicas is not None):
+        rstats = view.get("router", {})
+        print(f"[router] replicas={handle.num_replicas} "
+              f"dispatched={rstats.get('dispatched', 0)} "
+              f"added={rstats.get('replicas_added', 0)} "
+              f"removed={rstats.get('replicas_removed', 0)}")
     if verbose:
         print(f"[done] completed={view['completed']} "
               f"tokens={view['tokens_generated']} "
@@ -179,11 +226,80 @@ def serve(arch: str = "tinyllama-1.1b", *, backend: str = "paged",
                   f"{view['prefill_pages_computed']}")
         sz = pool.sizing()
         print(f"[sizing/{policy}] init={sz.init:.0f} step={sz.step:.0f}")
+    n_events = None
+    if tracer is not None:
+        meta = {"arch": arch, "backend": backend, "requests": requests}
+        if trace.endswith(".jsonl"):
+            n_events = obs.write_jsonl(tracer, trace)
+        else:
+            n_events = obs.write_chrome_trace(tracer, trace,
+                                              extra_meta=meta)
+        if verbose:
+            print(f"[trace] {n_events} events -> {trace} "
+                  f"(dropped={tracer.dropped}; summarize: "
+                  f"python -m repro_torch.obs {trace})")
+        obs.disable()
+    if metrics_dump and verbose:
+        print("[metrics]")
+        print(obs.current_metrics().render(), end="")
+    if metrics_srv is not None:
+        metrics_srv.stop()
+    if metrics_dump or metrics_port is not None:
+        obs.disable_metrics()
     plan = handle.plan
     handle.release()
     history.save()
     return {"stats": stats, "view": view, "pool": pool, "runner": runner,
-            "requests": reqs, "device": dev, "plan": plan}
+            "requests": reqs, "device": dev, "plan": plan,
+            "autoscale": auto, "trace_events": n_events}
+
+
+def device_bytes(device) -> Optional[int]:
+    """The bytes the live tensors on a CUDA ``device`` asked its allocator
+    for (after a synchronize); None for the CPU."""
+    import torch
+    if device is None or device.type != "cuda":
+        return None
+    torch.cuda.synchronize(device)
+    return torch.cuda.memory_stats(device)["requested_bytes.all.current"]
+
+
+def _two_bursts(cluster: Cluster, handle, reqs: List[Request],
+                verbose: bool) -> Dict[str, Any]:
+    """The ``--autoscale`` traffic: the first half of ``reqs``, 6 idle
+    ticks of an injected clock (now = 0..5 s) with ``idle_park_s=3.0``,
+    then the second half, which unparks the app transparently.  Returns
+    the park receipt, the app's device footprint while parked, and on
+    CUDA the device's bytes in use (:func:`device_bytes`) just before
+    the idle ticks and while parked."""
+    dev = cluster.executor.device
+    ctl = cluster.enable_autoscale(idle_park_s=3.0, confirm_ticks=1)
+    half = max(len(reqs) // 2, 1)
+    for r in reqs[:half]:
+        handle.submit_request(r)
+    handle.run()
+    before = device_bytes(dev)
+    for t in range(6):              # idle ticks: the parker fires
+        cluster.tick(now=float(t))
+    parks = [a for a in ctl.log if a["action"] == "park"]
+    out = {"park": parks[-1] if parks else None,
+           "parked": handle.parked, "before_park_bytes": before,
+           "parked_bytes": device_bytes(dev),
+           "parked_footprint": cluster.executor.footprint(handle),
+           "pod_free_parked": cluster.capacity()[handle.pod]["free_bytes"]}
+    if verbose:
+        if parks:
+            print(f"[autoscale] parked after idle: "
+                  f"freed_pages={parks[-1]['freed_pages']} "
+                  f"freed_bytes={parks[-1]['freed_bytes']}")
+        print(f"[autoscale] parked={handle.parked} "
+              f"pod_free={out['pod_free_parked']}")
+    for r in reqs[half:]:           # burst 2: transparent unpark
+        handle.submit_request(r)
+    if verbose:
+        print(f"[autoscale] unparked on submit: parked={handle.parked}")
+    handle.run()
+    return out
 
 
 def main(argv=None):
@@ -226,6 +342,26 @@ def main(argv=None):
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="give every synthetic prompt the same first N "
                          "tokens (a common system prompt)")
+    ap.add_argument("--max-replicas", type=int, default=None,
+                    help="let the autoscale control plane move the "
+                         "replica count up to this bound "
+                         "(target-tracking on windowed queue depth)")
+    ap.add_argument("--autoscale", action="store_true",
+                    help="drive the autoscale control plane: two bursts "
+                         "with an idle gap; the app is parked between "
+                         "them and transparently unparked")
+    ap.add_argument("--trace", metavar="PATH", default=None,
+                    help="record the request-lifecycle trace and write "
+                         "it here: .jsonl -> one event per line, anything "
+                         "else -> Chrome/Perfetto trace JSON (summarize "
+                         "with `python -m repro_torch.obs PATH`)")
+    ap.add_argument("--metrics-dump", action="store_true",
+                    help="record latency histograms and print the "
+                         "Prometheus text exposition at the end")
+    ap.add_argument("--metrics-port", type=int, default=None,
+                    help="stream Prometheus metrics on this port for the "
+                         "run's duration (0 = ephemeral; implies metrics "
+                         "recording)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.prefix_cache and args.backend != "paged":
@@ -238,7 +374,10 @@ def main(argv=None):
           max_new=args.max_new, seed=args.seed, policy=args.policy,
           private_pool=args.private_pool, alias_kv=not args.no_alias_kv,
           prefix_cache=args.prefix_cache, replicas=args.replicas,
-          shared_prefix=args.shared_prefix, history_dir=args.history_dir)
+          shared_prefix=args.shared_prefix, autoscale=args.autoscale,
+          max_replicas=args.max_replicas, trace=args.trace,
+          metrics_dump=args.metrics_dump, metrics_port=args.metrics_port,
+          history_dir=args.history_dir)
 
 
 if __name__ == "__main__":

@@ -27,8 +27,8 @@ Overhead discipline on every instrumented hot path:
   the drops (``tracer.dropped``), so a week-long serving process can
   leave tracing on.
 
-Event model (Chrome ``trace_event``-shaped; the reference's
-``repro/obs/export.py`` writes it out and is not ported yet):
+Event model (Chrome ``trace_event``-shaped, see
+``repro_torch.obs.export``):
 
 ``(ts, dur, ph, cat, name, scope, args)`` where ``ph`` is ``"i"``
 (instant) or ``"X"`` (complete span, ``dur`` seconds), ``cat`` is the

@@ -8,6 +8,9 @@ The lifecycle (paper §4-§5)::
     handle  = cluster.submit(app)     # size -> place -> materialize -> bind
     handle.run(steps)                 # execute (train loop / serving engine)
     handle.scale_up(bytes)            # runtime data-component growth
+    handle.park()                     # idle reclamation (KV and weights
+                                      #   -> host, pages + bytes released)
+    cluster.tick()                    # autoscale reconcile round
     handle.release()                  # free placement, restore capacity
 
 ``submit`` performs the platform's side of the resource-centric contract:
@@ -28,10 +31,11 @@ handle binds lazily on its first step.
 
 Each pod has one shared KV page pool (``pod_pool``, created lazily and
 sized by ``pool_pages`` or its first tenant), which serve apps draw
-from through views unless they ask for a private pool.  Not in this port
-yet, each raising ``NotImplementedError`` with the queue item that
-brings it: the autoscale control plane (``enable_autoscale``) and idle
-parking (``park``/``unpark``), both queue item A6's second part.
+from through views unless they ask for a private pool.  The autoscale
+control plane (``repro_torch.autoscale``) is opt-in through
+``enable_autoscale`` and driven by ``tick``; a parked serve app
+(``park``) is unparked transparently by its next ``submit_request`` or
+``run``.
 """
 
 from __future__ import annotations
@@ -55,10 +59,6 @@ if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.serving.router import RequestRouter
     from repro_torch.serving.stats import StatsView
     from repro_torch.serving.tenancy import SharedPagePool
-
-AUTOSCALE_LATER = ("the autoscale control plane (enable_autoscale, park, "
-                   "unpark) comes with queue item A6 of the port (its "
-                   "autoscale and parking part)")
 
 GB = 1 << 30
 SIZING_QUANTUM = 64 << 20          # 64 MiB allocation granularity
@@ -106,7 +106,9 @@ class AppHandle:
 
     @property
     def num_replicas(self) -> int:
-        """Live replica count."""
+        """Live replica count (0 while parked: park scales to zero)."""
+        if self.parked:
+            return 0
         rset = self.replica_set
         if rset is None:
             return 1 if self.engine is not None else 0
@@ -119,6 +121,9 @@ class AppHandle:
         if rset is None:
             raise RuntimeError(f"{self.app.name}: no replica set "
                                "(serve applications only)")
+        if self.parked:
+            raise RuntimeError(f"{self.app.name}: unpark before scaling "
+                               "out (a parked app has zero replicas)")
         return rset.add_replica()
 
     def remove_replica(self) -> Dict:
@@ -148,6 +153,16 @@ class AppHandle:
         from repro_torch.serving.stats import StatsView
         return StatsView(self)
 
+    def serving_stats(self, since: Optional[Dict] = None) -> Dict:
+        """The controller's read of :attr:`stats_view`:
+        ``serving_stats()`` is ``stats_view.cumulative()`` (a valid window
+        marker), ``serving_stats(since=marker)`` is
+        ``stats_view.windowed(marker)``."""
+        view = self.stats_view
+        if since is None:
+            return view.cumulative()
+        return view.windowed(since)
+
     def _ensure_bound(self) -> None:
         if self.job.state != "running":
             raise RuntimeError(
@@ -161,8 +176,13 @@ class AppHandle:
 
     # -- execution ----------------------------------------------------------
     def step(self) -> Dict:
-        """One unit of progress: a train step or one engine iteration."""
+        """One unit of progress: a train step or one engine iteration.
+        A parked serve app makes no progress (park drained it); submit a
+        request or call ``unpark()`` to resume."""
         self._ensure_bound()
+        if self.app.kind == "serve" and self.parked:
+            return {"alive": False, "stats": self.engine.stats,
+                    "parked": True}
         if self.app.kind == "train":
             # perf_counter, NOT time.time(): the serving engine stamps
             # submitted_at/TTFT with perf_counter, and trace timestamps
@@ -203,6 +223,8 @@ class AppHandle:
                     "loss_first": losses[0] if losses else None,
                     "loss_last": losses[-1] if losses else None,
                     "straggled": len(self.watchdog.flags)}
+        if self.parked:
+            self.unpark()
         rset = self.replica_set
         if rset is None or rset.router is None:
             stats = self.engine.run_to_completion(max_steps=max_steps)
@@ -225,8 +247,12 @@ class AppHandle:
         return agg.as_dict()
 
     def submit_request(self, req: Request) -> None:
-        """Enqueue one serving request."""
+        """Enqueue one serving request; a parked application is
+        transparently unparked first (the paper's warm restart: the
+        request lands on a live engine with its KV state restored)."""
         self._ensure_bound()
+        if self.parked:
+            self.unpark()
         rset = self.replica_set
         if rset is not None and rset.router is not None:
             rset.router.submit(self.app.name, req)
@@ -241,20 +267,23 @@ class AppHandle:
     def scale_down(self, release_bytes: int) -> int:
         return self.cluster.scheduler.scale_down(self.job, int(release_bytes))
 
-    # -- idle parking (the reference's repro/autoscale) -----------------------
+    # -- idle parking (repro_torch.autoscale) ---------------------------------
     @property
     def parked(self) -> bool:
-        """Always False until idle parking is ported (A6)."""
-        return False
+        return self.exec_state.get("parked") is not None
 
     def park(self) -> Dict:
-        """Idle reclamation: queue item A6 of the port."""
-        raise NotImplementedError(AUTOSCALE_LATER)
+        """Reclaim this idle serve app's resources: weights and KV to the
+        host (checkpointer array format), pool pages and scheduler bytes
+        released.  Returns the reclamation receipt."""
+        from repro_torch.autoscale.parking import park_app
+        return park_app(self)
 
     def unpark(self) -> Dict:
-        """Warm restart from a parked snapshot: queue item A6 of the
-        port."""
-        raise NotImplementedError(AUTOSCALE_LATER)
+        """Warm restart from a parked snapshot (also triggered
+        implicitly by ``submit_request``/``run``)."""
+        from repro_torch.autoscale.parking import unpark_app
+        return unpark_app(self)
 
     # -- materialization feedback / recovery --------------------------------
     def _rebind(self) -> None:
@@ -326,6 +355,9 @@ class Cluster:
         self._pod_pools: Dict[str, "SharedPagePool"] = {}
         # per-pod front-end request routers, created lazily
         self._routers: Dict[str, "RequestRouter"] = {}
+        # the autoscale control plane (repro_torch.autoscale); opt-in via
+        # enable_autoscale(), driven by tick()
+        self.autoscaler = None
 
     def pod_pool(self, pod: str, *, default_pages: int = 256
                  ) -> "SharedPagePool":
@@ -352,15 +384,42 @@ class Cluster:
             self._routers[pod] = rt
         return rt
 
-    # -- the control plane (the reference's repro/autoscale) ------------------
-    def enable_autoscale(self, **controller_kw):
-        """The autoscale control plane: queue item A6 of the port."""
-        raise NotImplementedError(AUTOSCALE_LATER)
+    # -- the control plane (repro_torch.autoscale) ---------------------------
+    def enable_autoscale(self, *, ttft_target_s: Optional[float] = None,
+                         denial_target_per_s: float = 0.5,
+                         idle_park_s: float = 60.0, **controller_kw):
+        """Turn on the autoscale control plane.  Every serve application
+        (already running or submitted later) is attached with the stock
+        policy chain -- idle parking, target tracking on TTFT/denial-rate,
+        and pod-level quota rebalancing -- unless ``make_policies``
+        overrides it.  Drive it with ``tick()``."""
+        from repro_torch.autoscale.controller import AutoscaleController
+        from repro_torch.autoscale.policy import default_policies
+        if "make_policies" not in controller_kw:
+            def _mk(handle=None):
+                # per-app chain: a ScalePolicy on the app's ServeOptions
+                # adds replica/batch scalers + predictive unpark
+                scale = None
+                if handle is not None and handle.app.serve_options is not None:
+                    scale = handle.app.serve_options.scale
+                return default_policies(
+                    ttft_target_s=ttft_target_s,
+                    denial_target_per_s=denial_target_per_s,
+                    idle_park_s=idle_park_s,
+                    scale=scale)
+            controller_kw["make_policies"] = _mk
+        self.autoscaler = AutoscaleController(self, **controller_kw)
+        for h in self.handles.values():
+            self.autoscaler.attach(h)
+        return self.autoscaler
 
     def tick(self, now: Optional[float] = None) -> List[Dict]:
-        """One control-plane reconcile round: a no-op until the autoscale
-        control plane is ported (``enable_autoscale``)."""
-        return []
+        """One control-plane reconcile round (no-op until
+        ``enable_autoscale``).  ``now`` is injectable for event-driven
+        replay; defaults to the wall clock."""
+        if self.autoscaler is None:
+            return []
+        return self.autoscaler.tick(now)
 
     # -- sizing (paper §9.3) -------------------------------------------------
     def size(self, app: Application) -> Tuple[int, Optional[SizingSolution]]:
@@ -400,9 +459,13 @@ class Cluster:
                     self.scheduler.finish(job)
                     raise
         self.handles[job.job_id] = handle
+        if self.autoscaler is not None:
+            self.autoscaler.attach(handle)
         return handle
 
     def release(self, handle: AppHandle) -> None:
+        if self.autoscaler is not None:
+            self.autoscaler.detach(handle)
         if handle.job.state == "pending":
             self.scheduler.cancel(handle.job)
         elif handle.job.state == "running":

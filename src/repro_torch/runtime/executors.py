@@ -171,6 +171,9 @@ class TorchExecutor(Executor):
         self.resume = resume
         self.opt_cfg = opt_cfg
         self.cache = compile_cache or CompileCache()
+        # job ids of the apps bound on this executor's card: the
+        # allocator's peak is one app's only while it is alone there
+        self.bound_jobs: set = set()
 
     def ckpt_path(self, handle: "AppHandle") -> Optional[str]:
         """Per-application checkpoint namespace: one executor drives many
@@ -197,10 +200,11 @@ class TorchExecutor(Executor):
         if self.device.type == "cuda":
             import torch
             # the allocator's high-water mark from here on is this app's
-            # (with one application a card): ``footprint`` reads it
+            # while it is the card's only one: ``footprint`` reads it
             handle.exec_state["cuda_base"] = torch.cuda.memory_allocated(
                 self.device)
             torch.cuda.reset_peak_memory_stats(self.device)
+        self.bound_jobs.add(handle.job.job_id)
         if handle.app.kind == "train":
             self._bind_train(handle)
         else:
@@ -242,7 +246,13 @@ class TorchExecutor(Executor):
         """Bytes the app holds on its device: the distinct tensors it
         bound (weights, optimizer state, every replica's KV pages or
         dense cache) and, on CUDA, the allocator's peak since bind
-        (activations and temporaries included) when that is larger."""
+        (activations and temporaries included) when that is larger and
+        the app is the only one bound on the card -- with a co-tenant the
+        peak holds the co-tenant's allocations too, so only the tensors
+        count.  A parked app holds nothing: its weights and KV are on
+        the host, and a store it shares is its active co-tenants'."""
+        if handle.parked:
+            return 0
         st = handle.exec_state
         trees = [st.get("params"), st.get("opt_state")]
         rset = st.get("replicas")
@@ -251,7 +261,7 @@ class TorchExecutor(Executor):
             trees += [rep.runner.params, getattr(rep.runner, "cache", None),
                       store and (store.k_pages, store.v_pages)]
         held = _tensor_bytes(trees)
-        if "cuda_base" in st:
+        if "cuda_base" in st and self.bound_jobs == {handle.job.job_id}:
             import torch
             held = max(held, torch.cuda.max_memory_allocated(self.device)
                        - st["cuda_base"])
@@ -262,7 +272,9 @@ class TorchExecutor(Executor):
         the app's ``footprint`` and keep it as the job's high-water mark,
         which the scheduler records in the sizing history when the job
         finishes: the next submission is sized from what the app held on
-        the card, not from the estimate it was placed with."""
+        the card, not from the estimate it was placed with.  A parked app
+        holds nothing, so its grant (the scheduler's park reservation,
+        which its unpark reacquires exactly) is left as it is."""
         from repro_torch.runtime.cluster import SIZING_QUANTUM
         held = self.footprint(handle)
         handle.job.peak_bytes = max(handle.job.peak_bytes, held)
@@ -407,6 +419,7 @@ class TorchExecutor(Executor):
         if ck is not None:
             ck.wait()
         super().release(handle)
+        self.bound_jobs.discard(handle.job.job_id)
 
 
 def _tensor_bytes(trees) -> int:

@@ -10,14 +10,13 @@ bad choice.
 ``ScalePolicy`` declares the *platform-owned* scaling dimensions for
 one app -- replica count and continuous-batch width -- plus the
 predictive-unpark knob.  The app states bounds and targets; the
-autoscale control plane (the reference's ``repro/autoscale``, not ported
-yet) moves within them.
+autoscale control plane (``repro_torch.autoscale``, enabled by
+``Cluster.enable_autoscale``) moves within them.
 
 The port serves every field: the pod-shared pool with aliased KV and the
-prefix cache, replicas, rings.  A ``scale`` policy's batch ceiling sizes
-the runners; the controller that would move within its bounds is not
-ported (``Cluster.enable_autoscale`` refuses, naming its queue item).
-The options stay the reference's, field for field.
+prefix cache, replicas, rings, and a ``scale`` policy, whose batch
+ceiling also sizes the runners.  The options stay the reference's, field
+for field.
 """
 
 from dataclasses import dataclass

@@ -314,7 +314,10 @@ class ServingEngine:
 
     def shutdown(self) -> None:
         """Release every held page and detach from a shared pool (called on
-        application release so co-tenants get the pages back)."""
+        application release, and on a replica's removal, so co-tenants
+        get the pages back).  The runner is let go too: it and the engine
+        refer to each other, and without this its weights and cache on
+        the card would wait for the cycle collector."""
         for req in list(self.running):
             self.pool.release(req)
         self.running.clear()
@@ -322,3 +325,5 @@ class ServingEngine:
         close = getattr(self.pool, "close", None)
         if close is not None:
             close()
+        self.runner = None
+        self.step_fns = None

@@ -56,8 +56,14 @@ on it: prompts are never padded, and decode runs the whole slot batch at
 one shared position.  A sliding-window layer's dense cache is a ring of
 ``min(cache_len, window)`` slots.
 
-Idle parking (park/unpark of a runner's state) comes with a later
-slice.
+Idle parking (``autoscale/parking.py``): ``park`` snapshots a runner's
+decode state and weights to the host in the checkpointer's array format
+(bf16 as its uint16 bits beside its logical dtype) and drops the device
+copies -- the dense runner its whole cache too, the paged runner each
+drained request's private pages, and the store's page tensors when no
+active co-tenant still decodes through them -- so the card's memory
+really comes back; ``unpark`` rebuilds them on the runner's own device
+and writes each restored request's KV into its fresh grants.
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.checkpoint.checkpointer import _from_saved, _to_savable
 from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
 from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import attention as attn
@@ -178,6 +185,52 @@ def _next_pow2(n: int) -> int:
     return 1 << max(n - 1, 0).bit_length()
 
 
+class _Leaf:
+    """A tensor's place in a host snapshot's skeleton."""
+
+    __slots__ = ("index",)
+
+    def __init__(self, index: int):
+        self.index = index
+
+
+def tree_to_host(tree) -> Tuple[list, object]:
+    """Host snapshot of a tree of tensors (nested dicts, lists, tuples):
+    its leaves in the checkpointer's array format, each ``(numpy array,
+    logical dtype)`` with bf16 as its uint16 bits, and the tree's
+    skeleton with each tensor's place marked."""
+    leaves: list = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            leaves.append(_to_savable(x))
+            return _Leaf(len(leaves) - 1)
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(v) for v in x)
+        return x
+
+    skeleton = walk(tree)
+    return leaves, skeleton
+
+
+def tree_from_host(saved: Tuple[list, object], device: torch.device):
+    """The tree of :func:`tree_to_host` on ``device``, bit-equal."""
+    leaves, skeleton = saved
+
+    def walk(x):
+        if isinstance(x, _Leaf):
+            return _from_saved(*leaves[x.index]).to(device)
+        if isinstance(x, dict):
+            return {k: walk(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(walk(v) for v in x)
+        return x
+
+    return walk(skeleton)
+
+
 class ModelRunner:
     """Backend interface the engine's step functions are bound to."""
 
@@ -206,6 +259,38 @@ class ModelRunner:
         toks = self.generated.pop(req.req_id, None)
         if toks is not None:
             req.output_tokens = toks
+
+    # -- idle parking (autoscale/parking.py) ---------------------------------
+    def _release_device_memory(self) -> None:
+        """Hand the allocator's cached blocks back to the card, so the
+        bytes a park dropped are free for other processes too."""
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+
+    def park(self, drained: List[Tuple[Request, Tuple[List[int],
+                                                      List[int]]]]) -> Dict:
+        """Snapshot the decode state and the weights to the host
+        (:func:`tree_to_host`) and drop the device copies, so a parked
+        app's device memory really comes back: the scheduler hands back
+        every byte of the job, which must not leave weights resident.
+        ``drained`` is the engine's ``drain()`` output: (request, (global
+        page ids, local ring page ids) it held), physical ids whose page
+        contents are still intact on the card."""
+        state = {"generated": {k: list(v)
+                               for k, v in self.generated.items()}}
+        if getattr(self, "params", None) is not None:
+            state["params"] = tree_to_host(self.params)
+            self.params = None
+        return state
+
+    def unpark(self, state: Dict, restored: List[Request]) -> None:
+        """Rebuild the device state of a ``park`` snapshot on the runner's
+        own device.  ``restored`` are the drained requests that got their
+        pages again (fresh ids in ``req.pages``); the caller requeues the
+        rest, which prefill again from scratch."""
+        if "params" in state:
+            self.params = tree_from_host(state["params"], self.device)
+        self.generated = {k: list(v) for k, v in state["generated"].items()}
 
     # -- replica migration (serving/router.py) -------------------------------
     #: replicas sharing one set of page tensors can hand running requests
@@ -313,6 +398,21 @@ class DenseRunner(ModelRunner):
         super().finish(req)
         self.slots.pop(req.req_id, None)
 
+    def park(self, drained):
+        """The dense cache is one tree of per-slot tensors: snapshot every
+        one to the host with the weights, and drop the device copies."""
+        state = super().park(drained)
+        state["cache"] = tree_to_host(self.cache)
+        state["slots"] = dict(self.slots)
+        self.cache = None
+        self._release_device_memory()
+        return state
+
+    def unpark(self, state, restored):
+        super().unpark(state, restored)
+        self.cache = tree_from_host(state["cache"], self.device)
+        self.slots = dict(state["slots"])
+
 
 class PagedRunner(ModelRunner):
     """KV in pool pages; prefill through the flash-attention kernel and
@@ -379,6 +479,7 @@ class PagedRunner(ModelRunner):
         self.shared_kv = kv_store is not None
         self.store = (kv_store if kv_store is not None
                       else KVArrayStore(key, self.device))
+        self.store.ensure_arrays()      # a store dropped by parking revives
         # forwards over prompt chunks (a native prefill is one chunk)
         self.prefill_chunks = 0
         # prefill work actually computed, in pages (the prefix cache's
@@ -774,6 +875,47 @@ class PagedRunner(ModelRunner):
         for i, req in enumerate(running):
             self.generated[req.req_id].append(nxt[i])
 
+    # -- parking ---------------------------------------------------------------
+    def park(self, drained):
+        """Snapshot the weights and ONLY the view's pages: each drained
+        request's private KV goes to the host per layer group
+        (:meth:`_gather_drained`, then the checkpointer's array format).
+        The per-layer views of the weights (``self.layers``) go with the
+        weights.  The store's page tensors are dropped only when no
+        co-tenant still decodes through them: a PARKED co-tenant does not
+        count (its KV is on the host already, and unpark revives the
+        tensors), so the last active user of the store to park takes its
+        device memory with it; an aliased tenant's reclamation otherwise
+        IS its pages returning to the pod's free list."""
+        state = super().park(drained)
+        self.layers = None
+        state["kv"] = tree_to_host(self._gather_drained(drained))
+        pool = self.engine.pool if self.engine is not None else None
+        own = getattr(pool, "app", None)
+        views = getattr(getattr(pool, "shared", None), "views", {})
+        sole = all(getattr(views.get(u), "parked", False)
+                   for u in self.store.users if u != own)
+        if sole:
+            # cached prefix pages live inside these tensors: flush them
+            # (every pin was dropped when the tenants' requests were
+            # reclaimed) so the index does not outlive the content
+            shared = getattr(pool, "shared", None)
+            if shared is not None:
+                shared.flush_prefix_caches(self.store.key)
+            elif self.prefix is not None:
+                self.prefix.flush()
+            self.store.drop_arrays()
+        state["arrays_dropped"] = sole
+        self._release_device_memory()
+        return state
+
+    def unpark(self, state, restored):
+        super().unpark(state, restored)
+        self.layers = layer_params(self.params, self.cfg)
+        self.store.ensure_arrays()      # a no-op when co-tenants kept them
+        self._scatter_restored(tree_from_host(state["kv"], self.device),
+                               restored)
+
     # -- replica migration ----------------------------------------------------
     can_migrate = True
 
@@ -790,8 +932,8 @@ class PagedRunner(ModelRunner):
         device for the growing tables and one for the rings.  ``drained``
         carries the physical ids ``reclaim`` translated before freeing
         them; the copies are taken before any of them is granted again.
-        (The reference gathers to host, in the checkpointer's format, for
-        parking as well; a migration keeps them on the card.)"""
+        A migration keeps them on the card; ``park`` takes them to the
+        host."""
         table_layers, ring_layers = self._layer_split()
 
         def gather(layers, ids):

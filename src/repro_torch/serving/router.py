@@ -67,8 +67,9 @@ class ReplicaSet:
     """The data plane of one app: N engine replicas behind the router.
 
     ``build`` is an executor-provided factory ``(idx) -> Replica``; the
-    set owns replica lifecycle (add / drain-and-remove / batch width), so
-    an autoscale controller (a later slice) stays pure control plane.
+    set owns replica lifecycle (add / drain-and-remove / batch width)
+    while the :class:`~repro_torch.autoscale.controller.AutoscaleController`
+    stays pure control plane.
     """
 
     def __init__(self, app: str, build: Callable[[int], Replica], *,

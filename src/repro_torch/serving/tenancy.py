@@ -265,7 +265,7 @@ class PoolView(PagePool):
         self.used = 0
         self._used_local = 0
         self.engine = None              # set by ServingEngine.attach
-        self.parked = False             # set by idle parking (not ported)
+        self.parked = False             # set by autoscale/parking.py
         self.free = []                  # unused: physical list is shared
         self._denial_cause = "physical"
         # view-local id space: requests see small stable ids, the view
@@ -492,8 +492,13 @@ class PoolView(PagePool):
                 self.shared.flush_prefix_caches(st.key)
                 self.shared.kv_stores.pop(st.key, None)
                 st.drop_arrays()
-            # (the reference also drops the tensors when every remaining
-            # user is parked; parking is not ported, so none is)
+            elif all(getattr(self.shared.views.get(u), "parked", False)
+                     for u in st.users):
+                # every remaining tenant is parked (KV on host): the
+                # store stays registered for their unpark to revive, but
+                # its device memory must not sit idle meanwhile
+                self.shared.flush_prefix_caches(st.key)
+                st.drop_arrays()
             self.kv_store = None
         self.shared.views.pop(self.app, None)
 

@@ -1,10 +1,12 @@
 """Import and device hygiene of the port.
 
 The port (``src/repro_torch``, its serving modules ``prefix_cache`` and
-``tenancy`` among them) and ``chip_smoke.py`` import nothing of JAX and
-nothing of the JAX package; the port imports, serves (on the pod-shared
-pool, with the prefix cache too) and trains through ``Cluster.submit``
-with JAX absent; its entry points run on CUDA unless the CPU is asked for, and
+``tenancy`` and its autoscale and observability modules among them) and
+``chip_smoke.py`` import nothing of JAX and nothing of the JAX package;
+the port imports, serves (on the pod-shared pool, with the prefix cache
+too, and parked and unparked by its controller with a trace written and
+summarized) and trains through ``Cluster.submit`` with JAX absent; its
+entry points run on CUDA unless the CPU is asked for, and
 raise when there is no CUDA device instead of carrying on on the CPU.
 """
 
@@ -37,7 +39,11 @@ def _imported_modules(path: Path):
 def test_port_imports_neither_jax_nor_the_reference():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
-    for module in ("serving/prefix_cache.py", "serving/tenancy.py"):
+    for module in ("serving/prefix_cache.py", "serving/tenancy.py",
+                   "serving/serve_step.py", "autoscale/controller.py",
+                   "autoscale/policy.py", "autoscale/parking.py",
+                   "obs/export.py", "obs/summary.py", "obs/http.py",
+                   "obs/__main__.py", "runtime/simulate.py"):
         assert PORT / module in files
     bad = [(f.relative_to(ROOT), m) for f in files
            for m in _imported_modules(f)
@@ -64,6 +70,27 @@ def test_port_imports_and_serves_with_jax_absent():
                               "PATH": "/usr/bin:/bin"},
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_port_parks_and_traces_with_jax_absent(tmp_path):
+    trace = tmp_path / "t.json"
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "from repro_torch.launch.serve import serve\n"
+            "from repro_torch.obs.__main__ import main\n"
+            "out = serve(reduced=True, device='cpu', requests=2, "
+            "max_batch=2, prompt_range=(20, 140), max_new=2, verbose=False,"
+            f" autoscale=True, trace={str(trace)!r})\n"
+            "assert out['autoscale']['parked'] and out['view']['completed'] "
+            "== 2\n"
+            "assert main([" f"{str(trace)!r}" "]) == 0\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "== autoscale decisions ==" in res.stdout
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):

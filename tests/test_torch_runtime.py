@@ -11,8 +11,10 @@ weights and explicit prompts gives EQUAL greedy tokens, a second
 submission is sized from the first one's history exactly as the
 reference sizes it, and reduced training gives losses within 1e-3
 relative.  The options the port once refused (the pod-shared pool, KV
-aliasing, the prefix cache) serve like the reference's; what it still
-does not bring raises ``NotImplementedError`` naming its queue item.
+aliasing, the prefix cache) serve like the reference's, and its control
+plane (``enable_autoscale``, ``tick``, parking) works like the
+reference's; what it still does not bring (plans on more than one card)
+raises ``NotImplementedError`` naming its queue item.
 """
 
 import dataclasses
@@ -572,26 +574,46 @@ def test_serve_refusals_name_their_queue_item(executor, kw, item):
 
 
 def test_control_plane_refusals_name_their_queue_item():
-    """``pod_pool`` returns the pod's shared pool now (sized by the
-    cluster's ``pool_pages``, as the reference's); the autoscale control
-    plane and parking still raise, naming their queue item."""
-    c = Cluster(pods=1, executor=NullExecutor(), pool_pages=40)
-    jc = JaxCluster(pods=1, executor=JaxNull(), pool_pages=40)
-    pool, jpool = c.pod_pool("pod0"), jc.pod_pool("pod0")
-    assert pool is c.pod_pool("pod0")
-    assert (pool.num_pages, pool.used_pages, pool.views) == (
-        jpool.num_pages, jpool.used_pages, jpool.views) == (40, 0, {})
-    with pytest.raises(NotImplementedError, match="A6"):
-        c.enable_autoscale()
-    assert c.tick() == []
-    h = c.submit(Application.serve(
-        "tinyllama-1.1b", reduced=True,
-        serve=ServeOptions(private_pool=True, max_batch=2)))
-    for call in (h.park, h.unpark):
-        with pytest.raises(NotImplementedError, match="A6"):
-            call()
-    assert not h.parked
-    h.release()
+    """The control plane the port once refused (the autoscale controller
+    and parking, queue item A6) now works as the reference's: the pod's
+    shared pool (sized by the cluster's ``pool_pages``), ``tick`` before
+    and after ``enable_autoscale``, and a park/unpark of a private-pool
+    app mid-decode give the same pools, receipts (without ``parked_s``),
+    capacities and stats as the reference's."""
+    import repro.core.scheduler as jsched
+
+    def run(cluster_cls, pod_cls, app_cls, opts_cls, null, req_cls):
+        c = cluster_cls([pod_cls("pod0", 1, 80 * GB)], executor=null(),
+                        pool_pages=40)
+        pool = c.pod_pool("pod0")
+        assert pool is c.pod_pool("pod0")
+        out = [(pool.num_pages, pool.used_pages, pool.views), c.tick()]
+        ctl = c.enable_autoscale(idle_park_s=2.0)
+        assert c.autoscaler is ctl
+        h = c.submit(app_cls.serve(
+            "tinyllama-1.1b", reduced=True,
+            serve=opts_cls(private_pool=True, max_batch=2)))
+        h.submit_request(req_cls("r0", PAGE_SIZE + 9, 12))
+        h.step()
+        h.step()
+        park = h.park()
+        out += [h.parked, h.num_replicas, c.capacity(), park]
+        unpark = h.unpark()
+        unpark.pop("parked_s")
+        out += [h.parked, unpark, c.capacity(), c.tick(now=0.0)]
+        h.run(max_steps=500)
+        out.append(_untimed(h.stats_view.cumulative()))
+        h.release()
+        return out + [c.capacity(), c.tick(now=1.0)]
+
+    want = run(JaxCluster, jsched.PodState, JaxApp, JaxOpts, JaxNull,
+               JaxRequest)
+    got = run(Cluster, PodState, Application, ServeOptions, NullExecutor,
+              Request)
+    assert got == want
+    assert got[:4] == [(40, 0, {}), [], True, 0]
+    assert got[5]["drained_requests"] == 1
+    assert got[7]["restored_requests"] == 1
 
 
 def test_torch_executor_binds_one_card_only(monkeypatch):
