@@ -58,9 +58,12 @@ Phases, each of which must pass (any failure exits nonzero):
    per norm and microbatch); then one more step under ``torch.profiler``,
    which also gives K3's forward kernels and the device time under the
    norm's autograd node;
-6. parity: reduced tinyllama-1.1b trains 3 steps from the same weights on
-   the same batches on the card and on the CPU; losses, final params and
-   step-1 gradients must agree within ``TRAIN_*_RTOL``;
+6. parity: reduced tinyllama-1.1b (full remat), zamba2-2.7b (two
+   pattern blocks, so the shared attention block runs twice, under
+   ``remat="dots"``) and rwkv6-7b (full remat) each train 3 steps from
+   the same weights on the same batches on the card and on the CPU;
+   losses, final params and step-1 gradients must agree within
+   ``TRAIN_*_RTOL``;
 7. dense serve: full-width zamba2-2.7b (random weights from seed 0)
    serves 8 requests with prompts of 64..1024 tokens and 32 new tokens
    each through the dense backend (cache_len 2048), by ``launch.serve``
@@ -146,6 +149,25 @@ Phases, each of which must pass (any failure exits nonzero):
    on ring pages, 3 x 200 + 70, parked 3 times after 60 steps (its
    rings wrapped), tokens equal to a calm run's.  Each park's and
    unpark's wall time and host-transfer rate are printed.
+14. train zamba2: full-width zamba2-2.7b (54 layers: 9 x (5 Mamba-2 +
+   the shared attention block at head dim 80); random weights from seed
+   0) trains as phase 5 does -- sequence 4096, global batch 8, 4
+   microbatches, 4 AdamW steps through ``launch.train`` -- under
+   ``remat="dots"`` (each pattern block keeps its matmuls' outputs and
+   runs the rest, every kernel's forward with it, again in the
+   backward), with phase 5's gates: the ladder's own plan and estimate
+   beside the measured peak, which the job's grant must cover; finite,
+   falling losses; finite, nonzero step-1 gradients; K2, K5a/K5b at 80,
+   K3 and its backward (at 2560 and the Mamba-2 inner 5120) and K7
+   launched exactly as often as the path implies (the scan gradients are
+   PyTorch ops in ``SSDScan``'s backward); then the step time, tokens/s,
+   the model-FLOPs share (``model_flops``: matmuls and causal attention,
+   not the scans) and a profiled step: the busy share and the device
+   time of K7, the SSD backward, K5 and cuBLAS;
+15. train rwkv6: full-width rwkv6-7b (d 4096, 64 heads of 64) with 8 of
+   its 32 layers (the full depth does not fit one card) under full
+   remat, 4 microbatches, phase 14's gates and report; K6 (its gradient
+   in ``WKV``'s backward), K3 and its backward.
 
 Phase 2 also holds K1 and K2 at mistral-nemo-12b's head dim 128 (K1
 over 8 lanes of 1600..2012 tokens whose tables lead with the same 12
@@ -176,10 +198,22 @@ full width, where two launches must give bit-equal results and each
 CUDA kernel's time per call is printed; where ``cuobjdump`` is found,
 each of their bf16 kernels must show HMMA instructions.
 
+Phase 2 also holds K5a/K5b at zamba2-2.7b's training shape, q/k/v
+(2,32,4096,80) causal bf16 (two small head-dim-80 cases join
+``check_backward``'s), against the plain backward with bf16 and fp32
+operands, two launches bit-equal, timed beside SDPA's whole backward
+(the ``*_d80`` records, whose launches are phase 14's); and the
+``SSDScan``/``WKV`` Functions' gradients at (1,80,1000,64) /
+(1,64,1000,64) and at a ragged 333 tokens of batch 2 against autograd
+through the plain versions (``SCAN_GRAD_REL_NORM``), with the forward
+kernel's and the backward's time at the training shapes (2,80,4096,64)
+and (2,64,4096,64).
+
 A kernel's ``launches`` in the JSON record is its count over the serve
-(phases 3, 7, 8, 11, 12, 13) and train (phase 5) runs; K3's are also printed
-by shape class; the ``*_d256`` records count phase 11's runs only, the
-``*_d128`` records phase 12's mistral-nemo-12b runs only.
+(phases 3, 7, 8, 11, 12, 13) and train (phases 5, 14, 15) runs; K3's are
+also printed by shape class; the ``*_d256`` records count phase 11's runs
+only, the ``*_d128`` records phase 12's mistral-nemo-12b runs only, the
+``*_d80`` backward records phase 14's.
 ``ab_train`` (not run by ``main``) runs phase 5 and K3's timings
 for a second checkout and this one in turns on one card; ``ab_serve``
 does the same for phase 3's mean TTFT and decode step.  Those runs also fail if a
@@ -298,6 +332,12 @@ def main() -> None:
     launches.update(mistral_d128)
     for name, n in serve_park(torch).items():
         launches[name] = launches.get(name, 0) + n
+    zamba2 = train_zamba2_full(torch)
+    for name, n in list(zamba2.items()) + list(train_rwkv6_full(torch)
+                                               .items()):
+        launches[name] = launches.get(name, 0) + n
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        launches[f"{name}_d80"] = zamba2[name]
     for rec in records:
         rec["launches"] = launches.get(rec["name"])
     print(f"[launches] rmsnorm by shape class over the main paths: "
@@ -570,7 +610,9 @@ def check_kernels(torch):
     records[-1]["max_abs_err"] = max(errs + fwd_errs)
     records += bwd_records
     check_functions(torch, randn)
+    records += check_backward_d80(torch, randn, tol)
     records += check_dense_kernels(torch, randn, tol)
+    check_scan_grads(torch, randn)
     records += check_head_dim_256(torch, randn, tol)
     records += check_head_dim_128(torch, randn, tol)
     for rec in records:
@@ -1545,8 +1587,8 @@ def check_backward(torch, randn, tol):
         flash_attention_dkv_ref, flash_attention_dq_ref, flash_attention_fwd,
         flash_attention_fwd_ref)
     bf16, f32 = torch.bfloat16, torch.float32
-    # the forward at six head dims, the backward's dQ and dK/dV at four
-    tensor_core_sass({"flash_attention_fwd": 6, "flash_attention_bwd": 8})
+    # the forward at six head dims, the backward's dQ and dK/dV at five
+    tensor_core_sass({"flash_attention_fwd": 6, "flash_attention_bwd": 10})
     cases = [
         ("small causal ragged GQA b=2 h=4/2 s=200 d=64", 2, 4, 2, 200, 200,
          64, True, 0, 0, bf16),
@@ -1558,6 +1600,11 @@ def check_backward(torch, randn, tol):
          100, 0, bf16),
         ("d=128 q_offset=64 h=4/2 sq=128 sk=192", 1, 4, 2, 128, 192, 128,
          True, 0, 64, bf16),
+        # zamba2-2.7b's head dim: 5 k-steps of 16, 32-row loop tiles
+        ("d=80 fp32 windowed=50 ragged h=4/2 s=150", 1, 4, 2, 150, 150, 80,
+         True, 50, 0, f32),
+        ("d=80 causal ragged b=2 h=4/4 s=200", 2, 4, 4, 200, 200, 80, True,
+         0, 0, bf16),
         # q and dO rows 4 elements apart from 16-byte alignment: the
         # wrappers copy them for the kernels' cp.async
         ("d=32 non-causal GQA sq=100 sk=300 h=4/1 unaligned q/dO", 1, 4, 1,
@@ -1790,6 +1837,176 @@ def check_functions(torch, randn):
                      want[1], RMS_DGAIN_REL_NORM)
 
 
+def check_backward_d80(torch, randn, tol):
+    """K5a and K5b at zamba2-2.7b's training shape, q, k, v (2, 32, 4096,
+    80) causal bf16 in the model's layout, held as :func:`check_backward`
+    holds the bf16 kernels (relative norm against the plain versions with
+    bf16 and fp32 operands), launched twice for bit-equal results, and
+    timed beside the plain versions and SDPA's whole backward.  Returns
+    the two ``_d80`` records."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq,
+        flash_attention_dkv_ref, flash_attention_dq_ref, flash_attention_fwd)
+    bf16 = torch.bfloat16
+    b, h, kvh, s, d = 2, 32, 32, 4096, 80
+    kw = dict(causal=True)
+    q, k, v, do = (randn(b, s, n, d).transpose(1, 2) for n in (h, kvh, kvh, h))
+    o, lse = flash_attention_fwd(q, k, v, **kw)
+
+    def both():
+        dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)
+        return (dq, delta) + flash_attention_bwd_dkv(q, k, v, lse, delta, do,
+                                                     **kw)
+
+    dq, delta, dk, dv = both()
+    torch.cuda.synchronize()
+    label = "zamba2 training shape b=2 h=32/32 s=4096 d=80"
+    name = f"flash_attention_bwd {{}} {label}"
+    dq_f, delta_r = flash_attention_dq_ref(q, k, v, o, lse, do, **kw)
+    compare(torch, f"flash_attention_bwd delta {label}", delta, delta_r,
+            1e-4, 1e-5)
+    dq_b, _ = flash_attention_dq_ref(q, k, v, o, lse, do, operand_dtype=bf16,
+                                     **kw)
+    worst = {"dq": check_bf16_grad(torch, name.format("dq"), dq, dq_b, dq_f,
+                                   tol[bf16])[0]}
+    del dq_f, dq_b
+    torch.cuda.empty_cache()
+    want_f = flash_attention_dkv_ref(q, k, v, lse, delta_r, do, **kw)
+    want_b = flash_attention_dkv_ref(q, k, v, lse, delta_r, do,
+                                     operand_dtype=bf16, **kw)
+    worst["dkv"] = max(
+        check_bf16_grad(torch, name.format(n), got, wb, wf, tol[bf16])[0]
+        for n, got, wb, wf in zip(("dk", "dv"), (dk, dv), want_b, want_f))
+    del want_f, want_b, delta_r
+    torch.cuda.empty_cache()
+    same_twice(torch, "flash_attention_bwd dq, delta, dk, dv at zamba2's "
+               "training shape", both)
+    few = dict(iters=3, reps=3)
+    ms = {"dq": timed_ms(torch, lambda: flash_attention_bwd_dq(
+              q, k, v, o, lse, do, **kw)),
+          "dkv": timed_ms(torch, lambda: flash_attention_bwd_dkv(
+              q, k, v, lse, delta, do, **kw))}
+    plain = {"dq": timed_ms(torch, lambda: flash_attention_dq_ref(
+                 q, k, v, o, lse, do, operand_dtype=bf16, **kw), **few),
+             "dkv": timed_ms(torch, lambda: flash_attention_dkv_ref(
+                 q, k, v, lse, delta, do, operand_dtype=bf16, **kw), **few)}
+    qe, ke, ve = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def lib_fwd():
+        with torch.no_grad():
+            F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
+
+    def lib_fwd_bwd():
+        out = F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
+        torch.autograd.grad(out, (qe, ke, ve), do)
+
+    lib = timed_ms(torch, lib_fwd_bwd, **few) - timed_ms(torch, lib_fwd, **few)
+    pairs = b * h * s * (s + 1) // 2
+    n_q, n_kv, rows = q.numel(), k.numel(), b * h * s
+    nbytes = {"dq": 2 * (4 * n_q + 2 * n_kv) + 4 * rows * 2,
+              "dkv": 2 * (2 * n_q + 4 * n_kv) + 4 * rows * 2}
+    out = []
+    for part, prods, at in (("dq", 3, 229), ("dkv", 4, 255)):
+        b_ms, b_by = bound(nbytes[part], prods * 2 * d * pairs,
+                           H100_BF16_FLOPS)
+        out.append(dict(
+            name=f"flash_attention_bwd_{part}_d80", route="cuda",
+            source="src/repro_torch/csrc/flash_attention_bwd.cu",
+            replaces=f"src/repro/kernels/flash_attention.py:{at}",
+            max_abs_err=worst[part], ms=ms[part], plain_ms=plain[part],
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+            shape=f"B={b} H={h} KV={kvh} D={d} S={s} causal (zamba2-2.7b's "
+                  "shared attention); library_ms is SDPA's whole backward; "
+                  "plain_ms is the plain version with bf16 operands"))
+    print(f"[time] flash attention backward at zamba2's training shape: dQ "
+          f"{ms['dq']:.4f} + dK/dV {ms['dkv']:.4f} ms vs SDPA backward "
+          f"{lib:.4f} ms | {card_line()}", flush=True)
+    del qe, ke, ve
+    torch.cuda.empty_cache()
+    return out
+
+
+# SSDScan/WKV on the card against autograd through the plain versions, on
+# fp32 copies of the same bf16 inputs.  The forward is the bf16 kernel
+# (held by SCAN_REL_NORM); the backward works in fp32 from the kernel's
+# chunk-start states, so it inherits their summation-order difference, and
+# it rounds the gradients of the bf16 inputs to bf16 once (2^-9 of each
+# value, ~2e-3 relative norm); the limit is 2.5x that sum
+SCAN_GRAD_REL_NORM = 1e-2
+
+
+def device_ms(torch, fn, calls=3):
+    """Device time of one call of ``fn`` (all its CUDA kernels summed),
+    from ``torch.profiler`` over ``calls`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in prof.key_averages()) / 1e3 / calls
+
+
+def check_scan_grads(torch, randn):
+    """The ``SSDScan`` and ``WKV`` Functions' gradients of all five inputs
+    (with a gradient of the final state) against autograd through
+    ``ssd_scan_ref`` / ``rwkv6_wkv_ref``, at zamba2's and rwkv6-7b's head
+    shapes over 1000 tokens and a ragged 333 at batch 2, by
+    ``SCAN_GRAD_REL_NORM``; then the forward kernel's and the backward's
+    time at the training shapes, (2, 80, 4096, 64) and (2, 64, 4096,
+    64)."""
+    from repro_torch.kernels import rwkv6_scan as wkv
+    from repro_torch.kernels import ssd_scan as ssd
+    bf16 = torch.bfloat16
+    scans = (
+        ("ssd_scan", ssd.SSDScan, ssd.ssd_scan_ref, ssd.ssd_scan,
+         ssd.ssd_scan_bwd,
+         lambda b, s: _ssd_inputs(torch, randn, b, 80, s, 64, 64, bf16)),
+        ("rwkv6_wkv", wkv.WKV, wkv.rwkv6_wkv_ref, wkv.rwkv6_wkv,
+         wkv.rwkv6_wkv_bwd,
+         lambda b, s: _wkv_inputs(torch, randn, b, 64, s, 64, bf16)))
+    for name, fn, ref, kernel, bwd, make in scans:
+        for b, s in ((1, 1000), (2, 333)):
+            ins = make(b, s)
+            out, state = ref(*ins)
+            dout, dstate = randn(*out.shape, dtype=torch.float32), \
+                randn(*state.shape, dtype=torch.float32)
+
+            def grads(f, cast):
+                leaves = [cast(t).detach().requires_grad_(True) for t in ins]
+                o, st = f(*leaves)
+                return torch.autograd.grad(
+                    (o * dout).sum() + (st * dstate).sum(), leaves)
+
+            got = grads(fn.apply, lambda t: t)
+            if any(g.dtype != t.dtype for g, t in zip(got, ins)):
+                fail(f"{name}: gradient dtypes differ from the inputs'")
+            want = grads(ref, lambda t: t.float())
+            for arg, g, w in zip(range(5), got, want):
+                rel_norm(torch, f"{fn.__name__} gradient of input {arg} B={b} "
+                         f"S={s}", g, w, SCAN_GRAD_REL_NORM)
+            del got, want
+            torch.cuda.empty_cache()
+        ins = make(2, 4096)
+        _, _, states = kernel(*ins, chunk_states=True)
+        dout = randn(*ins[0].shape, dtype=torch.float32)
+        fwd = timed_ms(torch, lambda: kernel(*ins))
+        wall = timed_ms(torch, lambda: bwd(*ins, states, dout, None),
+                        iters=3, reps=3)
+        busy = device_ms(torch, lambda: bwd(*ins, states, dout, None))
+        print(f"[time] {name} at the training shape {tuple(ins[0].shape)} "
+              f"bf16: forward kernel {fwd:.4f} ms; {fn.__name__} backward "
+              f"(PyTorch ops from the kernel's chunk-start states) "
+              f"{wall:.4f} ms a call, device busy {busy:.4f} ms of it | "
+              f"{card_line()}", flush=True)
+        del ins, states, dout
+        torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 3: full-width tinyllama-1.1b through the engine
 # ---------------------------------------------------------------------------
@@ -2003,10 +2220,13 @@ def _train_kernels():
                                                      flash_attention_bwd_dq,
                                                      flash_attention_fwd)
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_bwd
+    from repro_torch.kernels.rwkv6_scan import rwkv6_wkv
+    from repro_torch.kernels.ssd_scan import ssd_scan
     return {"flash_attention_fwd": flash_attention_fwd,
             "flash_attention_bwd_dq": flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": flash_attention_bwd_dkv,
-            "rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_bwd}
+            "rmsnorm": rmsnorm, "rmsnorm_bwd": rmsnorm_bwd,
+            "ssd_scan": ssd_scan, "rwkv6_wkv": rwkv6_wkv}
 
 
 # ---------------------------------------------------------------------------
@@ -2017,18 +2237,44 @@ def train_full(torch):
     """tinyllama-1.1b at full width (random weights from seed 0), sequence
     4096 with the global batch cut from 256 to 8, 4 microbatches of 2
     under full remat (``overrides`` on the ladder's plan), 4 AdamW steps,
-    through ``Cluster.submit``.  Prints the ladder's own plan and its
-    estimate beside the measured peak.  Returns the launch counts."""
-    from repro_torch.checkpoint.checkpointer import _flatten_with_paths
+    through ``Cluster.submit`` (:func:`train_phase`).  Returns the launch
+    counts."""
     from repro_torch.configs import get_config
+    cfg = get_config("tinyllama-1.1b")
+    _, overrides, _, _ = _train_setup()
+    n = cfg.num_layers
+    # every kernel's forward runs again in the recompute, but for ln_f's
+    launches = train_phase(torch, "train", cfg, overrides, {
+        "flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
+        "flash_attention_bwd_dkv": n, "rmsnorm": 2 * (2 * n) + 1,
+        "rmsnorm_bwd": 2 * n + 1})
+    RMS_LAUNCHES["train"] += launches["rmsnorm"]
+    return launches
+
+
+def train_phase(torch, tag, cfg, overrides, per_mb):
+    """One full-width training run of ``cfg`` (random weights from seed
+    0) at phase 5's sequence 4096 x batch 8 with the plan ``overrides``,
+    4 AdamW steps through ``launch.train`` (``Cluster.submit``).  Prints
+    the ladder's own plan and its estimate beside the measured peak,
+    which the job's grant must cover; every loss must be finite and the
+    last below the first, every step-1 gradient finite and not all zero
+    (computed here, before the run, from the same weights and batch as
+    the run's first step), every kernel's launch count ``per_mb`` (a
+    microbatch's; 0 where absent) times the microbatches and steps, and
+    no flash-attention operand copied for alignment.  Then the step time,
+    tokens/s and model-FLOPs share, and one more step under
+    ``torch.profiler`` (:func:`report_train`).  Returns the launch
+    counts."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_paths
     from repro_torch.core.materializer import H100, materialize
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch.train import train
     from repro_torch.models.model import Model, init_params
     from repro_torch.training.train_step import impl_from_plan
+    t_phase = time.perf_counter()
     kernels = _train_kernels()
-    shape, overrides, ocfg, steps = _train_setup()
-    cfg = get_config("tinyllama-1.1b")
+    shape, _, ocfg, steps = _train_setup()
     plan = materialize(cfg, shape, H100, overrides=overrides)
     ladder = materialize(cfg, shape, H100)
 
@@ -2044,8 +2290,10 @@ def train_full(torch):
            if not bool(torch.isfinite(g).all()) or not bool(g.any())]
     checked = len(grads)
     del params, batch, grads
+    print(f"[{tag}] step-1 gradients: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
     if bad:
-        fail(f"train: step 1 gradients of {bad} (of {checked} leaves) are "
+        fail(f"{tag}: step 1 gradients of {bad} (of {checked} leaves) are "
              "not finite or all zero")
 
     torch.cuda.empty_cache()
@@ -2054,49 +2302,46 @@ def train_full(torch):
     for fn in kernels.values():
         fn.launches = 0
     with row_copies() as seen:
-        out = train("tinyllama-1.1b", shape=shape, overrides=overrides,
-                    opt_cfg=ocfg, device="cuda", steps=steps, seed=0)
+        out = train(cfg, shape=shape, overrides=overrides, opt_cfg=ocfg,
+                    device="cuda", steps=steps, seed=0)
         torch.cuda.synchronize()
     launches = {name: fn.launches for name, fn in kernels.items()}
-    no_row_copies("train", seen)
+    no_row_copies(tag, seen)
     peak = torch.cuda.max_memory_allocated()
     if out["plan"].describe() != plan.describe():
-        fail(f"train: the cluster's plan {out['plan'].describe()} is not "
+        fail(f"{tag}: the cluster's plan {out['plan'].describe()} is not "
              f"the ladder's with {overrides}")
-    print(f"[train] the ladder's own plan for {shape.name}: remat="
-          f"{ladder.remat} microbatch={ladder.microbatch} est "
-          f"{ladder.est_bytes_per_device / 2**30:.3f} GiB/device "
-          f"({ladder.notes}); the run's plan (overrides {overrides}): est "
-          f"{plan.est_bytes_per_device / 2**30:.3f} GiB/device, measured "
-          f"peak {peak / 2**30:.3f} GiB (torch.cuda.max_memory_allocated); "
-          f"the job's grant {out['grant'] / 2**30:.3f} GiB over "
-          f"{out['held'] / 2**30:.3f} GiB held ("
-          f"{base / 2**30:.3f} GiB allocated before) | {card_line()}",
-          flush=True)
+    print(f"[{tag}] {cfg.name} ({cfg.num_layers} layers): the ladder's own "
+          f"plan for {shape.name}: remat={ladder.remat} microbatch="
+          f"{ladder.microbatch} est {ladder.est_bytes_per_device / 2**30:.3f}"
+          f" GiB/device ({ladder.notes}); the run's plan (overrides "
+          f"{overrides}): est {plan.est_bytes_per_device / 2**30:.3f} "
+          f"GiB/device, measured peak {peak / 2**30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated); the job's grant "
+          f"{out['grant'] / 2**30:.3f} GiB over {out['held'] / 2**30:.3f} "
+          f"GiB held ({base / 2**30:.3f} GiB allocated before) | "
+          f"{card_line()}", flush=True)
     if not out["grant"] >= out["held"] >= peak - base:
-        fail(f"train: the job's grant {out['grant']} does not cover the "
+        fail(f"{tag}: the job's grant {out['grant']} does not cover the "
              f"measured peak {peak} ({out['held']} held)")
     losses = [m["loss"] for m in out["metrics"]]
-    n_layers, mb = cfg.num_layers, plan.microbatch
-    per_mb = {"flash_attention_fwd": 2 * n_layers,      # forward + recompute
-              "flash_attention_bwd_dq": n_layers,
-              "flash_attention_bwd_dkv": n_layers,
-              "rmsnorm": 2 * (2 * n_layers) + 1,        # ln_f not recomputed
-              "rmsnorm_bwd": 2 * n_layers + 1}
-    want = {k: v * mb * steps for k, v in per_mb.items()}
-    print(f"[train] tinyllama-1.1b full width, seq {shape.seq_len} x batch "
+    want = {k: per_mb.get(k, 0) * plan.microbatch * steps for k in kernels}
+    print(f"[{tag}] {cfg.name} full width, seq {shape.seq_len} x batch "
           f"{shape.global_batch}, remat={plan.remat} microbatch="
-          f"{plan.microbatch}, losses {losses}, launches="
-          f"{launches} expected={want}, step-1 gradients finite and "
-          f"nonzero on all {checked} leaves", flush=True)
+          f"{plan.microbatch}, losses {losses}, launches={launches} "
+          f"expected={want}, step-1 gradients finite and nonzero on all "
+          f"{checked} leaves", flush=True)
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        fail(f"train: losses {losses} not finite or not decreasing")
+        fail(f"{tag}: losses {losses} not finite or not decreasing")
     if launches != want:
-        fail("train: kernel launch counts differ from what the path implies")
-    RMS_LAUNCHES["train"] += launches["rmsnorm"]
-    report_train(torch, out, peak, ocfg)
+        fail(f"{tag}: kernel launch counts differ from what the path implies")
+    t_report = time.perf_counter()
+    report_train(torch, out, peak, ocfg, tag)
     del out
     torch.cuda.empty_cache()
+    print(f"[{tag}] phase: {time.perf_counter() - t_phase:.1f} s (the "
+          f"profiled step and its report "
+          f"{time.perf_counter() - t_report:.1f} s)", flush=True)
     return launches
 
 
@@ -2111,35 +2356,59 @@ def _train_setup():
             OptimizerConfig(warmup_steps=1), 4)
 
 
-def report_train(torch, out, peak, ocfg):
+# leaves of the blocks that hold no matmul weight: the depthwise conv and
+# RWKV-6's token-shift mixes, decay base, bonus and group-norm gains
+NOT_MATMUL = ("conv_w", "mu", "mu_c", "w0", "bonus_u", "ln_x")
+
+
+def model_flops(cfg, params, shape):
+    """A training step's model FLOPs: 6 x the matmul weights applied per
+    token x tokens (the stacked blocks' matrices, the shared attention
+    block's once per application, the output head; the embedding is a
+    gather) plus causal attention's products, forward and backward.
+    Remat's recompute, norms, elementwise ops and the scans' state
+    arithmetic (K6, K7 and their backward) are not counted."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_paths
+    from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ATTN_SHARED
+    shared_uses = cfg.pattern.count(ATTN_SHARED) * cfg.num_blocks
+    n_matmul = 0
+    for key, p in _flatten_with_paths(params):
+        top, leaf = key.split("/")[0], key.split("/")[-1]
+        if top == "blocks" and p.dim() >= 3 and leaf not in NOT_MATMUL:
+            n_matmul += p.numel()
+        elif top == "shared_attn" and p.dim() >= 2:
+            n_matmul += shared_uses * p.numel()
+        elif top == "embed" and (leaf == "head" or cfg.tie_embeddings):
+            n_matmul += p.numel()
+    tokens = shape.seq_len * shape.global_batch
+    attn_layers = sum(cfg.pattern.count(k) for k in
+                      (ATTN_GLOBAL, ATTN_LOCAL, ATTN_SHARED)) * cfg.num_blocks
+    attn = (3 * 2 * 2 * cfg.head_dim * cfg.num_heads * attn_layers
+            * shape.global_batch * shape.seq_len * (shape.seq_len + 1) / 2)
+    return 6 * n_matmul * tokens + attn
+
+
+def report_train(torch, out, peak, ocfg, tag="train"):
     """The step time (median of steps 2 on), tokens/s, peak memory and the
-    model-FLOPs share of a ``train`` run; then one more step under
-    ``torch.profiler``."""
-    from repro_torch.training.optimizer import leaves
+    model-FLOPs share (:func:`model_flops`) of a ``train`` run; then one
+    more step under ``torch.profiler``."""
     shape, cfg, steps = out["shape"], out["model"].cfg, len(out["metrics"])
-    n_layers = cfg.num_layers
     walls = sorted(m["wall_s"] for m in out["metrics"][1:])
     step_s = walls[len(walls) // 2]
     tokens = shape.seq_len * shape.global_batch
-    params = out["params"]
-    n_matmul = sum(p.numel() for p in leaves(params)) - \
-        params["embed"]["tok"].numel()            # the embedding is a gather
-    attn_flops = (3 * 2 * 2 * cfg.head_dim * cfg.num_heads * n_layers
-                  * shape.global_batch * shape.seq_len * (shape.seq_len + 1)
-                  / 2)                            # causal pairs, fwd + bwd
-    model_flops = 6 * n_matmul * tokens + attn_flops
-    print(f"[train] step {step_s:.4f} s (median of steps 2-{steps}; all "
+    flops = model_flops(cfg, out["params"], shape)
+    print(f"[{tag}] step {step_s:.4f} s (median of steps 2-{steps}; all "
           f"{[round(m['wall_s'], 4) for m in out['metrics']]}), "
           f"{tokens / step_s:.1f} tokens/s, peak memory "
-          f"{peak / 2**30:.3f} GiB, model FLOPs {model_flops:.4e} per step "
-          f"= {model_flops / step_s / H100_BF16_FLOPS:.4f} of the bf16 peak "
+          f"{peak / 2**30:.3f} GiB, model FLOPs {flops:.4e} per step "
+          f"= {flops / step_s / H100_BF16_FLOPS:.4f} of the bf16 peak "
           f"| {card_line()}", flush=True)
     busy = profile_train(torch, out, ocfg)
     # the profiled step's wall carries the profiler's host overhead, which
     # varies from run to run; the device time against the unprofiled step
     # does not
     if busy is not None:
-        print(f"[train] device busy {busy:.3f} ms of the profiled step / "
+        print(f"[{tag}] device busy {busy:.3f} ms of the profiled step / "
               f"unprofiled step {step_s * 1e3:.3f} ms = busy share "
               f"{busy / (step_s * 1e3):.4f}", flush=True)
 
@@ -2171,7 +2440,8 @@ def profile_train(torch, out, ocfg):
 def report_profile(prof, wall, what):
     """Busy share and device time by kernel of a profiled window; returns
     the device busy ms (None when not measured)."""
-    kernels = [e for e in prof.key_averages()
+    avgs = prof.key_averages()            # aggregated once: it is slow
+    kernels = [e for e in avgs
                if str(getattr(e, "device_type", "")).endswith("CUDA")]
     dev_us = {e.key: getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0.0))
@@ -2194,20 +2464,36 @@ def report_profile(prof, wall, what):
                  and "bwd" not in key and "dgain" not in key)
     bwd_us = max((getattr(e, "device_time_total",
                           getattr(e, "cuda_time_total", 0.0))
-                  for e in prof.key_averages()
-                  if "RMSNormBackward" in e.key), default=0.0)
+                  for e in avgs if "RMSNormBackward" in e.key), default=0.0)
     for name, us in (("K3 rmsnorm forward kernels", fwd_us),
                      ("K3 norm backward (under RMSNormBackward)", bwd_us)):
         if us:
             print(f"[profile]   {us / 1e3:10.3f} ms  "
                   f"{100 * us / 1e3 / total_ms:5.1f}%  {name}", flush=True)
-    # K6 and K7 run as three CUDA kernels a call each
-    for name, mark in (("K7 ssd_scan", "ssd_"), ("K6 rwkv6_wkv", "wkv_")):
-        us = sum(t for key, t in dev_us.items() if mark in key)
+    # K6 and K7 run as three CUDA kernels a call each; K2 and K5 and
+    # cuBLAS's GEMM and GEMV kernels (those the scan backward's products
+    # launch included) by kernel name
+    for name, marks in (("K7 ssd_scan", ("ssd_",)),
+                        ("K6 rwkv6_wkv", ("wkv_",)),
+                        ("K2 flash forward", ("flash_fwd",)),
+                        ("K5a + K5b flash backward", ("flash_bwd",)),
+                        ("cuBLAS GEMMs and GEMVs",
+                         ("gemm", "gemv", "xmma", "cutlass", "nvjet"))):
+        us = sum(t for key, t in dev_us.items()
+                 if any(m in key.lower() for m in marks))
         if us:
             print(f"[profile]   {us / 1e3:10.3f} ms  "
                   f"{100 * us / 1e3 / total_ms:5.1f}%  {name}, all its "
                   "kernels", flush=True)
+    # the scan gradients: PyTorch ops under the Functions' autograd nodes
+    for node in ("SSDScanBackward", "WKVBackward"):
+        us = max((getattr(e, "device_time_total",
+                          getattr(e, "cuda_time_total", 0.0))
+                  for e in avgs if node in e.key), default=0.0)
+        if us:
+            print(f"[profile]   {us / 1e3:10.3f} ms  "
+                  f"{100 * us / 1e3 / total_ms:5.1f}%  scan backward (under "
+                  f"{node})", flush=True)
     return total_ms
 
 
@@ -2313,6 +2599,20 @@ TRAIN_GRAD_RTOL = 5e-2           # relative norm of each step-1 gradient
 
 
 def parity_train_reduced(torch):
+    """Reduced tinyllama-1.1b (2 layers, full remat), zamba2-2.7b (two
+    pattern blocks, so the shared attention block runs twice; under
+    ``remat="dots"``) and rwkv6-7b (2 layers, full remat) each train 3
+    steps of 2 microbatches at sequence 160 (ragged over the kernels'
+    64-row tiles and 64-token chunks) from the same weights on the same
+    batches, on the card and on the CPU: losses, final params and step-1
+    gradients within ``TRAIN_*_RTOL``."""
+    for arch, layers, remat in (("tinyllama-1.1b", 2, "full"),
+                                ("zamba2-2.7b", 12, "dots"),
+                                ("rwkv6-7b", 2, "full")):
+        parity_train_one(torch, arch, layers, remat)
+
+
+def parity_train_one(torch, arch, layers, remat):
     from repro_torch.checkpoint.checkpointer import _flatten_with_paths
     from repro_torch.configs import get_config
     from repro_torch.configs.reduced import reduced_config
@@ -2322,11 +2622,10 @@ def parity_train_reduced(torch):
     from repro_torch.training import optimizer as opt
     from repro_torch.training.train_step import impl_from_plan, make_train_step
 
-    cfg = reduced_config(get_config("tinyllama-1.1b"), num_layers=2)
-    plan = Plan(cfg.name, "reduced_160", H100, microbatch=2, remat="full")
+    cfg = reduced_config(get_config(arch), num_layers=layers)
+    plan = Plan(cfg.name, "reduced_160", H100, microbatch=2, remat=remat)
     model = Model(cfg, impl_from_plan(plan))
     params0 = init_params(cfg, 0, "cpu")
-    # sequence 160: ragged over the kernels' 64-row tiles
     data = SyntheticLM(DataConfig(cfg.vocab_size, 160, 8))
     ocfg = opt.OptimizerConfig(warmup_steps=1)
 
@@ -2358,15 +2657,16 @@ def parity_train_reduced(torch):
                  for (key, _), a, b in zip(_flatten_with_paths(params0),
                                            cuda_grads, cpu_grads)}
     worst = max(grad_errs, key=grad_errs.get)
-    print(f"[parity] reduced tinyllama-1.1b training cuda vs cpu, 3 steps: "
-          f"losses {cuda_losses} vs {cpu_losses} (max rel {loss_err:.3e} <= "
-          f"{TRAIN_LOSS_RTOL}), params rel norm {param_err:.3e} <= "
-          f"{TRAIN_PARAM_RTOL}, step-1 grads worst rel norm "
-          f"{grad_errs[worst]:.3e} ({worst}) <= {TRAIN_GRAD_RTOL}",
-          flush=True)
+    print(f"[parity] reduced {arch} ({layers} layers, remat={remat}) "
+          f"training cuda vs cpu, 3 steps: losses {cuda_losses} vs "
+          f"{cpu_losses} (max rel {loss_err:.3e} <= {TRAIN_LOSS_RTOL}), "
+          f"params rel norm {param_err:.3e} <= {TRAIN_PARAM_RTOL}, step-1 "
+          f"grads worst rel norm {grad_errs[worst]:.3e} ({worst}) <= "
+          f"{TRAIN_GRAD_RTOL}", flush=True)
     if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_RTOL
             and grad_errs[worst] <= TRAIN_GRAD_RTOL):
-        fail("parity: CUDA training disagrees with the CPU's plain path")
+        fail(f"parity: CUDA training of reduced {arch} disagrees with the "
+             "CPU's plain path")
 
 
 # ---------------------------------------------------------------------------
@@ -3884,6 +4184,48 @@ def check_parity(ref_toks, toks, ref_margins, tie_gap) -> int:
                 flips += 1
                 break
     return flips
+
+
+# ---------------------------------------------------------------------------
+# phases 14 and 15: full-width training of the recurrent families
+# ---------------------------------------------------------------------------
+
+def train_zamba2_full(torch):
+    """Phase 14: zamba2-2.7b at full width (54 layers: 9 x (5 Mamba-2 + the
+    shared attention block), d 2560, heads of 80) under ``remat="dots"``
+    in 4 microbatches, phase 5's shape and steps (:func:`train_phase`).
+    Under ``dots`` each pattern block keeps its matmuls' outputs and runs
+    the rest again in the backward, every kernel's forward with it (but
+    for ``ln_f``'s norm, outside the blocks).  Returns the launch
+    counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ATTN_SHARED, MAMBA2
+    cfg = get_config("zamba2-2.7b")
+    mamba = cfg.pattern.count(MAMBA2) * cfg.num_blocks
+    attn = cfg.pattern.count(ATTN_SHARED) * cfg.num_blocks
+    norms = 2 * mamba + 3 * attn          # ln1 + inner; ln_in, ln1, ln2
+    return train_phase(torch, "train zamba2", cfg,
+                       {"remat": "dots", "microbatch": 4}, {
+                           "ssd_scan": 2 * mamba,
+                           "flash_attention_fwd": 2 * attn,
+                           "flash_attention_bwd_dq": attn,
+                           "flash_attention_bwd_dkv": attn,
+                           "rmsnorm": 2 * norms + 1,
+                           "rmsnorm_bwd": norms + 1})
+
+
+def train_rwkv6_full(torch):
+    """Phase 15: rwkv6-7b at full width (d 4096, 64 heads of 64) with 8 of
+    its 32 layers (the full depth needs more than one card: ``PERF.md``
+    §4) under full remat in 4 microbatches, phase 5's shape and steps
+    (:func:`train_phase`).  Returns the launch counts."""
+    from repro_torch.configs import get_config
+    cfg = get_config("rwkv6-7b").scaled(num_layers=8)
+    n = cfg.num_layers
+    return train_phase(torch, "train rwkv6", cfg,
+                       {"remat": "full", "microbatch": 4}, {
+                           "rwkv6_wkv": 2 * n, "rmsnorm": 2 * (2 * n) + 1,
+                           "rmsnorm_bwd": 2 * n + 1})
 
 
 if __name__ == "__main__":

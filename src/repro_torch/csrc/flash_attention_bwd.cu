@@ -66,9 +66,14 @@
 //   V^T, dS = P (dP - delta) scale, and dQ += dS K with dS from registers
 //   and K through `ldmatrix.trans`.  Causal grids dispatch the last query
 //   tiles, the heaviest, first.
-// The loop's tile is 64 rows at head dims up to 64 and 32 at 128, which
-// keeps dK + dV (128 fp32 a thread at D 128) and the score tiles in
-// registers.  Only tiles that cross the causal / window band or the
+// The loop's tile is 64 rows at head dims up to 64 and 32 at 80 and 128,
+// which keeps dK + dV (128 fp32 a thread at D 128) and the score tiles in
+// registers.  Every D-dependent loop steps by 16 columns (one `ldmatrix.x4`
+// and two m16n8k16 a step) or by 8 (a 16-byte `cp.async`, a bf16x2 store
+// of two accumulator tiles), so D needs only be a multiple of 16: at 80 a
+// row is 5 k-steps, 10 copies and 10 accumulator tiles, and its padded
+// pitch of 88 elements (176 bytes) keeps every `ldmatrix` row 16-byte
+// aligned and the 8 rows of each in distinct bank groups.  Only tiles that cross the causal / window band or the
 // ragged tail evaluate the mask; tiles outside the band are never loaded.
 // Rounding: S and dP are exact bf16 products summed in fp32; the exponent
 // s scale - lse is formed as the plain version forms it, so that P and dS
@@ -391,8 +396,11 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src,
 // dQ (and delta): a 1-D grid of ceil(Sq / 64) x H x B blocks
 // ---------------------------------------------------------------------------
 
+// Three blocks an SM: without that floor ptxas squeezed the head-dim-80
+// instance to 128 registers (four blocks) and spilled; with it that
+// instance takes 160 and the head-dim-64 and -128 ones keep 168 and 166
 template <int D>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(kTcThreads, 3)
 flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ o,
                 const bf16* __restrict__ dout, const float* __restrict__ lse,
@@ -720,6 +728,7 @@ int by_dim(int dtype, int D, const Args& a) {
     case 16: return launch<DQ, 16>(dtype, a);
     case 32: return launch<DQ, 32>(dtype, a);
     case 64: return launch<DQ, 64>(dtype, a);
+    case 80: return launch<DQ, 80>(dtype, a);  // zamba2-2.7b's shared attention
     case 128: return launch<DQ, 128>(dtype, a);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -16,10 +16,16 @@ request it raises.
 
     python -m repro_torch.launch.train --arch tinyllama-1.1b --steps 2
     python -m repro_torch.launch.train --arch tinyllama-1.1b --batch 8
+    python -m repro_torch.launch.train --arch zamba2-2.7b --batch 8
     python -m repro_torch.launch.train --reduced --device cpu --steps 8
+    python -m repro_torch.launch.train --arch rwkv6-7b --reduced \
+        --device cpu --steps 8
 
-A full-size run given no overrides takes ``ONE_CARD``'s plan: full
-remat, microbatches of 2 sequences.
+A full-size run given no overrides takes ``one_card_overrides``'s plan:
+full remat, microbatches of 2 sequences.  ``train`` also takes a
+``ModelConfig``, such as rwkv6-7b cut to 8 of its 32 layers (the full
+depth needs more than one card's memory at sequence 4096 x batch 8, and
+is refused before any weights are made).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Mamba-2 block (SSD: state-space duality) for serving.
+"""Mamba-2 block (SSD: state-space duality) for training and serving.
 
 Counterpart of ``repro/models/mamba2.py``.  Selective SSM with a scalar
 decay per head::
@@ -6,11 +6,13 @@ decay per head::
     h_t = exp(a_t) h_{t-1} + dt_t * B_t x_t^T      (h: (H, P, N))
     y_t = C_t h_t + D x_t
 
-with a_t = -exp(A_log) * dt_t, dt_t = softplus(dt_raw + dt_bias).  Prefill
-runs the scan over the whole prompt from a zero state through the SSD
-kernel (``ssd_chunked`` -> ``kernels.ssd_scan``; its plain chunked version
-on CPU tensors).  Decode is the single-step recurrence in plain ops: a
-one-token update has no Pallas counterpart.  The conv state is bf16 and
+with a_t = -exp(A_log) * dt_t, dt_t = softplus(dt_raw + dt_bias).
+Training and prefill run the scan over the whole sequence from a zero
+state through the SSD kernel (``ssd_chunked`` -> ``kernels.ssd_scan``;
+its plain chunked version on CPU tensors), and through its autograd
+Function ``SSDScan`` where a gradient is taken.  Decode is the
+single-step recurrence in plain ops: a one-token update has no Pallas
+counterpart.  The conv state is bf16 and
 the SSM state fp32, as in the reference.
 """
 
@@ -22,8 +24,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.ssd_scan import ssd_scan
-from repro_torch.models.layers import CacheSpec, Spec, rms_norm
+from repro_torch.kernels.ssd_scan import SSDScan, ssd_scan
+from repro_torch.models.layers import (CacheSpec, Spec, needs_grad,
+                                      rms_norm)
 
 Params = Dict[str, Any]
 
@@ -101,10 +104,13 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     """The SSD scan from a zero state.  xh: (B, S, H, P); dt: (B, S, H)
     fp32; b_in, c_in: (B, S, N).  Returns (y (B, S, H, P) fp32, final
     state (B, H, P, N) fp32).  The kernel reads the model's layouts
-    through strides."""
+    through strides; ``SSDScan`` carries the gradient where one is
+    taken."""
     a = -torch.exp(a_log.float())[None, None, :] * dt          # (B, S, H)
-    y, state = ssd_scan(xh.transpose(1, 2), dt.transpose(1, 2),
-                        a.transpose(1, 2), b_in, c_in)
+    ins = (xh.transpose(1, 2), dt.transpose(1, 2), a.transpose(1, 2), b_in,
+           c_in)
+    scan = SSDScan.apply if needs_grad(*ins) else ssd_scan
+    y, state = scan(*ins)
     return y.transpose(1, 2), state
 
 
@@ -126,6 +132,13 @@ def mamba2_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig
     y = y + xh_r.float() * p["d_skip"].float()[:, None]
     y = y.reshape(bsz, s, d_inner).to(x.dtype)
     return _gate_out(p, y, z, cfg), {"ssm": ssm, "conv": conv_state}
+
+
+def mamba2_train(p: Params, x: torch.Tensor, cfg: ModelConfig
+                 ) -> torch.Tensor:
+    """x: (B, S, d) -> out (B, S, d): the reference's ``mamba2_train``, the
+    prefill's output (the states after the sequence go unused)."""
+    return mamba2_prefill(p, x, cfg)[0]
 
 
 def mamba2_decode(p: Params, x: torch.Tensor, state: Params,

@@ -5,9 +5,9 @@ of the parts of ``repro/models/transformer.py`` that build the tree).
 The tree keeps the reference's layout -- ``params["blocks"]
 [f"p{i}_{kind}"]`` with a leading stacked-blocks dim, ``params["embed"]``,
 ``params["ln_f"]`` and, for zamba2, the unstacked ``params["shared_attn"]``
--- so bridged reference weights drop in as they are.  The port trains the
-RoPE attention stacks and serves those, Mamba-2, RWKV-6 and zamba2's
-hybrid stack; the MoE, encoder-decoder and vision families come with
+-- so bridged reference weights drop in as they are.  The port trains and
+serves the RoPE attention stacks, Mamba-2, RWKV-6 and zamba2's hybrid
+stack; the MoE, encoder-decoder and vision families come with
 later slices.
 """
 
@@ -190,18 +190,22 @@ class Model:
     def _run_blocks_train(self, params: Params,
                           x: torch.Tensor) -> torch.Tensor:
         """The stack as a Python loop over pattern blocks; under
-        ``remat="full"`` each pattern block keeps only its input and is
-        recomputed in the backward."""
+        ``remat="full"`` each pattern block keeps only its input (and under
+        ``"dots"`` its matmuls' outputs too) and is recomputed in the
+        backward.  The shared components pass the remat boundary as
+        arguments, so every pattern block's recompute reaches them."""
         cfg = self.cfg
 
-        def block_body(x, bp):
+        def block_body(x, bp, shared):
             for i, kind in enumerate(cfg.pattern):
-                x = T.apply_block_train(cfg, kind, bp[f"p{i}_{kind}"], x)
+                x = T.apply_block_train(cfg, kind, bp[f"p{i}_{kind}"], x,
+                                        shared)
             return x
 
         body = T._remat(block_body, self.impl.remat)
+        shared = _shared(params)
         for bp in _unstack(params["blocks"], cfg.num_blocks):
-            x = body(x, bp)
+            x = body(x, bp, shared)
         return x
 
     def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
@@ -210,7 +214,7 @@ class Model:
         (B, S) each) -> (loss, {"ce", "aux"}).  ``aux`` is the MoE balance
         loss, 0 for the families the port trains."""
         cfg = self.cfg
-        x = embed_tokens(cfg, params, batch["tokens"])
+        x = self._add_positional(embed_tokens(cfg, params, batch["tokens"]))
         x = self._run_blocks_train(params, x)
         x = T.apply_norm(cfg, params["ln_f"], x)
         ce = self._cross_entropy(params, x, batch["labels"],

@@ -1,5 +1,5 @@
-"""RWKV-6 "Finch" block for serving: time-mix with a data-dependent decay,
-and channel-mix.
+"""RWKV-6 "Finch" block for training and serving: time-mix with a
+data-dependent decay, and channel-mix.
 
 Counterpart of ``repro/models/rwkv6.py``.  The time-mix is a linear
 attention with a per-head (hd x hd) state and a per-channel decay
@@ -8,10 +8,11 @@ attention with a per-head (hd x hd) state and a per-channel decay
     S_t = diag(w_t) S_{t-1} + k_t^T v_t
     o_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
 
-Prefill runs the WKV over the whole prompt from a zero state through the
-WKV kernel (``wkv_chunked`` -> ``kernels.rwkv6_scan``; its plain chunked
-version on CPU tensors).  Both compute the recurrence exactly: the
-reference's chunked form clamps a split of the pairwise decay and is
+Training and prefill run the WKV over the whole sequence from a zero state
+through the WKV kernel (``wkv_chunked`` -> ``kernels.rwkv6_scan``; its
+plain chunked version on CPU tensors), and through its autograd Function
+``WKV`` where a gradient is taken.  Both compute the recurrence exactly:
+the reference's chunked form clamps a split of the pairwise decay and is
 wrong once a chunk's cumulative log-decay falls below -30 (see
 ``kernels/rwkv6_scan.py``).  Decode is the single-step recurrence in plain
 ops.  As in the reference, the token-shift mix coefficients are plain
@@ -26,8 +27,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.rwkv6_scan import rwkv6_wkv
-from repro_torch.models.layers import CacheSpec, Spec, group_norm_heads
+from repro_torch.kernels.rwkv6_scan import WKV, rwkv6_wkv
+from repro_torch.models.layers import (CacheSpec, Spec, group_norm_heads,
+                                      needs_grad)
 
 Params = Dict[str, Any]
 
@@ -108,9 +110,11 @@ def wkv_chunked(r, k, v, logw, u):
     """The WKV from a zero state.  r, k, v: (B, S, H, hd); logw: (B, S, H,
     hd) fp32; u: (H, hd).  Returns (o (B, S, H, hd) fp32, final state (B,
     H, hd, hd) fp32).  The kernel reads the model's layout through
-    strides."""
-    o, state = rwkv6_wkv(r.transpose(1, 2), k.transpose(1, 2),
-                         v.transpose(1, 2), logw.transpose(1, 2), u)
+    strides; ``WKV`` carries the gradient where one is taken."""
+    ins = (r.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+           logw.transpose(1, 2), u)
+    wkv = WKV.apply if needs_grad(*ins) else rwkv6_wkv
+    o, state = wkv(*ins)
     return o.transpose(1, 2), state
 
 
@@ -127,6 +131,14 @@ def time_mix_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig
     r, k, v, g, logw = time_mix_projections(p, x, None, cfg)
     o, wkv = wkv_chunked(r, k, v, logw, p["bonus_u"])
     return _time_mix_out(p, o.to(x.dtype), g), wkv
+
+
+def time_mix_train(p: Params, x: torch.Tensor, cfg: ModelConfig
+                   ) -> torch.Tensor:
+    """x: (B, S, d) -> out (B, S, d): the reference's ``time_mix_train``,
+    the prefill's output (the WKV state after the sequence goes
+    unused)."""
+    return time_mix_prefill(p, x, cfg)[0]
 
 
 def time_mix_decode(p: Params, x: torch.Tensor, state: Params,

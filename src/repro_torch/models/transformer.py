@@ -1,9 +1,8 @@
 """Block application: the counterpart of ``repro/models/transformer.py``
-for training (global and sliding-window attention blocks) and for dense
-serving (prefill and one-token decode of global and sliding-window
-attention, Mamba-2, RWKV-6 and zamba2's weight-shared attention blocks;
-a sliding-window block's cache is a ring of ``min(cache_len, window)``
-slots).
+for training and for dense serving (prefill and one-token decode) of
+global and sliding-window attention, Mamba-2, RWKV-6 and zamba2's
+weight-shared attention blocks; a sliding-window block's cache is a ring
+of ``min(cache_len, window)`` slots.
 
 ``ImplConfig`` carries the execution-strategy fields the train step and
 the dense path read.  ``attn_impl`` and ``attn_chunk`` are kept so a plan
@@ -11,7 +10,9 @@ moves across unchanged, but the port's attention is always the
 flash-attention kernels on CUDA (the plain forward on CPU), whatever they
 say: the reference's ``naive``/``chunked``/``pallas`` choice is one of
 memory and XLA program size, and the kernels need neither the full score
-matrix nor a chunk loop.
+matrix nor a chunk loop.  The reference's ``scan_chunk`` has no
+counterpart: the port's scans are exact at any chunk, and the kernels
+keep their own.
 
 Prefill and decode update the dense cache in place: each writes its
 block's new state into the cache tensors it is given.
@@ -20,10 +21,12 @@ block's new state into the cache tensors it is given.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Tuple
+import functools
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, ATTN_SHARED,
                                       DEC_ATTN, ENC_ATTN, MAMBA2, MOE, RWKV6,
@@ -35,17 +38,12 @@ from repro_torch.models import rwkv6 as rw
 
 Params = Dict[str, Any]
 
-# block kinds the port does not train yet, and the slice that brings each;
-# the recurrent and shared-attention kinds already serve (dense backend)
+# block kinds the port does not run yet, and the slice that brings each
 _LATER = {
     MOE: "the MoE family's slice",
-    RWKV6: "the later slice that trains the RWKV-6 family",
-    MAMBA2: "the later slice that trains the Mamba-2/zamba2 family",
-    ATTN_SHARED: "the later slice that trains the Mamba-2/zamba2 family",
     ENC_ATTN: "the encoder-decoder (whisper) slice",
     DEC_ATTN: "the encoder-decoder (whisper) slice",
 }
-_SERVED_ONLY = (RWKV6, MAMBA2, ATTN_SHARED)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,23 +52,39 @@ class ImplConfig:
     defaults)."""
     attn_impl: str = "naive"          # kept for parity; see module doc
     attn_chunk: int = 1024
-    remat: str = "full"               # none | full  ("dots": later slice)
+    remat: str = "full"               # none | dots | full
     # stream the unembed+CE over sequence chunks (0 = monolithic logits)
     loss_chunk: int = 0
 
 
+# matmuls without batch dims (``torch.matmul`` of a (B, S, d) activation
+# by a (d, n) weight reaches ``aten.mm``): the ops whose outputs
+# ``remat="dots"`` keeps, as the reference's
+# ``dots_with_no_batch_dims_saveable`` keeps its ``dot_general``s
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def _remat(fn: Callable, policy: str) -> Callable:
     """``"none"`` runs ``fn`` as is; ``"full"`` keeps only its inputs and
-    recomputes the rest in the backward
-    (``torch.utils.checkpoint``, non-reentrant)."""
+    recomputes the rest in the backward (``torch.utils.checkpoint``,
+    non-reentrant); ``"dots"`` keeps its inputs and the outputs of its
+    matmuls without batch dims, and recomputes the rest -- the attention
+    and scan kernels' Functions, norms and elementwise ops -- in the
+    backward (selective checkpointing)."""
     if policy == "none":
         return fn
     if policy == "full":
         return lambda *args: checkpoint(fn, *args, use_reentrant=False)
     if policy == "dots":
-        raise ValueError("remat='dots' (save the matmul outputs, recompute "
-                         "the rest) comes with a later slice of the port; "
-                         "use 'none' or 'full'")
+        dots = functools.partial(create_selective_checkpoint_contexts,
+                                 _save_dots)
+        return lambda *args: checkpoint(fn, *args, use_reentrant=False,
+                                        context_fn=dots)
     raise ValueError(f"unknown remat policy {policy!r}")
 
 
@@ -265,15 +279,37 @@ def _attn_mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     return x + L.gated_mlp(p["mlp"], h)
 
 
+def _shared_attn_apply(cfg: ModelConfig, sp: Params,
+                       x: torch.Tensor) -> torch.Tensor:
+    """zamba2's shared attention block on the normed input ``x``: its
+    attention (head dim 80 through the flash kernels) and gated MLP, the
+    residual left to the caller."""
+    h = apply_norm(cfg, sp["ln1"], x)
+    y = attn.self_attention_train(sp["attn"], h, cfg, causal=True)
+    h2 = apply_norm(cfg, sp["ln2"], x + y)
+    return y + L.gated_mlp(sp["mlp"], h2)
+
+
 def apply_block_train(cfg: ModelConfig, kind: str, p: Params,
-                      x: torch.Tensor) -> torch.Tensor:
-    """One block of kind ``kind``.  (The reference also returns an aux
+                      x: torch.Tensor,
+                      shared: Optional[Params] = None) -> torch.Tensor:
+    """One block of kind ``kind``; ``shared`` holds the model's shared
+    components (zamba2's ``shared_attn``), whose gradients accumulate over
+    every block that applies them.  (The reference also returns an aux
     loss, which only MoE blocks make.)"""
     if kind in (ATTN_GLOBAL, ATTN_LOCAL):
         window = cfg.sliding_window if kind == ATTN_LOCAL else 0
         return _attn_mlp_block(cfg, p, x, window=window)
-    served = (" (it serves already, on the dense backend)"
-              if kind in _SERVED_ONLY else "")
+    if kind == RWKV6:
+        h = apply_norm(cfg, p["ln1"], x)
+        x = x + rw.time_mix_train(p["rwkv"], h, cfg)
+        h = apply_norm(cfg, p["ln2"], x)
+        return x + rw.channel_mix(p["rwkv"], h)
+    if kind == MAMBA2:
+        h = apply_norm(cfg, p["ln1"], x)
+        return x + m2.mamba2_train(p["mamba"], h, cfg)
+    if kind == ATTN_SHARED:
+        h = apply_norm(cfg, p["ln_in"], x)
+        return x + _shared_attn_apply(cfg, shared["shared_attn"], h)
     raise ValueError(f"training a {kind!r} block comes with "
-                     f"{_LATER.get(kind, 'a later slice')} of the port"
-                     f"{served}")
+                     f"{_LATER.get(kind, 'a later slice')} of the port")

@@ -28,7 +28,8 @@ from repro.training import optimizer as jopt
 from repro.training.train_step import make_train_step as jax_make_train_step
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, MOE, RWKV6
+from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, DEC_ATTN,
+                                      ENC_ATTN, MOE)
 from repro_torch.configs.reduced import reduced_config
 from repro_torch.core.materializer import H100, Plan
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -68,6 +69,8 @@ def rel_err(got: torch.Tensor, want) -> float:
     (1, 1, 64, 16, True, 0), (2, 2, 128, 32, True, 0),
     (1, 4, 128, 64, True, 48), (2, 1, 128, 16, False, 0),
     (1, 2, 64, 64, True, 16), (2, 4, 64, 32, False, 0),
+    # zamba2-2.7b's head dim (its shared attention trains through K5)
+    (1, 4, 128, 80, True, 0), (2, 2, 64, 80, True, 16),
 ])
 def test_flash_attention_bwd_ref_matches_pallas(b, kvh, s, d, causal,
                                                 window):
@@ -336,15 +339,19 @@ def test_remat_and_loss_chunk_do_not_change_the_gradients():
 
 
 def test_unported_training_paths_raise():
-    """What later slices bring raises and names its slice."""
+    """What later slices bring raises and names its slice: the MoE and
+    encoder-decoder kinds (the recurrent families and ``remat="dots"``
+    train since their slice: ``tests/test_torch_recurrent_training.py``);
+    an unknown remat policy raises too."""
     _, tcfg = _cfgs(False)
     x = torch.zeros(1, 4, tcfg.d_model)
-    with pytest.raises(ValueError, match="later slice"):
-        T._remat(lambda x: x, "dots")
-    with pytest.raises(ValueError, match="RWKV-6"):
-        T.apply_block_train(tcfg, RWKV6, {}, x)
-    with pytest.raises(ValueError, match="MoE"):
+    with pytest.raises(ValueError, match="MoE family's slice"):
         T.apply_block_train(tcfg, MOE, {}, x)
+    for kind in (ENC_ATTN, DEC_ATTN):
+        with pytest.raises(ValueError, match="encoder-decoder .*slice"):
+            T.apply_block_train(tcfg, kind, {}, x)
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        T._remat(lambda x: x, "everything")
 
 
 # ---------------------------------------------------------------------------
