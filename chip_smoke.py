@@ -167,7 +167,46 @@ Phases, each of which must pass (any failure exits nonzero):
 15. train rwkv6: full-width rwkv6-7b (d 4096, 64 heads of 64) with 8 of
    its 32 layers (the full depth does not fit one card) under full
    remat, 4 microbatches, phase 14's gates and report; K6 (its gradient
-   in ``WKV``'s backward), K3 and its backward.
+   in ``WKV``'s backward), K3 and its backward;
+16. families: random bf16 weights from seed 0 at full width, each run's
+   freed before the next: qwen2-moe-a2.7b at its full 24 layers (8
+   requests of 64..1024 tokens, 32 new) and dbrx-132b at 4 of its 40
+   layers (the full depth needs more than one card; 4 requests of
+   256..1024, 16 new) through ``launch.serve`` on the dense backend, as
+   phase 7 serves (every request completes, exact launch counts of K2,
+   K3 and K4), with the tokens the experts' capacity dropped at prefill,
+   the decode step beside its weight-read floor, the peak beside the
+   plan's estimate, and a profiled run (busy share; the routed experts'
+   device time against attention's); phi-3-vision-4.2b's text prompts so
+   too, then ``Model.prefill`` with 2 lanes of 576 seeded image
+   embeddings ahead of a 128-token prompt and 32 decode steps from
+   position 704; whisper-base's ``Model.prefill`` on 4 lanes of seeded
+   (1500, 512) frame features and a 4-token prompt, then 64 decode steps
+   (cache 448; K2 18 times a prefill, K4 12 times a step, no K3: whisper
+   norms with LayerNorm); the two ``Model.prefill`` runs also hold their
+   first decode step to a prefill over one more token by the rule of
+   ``tests/test_arch_smoke.py``;
+17. parity: reduced qwen2-moe-a2.7b and dbrx-132b on the dense backend,
+   reduced phi-3-vision-4.2b with image embeddings and whisper-base with
+   frame features through ``Model.prefill`` and 8 greedy steps, each on
+   the card and on the CPU with the same weights and inputs; greedy
+   tokens equal under the ``TIE_GAP`` rule.
+
+A failed comparison of a kernel with its plain version prints, before
+the run stops, its first 8 bad elements with both values, the count of
+all-zero rows in the kernel's output, and whether an immediate second
+launch on the same inputs gives the same bits (``diagnose``); nothing is
+retried.
+
+Phase 2 also holds K2 and K4 at the families' shapes: K2 at
+phi-3-vision's prefill, q/k/v (1,32,1024,96) causal, whisper's encoder,
+(4,8,1500,64) non-causal, and its cross attention, q (4,8,4,64) over
+(4,8,1500,64) (the shapes phase 16 gives them), and one lane's encoder
+and q (1,8,448,64) over (1,8,1500,64); K4 at phi-3's decode over (8,32,2048,96), whisper's
+cross decode over all 1500 frames and qwen2-moe's (8,16,128) at G = 1;
+two launches bit-equal, each timed beside SDPA with its bound (the
+``*_d96`` and ``*_whisper_*`` records, whose launches are phase 16's:
+the whisper records' by call shape, :func:`call_classes`).
 
 Phase 2 also holds K1 and K2 at mistral-nemo-12b's head dim 128 (K1
 over 8 lanes of 1600..2012 tokens whose tables lead with the same 12
@@ -210,10 +249,11 @@ kernel's and the backward's time at the training shapes (2,80,4096,64)
 and (2,64,4096,64).
 
 A kernel's ``launches`` in the JSON record is its count over the serve
-(phases 3, 7, 8, 11, 12, 13) and train (phases 5, 14, 15) runs; K3's are
+(phases 3, 7, 8, 11, 12, 13, 16) and train (phases 5, 14, 15) runs; K3's are
 also printed by shape class; the ``*_d256`` records count phase 11's runs
 only, the ``*_d128`` records phase 12's mistral-nemo-12b runs only, the
-``*_d80`` backward records phase 14's.
+``*_d80`` backward records phase 14's, the ``*_d96`` records phase 16's
+phi-3-vision runs and the ``*_whisper_*`` records its whisper run.
 ``ab_train`` (not run by ``main``) runs phase 5 and K3's timings
 for a second checkout and this one in turns on one card; ``ab_serve``
 does the same for phase 3's mean TTFT and decode step.  Those runs also fail if a
@@ -338,6 +378,11 @@ def main() -> None:
         launches[name] = launches.get(name, 0) + n
     for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
         launches[f"{name}_d80"] = zamba2[name]
+    families, family_records = serve_families_full(torch)
+    for name, n in families.items():
+        launches[name] = launches.get(name, 0) + n
+    launches.update(family_records)
+    parity_families_reduced(torch)
     for rec in records:
         rec["launches"] = launches.get(rec["name"])
     print(f"[launches] rmsnorm by shape class over the main paths: "
@@ -381,16 +426,22 @@ def timed_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
     return sorted(times)[reps // 2]
 
 
-def compare(torch, name, got, want, atol, rtol, gate=True):
+def compare(torch, name, got, want, atol, rtol, gate=True, rerun=None):
     """Elementwise |got - want| <= atol + rtol |want|; fails unless
     ``gate`` is False (then the worst err/tol is printed for information).
-    Returns the max abs error."""
+    ``rerun`` launches the kernel again on the same inputs and returns what
+    ``got`` is; on a failure (a gated disagreement or a non-finite output)
+    :func:`diagnose` prints what tells the failure's kind.  Returns the
+    max abs error."""
+    raw = got
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
+        diagnose(torch, name, raw, want, None, rerun)
         fail(f"{name}: kernel output not finite")
     err = (got - want).abs()
     max_abs = float(err.max())
     max_rel = float((err / want.abs().clamp(min=1e-6)).max())
+    bad = err > atol + rtol * want.abs()
     used = float((err / (atol + rtol * want.abs())).max())
     ok = used <= 1.0
     verdict = ("ok" if ok else "FAIL") if gate else "not gated"
@@ -398,8 +449,43 @@ def compare(torch, name, got, want, atol, rtol, gate=True):
           f"tol=atol {atol:g} + rtol {rtol:g}*|ref|, worst err/tol="
           f"{used:.3f} -> {verdict}", flush=True)
     if gate and not ok:
+        diagnose(torch, name, raw, want, bad, rerun)
         fail(f"{name}: kernel disagrees with its plain version")
     return max_abs
+
+
+def diagnose(torch, name, got, want, bad, rerun):
+    """What a failed comparison prints before the run stops: the first 8
+    bad elements by (row, column) of the last dim, with the kernel's and
+    the plain version's values; the count of rows of ``got`` that are all
+    zero; and whether a second launch right after, on the same inputs,
+    returns the same bits (a kernel that races or reads uninitialised
+    memory usually does not).  Nothing here retries the check."""
+    g = got.float().reshape(-1, got.shape[-1])
+    w = want.float().reshape(-1, got.shape[-1])
+    if bad is None:
+        bad = ~torch.isfinite(g)
+    idx = bad.reshape(g.shape).nonzero()[:8].tolist()
+    print(f"[diagnose] {name}: {int(bad.sum())} bad of {g.numel()} "
+          f"elements; first (row, col) got/want: "
+          + ", ".join(f"({r}, {c}) {float(g[r, c]):.6g}/{float(w[r, c]):.6g}"
+                      for r, c in idx), flush=True)
+    zero_rows = int((g == 0).all(-1).sum())
+    print(f"[diagnose] {name}: rows of the kernel's output that are all "
+          f"zero: {zero_rows} of {g.shape[0]} (the plain version's: "
+          f"{int((w == 0).all(-1).sum())})", flush=True)
+    if rerun is None:
+        print(f"[diagnose] {name}: no second launch (the check gives none)",
+              flush=True)
+        return
+    torch.cuda.synchronize()
+    again = rerun()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(again, got))
+    now = float((again.float() - want.float()).abs().max())
+    print(f"[diagnose] {name}: an immediate second launch on the same "
+          f"inputs gives {'the same' if same else 'a different'} result "
+          f"(its max_abs against the plain version {now:.3e})", flush=True)
 
 
 def bound(nbytes: float, flops: float, peak_flops: float):
@@ -506,8 +592,10 @@ def check_kernels(torch):
                               ring=ring)
         want = paged_attention_ref(q, kp, vp, table, vlen, window=window,
                                    ring=ring)
-        errs.append(compare(torch, f"paged_attention {label}", got, want,
-                            *tol[dtype]))
+        errs.append(compare(
+            torch, f"paged_attention {label}", got, want, *tol[dtype],
+            rerun=lambda: paged_attention(q, kp, vp, table, vlen,
+                                          window=window, ring=ring)))
         if kw.get("empty_lane") and float(got[-1].abs().max()) != 0.0:
             fail("paged_attention: an all -1 lane must return zeros")
     pps, splits = split_pages(b, kvh, maxp,
@@ -615,6 +703,7 @@ def check_kernels(torch):
     check_scan_grads(torch, randn)
     records += check_head_dim_256(torch, randn, tol)
     records += check_head_dim_128(torch, randn, tol)
+    records += check_families_kernels(torch, randn, tol)
     for rec in records:
         lib_txt = ("none" if rec["library_ms"] is None
                    else f"{rec['library_ms']:.4f} ms")
@@ -745,7 +834,7 @@ def check_rmsnorm(torch, randn, tol):
         x, g = randn(rows, d, dtype=dtype), randn(d, dtype=f32, scale=0.1)
         errs.append(compare(torch, f"rmsnorm rows={rows} d={d} {dtype}",
                             rms.rmsnorm(x, g), rms.rmsnorm_ref(x, g),
-                            *tol[dtype]))
+                            *tol[dtype], rerun=lambda: rms.rmsnorm(x, g)))
     fwd = dict(name="rmsnorm", route="triton",
                source="src/repro_torch/kernels/rmsnorm.py",
                replaces="src/repro/kernels/rmsnorm.py:24",
@@ -762,8 +851,10 @@ def check_rmsnorm(torch, randn, tol):
         dx, dg = rms.rmsnorm_bwd(dy, x, g)
         want_dx, want_dg = rms.rmsnorm_bwd_ref(dy, x, g)
         errs.append(compare(torch, f"rmsnorm_bwd dx {label}", dx, want_dx,
-                            *tol[dtype]))
-        compare(torch, f"rmsnorm_bwd dgain {label}", dg, want_dg, *tol[dtype])
+                            *tol[dtype],
+                            rerun=lambda: rms.rmsnorm_bwd(dy, x, g)[0]))
+        compare(torch, f"rmsnorm_bwd dgain {label}", dg, want_dg, *tol[dtype],
+                rerun=lambda: rms.rmsnorm_bwd(dy, x, g)[1])
         if dtype == bf16:
             g32 = g.float()
             rel_norm(torch, f"rmsnorm_bwd dgain {label}, fp32 gain",
@@ -826,9 +917,11 @@ def check_fwd(torch, label, q, k, v, kw, tol):
     o_f, lse_f = flash_attention_fwd_ref(q.float(), k.float(), v.float(),
                                          **kw)
     compare(torch, f"flash_attention_fwd lse {label}", lse, lse_f, 1e-4,
-            1e-5)
+            1e-5, rerun=lambda: flash_attention_fwd(q, k, v, **kw)[1])
     if q.dtype == torch.float32:
-        return compare(torch, name, o, o_f, *tol[torch.float32]), o, lse
+        return compare(torch, name, o, o_f, *tol[torch.float32],
+                       rerun=lambda: flash_attention_fwd(q, k, v, **kw)[0]), \
+            o, lse
     del lse_f
     o_b, _ = flash_attention_fwd_ref(q, k, v, operand_dtype=torch.bfloat16,
                                      block_k=fwd_block_k(q.shape[-1]), **kw)
@@ -855,20 +948,54 @@ def check_fwd(torch, label, q, k, v, kw, tol):
     return worst, o, lse
 
 
-def time_fwd_d80(torch, q, k, v):
-    """K2 at zamba2's prefill shape (head dim 80): one ``[time]`` line."""
+def _fwd_times(torch, q, k, v, causal):
+    """K2's time (no window, no query offset; causal only at Sq = Sk), its
+    plain version's (bf16 operands), SDPA's on contiguous copies, and the
+    bound from what the inputs need."""
     import torch.nn.functional as F
-    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
-                                                     flash_attention_fwd_ref)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_fwd, flash_attention_fwd_ref, fwd_block_k)
     b, h, sq, d = q.shape
-    ms = timed_ms(torch, lambda: flash_attention_fwd(q, k, v))
+    sk = k.shape[2]
+    assert sq == sk or not causal
+    ms = timed_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=causal))
     plain = timed_ms(torch, lambda: flash_attention_fwd_ref(
-        q, k, v, operand_dtype=torch.bfloat16))
+        q, k, v, causal=causal, operand_dtype=torch.bfloat16,
+        block_k=fwd_block_k(d)), iters=3, reps=3)
+    qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
     lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True))
-    pairs = b * h * sq * (sq + 1) // 2
+        qc, kc, vc, is_causal=causal, enable_gqa=True))
+    pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * sk)
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * h * sq
     b_ms, b_by = bound(nbytes, 4 * d * pairs, H100_BF16_FLOPS)
+    return ms, plain, lib, b_ms, b_by
+
+
+def _decode_times(torch, q, k, v, vlen):
+    """K4's time, its plain version's, SDPA's (with a length mask where a
+    lane attends to fewer than all S keys), and the bound over the keys
+    the valid lengths cover."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    b, kvh, s, d = k.shape
+    h = q.shape[1]
+    ms = timed_ms(torch, lambda: decode_attention(q, k, v, vlen))
+    plain = timed_ms(torch, lambda: decode_attention_ref(q, k, v, vlen))
+    mask = torch.arange(s, device=q.device)[None, :] < vlen[:, None]
+    mask = None if bool(mask.all()) else mask[:, None, None]
+    lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True))
+    attended = int(vlen.clamp(max=s).sum())
+    nbytes = 2 * q.numel() * 2 + vlen.numel() * 4 + 2 * attended * kvh * d * 2
+    b_ms, b_by = bound(nbytes, 4 * h * d * attended, H100_BF16_FLOPS)
+    return ms, plain, lib, b_ms, b_by
+
+
+def time_fwd_d80(torch, q, k, v):
+    """K2 at zamba2's prefill shape (head dim 80): one ``[time]`` line."""
+    b, h, sq, d = q.shape
+    ms, plain, lib, b_ms, b_by = _fwd_times(torch, q, k, v, causal=True)
     print(f"[time] flash_attention_fwd at zamba2's prefill shape (B={b} "
           f"H={h} KV={k.shape[1]} D={d} S={sq} causal): kernel {ms:.4f} ms, "
           f"plain {plain:.4f} ms (bf16 operands), library {lib:.4f} ms "
@@ -918,7 +1045,6 @@ def check_decode(torch, randn, tol):
     every lane inside the first split at zamba2's shape; a lane of valid
     length 0 must return exact zeros and two launches must be bit-equal.
     Timed at zamba2's decode shape (the record) and tinyllama's G = 8."""
-    import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_ref,
                                                       split_keys)
@@ -953,7 +1079,8 @@ def check_decode(torch, randn, tol):
         got = decode_attention(q, k, v, vlen)
         want = decode_attention_ref(q.float(), k.float(), v.float(), vlen)
         errs.append(compare(torch, f"decode_attention {label}", got, want,
-                            *tol[dtype]))
+                            *tol[dtype], rerun=lambda: decode_attention(
+                                q, k, v, vlen)))
         for i, n in enumerate(vlens):
             if n == 0 and float(got[i].abs().max()) != 0.0:
                 fail("decode_attention: a lane of valid length 0 must "
@@ -961,23 +1088,7 @@ def check_decode(torch, randn, tol):
         timed[label.split()[0]] = (q, k, v, vlen)
     same_twice(torch, "decode_attention zamba2 G=1",
                lambda: (decode_attention(q, k, v, vlen),))
-
-    def times(q, k, v, vlen):
-        b, kvh, s, d = k.shape
-        h = q.shape[1]
-        ms = timed_ms(torch, lambda: decode_attention(q, k, v, vlen))
-        plain = timed_ms(torch, lambda: decode_attention_ref(q, k, v, vlen))
-        mask = (torch.arange(s, device=dev)[None, :] < vlen[:, None])
-        lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(
-            q[:, :, None], k, v, attn_mask=mask[:, None, None],
-            enable_gqa=True))
-        attended = int(vlen.clamp(max=s).sum())
-        nbytes = (2 * q.numel() * 2 + vlen.numel() * 4
-                  + 2 * attended * kvh * d * 2)
-        b_ms, b_by = bound(nbytes, 4 * h * d * attended, H100_BF16_FLOPS)
-        return ms, plain, lib, b_ms, b_by
-
-    ms, plain, lib, b_ms, b_by = times(*timed["tinyllama"])
+    ms, plain, lib, b_ms, b_by = _decode_times(torch, *timed["tinyllama"])
     print(f"[time] decode_attention at tinyllama's G=8 shape (B=8 H=32 KV=4 "
           f"D=64 S=2048, vlen 120-2048): kernel {ms:.4f} ms, plain "
           f"{plain:.4f} ms, library {lib:.4f} ms (SDPA, length mask), bound "
@@ -985,7 +1096,7 @@ def check_decode(torch, randn, tol):
           flush=True)
     # the record: zamba2's decode shape (last case), every lane at the
     # shared position 896 of the serve run's longest prompt, cache 2048
-    ms, plain, lib, b_ms, b_by = times(q, k, v, vlen)
+    ms, plain, lib, b_ms, b_by = _decode_times(torch, q, k, v, vlen)
     kernel_split(torch, lambda: decode_attention(q, k, v, vlen),
                  "decode_attention at zamba2's decode shape")
     print(f"[time] decode_attention at zamba2's decode shape: share of "
@@ -1149,13 +1260,15 @@ def check_head_dim_256(torch, randn, tol):
     errs = [compare(torch, "decode_attention d=256 gemma3 ring valid 1024",
                     decode_attention(q4, k4, v4, vl4),
                     decode_attention_ref(q4.float(), k4.float(), v4.float(),
-                                         vl4), *tol[bf16])]
+                                         vl4), *tol[bf16],
+                    rerun=lambda: decode_attention(q4, k4, v4, vl4))]
     ragged = torch.tensor([1024, 1, 0, 500, 1000, 129, 700, 1029],
                           dtype=torch.int32, device=dev)
     errs.append(compare(torch, "decode_attention d=256 lengths 0-1029",
                         decode_attention(q4, k4, v4, ragged),
                         decode_attention_ref(q4.float(), k4.float(),
                                              v4.float(), ragged),
+                        rerun=lambda: decode_attention(q4, k4, v4, ragged),
                         *tol[bf16]))
     ms = timed_ms(torch, lambda: decode_attention(q4, k4, v4, vl4))
     plain = timed_ms(torch, lambda: decode_attention_ref(q4, k4, v4, vl4))
@@ -1313,6 +1426,120 @@ def check_head_dim_128(torch, randn, tol):
     return records
 
 
+# ---------------------------------------------------------------------------
+# phase 2, the families of phase 16: K2 and K4 at phi-3-vision's head dim
+# 96, at whisper-base's encoder and cross shapes, K4 at qwen2-moe's
+# ---------------------------------------------------------------------------
+
+# whisper-base in phase 16: lanes and prompt tokens of its one prefill
+# (phase 2 holds K2 and K4 at the shapes these give them)
+WHISPER_LANES, WHISPER_PROMPT = 4, 4
+
+
+def check_families_kernels(torch, randn, tol):
+    """K2 and K4 at the shapes phase 16 gives them, bf16, against their
+    plain versions at phase 2's tolerances (K2 by relative norm, as
+    ``check_fwd`` holds every bf16 case; K4 elementwise on fp32 copies),
+    two launches bit-equal, each timed beside its plain version and SDPA
+    with its bound: K2 at phi-3-vision-4.2b's prefill, q/k/v
+    (1,32,1024,96) causal, at whisper-base's encoder, (4,8,1500,64)
+    non-causal, and its cross attention, q (4,8,4,64) over k/v
+    (4,8,1500,64) non-causal, and (no record) at one lane's encoder,
+    (1,8,1500,64), and a 448-token prompt's cross attention, q
+    (1,8,448,64) over (1,8,1500,64); K4 at phi-3's decode, q (8,32,96)
+    over (8,32,2048,96) (lanes of 1..2048 keys), at whisper's cross
+    decode, q (4,8,64) over all 1500 frames of (4,8,1500,64), and at
+    qwen2-moe's, q (8,16,128) over (8,16,2048,128), G = 1.  Returns the
+    records ``*_d96`` and ``*_whisper_*`` (their launches are phase
+    16's)."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    records = []
+
+    fwd_cases = [
+        ("flash_attention_fwd_d96", "phi-3-vision prefill d=96 h=32/32 "
+         "s=1024 causal", 1, 32, 32, 1024, 1024, 96, True),
+        ("flash_attention_fwd_whisper_enc", "whisper encoder d=64 h=8/8 "
+         "s=1500 non-causal", WHISPER_LANES, 8, 8, 1500, 1500, 64, False),
+        ("flash_attention_fwd_whisper_cross", f"whisper cross d=64 h=8/8 "
+         f"sq={WHISPER_PROMPT} sk=1500 non-causal", WHISPER_LANES, 8, 8,
+         WHISPER_PROMPT, 1500, 64, False),
+        (None, "whisper encoder d=64 h=8/8 s=1500 non-causal", 1, 8, 8,
+         1500, 1500, 64, False),
+        (None, "whisper cross d=64 h=8/8 sq=448 sk=1500 non-causal", 1, 8,
+         8, 448, 1500, 64, False),
+    ]
+    for rec, label, b, h, kvh, sq, sk, d, causal in fwd_cases:
+        q = randn(b, sq, h, d).transpose(1, 2)               # model layout
+        k = randn(b, sk, kvh, d).transpose(1, 2)
+        v = randn(b, sk, kvh, d).transpose(1, 2)
+        kw = dict(causal=causal, window=0, q_offset=0)
+        err = check_fwd(torch, label, q, k, v, kw, tol)[0]
+        same_twice(torch, f"flash_attention_fwd {label}",
+                   lambda: flash_attention_fwd(q, k, v, causal=causal))
+        ms, plain, lib, b_ms, b_by = _fwd_times(torch, q, k, v, causal)
+        print(f"[time] flash_attention_fwd {label} (B={b}): kernel "
+              f"{ms:.4f} ms, plain {plain:.4f} ms (bf16 operands), library "
+              f"{lib:.4f} ms (SDPA), bound {b_ms:.4f} ms ({b_by}), share of "
+              f"bound {b_ms / ms:.3f}", flush=True)
+        if rec is not None:
+            records.append(dict(
+                name=rec, route="cuda",
+                source="src/repro_torch/csrc/flash_attention_fwd.cu",
+                replaces="src/repro/kernels/flash_attention.py:96",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib,
+                shape=f"{label} (B={b} H={h} KV={kvh} D={d} Sq={sq} "
+                      f"Sk={sk}); plain_ms is the plain version with bf16 "
+                      "operands"))
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(device=dev).manual_seed(96)
+    phi_lens = torch.randint(1, 2049, (8,), generator=gen, device=dev)
+    phi_lens[0], phi_lens[1] = 1, 2048
+    dec_cases = [
+        ("decode_attention_d96", "phi-3-vision decode d=96 h=32/32 s=2048",
+         8, 32, 32, 2048, 96, phi_lens.int()),
+        ("decode_attention_whisper_cross", "whisper cross decode d=64 h=8/8 "
+         "over 1500 frames", WHISPER_LANES, 8, 8, 1500, 64,
+         torch.full((WHISPER_LANES,), 1500, dtype=torch.int32, device=dev)),
+        (None, "qwen2-moe decode d=128 h=16/16 s=2048", 8, 16, 16, 2048, 128,
+         torch.full((8,), 1055, dtype=torch.int32, device=dev)),
+    ]
+    for rec, label, b, h, kvh, s, d, vlen in dec_cases:
+        q = randn(b, h, d)
+        k, v = randn(b, kvh, s, d), randn(b, kvh, s, d)
+        err = compare(torch, f"decode_attention {label}",
+                      decode_attention(q, k, v, vlen),
+                      decode_attention_ref(q.float(), k.float(), v.float(),
+                                           vlen), *tol[bf16],
+                      rerun=lambda: decode_attention(q, k, v, vlen))
+        same_twice(torch, f"decode_attention {label}",
+                   lambda: (decode_attention(q, k, v, vlen),))
+        ms, plain, lib, b_ms, b_by = _decode_times(torch, q, k, v, vlen)
+        print(f"[time] decode_attention {label} (vlen {vlen.tolist()}): "
+              f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library "
+              f"{lib:.4f} ms (SDPA), bound {b_ms:.4f} ms "
+              f"({b_by}), share of bound {b_ms / ms:.3f}", flush=True)
+        if rec is not None:
+            records.append(dict(
+                name=rec, route="cuda",
+                source="src/repro_torch/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:63",
+                max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib,
+                shape=f"{label}: B={b} H={h} KV={kvh} D={d} S={s}, vlen "
+                      f"{vlen.tolist()}; library_ms is SDPA, with a length "
+                      "mask where a lane attends to fewer than S keys"))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return records
+
+
 def _ssd_inputs(torch, randn, b, h, s, p, n, dtype, decay=None, pad=0):
     """The model's layouts: x (B, S, H, P) and B, C slices of one (B, S,
     H*P + 2N + pad) activation (``pad`` elements at the end of each row
@@ -1395,8 +1622,10 @@ def check_ssd(torch, randn):
     for label, b, h, s, p, n, dtype, decay, pad in cases:
         ins = _ssd_inputs(torch, randn, b, h, s, p, n, dtype, decay, pad)
         (y, st), (y_r, st_r) = ssd_scan(*ins), ssd_scan_ref(*ins)
-        errs.append(compare(torch, f"ssd_scan y {label}", y, y_r, 1e-4, 1e-4))
-        compare(torch, f"ssd_scan state {label}", st, st_r, 1e-4, 1e-4)
+        errs.append(compare(torch, f"ssd_scan y {label}", y, y_r, 1e-4, 1e-4,
+                            rerun=lambda: ssd_scan(*ins)[0]))
+        compare(torch, f"ssd_scan state {label}", st, st_r, 1e-4, 1e-4,
+                rerun=lambda: ssd_scan(*ins)[1])
     # zamba2's prefill shape: 80 heads of P 64, N 64, a ragged 1000 tokens
     b, h, s, p, n = 1, 80, 1000, 64, 64
     ins = _ssd_inputs(torch, randn, b, h, s, p, n, bf16)
@@ -1456,8 +1685,9 @@ def check_wkv(torch, randn):
         ins = _wkv_inputs(torch, randn, b, h, s, hd, dtype, decay, pad)
         (o, st), (o_r, st_r) = rwkv6_wkv(*ins), rwkv6_wkv_ref(*ins)
         errs.append(compare(torch, f"rwkv6_wkv o {label}", o, o_r, 1e-4,
-                            1e-4))
-        compare(torch, f"rwkv6_wkv state {label}", st, st_r, 1e-4, 1e-4)
+                            1e-4, rerun=lambda: rwkv6_wkv(*ins)[0]))
+        compare(torch, f"rwkv6_wkv state {label}", st, st_r, 1e-4, 1e-4,
+                rerun=lambda: rwkv6_wkv(*ins)[1])
     # rwkv6-7b's prefill shape: 64 heads of 64, a ragged 1000 tokens
     b, h, s, hd = 1, 64, 1000, 64
     ins = _wkv_inputs(torch, randn, b, h, s, hd, bf16)
@@ -1583,12 +1813,14 @@ def check_backward(torch, randn, tol):
     Returns the K5 records and the K2 errors."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_dkv, flash_attention_bwd_dq,
-        flash_attention_dkv_ref, flash_attention_dq_ref, flash_attention_fwd,
-        flash_attention_fwd_ref)
+        BWD_HEAD_DIMS, HEAD_DIMS, flash_attention_bwd_dkv,
+        flash_attention_bwd_dq, flash_attention_dkv_ref,
+        flash_attention_dq_ref, flash_attention_fwd, flash_attention_fwd_ref)
     bf16, f32 = torch.bfloat16, torch.float32
-    # the forward at six head dims, the backward's dQ and dK/dV at five
-    tensor_core_sass({"flash_attention_fwd": 6, "flash_attention_bwd": 10})
+    # the forward at each of its head dims, the backward's dQ and dK/dV at
+    # each of theirs
+    tensor_core_sass({"flash_attention_fwd": len(HEAD_DIMS),
+                      "flash_attention_bwd": 2 * len(BWD_HEAD_DIMS)})
     cases = [
         ("small causal ragged GQA b=2 h=4/2 s=200 d=64", 2, 4, 2, 200, 200,
          64, True, 0, 0, bf16),
@@ -1634,16 +1866,26 @@ def check_backward(torch, randn, tol):
         torch.cuda.synchronize()
         dq_r, delta_r = flash_attention_dq_ref(q, k, v, o, lse, do, **kw)
         compare(torch, f"flash_attention_bwd delta {label}", delta, delta_r,
-                1e-4, 1e-5)
+                1e-4, 1e-5, rerun=lambda: flash_attention_bwd_dq(
+                    q, k, v, o, lse, do, **kw)[1])
         name = f"flash_attention_bwd {{}} {label}"
         if dtype == f32:
-            errs["dq"].append(compare(torch, name.format("dq"), dq, dq_r,
-                                      *tol[dtype]))
+            errs["dq"].append(compare(
+                torch, name.format("dq"), dq, dq_r, *tol[dtype],
+                rerun=lambda: flash_attention_bwd_dq(q, k, v, o, lse, do,
+                                                     **kw)[0]))
             dk_r, dv_r = flash_attention_dkv_ref(q, k, v, lse, delta_r, do,
                                                  **kw)
+
+            def dkv(i):
+                return flash_attention_bwd_dkv(q, k, v, lse, delta, do,
+                                               **kw)[i]
+
             errs["dkv"].append(max(
-                compare(torch, name.format("dk"), dk, dk_r, *tol[dtype]),
-                compare(torch, name.format("dv"), dv, dv_r, *tol[dtype])))
+                compare(torch, name.format("dk"), dk, dk_r, *tol[dtype],
+                        rerun=lambda: dkv(0)),
+                compare(torch, name.format("dv"), dv, dv_r, *tol[dtype],
+                        rerun=lambda: dkv(1))))
             del dq_r, dk_r, dv_r, delta_r
             continue
         # bf16: one plain version at a time, the training shape's are large
@@ -1865,7 +2107,7 @@ def check_backward_d80(torch, randn, tol):
     name = f"flash_attention_bwd {{}} {label}"
     dq_f, delta_r = flash_attention_dq_ref(q, k, v, o, lse, do, **kw)
     compare(torch, f"flash_attention_bwd delta {label}", delta, delta_r,
-            1e-4, 1e-5)
+            1e-4, 1e-5, rerun=lambda: both()[1])
     dq_b, _ = flash_attention_dq_ref(q, k, v, o, lse, do, operand_dtype=bf16,
                                      **kw)
     worst = {"dq": check_bf16_grad(torch, name.format("dq"), dq, dq_b, dq_f,
@@ -2437,12 +2679,20 @@ def profile_train(torch, out, ocfg):
     return report_profile(prof, wall, "train 1 step")
 
 
+# the ``record_function`` ranges chip_smoke opens under the profiler
+ANNOTATIONS = ("moe_routed_experts",)
+
+
 def report_profile(prof, wall, what):
     """Busy share and device time by kernel of a profiled window; returns
     the device busy ms (None when not measured)."""
     avgs = prof.key_averages()            # aggregated once: it is slow
+    # a ``record_function`` range also shows as a device-side annotation,
+    # which spans the kernels it holds: not a kernel of its own
     kernels = [e for e in avgs
-               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False)
+               and e.key not in ANNOTATIONS]
     dev_us = {e.key: getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0.0))
               for e in kernels}
@@ -2689,16 +2939,16 @@ def _dense_kernels():
 def _expected_dense(cfg, prefills, decode_steps):
     """Launches the dense path implies: per prefill and per decode step,
     one RMSNorm launch per norm of each block plus ln_f; per prefill, K2
-    in each attention block or shared-attention application, K7 in each
-    Mamba-2 block and K6 in each RWKV-6 block; per decode step K4 in each
-    attention block or application."""
+    in each attention or MoE block or shared-attention application, K7 in
+    each Mamba-2 block and K6 in each RWKV-6 block; per decode step K4 in
+    each attention or MoE block or application."""
     from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL,
-                                          ATTN_SHARED, MAMBA2, RWKV6)
+                                          ATTN_SHARED, MAMBA2, MOE, RWKV6)
     nb = cfg.num_blocks
     count = {k: nb * cfg.pattern.count(k) for k in (MAMBA2, RWKV6,
                                                     ATTN_SHARED, ATTN_GLOBAL,
-                                                    ATTN_LOCAL)}
-    attn = count[ATTN_GLOBAL] + count[ATTN_LOCAL]
+                                                    ATTN_LOCAL, MOE)}
+    attn = count[ATTN_GLOBAL] + count[ATTN_LOCAL] + count[MOE]
     qk = 2 if cfg.use_qk_norm else 0
     norms = (2 * count[MAMBA2] + 2 * count[RWKV6]
              + (3 + qk) * count[ATTN_SHARED] + (2 + qk) * attn + 1)
@@ -2710,89 +2960,230 @@ def _expected_dense(cfg, prefills, decode_steps):
             "paged_attention": 0}
 
 
-def serve_dense_full(torch, arch):
-    """``arch`` at full width (random weights from seed 0) through
-    ``serve(backend="dense")``: 8 requests, prompts 64..1024 (seed 0), 32
-    new tokens, max batch 8, a 2048-token cache per slot.  Returns the launch counts of
-    the kernels this path runs; then a profiled run of the same traffic
-    with 8 new tokens on the same runner."""
+# phase 16's gate on a serve run's peak: the plan's estimate (weights, the
+# dense cache, a decode step's activations) plus what it leaves out, the
+# largest piece that init draws at once (``INIT_SLICE_ELEMS``: 1 GiB in
+# fp32 and its 0.5 GiB bf16 cast) and a prefill's activations.  A peak
+# above it would let the plan admit a co-tenant that cannot fit.
+PEAK_OVER_PLAN_BYTES = 2 * 2**30
+
+
+def serve_dense_full(torch, arch, *, requests=8, prompt_range=(64, 1024),
+                     max_new=32, peak_over_plan=None):
+    """``arch`` (a name, or a config cut in depth) at full width, random
+    weights from seed 0, through ``serve(backend="dense")``: ``requests``
+    requests, prompts drawn from ``prompt_range`` (seed 0), ``max_new``
+    new tokens, max batch 8, a 2048-token cache per slot.  Prints TTFT,
+    the decode step, the peak beside the plan's estimate (and fails if it
+    exceeds the estimate by more than ``peak_over_plan`` bytes, where
+    given) and, for an MoE config, the tokens its experts dropped at
+    prefill and the decode step's weight-read floor.  Returns the launch
+    counts of the kernels this path runs; then a profiled run of the same
+    traffic with 8 new tokens on the same runner."""
     import gc
     from repro_torch.launch.serve import serve
     kernels = _dense_kernels()
+    name = arch if isinstance(arch, str) else \
+        f"{arch.name} ({arch.num_layers} of its layers)"
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     for fn in kernels.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    with row_copies() as seen:
-        out = serve(arch, backend="dense", device="cuda", requests=8,
-                    max_batch=8, prompt_range=(64, 1024), max_new=32, seed=0)
+    with row_copies() as seen, moe_drops(torch) as drops:
+        out = serve(arch, backend="dense", device="cuda", requests=requests,
+                    max_batch=8, prompt_range=prompt_range, max_new=max_new,
+                    seed=0)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in kernels.items()}
-    no_row_copies(f"serve {arch}", seen)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    no_row_copies(f"serve {name}", seen)
     stats, runner, reqs = out["stats"], out["runner"], out["requests"]
     cfg = runner.cfg
     for r in reqs:
         toks = r.output_tokens or []
-        if len(toks) != 33 or not all(0 <= t < cfg.vocab_size for t in toks):
-            fail(f"serve {arch}: {r.req_id} returned {len(toks)} tokens "
-                 f"(expected 1 + 32 in [0, {cfg.vocab_size}))")
+        if (len(toks) != 1 + max_new
+                or not all(0 <= t < cfg.vocab_size for t in toks)):
+            fail(f"serve {name}: {r.req_id} returned {len(toks)} tokens "
+                 f"(expected 1 + {max_new} in [0, {cfg.vocab_size}))")
     want = _expected_dense(cfg, stats.prefills, stats.decode_steps)
-    print(f"[serve] {arch} full width, dense, prompts "
+    print(f"[serve] {name} full width, dense, prompts "
           f"{[r.prompt_len for r in reqs]}, prefills={stats.prefills} "
           f"decode_steps={stats.decode_steps} launches={launches} "
           f"expected={want}", flush=True)
-    if launches != want or not all(n for name, n in launches.items()
-                                   if want[name]):
-        fail(f"serve {arch}: kernel launch counts differ from what the "
+    if launches != want or not all(n for k, n in launches.items()
+                                   if want[k]):
+        fail(f"serve {name}: kernel launch counts differ from what the "
              "path implies")
     norms = want["rmsnorm"] // (stats.prefills + stats.decode_steps)
     RMS_LAUNCHES["prefill"] += norms * stats.prefills
     RMS_LAUNCHES["decode"] += norms * stats.decode_steps
-    print(f"[serve] {arch} mean_ttft={stats.mean_ttft_s * 1e3:.3f} ms "
+    print(f"[serve] {name} mean_ttft={stats.mean_ttft_s * 1e3:.3f} ms "
           f"mean_decode_step={stats.mean_decode_step_s * 1e3:.3f} ms "
           f"tokens/s={stats.tokens_generated / stats.wall_s:.2f} "
           f"wall={wall:.3f} s (weights init included) peak_mem="
-          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, plan "
+          f"estimate {out['plan'].est_bytes_per_device / 2**30:.3f} GiB | "
           f"{card_line()}", flush=True)
-    profile_dense(torch, arch, runner)
+    over = torch.cuda.max_memory_allocated() - out["plan"].est_bytes_per_device
+    if peak_over_plan is not None and over > peak_over_plan:
+        fail(f"serve {name}: peak {over / 2**30:.3f} GiB over the plan's "
+             f"estimate (at most {peak_over_plan / 2**30:.3f} GiB)")
+    if cfg.moe is not None:
+        moe_report(torch, name, runner, stats, drops)
+    profile_dense(torch, name, runner, requests, prompt_range)
     del out, runner, reqs
     gc.collect()
     torch.cuda.empty_cache()
-    return {name: n for name, n in launches.items() if want[name]}
+    return {k: n for k, n in launches.items() if want[k]}
 
 
-def profile_dense(torch, arch, runner):
+@contextmanager
+def moe_drops(torch):
+    """Count, on the card and without a sync, the (token, k) pairs that
+    the MoE blocks' capacity drops while the block runs (a decode step of
+    at most 8 tokens drops none: every expert takes 8)."""
+    from repro_torch.models import moe as moe_mod
+    plain, seen = moe_mod.dispatch_slots, {"pairs": None, "calls": 0}
+
+    def counting(ids, e_total, cap):
+        slot, keep = plain(ids, e_total, cap)
+        n = (~keep).sum()
+        seen["pairs"] = n if seen["pairs"] is None else seen["pairs"] + n
+        seen["calls"] += 1
+        return slot, keep
+
+    moe_mod.dispatch_slots = counting
+    try:
+        yield seen
+    finally:
+        moe_mod.dispatch_slots = plain
+
+
+@contextmanager
+def call_classes():
+    """Count the model's K2 and K4 launches by call shape while the block
+    runs: K2's by (causal, Sq, Sk), K4's by (cache length, head dim).  A
+    call counts where its wrapper's own count rose, that is where it
+    launched its kernel.  The model reaches both kernels only through
+    ``models/attention.py``, whose names are wrapped."""
+    from repro_torch.models import attention as attn
+    k2, k4 = attn.flash_attention_fwd, attn.decode_attention
+    seen = {"flash_attention_fwd": {}, "decode_attention": {}}
+
+    def tally(name, key):
+        seen[name][key] = seen[name].get(key, 0) + 1
+
+    def fwd(q, k, v, **kw):
+        n = k2.launches
+        out = k2(q, k, v, **kw)
+        if k2.launches > n:
+            tally("flash_attention_fwd",
+                  (bool(kw.get("causal", True)), q.shape[2], k.shape[2]))
+        return out
+
+    def dec(q, k, v, valid_len):
+        n = k4.launches
+        out = k4(q, k, v, valid_len)
+        if k4.launches > n:
+            tally("decode_attention", (k.shape[2], k.shape[3]))
+        return out
+
+    attn.flash_attention_fwd, attn.decode_attention = fwd, dec
+    try:
+        yield seen
+    finally:
+        attn.flash_attention_fwd, attn.decode_attention = k2, k4
+
+
+def moe_report(torch, name, runner, stats, drops):
+    """The (token, k) pairs the experts dropped over the run's prefills,
+    and the decode step against its weight-read floor: every weight but
+    the token embedding (the capacity design runs every padded expert's
+    products each step, whatever the 8 tokens route to) over the card's
+    memory rate."""
+    tok = runner.params["embed"]["tok"]
+    read = _tree_bytes(runner.params) - tok.numel() * tok.element_size()
+    floor_ms = read / H100_BYTES_PER_S * 1e3
+    step_ms = stats.mean_decode_step_s * 1e3
+    dropped = int(drops["pairs"]) if drops["pairs"] is not None else 0
+    print(f"[moe] {name}: (token, k) pairs dropped by the experts' "
+          f"capacity over {stats.prefills} prefills: {dropped} "
+          f"({drops['calls']} MoE block calls in all); decode step "
+          f"{step_ms:.3f} ms against its weight-read floor {floor_ms:.3f} ms "
+          f"({read / 2**30:.2f} GiB at {H100_BYTES_PER_S / 1e12:.2f} TB/s): "
+          f"{floor_ms / step_ms:.3f} of the floor | {card_line()}",
+          flush=True)
+
+
+def profile_dense(torch, arch, runner, requests=8, prompt_range=(64, 1024)):
     """The phase's traffic with 8 new tokens, on the same runner, under
-    ``torch.profiler``: busy share and device time by kernel."""
+    ``torch.profiler``: busy share and device time by kernel; for an MoE
+    config also the device time under the routed experts' products
+    (``_local_expert_ffn``, its dispatch included) against the attention
+    kernels'."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.models import moe as moe_mod
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.kv_cache import PagePool, Request
     rng = np.random.default_rng(0)
-    reqs = [Request(f"r{i}", int(rng.integers(64, 1025)), 8)
-            for i in range(8)]
+    reqs = [Request(f"r{i}", int(rng.integers(prompt_range[0],
+                                              prompt_range[1] + 1)), 8)
+            for i in range(requests)]
     eng = ServingEngine(PagePool(128), max_batch=8, runner=runner)
+    plain = moe_mod._local_expert_ffn
+
+    def experts(*args):
+        with record_function(ANNOTATIONS[0]):
+            return plain(*args)
+
+    moe_mod._local_expert_ffn = experts
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for r in reqs:
-            eng.submit(r)
-        stats = eng.run_to_completion()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    report_profile(prof, wall, f"{arch} dense serve 8 req x 8 new "
-                               f"(decode_steps {stats.decode_steps})")
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for r in reqs:
+                eng.submit(r)
+            stats = eng.run_to_completion()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        moe_mod._local_expert_ffn = plain
+    total = report_profile(prof, wall, f"{arch} dense serve {requests} req "
+                                       f"x 8 new (decode_steps "
+                                       f"{stats.decode_steps})")
+    if runner.cfg.moe is None or not total:
+        return
+    avgs = prof.key_averages()
+    # the host-side range: the device time of the kernels launched in it
+    experts_us = sum(getattr(e, "device_time_total",
+                             getattr(e, "cuda_time_total", 0.0))
+                     for e in avgs if e.key == ANNOTATIONS[0]
+                     and not str(getattr(e, "device_type", "")).endswith(
+                         "CUDA"))
+    attn_us = sum(getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0.0))
+                  for e in avgs if any(m in e.key for m in (
+                      "flash_fwd", "decode_split", "combine")))
+    print(f"[profile] {arch}: device time under the routed experts "
+          f"(dispatch, the three batched products, combine) "
+          f"{experts_us / 1e3:.3f} ms ({100 * experts_us / 1e3 / total:.1f}%"
+          f"), attention kernels (K2 + K4) {attn_us / 1e3:.3f} ms "
+          f"({100 * attn_us / 1e3 / total:.1f}%)", flush=True)
 
 
 # ---------------------------------------------------------------------------
 # phase 9: reduced dense serving, CUDA against CPU, same weights and prompts
 # ---------------------------------------------------------------------------
 
-def parity_dense_reduced(torch):
+def parity_dense_reduced(torch, archs=("zamba2-2.7b", "rwkv6-7b",
+                                        "tinyllama-1.1b")):
+    """Each reduced config of ``archs`` serves 4 prompts of 9..200 tokens,
+    8 new tokens each, on the dense backend with the same weights on the
+    card and on the CPU; tokens equal under the ``TIE_GAP`` rule."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.configs.reduced import reduced_config
@@ -2801,7 +3192,7 @@ def parity_dense_reduced(torch):
     from repro_torch.serving.kv_cache import PagePool, Request
     from repro_torch.serving.model_runner import DenseRunner
     lens = [200, 9, 77, 130]
-    for arch in ("zamba2-2.7b", "rwkv6-7b", "tinyllama-1.1b"):
+    for arch in archs:
         cfg = reduced_config(get_config(arch))
         params = init_params(cfg, seed=0, device="cpu")
         rng = np.random.default_rng(2)
@@ -2828,6 +3219,227 @@ def parity_dense_reduced(torch):
               f"requests, near-tie flips={flips}, min gap "
               f"{min(min(m) for m in margins.values()):.3e}", flush=True)
 
+
+# ---------------------------------------------------------------------------
+# phases 16 and 17: the MoE, vision-language and encoder-decoder families
+# ---------------------------------------------------------------------------
+
+def serve_families_full(torch):
+    """Phase 16, each model at full width with random bf16 weights from
+    seed 0, each run's weights freed before the next: (a) qwen2-moe-a2.7b
+    at full depth and (b) dbrx-132b at 4 of its 40 layers (the full depth
+    needs more than one card) through ``launch.serve`` on the dense
+    backend (:func:`serve_dense_full`: 8 requests of 64..1024 tokens and
+    32 new, and 4 of 256..1024 and 16 new); (c) phi-3-vision-4.2b, 8 text
+    requests so, then image tokens through ``Model.prefill``
+    (:func:`frontend_run`); (d) whisper-base's frames through
+    ``Model.prefill`` (:func:`frontend_run`).  The serve runs' peaks are
+    gated against their plans (``PEAK_OVER_PLAN_BYTES``).  Returns the
+    launch counts, and those of the ``*_d96`` and ``*_whisper_*``
+    records."""
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    launches, records = {}, {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+        return counts
+
+    peak = dict(peak_over_plan=PEAK_OVER_PLAN_BYTES)
+    add(serve_dense_full(torch, "qwen2-moe-a2.7b", **peak))
+    add(serve_dense_full(torch, get_config("dbrx-132b").scaled(num_layers=4),
+                         requests=4, prompt_range=(256, 1024), max_new=16,
+                         **peak))
+    text = add(serve_dense_full(torch, "phi-3-vision-4.2b", **peak))
+    image, _ = frontend_run(torch, "phi-3-vision-4.2b", lanes=2, prompt=128,
+                            new=32)
+    add(image)
+    for k in ("flash_attention_fwd", "decode_attention"):
+        records[f"{k}_d96"] = text[k] + image[k]
+    audio, classes = frontend_run(torch, "whisper-base", lanes=WHISPER_LANES,
+                                  prompt=WHISPER_PROMPT, new=64,
+                                  cache_len=448)
+    add(audio)
+    # the whisper records count the launches at their own call shapes
+    wcfg = get_config("whisper-base")
+    frames = wcfg.encoder_seq_len
+    k2, k4 = classes["flash_attention_fwd"], classes["decode_attention"]
+    records["flash_attention_fwd_whisper_enc"] = k2[(False, frames, frames)]
+    records["flash_attention_fwd_whisper_cross"] = k2[(False, WHISPER_PROMPT,
+                                                       frames)]
+    records["decode_attention_whisper_cross"] = k4[(frames, wcfg.head_dim)]
+    print(f"[families] phase 16: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches, records
+
+
+def frontend_run(torch, arch, *, lanes, prompt, new, cache_len=2048):
+    """``arch`` at full width through ``Model.prefill`` with its stub
+    frontend's input -- phi-3-vision's seeded (lanes, 576, 1024) image
+    embeddings ahead of the prompt, or whisper's seeded (lanes, 1500, 512)
+    frame features -- then ``new`` greedy ``Model.decode_step``s from
+    position ``prompt + num_image_tokens``.  Gates: finite logits, tokens
+    in the vocabulary, each kernel's launches what the path implies (for
+    whisper, K2 in each layer's encoder, self and cross attention a
+    prefill and K4 in each layer's self and cross attention a step), and
+    the reference's prefill/decode consistency rule
+    (``tests/test_arch_smoke.py``: the first decode step's logits within
+    rtol 0.15 / atol 0.3 of a prefill over the prompt and that token).
+    Returns the launch counts of the kernels the path runs."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.models.transformer import ImplConfig
+    cfg = get_config(arch)
+    kernels = _dense_kernels()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, "cuda")
+    model = Model(cfg, ImplConfig(remat="none"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (lanes, prompt), generator=gen,
+                         device="cuda")
+    if cfg.is_encdec:
+        feats = {"enc_feats": torch.randn(
+            lanes, cfg.encoder_seq_len, cfg.d_model, generator=gen,
+            device="cuda").to(torch.bfloat16)}
+    else:
+        feats = {"img_feats": torch.randn(
+            lanes, cfg.num_image_tokens, 1024, generator=gen,
+            device="cuda").to(torch.bfloat16)}
+    pos = prompt + cfg.num_image_tokens
+    for fn in kernels.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    with call_classes() as classes:
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, toks, cache_len, **feats)
+        torch.cuda.synchronize()
+        t_prefill = time.perf_counter() - t0
+        out = [logits[:, -1].argmax(-1)]
+        first = None
+        t0 = time.perf_counter()
+        for i in range(new):
+            logits, cache = model.decode_step(params, out[-1][:, None],
+                                              cache, pos + i)
+            first = logits[:, -1] if first is None else first
+            out.append(logits[:, -1].argmax(-1))
+        torch.cuda.synchronize()
+        t_decode = (time.perf_counter() - t0) / new
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    hd, frames = cfg.head_dim, cfg.encoder_seq_len
+    if cfg.is_encdec:
+        want = {k: 0 for k in kernels}
+        want.update(flash_attention_fwd=cfg.num_encoder_layers
+                    + 2 * cfg.num_layers,
+                    decode_attention=2 * cfg.num_layers * new)
+        # K2 in each encoder layer over the frames, in each decoder
+        # layer's self attention over the prompt and its cross attention
+        # over the frames; K4 over the self cache and over the frames
+        want_classes = {"flash_attention_fwd": {}, "decode_attention": {}}
+        for kernel, key, n in (
+                ("flash_attention_fwd", (False, frames, frames),
+                 cfg.num_encoder_layers),
+                ("flash_attention_fwd", (True, prompt, prompt), cfg.num_layers),
+                ("flash_attention_fwd", (False, prompt, frames),
+                 cfg.num_layers),
+                ("decode_attention", (cache_len, hd), cfg.num_layers * new),
+                ("decode_attention", (frames, hd), cfg.num_layers * new)):
+            want_classes[kernel][key] = want_classes[kernel].get(key, 0) + n
+    else:
+        want = _expected_dense(cfg, 1, new)
+        want_classes = {
+            "flash_attention_fwd": {(True, pos, pos): cfg.num_layers},
+            "decode_attention": {(cache_len, hd): cfg.num_layers * new}}
+    gen_toks = torch.stack(out, 1)
+    print(f"[families] {arch} full width via Model.prefill ({lanes} lanes, "
+          f"{prompt}-token prompt, {sorted(feats)[0]} "
+          f"{tuple(next(iter(feats.values())).shape)}), {new} decode steps "
+          f"from position {pos}: launches={launches} expected={want}; by "
+          f"call shape (K2: causal, Sq, Sk; K4: cache length, head dim) "
+          f"{classes} expected {want_classes}; prefill "
+          f"{t_prefill * 1e3:.3f} ms, mean decode step "
+          f"{t_decode * 1e3:.3f} ms, peak_mem "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB | "
+          f"{card_line()}", flush=True)
+    if launches != want or classes != want_classes:
+        fail(f"{arch}: kernel launch counts differ from what the path "
+             "implies")
+    if not torch.isfinite(first).all() or not torch.isfinite(logits).all():
+        fail(f"{arch}: logits not finite")
+    if not bool(((gen_toks >= 0) & (gen_toks < cfg.vocab_size)).all()):
+        fail(f"{arch}: tokens outside the vocabulary")
+    longer = torch.cat([toks, out[0][:, None]], 1)
+    full, _ = model.prefill(params, longer, cache_len + 1, **feats)
+    a, b = first.float(), full[:, -1].float()
+    err = (a - b).abs()
+    used = float((err / (0.3 + 0.15 * b.abs())).max())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    print(f"[families] {arch} consistency: the first decode step's logits "
+          f"against a prefill over the prompt and its token: max_abs "
+          f"{float(err.max()):.3e}, worst err/tol {used:.3f} (atol 0.3 + "
+          f"rtol 0.15), argmax agreement {agree:.2f}", flush=True)
+    if used > 1.0:
+        fail(f"{arch}: decode disagrees with prefill")
+    del params, cache, logits, full
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: n for k, n in launches.items() if want[k]}, classes
+
+
+def parity_families_reduced(torch):
+    """Phase 17: reduced qwen2-moe-a2.7b and dbrx-132b on the dense backend
+    (:func:`parity_dense_reduced`), reduced phi-3-vision-4.2b with image
+    embeddings and whisper-base with frame features through
+    ``Model.prefill`` and 8 greedy decode steps, each with the same
+    weights and inputs on the card and on the CPU; greedy tokens equal
+    under the ``TIE_GAP`` rule (the CPU run's top-2 gaps)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.configs.reduced import reduced_config
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.models.transformer import ImplConfig
+    t_phase = time.perf_counter()
+    parity_dense_reduced(torch, ("qwen2-moe-a2.7b", "dbrx-132b"))
+    for arch in ("phi-3-vision-4.2b", "whisper-base"):
+        cfg = reduced_config(get_config(arch))
+        params = init_params(cfg, seed=0, device="cpu")
+        model = Model(cfg, ImplConfig(remat="none"))
+        rng = np.random.default_rng(3)
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (3, 40)))
+        shape = ((3, cfg.encoder_seq_len, cfg.d_model) if cfg.is_encdec
+                 else (3, cfg.num_image_tokens, 1024))
+        feats = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(torch.bfloat16)
+        key = "enc_feats" if cfg.is_encdec else "img_feats"
+        pos = toks.shape[1] + cfg.num_image_tokens
+
+        def run(device):
+            p = _tree_to(params, device)
+            logits, cache = model.prefill(p, toks.to(device), 64,
+                                          **{key: feats.to(device)})
+            seq = [logits[:, -1].cpu()]
+            for i in range(8):
+                nxt = seq[-1].argmax(-1)[:, None].to(device)
+                logits, cache = model.decode_step(p, nxt, cache, pos + i)
+                seq.append(logits[:, -1].cpu())
+            rows = torch.stack(seq, 1).float()             # (lanes, 9, V)
+            top = rows.topk(2, dim=-1).values
+            gaps = (top[..., 0] - top[..., 1]).tolist()
+            toks_out = rows.argmax(-1).tolist()
+            return ({f"l{i}": t for i, t in enumerate(toks_out)},
+                    {f"l{i}": g for i, g in enumerate(gaps)})
+
+        cuda_toks, _ = run("cuda")
+        cpu_toks, margins = run("cpu")
+        flips = check_parity(cpu_toks, cuda_toks, margins, TIE_GAP)
+        print(f"[parity] reduced {arch} with {key} cuda vs cpu: 3 lanes x 9 "
+              f"tokens, near-tie flips={flips}, min gap "
+              f"{min(min(m) for m in margins.values()):.3e}", flush=True)
+    print(f"[parity] phase 17: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
 
 
 # ---------------------------------------------------------------------------

@@ -30,8 +30,8 @@ FP32 = 4
 
 def padded_num_experts(num_experts: int, multiple: int = 16) -> int:
     """Experts padded so the expert axis shards over the model axis (the
-    reference's ``models/moe.py`` helper; the port's MoE family comes with
-    a later slice)."""
+    reference's ``models/moe.py`` helper, which the port's ``models/moe.py``
+    takes from here)."""
     return ((num_experts + multiple - 1) // multiple) * multiple
 
 

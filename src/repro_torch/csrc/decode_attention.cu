@@ -325,6 +325,7 @@ int launch(const Args& a) {
     case 32: code = launch_rows<T, 32>(a); break;
     case 64: code = launch_rows<T, 64>(a); break;
     case 80: code = launch_rows<T, 80>(a); break;
+    case 96: code = launch_rows<T, 96>(a); break;  // phi-3-vision-4.2b
     case 128: code = launch_rows<T, 128>(a); break;
     case 256:  // gemma3-12b; bf16 only (see the note at the top)
       if constexpr (sizeof(T) == 2) {

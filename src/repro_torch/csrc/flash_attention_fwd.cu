@@ -464,6 +464,7 @@ extern "C" int flash_attention_fwd(
     case 32: return launch<32>(dtype, a);
     case 64: return launch<64>(dtype, a);
     case 80: return launch<80>(dtype, a);  // zamba2-2.7b's shared attention
+    case 96: return launch<96>(dtype, a);  // phi-3-vision-4.2b
     case 128: return launch<128>(dtype, a);
     case 256: return launch<256>(dtype, a);  // gemma3-12b
     default: return (int)cudaErrorInvalidValue;

@@ -32,9 +32,9 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (16, 32, 64, 80, 128, 256)
+HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
 # fp32 at head dim 256 would need more shared memory than a block has
-FP32_HEAD_DIMS = (16, 32, 64, 80, 128)
+FP32_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 # a split is a whole number of these keys: two steps of the split
 # kernel's 4 warps x 16 keys, so each warp has a load in flight behind its
 # first step

@@ -38,6 +38,7 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.core.history import HistoryStore
 from repro_torch.core.materializer import H100, materialize
+from repro_torch.models.model import check_trainable
 from repro_torch.runtime import Application, Cluster, TorchExecutor
 from repro_torch.training import optimizer as opt
 
@@ -62,6 +63,7 @@ def training_app(arch: Union[str, ModelConfig], shape: ShapeConfig, *,
     if overrides is None and not reduced:
         overrides = one_card_overrides(shape)
     app = Application.train(arch, shape=shape, reduced=reduced)
+    check_trainable(app.config)
     app.demand_bytes = materialize(app.config, app.shape, H100,
                                    history=history, overrides=overrides
                                    ).est_bytes_per_device

@@ -36,12 +36,37 @@ class CacheSpec(NamedTuple):
     dtype: torch.dtype
 
 
+# the largest piece of a leaf drawn at once (1 GiB in fp32); a larger
+# leaf is drawn in runs of its leading dim that fit, so that making a
+# full-width MoE expert stack needs no fp32 copy of the whole stack
+INIT_SLICE_ELEMS = 1 << 28
+
+
+def _normal(shape: Tuple[int, ...], std: float, generator: torch.Generator,
+            device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """normal(0, std) drawn in fp32 and cast, in runs of the leading dim of
+    at most ``INIT_SLICE_ELEMS`` elements (each slice in turn so, where one
+    alone is larger)."""
+    if len(shape) == 1 or int(np.prod(shape)) <= INIT_SLICE_ELEMS:
+        return torch.randn(shape, generator=generator, device=device,
+                           dtype=torch.float32).mul_(std).to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=device)
+    run = max(1, INIT_SLICE_ELEMS // int(np.prod(shape[1:])))
+    for i in range(0, shape[0], run):
+        n = min(run, shape[0] - i)
+        out[i:i + n] = (_normal((n,) + tuple(shape[1:]), std, generator,
+                                device, dtype) if n > 1 else
+                        _normal(tuple(shape[1:]), std, generator, device,
+                                dtype))
+    return out
+
+
 def init_from_specs(specs, generator: torch.Generator,
                     device: torch.device, dtype=torch.bfloat16) -> Params:
     """Materialize a parameter tree from a spec tree, leaves in sorted key
     order, by the reference's rules: zeros for std 0 (the ``(1+g)`` norm
     gains, biases), ones for an unstacked std-1 gain (a vector or a square
-    matrix), else normal(0, std) drawn in fp32 and cast."""
+    matrix), else normal(0, std) drawn in fp32 and cast (:func:`_normal`)."""
     out = {}
     for key in sorted(specs):
         spec = specs[key]
@@ -53,9 +78,8 @@ def init_from_specs(specs, generator: torch.Generator,
                 len(spec.shape) == 2 and spec.shape[0] == spec.shape[1])):
             out[key] = torch.ones(spec.shape, dtype=dtype, device=device)
         else:
-            out[key] = (torch.randn(spec.shape, generator=generator,
-                                    device=device, dtype=torch.float32)
-                        * spec.std).to(dtype)
+            out[key] = _normal(spec.shape, spec.std, generator, device,
+                               dtype)
     return out
 
 
@@ -79,6 +103,18 @@ def rms_norm(x: torch.Tensor, gain: torch.Tensor,
     if x.device.type != "cpu" and needs_grad(x, gain):
         return RMSNorm.apply(x, gain, eps)
     return rmsnorm(x, gain, eps)
+
+
+def layer_norm(x: torch.Tensor, gain: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim with fp32 statistics, the gain and bias
+    applied as they are (not ``1 + g``); whisper's norms.  Plain ops: the
+    reference computes it outside any Pallas kernel."""
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * gain.float() + bias.float()).to(x.dtype)
 
 
 def group_norm_heads(x: torch.Tensor, gain: torch.Tensor,
@@ -141,6 +177,19 @@ def gated_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
     g = torch.matmul(x, p["wi_gate"])
     u = torch.matmul(x, p["wi_up"])
     return torch.matmul(F.silu(g) * u, p["wo"])
+
+
+def mlp_specs(d_model: int, d_ff: int) -> Params:
+    return {"wi": Spec((d_model, d_ff)), "bi": Spec((d_ff,), std=0.0),
+            "wo": Spec((d_ff, d_model)), "bo": Spec((d_model,), std=0.0)}
+
+
+def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """whisper's biased MLP: each bias added to its product's output in the
+    activation dtype, and the tanh form of GELU (``jax.nn.gelu``'s
+    default, which the reference calls)."""
+    h = F.gelu(torch.matmul(x, p["wi"]) + p["bi"], approximate="tanh")
+    return torch.matmul(h, p["wo"]) + p["bo"]
 
 
 def embed_specs(vocab: int, d_model: int, tie: bool) -> Params:

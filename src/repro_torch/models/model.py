@@ -4,11 +4,13 @@ of the parts of ``repro/models/transformer.py`` that build the tree).
 
 The tree keeps the reference's layout -- ``params["blocks"]
 [f"p{i}_{kind}"]`` with a leading stacked-blocks dim, ``params["embed"]``,
-``params["ln_f"]`` and, for zamba2, the unstacked ``params["shared_attn"]``
--- so bridged reference weights drop in as they are.  The port trains and
-serves the RoPE attention stacks, Mamba-2, RWKV-6 and zamba2's hybrid
-stack; the MoE, encoder-decoder and vision families come with
-later slices.
+``params["ln_f"]`` and, for zamba2, the unstacked ``params["shared_attn"]``,
+phi-3-vision's ``params["img_proj"]`` and whisper's stacked
+``params["encoder"]`` -- so bridged reference weights drop in as they
+are.  The port trains and serves the RoPE attention stacks, Mamba-2,
+RWKV-6 and zamba2's hybrid stack, and serves the MoE family, phi-3-vision
+(image tokens through ``prefill(img_feats=...)``) and whisper
+(``prefill(enc_feats=...)``); training those three is a later slice.
 """
 
 from __future__ import annotations
@@ -21,28 +23,47 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, ATTN_SHARED,
-                                      MAMBA2, RWKV6, ModelConfig)
+                                      DEC_ATTN, MAMBA2, MOE, RWKV6,
+                                      ModelConfig)
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import ImplConfig
 
 Params = Dict[str, Any]
-SUPPORTED_KINDS = (ATTN_GLOBAL, ATTN_LOCAL, MAMBA2, RWKV6, ATTN_SHARED)
+SUPPORTED_KINDS = (ATTN_GLOBAL, ATTN_LOCAL, MAMBA2, RWKV6, ATTN_SHARED, MOE,
+                   DEC_ATTN)
 
 
 def check_family(cfg: ModelConfig) -> None:
-    if (any(k not in SUPPORTED_KINDS for k in cfg.pattern)
-            or cfg.is_encdec or cfg.family in ("vlm", "audio")):
+    """Refuse a config whose blocks the port cannot run."""
+    if any(k not in SUPPORTED_KINDS for k in cfg.pattern) or (
+            DEC_ATTN in cfg.pattern and not cfg.is_encdec):
         raise ValueError(
             f"the port's model covers global/sliding-window attention, "
-            f"Mamba-2, RWKV-6 and shared-attention stacks; {cfg.name} has "
-            f"pattern={cfg.pattern} family={cfg.family}")
+            f"Mamba-2, RWKV-6, shared-attention, MoE and encoder-decoder "
+            f"stacks; {cfg.name} has pattern={cfg.pattern} "
+            f"family={cfg.family}")
 
 
-def _stack(specs, nb: int):
-    return {k: (_stack(v, nb) if isinstance(v, dict)
-                else L.Spec((nb,) + v.shape, v.std))
-            for k, v in specs.items()}
+def serve_only(cfg: ModelConfig) -> bool:
+    """Whether ``cfg`` is of the MoE, vision-language or encoder-decoder
+    families, which the port serves on the dense path only: it neither
+    trains nor pages them until ROADMAP item A10b (the reference pages
+    none of them either).  The MoE and whisper block kinds are
+    ``T.TRAIN_LATER``'s; phi-3-vision's blocks are plain attention, so its
+    family is named."""
+    return cfg.family == "vlm" or any(k in T.TRAIN_LATER for k in cfg.pattern)
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Refuse, before any weights are made, to train a family the port
+    serves only."""
+    check_family(cfg)
+    if serve_only(cfg):
+        raise ValueError(
+            f"training {cfg.name} (family {cfg.family}) comes with ROADMAP "
+            "item A10b: the port serves the MoE, vision-language and "
+            "encoder-decoder families but does not train them yet")
 
 
 def param_specs(cfg: ModelConfig) -> Params:
@@ -51,8 +72,8 @@ def param_specs(cfg: ModelConfig) -> Params:
     out = {
         "embed": L.embed_specs(cfg.vocab_size, cfg.d_model,
                                cfg.tie_embeddings),
-        "blocks": {f"p{i}_{kind}": _stack(T.block_specs(cfg, kind),
-                                          cfg.num_blocks)
+        "blocks": {f"p{i}_{kind}": T.stack_specs(T.block_specs(cfg, kind),
+                                                 cfg.num_blocks)
                    for i, kind in enumerate(cfg.pattern)},
         "ln_f": T.norm_specs(cfg),
     }
@@ -117,7 +138,7 @@ class Model:
         self.cfg = cfg
         self.impl = impl or ImplConfig()
 
-    # -- positions (non-RoPE stacks: rwkv6) ----------------------------------
+    # -- positions (non-RoPE stacks: rwkv6, whisper) -------------------------
     def _add_positional(self, x: torch.Tensor, offset: int = 0
                         ) -> torch.Tensor:
         """Sinusoidal positions for stacks without RoPE."""
@@ -145,27 +166,63 @@ class Model:
         return T.init_cache(self.cfg, batch, cache_len,
                             resolve_device(device))
 
+    # -- frontends (stubs, as in the reference) -------------------------------
+    def _encoder(self, params: Params,
+                 enc_feats: torch.Tensor) -> torch.Tensor:
+        """whisper's encoder over precomputed frame embeddings (B, T, d)
+        (the conv frontend is a stub): sinusoidal positions, the stacked
+        bidirectional layers, ``ln_f``."""
+        cfg = self.cfg
+        enc = params["encoder"]
+        x = self._add_positional(enc_feats)
+        for bp in _unstack(enc["blocks"], cfg.num_encoder_layers):
+            x = T.apply_encoder_block(cfg, bp, x)
+        return T.apply_norm(cfg, enc["ln_f"], x)
+
+    def _vlm_prefix(self, params: Params,
+                    img_feats: torch.Tensor) -> torch.Tensor:
+        """Stubbed CLIP patch embeddings (B, N, 1024) projected into the
+        token stream."""
+        return torch.matmul(img_feats, params["img_proj"])
+
     # -- entry point: prefill ------------------------------------------------
     def prefill(self, params: Params, tokens: torch.Tensor, cache_len: int,
-                cache: Optional[Params] = None, slot: int = 0
+                cache: Optional[Params] = None, slot: int = 0, *,
+                img_feats: Optional[torch.Tensor] = None,
+                enc_feats: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Params]:
         """Forward over the prompt ``tokens`` (B, S) -> (last-token logits
         (B, 1, V) fp32, cache).  The decode state after the prompt (KV
         rows past S zeroed) is written in place into ``cache`` at batch
         rows ``slot .. slot + B`` (a new cache of B rows and ``cache_len``
-        positions when none is given)."""
+        positions when none is given).
+
+        A vision-language config takes ``img_feats`` (B, N, 1024): their
+        projections go ahead of the tokens, so the prompt fills N + S
+        positions and decode continues at ``S + N``.  An encoder-decoder
+        config needs ``enc_feats`` (B, T, d), the encoder's input frames;
+        its decoder blocks attend over the encoder's output."""
         cfg = self.cfg
         if cache is None:
             cache = self.init_cache(tokens.shape[0], cache_len, tokens.device)
         rows = slice(slot, slot + tokens.shape[0])
-        x = self._add_positional(embed_tokens(cfg, params, tokens))
+        x = embed_tokens(cfg, params, tokens)
+        if cfg.family == "vlm" and img_feats is not None:
+            x = torch.cat([self._vlm_prefix(params, img_feats), x], dim=1)
+        x = self._add_positional(x)
+        enc_out = None
+        if cfg.is_encdec:
+            if enc_feats is None:
+                raise ValueError(f"{cfg.name} is an encoder-decoder: prefill "
+                                 "needs enc_feats")
+            enc_out = self._encoder(params, enc_feats)
         shared = _shared(params)
         for j, bp in enumerate(_unstack(params["blocks"], cfg.num_blocks)):
             for i, kind in enumerate(cfg.pattern):
                 key = f"p{i}_{kind}"
                 bc = {leaf: t[j, rows] for leaf, t in cache[key].items()}
                 x, _ = T.apply_block_prefill(cfg, kind, bp[key], x, shared,
-                                             bc)
+                                             bc, enc_out)
         x = T.apply_norm(cfg, params["ln_f"], x[:, -1:])
         return L.unembed(params["embed"], x, cfg.logit_softcap), cache
 
@@ -212,8 +269,10 @@ class Model:
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Mean next-token CE of ``batch`` ({"tokens", "labels"[, "mask"]},
         (B, S) each) -> (loss, {"ce", "aux"}).  ``aux`` is the MoE balance
-        loss, 0 for the families the port trains."""
+        loss, 0 for the families the port trains; the MoE, vision-language
+        and encoder-decoder families raise (``check_trainable``)."""
         cfg = self.cfg
+        check_trainable(cfg)
         x = self._add_positional(embed_tokens(cfg, params, batch["tokens"]))
         x = self._run_blocks_train(params, x)
         x = T.apply_norm(cfg, params["ln_f"], x)

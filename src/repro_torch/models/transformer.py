@@ -2,7 +2,10 @@
 for training and for dense serving (prefill and one-token decode) of
 global and sliding-window attention, Mamba-2, RWKV-6 and zamba2's
 weight-shared attention blocks; a sliding-window block's cache is a ring
-of ``min(cache_len, window)`` slots.
+of ``min(cache_len, window)`` slots.  The MoE blocks and whisper's
+encoder and decoder blocks (LayerNorm, the biased GELU MLP, cross
+attention over the encoder's frames) are served on the dense path; their
+training is a later slice.
 
 ``ImplConfig`` carries the execution-strategy fields the train step and
 the dense path read.  ``attn_impl`` and ``attn_chunk`` are kept so a plan
@@ -34,15 +37,19 @@ from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, ATTN_SHARED,
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as m2
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rw
 
 Params = Dict[str, Any]
 
-# block kinds the port does not run yet, and the slice that brings each
-_LATER = {
-    MOE: "the MoE family's slice",
-    ENC_ATTN: "the encoder-decoder (whisper) slice",
-    DEC_ATTN: "the encoder-decoder (whisper) slice",
+# block kinds the port serves but does not train yet, and the slice that
+# brings their training (``model.serve_only`` reads it)
+TRAIN_LATER = {
+    MOE: "the MoE family's slice of training (ROADMAP item A10b)",
+    ENC_ATTN: "the encoder-decoder (whisper) slice of training (ROADMAP "
+              "item A10b)",
+    DEC_ATTN: "the encoder-decoder (whisper) slice of training (ROADMAP "
+              "item A10b)",
 }
 
 
@@ -89,6 +96,9 @@ def _remat(fn: Callable, policy: str) -> Callable:
 
 
 def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """whisper's LayerNorm with a bias; RMSNorm (the K3 kernel) otherwise."""
+    if cfg.family == "audio":
+        return L.layer_norm(x, p["g"], p["b"], eps=1e-5)
     return L.rms_norm(x, p["g"], cfg.norm_eps)
 
 
@@ -97,6 +107,9 @@ def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def norm_specs(cfg: ModelConfig) -> Params:
+    if cfg.family == "audio":
+        return {"g": L.Spec((cfg.d_model,), std=1.0),
+                "b": L.Spec((cfg.d_model,), std=0.0)}
     return {"g": L.rms_norm_spec(cfg.d_model)}
 
 
@@ -109,6 +122,18 @@ def _attn_mlp_specs(cfg: ModelConfig) -> Params:
 def block_specs(cfg: ModelConfig, kind: str) -> Params:
     if kind in (ATTN_GLOBAL, ATTN_LOCAL):
         return _attn_mlp_specs(cfg)
+    if kind == ENC_ATTN:
+        return {"ln1": norm_specs(cfg), "attn": attn.attn_specs(cfg),
+                "ln2": norm_specs(cfg),
+                "mlp": L.mlp_specs(cfg.d_model, cfg.d_ff)}
+    if kind == DEC_ATTN:
+        return {"ln1": norm_specs(cfg),
+                "attn": attn.attn_specs(cfg, cross=True),
+                "ln_cross": norm_specs(cfg), "ln2": norm_specs(cfg),
+                "mlp": L.mlp_specs(cfg.d_model, cfg.d_ff)}
+    if kind == MOE:
+        return {"ln1": norm_specs(cfg), "attn": attn.attn_specs(cfg),
+                "ln2": norm_specs(cfg), "moe": moe_mod.moe_specs(cfg)}
     if kind == RWKV6:
         return {"ln1": norm_specs(cfg), "ln2": norm_specs(cfg),
                 "rwkv": rw.rwkv6_specs(cfg)}
@@ -117,17 +142,31 @@ def block_specs(cfg: ModelConfig, kind: str) -> Params:
     if kind == ATTN_SHARED:
         # per-application params only (input norm); weights are shared
         return {"ln_in": norm_specs(cfg)}
-    raise ValueError(f"block kind {kind!r} comes with "
-                     f"{_LATER.get(kind, 'a later slice')} of the port")
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+def stack_specs(specs: Params, n: int) -> Params:
+    """Every leaf of a spec tree with a leading stacked dim of ``n``."""
+    return {k: (stack_specs(v, n) if isinstance(v, dict)
+                else L.Spec((n,) + v.shape, v.std))
+            for k, v in specs.items()}
 
 
 def shared_specs(cfg: ModelConfig) -> Params:
-    """Model-level components shared across blocks: zamba2's one set of
-    attention weights (the reference's vision and encoder frontends come
-    with their slices)."""
+    """Model-level components shared across blocks or ahead of them:
+    zamba2's one set of attention weights, phi-3-vision's projection of
+    the (stubbed) CLIP patch embeddings, whisper's encoder stack."""
+    out: Params = {}
     if ATTN_SHARED in cfg.pattern:
-        return {"shared_attn": _attn_mlp_specs(cfg)}
-    return {}
+        out["shared_attn"] = _attn_mlp_specs(cfg)
+    if cfg.family == "vlm":
+        out["img_proj"] = L.Spec((1024, cfg.d_model))
+    if cfg.is_encdec:
+        out["encoder"] = {
+            "blocks": stack_specs(block_specs(cfg, ENC_ATTN),
+                                  cfg.num_encoder_layers),
+            "ln_f": norm_specs(cfg)}
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -136,8 +175,14 @@ def shared_specs(cfg: ModelConfig) -> Params:
 
 def block_cache_specs(cfg: ModelConfig, kind: str, batch: int,
                       cache_len: int) -> Params:
-    if kind in (ATTN_GLOBAL, ATTN_SHARED):
+    if kind in (ATTN_GLOBAL, MOE, ATTN_SHARED):
         return attn.kv_cache_specs(cfg, batch, cache_len)
+    if kind == DEC_ATTN:
+        specs = attn.kv_cache_specs(cfg, batch, cache_len)
+        kvs = (batch, cfg.num_kv_heads, cfg.encoder_seq_len, cfg.head_dim)
+        specs["cross_k"] = L.CacheSpec(kvs, torch.bfloat16)
+        specs["cross_v"] = L.CacheSpec(kvs, torch.bfloat16)
+        return specs
     if kind == ATTN_LOCAL:
         return attn.kv_cache_specs(cfg, batch, cache_len,
                                    window=cfg.sliding_window)
@@ -145,8 +190,7 @@ def block_cache_specs(cfg: ModelConfig, kind: str, batch: int,
         return rw.rwkv_state_specs(cfg, batch)
     if kind == MAMBA2:
         return m2.mamba_state_specs(cfg, batch)
-    raise ValueError(f"a dense cache for {kind!r} blocks comes with "
-                     f"{_LATER.get(kind, 'a later slice')} of the port")
+    raise ValueError(f"{kind!r} blocks keep no dense cache")
 
 
 def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Params:
@@ -191,6 +235,28 @@ def apply_block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, 
         x = x + y
         h = apply_norm(cfg, p["ln2"], x)
         return x + L.gated_mlp(p["mlp"], h), cache
+    if kind == MOE:
+        # every lane of the batch routes, idle ones too, as in the
+        # reference (B <= 8 tokens: no expert reaches its capacity of 8)
+        h = apply_norm(cfg, p["ln1"], x)
+        y, cache = attn.self_attention_decode(p["attn"], h, cache, pos, cfg)
+        x = x + y
+        h = apply_norm(cfg, p["ln2"], x)
+        y, _ = moe_mod.moe_block(p["moe"], h, cfg)
+        return x + y, cache
+    if kind == DEC_ATTN:
+        h = apply_norm(cfg, p["ln1"], x)
+        y, _ = attn.self_attention_decode(p["attn"], h, cache, pos, cfg,
+                                          prefix="self_")
+        x = x + y
+        # the query over all of the encoder's frames (K4 at valid length T)
+        h = apply_norm(cfg, p["ln_cross"], x)
+        q = attn.project(h, p["attn"]["cross_wq"])
+        o = attn.gqa_decode_sdpa(q, cache["cross_k"], cache["cross_v"],
+                                 cache["cross_k"].shape[2])
+        x = x + attn.attn_out(p["attn"], o, prefix="cross_")
+        h = apply_norm(cfg, p["ln2"], x)
+        return x + L.mlp(p["mlp"], h), cache
     if kind == RWKV6:
         h = apply_norm(cfg, p["ln1"], x)
         y, tm = rw.time_mix_decode(p["rwkv"], h, cache, cfg)
@@ -210,25 +276,44 @@ def apply_block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, 
         y, cache = attn.self_attention_decode(sp["attn"], hh, cache, pos, cfg)
         h2 = apply_norm(cfg, sp["ln2"], h + y)
         return x + y + L.gated_mlp(sp["mlp"], h2), cache
-    raise ValueError(f"decoding a {kind!r} block comes with "
-                     f"{_LATER.get(kind, 'a later slice')} of the port")
+    raise ValueError(f"{kind!r} blocks have no decode step")
 
 
 def apply_block_prefill(cfg: ModelConfig, kind: str, p: Params,
-                        x: torch.Tensor, shared: Params, cache: Params
+                        x: torch.Tensor, shared: Params, cache: Params,
+                        enc_out: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, Params]:
     """A whole prompt through one block.  x: (B, S, d); ``cache`` holds
     this block's (B, ...) decode state, which is overwritten in place with
     the state after the prompt (KV rows past S zeroed; a sliding-window
-    block's ring holds the prompt's last ``window`` positions).  Returns
-    (x, cache)."""
-    if kind in (ATTN_GLOBAL, ATTN_LOCAL):
+    block's ring holds the prompt's last ``window`` positions; a whisper
+    decoder block's cross K/V are the encoder output's).  ``enc_out`` is
+    the encoder's output (B, T, d) for decoder blocks.  Returns (x,
+    cache)."""
+    if kind in (ATTN_GLOBAL, ATTN_LOCAL, MOE):
         window = cfg.sliding_window if kind == ATTN_LOCAL else 0
         h = apply_norm(cfg, p["ln1"], x)
         y, kv = attn.self_attention_prefill(p["attn"], h, cfg, window=window)
         x = x + y
         h = apply_norm(cfg, p["ln2"], x)
-        return x + L.gated_mlp(p["mlp"], h), _store_kv(cache, kv, window)
+        if kind == MOE:
+            y, _ = moe_mod.moe_block(p["moe"], h, cfg)
+        else:
+            y = L.gated_mlp(p["mlp"], h)
+        return x + y, _store_kv(cache, kv, window)
+    if kind == DEC_ATTN:
+        h = apply_norm(cfg, p["ln1"], x)
+        y, kv = attn.self_attention_prefill(p["attn"], h, cfg,
+                                            prefix="self_")
+        x = x + y
+        h = apply_norm(cfg, p["ln_cross"], x)
+        enc_kv = attn.encode_cross_kv(p["attn"], enc_out)
+        x = x + attn.cross_attention(p["attn"], h, enc_kv, cfg)
+        h = apply_norm(cfg, p["ln2"], x)
+        _store_kv(cache, kv)
+        cache["cross_k"].copy_(enc_kv["k"].transpose(1, 2))
+        cache["cross_v"].copy_(enc_kv["v"].transpose(1, 2))
+        return x + L.mlp(p["mlp"], h), cache
     if kind == RWKV6:
         h = apply_norm(cfg, p["ln1"], x)
         y, wkv = rw.time_mix_prefill(p["rwkv"], h, cfg)
@@ -249,8 +334,21 @@ def apply_block_prefill(cfg: ModelConfig, kind: str, p: Params,
         h2 = apply_norm(cfg, sp["ln2"], h + y)
         x = x + y + L.gated_mlp(sp["mlp"], h2)
         return x, _store_kv(cache, kv)
-    raise ValueError(f"prefilling a {kind!r} block comes with "
-                     f"{_LATER.get(kind, 'a later slice')} of the port")
+    raise ValueError(f"{kind!r} blocks have no prefill")
+
+
+def apply_encoder_block(cfg: ModelConfig, p: Params,
+                        x: torch.Tensor) -> torch.Tensor:
+    """One of whisper's encoder layers over the frames (B, T, d):
+    bidirectional self attention (the flash-attention forward, non-causal)
+    and the biased GELU MLP, each behind a LayerNorm."""
+    h = apply_norm(cfg, p["ln1"], x)
+    q = attn.project(h, p["attn"]["wq"])
+    k = attn.project(h, p["attn"]["wk"])
+    v = attn.project(h, p["attn"]["wv"])
+    x = x + attn.attn_out(p["attn"], attn.sdpa(q, k, v, causal=False))
+    h = apply_norm(cfg, p["ln2"], x)
+    return x + L.mlp(p["mlp"], h)
 
 
 def _store_kv(cache: Params, kv: Params, window: int = 0) -> Params:
@@ -311,5 +409,7 @@ def apply_block_train(cfg: ModelConfig, kind: str, p: Params,
     if kind == ATTN_SHARED:
         h = apply_norm(cfg, p["ln_in"], x)
         return x + _shared_attn_apply(cfg, shared["shared_attn"], h)
-    raise ValueError(f"training a {kind!r} block comes with "
-                     f"{_LATER.get(kind, 'a later slice')} of the port")
+    if kind in TRAIN_LATER:
+        raise ValueError(f"training a {kind!r} block comes with "
+                         f"{TRAIN_LATER[kind]}")
+    raise ValueError(f"unknown block kind {kind!r}")

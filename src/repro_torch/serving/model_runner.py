@@ -48,9 +48,13 @@ replicas simply index the one store.
 :class:`DenseRunner` keeps a preallocated per-slot dense cache of
 ``cache_len`` tokens (KV laid out (B, KV, S, hd); Mamba-2 and RWKV-6
 states) and drives ``Model.prefill`` and ``Model.decode_step``, which
-write into it in place.  It serves global-attention, Mamba-2, RWKV-6 and
-zamba2's hybrid stacks through the flash-attention forward (prefill),
-the decode-attention kernel, the SSD and WKV scan kernels, and RMSNorm.
+write into it in place.  It serves global-attention, Mamba-2, RWKV-6,
+zamba2's hybrid and the MoE stacks, and phi-3-vision's text prompts,
+through the flash-attention forward (prefill), the decode-attention
+kernel, the SSD and WKV scan kernels, and RMSNorm.  As the reference's,
+it passes a prompt's tokens only: image tokens and whisper's frame
+features go through ``Model.prefill`` itself, and the runner refuses
+whisper, whose prefill cannot run without its frames.
 It copies the reference's behaviour exactly, since token parity depends
 on it: prompts are never padded, and decode runs the whole slot batch at
 one shared position.  A sliding-window layer's dense cache is a ring of
@@ -81,7 +85,7 @@ from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models.model import (Model, check_family, embed_tokens,
-                                      init_params, layer_params)
+                                      init_params, layer_params, serve_only)
 from repro_torch.models.transformer import ImplConfig
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.kv_cache import (PAGE_SIZE, PageGroups, Request,
@@ -338,6 +342,12 @@ class DenseRunner(ModelRunner):
         self.device = resolve_device(device)
         self.max_batch = max_batch
         self.cache_len = cache_len
+        if cfg.is_encdec:
+            raise ValueError(
+                f"backend='dense' serves prompts of tokens; {cfg.name} is an "
+                "encoder-decoder whose prefill needs its encoder's frame "
+                "features: drive Model.prefill(..., enc_feats=...) and "
+                "Model.decode_step directly")
         self.model = Model(cfg, ImplConfig(remat="none"))
         # first: it refuses the kinds the dense path does not serve yet
         # before any weight is made
@@ -443,11 +453,12 @@ class PagedRunner(ModelRunner):
             raise ValueError(f"backend='paged' needs RoPE; {cfg.name} has "
                              f"rope_theta={cfg.rope_theta}")
         check_family(cfg)
-        if any(k not in self.SUPPORTED_KINDS for k in cfg.pattern):
+        if (any(k not in self.SUPPORTED_KINDS for k in cfg.pattern)
+                or serve_only(cfg)):
             raise ValueError(
                 f"backend='paged' serves RoPE global/sliding-window "
                 f"attention stacks; {cfg.name} has pattern={cfg.pattern} "
-                "(serve it with backend='dense')")
+                f"family={cfg.family} (serve it with backend='dense')")
         if ATTN_LOCAL in cfg.pattern and cfg.sliding_window <= 0:
             raise ValueError(f"{cfg.name}: ATTN_LOCAL needs sliding_window")
         self.cfg = cfg

@@ -108,8 +108,8 @@ def test_split_keys_reaches_its_block_target(b, kvh, s, sms):
 def test_decode_attention_raises_on_what_the_kernel_does_not_take():
     """Off the CPU, the wrapper checks before it launches: a head dim the
     kernel lacks and mixed dtypes raise (meta tensors stand in for CUDA)."""
-    q = torch.empty(2, 4, 96, device="meta")
-    kv = torch.empty(2, 2, 64, 96, device="meta")
+    q = torch.empty(2, 4, 48, device="meta")
+    kv = torch.empty(2, 2, 64, 48, device="meta")
     with pytest.raises(ValueError, match="head_dim"):
         decode_attention(q, kv, kv, 10)
     q = torch.empty(2, 4, 64, device="meta", dtype=torch.bfloat16)

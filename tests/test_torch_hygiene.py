@@ -43,7 +43,10 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "serving/serve_step.py", "autoscale/controller.py",
                    "autoscale/policy.py", "autoscale/parking.py",
                    "obs/export.py", "obs/summary.py", "obs/http.py",
-                   "obs/__main__.py", "runtime/simulate.py"):
+                   "obs/__main__.py", "runtime/simulate.py",
+                   "models/moe.py", "configs/qwen2_moe_a2_7b.py",
+                   "configs/dbrx_132b.py", "configs/phi3_vision_4_2b.py",
+                   "configs/whisper_base.py"):
         assert PORT / module in files
     bad = [(f.relative_to(ROOT), m) for f in files
            for m in _imported_modules(f)
@@ -65,6 +68,37 @@ def test_port_imports_and_serves_with_jax_absent():
             "assert out['view']['completed'] == 2\n"
             "assert out['pool'].shared is not None  # the pod's shared pool\n"
             "assert out['plan'].mesh.name == 'h100'  # via Cluster.submit\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_port_serves_the_moe_family_with_jax_absent():
+    """Reduced qwen2-moe-a2.7b through ``Cluster.submit`` on the dense
+    backend, and whisper-base's prefill and decode with frame features,
+    with JAX and the reference unimportable."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "import torch\n"
+            "from repro_torch.launch.serve import serve\n"
+            "out = serve('qwen2-moe-a2.7b', backend='dense', reduced=True, "
+            "device='cpu', requests=2, max_batch=2, prompt_range=(20, 90), "
+            "max_new=2, verbose=False)\n"
+            "assert out['stats'].completed == 2\n"
+            "assert out['plan'].mesh.name == 'h100'  # via Cluster.submit\n"
+            "from repro_torch.configs import get_config\n"
+            "from repro_torch.configs.reduced import reduced_config\n"
+            "from repro_torch.models.model import Model, init_params\n"
+            "cfg = reduced_config(get_config('whisper-base'))\n"
+            "m, p = Model(cfg), init_params(cfg, 0, 'cpu')\n"
+            "feats = torch.randn(1, cfg.encoder_seq_len, cfg.d_model)\n"
+            "lg, c = m.prefill(p, torch.zeros(1, 4, dtype=torch.long), 16, "
+            "enc_feats=feats.bfloat16())\n"
+            "lg, c = m.decode_step(p, lg.argmax(-1), c, 4)\n"
+            "assert torch.isfinite(lg).all()\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"},
