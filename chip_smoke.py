@@ -27,11 +27,13 @@ Phases, each of which must pass (any failure exits nonzero):
    the autograd Functions of K2+K5 and K3 are held against autograd
    through the plain forwards (K3's at 512 and 8192 rows); K3's forward
    is timed at every shape class of the main paths (a decode step's 8
-   rows, a prefill's 1000, a training norm's 8192, at widths 2048-5120)
-   and its backward (``rmsnorm_bwd``) held against ``rmsnorm_bwd_ref`` at
-   8192 x 2048, 1000 x 2560 and 1000 x 5120 in bf16 (dx at one bf16 ulp,
-   dgain at one ulp and, from an fp32 gain, by ``RMS_DGAIN_REL_NORM``) and
-   33 x 128 in fp32, two launches bit-equal;
+   rows, a prefill's 1000, a training norm's 8192, at widths 2048-5120,
+   and phi-3-vision's training norms, 4096 and 8192 rows of 3072) and its
+   backward (``rmsnorm_bwd``) held against ``rmsnorm_bwd_ref`` at 8192 x
+   2048, 4096 x 3072, 8192 x 3072, 1000 x 2560 and 1000 x 5120 in bf16
+   (dx at one bf16 ulp, dgain at one ulp and, from an fp32 gain, by
+   ``RMS_DGAIN_REL_NORM``) and 33 x 128 in fp32, two launches bit-equal
+   at the training shapes and timed there;
 3. serve: full-width tinyllama-1.1b (random weights from seed 0) serves 8
    requests with prompts of 64..1024 tokens (native and chunked prefill)
    and 32 new tokens each through ``launch.serve``, that is
@@ -60,10 +62,13 @@ Phases, each of which must pass (any failure exits nonzero):
    norm's autograd node;
 6. parity: reduced tinyllama-1.1b (full remat), zamba2-2.7b (two
    pattern blocks, so the shared attention block runs twice, under
-   ``remat="dots"``) and rwkv6-7b (full remat) each train 3 steps from
-   the same weights on the same batches on the card and on the CPU;
-   losses, final params and step-1 gradients must agree within
-   ``TRAIN_*_RTOL``;
+   ``remat="dots"``), rwkv6-7b, qwen2-moe-a2.7b, dbrx-132b,
+   phi-3-vision-4.2b (with seeded image embeddings) and whisper-base
+   (with seeded frames; all full remat) each train 3 steps from the same
+   weights on the same batches on the card and on the CPU; losses, final
+   params and step-1 gradients must agree within ``TRAIN_*_RTOL`` (the
+   MoE configs' step-1 gradients on the card's routing, the tokens whose
+   experts the CPU's own routing swaps counted: :func:`pinned_routes`);
 7. dense serve: full-width zamba2-2.7b (random weights from seed 0)
    serves 8 requests with prompts of 64..1024 tokens and 32 new tokens
    each through the dense backend (cache_len 2048), by ``launch.serve``
@@ -190,7 +195,30 @@ Phases, each of which must pass (any failure exits nonzero):
    reduced phi-3-vision-4.2b with image embeddings and whisper-base with
    frame features through ``Model.prefill`` and 8 greedy steps, each on
    the card and on the CPU with the same weights and inputs; greedy
-   tokens equal under the ``TIE_GAP`` rule.
+   tokens equal under the ``TIE_GAP`` rule;
+18. train families: at phase 5's sequence 4096 x batch 8 and optimizer,
+   random weights from seed 0, each run's memory freed before the next,
+   the allocator's segments expandable:
+   (a) qwen2-moe-a2.7b at full width with 4 of its 24 layers (the full
+   depth needs more than one card), full remat, 4 microbatches, the CE
+   in chunks of 1024 positions, 4 steps through ``launch.train`` with
+   phase 5's gates, the (token, k) pairs the capacity drops in each step
+   and the step-1 batch's aux beside its ce; (b) phi-3-vision-4.2b at
+   full width with ``PHI3_TRAIN_LAYERS`` (28) of its 32 layers (the full
+   depth does not fit the card) through ``launch.train`` on its text
+   (the runtime's batches), full remat, 8 microbatches of one sequence;
+   (c) phi-3-vision-4.2b at
+   4 of its 32 layers and (d) whisper-base through ``make_train_step``
+   on the ladder's plan with full remat and 4 microbatches, with 576
+   seeded image embeddings ahead of 3520 tokens (3 steps) and 1500
+   seeded frames (4 steps): finite, falling losses; every step-1
+   gradient leaf finite and not all zero, the encoder's, ``cross_w*``'s
+   and ``img_proj``'s included (but (b)'s ``img_proj``, which text does
+   not reach: exactly zero); exact launch counts (whisper's K2/K5 also by
+   call shape: causal self, cross, encoder); the peak beside the plan;
+   then the step time, tokens/s, the model-FLOPs share
+   (:func:`model_flops`) and a profiled step (busy share, the device time
+   of K2, K5, cuBLAS and the routed experts).
 
 A failed comparison of a kernel with its plain version prints, before
 the run stops, its first 8 bad elements with both values, the count of
@@ -207,6 +235,18 @@ cross decode over all 1500 frames and qwen2-moe's (8,16,128) at G = 1;
 two launches bit-equal, each timed beside SDPA with its bound (the
 ``*_d96`` and ``*_whisper_*`` records, whose launches are phase 16's:
 the whisper records' by call shape, :func:`call_classes`).
+
+Phase 2 also holds K5a/K5b at phase 18's training shapes
+(``TRAIN_BWD_CASES``): phi-3-vision's q/k/v (2,32,4096,96) causal,
+qwen2-moe's (2,16,4096,128) causal at G = 1, whisper's cross attention,
+q (2,8,4096,64) over k/v (2,8,1500,64), and its encoder, (2,8,1500,64),
+non-causal over the ragged key tail (1500 = 23 x 64 + 28), each with
+the K2 output it starts from, against the plain versions, two launches
+bit-equal, timed beside SDPA's whole backward with its bound (the
+``*_d96``, ``*_d128``, ``*_whisper_train`` and ``*_whisper_enc_train``
+records; K2 at the cross shape as a training forward,
+``flash_attention_fwd_whisper_train``); small ragged cases at head dim
+96 and at Sq != Sk join ``check_backward``'s.
 
 Phase 2 also holds K1 and K2 at mistral-nemo-12b's head dim 128 (K1
 over 8 lanes of 1600..2012 tokens whose tables lead with the same 12
@@ -249,11 +289,14 @@ kernel's and the backward's time at the training shapes (2,80,4096,64)
 and (2,64,4096,64).
 
 A kernel's ``launches`` in the JSON record is its count over the serve
-(phases 3, 7, 8, 11, 12, 13, 16) and train (phases 5, 14, 15) runs; K3's are
-also printed by shape class; the ``*_d256`` records count phase 11's runs
-only, the ``*_d128`` records phase 12's mistral-nemo-12b runs only, the
-``*_d80`` backward records phase 14's, the ``*_d96`` records phase 16's
-phi-3-vision runs and the ``*_whisper_*`` records its whisper run.
+(phases 3, 7, 8, 11, 12, 13, 16) and train (phases 5, 14, 15, 18) runs;
+K3's are also printed by shape class; the ``*_d256`` records count phase
+11's runs only, the forward ``*_d128`` records phase 12's mistral-nemo-12b
+runs only, the ``*_d80`` backward records phase 14's, the forward
+``*_d96`` records phase 16's phi-3-vision runs and the forward
+``*_whisper_*`` records its whisper run; the backward ``*_d96`` records
+phase 18's phi-3 runs, the backward ``*_d128`` records its qwen2-moe run
+and the ``*_whisper_*train`` records its whisper run by call shape.
 ``ab_train`` (not run by ``main``) runs phase 5 and K3's timings
 for a second checkout and this one in turns on one card; ``ab_serve``
 does the same for phase 3's mean TTFT and decode step.  Those runs also fail if a
@@ -268,6 +311,7 @@ from __future__ import annotations
 import inspect
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -383,11 +427,17 @@ def main() -> None:
         launches[name] = launches.get(name, 0) + n
     launches.update(family_records)
     parity_families_reduced(torch)
+    trained, trained_records = train_families_full(torch)
+    for name, n in trained.items():
+        launches[name] = launches.get(name, 0) + n
+    launches.update(trained_records)
     for rec in records:
         rec["launches"] = launches.get(rec["name"])
     print(f"[launches] rmsnorm by shape class over the main paths: "
           f"{RMS_LAUNCHES} (decode: a decode step's; prefill: a prompt's "
-          f"or chunk's; train: 8192 rows)", flush=True)
+          f"or chunk's; train: a training microbatch's 4096 or 8192 rows, "
+          f"phi-3-vision's over 3072 apart)",
+          flush=True)
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -698,7 +748,7 @@ def check_kernels(torch):
     records[-1]["max_abs_err"] = max(errs + fwd_errs)
     records += bwd_records
     check_functions(torch, randn)
-    records += check_backward_d80(torch, randn, tol)
+    records += check_backward_shapes(torch, randn, tol)
     records += check_dense_kernels(torch, randn, tol)
     check_scan_grads(torch, randn)
     records += check_head_dim_256(torch, randn, tol)
@@ -718,16 +768,19 @@ def check_kernels(torch):
 # prefill's ~1000 rows at the four widths (tinyllama 2048, zamba2 2560 and
 # its Mamba-2 inner norm 5120, rwkv6 4096), gemma3-12b's 3840 (8 rows, and
 # a 2048-token prompt) and its q_norm over 256-wide heads (8 lanes x 16
-# heads a decode step, 2048 tokens x 16 heads a prompt), and a training
-# norm's 8192 rows of 2048 (B=2 x S=4096)
+# heads a decode step, 2048 tokens x 16 heads a prompt), phi-3-vision's
+# training norms over 3072 (a microbatch of one sequence, 4096 rows, and
+# of two, 8192), and a training norm's 8192 rows of 2048 (B=2 x S=4096),
+# last: its times are the forward record's
 RMS_CLASSES = ([("decode", 8, d) for d in (2048, 2560, 4096, 5120, 3840)]
                + [("decode", 128, 256)]
                + [("prefill", 1000, d) for d in (2048, 2560, 4096, 5120)]
                + [("prefill", 2048, 3840), ("prefill", 32768, 256)]
-               + [("train", 8192, 2048)])
-# K3's launches on the main paths by shape class, summed by phases 3, 5,
-# 7, 8 and 11
-RMS_LAUNCHES = {"decode": 0, "prefill": 0, "train": 0}
+               + [("train", 4096, 3072), ("train", 8192, 3072),
+                  ("train", 8192, 2048)])
+# K3's launches on the main paths by shape class, summed by the phases
+# that drive them (phase 18's phi-3-vision runs under "train 3072")
+RMS_LAUNCHES = {"decode": 0, "prefill": 0, "train": 0, "train 3072": 0}
 # K3 backward: fp32 sums of dy * x * r over 8192 rows in another order
 # than the plain version's (per program, then the partials in order)
 RMS_DGAIN_REL_NORM = 1e-4
@@ -812,8 +865,10 @@ def check_rmsnorm(torch, randn, tol):
     backward against ``rmsnorm_bwd_ref``: dx elementwise (both fp32 from
     the same inputs, rounded once: one bf16 ulp), dgain elementwise in the
     gain's bf16 and, from an fp32 copy of the same gain, by relative norm
-    (``RMS_DGAIN_REL_NORM``); two backward launches bit-equal.  Timed at
-    every shape class.  Returns the forward's and the backward's records."""
+    (``RMS_DGAIN_REL_NORM``); two backward launches bit-equal at the
+    training shapes.  The forward timed at every shape class, the
+    backward at the training shapes (the record's at 8192 x 2048).
+    Returns the forward's and the backward's records."""
     import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as rms
     bf16, f32 = torch.bfloat16, torch.float32
@@ -823,9 +878,12 @@ def check_rmsnorm(torch, randn, tol):
     # 4096 (rwkv6): a ragged prefill and a decode step of the dense path,
     # 2560 and 5120 through the kernel's masked tail; gemma3-12b's 3840
     # (a 2048-token prompt, a decode step) and its q_norm/k_norm over
-    # 256-wide heads (2048 tokens x 16 heads, 8 lanes x 16 heads)
+    # 256-wide heads (2048 tokens x 16 heads, 8 lanes x 16 heads);
+    # phi-3-vision's training microbatches of one and two sequences at
+    # 3072
     for rows, d, dtype in ((33, 128, f32), (8, 64, bf16), (8, 2048, bf16),
                            (512, 2048, bf16), (8192, 2048, bf16),
+                           (4096, 3072, bf16), (8192, 3072, bf16),
                            (1000, 2560, bf16), (8, 2560, bf16),
                            (1000, 5120, bf16), (8, 5120, bf16),
                            (1000, 4096, bf16), (8, 4096, bf16),
@@ -843,7 +901,8 @@ def check_rmsnorm(torch, randn, tol):
         device="cuda").manual_seed(11)))
 
     errs = []
-    for rows, d, dtype in ((8192, 2048, bf16), (1000, 2560, bf16),
+    for rows, d, dtype in ((8192, 2048, bf16), (4096, 3072, bf16),
+                           (8192, 3072, bf16), (1000, 2560, bf16),
                            (1000, 5120, bf16), (33, 128, f32)):
         x, dy = randn(rows, d, dtype=dtype), randn(rows, d, dtype=dtype)
         g = randn(d, dtype=dtype, scale=0.1)
@@ -860,9 +919,16 @@ def check_rmsnorm(torch, randn, tol):
             rel_norm(torch, f"rmsnorm_bwd dgain {label}, fp32 gain",
                      rms.rmsnorm_bwd(dy, x, g32)[1],
                      rms.rmsnorm_bwd_ref(dy, x, g32)[1], RMS_DGAIN_REL_NORM)
-        if rows == 8192:
+        if rows >= 4096:              # the training shapes
             same_twice(torch, f"rmsnorm_bwd {label}",
                        lambda: rms.rmsnorm_bwd(dy, x, g))
+        if d == 3072:                 # timed and printed, not recorded
+            t_ms = timed_ms(torch, lambda: rms.rmsnorm_bwd(dy, x, g))
+            t_bound, t_by = rms_bound(rows, d, 2, 3, 2, 12)
+            print(f"[time] rmsnorm_bwd x, dy ({rows}, {d}) bf16: kernel "
+                  f"{t_ms:.4f} ms, bound {t_bound:.6f} ms ({t_by}), share "
+                  f"of bound {t_bound / t_ms:.3f}", flush=True)
+        if (rows, d) == (8192, 2048):
             ms = timed_ms(torch, lambda: rms.rmsnorm_bwd(dy, x, g))
             kernel_split(torch, lambda: rms.rmsnorm_bwd(dy, x, g),
                          f"rmsnorm_bwd {label}")
@@ -1841,6 +1907,16 @@ def check_backward(torch, randn, tol):
         # wrappers copy them for the kernels' cp.async
         ("d=32 non-causal GQA sq=100 sk=300 h=4/1 unaligned q/dO", 1, 4, 1,
          100, 300, 32, False, 0, 0, bf16),
+        # phi-3-vision-4.2b's head dim, and Sq != Sk without a mask over a
+        # ragged key tail (whisper's cross attention: more rows than keys)
+        ("d=96 causal ragged b=2 h=4/4 s=200", 2, 4, 4, 200, 200, 96, True,
+         0, 0, bf16),
+        ("d=96 fp32 non-causal ragged h=2/2 s=130", 1, 2, 2, 130, 130, 96,
+         False, 0, 0, f32),
+        ("d=64 non-causal sq=333 sk=150 b=2 h=4/4", 2, 4, 4, 333, 150, 64,
+         False, 0, 0, bf16),
+        ("d=96 non-causal sq=100 sk=300 h=4/2", 1, 4, 2, 100, 300, 96,
+         False, 0, 0, bf16),
         ("training shape b=2 h=32/4 s=4096 d=64", 2, 32, 4, 4096, 4096, 64,
          True, 0, 0, bf16),
     ]
@@ -2079,22 +2155,29 @@ def check_functions(torch, randn):
                      want[1], RMS_DGAIN_REL_NORM)
 
 
-def check_backward_d80(torch, randn, tol):
-    """K5a and K5b at zamba2-2.7b's training shape, q, k, v (2, 32, 4096,
-    80) causal bf16 in the model's layout, held as :func:`check_backward`
-    holds the bf16 kernels (relative norm against the plain versions with
-    bf16 and fp32 operands), launched twice for bit-equal results, and
-    timed beside the plain versions and SDPA's whole backward.  Returns
-    the two ``_d80`` records."""
+def check_backward_at(torch, randn, tol, suffix, label, b, h, kvh, sq, sk,
+                      d, causal):
+    """K5a and K5b at one training shape of a main path, q (b, h, sq, d)
+    over k, v (b, kvh, sk, d) bf16 in the model's layout (no window, no
+    offset; causal only at Sq = Sk): the K2 output they start from held
+    against the plain forward (:func:`check_fwd`), then held as
+    :func:`check_backward` holds the bf16 kernels (relative norm against
+    the plain versions with bf16 and fp32 operands), launched twice for
+    bit-equal results, and timed beside the plain versions and SDPA's
+    whole backward, with the bound of what these inputs need.  Returns the
+    records ``flash_attention_bwd_dq_<suffix>`` and ``..._dkv_<suffix>``
+    and K2's max abs error."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq,
-        flash_attention_dkv_ref, flash_attention_dq_ref, flash_attention_fwd)
+        flash_attention_dkv_ref, flash_attention_dq_ref)
+    assert sq == sk or not causal
     bf16 = torch.bfloat16
-    b, h, kvh, s, d = 2, 32, 32, 4096, 80
-    kw = dict(causal=True)
-    q, k, v, do = (randn(b, s, n, d).transpose(1, 2) for n in (h, kvh, kvh, h))
-    o, lse = flash_attention_fwd(q, k, v, **kw)
+    kw = dict(causal=causal)
+    q, do = (randn(b, sq, h, d).transpose(1, 2) for _ in range(2))
+    k, v = (randn(b, sk, kvh, d).transpose(1, 2) for _ in range(2))
+    fwd_err, o, lse = check_fwd(torch, label, q, k, v,
+                                dict(kw, window=0, q_offset=0), tol)
 
     def both():
         dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)
@@ -2103,7 +2186,6 @@ def check_backward_d80(torch, randn, tol):
 
     dq, delta, dk, dv = both()
     torch.cuda.synchronize()
-    label = "zamba2 training shape b=2 h=32/32 s=4096 d=80"
     name = f"flash_attention_bwd {{}} {label}"
     dq_f, delta_r = flash_attention_dq_ref(q, k, v, o, lse, do, **kw)
     compare(torch, f"flash_attention_bwd delta {label}", delta, delta_r,
@@ -2120,10 +2202,9 @@ def check_backward_d80(torch, randn, tol):
     worst["dkv"] = max(
         check_bf16_grad(torch, name.format(n), got, wb, wf, tol[bf16])[0]
         for n, got, wb, wf in zip(("dk", "dv"), (dk, dv), want_b, want_f))
-    del want_f, want_b, delta_r
+    del want_f, want_b, delta_r, dq, dk, dv
     torch.cuda.empty_cache()
-    same_twice(torch, "flash_attention_bwd dq, delta, dk, dv at zamba2's "
-               "training shape", both)
+    same_twice(torch, f"flash_attention_bwd dq, delta, dk, dv {label}", both)
     few = dict(iters=3, reps=3)
     ms = {"dq": timed_ms(torch, lambda: flash_attention_bwd_dq(
               q, k, v, o, lse, do, **kw)),
@@ -2137,15 +2218,17 @@ def check_backward_d80(torch, randn, tol):
 
     def lib_fwd():
         with torch.no_grad():
-            F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
+            F.scaled_dot_product_attention(qe, ke, ve, is_causal=causal,
+                                           enable_gqa=True)
 
     def lib_fwd_bwd():
-        out = F.scaled_dot_product_attention(qe, ke, ve, is_causal=True)
+        out = F.scaled_dot_product_attention(qe, ke, ve, is_causal=causal,
+                                             enable_gqa=True)
         torch.autograd.grad(out, (qe, ke, ve), do)
 
     lib = timed_ms(torch, lib_fwd_bwd, **few) - timed_ms(torch, lib_fwd, **few)
-    pairs = b * h * s * (s + 1) // 2
-    n_q, n_kv, rows = q.numel(), k.numel(), b * h * s
+    pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * sk)
+    n_q, n_kv, rows = q.numel(), k.numel(), b * h * sq
     nbytes = {"dq": 2 * (4 * n_q + 2 * n_kv) + 4 * rows * 2,
               "dkv": 2 * (2 * n_q + 4 * n_kv) + 4 * rows * 2}
     out = []
@@ -2153,20 +2236,76 @@ def check_backward_d80(torch, randn, tol):
         b_ms, b_by = bound(nbytes[part], prods * 2 * d * pairs,
                            H100_BF16_FLOPS)
         out.append(dict(
-            name=f"flash_attention_bwd_{part}_d80", route="cuda",
+            name=f"flash_attention_bwd_{part}_{suffix}", route="cuda",
             source="src/repro_torch/csrc/flash_attention_bwd.cu",
             replaces=f"src/repro/kernels/flash_attention.py:{at}",
             max_abs_err=worst[part], ms=ms[part], plain_ms=plain[part],
             bound_ms=b_ms, bound_by=b_by, library_ms=lib,
-            shape=f"B={b} H={h} KV={kvh} D={d} S={s} causal (zamba2-2.7b's "
-                  "shared attention); library_ms is SDPA's whole backward; "
-                  "plain_ms is the plain version with bf16 operands"))
-    print(f"[time] flash attention backward at zamba2's training shape: dQ "
-          f"{ms['dq']:.4f} + dK/dV {ms['dkv']:.4f} ms vs SDPA backward "
-          f"{lib:.4f} ms | {card_line()}", flush=True)
-    del qe, ke, ve
+            shape=f"B={b} H={h} KV={kvh} D={d} Sq={sq} Sk={sk} "
+                  f"{'causal' if causal else 'non-causal'} ({label}); "
+                  "library_ms is SDPA's whole backward; plain_ms is the "
+                  "plain version with bf16 operands"))
+    print(f"[time] flash attention backward {label}: dQ {ms['dq']:.4f} + "
+          f"dK/dV {ms['dkv']:.4f} ms vs SDPA backward {lib:.4f} ms; bounds "
+          f"{out[0]['bound_ms']:.4f} + {out[1]['bound_ms']:.4f} ms | "
+          f"{card_line()}", flush=True)
+    del qe, ke, ve, q, k, v, o, lse, do, delta
     torch.cuda.empty_cache()
-    return out
+    return out, fwd_err
+
+
+# the training shapes of phases 14 and 18 that check_backward does not
+# hold: zamba2-2.7b's head dim 80, phi-3-vision's 96 and qwen2-moe's 128
+# at G = 1, causal over 4096 tokens; whisper-base's cross attention (4096
+# decoder rows over 1500 frames, a ragged key tail: 1500 = 23 x 64 + 28)
+# and its encoder, non-causal
+TRAIN_BWD_CASES = (
+    ("d80", "zamba2 training shape b=2 h=32/32 s=4096 d=80", 2, 32, 32,
+     4096, 4096, 80, True),
+    ("d96", "phi-3-vision training shape b=2 h=32/32 s=4096 d=96", 2, 32, 32,
+     4096, 4096, 96, True),
+    ("d128", "qwen2-moe training shape b=2 h=16/16 s=4096 d=128", 2, 16, 16,
+     4096, 4096, 128, True),
+    ("whisper_train", "whisper cross training shape b=2 h=8/8 sq=4096 "
+     "sk=1500 d=64 non-causal", 2, 8, 8, 4096, 1500, 64, False),
+    ("whisper_enc_train", "whisper encoder training shape b=2 h=8/8 s=1500 "
+     "d=64 non-causal", 2, 8, 8, 1500, 1500, 64, False),
+)
+
+
+def check_backward_shapes(torch, randn, tol):
+    """K5a and K5b at the training shapes of phases 14 and 18
+    (``TRAIN_BWD_CASES``, :func:`check_backward_at`), and K2 at whisper's
+    cross shape as a training forward, timed beside its plain version and
+    SDPA: the ``*_d80``, ``*_d96``, ``*_d128``, ``*_whisper_train`` and
+    ``*_whisper_enc_train`` backward records and
+    ``flash_attention_fwd_whisper_train`` (launches from phase 14's run and
+    phase 18's runs, the whisper ones by call shape)."""
+    records = []
+    for suffix, label, *shape in TRAIN_BWD_CASES:
+        recs, fwd_err = check_backward_at(torch, randn, tol, suffix, label,
+                                          *shape)
+        records += recs
+        if suffix != "whisper_train":
+            continue
+        b, h, kvh, sq, sk, d, causal = shape
+        q = randn(b, sq, h, d).transpose(1, 2)
+        k, v = (randn(b, sk, kvh, d).transpose(1, 2) for _ in range(2))
+        ms, plain, lib, b_ms, b_by = _fwd_times(torch, q, k, v, causal)
+        print(f"[time] flash_attention_fwd {label}: kernel {ms:.4f} ms, "
+              f"plain {plain:.4f} ms (bf16 operands), library {lib:.4f} ms "
+              f"(SDPA), bound {b_ms:.4f} ms ({b_by})", flush=True)
+        records.append(dict(
+            name="flash_attention_fwd_whisper_train", route="cuda",
+            source="src/repro_torch/csrc/flash_attention_fwd.cu",
+            replaces="src/repro/kernels/flash_attention.py:96",
+            max_abs_err=fwd_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib,
+            shape=f"{label} (B={b} H={h} KV={kvh} D={d} Sq={sq} Sk={sk}); "
+                  "plain_ms is the plain version with bf16 operands"))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return records
 
 
 # SSDScan/WKV on the card against autograd through the plain versions, on
@@ -2439,21 +2578,28 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def step_grads(torch, model, plan, params, batch):
+def step_grads(torch, model, plan, params, batch, metrics=None):
     """The gradients one train step takes (``make_train_step``'s
-    arithmetic: microbatch i takes rows i::mb, fp32 sums divided by mb),
-    computed here with ``model.loss_fn`` and autograd -> a list of fp32
-    tensors in the params' leaf order."""
+    arithmetic: microbatch i takes rows i::mb of every key, fp32 sums
+    divided by mb; a leaf the batch does not reach takes zeros), computed
+    here with ``model.loss_fn`` and autograd -> a list of fp32 tensors in
+    the params' leaf order.  ``metrics``, a dict, gets the loss's ``ce``
+    and ``aux`` averaged over the microbatches."""
     from repro_torch.training.optimizer import leaves, tree_map
     mb = max(plan.microbatch, 1)
     acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
            for p in leaves(params)]
     for i in range(mb):
         tracked = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        loss, _ = model.loss_fn(tracked, {k: v[i::mb]
+        loss, m = model.loss_fn(tracked, {k: v[i::mb]
                                           for k, v in batch.items()})
-        for a, g in zip(acc, torch.autograd.grad(loss, leaves(tracked))):
-            a.add_(g)
+        if metrics is not None:
+            for k in ("ce", "aux"):
+                metrics[k] = metrics.get(k, 0.0) + float(m[k]) / mb
+        for a, g in zip(acc, torch.autograd.grad(loss, leaves(tracked),
+                                                 allow_unused=True)):
+            if g is not None:
+                a.add_(g)
     return [a.div_(mb) for a in acc]
 
 
@@ -2484,31 +2630,37 @@ def train_full(torch):
     from repro_torch.configs import get_config
     cfg = get_config("tinyllama-1.1b")
     _, overrides, _, _ = _train_setup()
-    n = cfg.num_layers
-    # every kernel's forward runs again in the recompute, but for ln_f's
-    launches = train_phase(torch, "train", cfg, overrides, {
-        "flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
-        "flash_attention_bwd_dkv": n, "rmsnorm": 2 * (2 * n) + 1,
-        "rmsnorm_bwd": 2 * n + 1})
+    launches, _ = train_phase(torch, "train", cfg, overrides,
+                              _attention_counts(cfg.num_layers))
     RMS_LAUNCHES["train"] += launches["rmsnorm"]
     return launches
 
 
-def train_phase(torch, tag, cfg, overrides, per_mb):
+def train_phase(torch, tag, cfg, overrides, per_mb, unreached=(),
+                steps=None, direct=False):
     """One full-width training run of ``cfg`` (random weights from seed
-    0) at phase 5's sequence 4096 x batch 8 with the plan ``overrides``,
-    4 AdamW steps through ``launch.train`` (``Cluster.submit``).  Prints
-    the ladder's own plan and its estimate beside the measured peak,
-    which the job's grant must cover; every loss must be finite and the
-    last below the first, every step-1 gradient finite and not all zero
-    (computed here, before the run, from the same weights and batch as
-    the run's first step), every kernel's launch count ``per_mb`` (a
-    microbatch's; 0 where absent) times the microbatches and steps, and
-    no flash-attention operand copied for alignment.  Then the step time,
-    tokens/s and model-FLOPs share, and one more step under
-    ``torch.profiler`` (:func:`report_train`).  Returns the launch
-    counts."""
-    from repro_torch.checkpoint.checkpointer import _flatten_with_paths
+    0) at phase 5's sequence 4096 x batch 8 and optimizer with the plan
+    ``overrides``, ``steps`` steps (phase 5's 4 unless given): through
+    ``launch.train`` (``Cluster.submit``) on ``SyntheticLM``'s batches,
+    or with ``direct`` through the port's ``make_train_step`` on
+    ``materialize``'s plan (:func:`train_steps`) with the frontend's
+    seeded inputs in each batch (:func:`frontend_inputs`; phi-3: 576
+    image embeddings ahead of 3520 tokens; whisper: 1500 frames).  Gates:
+    every step-1 gradient leaf finite and not all zero (computed here,
+    before the run, from the same weights and batch as the run's first
+    step; the leaves named in ``unreached``, which these batches do not
+    reach, exactly zero instead); every loss finite and the last below
+    the first; every kernel's launch count ``per_mb`` (a microbatch's; 0
+    where absent) times the microbatches and steps; no flash-attention
+    operand copied for alignment; the measured peak covered by the job's
+    grant (``launch.train``, whose plan must be the ladder's with
+    ``overrides``; the ladder's own plan is printed beside it) or within
+    the card (``direct``).  An MoE config also prints the step-1 batch's
+    ``ce`` and ``aux`` and the (token, k) pairs the experts' capacity
+    dropped in each step.  Then the step time, tokens/s and model-FLOPs
+    share, and one more step under ``torch.profiler``
+    (:func:`report_train`).  Returns the launch counts and the
+    flash-attention launches by call shape (:func:`train_call_classes`)."""
     from repro_torch.core.materializer import H100, materialize
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.launch.train import train
@@ -2516,75 +2668,179 @@ def train_phase(torch, tag, cfg, overrides, per_mb):
     from repro_torch.training.train_step import impl_from_plan
     t_phase = time.perf_counter()
     kernels = _train_kernels()
-    shape, _, ocfg, steps = _train_setup()
+    shape, _, ocfg, default_steps = _train_setup()
+    steps = steps or default_steps
     plan = materialize(cfg, shape, H100, overrides=overrides)
-    ladder = materialize(cfg, shape, H100)
+    model = Model(cfg, impl_from_plan(plan))
+    n_img = cfg.num_image_tokens if direct and cfg.family == "vlm" else 0
+    data = SyntheticLM(DataConfig(cfg.vocab_size, shape.seq_len - n_img,
+                                  shape.global_batch))
 
-    # step 1's gradients: train() below starts from init_params(cfg, 0)
-    # and the data's batch 0
+    def batch_at(i):
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in data.batch_at(i).items()}
+        if direct:
+            batch.update(frontend_inputs(torch, cfg, shape.global_batch, i,
+                                         "cuda"))
+        return batch
+
+    # step 1's gradients: both runs start from init_params(cfg, 0) and the
+    # data's batch 0
     params = init_params(cfg, 0, "cuda")
-    batch = {k: torch.from_numpy(v).cuda() for k, v in SyntheticLM(
-        DataConfig(cfg.vocab_size, shape.seq_len, shape.global_batch))
-        .batch_at(0).items()}
-    grads = step_grads(torch, Model(cfg, impl_from_plan(plan)), plan, params,
-                       batch)
-    bad = [key for (key, _), g in zip(_flatten_with_paths(params), grads)
-           if not bool(torch.isfinite(g).all()) or not bool(g.any())]
+    m1 = {}
+    grads = step_grads(torch, model, plan, params, batch_at(0), m1)
+    bad = gradient_faults(torch, params, grads, unreached)
     checked = len(grads)
-    del params, batch, grads
-    print(f"[{tag}] step-1 gradients: {time.perf_counter() - t_phase:.1f} s",
+    del grads
+    if not direct:
+        params = None                     # train() makes its own
+    print(f"[{tag}] step-1 gradients: {time.perf_counter() - t_phase:.1f} s"
+          + (f"; the step-1 batch's ce {m1['ce']:.6f}, aux {m1['aux']:.6f} "
+             "(loss = ce + 0.01 aux)" if cfg.moe is not None else ""),
           flush=True)
     if bad:
         fail(f"{tag}: step 1 gradients of {bad} (of {checked} leaves) are "
-             "not finite or all zero")
+             "not finite or all zero (or, unreached, not zero)")
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     for fn in kernels.values():
         fn.launches = 0
-    with row_copies() as seen:
-        out = train(cfg, shape=shape, overrides=overrides, opt_cfg=ocfg,
-                    device="cuda", steps=steps, seed=0)
+    with row_copies() as seen, moe_drop_log() as drops, \
+            train_call_classes() as classes:
+        if direct:
+            out = train_steps(torch, tag, model, plan, params, ocfg, steps,
+                              batch_at)
+        else:
+            out = train(cfg, shape=shape, overrides=overrides, opt_cfg=ocfg,
+                        device="cuda", steps=steps, seed=0)
         torch.cuda.synchronize()
+    del params
     launches = {name: fn.launches for name, fn in kernels.items()}
     no_row_copies(tag, seen)
+    if cfg.moe is not None:
+        print_drops(tag, drops, steps, plan.remat)
     peak = torch.cuda.max_memory_allocated()
-    if out["plan"].describe() != plan.describe():
-        fail(f"{tag}: the cluster's plan {out['plan'].describe()} is not "
-             f"the ladder's with {overrides}")
-    print(f"[{tag}] {cfg.name} ({cfg.num_layers} layers): the ladder's own "
-          f"plan for {shape.name}: remat={ladder.remat} microbatch="
-          f"{ladder.microbatch} est {ladder.est_bytes_per_device / 2**30:.3f}"
-          f" GiB/device ({ladder.notes}); the run's plan (overrides "
-          f"{overrides}): est {plan.est_bytes_per_device / 2**30:.3f} "
-          f"GiB/device, measured peak {peak / 2**30:.3f} GiB "
-          f"(torch.cuda.max_memory_allocated); the job's grant "
-          f"{out['grant'] / 2**30:.3f} GiB over {out['held'] / 2**30:.3f} "
-          f"GiB held ({base / 2**30:.3f} GiB allocated before) | "
-          f"{card_line()}", flush=True)
-    if not out["grant"] >= out["held"] >= peak - base:
-        fail(f"{tag}: the job's grant {out['grant']} does not cover the "
-             f"measured peak {peak} ({out['held']} held)")
+    if direct:
+        print(f"[{tag}] {cfg.name} ({cfg.num_layers} layers): plan "
+              f"(overrides {overrides}) est "
+              f"{plan.est_bytes_per_device / 2**30:.3f} GiB/device, "
+              f"measured peak {peak / 2**30:.3f} GiB "
+              f"(torch.cuda.max_memory_allocated; {base / 2**30:.3f} GiB "
+              f"allocated before the optimizer state) | {card_line()}",
+              flush=True)
+        if peak > H100.hbm_per_device:
+            fail(f"{tag}: the measured peak {peak} passes the card's "
+                 f"{H100.hbm_per_device} bytes")
+    else:
+        ladder = materialize(cfg, shape, H100)
+        if out["plan"].describe() != plan.describe():
+            fail(f"{tag}: the cluster's plan {out['plan'].describe()} is "
+                 f"not the ladder's with {overrides}")
+        print(f"[{tag}] {cfg.name} ({cfg.num_layers} layers): the ladder's "
+              f"own plan for {shape.name}: remat={ladder.remat} microbatch="
+              f"{ladder.microbatch} est "
+              f"{ladder.est_bytes_per_device / 2**30:.3f} GiB/device "
+              f"({ladder.notes}); the run's plan (overrides {overrides}): "
+              f"est {plan.est_bytes_per_device / 2**30:.3f} GiB/device, "
+              f"measured peak {peak / 2**30:.3f} GiB "
+              f"(torch.cuda.max_memory_allocated); the job's grant "
+              f"{out['grant'] / 2**30:.3f} GiB over "
+              f"{out['held'] / 2**30:.3f} GiB held ({base / 2**30:.3f} GiB "
+              f"allocated before) | {card_line()}", flush=True)
+        if not out["grant"] >= out["held"] >= peak - base:
+            fail(f"{tag}: the job's grant {out['grant']} does not cover "
+                 f"the measured peak {peak} ({out['held']} held)")
     losses = [m["loss"] for m in out["metrics"]]
     want = {k: per_mb.get(k, 0) * plan.microbatch * steps for k in kernels}
     print(f"[{tag}] {cfg.name} full width, seq {shape.seq_len} x batch "
-          f"{shape.global_batch}, remat={plan.remat} microbatch="
-          f"{plan.microbatch}, losses {losses}, launches={launches} "
-          f"expected={want}, step-1 gradients finite and nonzero on all "
+          f"{shape.global_batch} ({n_img} image positions), remat="
+          f"{plan.remat} microbatch={plan.microbatch}, losses {losses}, "
+          f"launches={launches} expected={want}, by call shape (causal, Sq, "
+          f"Sk): {classes}, step-1 gradients finite and nonzero on all "
           f"{checked} leaves", flush=True)
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         fail(f"{tag}: losses {losses} not finite or not decreasing")
     if launches != want:
         fail(f"{tag}: kernel launch counts differ from what the path implies")
     t_report = time.perf_counter()
-    report_train(torch, out, peak, ocfg, tag)
+    report_train(torch, dict(out, shape=shape, n_img=n_img,
+                             batch=batch_at(out["cursor"])), peak, ocfg, tag)
     del out
     torch.cuda.empty_cache()
     print(f"[{tag}] phase: {time.perf_counter() - t_phase:.1f} s (the "
           f"profiled step and its report "
           f"{time.perf_counter() - t_report:.1f} s)", flush=True)
-    return launches
+    return launches, classes
+
+
+def train_steps(torch, tag, model, plan, params, ocfg, steps, batch_at):
+    """``steps`` steps of the port's ``make_train_step`` from ``params`` on
+    ``batch_at(i)``, each step's wall time measured -> the keys of
+    ``launch.train``'s result that :func:`train_phase` reads but the
+    shape."""
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import make_train_step
+    opt_state = opt.init_opt_state(params)
+    step = make_train_step(model, plan, ocfg)
+    metrics = []
+    for i in range(steps):
+        batch = batch_at(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch)
+        m = {k: float(v) for k, v in m.items()}         # waits for the step
+        metrics.append(dict(m, wall_s=time.perf_counter() - t0))
+        print(f"[{tag}] step {i}: loss={m['loss']:.4f} grad_norm="
+              f"{m['grad_norm']:.4f} ({metrics[-1]['wall_s']:.3f}s)",
+              flush=True)
+    return dict(metrics=metrics, params=params, opt_state=opt_state,
+                model=model, plan=plan, cursor=steps)
+
+
+def gradient_faults(torch, params, grads, unreached=()):
+    """The key paths of the step-1 gradient leaves that are not finite or
+    all zero; a leaf named in ``unreached`` must be all zero instead."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_paths
+    bad = []
+    for (key, _), g in zip(_flatten_with_paths(params), grads):
+        skip = any(u in key for u in unreached)
+        if not bool(torch.isfinite(g).all()) or bool(g.any()) == skip:
+            bad.append(key)
+    return bad
+
+
+@contextmanager
+def moe_drop_log():
+    """Each MoE routing's dropped (token, k) pairs, on the card and
+    without a sync, in call order, while the block runs."""
+    from repro_torch.models import moe as moe_mod
+    plain, log = moe_mod.dispatch_slots, []
+
+    def counting(ids, e_total, cap):
+        slot, keep = plain(ids, e_total, cap)
+        log.append((~keep).sum())
+        return slot, keep
+
+    moe_mod.dispatch_slots = counting
+    try:
+        yield log
+    finally:
+        moe_mod.dispatch_slots = plain
+
+
+def print_drops(tag, log, steps, remat):
+    """The pairs dropped in each of ``steps`` equal steps of ``log``
+    (:func:`moe_drop_log`).  Under remat each MoE block routes twice a
+    microbatch, in the forward and in the recompute, to the same ids: the
+    pairs a step drops are then half its routings' sum."""
+    per = len(log) // steps
+    twice = 1 if remat == "none" else 2
+    dropped = [int(sum(int(n) for n in log[i * per:(i + 1) * per])) // twice
+               for i in range(steps)]
+    print(f"[{tag}] (token, k) pairs the experts' capacity dropped in each "
+          f"step: {dropped} ({per} routings a step)", flush=True)
 
 
 def _train_setup():
@@ -2603,31 +2859,58 @@ def _train_setup():
 NOT_MATMUL = ("conv_w", "mu", "mu_c", "w0", "bonus_u", "ln_x")
 
 
-def model_flops(cfg, params, shape):
+def model_flops(cfg, params, shape, n_img=0):
     """A training step's model FLOPs: 6 x the matmul weights applied per
-    token x tokens (the stacked blocks' matrices, the shared attention
-    block's once per application, the output head; the embedding is a
-    gather) plus causal attention's products, forward and backward.
-    Remat's recompute, norms, elementwise ops and the scans' state
-    arithmetic (K6, K7 and their backward) are not counted."""
+    position x positions, plus attention's products, forward and
+    backward.  The stacked blocks' matrices apply at every position of the
+    sequence (``n_img`` image positions included), the routed experts' at
+    ``top_k`` of the experts a token and the router's at the real experts
+    (the padded experts' weights are not the model's), shared experts
+    whole; the shared attention block's once per application; whisper's
+    encoder and its decoder's cross K/V projections over the
+    ``encoder_seq_len`` frames a sequence; phi-3's image projection over
+    its image positions; the output head over the text positions (the
+    embedding is a gather).  Attention: causal self attention over S(S +
+    1)/2 pairs, whisper's cross attention over S x frames and its encoder
+    over frames x frames.  Remat's recompute, norms, elementwise ops and
+    the scans' state arithmetic (K6, K7 and their backward) are not
+    counted."""
     from repro_torch.checkpoint.checkpointer import _flatten_with_paths
-    from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ATTN_SHARED
+    from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL,
+                                          ATTN_SHARED, DEC_ATTN, MOE)
+    from repro_torch.core.profiles import padded_num_experts
+    b, s = shape.global_batch, shape.seq_len
+    frames = cfg.encoder_seq_len if cfg.is_encdec else 0
     shared_uses = cfg.pattern.count(ATTN_SHARED) * cfg.num_blocks
-    n_matmul = 0
+    per_pos = per_frame = per_img = per_text = 0.0
     for key, p in _flatten_with_paths(params):
         top, leaf = key.split("/")[0], key.split("/")[-1]
         if top == "blocks" and p.dim() >= 3 and leaf not in NOT_MATMUL:
-            n_matmul += p.numel()
+            if leaf in ("we_gate", "we_up", "we_down", "router"):
+                e_pad = padded_num_experts(cfg.moe.num_experts)
+                used = cfg.moe.num_experts if leaf == "router" \
+                    else cfg.moe.top_k
+                per_pos += p.numel() * used / e_pad
+            elif leaf in ("cross_wk", "cross_wv"):
+                per_frame += p.numel()
+            else:
+                per_pos += p.numel()
+        elif top == "encoder" and p.dim() >= 3:
+            per_frame += p.numel()
         elif top == "shared_attn" and p.dim() >= 2:
-            n_matmul += shared_uses * p.numel()
+            per_pos += shared_uses * p.numel()
+        elif top == "img_proj":
+            per_img += p.numel()
         elif top == "embed" and (leaf == "head" or cfg.tie_embeddings):
-            n_matmul += p.numel()
-    tokens = shape.seq_len * shape.global_batch
-    attn_layers = sum(cfg.pattern.count(k) for k in
-                      (ATTN_GLOBAL, ATTN_LOCAL, ATTN_SHARED)) * cfg.num_blocks
-    attn = (3 * 2 * 2 * cfg.head_dim * cfg.num_heads * attn_layers
-            * shape.global_batch * shape.seq_len * (shape.seq_len + 1) / 2)
-    return 6 * n_matmul * tokens + attn
+            per_text += p.numel()
+    weights = b * (per_pos * s + per_frame * frames + per_img * n_img
+                   + per_text * (s - n_img))
+    self_layers = sum(cfg.pattern.count(k) for k in (
+        ATTN_GLOBAL, ATTN_LOCAL, ATTN_SHARED, MOE, DEC_ATTN)) * cfg.num_blocks
+    pairs = (self_layers * s * (s + 1) / 2
+             + cfg.pattern.count(DEC_ATTN) * cfg.num_blocks * s * frames
+             + cfg.num_encoder_layers * frames * frames)
+    return 6 * weights + 3 * 2 * 2 * cfg.head_dim * cfg.num_heads * b * pairs
 
 
 def report_train(torch, out, peak, ocfg, tag="train"):
@@ -2638,7 +2921,7 @@ def report_train(torch, out, peak, ocfg, tag="train"):
     walls = sorted(m["wall_s"] for m in out["metrics"][1:])
     step_s = walls[len(walls) // 2]
     tokens = shape.seq_len * shape.global_batch
-    flops = model_flops(cfg, out["params"], shape)
+    flops = model_flops(cfg, out["params"], shape, out.get("n_img", 0))
     print(f"[{tag}] step {step_s:.4f} s (median of steps 2-{steps}; all "
           f"{[round(m['wall_s'], 4) for m in out['metrics']]}), "
           f"{tokens / step_s:.1f} tokens/s, peak memory "
@@ -2656,31 +2939,84 @@ def report_train(torch, out, peak, ocfg, tag="train"):
 
 
 def profile_train(torch, out, ocfg):
-    """One more step of the run above under ``torch.profiler``: the
-    device's busy share and device time by kernel; returns the device
-    busy ms."""
+    """One more step of the run above under ``torch.profiler`` (on
+    ``out["batch"]`` where the run gives one, else the data's next
+    batch): the device's busy share and device time by kernel, and for an
+    MoE config the device time under the routed experts' forward and
+    recompute (``_local_expert_ffn``: the dispatch, the three batched
+    products, the combine) and under their products' backward
+    (``BmmBackward0``: the only batched products of the model); returns
+    the device busy ms."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.training.train_step import make_train_step
     shape, cfg = out["shape"], out["model"].cfg
     step = make_train_step(out["model"], out["plan"], ocfg)
-    data = SyntheticLM(DataConfig(cfg.vocab_size, shape.seq_len,
-                                  shape.global_batch))
-    batch = {k: torch.from_numpy(v).cuda()
-             for k, v in data.batch_at(out["cursor"]).items()}
+    batch = out.get("batch")
+    if batch is None:
+        data = SyntheticLM(DataConfig(cfg.vocab_size, shape.seq_len,
+                                      shape.global_batch))
+        batch = {k: torch.from_numpy(v).cuda()
+                 for k, v in data.batch_at(out["cursor"]).items()}
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # the run's cached free blocks back to the card first: near the card's
+    # memory a profiled step otherwise fails on a fragmented cache
+    torch.cuda.empty_cache()
+    with routed_experts_annotated(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _, _, m = step(out["params"], out["opt_state"], batch)
         float(m["loss"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    return report_profile(prof, wall, "train 1 step")
+    total = report_profile(prof, wall, "train 1 step")
+    if cfg.moe is not None and total:
+        avgs = prof.key_averages()
+        fwd_us = routed_experts_us(avgs)
+        bwd_us = sum(_device_us(e) for e in avgs if e.key == "BmmBackward0")
+        print(f"[profile] routed experts: forward and recompute "
+              f"{fwd_us / 1e3:.3f} ms ({100 * fwd_us / 1e3 / total:.1f}%), "
+              f"their products' backward {bwd_us / 1e3:.3f} ms "
+              f"({100 * bwd_us / 1e3 / total:.1f}%)", flush=True)
+    return total
 
 
 # the ``record_function`` ranges chip_smoke opens under the profiler
 ANNOTATIONS = ("moe_routed_experts",)
+
+
+def _device_us(e):
+    """An aggregated profiler event's device time, us."""
+    return getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0.0))
+
+
+@contextmanager
+def routed_experts_annotated():
+    """Each call of the routed experts (``moe._local_expert_ffn``: the
+    dispatch, the three batched products, the combine) inside a
+    ``record_function`` range named ``ANNOTATIONS[0]`` while the block
+    runs."""
+    from torch.profiler import record_function
+    from repro_torch.models import moe as moe_mod
+    plain = moe_mod._local_expert_ffn
+
+    def experts(*args):
+        with record_function(ANNOTATIONS[0]):
+            return plain(*args)
+
+    moe_mod._local_expert_ffn = experts
+    try:
+        yield
+    finally:
+        moe_mod._local_expert_ffn = plain
+
+
+def routed_experts_us(avgs):
+    """The device time (us) of the kernels launched in the host-side
+    ranges of :func:`routed_experts_annotated`, from a profile's
+    ``key_averages()``."""
+    return sum(_device_us(e) for e in avgs if e.key == ANNOTATIONS[0]
+               and not str(getattr(e, "device_type", "")).endswith("CUDA"))
 
 
 def report_profile(prof, wall, what):
@@ -2712,9 +3048,8 @@ def report_profile(prof, wall, what):
     # replaced); 0 on a path that takes no gradient
     fwd_us = sum(t for key, t in dev_us.items() if "rmsnorm" in key
                  and "bwd" not in key and "dgain" not in key)
-    bwd_us = max((getattr(e, "device_time_total",
-                          getattr(e, "cuda_time_total", 0.0))
-                  for e in avgs if "RMSNormBackward" in e.key), default=0.0)
+    bwd_us = max((_device_us(e) for e in avgs if "RMSNormBackward" in e.key),
+                 default=0.0)
     for name, us in (("K3 rmsnorm forward kernels", fwd_us),
                      ("K3 norm backward (under RMSNormBackward)", bwd_us)):
         if us:
@@ -2737,9 +3072,7 @@ def report_profile(prof, wall, what):
                   "kernels", flush=True)
     # the scan gradients: PyTorch ops under the Functions' autograd nodes
     for node in ("SSDScanBackward", "WKVBackward"):
-        us = max((getattr(e, "device_time_total",
-                          getattr(e, "cuda_time_total", 0.0))
-                  for e in avgs if node in e.key), default=0.0)
+        us = max((_device_us(e) for e in avgs if node in e.key), default=0.0)
         if us:
             print(f"[profile]   {us / 1e3:10.3f} ms  "
                   f"{100 * us / 1e3 / total_ms:5.1f}%  scan backward (under "
@@ -2851,15 +3184,75 @@ TRAIN_GRAD_RTOL = 5e-2           # relative norm of each step-1 gradient
 def parity_train_reduced(torch):
     """Reduced tinyllama-1.1b (2 layers, full remat), zamba2-2.7b (two
     pattern blocks, so the shared attention block runs twice; under
-    ``remat="dots"``) and rwkv6-7b (2 layers, full remat) each train 3
-    steps of 2 microbatches at sequence 160 (ragged over the kernels'
-    64-row tiles and 64-token chunks) from the same weights on the same
-    batches, on the card and on the CPU: losses, final params and step-1
-    gradients within ``TRAIN_*_RTOL``."""
+    ``remat="dots"``), rwkv6-7b (2 layers, full remat), qwen2-moe-a2.7b
+    and dbrx-132b (2 layers, full remat; 1280 tokens, so the experts'
+    capacity drops pairs), phi-3-vision-4.2b (2 layers, full remat, with
+    seeded image embeddings) and whisper-base (2 decoder layers over its
+    2 encoder layers' 16 frames, full remat) each train 3 steps of 2
+    microbatches at sequence 160 (ragged over the kernels' 64-row tiles
+    and 64-token chunks) from the same weights on the same batches, on
+    the card and on the CPU: losses, final params and step-1 gradients
+    within ``TRAIN_*_RTOL``."""
     for arch, layers, remat in (("tinyllama-1.1b", 2, "full"),
                                 ("zamba2-2.7b", 12, "dots"),
-                                ("rwkv6-7b", 2, "full")):
+                                ("rwkv6-7b", 2, "full"),
+                                ("qwen2-moe-a2.7b", 2, "full"),
+                                ("dbrx-132b", 2, "full"),
+                                ("phi-3-vision-4.2b", 2, "full"),
+                                ("whisper-base", 2, "full")):
         parity_train_one(torch, arch, layers, remat)
+
+
+def frontend_inputs(torch, cfg, batch, step, device, dtype=None):
+    """Seeded stand-ins for the stubbed frontends' inputs of one training
+    batch, in bf16 (or ``dtype``): phi-3-vision's image embeddings (B,
+    num_image_tokens, 1024), whisper's frame features (B,
+    encoder_seq_len, d); {} for the other families.  Drawn on the CPU
+    from ``step``, so the card and the CPU get the same values."""
+    gen = torch.Generator().manual_seed(1000 + step)
+    if cfg.family == "vlm":
+        shape = (batch, cfg.num_image_tokens, 1024)
+        key = "img_feats"
+    elif cfg.is_encdec:
+        shape = (batch, cfg.encoder_seq_len, cfg.d_model)
+        key = "enc_feats"
+    else:
+        return {}
+    return {key: torch.randn(shape, generator=gen).to(
+        dtype or torch.bfloat16).to(device)}
+
+
+@contextmanager
+def pinned_routes(torch, record=None, replay=None):
+    """Record each MoE routing's expert ids (``record``, a list) or replay
+    recorded ones (``replay``): the router's probabilities, weights and
+    balance loss are the run's own, gathered at the replayed ids.  A
+    routing is a discrete choice: an ulp of difference in a router logit
+    can swap a near-tied token's experts, and one swap moves the capacity
+    ranks of an expert's later tokens, so gradients are compared on the
+    same routing (and the swaps counted)."""
+    from repro_torch.models import moe as moe_mod
+    plain, seen = moe_mod.route, {"swapped": 0, "tokens": 0}
+    pending = iter(replay) if replay is not None else None
+
+    def route(p, x, cfg):
+        weights, ids, aux = plain(p, x, cfg)
+        if record is not None:
+            record.append(ids.detach().cpu())
+        if pending is None:
+            return weights, ids, aux
+        want = next(pending).to(ids.device)
+        seen["swapped"] += int((want != ids).any(-1).sum())
+        seen["tokens"] += ids.shape[0]
+        weights, aux = moe_mod.routed(moe_mod.router_probs(p, x, cfg), want,
+                                      cfg, x.dtype)
+        return weights, want, aux
+
+    moe_mod.route = route
+    try:
+        yield seen
+    finally:
+        moe_mod.route = plain
 
 
 def parity_train_one(torch, arch, layers, remat):
@@ -2876,26 +3269,31 @@ def parity_train_one(torch, arch, layers, remat):
     plan = Plan(cfg.name, "reduced_160", H100, microbatch=2, remat=remat)
     model = Model(cfg, impl_from_plan(plan))
     params0 = init_params(cfg, 0, "cpu")
-    data = SyntheticLM(DataConfig(cfg.vocab_size, 160, 8))
+    n_img = cfg.num_image_tokens if cfg.family == "vlm" else 0
+    data = SyntheticLM(DataConfig(cfg.vocab_size, 160 - n_img, 8))
     ocfg = opt.OptimizerConfig(warmup_steps=1)
+    routes = []                   # the card's step-1 routings, in order
 
     def run(device):
         step = make_train_step(model, plan, ocfg)
         params = _tree_to(params0, device)
         state = opt.init_opt_state(params)
-        losses, grads = [], None
+        losses, grads, swaps = [], None, None
         for i in range(3):
             batch = {k: torch.from_numpy(v).to(device)
                      for k, v in data.batch_at(i).items()}
+            batch.update(frontend_inputs(torch, cfg, 8, i, device))
             if grads is None:
-                grads = [g.cpu() for g in step_grads(torch, model, plan,
-                                                     params, batch)]
+                with pinned_routes(torch, *((routes, None) if device == "cuda"
+                                            else (None, routes))) as swaps:
+                    grads = [g.cpu() for g in step_grads(torch, model, plan,
+                                                         params, batch)]
             params, state, m = step(params, state, batch)
             losses.append(float(m["loss"]))
-        return losses, _tree_to(params, "cpu"), grads
+        return losses, _tree_to(params, "cpu"), grads, swaps
 
-    cuda_losses, cuda_params, cuda_grads = run("cuda")
-    cpu_losses, cpu_params, cpu_grads = run("cpu")
+    cuda_losses, cuda_params, cuda_grads, _ = run("cuda")
+    cpu_losses, cpu_params, cpu_grads, swaps = run("cpu")
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(cuda_losses,
                                                       cpu_losses))
     num = sum(float((a.float() - b.float()).square().sum()) for a, b in
@@ -2907,12 +3305,15 @@ def parity_train_one(torch, arch, layers, remat):
                  for (key, _), a, b in zip(_flatten_with_paths(params0),
                                            cuda_grads, cpu_grads)}
     worst = max(grad_errs, key=grad_errs.get)
+    routing = (f"; step 1 routed as on the card, the CPU's own routing "
+               f"swapping the experts of {swaps['swapped']} of "
+               f"{swaps['tokens']} token routings" if routes else "")
     print(f"[parity] reduced {arch} ({layers} layers, remat={remat}) "
           f"training cuda vs cpu, 3 steps: losses {cuda_losses} vs "
           f"{cpu_losses} (max rel {loss_err:.3e} <= {TRAIN_LOSS_RTOL}), "
           f"params rel norm {param_err:.3e} <= {TRAIN_PARAM_RTOL}, step-1 "
           f"grads worst rel norm {grad_errs[worst]:.3e} ({worst}) <= "
-          f"{TRAIN_GRAD_RTOL}", flush=True)
+          f"{TRAIN_GRAD_RTOL}{routing}", flush=True)
     if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_RTOL
             and grad_errs[worst] <= TRAIN_GRAD_RTOL):
         fail(f"parity: CUDA training of reduced {arch} disagrees with the "
@@ -3124,8 +3525,7 @@ def profile_dense(torch, arch, runner, requests=8, prompt_range=(64, 1024)):
     (``_local_expert_ffn``, its dispatch included) against the attention
     kernels'."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile, record_function
-    from repro_torch.models import moe as moe_mod
+    from torch.profiler import ProfilerActivity, profile
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.kv_cache import PagePool, Request
     rng = np.random.default_rng(0)
@@ -3133,37 +3533,22 @@ def profile_dense(torch, arch, runner, requests=8, prompt_range=(64, 1024)):
                                               prompt_range[1] + 1)), 8)
             for i in range(requests)]
     eng = ServingEngine(PagePool(128), max_batch=8, runner=runner)
-    plain = moe_mod._local_expert_ffn
-
-    def experts(*args):
-        with record_function(ANNOTATIONS[0]):
-            return plain(*args)
-
-    moe_mod._local_expert_ffn = experts
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for r in reqs:
-                eng.submit(r)
-            stats = eng.run_to_completion()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-    finally:
-        moe_mod._local_expert_ffn = plain
+    with routed_experts_annotated(), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for r in reqs:
+            eng.submit(r)
+        stats = eng.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     total = report_profile(prof, wall, f"{arch} dense serve {requests} req "
                                        f"x 8 new (decode_steps "
                                        f"{stats.decode_steps})")
     if runner.cfg.moe is None or not total:
         return
     avgs = prof.key_averages()
-    # the host-side range: the device time of the kernels launched in it
-    experts_us = sum(getattr(e, "device_time_total",
-                             getattr(e, "cuda_time_total", 0.0))
-                     for e in avgs if e.key == ANNOTATIONS[0]
-                     and not str(getattr(e, "device_type", "")).endswith(
-                         "CUDA"))
+    experts_us = routed_experts_us(avgs)
     attn_us = sum(getattr(e, "self_device_time_total",
                           getattr(e, "self_cuda_time_total", 0.0))
                   for e in avgs if any(m in e.key for m in (
@@ -4823,7 +5208,7 @@ def train_zamba2_full(torch):
                            "flash_attention_bwd_dq": attn,
                            "flash_attention_bwd_dkv": attn,
                            "rmsnorm": 2 * norms + 1,
-                           "rmsnorm_bwd": norms + 1})
+                           "rmsnorm_bwd": norms + 1})[0]
 
 
 def train_rwkv6_full(torch):
@@ -4837,7 +5222,172 @@ def train_rwkv6_full(torch):
     return train_phase(torch, "train rwkv6", cfg,
                        {"remat": "full", "microbatch": 4}, {
                            "rwkv6_wkv": 2 * n, "rmsnorm": 2 * (2 * n) + 1,
-                           "rmsnorm_bwd": 2 * n + 1})
+                           "rmsnorm_bwd": 2 * n + 1})[0]
+
+
+# ---------------------------------------------------------------------------
+# phase 18: full-width training of the MoE, vision-language and
+# encoder-decoder families
+# ---------------------------------------------------------------------------
+
+# phase 18 (b): phi-3-vision's depth.  At its full 32 layers the step
+# needs more than the card (77.29 GiB allocated at the failure); 28
+# peaks at 70.732 GiB (PERF.md section 4).  Phase 18 runs with the
+# allocator's expandable segments: with fixed segments the cache that
+# the earlier phases and runs leave fragmented (8.99 GiB reserved but
+# free at the failure) ran 28 layers out of the card
+PHI3_TRAIN_LAYERS = 28
+
+
+@contextmanager
+def train_call_classes():
+    """Count the flash-attention launches of a training run by call
+    shape while the block runs: K2's, K5a's and K5b's by (causal, Sq,
+    Sk).  A call counts where the kernel wrapper's own count rose.  The
+    model reaches K2 through ``FlashAttention.apply`` in
+    ``models/attention.py`` (again in a remat recompute), and K5 through
+    ``flash_attention_bwd`` in ``kernels/flash_attention.py``, which
+    ``FlashAttention``'s backward calls; both names are wrapped (the
+    kernel wrappers themselves count by their own names, so they are
+    left as they are)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import attention as attn
+    function, bwd = attn.FlashAttention, fa.flash_attention_bwd
+    parts = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+    seen = {n: {} for n in ("flash_attention_fwd",) + parts}
+
+    def tally(names, before, key):
+        for n, b in zip(names, before):
+            if getattr(fa, n).launches > b:
+                seen[n][key] = seen[n].get(key, 0) + 1
+
+    class Counted:
+        @staticmethod
+        def apply(q, k, v, causal, window, q_offset):
+            before = [fa.flash_attention_fwd.launches]
+            o = function.apply(q, k, v, causal, window, q_offset)
+            tally(("flash_attention_fwd",), before,
+                  (bool(causal), q.shape[2], k.shape[2]))
+            return o
+
+    def counted_bwd(q, k, v, o, lse, do, *, causal=True, **kw):
+        before = [getattr(fa, n).launches for n in parts]
+        out = bwd(q, k, v, o, lse, do, causal=causal, **kw)
+        tally(parts, before, (bool(causal), q.shape[2], k.shape[2]))
+        return out
+
+    attn.FlashAttention, fa.flash_attention_bwd = Counted, counted_bwd
+    try:
+        yield seen
+    finally:
+        attn.FlashAttention, fa.flash_attention_bwd = function, bwd
+
+
+def _attention_counts(n):
+    """A microbatch's kernel launches under full remat for ``n`` RoPE
+    attention blocks normed by RMSNorm (ln1, ln2): K2 in the forward and
+    the recompute, K5a and K5b once, K3 in both and once more for
+    ``ln_f``, its backward once a norm."""
+    return {"flash_attention_fwd": 2 * n, "flash_attention_bwd_dq": n,
+            "flash_attention_bwd_dkv": n, "rmsnorm": 2 * (2 * n) + 1,
+            "rmsnorm_bwd": 2 * n + 1}
+
+
+@contextmanager
+def expandable_segments(torch):
+    """The caching allocator maps new segments in pieces that grow in
+    place (``expandable_segments``) while the block runs, so freed blocks
+    merge into the space a larger request needs; the cached free blocks
+    go back to the card on entry and on exit."""
+    setting = "expandable_segments:{}"
+    before = setting.format(True) in os.environ.get(
+        "PYTORCH_CUDA_ALLOC_CONF", "")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings(setting.format(True))
+    try:
+        yield
+    finally:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings(setting.format(before))
+
+
+def train_families_full(torch):
+    """Phase 18: the MoE, vision-language and encoder-decoder families
+    train at full width on one card, at phase 5's sequence 4096 x batch 8
+    and optimizer (random weights from seed 0, each run's memory freed
+    before the next, the allocator's segments expandable:
+    :func:`expandable_segments`), each through :func:`train_phase` with
+    all its gates.  (a) qwen2-moe-a2.7b with 4 of its 24 layers (the full
+    depth needs more than one card) under full remat in 4 microbatches,
+    the CE in chunks of 1024 positions, 4 steps through ``launch.train``,
+    with the pairs the capacity drops in each step and the step-1 batch's
+    aux beside its ce; (b) phi-3-vision-4.2b at ``PHI3_TRAIN_LAYERS``
+    layers through ``launch.train`` on its text alone, as the runtime's
+    batches hold it, full remat in 8 microbatches of one sequence
+    (``img_proj``, which text does not reach, takes a zero gradient); (c)
+    phi-3-vision-4.2b with 4 of its 32 layers through ``make_train_step``
+    with 576 seeded image embeddings ahead of 3520 tokens, full remat in 4
+    microbatches, 3 steps, ``img_proj``'s gradient nonzero; (d)
+    whisper-base through ``make_train_step`` with seeded 1500 frames, full
+    remat in 4 microbatches, 4 steps, the encoder's and ``cross_w*``'s
+    gradients nonzero, K2 twice per attention call and K5a/K5b once by
+    call shape (causal self, cross, encoder), no K3 (whisper norms with
+    LayerNorm).  Returns the launch counts summed and the launches of the
+    ``*_d96``, ``*_d128`` and ``*_whisper_*train`` records."""
+    from repro_torch.configs import get_config
+    full = {"remat": "full", "microbatch": 4}
+    qwen = get_config("qwen2-moe-a2.7b").scaled(num_layers=4)
+    phi = get_config("phi-3-vision-4.2b")
+    phi_b = phi.scaled(num_layers=PHI3_TRAIN_LAYERS)
+    phi_c = phi.scaled(num_layers=4)
+    whisper = get_config("whisper-base")
+    n = whisper.num_layers
+    frames = whisper.encoder_seq_len
+    seq, mb, steps = _train_setup()[0].seq_len, full["microbatch"], 4
+    calls = {(True, seq, seq): n, (False, seq, frames): n,
+             (False, frames, frames): whisper.num_encoder_layers}
+    with expandable_segments(torch):
+        # the CE over 151936 ids in chunks of 1024 positions: a
+        # microbatch's fp32 logits (4.98 GB) and their gradient ran the
+        # card out of memory
+        a, _ = train_phase(torch, "train qwen2-moe", qwen,
+                           dict(full, loss_chunk=1024),
+                           _attention_counts(qwen.num_layers))
+        b, _ = train_phase(torch, "train phi-3 text", phi_b,
+                           {"remat": "full", "microbatch": 8},
+                           _attention_counts(phi_b.num_layers),
+                           unreached=("img_proj",))
+        c, _ = train_phase(torch, "train phi-3 images", phi_c, full,
+                           _attention_counts(phi_c.num_layers), steps=3,
+                           direct=True)
+        d, classes = train_phase(torch, "train whisper", whisper, full, {
+            "flash_attention_fwd": 2 * sum(calls.values()),
+            "flash_attention_bwd_dq": sum(calls.values()),
+            "flash_attention_bwd_dkv": sum(calls.values())}, steps=steps,
+            direct=True)
+    for name, per in (("flash_attention_fwd", 2), ("flash_attention_bwd_dq", 1),
+                      ("flash_attention_bwd_dkv", 1)):
+        want = {key: per * n_calls * mb * steps
+                for key, n_calls in calls.items()}
+        if classes[name] != want:
+            fail(f"train whisper: {name} launches by call shape "
+                 f"{classes[name]}, expected {want}")
+    launches = _sum_launches(a, b, c, d)
+    records = {}
+    for part in ("dq", "dkv"):
+        name = f"flash_attention_bwd_{part}"
+        records[f"{name}_d96"] = b[name] + c[name]
+        records[f"{name}_d128"] = a[name]
+        records[f"{name}_whisper_train"] = classes[name][(False, seq, frames)]
+        records[f"{name}_whisper_enc_train"] = \
+            classes[name][(False, frames, frames)]
+    records["flash_attention_fwd_whisper_train"] = \
+        classes["flash_attention_fwd"][(False, seq, frames)]
+    RMS_LAUNCHES["train"] += a["rmsnorm"] + d["rmsnorm"]
+    RMS_LAUNCHES["train 3072"] += b["rmsnorm"] + c["rmsnorm"]
+    return launches, records
 
 
 if __name__ == "__main__":

@@ -66,7 +66,7 @@
 //   V^T, dS = P (dP - delta) scale, and dQ += dS K with dS from registers
 //   and K through `ldmatrix.trans`.  Causal grids dispatch the last query
 //   tiles, the heaviest, first.
-// The loop's tile is 64 rows at head dims up to 64 and 32 at 80 and 128,
+// The loop's tile is 64 rows at head dims up to 64 and 32 at 80, 96 and 128,
 // which keeps dK + dV (128 fp32 a thread at D 128) and the score tiles in
 // registers.  Every D-dependent loop steps by 16 columns (one `ldmatrix.x4`
 // and two m16n8k16 a step) or by 8 (a 16-byte `cp.async`, a bf16x2 store
@@ -729,6 +729,7 @@ int by_dim(int dtype, int D, const Args& a) {
     case 32: return launch<DQ, 32>(dtype, a);
     case 64: return launch<DQ, 64>(dtype, a);
     case 80: return launch<DQ, 80>(dtype, a);  // zamba2-2.7b's shared attention
+    case 96: return launch<DQ, 96>(dtype, a);  // phi-3-vision-4.2b
     case 128: return launch<DQ, 128>(dtype, a);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -47,12 +47,12 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-# the forward kernel also takes phi-3-vision-4.2b's head dim 96 and
-# gemma3-12b's 256; the backward kernels are built and checked at the
-# training paths' head dims only, zamba2-2.7b's 80 among them (gemma3 and
-# phi-3 training, K5 at 256 and 96, are later slices)
+# the forward kernel also takes gemma3-12b's 256; the backward kernels
+# are built and checked at the training paths' head dims only, zamba2-2.7b's
+# 80 and phi-3-vision-4.2b's 96 among them (gemma3 training, K5 at 256, is
+# a later slice)
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
-BWD_HEAD_DIMS = (16, 32, 64, 80, 128)
+BWD_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
 FWD_BLOCK_K = 64            # keys of the bf16 forward kernel's loop tile
 FWD_BLOCK_K_WIDE = 32       # ... at head dim 256, where registers are short
 

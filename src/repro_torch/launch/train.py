@@ -20,6 +20,16 @@ request it raises.
     python -m repro_torch.launch.train --reduced --device cpu --steps 8
     python -m repro_torch.launch.train --arch rwkv6-7b --reduced \
         --device cpu --steps 8
+    python -m repro_torch.launch.train --arch qwen2-moe-a2.7b --reduced \
+        --device cpu --steps 8
+
+The MoE family (qwen2-moe-a2.7b, dbrx-132b) trains like any LM here, and
+phi-3-vision-4.2b on its text alone: the synthetic batches hold tokens
+and labels only, as the reference's executor feeds them.  whisper-base
+needs its encoder's frames in every batch, so it is refused before any
+weights are made (the reference fails at its first step); it trains, as
+phi-3's images do, through ``Model.loss_fn`` or ``make_train_step`` with
+``enc_feats`` (``img_feats``) in the batch.
 
 A full-size run given no overrides takes ``one_card_overrides``'s plan:
 full remat, microbatches of 2 sequences.  ``train`` also takes a

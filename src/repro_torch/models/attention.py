@@ -97,15 +97,16 @@ def attn_out(p: Params, o: torch.Tensor, prefix: str = "") -> torch.Tensor:
 
 
 def self_attention_train(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                         causal: bool = True, window: int = 0
-                         ) -> torch.Tensor:
+                         causal: bool = True, window: int = 0,
+                         prefix: str = "") -> torch.Tensor:
     """x: (B, S, d) at positions 0..S-1 -> (B, S, d): projections, RoPE,
     attention (the kernels on CUDA, whatever the reference's ``impl``
-    would pick), and the output projection."""
+    would pick), and the output projection; ``prefix`` picks a decoder
+    block's ``self_`` weights."""
     positions = torch.arange(x.shape[1], device=x.device)
-    q, k, v = project_qkv(p, x, cfg, positions)
+    q, k, v = project_qkv(p, x, cfg, positions, prefix)
     o = sdpa(q, k, v, causal=causal, window=window)
-    return attn_out(p, o)
+    return attn_out(p, o, prefix)
 
 
 # ---------------------------------------------------------------------------
@@ -195,7 +196,8 @@ def encode_cross_kv(p: Params, enc_out: torch.Tensor) -> Params:
 def cross_attention(p: Params, x: torch.Tensor, enc_kv: Params,
                     cfg: ModelConfig) -> torch.Tensor:
     """Every query row over every encoder frame (non-causal; the
-    flash-attention forward kernel at Sq = prompt, Sk = frames)."""
+    flash-attention kernels at Sq = prompt, Sk = frames, the backward
+    ones too when a gradient is taken)."""
     q = project(x, p["cross_wq"])
     o = sdpa(q, enc_kv["k"], enc_kv["v"], causal=False)
     return attn_out(p, o, prefix="cross_")

@@ -8,13 +8,15 @@ The tree keeps the reference's layout -- ``params["blocks"]
 phi-3-vision's ``params["img_proj"]`` and whisper's stacked
 ``params["encoder"]`` -- so bridged reference weights drop in as they
 are.  The port trains and serves the RoPE attention stacks, Mamba-2,
-RWKV-6 and zamba2's hybrid stack, and serves the MoE family, phi-3-vision
-(image tokens through ``prefill(img_feats=...)``) and whisper
-(``prefill(enc_feats=...)``); training those three is a later slice.
+RWKV-6, zamba2's hybrid stack, the MoE family, phi-3-vision (image
+tokens through ``img_feats``) and whisper (its encoder over
+``enc_feats``); the paged backend serves none of the last three, as in
+the reference (:func:`pageable`).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -30,6 +32,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.transformer import ImplConfig
 
 Params = Dict[str, Any]
+MOE_AUX_WEIGHT = 0.01           # the balance loss's weight in the training loss
 SUPPORTED_KINDS = (ATTN_GLOBAL, ATTN_LOCAL, MAMBA2, RWKV6, ATTN_SHARED, MOE,
                    DEC_ATTN)
 
@@ -45,25 +48,31 @@ def check_family(cfg: ModelConfig) -> None:
             f"family={cfg.family}")
 
 
-def serve_only(cfg: ModelConfig) -> bool:
-    """Whether ``cfg`` is of the MoE, vision-language or encoder-decoder
-    families, which the port serves on the dense path only: it neither
-    trains nor pages them until ROADMAP item A10b (the reference pages
-    none of them either).  The MoE and whisper block kinds are
-    ``T.TRAIN_LATER``'s; phi-3-vision's blocks are plain attention, so its
-    family is named."""
-    return cfg.family == "vlm" or any(k in T.TRAIN_LATER for k in cfg.pattern)
+def pageable(cfg: ModelConfig) -> bool:
+    """Whether the paged backend may serve ``cfg``: not the MoE,
+    vision-language or encoder-decoder families, which the reference's
+    paged runner refuses too (the dense backend serves them)."""
+    return (cfg.family not in ("moe", "vlm", "audio")
+            and MOE not in cfg.pattern and not cfg.is_encdec)
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Refuse, before any weights are made, to train a family the port
-    serves only."""
+    """Refuse, before any weights are made, a config that the runtime's
+    training path (``Cluster.submit`` with ``SyntheticLM`` batches of
+    tokens and labels) cannot feed: an encoder-decoder needs its encoder's
+    frames, ``enc_feats``, in every batch, and the reference's executor
+    fails with a ``KeyError`` on ``batch["enc_feats"]`` at its first
+    step.  ``Model.loss_fn`` and ``make_train_step`` train it with the
+    frames in the batch."""
     check_family(cfg)
-    if serve_only(cfg):
+    if cfg.is_encdec:
         raise ValueError(
-            f"training {cfg.name} (family {cfg.family}) comes with ROADMAP "
-            "item A10b: the port serves the MoE, vision-language and "
-            "encoder-decoder families but does not train them yet")
+            f"{cfg.name} is an encoder-decoder: its batches need enc_feats "
+            "(the encoder's input frames), which the runtime's synthetic "
+            "token batches do not hold (the reference fails with a "
+            "KeyError on batch['enc_feats'] at its first step); train it "
+            "through Model.loss_fn or make_train_step with enc_feats in "
+            "the batch")
 
 
 def param_specs(cfg: ModelConfig) -> Params:
@@ -167,16 +176,18 @@ class Model:
                             resolve_device(device))
 
     # -- frontends (stubs, as in the reference) -------------------------------
-    def _encoder(self, params: Params,
-                 enc_feats: torch.Tensor) -> torch.Tensor:
+    def _encoder(self, params: Params, enc_feats: torch.Tensor,
+                 remat: str = "none") -> torch.Tensor:
         """whisper's encoder over precomputed frame embeddings (B, T, d)
         (the conv frontend is a stub): sinusoidal positions, the stacked
-        bidirectional layers, ``ln_f``."""
+        bidirectional layers, each under the ``remat`` policy (training
+        passes the plan's, as the reference does), ``ln_f``."""
         cfg = self.cfg
         enc = params["encoder"]
         x = self._add_positional(enc_feats)
+        layer = T._remat(functools.partial(T.apply_encoder_block, cfg), remat)
         for bp in _unstack(enc["blocks"], cfg.num_encoder_layers):
-            x = T.apply_encoder_block(cfg, bp, x)
+            x = layer(bp, x)
         return T.apply_norm(cfg, enc["ln_f"], x)
 
     def _vlm_prefix(self, params: Params,
@@ -244,41 +255,64 @@ class Model:
         x = T.apply_norm(cfg, params["ln_f"], x)
         return L.unembed(params["embed"], x, cfg.logit_softcap), cache
 
-    def _run_blocks_train(self, params: Params,
-                          x: torch.Tensor) -> torch.Tensor:
-        """The stack as a Python loop over pattern blocks; under
-        ``remat="full"`` each pattern block keeps only its input (and under
-        ``"dots"`` its matmuls' outputs too) and is recomputed in the
-        backward.  The shared components pass the remat boundary as
-        arguments, so every pattern block's recompute reaches them."""
+    def _run_blocks_train(self, params: Params, x: torch.Tensor,
+                          enc_out: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The stack as a Python loop over pattern blocks -> (x, the blocks'
+        summed aux); under ``remat="full"`` each pattern block keeps only
+        its inputs (and under ``"dots"`` its matmuls' outputs too) and is
+        recomputed in the backward.  The shared components and the
+        encoder's output pass the remat boundary as arguments, so every
+        pattern block's recompute reaches them."""
         cfg = self.cfg
 
-        def block_body(x, bp, shared):
+        def block_body(x, bp, shared, enc_out):
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for i, kind in enumerate(cfg.pattern):
-                x = T.apply_block_train(cfg, kind, bp[f"p{i}_{kind}"], x,
-                                        shared)
-            return x
+                x, a = T.apply_block_train(cfg, kind, bp[f"p{i}_{kind}"], x,
+                                           shared, enc_out)
+                aux = aux + a
+            return x, aux
 
         body = T._remat(block_body, self.impl.remat)
         shared = _shared(params)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for bp in _unstack(params["blocks"], cfg.num_blocks):
-            x = body(x, bp, shared)
-        return x
+            x, a = body(x, bp, shared, enc_out)
+            aux = aux + a
+        return x, aux
 
     def loss_fn(self, params: Params, batch: Dict[str, torch.Tensor]
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Mean next-token CE of ``batch`` ({"tokens", "labels"[, "mask"]},
-        (B, S) each) -> (loss, {"ce", "aux"}).  ``aux`` is the MoE balance
-        loss, 0 for the families the port trains; the MoE, vision-language
-        and encoder-decoder families raise (``check_trainable``)."""
+        """Mean next-token CE of ``batch`` plus ``MOE_AUX_WEIGHT`` times the
+        MoE balance loss -> (loss, {"ce", "aux"}).  ``batch`` holds
+        "tokens" and "labels" (B, S)[, "mask"]; a vision-language config
+        may add "img_feats" (B, N, 1024), whose projections go ahead of the
+        tokens and are dropped after ``ln_f`` (without them it trains on
+        the text alone); an encoder-decoder needs "enc_feats" (B, T, d),
+        the encoder's input frames."""
         cfg = self.cfg
-        check_trainable(cfg)
-        x = self._add_positional(embed_tokens(cfg, params, batch["tokens"]))
-        x = self._run_blocks_train(params, x)
+        x = embed_tokens(cfg, params, batch["tokens"])
+        n_img = 0
+        if cfg.family == "vlm" and "img_feats" in batch:
+            x = torch.cat([self._vlm_prefix(params, batch["img_feats"]), x],
+                          dim=1)
+            n_img = batch["img_feats"].shape[1]
+        x = self._add_positional(x)
+        enc_out = None
+        if cfg.is_encdec:
+            if "enc_feats" not in batch:
+                raise ValueError(f"{cfg.name} is an encoder-decoder: its "
+                                 "training batch needs enc_feats")
+            enc_out = self._encoder(params, batch["enc_feats"],
+                                    self.impl.remat)
+        x, aux = self._run_blocks_train(params, x, enc_out)
         x = T.apply_norm(cfg, params["ln_f"], x)
+        if n_img:
+            x = x[:, n_img:]
         ce = self._cross_entropy(params, x, batch["labels"],
                                  batch.get("mask"))
-        return ce, {"ce": ce, "aux": torch.zeros_like(ce)}
+        return ce + MOE_AUX_WEIGHT * aux, {"ce": ce, "aux": aux}
 
     def _cross_entropy(self, params: Params, x: torch.Tensor,
                        labels: torch.Tensor,

@@ -60,31 +60,44 @@ def _capacity(tokens: int, num_experts: int, top_k: int,
     return max(8, (c + 7) // 8 * 8)
 
 
+def router_probs(p_router: torch.Tensor, x: torch.Tensor,
+                 cfg: ModelConfig) -> torch.Tensor:
+    """Router probabilities of (T, D) tokens over the padded experts, fp32
+    (T, E_pad): the logits are the product in x's dtype, then fp32, the
+    pads' set to -1e30."""
+    logits = torch.matmul(x, p_router).float()
+    if p_router.shape[-1] > cfg.moe.num_experts:
+        logits[:, cfg.moe.num_experts:] = NEG
+    return torch.softmax(logits, dim=-1)
+
+
+def routed(probs: torch.Tensor, ids: torch.Tensor, cfg: ModelConfig,
+           dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The weights (T, k) in ``dtype`` and the fp32 balance loss of tokens
+    routed to the experts ``ids`` (T, k) by the probabilities ``probs``."""
+    weights = torch.gather(probs, 1, ids)
+    weights = weights / weights.sum(-1, keepdim=True)
+    # the share of tokens routed to each expert: a scatter of ones, where
+    # ``F.one_hot`` would sync with the card to check the ids
+    ce = torch.zeros(probs.shape[-1], device=probs.device).index_add_(
+        0, ids.reshape(-1), torch.ones(ids.numel(), device=probs.device)) \
+        / ids.shape[0]
+    aux = (probs.mean(0) * ce).sum() * float(cfg.moe.num_experts)
+    return weights.to(dtype), aux
+
+
 def route(p_router: torch.Tensor, x: torch.Tensor, cfg: ModelConfig
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Router on (T, D) tokens -> (weights (T, k) in x's dtype, ids (T, k),
-    the fp32 balance loss).  The logits are the product in x's dtype, then
-    fp32."""
-    m = cfg.moe
-    e_pad = p_router.shape[-1]
-    logits = torch.matmul(x, p_router).float()
-    if e_pad > m.num_experts:
-        logits[:, m.num_experts:] = NEG
-    probs = torch.softmax(logits, dim=-1)
+    the fp32 balance loss)."""
+    probs = router_probs(p_router, x, cfg)
     # the lower expert first among equal probabilities, as ``lax.top_k``
     # orders them (``torch.topk`` does not say): the slot order decides
     # the dispatch ranks and the combine's order of adds
-    weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
-    weights, ids = weights[:, :m.top_k], ids[:, :m.top_k]
-    weights = weights / weights.sum(-1, keepdim=True)
-    me = probs.mean(0)
-    # the share of tokens routed to each expert: a scatter of ones, where
-    # ``F.one_hot`` would sync with the card to check the ids
-    ce = torch.zeros(e_pad, device=x.device).index_add_(
-        0, ids.reshape(-1), torch.ones(ids.numel(), device=x.device)) \
-        / ids.shape[0]
-    aux = (me * ce).sum() * float(m.num_experts)
-    return weights.to(x.dtype), ids, aux
+    ids = torch.sort(probs, dim=-1, descending=True,
+                     stable=True).indices[:, :cfg.moe.top_k]
+    weights, aux = routed(probs, ids, cfg, x.dtype)
+    return weights, ids, aux
 
 
 def dispatch_slots(ids: torch.Tensor, e_total: int, cap: int
@@ -129,16 +142,25 @@ def _local_expert_ffn(x: torch.Tensor, p: Params, cfg: ModelConfig,
     cap = _capacity(t, e_total, k, m.capacity_factor)
     weights, ids, aux = route(p["router"], x, cfg)
     slot, _ = dispatch_slots(ids, e_total, cap)
-    token_of = torch.arange(t, device=x.device).repeat_interleave(k)
 
     buf = torch.zeros((e_total * cap + 1, d), dtype=x.dtype, device=x.device)
-    buf[slot] = x[token_of]
+    # each token's row once per (token, k) pair, token-major (the
+    # reference's ``x[token_of]``): as an expand, whose gradient is a sum
+    # over k in a fixed order, where a gather's is a scatter-add
+    buf[slot] = x.unsqueeze(1).expand(t, k, d).reshape(t * k, d)
     ebuf = buf[:e_total * cap].view(e_total, cap, d)
     h = F.silu(torch.bmm(ebuf, p["we_gate"])) * torch.bmm(ebuf, p["we_up"])
     out = torch.bmm(h, p["we_down"]).reshape(e_total * cap, d)
-    out = torch.cat([out, out.new_zeros(1, d)])
-    gathered = out[slot] * weights.reshape(-1, 1)
-    return combine(gathered, k), aux
+    # each pair's output row (zeros for a dropped pair), the reference's
+    # ``out[slot]``, as a scatter of every slot's row to the pair that
+    # filled it (empty slots, zero rows, to a trash pair): its gradient is
+    # a gather, where the gather's is an accumulating scatter in which
+    # every dropped pair's trash index serialises on the card
+    n = t * k
+    pair = torch.full((e_total * cap + 1,), n, device=x.device).index_put_(
+        (slot,), torch.arange(n, device=x.device))[:e_total * cap]
+    gathered = out.new_zeros(n + 1, d).index_put((pair,), out)[:n]
+    return combine(gathered * weights.reshape(-1, 1), k), aux
 
 
 def moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig,

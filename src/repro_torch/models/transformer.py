@@ -1,11 +1,10 @@
 """Block application: the counterpart of ``repro/models/transformer.py``
 for training and for dense serving (prefill and one-token decode) of
-global and sliding-window attention, Mamba-2, RWKV-6 and zamba2's
-weight-shared attention blocks; a sliding-window block's cache is a ring
-of ``min(cache_len, window)`` slots.  The MoE blocks and whisper's
-encoder and decoder blocks (LayerNorm, the biased GELU MLP, cross
-attention over the encoder's frames) are served on the dense path; their
-training is a later slice.
+global and sliding-window attention, Mamba-2, RWKV-6, zamba2's
+weight-shared attention blocks, the MoE blocks and whisper's encoder and
+decoder blocks (LayerNorm, the biased GELU MLP, cross attention over the
+encoder's frames); a sliding-window block's cache is a ring of
+``min(cache_len, window)`` slots.
 
 ``ImplConfig`` carries the execution-strategy fields the train step and
 the dense path read.  ``attn_impl`` and ``attn_chunk`` are kept so a plan
@@ -41,17 +40,6 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models import rwkv6 as rw
 
 Params = Dict[str, Any]
-
-# block kinds the port serves but does not train yet, and the slice that
-# brings their training (``model.serve_only`` reads it)
-TRAIN_LATER = {
-    MOE: "the MoE family's slice of training (ROADMAP item A10b)",
-    ENC_ATTN: "the encoder-decoder (whisper) slice of training (ROADMAP "
-              "item A10b)",
-    DEC_ATTN: "the encoder-decoder (whisper) slice of training (ROADMAP "
-              "item A10b)",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class ImplConfig:
@@ -389,27 +377,45 @@ def _shared_attn_apply(cfg: ModelConfig, sp: Params,
 
 
 def apply_block_train(cfg: ModelConfig, kind: str, p: Params,
-                      x: torch.Tensor,
-                      shared: Optional[Params] = None) -> torch.Tensor:
-    """One block of kind ``kind``; ``shared`` holds the model's shared
-    components (zamba2's ``shared_attn``), whose gradients accumulate over
-    every block that applies them.  (The reference also returns an aux
-    loss, which only MoE blocks make.)"""
+                      x: torch.Tensor, shared: Optional[Params] = None,
+                      enc_out: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One block of kind ``kind`` -> (x, aux): ``aux`` is the MoE balance
+    loss, an fp32 0 for every other kind.  ``shared`` holds the model's
+    shared components (zamba2's ``shared_attn``), whose gradients
+    accumulate over every block that applies them; ``enc_out`` is
+    whisper's encoder output (B, T, d), whose cross K/V a decoder block
+    projects inside the block, so that a recompute runs them again."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in (ATTN_GLOBAL, ATTN_LOCAL):
         window = cfg.sliding_window if kind == ATTN_LOCAL else 0
-        return _attn_mlp_block(cfg, p, x, window=window)
-    if kind == RWKV6:
+        x = _attn_mlp_block(cfg, p, x, window=window)
+    elif kind == DEC_ATTN:
+        h = apply_norm(cfg, p["ln1"], x)
+        x = x + attn.self_attention_train(p["attn"], h, cfg, causal=True,
+                                          prefix="self_")
+        h = apply_norm(cfg, p["ln_cross"], x)
+        enc_kv = attn.encode_cross_kv(p["attn"], enc_out)
+        x = x + attn.cross_attention(p["attn"], h, enc_kv, cfg)
+        h = apply_norm(cfg, p["ln2"], x)
+        x = x + L.mlp(p["mlp"], h)
+    elif kind == MOE:
+        h = apply_norm(cfg, p["ln1"], x)
+        x = x + attn.self_attention_train(p["attn"], h, cfg, causal=True)
+        h = apply_norm(cfg, p["ln2"], x)
+        y, aux = moe_mod.moe_block(p["moe"], h, cfg)
+        x = x + y
+    elif kind == RWKV6:
         h = apply_norm(cfg, p["ln1"], x)
         x = x + rw.time_mix_train(p["rwkv"], h, cfg)
         h = apply_norm(cfg, p["ln2"], x)
-        return x + rw.channel_mix(p["rwkv"], h)
-    if kind == MAMBA2:
+        x = x + rw.channel_mix(p["rwkv"], h)
+    elif kind == MAMBA2:
         h = apply_norm(cfg, p["ln1"], x)
-        return x + m2.mamba2_train(p["mamba"], h, cfg)
-    if kind == ATTN_SHARED:
+        x = x + m2.mamba2_train(p["mamba"], h, cfg)
+    elif kind == ATTN_SHARED:
         h = apply_norm(cfg, p["ln_in"], x)
-        return x + _shared_attn_apply(cfg, shared["shared_attn"], h)
-    if kind in TRAIN_LATER:
-        raise ValueError(f"training a {kind!r} block comes with "
-                         f"{TRAIN_LATER[kind]}")
-    raise ValueError(f"unknown block kind {kind!r}")
+        x = x + _shared_attn_apply(cfg, shared["shared_attn"], h)
+    else:
+        raise ValueError(f"unknown block kind {kind!r}")
+    return x, aux

@@ -215,13 +215,14 @@ class TorchExecutor(Executor):
 
         from repro_torch.checkpoint.checkpointer import AsyncCheckpointer
         from repro_torch.data.pipeline import DataConfig, SyntheticLM
-        from repro_torch.models.model import Model
+        from repro_torch.models.model import Model, check_trainable
         from repro_torch.training import optimizer as opt
         from repro_torch.training.train_step import (impl_from_plan,
                                                      make_train_step)
 
         app, plan = handle.app, handle.plan
         cfg, shape = app.config, app.shape
+        check_trainable(cfg)         # before any weights are made
         # reduced runs keep remat off: the ladder's remat choice targets
         # the card's HBM budget, not the smoke-scale footprint
         model = Model(cfg, impl_from_plan(

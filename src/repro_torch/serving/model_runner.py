@@ -85,7 +85,7 @@ from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models.model import (Model, check_family, embed_tokens,
-                                      init_params, layer_params, serve_only)
+                                      init_params, layer_params, pageable)
 from repro_torch.models.transformer import ImplConfig
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.kv_cache import (PAGE_SIZE, PageGroups, Request,
@@ -454,7 +454,7 @@ class PagedRunner(ModelRunner):
                              f"rope_theta={cfg.rope_theta}")
         check_family(cfg)
         if (any(k not in self.SUPPORTED_KINDS for k in cfg.pattern)
-                or serve_only(cfg)):
+                or not pageable(cfg)):
             raise ValueError(
                 f"backend='paged' serves RoPE global/sliding-window "
                 f"attention stacks; {cfg.name} has pattern={cfg.pattern} "

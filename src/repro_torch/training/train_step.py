@@ -49,7 +49,11 @@ def make_train_step(model: Model, plan: Plan,
         tracked = opt.tree_map(lambda p: p.detach().requires_grad_(True),
                                params)
         loss, metrics = model.loss_fn(tracked, batch)
-        grads = torch.autograd.grad(loss, opt.leaves(tracked))
+        leaves = opt.leaves(tracked)
+        # a leaf the batch does not reach (phi-3-vision's image projection
+        # on text alone) takes a zero gradient, as under jax.grad
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(
+            leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
         return loss.detach(), metrics, opt.tree_unflatten(params, grads)
 
     def step(params, opt_state, batch):

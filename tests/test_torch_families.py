@@ -322,16 +322,40 @@ def test_whisper_is_refused_by_the_dense_runner():
 
 @pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "phi-3-vision-4.2b",
                                   "whisper-base"])
-def test_paged_runner_and_training_refuse_the_families(arch):
+def test_paged_runner_and_training_refuse_the_families(arch, monkeypatch):
     """The paged runner refuses all three families, as the reference's
-    does; ``Model.loss_fn`` and ``launch.train`` refuse to train them,
-    naming ROADMAP item A10b, before any weights are made."""
+    does.  Each trains: one ``make_train_step`` step of the reduced config
+    with its frontend's seeded inputs gives a finite loss and moves the
+    params.  ``launch.train`` (``Cluster.submit``, whose batches hold
+    tokens and labels only) trains the MoE family and phi-3-vision's text
+    one step, and refuses whisper, naming ``enc_feats``, before any
+    weights are made."""
+    from repro_torch.core.materializer import H100, Plan
     from repro_torch.launch.train import train
+    from repro_torch.runtime import TorchExecutor
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training.train_step import make_train_step
     _, tcfg = cfgs(arch)
     with pytest.raises(ValueError, match="paged"):
         PagedRunner(tcfg, device="cpu")
-    toks = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(ValueError, match="A10b"):
-        Model(tcfg).loss_fn({}, {"tokens": toks, "labels": toks})
-    with pytest.raises(ValueError, match="A10b"):
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(0, tcfg.vocab_size, (2, 12)))
+    batch = dict({"tokens": toks, "labels": toks.roll(-1, 1)},
+                 **_frontend(tcfg, rng, 2)[1])
+    params = init_params(tcfg, 0, "cpu")
+    step = make_train_step(Model(tcfg, ImplConfig(remat="full")),
+                           Plan(tcfg.name, "t", H100, microbatch=1))
+    new, _, m = step(params, topt.init_opt_state(params), batch)
+    assert np.isfinite(float(m["loss"]))
+    assert any(not torch.equal(a, b) for a, b in
+               zip(topt.leaves(params), topt.leaves(new)))
+    if not tcfg.is_encdec:
+        out = train(arch, reduced=True, device="cpu", steps=1, verbose=False)
+        assert np.isfinite(out["metrics"][0]["loss"])
+        return
+    made = []
+    monkeypatch.setattr(TorchExecutor, "init_params",
+                        lambda self, handle: made.append(handle))
+    with pytest.raises(ValueError, match="enc_feats"):
         train(arch, reduced=True, device="cpu", steps=1, verbose=False)
+    assert made == []

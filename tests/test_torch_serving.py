@@ -24,7 +24,7 @@ from repro.serving.kv_cache import Request as JaxRequest
 from repro.serving.model_runner import build_runner as jax_build_runner
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
-from repro_torch.configs.base import ATTN_LOCAL, ENC_ATTN, MOE
+from repro_torch.configs.base import ATTN_LOCAL, ENC_ATTN
 from repro_torch.configs.reduced import reduced_config
 from repro_torch.models import transformer as T
 from repro_torch.serving.engine import ServingEngine
@@ -224,8 +224,9 @@ def test_runner_refuses_what_later_slices_bring():
     the prefix cache on pure-global stacks (``test_torch_prefix.py``);
     what still raises: a sliding-window layer without a window, the
     prefix cache on a sliding-window stack (with the reference's message)
-    and on the dense backend, and training the MoE and encoder-decoder
-    kinds (the recurrent families train since their slice)."""
+    and on the dense backend, and a block kind that has no training
+    block: whisper's encoder layers, which the model's encoder runs (every
+    family of the pattern trains since its slice)."""
     cfg = _cfg()
     local = cfg.scaled(pattern=(ATTN_LOCAL,), sliding_window=8)
     assert PagedRunner(local, device="cpu").use_rings
@@ -243,9 +244,8 @@ def test_runner_refuses_what_later_slices_bring():
     with pytest.raises(ValueError, match="paged"):
         PagedRunner(cfg.scaled(rope_theta=0.0), device="cpu")
     x = torch.zeros(1, 4, cfg.d_model, dtype=torch.bfloat16)
-    for kind in (MOE, ENC_ATTN):
-        with pytest.raises(ValueError, match="training a .* slice"):
-            T.apply_block_train(cfg, kind, {}, x)
+    with pytest.raises(ValueError, match="unknown block kind 'enc_attn'"):
+        T.apply_block_train(cfg, ENC_ATTN, {}, x)
 
 
 def test_paged_preemption_readmission_and_state_eviction():

@@ -28,8 +28,7 @@ from repro.training import optimizer as jopt
 from repro.training.train_step import make_train_step as jax_make_train_step
 from repro_torch.bridge import params_from_jax
 from repro_torch.configs import get_config
-from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, DEC_ATTN,
-                                      ENC_ATTN, MOE)
+from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL
 from repro_torch.configs.reduced import reduced_config
 from repro_torch.core.materializer import H100, Plan
 from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -339,17 +338,17 @@ def test_remat_and_loss_chunk_do_not_change_the_gradients():
 
 
 def test_unported_training_paths_raise():
-    """What later slices bring raises and names its slice: the MoE and
-    encoder-decoder kinds (the recurrent families and ``remat="dots"``
-    train since their slice: ``tests/test_torch_recurrent_training.py``);
-    an unknown remat policy raises too."""
-    _, tcfg = _cfgs(False)
-    x = torch.zeros(1, 4, tcfg.d_model)
-    with pytest.raises(ValueError, match="MoE family's slice"):
-        T.apply_block_train(tcfg, MOE, {}, x)
-    for kind in (ENC_ATTN, DEC_ATTN):
-        with pytest.raises(ValueError, match="encoder-decoder .*slice"):
-            T.apply_block_train(tcfg, kind, {}, x)
+    """What later slices bring raises and names its slice: the MoE
+    block's expert-parallel dispatch over a mesh (a ``shard_ctx``), ROADMAP
+    item A8 (every block kind trains since its slice:
+    ``tests/test_torch_recurrent_training.py``,
+    ``tests/test_torch_family_training.py``); an unknown remat policy
+    raises too."""
+    from repro_torch.models.moe import moe_block
+    mcfg = reduced_config(get_config("qwen2-moe-a2.7b"))
+    x = torch.zeros(1, 4, mcfg.d_model)
+    with pytest.raises(NotImplementedError, match="A8"):
+        moe_block({}, x, mcfg, shard_ctx=object())
     with pytest.raises(ValueError, match="unknown remat policy"):
         T._remat(lambda x: x, "everything")
 
