@@ -30,7 +30,8 @@ Phases, each of which must pass (any failure exits nonzero):
    rows, a prefill's 1000, a training norm's 8192, at widths 2048-5120,
    and phi-3-vision's training norms, 4096 and 8192 rows of 3072) and its
    backward (``rmsnorm_bwd``) held against ``rmsnorm_bwd_ref`` at 8192 x
-   2048, 4096 x 3072, 8192 x 3072, 1000 x 2560 and 1000 x 5120 in bf16
+   2048, 4096 x 3072, 8192 x 3072, 4096 x 3840, 65536 x 256, 32768 x 256,
+   1000 x 2560 and 1000 x 5120 in bf16
    (dx at one bf16 ulp, dgain at one ulp and, from an fp32 gain, by
    ``RMS_DGAIN_REL_NORM``) and 33 x 128 in fp32, two launches bit-equal
    at the training shapes and timed there;
@@ -63,8 +64,9 @@ Phases, each of which must pass (any failure exits nonzero):
 6. parity: reduced tinyllama-1.1b (full remat), zamba2-2.7b (two
    pattern blocks, so the shared attention block runs twice, under
    ``remat="dots"``), rwkv6-7b, qwen2-moe-a2.7b, dbrx-132b,
-   phi-3-vision-4.2b (with seeded image embeddings) and whisper-base
-   (with seeded frames; all full remat) each train 3 steps from the same
+   phi-3-vision-4.2b (with seeded image embeddings), whisper-base (with
+   seeded frames) and gemma3-12b (one 5:1 period, window 8, qk-norm, tied
+   embeddings; all full remat) each train 3 steps from the same
    weights on the same batches on the card and on the CPU; losses, final
    params and step-1 gradients must agree within ``TRAIN_*_RTOL`` (the
    MoE configs' step-1 gradients on the card's routing, the tokens whose
@@ -218,7 +220,24 @@ Phases, each of which must pass (any failure exits nonzero):
    call shape: causal self, cross, encoder); the peak beside the plan;
    then the step time, tokens/s, the model-FLOPs share
    (:func:`model_flops`) and a profiled step (busy share, the device time
-   of K2, K5, cuBLAS and the routed experts).
+   of K2, K5, cuBLAS and the routed experts);
+19. train gemma3: ``launch.train`` of the full 48 layers at phase 5's
+   4096 x 8 must be refused before any weights are made, naming its
+   180.85 GiB plan (host arithmetic); then full-width gemma3-12b (d 3840,
+   16/8 heads of 256, d_ff 15360, vocab 262144, tied embeddings; random
+   weights from seed 0) with ``GEMMA3_TRAIN_LAYERS`` of its 48 layers
+   (10 sliding-window layers of window 1024 and 2 global), full remat, 8
+   microbatches of one sequence, the CE in chunks of 1024 positions, 4
+   AdamW steps through ``launch.train`` with phase 5's gates (the
+   ladder's own plan and the run's printed beside the measured peak,
+   which the job's grant must cover; finite, falling losses; every
+   step-1 gradient leaf finite and nonzero, ``q_norm``, ``k_norm`` and
+   the tied ``embed`` among them; exact launch counts of K2, K5a and K5b
+   at head dim 256, windowed and global counted apart by call shape, and
+   of K3 and its backward, four norms a layer), the allocator's segments
+   expandable; then the step time, tokens/s, the model-FLOPs share (a
+   windowed layer's attention over its window's pairs) and a profiled
+   step (busy share; K2, K5, K3 and cuBLAS).
 
 A failed comparison of a kernel with its plain version prints, before
 the run stops, its first 8 bad elements with both values, the count of
@@ -247,6 +266,20 @@ bit-equal, timed beside SDPA's whole backward with its bound (the
 records; K2 at the cross shape as a training forward,
 ``flash_attention_fwd_whisper_train``); small ragged cases at head dim
 96 and at Sq != Sk join ``check_backward``'s.
+
+Phase 2 also holds K5a/K5b at gemma3-12b's head dim 256, where the dK/dV
+kernel's 8 warps split dK's and dV's columns over the two warps of each
+key slice: small ragged cases (causal GQA 16/8, window 100 in bf16 and
+fp32, non-causal Sq != Sk) in ``check_backward``, and phase 19's
+microbatch of one sequence, q (1,16,4096,256) over k/v (1,8,4096,256),
+causal with window 1024 (a local layer) and without (a global one), in
+``TRAIN_BWD_CASES`` with K2's forward at both shapes (the ``*_d256_local``
+and ``*_d256_global`` records; SDPA given the window's mask leaves its
+fast path, so its ``is_causal`` time is printed beside the masked one);
+K3 forward and backward at gemma3's training widths, (4096, 3840) and
+its q- and k-norms' (65536, 256) and (32768, 256), the backward at every
+training shape beside its plain version and autograd through
+``F.rms_norm``.
 
 Phase 2 also holds K1 and K2 at mistral-nemo-12b's head dim 128 (K1
 over 8 lanes of 1600..2012 tokens whose tables lead with the same 12
@@ -289,14 +322,17 @@ kernel's and the backward's time at the training shapes (2,80,4096,64)
 and (2,64,4096,64).
 
 A kernel's ``launches`` in the JSON record is its count over the serve
-(phases 3, 7, 8, 11, 12, 13, 16) and train (phases 5, 14, 15, 18) runs;
+(phases 3, 7, 8, 11, 12, 13, 16) and train (phases 5, 14, 15, 18, 19)
+runs;
 K3's are also printed by shape class; the ``*_d256`` records count phase
 11's runs only, the forward ``*_d128`` records phase 12's mistral-nemo-12b
 runs only, the ``*_d80`` backward records phase 14's, the forward
 ``*_d96`` records phase 16's phi-3-vision runs and the forward
 ``*_whisper_*`` records its whisper run; the backward ``*_d96`` records
 phase 18's phi-3 runs, the backward ``*_d128`` records its qwen2-moe run
-and the ``*_whisper_*train`` records its whisper run by call shape.
+and the ``*_whisper_*train`` records its whisper run by call shape, the
+``*_d256_local*`` and ``*_d256_global*`` records phase 19's run by call
+shape.
 ``ab_train`` (not run by ``main``) runs phase 5 and K3's timings
 for a second checkout and this one in turns on one card; ``ab_serve``
 does the same for phase 3's mean TTFT and decode step.  Those runs also fail if a
@@ -431,12 +467,16 @@ def main() -> None:
     for name, n in trained.items():
         launches[name] = launches.get(name, 0) + n
     launches.update(trained_records)
+    trained, trained_records = train_gemma3_full(torch)
+    for name, n in trained.items():
+        launches[name] = launches.get(name, 0) + n
+    launches.update(trained_records)
     for rec in records:
         rec["launches"] = launches.get(rec["name"])
     print(f"[launches] rmsnorm by shape class over the main paths: "
           f"{RMS_LAUNCHES} (decode: a decode step's; prefill: a prompt's "
           f"or chunk's; train: a training microbatch's 4096 or 8192 rows, "
-          f"phi-3-vision's over 3072 apart)",
+          f"phi-3-vision's over 3072 and gemma3's over 3840 and 256 apart)",
           flush=True)
     print(json.dumps({"kernels": records}))
     print(card)
@@ -770,17 +810,22 @@ def check_kernels(torch):
 # a 2048-token prompt) and its q_norm over 256-wide heads (8 lanes x 16
 # heads a decode step, 2048 tokens x 16 heads a prompt), phi-3-vision's
 # training norms over 3072 (a microbatch of one sequence, 4096 rows, and
-# of two, 8192), and a training norm's 8192 rows of 2048 (B=2 x S=4096),
-# last: its times are the forward record's
+# of two, 8192), gemma3's training norms of a microbatch of one sequence
+# (4096 rows of 3840, and its q_norm and k_norm over 4096 x 16 and 4096 x
+# 8 heads of 256), and a training norm's 8192 rows of 2048 (B=2 x
+# S=4096), last: its times are the forward record's
 RMS_CLASSES = ([("decode", 8, d) for d in (2048, 2560, 4096, 5120, 3840)]
                + [("decode", 128, 256)]
                + [("prefill", 1000, d) for d in (2048, 2560, 4096, 5120)]
                + [("prefill", 2048, 3840), ("prefill", 32768, 256)]
                + [("train", 4096, 3072), ("train", 8192, 3072),
-                  ("train", 8192, 2048)])
+                  ("train", 4096, 3840), ("train", 65536, 256),
+                  ("train", 32768, 256), ("train", 8192, 2048)])
 # K3's launches on the main paths by shape class, summed by the phases
-# that drive them (phase 18's phi-3-vision runs under "train 3072")
-RMS_LAUNCHES = {"decode": 0, "prefill": 0, "train": 0, "train 3072": 0}
+# that drive them (phase 18's phi-3-vision runs under "train 3072",
+# phase 19's gemma3 run under "train gemma3")
+RMS_LAUNCHES = {"decode": 0, "prefill": 0, "train": 0, "train 3072": 0,
+                "train gemma3": 0}
 # K3 backward: fp32 sums of dy * x * r over 8192 rows in another order
 # than the plain version's (per program, then the partials in order)
 RMS_DGAIN_REL_NORM = 1e-4
@@ -860,6 +905,22 @@ def time_rmsnorm_classes(torch, rms, gen):
     return out
 
 
+def time_rmsnorm_bwd(torch, rms, dy, x, g):
+    """K3's backward on (dy, x, g): the kernel's ms, the plain version's,
+    autograd's backward through ``F.rms_norm`` (the library call) and the
+    bound."""
+    import torch.nn.functional as F
+    rows, d = x.shape
+    ms = timed_ms(torch, lambda: rms.rmsnorm_bwd(dy, x, g))
+    plain = timed_ms(torch, lambda: rms.rmsnorm_bwd_ref(dy, x, g), iters=3,
+                     reps=3)
+    xl, gl = x.clone().requires_grad_(True), g.clone().requires_grad_(True)
+    yl = F.rms_norm(xl, (d,), weight=1.0 + gl, eps=1e-6)
+    lib = timed_ms(torch, lambda: torch.autograd.grad(
+        yl, (xl, gl), dy, retain_graph=True))
+    return (ms, plain, lib) + rms_bound(rows, d, 2, 3, 2, 12)
+
+
 def check_rmsnorm(torch, randn, tol):
     """K3's forward against ``rmsnorm_ref`` over the paths' shapes, and its
     backward against ``rmsnorm_bwd_ref``: dx elementwise (both fp32 from
@@ -867,9 +928,11 @@ def check_rmsnorm(torch, randn, tol):
     gain's bf16 and, from an fp32 copy of the same gain, by relative norm
     (``RMS_DGAIN_REL_NORM``); two backward launches bit-equal at the
     training shapes.  The forward timed at every shape class, the
-    backward at the training shapes (the record's at 8192 x 2048).
+    backward at the training shapes beside its plain version and
+    autograd through ``F.rms_norm`` (the record's at 8192 x 2048; the
+    others printed: phi-3's 3072, gemma3's 3840 and its q- and k-norms
+    over 65536 and 32768 rows of 256, whose dgain sums every row).
     Returns the forward's and the backward's records."""
-    import torch.nn.functional as F
     from repro_torch.kernels import rmsnorm as rms
     bf16, f32 = torch.bfloat16, torch.float32
     errs = []
@@ -880,7 +943,8 @@ def check_rmsnorm(torch, randn, tol):
     # (a 2048-token prompt, a decode step) and its q_norm/k_norm over
     # 256-wide heads (2048 tokens x 16 heads, 8 lanes x 16 heads);
     # phi-3-vision's training microbatches of one and two sequences at
-    # 3072
+    # 3072; gemma3's training microbatch of one sequence (4096 rows of
+    # 3840, its q_norm's 4096 x 16 rows of 256)
     for rows, d, dtype in ((33, 128, f32), (8, 64, bf16), (8, 2048, bf16),
                            (512, 2048, bf16), (8192, 2048, bf16),
                            (4096, 3072, bf16), (8192, 3072, bf16),
@@ -888,7 +952,8 @@ def check_rmsnorm(torch, randn, tol):
                            (1000, 5120, bf16), (8, 5120, bf16),
                            (1000, 4096, bf16), (8, 4096, bf16),
                            (2048, 3840, bf16), (8, 3840, bf16),
-                           (32768, 256, bf16), (128, 256, bf16)):
+                           (32768, 256, bf16), (128, 256, bf16),
+                           (4096, 3840, bf16), (65536, 256, bf16)):
         x, g = randn(rows, d, dtype=dtype), randn(d, dtype=f32, scale=0.1)
         errs.append(compare(torch, f"rmsnorm rows={rows} d={d} {dtype}",
                             rms.rmsnorm(x, g), rms.rmsnorm_ref(x, g),
@@ -902,8 +967,10 @@ def check_rmsnorm(torch, randn, tol):
 
     errs = []
     for rows, d, dtype in ((8192, 2048, bf16), (4096, 3072, bf16),
-                           (8192, 3072, bf16), (1000, 2560, bf16),
-                           (1000, 5120, bf16), (33, 128, f32)):
+                           (8192, 3072, bf16), (4096, 3840, bf16),
+                           (65536, 256, bf16), (32768, 256, bf16),
+                           (1000, 2560, bf16), (1000, 5120, bf16),
+                           (33, 128, f32)):
         x, dy = randn(rows, d, dtype=dtype), randn(rows, d, dtype=dtype)
         g = randn(d, dtype=dtype, scale=0.1)
         label = f"rows={rows} d={d} {dtype}"
@@ -919,28 +986,20 @@ def check_rmsnorm(torch, randn, tol):
             rel_norm(torch, f"rmsnorm_bwd dgain {label}, fp32 gain",
                      rms.rmsnorm_bwd(dy, x, g32)[1],
                      rms.rmsnorm_bwd_ref(dy, x, g32)[1], RMS_DGAIN_REL_NORM)
-        if rows >= 4096:              # the training shapes
-            same_twice(torch, f"rmsnorm_bwd {label}",
-                       lambda: rms.rmsnorm_bwd(dy, x, g))
-        if d == 3072:                 # timed and printed, not recorded
-            t_ms = timed_ms(torch, lambda: rms.rmsnorm_bwd(dy, x, g))
-            t_bound, t_by = rms_bound(rows, d, 2, 3, 2, 12)
-            print(f"[time] rmsnorm_bwd x, dy ({rows}, {d}) bf16: kernel "
-                  f"{t_ms:.4f} ms, bound {t_bound:.6f} ms ({t_by}), share "
-                  f"of bound {t_bound / t_ms:.3f}", flush=True)
+        if rows < 4096:
+            continue
+        # the training shapes
+        same_twice(torch, f"rmsnorm_bwd {label}",
+                   lambda: rms.rmsnorm_bwd(dy, x, g))
+        t = time_rmsnorm_bwd(torch, rms, dy, x, g)
+        print(f"[time] rmsnorm_bwd x, dy ({rows}, {d}) bf16: kernel "
+              f"{t[0]:.4f} ms, plain {t[1]:.4f} ms, library {t[2]:.4f} ms "
+              f"(autograd through F.rms_norm), bound {t[3]:.6f} ms ({t[4]}), "
+              f"share of bound {t[3] / t[0]:.3f} | {card_line()}", flush=True)
         if (rows, d) == (8192, 2048):
-            ms = timed_ms(torch, lambda: rms.rmsnorm_bwd(dy, x, g))
+            ms, plain, lib, b_ms, b_by = t
             kernel_split(torch, lambda: rms.rmsnorm_bwd(dy, x, g),
                          f"rmsnorm_bwd {label}")
-            plain = timed_ms(torch, lambda: rms.rmsnorm_bwd_ref(dy, x, g),
-                             iters=3, reps=3)
-            xl, gl = x.clone().requires_grad_(True), \
-                g.clone().requires_grad_(True)
-            yl = F.rms_norm(xl, (d,), weight=1.0 + gl, eps=1e-6)
-            lib = timed_ms(torch, lambda: torch.autograd.grad(
-                yl, (xl, gl), dy, retain_graph=True))
-            del xl, gl, yl
-            b_ms, b_by = rms_bound(rows, d, 2, 3, 2, 12)
             shape = f"x, dy ({rows}, {d}) bf16"
     bwd = dict(name="rmsnorm_bwd", route="triton",
                source="src/repro_torch/kernels/rmsnorm.py",
@@ -1014,24 +1073,45 @@ def check_fwd(torch, label, q, k, v, kw, tol):
     return worst, o, lse
 
 
-def _fwd_times(torch, q, k, v, causal):
-    """K2's time (no window, no query offset; causal only at Sq = Sk), its
-    plain version's (bf16 operands), SDPA's on contiguous copies, and the
-    bound from what the inputs need."""
+def attended_pairs(sq, sk, causal, window=0):
+    """The (query, key) pairs one head attends with no query offset:
+    causal (Sq = Sk) within ``window`` keys of each query (0: all), or
+    every pair."""
+    if not causal:
+        return sq * sk
+    w = window if 0 < window < sq else sq
+    return w * (w + 1) // 2 + (sq - w) * w
+
+
+def sdpa_mask(torch, s, window, dev):
+    """SDPA's boolean (S, S) mask of causal attention within ``window``
+    keys; a mask takes SDPA off its ``is_causal`` fast path."""
+    return torch.ones(s, s, dtype=torch.bool, device=dev).tril().triu(
+        -(window - 1))
+
+
+def _fwd_times(torch, q, k, v, causal, window=0):
+    """K2's time (no query offset; causal only at Sq = Sk, where
+    ``window`` may limit the keys), its plain version's (bf16 operands),
+    SDPA's on contiguous copies (given the window's mask where there is
+    one), and the bound from what the inputs need."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention_fwd, flash_attention_fwd_ref, fwd_block_k)
     b, h, sq, d = q.shape
     sk = k.shape[2]
     assert sq == sk or not causal
-    ms = timed_ms(torch, lambda: flash_attention_fwd(q, k, v, causal=causal))
+    kw = dict(causal=causal, window=window)
+    ms = timed_ms(torch, lambda: flash_attention_fwd(q, k, v, **kw))
     plain = timed_ms(torch, lambda: flash_attention_fwd_ref(
-        q, k, v, causal=causal, operand_dtype=torch.bfloat16,
-        block_k=fwd_block_k(d)), iters=3, reps=3)
+        q, k, v, operand_dtype=torch.bfloat16, block_k=fwd_block_k(d),
+        **kw), iters=3, reps=3)
     qc, kc, vc = q.contiguous(), k.contiguous(), v.contiguous()
+    mask = sdpa_mask(torch, sq, window, q.device) if window else None
     lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(
-        qc, kc, vc, is_causal=causal, enable_gqa=True))
-    pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * sk)
+        qc, kc, vc, attn_mask=mask, is_causal=causal and mask is None,
+        enable_gqa=True))
+    pairs = b * h * attended_pairs(sq, sk, causal, window)
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * b * h * sq
     b_ms, b_by = bound(nbytes, 4 * d * pairs, H100_BF16_FLOPS)
     return ms, plain, lib, b_ms, b_by
@@ -1917,6 +1997,16 @@ def check_backward(torch, randn, tol):
          False, 0, 0, bf16),
         ("d=96 non-causal sq=100 sk=300 h=4/2", 1, 4, 2, 100, 300, 96,
          False, 0, 0, bf16),
+        # gemma3-12b's head dim: dK/dV split over two warps a key slice,
+        # and the fp32 route staged 128 columns at a time
+        ("d=256 causal GQA ragged h=16/8 s=200", 1, 16, 8, 200, 200, 256,
+         True, 0, 0, bf16),
+        ("d=256 windowed=100 ragged h=4/2 s=333", 1, 4, 2, 333, 333, 256,
+         True, 100, 0, bf16),
+        ("d=256 fp32 windowed=100 ragged h=4/2 s=200", 1, 4, 2, 200, 200,
+         256, True, 100, 0, f32),
+        ("d=256 non-causal sq=100 sk=300 h=4/2", 1, 4, 2, 100, 300, 256,
+         False, 0, 0, bf16),
         ("training shape b=2 h=32/4 s=4096 d=64", 2, 32, 4, 4096, 4096, 64,
          True, 0, 0, bf16),
     ]
@@ -2156,15 +2246,19 @@ def check_functions(torch, randn):
 
 
 def check_backward_at(torch, randn, tol, suffix, label, b, h, kvh, sq, sk,
-                      d, causal):
+                      d, causal, window):
     """K5a and K5b at one training shape of a main path, q (b, h, sq, d)
-    over k, v (b, kvh, sk, d) bf16 in the model's layout (no window, no
-    offset; causal only at Sq = Sk): the K2 output they start from held
-    against the plain forward (:func:`check_fwd`), then held as
-    :func:`check_backward` holds the bf16 kernels (relative norm against
-    the plain versions with bf16 and fp32 operands), launched twice for
-    bit-equal results, and timed beside the plain versions and SDPA's
-    whole backward, with the bound of what these inputs need.  Returns the
+    over k, v (b, kvh, sk, d) bf16 in the model's layout (no offset;
+    causal only at Sq = Sk, where ``window`` > 0 limits each query to its
+    last ``window`` keys): the K2 output they start from held against the
+    plain forward (:func:`check_fwd`), then held as :func:`check_backward`
+    holds the bf16 kernels (relative norm against the plain versions with
+    bf16 and fp32 operands), launched twice for bit-equal results, and
+    timed beside the plain versions and SDPA's whole backward, with the
+    bound of what these inputs need (a window's pairs only).  With a
+    window SDPA needs a mask, which takes it off its fast path: the
+    record's library time is the masked call's, and the ``is_causal``
+    call at the same shape (window 0) is printed beside it.  Returns the
     records ``flash_attention_bwd_dq_<suffix>`` and ``..._dkv_<suffix>``
     and K2's max abs error."""
     import torch.nn.functional as F
@@ -2173,11 +2267,11 @@ def check_backward_at(torch, randn, tol, suffix, label, b, h, kvh, sq, sk,
         flash_attention_dkv_ref, flash_attention_dq_ref)
     assert sq == sk or not causal
     bf16 = torch.bfloat16
-    kw = dict(causal=causal)
+    kw = dict(causal=causal, window=window)
     q, do = (randn(b, sq, h, d).transpose(1, 2) for _ in range(2))
     k, v = (randn(b, sk, kvh, d).transpose(1, 2) for _ in range(2))
     fwd_err, o, lse = check_fwd(torch, label, q, k, v,
-                                dict(kw, window=0, q_offset=0), tol)
+                                dict(kw, q_offset=0), tol)
 
     def both():
         dq, delta = flash_attention_bwd_dq(q, k, v, o, lse, do, **kw)
@@ -2216,18 +2310,27 @@ def check_backward_at(torch, randn, tol, suffix, label, b, h, kvh, sq, sk,
                  q, k, v, lse, delta, do, operand_dtype=bf16, **kw), **few)}
     qe, ke, ve = (t.detach().requires_grad_(True) for t in (q, k, v))
 
-    def lib_fwd():
-        with torch.no_grad():
-            F.scaled_dot_product_attention(qe, ke, ve, is_causal=causal,
-                                           enable_gqa=True)
+    def lib_bwd(mask):
+        def fwd():
+            with torch.no_grad():
+                F.scaled_dot_product_attention(
+                    qe, ke, ve, attn_mask=mask,
+                    is_causal=causal and mask is None, enable_gqa=True)
 
-    def lib_fwd_bwd():
-        out = F.scaled_dot_product_attention(qe, ke, ve, is_causal=causal,
-                                             enable_gqa=True)
-        torch.autograd.grad(out, (qe, ke, ve), do)
+        def fwd_bwd():
+            out = F.scaled_dot_product_attention(
+                qe, ke, ve, attn_mask=mask, is_causal=causal and mask is None,
+                enable_gqa=True)
+            torch.autograd.grad(out, (qe, ke, ve), do)
 
-    lib = timed_ms(torch, lib_fwd_bwd, **few) - timed_ms(torch, lib_fwd, **few)
-    pairs = b * h * (sq * (sq + 1) // 2 if causal else sq * sk)
+        return timed_ms(torch, fwd_bwd, **few) - timed_ms(torch, fwd, **few)
+
+    lib = lib_bwd(sdpa_mask(torch, sq, window, q.device) if window else None)
+    if window:
+        print(f"[time] SDPA's whole backward {label}: {lib:.4f} ms with the "
+              f"window's mask (the record's), {lib_bwd(None):.4f} ms "
+              f"is_causal without a window", flush=True)
+    pairs = b * h * attended_pairs(sq, sk, causal, window)
     n_q, n_kv, rows = q.numel(), k.numel(), b * h * sq
     nbytes = {"dq": 2 * (4 * n_q + 2 * n_kv) + 4 * rows * 2,
               "dkv": 2 * (2 * n_q + 4 * n_kv) + 4 * rows * 2}
@@ -2242,8 +2345,10 @@ def check_backward_at(torch, randn, tol, suffix, label, b, h, kvh, sq, sk,
             max_abs_err=worst[part], ms=ms[part], plain_ms=plain[part],
             bound_ms=b_ms, bound_by=b_by, library_ms=lib,
             shape=f"B={b} H={h} KV={kvh} D={d} Sq={sq} Sk={sk} "
-                  f"{'causal' if causal else 'non-causal'} ({label}); "
-                  "library_ms is SDPA's whole backward; plain_ms is the "
+                  f"{'causal' if causal else 'non-causal'}"
+                  f"{f' window={window}' if window else ''} ({label}); "
+                  "library_ms is SDPA's whole backward"
+                  f"{' given the mask' if window else ''}; plain_ms is the "
                   "plain version with bf16 operands"))
     print(f"[time] flash attention backward {label}: dQ {ms['dq']:.4f} + "
           f"dK/dV {ms['dkv']:.4f} ms vs SDPA backward {lib:.4f} ms; bounds "
@@ -2254,55 +2359,70 @@ def check_backward_at(torch, randn, tol, suffix, label, b, h, kvh, sq, sk,
     return out, fwd_err
 
 
-# the training shapes of phases 14 and 18 that check_backward does not
-# hold: zamba2-2.7b's head dim 80, phi-3-vision's 96 and qwen2-moe's 128
-# at G = 1, causal over 4096 tokens; whisper-base's cross attention (4096
-# decoder rows over 1500 frames, a ragged key tail: 1500 = 23 x 64 + 28)
-# and its encoder, non-causal
+# the training shapes of phases 14, 18 and 19 that check_backward does
+# not hold: zamba2-2.7b's head dim 80, phi-3-vision's 96 and qwen2-moe's
+# 128 at G = 1, causal over 4096 tokens; whisper-base's cross attention
+# (4096 decoder rows over 1500 frames, a ragged key tail: 1500 = 23 x 64 +
+# 28) and its encoder, non-causal; gemma3-12b's microbatch of one
+# sequence at head dim 256, a local layer (window 1024) and a global one.
+# The last field is the window
 TRAIN_BWD_CASES = (
     ("d80", "zamba2 training shape b=2 h=32/32 s=4096 d=80", 2, 32, 32,
-     4096, 4096, 80, True),
+     4096, 4096, 80, True, 0),
     ("d96", "phi-3-vision training shape b=2 h=32/32 s=4096 d=96", 2, 32, 32,
-     4096, 4096, 96, True),
+     4096, 4096, 96, True, 0),
     ("d128", "qwen2-moe training shape b=2 h=16/16 s=4096 d=128", 2, 16, 16,
-     4096, 4096, 128, True),
+     4096, 4096, 128, True, 0),
     ("whisper_train", "whisper cross training shape b=2 h=8/8 sq=4096 "
-     "sk=1500 d=64 non-causal", 2, 8, 8, 4096, 1500, 64, False),
+     "sk=1500 d=64 non-causal", 2, 8, 8, 4096, 1500, 64, False, 0),
     ("whisper_enc_train", "whisper encoder training shape b=2 h=8/8 s=1500 "
-     "d=64 non-causal", 2, 8, 8, 1500, 1500, 64, False),
+     "d=64 non-causal", 2, 8, 8, 1500, 1500, 64, False, 0),
+    ("d256_local", "gemma3 local training shape b=1 h=16/8 s=4096 d=256 "
+     "window=1024", 1, 16, 8, 4096, 4096, 256, True, 1024),
+    ("d256_global", "gemma3 global training shape b=1 h=16/8 s=4096 d=256",
+     1, 16, 8, 4096, 4096, 256, True, 0),
 )
 
 
 def check_backward_shapes(torch, randn, tol):
-    """K5a and K5b at the training shapes of phases 14 and 18
+    """K5a and K5b at the training shapes of phases 14, 18 and 19
     (``TRAIN_BWD_CASES``, :func:`check_backward_at`), and K2 at whisper's
-    cross shape as a training forward, timed beside its plain version and
-    SDPA: the ``*_d80``, ``*_d96``, ``*_d128``, ``*_whisper_train`` and
-    ``*_whisper_enc_train`` backward records and
-    ``flash_attention_fwd_whisper_train`` (launches from phase 14's run and
-    phase 18's runs, the whisper ones by call shape)."""
+    cross shape and gemma3's two as a training forward, timed beside its
+    plain version and SDPA (given the window's mask in a local layer):
+    the ``*_d80``, ``*_d96``, ``*_d128``, ``*_whisper_train``,
+    ``*_whisper_enc_train``, ``*_d256_local`` and ``*_d256_global``
+    backward records and ``flash_attention_fwd_whisper_train``,
+    ``..._d256_local_train`` and ``..._d256_global_train`` (launches from
+    phase 14's run and the runs of phases 18 and 19, the whisper and
+    gemma3 ones by call shape)."""
     records = []
     for suffix, label, *shape in TRAIN_BWD_CASES:
         recs, fwd_err = check_backward_at(torch, randn, tol, suffix, label,
                                           *shape)
         records += recs
-        if suffix != "whisper_train":
+        if suffix not in ("whisper_train", "d256_local", "d256_global"):
             continue
-        b, h, kvh, sq, sk, d, causal = shape
+        b, h, kvh, sq, sk, d, causal, window = shape
         q = randn(b, sq, h, d).transpose(1, 2)
         k, v = (randn(b, sk, kvh, d).transpose(1, 2) for _ in range(2))
-        ms, plain, lib, b_ms, b_by = _fwd_times(torch, q, k, v, causal)
+        ms, plain, lib, b_ms, b_by = _fwd_times(torch, q, k, v, causal,
+                                                window)
         print(f"[time] flash_attention_fwd {label}: kernel {ms:.4f} ms, "
               f"plain {plain:.4f} ms (bf16 operands), library {lib:.4f} ms "
-              f"(SDPA), bound {b_ms:.4f} ms ({b_by})", flush=True)
+              f"(SDPA{', given the mask' if window else ''}), bound "
+              f"{b_ms:.4f} ms ({b_by}) | {card_line()}", flush=True)
+        name = suffix if suffix == "whisper_train" else f"{suffix}_train"
         records.append(dict(
-            name="flash_attention_fwd_whisper_train", route="cuda",
+            name=f"flash_attention_fwd_{name}", route="cuda",
             source="src/repro_torch/csrc/flash_attention_fwd.cu",
             replaces="src/repro/kernels/flash_attention.py:96",
             max_abs_err=fwd_err, ms=ms, plain_ms=plain, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib,
-            shape=f"{label} (B={b} H={h} KV={kvh} D={d} Sq={sq} Sk={sk}); "
-                  "plain_ms is the plain version with bf16 operands"))
+            shape=f"{label} (B={b} H={h} KV={kvh} D={d} Sq={sq} Sk={sk}"
+                  f"{f' window={window}' if window else ''}); plain_ms is "
+                  "the plain version with bf16 operands"
+                  f"{'; library_ms is SDPA given the mask' if window else ''}"
+        ))
         del q, k, v
         torch.cuda.empty_cache()
     return records
@@ -2758,7 +2878,7 @@ def train_phase(torch, tag, cfg, overrides, per_mb, unreached=(),
           f"{shape.global_batch} ({n_img} image positions), remat="
           f"{plan.remat} microbatch={plan.microbatch}, losses {losses}, "
           f"launches={launches} expected={want}, by call shape (causal, Sq, "
-          f"Sk): {classes}, step-1 gradients finite and nonzero on all "
+          f"Sk, window): {classes}, step-1 gradients finite and nonzero on all "
           f"{checked} leaves", flush=True)
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         fail(f"{tag}: losses {losses} not finite or not decreasing")
@@ -2871,7 +2991,8 @@ def model_flops(cfg, params, shape, n_img=0):
     ``encoder_seq_len`` frames a sequence; phi-3's image projection over
     its image positions; the output head over the text positions (the
     embedding is a gather).  Attention: causal self attention over S(S +
-    1)/2 pairs, whisper's cross attention over S x frames and its encoder
+    1)/2 pairs (a sliding-window layer's over the pairs within its
+    window), whisper's cross attention over S x frames and its encoder
     over frames x frames.  Remat's recompute, norms, elementwise ops and
     the scans' state arithmetic (K6, K7 and their backward) are not
     counted."""
@@ -2906,8 +3027,10 @@ def model_flops(cfg, params, shape, n_img=0):
     weights = b * (per_pos * s + per_frame * frames + per_img * n_img
                    + per_text * (s - n_img))
     self_layers = sum(cfg.pattern.count(k) for k in (
-        ATTN_GLOBAL, ATTN_LOCAL, ATTN_SHARED, MOE, DEC_ATTN)) * cfg.num_blocks
+        ATTN_GLOBAL, ATTN_SHARED, MOE, DEC_ATTN)) * cfg.num_blocks
+    local_layers = cfg.pattern.count(ATTN_LOCAL) * cfg.num_blocks
     pairs = (self_layers * s * (s + 1) / 2
+             + local_layers * attended_pairs(s, s, True, cfg.sliding_window)
              + cfg.pattern.count(DEC_ATTN) * cfg.num_blocks * s * frames
              + cfg.num_encoder_layers * frames * frames)
     return 6 * weights + 3 * 2 * 2 * cfg.head_dim * cfg.num_heads * b * pairs
@@ -3187,8 +3310,10 @@ def parity_train_reduced(torch):
     ``remat="dots"``), rwkv6-7b (2 layers, full remat), qwen2-moe-a2.7b
     and dbrx-132b (2 layers, full remat; 1280 tokens, so the experts'
     capacity drops pairs), phi-3-vision-4.2b (2 layers, full remat, with
-    seeded image embeddings) and whisper-base (2 decoder layers over its
-    2 encoder layers' 16 frames, full remat) each train 3 steps of 2
+    seeded image embeddings), whisper-base (2 decoder layers over its
+    2 encoder layers' 16 frames, full remat) and gemma3-12b (one period:
+    5 layers of window 8 and a global one, qk-norm, tied embeddings, the
+    sqrt(d) embed scale; full remat) each train 3 steps of 2
     microbatches at sequence 160 (ragged over the kernels' 64-row tiles
     and 64-token chunks) from the same weights on the same batches, on
     the card and on the CPU: losses, final params and step-1 gradients
@@ -3199,7 +3324,8 @@ def parity_train_reduced(torch):
                                 ("qwen2-moe-a2.7b", 2, "full"),
                                 ("dbrx-132b", 2, "full"),
                                 ("phi-3-vision-4.2b", 2, "full"),
-                                ("whisper-base", 2, "full")):
+                                ("whisper-base", 2, "full"),
+                                ("gemma3-12b", 6, "full")):
         parity_train_one(torch, arch, layers, remat)
 
 
@@ -5242,8 +5368,8 @@ PHI3_TRAIN_LAYERS = 28
 @contextmanager
 def train_call_classes():
     """Count the flash-attention launches of a training run by call
-    shape while the block runs: K2's, K5a's and K5b's by (causal, Sq,
-    Sk).  A call counts where the kernel wrapper's own count rose.  The
+    shape while the block runs: K2's, K5a's and K5b's by (causal, Sq, Sk,
+    window).  A call counts where the kernel wrapper's own count rose.  The
     model reaches K2 through ``FlashAttention.apply`` in
     ``models/attention.py`` (again in a remat recompute), and K5 through
     ``flash_attention_bwd`` in ``kernels/flash_attention.py``, which
@@ -5267,13 +5393,14 @@ def train_call_classes():
             before = [fa.flash_attention_fwd.launches]
             o = function.apply(q, k, v, causal, window, q_offset)
             tally(("flash_attention_fwd",), before,
-                  (bool(causal), q.shape[2], k.shape[2]))
+                  (bool(causal), q.shape[2], k.shape[2], int(window)))
             return o
 
-    def counted_bwd(q, k, v, o, lse, do, *, causal=True, **kw):
+    def counted_bwd(q, k, v, o, lse, do, *, causal=True, window=0, **kw):
         before = [getattr(fa, n).launches for n in parts]
-        out = bwd(q, k, v, o, lse, do, causal=causal, **kw)
-        tally(parts, before, (bool(causal), q.shape[2], k.shape[2]))
+        out = bwd(q, k, v, o, lse, do, causal=causal, window=window, **kw)
+        tally(parts, before, (bool(causal), q.shape[2], k.shape[2],
+                              int(window)))
         return out
 
     attn.FlashAttention, fa.flash_attention_bwd = Counted, counted_bwd
@@ -5346,8 +5473,8 @@ def train_families_full(torch):
     n = whisper.num_layers
     frames = whisper.encoder_seq_len
     seq, mb, steps = _train_setup()[0].seq_len, full["microbatch"], 4
-    calls = {(True, seq, seq): n, (False, seq, frames): n,
-             (False, frames, frames): whisper.num_encoder_layers}
+    calls = {(True, seq, seq, 0): n, (False, seq, frames, 0): n,
+             (False, frames, frames, 0): whisper.num_encoder_layers}
     with expandable_segments(torch):
         # the CE over 151936 ids in chunks of 1024 positions: a
         # microbatch's fp32 logits (4.98 GB) and their gradient ran the
@@ -5380,13 +5507,103 @@ def train_families_full(torch):
         name = f"flash_attention_bwd_{part}"
         records[f"{name}_d96"] = b[name] + c[name]
         records[f"{name}_d128"] = a[name]
-        records[f"{name}_whisper_train"] = classes[name][(False, seq, frames)]
+        records[f"{name}_whisper_train"] = \
+            classes[name][(False, seq, frames, 0)]
         records[f"{name}_whisper_enc_train"] = \
-            classes[name][(False, frames, frames)]
+            classes[name][(False, frames, frames, 0)]
     records["flash_attention_fwd_whisper_train"] = \
-        classes["flash_attention_fwd"][(False, seq, frames)]
+        classes["flash_attention_fwd"][(False, seq, frames, 0)]
     RMS_LAUNCHES["train"] += a["rmsnorm"] + d["rmsnorm"]
     RMS_LAUNCHES["train 3072"] += b["rmsnorm"] + c["rmsnorm"]
+    return launches, records
+
+
+# ---------------------------------------------------------------------------
+# phase 19: full-width gemma3-12b training
+# ---------------------------------------------------------------------------
+
+# phase 19: gemma3-12b's depth and plan.  Two of its 5:1 periods (10
+# local layers, 2 global), the deepest whole number of periods whose plan
+# fits the card at 4096 x 8: 18 layers plan 79.77 GiB, the full 48 180.85
+# (refused).  One sequence a microbatch, and the CE in chunks of 1024
+# positions: one sequence's fp32 logits over 262144 ids are 4.29 GB, and
+# their gradient as much again
+GEMMA3_TRAIN_LAYERS = 12
+GEMMA3_OVERRIDES = {"remat": "full", "microbatch": 8, "loss_chunk": 1024}
+
+
+def refused_before_weights(torch, tag, cfg, shape, overrides):
+    """``launch.train`` of ``cfg`` at ``shape`` with ``overrides`` must
+    raise before any weights are made (``TorchExecutor.init_params`` is
+    not reached and nothing is allocated on the card), naming its plan's
+    estimate: host arithmetic."""
+    from repro_torch.core.materializer import H100, materialize
+    from repro_torch.launch.train import train
+    from repro_torch.runtime import TorchExecutor
+    plan = materialize(cfg, shape, H100, overrides=overrides)
+    want = f"{plan.est_bytes_per_device / 2**30:.2f} GiB"
+    plain, made, said = TorchExecutor.init_params, [], None
+    TorchExecutor.init_params = lambda self, handle: made.append(handle)
+    before = torch.cuda.memory_allocated()
+    try:
+        train(cfg, shape=shape, overrides=overrides, device="cuda", steps=1,
+              verbose=False)
+    except RuntimeError as e:
+        said = str(e)
+    finally:
+        TorchExecutor.init_params = plain
+    print(f"[{tag}] {cfg.name} at {cfg.num_layers} layers, {shape.name}, "
+          f"overrides {overrides}: {said}", flush=True)
+    if said is None or want not in said or made \
+            or torch.cuda.memory_allocated() != before:
+        fail(f"{tag}: {cfg.name} at {cfg.num_layers} layers was not refused "
+             f"before any weights were made, naming its {want} plan")
+
+
+def train_gemma3_full(torch):
+    """Phase 19: gemma3-12b at full width (d 3840, 16/8 heads of 256, d_ff
+    15360, vocab 262144, tied embeddings) trains at phase 5's sequence
+    4096 x batch 8 and optimizer with ``GEMMA3_TRAIN_LAYERS`` of its 48
+    layers (10 sliding-window layers of window 1024, 2 global), under
+    ``GEMMA3_OVERRIDES``, 4 steps through ``launch.train``
+    (:func:`train_phase`, all its gates; the allocator's segments
+    expandable), after the full depth is refused before any weights are
+    made (:func:`refused_before_weights`).  Each layer norms four times
+    (ln1, ln2, and the q- and k-norms over its heads); K2, K5a and K5b at
+    head dim 256 are counted by call shape, windowed and global apart.
+    Returns the launch counts and the launches of the ``*_d256_local*``
+    and ``*_d256_global*`` training records."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL
+    gemma3 = get_config("gemma3-12b")
+    shape = _train_setup()[0]
+    refused_before_weights(torch, "train gemma3", gemma3, shape,
+                           GEMMA3_OVERRIDES)
+    cfg = gemma3.scaled(num_layers=GEMMA3_TRAIN_LAYERS)
+    n, seq, steps = cfg.num_layers, shape.seq_len, _train_setup()[3]
+    calls = {(True, seq, seq, cfg.sliding_window):
+             cfg.pattern.count(ATTN_LOCAL) * cfg.num_blocks,
+             (True, seq, seq, 0):
+             cfg.pattern.count(ATTN_GLOBAL) * cfg.num_blocks}
+    with expandable_segments(torch):
+        launches, classes = train_phase(
+            torch, "train gemma3", cfg, GEMMA3_OVERRIDES,
+            dict(_attention_counts(n), rmsnorm=2 * (4 * n) + 1,
+                 rmsnorm_bwd=4 * n + 1))
+    mb = GEMMA3_OVERRIDES["microbatch"]
+    records = {}
+    for name, per in (("flash_attention_fwd", 2), ("flash_attention_bwd_dq", 1),
+                      ("flash_attention_bwd_dkv", 1)):
+        want = {key: per * n_calls * mb * steps
+                for key, n_calls in calls.items()}
+        if classes[name] != want:
+            fail(f"train gemma3: {name} launches by call shape "
+                 f"{classes[name]}, expected {want}")
+        tail = "_train" if name == "flash_attention_fwd" else ""
+        for (_, _, _, window), n_calls in want.items():
+            kind = "local" if window else "global"
+            records[f"{name}_d256_{kind}{tail}"] = n_calls
+    RMS_LAUNCHES["train gemma3"] += launches["rmsnorm"]
     return launches, records
 
 

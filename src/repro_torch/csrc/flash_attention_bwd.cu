@@ -30,7 +30,8 @@
 //   tensor-core kernels `flash_bwd_dq_tc` and `flash_bwd_dkv_tc` below.
 // - float32 (only the checks use it): the SIMT kernels `flash_bwd_dq_kernel`
 //   and `flash_bwd_dkv_kernel`, which compute every product in fp32 FMAs
-//   and so agree with the fp32 plain versions to summation order.  The
+//   and so agree with the fp32 plain versions to summation order (at head
+//   dim 256 they stage their tiles 128 columns at a time: `Simt`).  The
 //   tensor cores take no fp32 operands short of TF32, which would round
 //   the inputs; the fp32 route keeps the reference's arithmetic.
 //
@@ -66,14 +67,23 @@
 //   V^T, dS = P (dP - delta) scale, and dQ += dS K with dS from registers
 //   and K through `ldmatrix.trans`.  Causal grids dispatch the last query
 //   tiles, the heaviest, first.
-// The loop's tile is 64 rows at head dims up to 64 and 32 at 80, 96 and 128,
-// which keeps dK + dV (128 fp32 a thread at D 128) and the score tiles in
-// registers.  Every D-dependent loop steps by 16 columns (one `ldmatrix.x4`
-// and two m16n8k16 a step) or by 8 (a 16-byte `cp.async`, a bf16x2 store
-// of two accumulator tiles), so D needs only be a multiple of 16: at 80 a
-// row is 5 k-steps, 10 copies and 10 accumulator tiles, and its padded
-// pitch of 88 elements (176 bytes) keeps every `ldmatrix` row 16-byte
-// aligned and the 8 rows of each in distinct bank groups.  Only tiles that cross the causal / window band or the
+// The loop's tile is 64 rows at head dims up to 64 and 32 above, which
+// keeps dK + dV (128 fp32 a thread at D 128) and the score tiles in
+// registers.  At gemma3-12b's head dim 256 dK + dV would be 256 fp32 a
+// thread, the whole register file, so the dK/dV block has 8 warps: the two
+// warps of each 16-key slice compute the same scores (S^T, dP^T, P^T,
+// dS^T, from the same tiles in the same order, so bit for bit the same)
+// and each accumulates 128 of dK's and dV's columns: the pass's two score
+// products are done twice (9 S x S x D products in the two passes, not
+// 7), in exchange for no exchange between warps and no atomics.  dQ
+// keeps its 4 warps (128 fp32 of dQ a thread); the 135 KB of tiles at 256
+// allow one block an SM either way.  Every D-dependent loop steps by 16
+// columns (one `ldmatrix.x4` and two m16n8k16 a step) or by 8 (a 16-byte
+// `cp.async`, a bf16x2 store of two accumulator tiles), so D needs only be
+// a multiple of 16: at 80 a row is 5 k-steps, 10 copies and 10
+// accumulator tiles, and its padded pitch of 88 elements (176 bytes) keeps
+// every `ldmatrix` row 16-byte aligned and the 8 rows of each in distinct
+// bank groups.  Only tiles that cross the causal / window band or the
 // ragged tail evaluate the mask; tiles outside the band are never loaded.
 // Rounding: S and dP are exact bf16 products summed in fp32; the exponent
 // s scale - lse is formed as the plain version forms it, so that P and dS
@@ -131,6 +141,19 @@ __device__ __forceinline__ void dot_4x4(const float* a, const float* b,
   }
 }
 
+// A block stages four transposed tiles of `kCols` columns (and one or two
+// 64 x 64 score tiles).  Up to head dim 128 a tile holds every column; at
+// 256 four whole tiles would take 4 x 256 x 68 x 4 B = 278 KB of the 227
+// KB a block may have, so they hold 128 columns, and the products loop over
+// the `kParts` column parts, restaging each (the fp32 route only serves the
+// checks, so the re-reads cost nothing on the main path).  The sums run
+// over the columns in order either way.
+template <int D>
+struct Simt {
+  static constexpr int kCols = D > 128 ? 128 : D;
+  static constexpr int kParts = D / kCols;
+};
+
 // ---------------------------------------------------------------------------
 // dQ (and delta): grid (ceil(Sq / 64), H, B)
 // ---------------------------------------------------------------------------
@@ -143,13 +166,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     float* __restrict__ delta, T* __restrict__ dq, int H,
                     int KVH, Mask mask, Strides sq, Strides sk, Strides sv,
                     Strides so, Strides sdo, Strides sdq, float scale) {
-  constexpr int DC = D / 16;
+  constexpr int C = Simt<D>::kCols, NP = Simt<D>::kParts;
+  constexpr int DC = C / 16, DA = D / 16;
   extern __shared__ __align__(16) float smem[];
-  float* qt = smem;                 // D x kLT   q^T
-  float* dot = qt + D * kLT;        // D x kLT   dO^T
-  float* kt = dot + D * kLT;        // D x kLT   k^T
-  float* vt = kt + D * kLT;         // D x kLT   v^T
-  float* ds = vt + D * kLT;         // 64 x kLS  ds
+  float* qt = smem;                 // C x kLT   q^T (one column part)
+  float* dot = qt + C * kLT;        // C x kLT   dO^T
+  float* kt = dot + C * kLT;        // C x kLT   k^T
+  float* vt = kt + C * kLT;         // C x kLT   v^T
+  float* ds = vt + C * kLT;         // 64 x kLS  ds
   __shared__ float lse_s[kB], delta_s[kB];
 
   const int Sq = mask.Sq, Sk = mask.Sk;
@@ -161,21 +185,25 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = tid >> 4;          // query rows ty*4 .. +3
   const int tx = tid & 15;          // keys tx*4 .. +3, dq cols tx + 16 j
 
+  const T* qb = q + b * sq.b + h * sq.h;
+  const T* dob = dout + b * sdo.b + h * sdo.h;
   const T* kb = k + b * sk.b + kvh * sk.h;
   const T* vb = v + b * sv.b + kvh * sv.h;
   const size_t row_base = ((size_t)b * H + h) * Sq;
 
-  stage_transposed<T, D>(qt, q + b * sq.b + h * sq.h, sq.s, q_start, Sq);
-  stage_transposed<T, D>(dot, dout + b * sdo.b + h * sdo.h, sdo.s, q_start,
-                         Sq);
-  __syncthreads();
+  if (NP == 1) {  // the whole rows stay for the block
+    stage_transposed<T, C>(qt, qb, sq.s, q_start, Sq);
+    stage_transposed<T, C>(dot, dob, sdo.s, q_start, Sq);
+  }
   {  // delta = rowsum(dO * O): 4 threads per row, lanes 4r .. 4r+3
     const int r = tid >> 2, part = tid & 3;
     const int qi = q_start + r;
     float acc = 0.f;
     if (qi < Sq) {
       const T* orow = o + b * so.b + h * so.h + qi * so.s;
-      for (int d = part; d < D; d += 4) acc += dot[d * kLT + r] * to_float(orow[d]);
+      const T* drow = dob + qi * sdo.s;
+      for (int d = part; d < D; d += 4)
+        acc += to_float(drow[d]) * to_float(orow[d]);
     }
     acc += __shfl_xor_sync(0xffffffffu, acc, 1);
     acc += __shfl_xor_sync(0xffffffffu, acc, 2);
@@ -187,13 +215,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   __syncthreads();
 
-  float lse_r[4], delta_r[4], acc[4][DC];
+  float lse_r[4], delta_r[4], acc[4][DA];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     lse_r[i] = lse_s[ty * 4 + i];
     delta_r[i] = delta_s[ty * 4 + i];
 #pragma unroll
-    for (int j = 0; j < DC; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < DA; ++j) acc[i][j] = 0.f;
   }
 
   // key range any row of this tile can see (the Pallas `_tile_live`)
@@ -203,14 +231,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
       mask.window > 0 ? max(0, mask.q_offset + q_start - mask.window + 1) : 0;
 
   for (int k_start = (k_begin / kB) * kB; k_start < k_end; k_start += kB) {
-    __syncthreads();  // the previous tile's readers are done with kt/vt/ds
-    stage_transposed<T, D>(kt, kb, sk.s, k_start, Sk);
-    stage_transposed<T, D>(vt, vb, sv.s, k_start, Sk);
-    __syncthreads();
-
     float s[4][4] = {}, dp[4][4] = {};
-    dot_4x4<D>(qt, kt, ty * 4, tx * 4, s);
-    dot_4x4<D>(dot, vt, ty * 4, tx * 4, dp);
+#pragma unroll
+    for (int part = 0; part < NP; ++part) {
+      __syncthreads();  // the previous readers of the staged tiles are done
+      if (NP > 1) {
+        stage_transposed<T, C>(qt, qb + part * C, sq.s, q_start, Sq);
+        stage_transposed<T, C>(dot, dob + part * C, sdo.s, q_start, Sq);
+      }
+      stage_transposed<T, C>(kt, kb + part * C, sk.s, k_start, Sk);
+      stage_transposed<T, C>(vt, vb + part * C, sv.s, k_start, Sk);
+      __syncthreads();
+      dot_4x4<C>(qt, kt, ty * 4, tx * 4, s);
+      dot_4x4<C>(dot, vt, ty * 4, tx * 4, dp);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qi = q_start + ty * 4 + i;
@@ -225,17 +259,25 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     __syncthreads();
 
-    // dQ += ds . K
+    // dQ += ds . K, the last part's columns first: they are staged
+#pragma unroll
+    for (int part = NP - 1; part >= 0; --part) {
+      if (part != NP - 1) {
+        __syncthreads();
+        stage_transposed<T, C>(kt, kb + part * C, sk.s, k_start, Sk);
+        __syncthreads();
+      }
 #pragma unroll 4
-    for (int c = 0; c < kB; ++c) {
-      float kk[DC];
+      for (int c = 0; c < kB; ++c) {
+        float kk[DC];
 #pragma unroll
-      for (int j = 0; j < DC; ++j) kk[j] = kt[(tx + 16 * j) * kLT + c];
+        for (int j = 0; j < DC; ++j) kk[j] = kt[(tx + 16 * j) * kLT + c];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float dsv = ds[(ty * 4 + i) * kLS + c];
+        for (int i = 0; i < 4; ++i) {
+          const float dsv = ds[(ty * 4 + i) * kLS + c];
 #pragma unroll
-        for (int j = 0; j < DC; ++j) acc[i][j] += dsv * kk[j];
+          for (int j = 0; j < DC; ++j) acc[i][part * DC + j] += dsv * kk[j];
+        }
       }
     }
   }
@@ -246,12 +288,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qi >= Sq) continue;
     T* row = dq + b * sdq.b + h * sdq.h + qi * sdq.s;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) store(row + tx + 16 * j, acc[i][j]);
+    for (int j = 0; j < DA; ++j) store(row + tx + 16 * j, acc[i][j]);
   }
 }
 
 // ---------------------------------------------------------------------------
-// dK, dV: grid (ceil(Sk / 64), KVH, B)
+// dK, dV: grid (ceil(Sk / 64) x parts, KVH, B); each block owns one column
+// part of its 64 keys' dK and dV (two fp32 accumulators of all 256 columns
+// would not fit the registers), the scores computed by every part's block
 // ---------------------------------------------------------------------------
 
 template <typename T, int D>
@@ -263,18 +307,19 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      T* __restrict__ dv, int H, int KVH, Mask mask, Strides sq,
                      Strides sk, Strides sv, Strides sdo, Strides sdk,
                      Strides sdv, float scale) {
-  constexpr int DC = D / 16;
+  constexpr int C = Simt<D>::kCols, NP = Simt<D>::kParts, DC = C / 16;
   extern __shared__ __align__(16) float smem[];
-  float* kt = smem;                 // D x kLT   k^T (whole block)
-  float* vt = kt + D * kLT;         // D x kLT   v^T (whole block)
-  float* qt = vt + D * kLT;         // D x kLT   q^T (per query tile)
-  float* dot = qt + D * kLT;        // D x kLT   dO^T (per query tile)
-  float* ps = dot + D * kLT;        // 64 x kLS  p^T  (keys x queries)
+  float* kt = smem;                 // C x kLT   k^T (one column part)
+  float* vt = kt + C * kLT;         // C x kLT   v^T
+  float* qt = vt + C * kLT;         // C x kLT   q^T (per query tile)
+  float* dot = qt + C * kLT;        // C x kLT   dO^T (per query tile)
+  float* ps = dot + C * kLT;        // 64 x kLS  p^T  (keys x queries)
   float* dss = ps + kB * kLS;       // 64 x kLS  ds^T
   __shared__ float lse_s[kB], delta_s[kB];
 
   const int Sq = mask.Sq, Sk = mask.Sk;
-  const int k_start = blockIdx.x * kB;
+  const int k_start = (blockIdx.x / NP) * kB;
+  const int own = blockIdx.x % NP;  // the column part this block writes
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int G = H / KVH;
@@ -282,8 +327,12 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int ty = tid >> 4;          // keys ty*4 .. +3
   const int tx = tid & 15;          // queries tx*4 .. +3, out cols tx + 16 j
 
-  stage_transposed<T, D>(kt, k + b * sk.b + kvh * sk.h, sk.s, k_start, Sk);
-  stage_transposed<T, D>(vt, v + b * sv.b + kvh * sv.h, sv.s, k_start, Sk);
+  const T* kb = k + b * sk.b + kvh * sk.h;
+  const T* vb = v + b * sv.b + kvh * sv.h;
+  if (NP == 1) {  // the whole rows stay for the block
+    stage_transposed<T, C>(kt, kb, sk.s, k_start, Sk);
+    stage_transposed<T, C>(vt, vb, sv.s, k_start, Sk);
+  }
 
   float acc_k[4][DC], acc_v[4][DC];
 #pragma unroll
@@ -304,19 +353,25 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const T* dob = dout + b * sdo.b + h * sdo.h;
     const size_t row_base = ((size_t)b * H + h) * Sq;
     for (int q_start = (q_begin / kB) * kB; q_start < q_end; q_start += kB) {
-      __syncthreads();  // the previous tile's readers are done
-      stage_transposed<T, D>(qt, qb, sq.s, q_start, Sq);
-      stage_transposed<T, D>(dot, dob, sdo.s, q_start, Sq);
-      if (tid < kB) {
-        const int qi = q_start + tid;
-        lse_s[tid] = qi < Sq ? lse[row_base + qi] : 0.f;
-        delta_s[tid] = qi < Sq ? delta[row_base + qi] : 0.f;
-      }
-      __syncthreads();
-
       float st[4][4] = {}, dpt[4][4] = {};
-      dot_4x4<D>(kt, qt, ty * 4, tx * 4, st);
-      dot_4x4<D>(vt, dot, ty * 4, tx * 4, dpt);
+#pragma unroll
+      for (int part = 0; part < NP; ++part) {
+        __syncthreads();  // the previous tile's readers are done
+        if (NP > 1) {
+          stage_transposed<T, C>(kt, kb + part * C, sk.s, k_start, Sk);
+          stage_transposed<T, C>(vt, vb + part * C, sv.s, k_start, Sk);
+        }
+        stage_transposed<T, C>(qt, qb + part * C, sq.s, q_start, Sq);
+        stage_transposed<T, C>(dot, dob + part * C, sdo.s, q_start, Sq);
+        if (part == 0 && tid < kB) {
+          const int qi = q_start + tid;
+          lse_s[tid] = qi < Sq ? lse[row_base + qi] : 0.f;
+          delta_s[tid] = qi < Sq ? delta[row_base + qi] : 0.f;
+        }
+        __syncthreads();
+        dot_4x4<C>(kt, qt, ty * 4, tx * 4, st);
+        dot_4x4<C>(vt, dot, ty * 4, tx * 4, dpt);
+      }
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int qi = q_start + tx * 4 + j;
@@ -331,6 +386,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
       }
       __syncthreads();
+      if (own != NP - 1) {  // this block's columns of Q and dO
+        stage_transposed<T, C>(qt, qb + own * C, sq.s, q_start, Sq);
+        stage_transposed<T, C>(dot, dob + own * C, sdo.s, q_start, Sq);
+        __syncthreads();
+      }
 
       // dV += p^T . dO,  dK += ds^T . Q
 #pragma unroll 4
@@ -359,8 +419,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     const int kj = k_start + ty * 4 + i;
     if (kj >= Sk) continue;
-    T* krow = dk + b * sdk.b + kvh * sdk.h + kj * sdk.s;
-    T* vrow = dv + b * sdv.b + kvh * sdv.h + kj * sdv.s;
+    T* krow = dk + b * sdk.b + kvh * sdk.h + kj * sdk.s + own * C;
+    T* vrow = dv + b * sdv.b + kvh * sdv.h + kj * sdv.s + own * C;
 #pragma unroll
     for (int j = 0; j < DC; ++j) {
       store(krow + tx + 16 * j, acc_k[i][j]);
@@ -377,15 +437,23 @@ template <int D>
 struct Tile {
   static constexpr int kInner = D <= 64 ? 64 : 32;  // rows of a loop tile
   // shared memory: the two 64-row tiles held, the two double-buffered ones
+  // (135 KB at D 256: one block an SM)
   static constexpr size_t kSmem =
       sizeof(bf16) * (2 * kB + 4 * kInner) * kPitch<D>;
+  // dK/dV: the warps that share each 16-key slice, each owning D / kSplit
+  // of dK's and dV's columns.  One warp holding both accumulators of all
+  // 256 columns would need 256 fp32 a thread, the whole register file
+  static constexpr int kSplit = D > 128 ? 2 : 1;
+  static constexpr int kDkvThreads = kTcThreads * kSplit;
+  // dQ: blocks an SM that ptxas must leave registers for
+  static constexpr int kDqBlocks = D > 128 ? 1 : 3;
 };
 
-// ROWS fp32 of one (S,) vector, zeros past `rows`
-template <int ROWS>
+// ROWS fp32 of one (S,) vector, zeros past `rows`, by THREADS threads
+template <int ROWS, int THREADS = kTcThreads>
 __device__ __forceinline__ void load_vec(float* dst, const float* src,
                                          int row0, int rows) {
-  for (int i = threadIdx.x; i < ROWS; i += kTcThreads) {
+  for (int i = threadIdx.x; i < ROWS; i += THREADS) {
     const int row = row0 + i;
     const bool ok = row < rows;
     cp_async4(dst + i, src + (ok ? row : 0), ok);
@@ -396,11 +464,13 @@ __device__ __forceinline__ void load_vec(float* dst, const float* src,
 // dQ (and delta): a 1-D grid of ceil(Sq / 64) x H x B blocks
 // ---------------------------------------------------------------------------
 
-// Three blocks an SM: without that floor ptxas squeezed the head-dim-80
-// instance to 128 registers (four blocks) and spilled; with it that
-// instance takes 160 and the head-dim-64 and -128 ones keep 168 and 166
+// Three blocks an SM up to head dim 128: without that floor ptxas squeezed
+// the head-dim-80 instance to 128 registers (four blocks) and spilled;
+// with it that instance takes 160 and the head-dim-64 and -128 ones keep
+// 168 and 166.  At 256 the tiles' shared memory allows one block an SM,
+// and dQ's accumulator is 128 fp32 a thread
 template <int D>
-__global__ void __launch_bounds__(kTcThreads, 3)
+__global__ void __launch_bounds__(kTcThreads, Tile<D>::kDqBlocks)
 flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                 const bf16* __restrict__ v, const bf16* __restrict__ o,
                 const bf16* __restrict__ dout, const float* __restrict__ lse,
@@ -527,11 +597,13 @@ flash_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// dK, dV: a 1-D grid of ceil(Sk / 64) x KVH x B blocks
+// dK, dV: a 1-D grid of ceil(Sk / 64) x KVH x B blocks of 4 x kSplit warps;
+// warp w computes the scores of key slice w % 4 and accumulates columns
+// [(w / 4) D / kSplit, (w / 4 + 1) D / kSplit) of its dK and dV
 // ---------------------------------------------------------------------------
 
 template <int D>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(Tile<D>::kDkvThreads)
 flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
                  const float* __restrict__ lse,
@@ -540,6 +612,7 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk,
                  Strides sdv, float scale) {
   constexpr int P = kPitch<D>, N = Tile<D>::kInner;
+  constexpr int T = Tile<D>::kDkvThreads, DO = D / Tile<D>::kSplit;
   extern __shared__ __align__(16) unsigned char tc_smem[];
   bf16* ks = reinterpret_cast<bf16*>(tc_smem);  // 64 x P    K
   bf16* vs = ks + kB * P;                       // 64 x P    V
@@ -556,8 +629,8 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int G = H / KVH;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
-  load_rows<kB, D>(ks, k + b * sk.b + kvh * sk.h, sk.s, k_start, Sk);
-  load_rows<kB, D>(vs, v + b * sv.b + kvh * sv.h, sv.s, k_start, Sk);
+  load_rows<kB, D, T>(ks, k + b * sk.b + kvh * sk.h, sk.s, k_start, Sk);
+  load_rows<kB, D, T>(vs, v + b * sv.b + kvh * sv.h, sv.s, k_start, Sk);
 
   // query tiles that can see any key of this tile (the Pallas `_tile_live`)
   const int k_last = min(k_start + kB, Sk) - 1;
@@ -572,21 +645,23 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int s = it & 1, h = kvh * G + it / n_tiles;
     const int q0 = q_first + (it % n_tiles) * N;
     const size_t row_base = ((size_t)b * H + h) * Sq;
-    load_rows<N, D>(qs + s * N * P, q + b * sq.b + h * sq.h, sq.s, q0, Sq);
-    load_rows<N, D>(dos + s * N * P, dout + b * sdo.b + h * sdo.h, sdo.s,
-                    q0, Sq);
-    load_vec<N>(lse_s[s], lse + row_base, q0, Sq);
-    load_vec<N>(delta_s[s], delta + row_base, q0, Sq);
+    load_rows<N, D, T>(qs + s * N * P, q + b * sq.b + h * sq.h, sq.s, q0,
+                       Sq);
+    load_rows<N, D, T>(dos + s * N * P, dout + b * sdo.b + h * sdo.h, sdo.s,
+                       q0, Sq);
+    load_vec<N, T>(lse_s[s], lse + row_base, q0, Sq);
+    load_vec<N, T>(delta_s[s], delta + row_base, q0, Sq);
   };
   if (total > 0) issue(0);
   cp_async_commit();
 
-  const int kw = k_start + warp * 16;  // this warp's first key
-  const bf16* kws = ks + warp * 16 * P;
-  const bf16* vws = vs + warp * 16 * P;
-  float acc_k[D / 8][4], acc_v[D / 8][4];
+  const int slice = warp & 3, c0 = (warp >> 2) * DO;  // keys, columns
+  const int kw = k_start + slice * 16;  // this warp's first key
+  const bf16* kws = ks + slice * 16 * P;
+  const bf16* vws = vs + slice * 16 * P;
+  float acc_k[DO / 8][4], acc_v[DO / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DO / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
 
@@ -623,13 +698,15 @@ flash_bwd_dkv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     uint32_t pa[N / 16][4], dsa[N / 16][4];
     to_a_frags<N / 16>(pa, st);
     to_a_frags<N / 16>(dsa, dpt);
-    mma_ab<D, N / 16>(acc_v, pa, dot, lane);  // dV += P^T dO
-    mma_ab<D, N / 16>(acc_k, dsa, qt, lane);  // dK += dS^T Q
+    mma_ab<D, N / 16, DO>(acc_v, pa, dot + c0, lane);  // dV += P^T dO
+    mma_ab<D, N / 16, DO>(acc_k, dsa, qt + c0, lane);  // dK += dS^T Q
   }
   cp_async_wait<0>();
 
-  store_rows<D>(dk + b * sdk.b + kvh * sdk.h, sdk.s, acc_k, kw, Sk, lane);
-  store_rows<D>(dv + b * sdv.b + kvh * sdv.h, sdv.s, acc_v, kw, Sk, lane);
+  store_rows<DO>(dk + b * sdk.b + kvh * sdk.h + c0, sdk.s, acc_k, kw, Sk,
+                 lane);
+  store_rows<DO>(dv + b * sdv.b + kvh * sdv.h + c0, sdv.s, acc_v, kw, Sk,
+                 lane);
 }
 
 // ===========================================================================
@@ -649,7 +726,8 @@ struct Args {
 // fp32: the SIMT kernels
 template <int D>
 int launch_dq(const Args& a) {
-  const size_t smem = sizeof(float) * (4 * (size_t)D * kLT + kB * kLS);
+  const size_t smem =
+      sizeof(float) * (4 * (size_t)Simt<D>::kCols * kLT + kB * kLS);
   static size_t configured[kMaxDevices];
   cudaError_t e = allow_smem(flash_bwd_dq_kernel<float, D>, smem, configured);
   if (e != cudaSuccess) return (int)e;
@@ -666,12 +744,12 @@ int launch_dq(const Args& a) {
 template <int D>
 int launch_dkv(const Args& a) {
   const size_t smem =
-      sizeof(float) * (4 * (size_t)D * kLT + 2 * kB * kLS);
+      sizeof(float) * (4 * (size_t)Simt<D>::kCols * kLT + 2 * kB * kLS);
   static size_t configured[kMaxDevices];
   cudaError_t e =
       allow_smem(flash_bwd_dkv_kernel<float, D>, smem, configured);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((a.mask.Sk + kB - 1) / kB, a.KVH, a.B);
+  dim3 grid((a.mask.Sk + kB - 1) / kB * Simt<D>::kParts, a.KVH, a.B);
   flash_bwd_dkv_kernel<float, D><<<grid, kThreads, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
@@ -706,7 +784,8 @@ int launch_dkv_tc(const Args& a) {
       allow_smem(flash_bwd_dkv_tc<D>, Tile<D>::kSmem, configured);
   if (e != cudaSuccess) return (int)e;
   const int blocks = (a.mask.Sk + kB - 1) / kB * a.KVH * a.B;
-  flash_bwd_dkv_tc<D><<<blocks, kTcThreads, Tile<D>::kSmem, a.stream>>>(
+  flash_bwd_dkv_tc<D><<<blocks, Tile<D>::kDkvThreads, Tile<D>::kSmem,
+                        a.stream>>>(
       static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
       static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
@@ -731,6 +810,7 @@ int by_dim(int dtype, int D, const Args& a) {
     case 80: return launch<DQ, 80>(dtype, a);  // zamba2-2.7b's shared attention
     case 96: return launch<DQ, 96>(dtype, a);  // phi-3-vision-4.2b
     case 128: return launch<DQ, 128>(dtype, a);
+    case 256: return launch<DQ, 256>(dtype, a);  // gemma3-12b
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -121,13 +121,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // rows [row0, row0 + ROWS) of one (S, D) bf16 matrix -> dst (ROWS x pitch),
-// zeros past `rows`
-template <int ROWS, int D>
+// zeros past `rows`, by a block of THREADS threads
+template <int ROWS, int D, int THREADS = kTcThreads>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
                                           long long stride, int row0,
                                           int rows) {
   constexpr int kChunks = D / 8;  // 16-byte pieces of a row
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kTcThreads) {
+  for (int i = threadIdx.x; i < ROWS * kChunks; i += THREADS) {
     const int r = i / kChunks, c = (i % kChunks) * 8;
     const int row = row0 + r;
     const bool ok = row < rows;
@@ -177,16 +177,17 @@ __device__ __forceinline__ void mma_abt(float (*acc)[4], const bf16* a,
   }
 }
 
-// acc (16 x D) += a . b: a is 16 x 16 KC as A fragments in registers, b
-// is 16 KC rows x D row-major in shared memory, read transposed
-template <int D, int KC>
+// acc (16 x DO) += a . b: a is 16 x 16 KC as A fragments in registers, b
+// is 16 KC rows x DO columns of a row-major (rows x D) matrix in shared
+// memory (DO = D: all of them), read transposed
+template <int D, int KC, int DO = D>
 __device__ __forceinline__ void mma_ab(float (*acc)[4], uint32_t (*a)[4],
                                        const bf16* b, int lane) {
   constexpr int P = kPitch<D>;
 #pragma unroll
   for (int kc = 0; kc < KC; ++kc) {
 #pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
+    for (int n = 0; n < DO / 16; ++n) {
       uint32_t bf[4];
       ldsm4_t(bf, b + (kc * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * P +
                       n * 16 + (lane >> 4) * 8);

@@ -47,12 +47,12 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-# the forward kernel also takes gemma3-12b's 256; the backward kernels
-# are built and checked at the training paths' head dims only, zamba2-2.7b's
-# 80 and phi-3-vision-4.2b's 96 among them (gemma3 training, K5 at 256, is
-# a later slice)
+# the head dims both kernels are built for: zamba2-2.7b's 80,
+# phi-3-vision-4.2b's 96, the 64 and 128 of the other families and
+# gemma3-12b's 256 (the backward's dK/dV kernel splits the columns of dK
+# and dV over two warps a key slice there; csrc/flash_attention_bwd.cu)
 HEAD_DIMS = (16, 32, 64, 80, 96, 128, 256)
-BWD_HEAD_DIMS = (16, 32, 64, 80, 96, 128)
+BWD_HEAD_DIMS = HEAD_DIMS
 FWD_BLOCK_K = 64            # keys of the bf16 forward kernel's loop tile
 FWD_BLOCK_K_WIDE = 32       # ... at head dim 256, where registers are short
 

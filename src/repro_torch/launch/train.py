@@ -22,6 +22,8 @@ request it raises.
         --device cpu --steps 8
     python -m repro_torch.launch.train --arch qwen2-moe-a2.7b --reduced \
         --device cpu --steps 8
+    python -m repro_torch.launch.train --arch gemma3-12b --reduced \
+        --device cpu --steps 8
 
 The MoE family (qwen2-moe-a2.7b, dbrx-132b) trains like any LM here, and
 phi-3-vision-4.2b on its text alone: the synthetic batches hold tokens
@@ -35,7 +37,16 @@ A full-size run given no overrides takes ``one_card_overrides``'s plan:
 full remat, microbatches of 2 sequences.  ``train`` also takes a
 ``ModelConfig``, such as rwkv6-7b cut to 8 of its 32 layers (the full
 depth needs more than one card's memory at sequence 4096 x batch 8, and
-is refused before any weights are made).
+is refused before any weights are made), or gemma3-12b cut to two of its
+5:1 periods, one sequence a microbatch and the CE in chunks of 1024
+positions (its full 48 layers plan 180.85 GiB and are refused)::
+
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch.train import train
+    cfg = get_config("gemma3-12b").scaled(num_layers=12)
+    shape = dataclasses.replace(SHAPES["train_4k"], global_batch=8)
+    train(cfg, shape=shape, steps=4, overrides={
+        "remat": "full", "microbatch": 8, "loss_chunk": 1024})
 """
 
 from __future__ import annotations

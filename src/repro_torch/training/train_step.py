@@ -40,8 +40,13 @@ def make_train_step(model: Model, plan: Plan,
 
     ``batch`` leaves have global shapes (B, S); with ``plan.microbatch``
     = mb > 1 microbatch i takes rows i::mb (the reference's static
-    split), their fp32 gradients are summed and divided by mb.  The
-    optimizer state is updated in place (``adamw_update``)."""
+    split), their fp32 gradients are summed and divided by mb: each
+    leaf's gradient is added into its fp32 sum as soon as the backward
+    has produced it and freed there (``accumulate``), so no whole tree of
+    one microbatch's gradients is held (at gemma3-12b's full width with
+    12 layers that tree is 6.9 GiB, and holding it ran the card out of
+    memory).  The optimizer state is updated in place
+    (``adamw_update``)."""
     opt_cfg = opt_cfg or opt.OptimizerConfig()
     mb = max(plan.microbatch, 1)
 
@@ -56,6 +61,27 @@ def make_train_step(model: Model, plan: Plan,
             leaves, torch.autograd.grad(loss, leaves, allow_unused=True))]
         return loss.detach(), metrics, opt.tree_unflatten(params, grads)
 
+    def accumulate(params, batch, sums):
+        """One microbatch's backward, each leaf's gradient added into its
+        fp32 sum (``sums``, the leaves' order) when it is ready and then
+        dropped; a leaf the batch does not reach adds nothing, as the
+        zeros of :func:`grads_of` would.  Returns the loss."""
+        tracked = opt.tree_map(lambda p: p.detach().requires_grad_(True),
+                               params)
+        leaves = opt.leaves(tracked)
+
+        def into(acc):
+            def hook(p):
+                acc.add_(p.grad)
+                p.grad = None
+            return hook
+
+        for p, acc in zip(leaves, sums):
+            p.register_post_accumulate_grad_hook(into(acc))
+        loss, _ = model.loss_fn(tracked, batch)
+        torch.autograd.backward(loss, inputs=leaves)
+        return loss.detach()
+
     def step(params, opt_state, batch):
         if mb == 1:
             loss, metrics, grads = grads_of(params, batch)
@@ -66,11 +92,9 @@ def make_train_step(model: Model, plan: Plan,
             loss = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
             for i in range(mb):
-                l, _, g = grads_of(params, {k: v[i::mb]
-                                            for k, v in batch.items()})
-                for acc, gi in zip(opt.leaves(grads), opt.leaves(g)):
-                    acc.add_(gi)
-                loss = loss + l
+                loss = loss + accumulate(params, {k: v[i::mb] for k, v in
+                                                  batch.items()},
+                                         opt.leaves(grads))
             grads = opt.tree_map(lambda g: g.div_(mb), grads)
             loss = loss / mb
             metrics = {"ce": loss, "aux": torch.zeros_like(loss)}
