@@ -237,7 +237,32 @@ Phases, each of which must pass (any failure exits nonzero):
    of K3 and its backward, four norms a layer), the allocator's segments
    expandable; then the step time, tokens/s, the model-FLOPs share (a
    windowed layer's attention over its window's pairs) and a profiled
-   step (busy share; K2, K5, K3 and cuBLAS).
+   step (busy share; K2, K5, K3 and cuBLAS);
+20. sharded training: one card first runs phase 5's plan (seed-0
+   weights, phase 5's batches and optimizer) for ``SHARDED_STEPS`` steps
+   and keeps its losses, step-1 gradients and final params on the host;
+   then ``SHARDED_WORLD`` = 4 rank processes (``sharded_rank``; a
+   ``file://`` rendezvous in a temporary directory under ``build/``;
+   NCCL and a card each with four cards, else gloo with every rank on
+   ``cuda:0``; the kernels loaded from phase 1's build) each call
+   ``launch.train`` on the ``h100x4`` mesh (``Cluster.submit``, the
+   ``TorchExecutor`` on the rank's card) with each plan of
+   ``SHARDED_PLANS`` -- the ladder's own at batch 8 (data parallel over
+   ("data", "model"), ZeRO) and the TP + ZeRO + FSDP plan the ladder
+   picks at train_4k's batch of 256 -- full width, full remat,
+   microbatches of 2 rows a rank, the same seeded weights and batches.
+   Gates: finite, falling losses; rank 0's launch counts of K2, K5a,
+   K5b, K3 and the K3 backward what the path implies; the grant (the
+   largest rank's footprint, which every rank's control plane takes)
+   covering every rank's measured peak; losses, step-1 gradients
+   (gathered whole from the ranks' optimizer slices) and final params
+   within ``TRAIN_*_RTOL`` of one card's; the TP plan's params saved
+   from the ranks' blocks (rank 0 writes) and restored onto a (4, 1)
+   mesh and onto one process bit for bit.  Printed: each plan, its
+   estimate, each rank's peak, and, from the last step, which rank 0
+   runs under ``torch.profiler``, the step time, the NCCL kernels'
+   share of the device busy time and the host time inside gloo's
+   collectives.
 
 A failed comparison of a kernel with its plain version prints, before
 the run stops, its first 8 bad elements with both values, the count of
@@ -322,8 +347,8 @@ kernel's and the backward's time at the training shapes (2,80,4096,64)
 and (2,64,4096,64).
 
 A kernel's ``launches`` in the JSON record is its count over the serve
-(phases 3, 7, 8, 11, 12, 13, 16) and train (phases 5, 14, 15, 18, 19)
-runs;
+(phases 3, 7, 8, 11, 12, 13, 16) and train (phases 5, 14, 15, 18, 19,
+and rank 0's of phase 20) runs;
 K3's are also printed by shape class; the ``*_d256`` records count phase
 11's runs only, the forward ``*_d128`` records phase 12's mistral-nemo-12b
 runs only, the ``*_d80`` backward records phase 14's, the forward
@@ -471,6 +496,8 @@ def main() -> None:
     for name, n in trained.items():
         launches[name] = launches.get(name, 0) + n
     launches.update(trained_records)
+    for name, n in train_sharded(torch).items():
+        launches[name] = launches.get(name, 0) + n
     for rec in records:
         rec["launches"] = launches.get(rec["name"])
     print(f"[launches] rmsnorm by shape class over the main paths: "
@@ -5606,6 +5633,403 @@ def train_gemma3_full(torch):
     RMS_LAUNCHES["train gemma3"] += launches["rmsnorm"]
     return launches, records
 
+
+# ---------------------------------------------------------------------------
+# phase 20: sharded training over four ranks
+# ---------------------------------------------------------------------------
+
+SHARDED_WORLD = 4                 # the h100x4 mesh, (2, 2) over (data, model)
+# the last step profiled on rank 0: two steps, so that the phase stays
+# near 150 s on one card, where gloo reduces through the host (a third,
+# unprofiled step took 12-21 s a plan there)
+SHARDED_STEPS = 2
+# the ladder's own plan on h100x4 at batch 8 under phase 5's remat, and the
+# TP + ZeRO + FSDP plan the ladder picks at train_4k's batch of 256
+SHARDED_PLANS = {
+    "dp": {"remat": "full", "microbatch": 2},
+    "tp": {"tp": True, "zero": True, "fsdp": True, "batch_axes": ("data",),
+           "remat": "full", "microbatch": 2},
+}
+SHARDED_TIMEOUT_S = 900
+
+
+@contextmanager
+def first_update_grads(store):
+    """The gradient tree the train step's first ``adamw_update`` call is
+    handed (averaged over the batch, before clipping; on a mesh the rank's
+    optimizer slices), copied to the host into ``store``."""
+    from repro_torch.training import optimizer as opt
+    plain = opt.adamw_update
+
+    def spy(grads, *args, **kwargs):
+        if not store:
+            store.append([g.detach().cpu() for g in opt.leaves(grads)])
+        return plain(grads, *args, **kwargs)
+
+    opt.adamw_update = spy
+    try:
+        yield store
+    finally:
+        opt.adamw_update = plain
+
+
+@contextmanager
+def profiled_train_step(torch, index, result):
+    """The ``TorchExecutor``'s train step number ``index`` (None: none)
+    under ``torch.profiler`` while the block runs; ``result`` gets its
+    wall, the device busy time, the NCCL kernels' device time and the
+    host time inside gloo's collectives (gloo reduces on the host), in
+    ms."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime.executors import TorchExecutor
+    plain = TorchExecutor.train_step
+
+    def train_step(self, handle):
+        if handle.cursor != index:
+            return plain(self, handle)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            m = plain(self, handle)            # waits for the step
+            wall = time.perf_counter() - t0
+        avgs = prof.key_averages()
+        dev_us = {e.key: getattr(e, "self_device_time_total",
+                                 getattr(e, "self_cuda_time_total", 0.0))
+                  for e in avgs
+                  if str(getattr(e, "device_type", "")).endswith("CUDA")
+                  and not getattr(e, "is_user_annotation", False)}
+        result.update(
+            wall_ms=wall * 1e3, busy_ms=sum(dev_us.values()) / 1e3,
+            nccl_ms=sum(t for k, t in dev_us.items()
+                        if "nccl" in k.lower()) / 1e3,
+            gloo_host_ms=sum(e.cpu_time_total for e in avgs
+                             if e.key.startswith("gloo:")) / 1e3)
+        return m
+
+    TorchExecutor.train_step = train_step
+    try:
+        yield result
+    finally:
+        TorchExecutor.train_step = plain
+
+
+def _sharded_reference(torch, cfg, shape, ocfg):
+    """The one-card run phase 20 holds the ranks against: phase 5's plan,
+    weights (seed 0) and batches, ``SHARDED_STEPS`` steps of
+    ``make_train_step`` -> (losses, step-1 gradients, final params), the
+    tensors on the host."""
+    from repro_torch.core.materializer import H100, materialize
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import impl_from_plan, make_train_step
+    plan = materialize(cfg, shape, H100, overrides=_train_setup()[1])
+    model = Model(cfg, impl_from_plan(plan))
+    params = init_params(cfg, 0, "cuda")
+    state = opt.init_opt_state(params)
+    step = make_train_step(model, plan, ocfg)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, shape.seq_len,
+                                  shape.global_batch))
+    losses, grads = [], []
+    with first_update_grads(grads):
+        for i in range(SHARDED_STEPS):
+            batch = {k: torch.from_numpy(v).cuda()
+                     for k, v in data.batch_at(i).items()}
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+    final = [p.cpu() for p in opt.leaves(params)]
+    del params, state, step
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return losses, grads[0], final
+
+
+def train_sharded(torch):
+    """Phase 20: full-width tinyllama-1.1b trained over the four ranks of
+    the ``h100x4`` mesh through ``launch.train`` (``Cluster.submit``, the
+    ``TorchExecutor`` on each rank), with each plan of ``SHARDED_PLANS``,
+    ``SHARDED_STEPS`` steps at phase 5's sequence 4096 x batch 8 and
+    optimizer, against one card's run of phase 5's plan on the same
+    seeded weights and batches (here, first; its step-1 gradients and
+    final params go to the ranks through a file, each rank compares its
+    own blocks).  NCCL, a rank a card, with four cards; else gloo, every
+    rank on ``cuda:0``.  Returns the launch counts of rank 0's runs."""
+    import tempfile
+    from repro_torch.configs import get_config
+    t_phase = time.perf_counter()
+    cfg = get_config("tinyllama-1.1b")
+    shape, _, ocfg, _ = _train_setup()
+    ref_losses, ref_grads, ref_params = _sharded_reference(torch, cfg, shape,
+                                                           ocfg)
+    cards = torch.cuda.device_count()
+    backend = "nccl" if cards >= SHARDED_WORLD else "gloo"
+    print(f"[sharded] one card's run (phase 5's plan, {SHARDED_STEPS} steps): "
+          f"losses {ref_losses}, {time.perf_counter() - t_phase:.1f} s; "
+          f"{SHARDED_WORLD} ranks over {backend} on {cards} card(s) | "
+          f"{card_line()}", flush=True)
+    launches = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        torch.save({"grads": ref_grads, "params": ref_params},
+                   f"{d}/reference.pt")
+        del ref_grads, ref_params
+        _spawn_ranks(d, backend)
+        for name in SHARDED_PLANS:
+            for k, n in _sharded_gates(d, name, ref_losses).items():
+                launches[k] = launches.get(k, 0) + n
+    print(f"[sharded] phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return launches
+
+
+def _spawn_ranks(d, backend):
+    """Start the ``SHARDED_WORLD`` rank processes (:func:`sharded_rank`)
+    and wait for them; every one must exit 0 within the timeout, and none
+    outlives this call."""
+    procs = []
+    for r in range(SHARDED_WORLD):
+        code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
+                f"import chip_smoke; chip_smoke.sharded_rank({r}, "
+                f"{SHARDED_WORLD}, {d!r}, {backend!r})")
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", code], cwd=ROOT,
+            env=dict(os.environ, LOCAL_RANK=str(r))))
+    deadline = time.time() + SHARDED_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(deadline - time.time(), 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        fail(f"sharded: rank exit codes {codes}")
+
+
+def sharded_rank(rank, world, d, backend):
+    """One rank of phase 20: joins the world (a ``file://`` store in
+    ``d``) on its card, runs each plan of ``SHARDED_PLANS``
+    (:func:`_sharded_run`) and leaves its reports in ``d``; any failure
+    ends the process with a nonzero code."""
+    import traceback
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        dist.init_process_group(backend, init_method=f"file://{d}/rendezvous",
+                                rank=rank, world_size=world)
+        from repro_torch.launch.mesh import rank_device
+        torch.cuda.set_device(rank_device(torch.device("cuda")))
+        for name, overrides in SHARDED_PLANS.items():
+            _sharded_run(torch, rank, d, name, overrides, backend)
+        dist.barrier()
+        dist.destroy_process_group()
+    except BaseException:
+        traceback.print_exc()
+        sys.stdout.flush()
+        sys.stderr.flush()
+        os._exit(1)              # the other ranks would wait on this one
+
+
+def _block_errs(torch, local, whole, layouts, mesh, dev):
+    """Per leaf, the squared norms of (this rank's block - the same block
+    of ``whole``, a host tree) and of that block, on the card in fp32 and
+    summed in fp64 over the mesh, each distinct block once (the rank at
+    coordinate 0 along every axis the leaf is not split over counts it)
+    -> a (leaves, 2) float64 tensor."""
+    import torch.distributed as dist
+    sums = torch.zeros(len(local), 2, dtype=torch.float64, device=dev)
+    for i, (t, w, lay) in enumerate(zip(local, whole, layouts)):
+        if all(c == 0 for a, c in mesh.coords.items()
+               if a not in lay.split_axes):
+            b = lay.local(w).to(dev).float()
+            sums[i, 0] = (t.to(dev).float() - b).square().sum(
+                dtype=torch.float64)
+            sums[i, 1] = b.square().sum(dtype=torch.float64)
+    dist.all_reduce(sums)
+    return sums.cpu()
+
+
+def _sharded_run(torch, rank, d, name, overrides, backend):
+    """One plan on this rank: ``launch.train`` on ``h100x4`` with the
+    kernels' counts zeroed just before and read just after (the last
+    step profiled on rank 0); its step-1 gradients (the first
+    ``adamw_update``'s) and final params held block by block against the
+    one-card run's; for the TP plan, the params saved from the ranks'
+    blocks and restored onto a (4, 1) mesh bit for bit.  The report goes
+    to ``d/<name>_<rank>.json``."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import TorchMesh
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import param_specs
+    from repro_torch.sharding.planner import plan_layouts
+    from repro_torch.training import optimizer as opt
+    cfg = get_config("tinyllama-1.1b")
+    shape, _, ocfg, _ = _train_setup()
+    kernels = _train_kernels()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in kernels.values():
+        fn.launches = 0
+    grads, prof, t0 = [], {}, time.perf_counter()
+    with first_update_grads(grads), profiled_train_step(
+            torch, SHARDED_STEPS - 1 if rank == 0 else None, prof):
+        out = train(cfg, shape=shape, overrides=overrides, opt_cfg=ocfg,
+                    device="cuda", steps=SHARDED_STEPS, seed=0,
+                    mesh="h100x4", dist_backend=backend, verbose=rank == 0)
+    torch.cuda.synchronize(dev)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    if out["device"] != dev:
+        raise RuntimeError(f"rank {rank} trained on {out['device']}, not "
+                           f"on its card {dev}")
+    t_train, t0 = time.perf_counter() - t0, time.perf_counter()
+    mesh = TorchMesh(out["plan"].mesh)
+    lay = plan_layouts(out["plan"], cfg, param_specs(cfg), mesh)
+    ref = torch.load(f"{d}/reference.pt", mmap=True)
+    grad_sums = _block_errs(torch, grads[0], ref["grads"],
+                            opt.leaves(lay.opt), mesh, dev)
+    param_sums = _block_errs(torch, opt.leaves(out["params"]),
+                             ref["params"], opt.leaves(lay.params), mesh, dev)
+    del ref
+    report = {"plan": {k: v for k, v in out["plan"].describe().items()
+                       if k != "notes"},
+              "losses": [m["loss"] for m in out["metrics"]],
+              "walls": [m["wall_s"] for m in out["metrics"]],
+              "launches": launches, "peak": peak, "grant": out["grant"],
+              "held": out["held"], "device": str(dev), "profile": prof,
+              "grad_errs": (grad_sums[:, 0] / grad_sums[:, 1]).sqrt()
+              .tolist(),
+              "param_err": float((param_sums[:, 0].sum()
+                                  / param_sums[:, 1].sum()).sqrt())}
+    t_gates, t0 = time.perf_counter() - t0, time.perf_counter()
+    if name == "tp":
+        report["restored_41"], report["restored_one"] = _restore_checks(
+            torch, d, cfg, out, lay, dev, rank)
+    report["seconds"] = {"train": t_train, "gates": t_gates,
+                         "restore": time.perf_counter() - t0}
+    del out
+    with open(f"{d}/{name}_{rank}.json", "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+
+
+def _restore_checks(torch, d, cfg, out, lay, dev, rank):
+    """The TP plan's final params saved from the ranks' blocks (rank 0
+    writes the whole leaves), restored onto a (4, 1) mesh on every rank
+    and, with no mesh, whole in rank 0's process -> (whether every block
+    this rank restored is bit-equal to its block of the whole params; on
+    rank 0 whether the whole restore is bit-equal to them, else None)."""
+    import dataclasses
+    from repro_torch.checkpoint.checkpointer import (restore_checkpoint,
+                                                     save_checkpoint)
+    from repro_torch.core.materializer import MeshSpec
+    from repro_torch.launch.mesh import TorchMesh
+    from repro_torch.models.model import param_specs
+    from repro_torch.sharding.collectives import gather_full
+    from repro_torch.sharding.planner import plan_layouts
+    from repro_torch.training import optimizer as opt
+    ckpt = f"{d}/ckpt"
+    save_checkpoint(ckpt, SHARDED_STEPS, out["params"], extra={"plan": "tp"},
+                    layouts=lay.params)
+    spec41 = MeshSpec("h100x4_41", (4, 1), ("data", "model"))
+    lay41 = plan_layouts(dataclasses.replace(out["plan"], mesh=spec41), cfg,
+                         param_specs(cfg), TorchMesh(spec41)).params
+    specs = param_specs(cfg)
+    like41 = opt.tree_unflatten(specs, [
+        torch.empty(l41.local_shape(s.shape), dtype=torch.bfloat16,
+                    device=dev)
+        for s, l41 in zip(opt.leaves(specs), opt.leaves(lay41))])
+    restored, _, _ = restore_checkpoint(ckpt, SHARDED_STEPS, like41,
+                                        shardings=lay41)
+    whole = None
+    if rank == 0:
+        whole, _, _ = restore_checkpoint(ckpt, SHARDED_STEPS, opt.tree_map(
+            lambda s: torch.empty(s.shape, dtype=torch.bfloat16,
+                                  device=dev), specs))
+    eq41, eq_one = True, rank == 0 or None
+    for i, (r, p, lp, l41) in enumerate(zip(
+            opt.leaves(restored), opt.leaves(out["params"]),
+            opt.leaves(lay.params), opt.leaves(lay41))):
+        full = gather_full(p, lp)
+        eq41 = eq41 and torch.equal(r, l41.local(full))
+        if whole is not None:
+            eq_one = eq_one and torch.equal(opt.leaves(whole)[i], full)
+        del full
+    return eq41, eq_one
+
+
+def _sharded_gates(d, name, ref_losses):
+    """Phase 20's gates on one plan's rank reports (see the module doc);
+    returns rank 0's launch counts."""
+    from repro_torch.configs import get_config
+    reports = []
+    for r in range(SHARDED_WORLD):
+        with open(f"{d}/{name}_{r}.json") as f:
+            reports.append(json.load(f))
+    r0 = reports[0]
+    cfg = get_config("tinyllama-1.1b")
+    plan, losses = r0["plan"], r0["losses"]
+    per_mb = _attention_counts(cfg.num_layers)
+    want = {k: per_mb.get(k, 0) * plan["microbatch"] * SHARDED_STEPS
+            for k in r0["launches"]}
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    grad_err, param_err = max(r0["grad_errs"]), r0["param_err"]
+    prof, walls = r0["profile"], r0["walls"]
+    print(f"[sharded {name}] plan batch_axes={plan['batch_axes']} "
+          f"tp={plan['tp']} zero={plan['zero']} fsdp={plan['fsdp']} "
+          f"remat={plan['remat']} microbatch={plan['microbatch']}, est "
+          f"{plan['est_bytes_per_device'] / 2**30:.3f} GiB/device; peaks "
+          f"{[round(r['peak'] / 2**30, 3) for r in reports]} GiB on "
+          f"{[r['device'] for r in reports]}, grant "
+          f"{r0['grant'] / 2**30:.3f} GiB over {r0['held'] / 2**30:.3f} GiB "
+          f"held; losses {losses} (one card {ref_losses}, max rel "
+          f"{loss_err:.3e} <= {TRAIN_LOSS_RTOL}), params rel norm "
+          f"{param_err:.3e} <= {TRAIN_PARAM_RTOL}, step-1 grads worst rel "
+          f"norm {grad_err:.3e} <= {TRAIN_GRAD_RTOL}; step "
+          f"{prof['wall_ms'] / 1e3:.4f} s (the last, under rank 0's "
+          f"profiler; the runtime's walls {[round(w, 4) for w in walls]} "
+          f"count the profile's report too); launches {r0['launches']} "
+          f"expected {want}; rank 0's "
+          f"seconds {r0['seconds']} | {card_line()}", flush=True)
+    print(f"[sharded {name}] rank 0's profiled step: wall "
+          f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} ms; "
+          f"collectives: NCCL kernels {prof['nccl_ms']:.1f} ms "
+          f"({prof['nccl_ms'] / max(prof['busy_ms'], 1e-9):.4f} of the busy "
+          f"time), host time in gloo's collectives {prof['gloo_host_ms']:.1f}"
+          f" ms ({prof['gloo_host_ms'] / prof['wall_ms']:.4f} of the wall)",
+          flush=True)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        fail(f"sharded {name}: losses {losses} not finite or not decreasing")
+    if r0["launches"] != want:
+        fail(f"sharded {name}: rank 0's launch counts differ from what the "
+             "path implies")
+    if not all(r0["grant"] >= r["held"] >= r["peak"] for r in reports) or \
+            any(r["grant"] != r0["grant"] for r in reports):
+        fail(f"sharded {name}: the grant does not cover every rank's peak")
+    if not (loss_err <= TRAIN_LOSS_RTOL and param_err <= TRAIN_PARAM_RTOL
+            and grad_err <= TRAIN_GRAD_RTOL):
+        fail(f"sharded {name}: the ranks' run disagrees with one card's")
+    if name == "tp":
+        one = r0["restored_one"]
+        print(f"[sharded {name}] saved from the ranks' blocks, restored onto "
+              f"a (4, 1) mesh: bit-equal on "
+              f"{sum(r['restored_41'] for r in reports)} of {SHARDED_WORLD} "
+              f"ranks; whole in one process (rank 0's): bit-equal {one}",
+              flush=True)
+        if not (one and all(r["restored_41"] for r in reports)):
+            fail(f"sharded {name}: the restore is not bit-equal")
+    return r0["launches"]
 
 if __name__ == "__main__":
     main()

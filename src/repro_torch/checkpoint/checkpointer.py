@@ -17,6 +17,14 @@ no bfloat16, so a bf16 leaf is stored as its uint16 bits with
 dtype and the device of the matching leaf of the ``like`` tree.  Writes
 can run on a background thread (:class:`AsyncCheckpointer`) from a host
 copy taken before the call returns.
+
+A tree sharded over a mesh of ranks is saved with its ``layouts`` (the
+planner's ``Layout`` of each leaf): every rank takes part in gathering
+each whole leaf and rank 0 alone writes it, in the same format, so the
+cut does not depend on the mesh it was taken on.  ``restore_checkpoint``
+with ``shardings`` reads the whole leaves and keeps this rank's block of
+each under the new layouts -- onto any mesh (the reference's elastic
+restore).
 """
 
 from __future__ import annotations
@@ -30,6 +38,9 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.sharding.collectives import gather_full
 
 
 def _to_savable(t: torch.Tensor) -> Tuple[np.ndarray, str]:
@@ -57,9 +68,42 @@ def _flatten_with_paths(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     return [(prefix, tree)]
 
 
+def _gathered(tree: Any, layouts: Any) -> Optional[Any]:
+    """The whole leaves of a sharded tree (``layouts``: a tree of the same
+    structure) as host copies on rank 0 (None on the other ranks),
+    gathered one leaf at a time so that no rank holds more than one whole
+    leaf on its device; every rank must call it."""
+    rank0 = dist.get_rank() == 0
+    host = []
+    for (_, leaf), (_, lay) in zip(_flatten_with_paths(tree),
+                                   _flatten_with_paths(layouts)):
+        full = gather_full(leaf, lay)
+        if rank0:
+            host.append(full.detach().to("cpu", copy=True))
+        del full
+    return _rebuild(tree, iter(host)) if rank0 else None
+
+
+def _rebuild(like: Any, it) -> Any:
+    if isinstance(like, dict):
+        return {k: _rebuild(like[k], it) for k in sorted(like)}
+    return next(it)
+
+
 def save_checkpoint(ckpt_dir: str, step: int, tree: Any,
-                    extra: Optional[Dict] = None) -> str:
-    """Blocking save with atomic commit.  Returns the committed path."""
+                    extra: Optional[Dict] = None,
+                    layouts: Any = None) -> str:
+    """Blocking save with atomic commit.  Returns the committed path.
+    With ``layouts`` (a sharded tree), every rank must call it: the
+    whole leaves are gathered, rank 0 writes them, and every rank returns
+    once the cut is committed."""
+    if layouts is not None:
+        host = _gathered(tree, layouts)
+        final = os.path.join(ckpt_dir, f"step_{step:08d}")
+        if host is not None:
+            save_checkpoint(ckpt_dir, step, host, extra)
+        dist.barrier()
+        return final
     os.makedirs(ckpt_dir, exist_ok=True)
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
@@ -99,11 +143,14 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, step: Optional[int], like: Any
-                       ) -> Tuple[Any, Dict, int]:
+def restore_checkpoint(ckpt_dir: str, step: Optional[int], like: Any,
+                       shardings: Any = None) -> Tuple[Any, Dict, int]:
     """Restore into the structure of ``like`` (validates shapes; each leaf
     takes the dtype and device of its ``like`` leaf).  Returns (tree,
-    extra, step); ``step`` None means the latest."""
+    extra, step); ``step`` None means the latest.  With ``shardings`` (a
+    tree of the planner's ``Layout``s of ``like``'s structure) each leaf
+    is this rank's block of the saved whole leaf under its layout, and
+    ``like`` holds this rank's blocks."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -113,24 +160,29 @@ def restore_checkpoint(ckpt_dir: str, step: Optional[int], like: Any
         manifest = json.load(f)
     saved = {ent["key"]: ent for ent in manifest["leaves"]}
 
-    def load(key: str, leaf: torch.Tensor) -> torch.Tensor:
+    def load(key: str, leaf: torch.Tensor, layout) -> torch.Tensor:
         if key not in saved:
             raise KeyError(f"checkpoint missing leaf {key!r}")
         ent = saved[key]
         t = _from_saved(np.load(os.path.join(path, ent["file"]),
                                 allow_pickle=False), ent["dtype"])
+        whole = tuple(t.shape)
+        if layout is not None:
+            t = layout.local(t).contiguous()
         if tuple(t.shape) != tuple(leaf.shape):
-            raise ValueError(f"{key}: checkpoint shape {tuple(t.shape)} != "
-                             f"restore target {tuple(leaf.shape)}")
+            raise ValueError(f"{key}: checkpoint shape {whole} "
+                             f"({tuple(t.shape)} on this rank) != restore "
+                             f"target {tuple(leaf.shape)}")
         return t.to(device=leaf.device, dtype=leaf.dtype)
 
-    def build(tree, prefix):
+    def build(tree, lay, prefix):
         if isinstance(tree, dict):
-            return {k: build(v, f"{prefix}/{k}" if prefix else str(k))
+            return {k: build(v, None if lay is None else lay[k],
+                             f"{prefix}/{k}" if prefix else str(k))
                     for k, v in tree.items()}
-        return load(prefix, tree)
+        return load(prefix, tree, lay)
 
-    return build(like, ""), manifest["extra"], step
+    return build(like, shardings, ""), manifest["extra"], step
 
 
 def _host_copy(tree: Any) -> Any:
@@ -159,11 +211,19 @@ class AsyncCheckpointer:
             raise err
 
     def save(self, step: int, tree: Any, extra: Optional[Dict] = None,
-             block: bool = False):
+             block: bool = False, layouts: Any = None):
+        """With ``layouts`` (a sharded tree) every rank must call it: the
+        whole leaves are gathered here, on the calling thread, and rank 0
+        alone writes them."""
         self.wait()
         # host copy BEFORE returning control: the optimizer updates the
         # state in place, so the cut must not alias it
-        host_tree = _host_copy(tree)
+        if layouts is not None:
+            host_tree = _gathered(tree, layouts)
+            if host_tree is None:
+                return
+        else:
+            host_tree = _host_copy(tree)
 
         def work():
             try:

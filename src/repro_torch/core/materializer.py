@@ -5,7 +5,8 @@ The port's copy of ``repro/core/materializer.py``: the whole ``MeshSpec``,
 (``materialize``), overrides and compile-feedback ``escalate``.  The
 ladder is host arithmetic over the analytic profiles, so it gives the
 reference's plans and byte estimates exactly for any mesh it is handed;
-the port's mesh registry holds one mesh, the card (``H100``).
+the port's mesh registry holds one card (``H100``) and four cards of one
+host (``H100X4``).
 
 The paper adapts, per invocation, which components co-locate vs. get
 placed remotely, component sizes from profiled history, and local- vs.
@@ -25,9 +26,9 @@ only when the proactive per-device memory estimate (profiles + history)
 exceeds the HBM budget.  A measured footprint over the budget (the
 port's counterpart of the reference's ``compiled.memory_analysis()`` is
 ``torch.cuda.max_memory_allocated``) feeds ``escalate``, which moves one
-rung up (reactive auto-scaling, §5.1.2).  Executors bind a plan on one
-device only: a plan of a multi-device mesh is refused at bind time until
-a multi-card slice.
+rung up (reactive auto-scaling, §5.1.2).  The ``TorchExecutor`` binds a
+training plan of a multi-device mesh inside a ``torch.distributed``
+world of that many ranks, and refuses one outside it.
 """
 
 from __future__ import annotations
@@ -79,10 +80,13 @@ class MeshSpec:
         return tuple(a for a in self.axes if a != "model")
 
 
-#: the one card the port runs on
+#: one card
 H100 = MeshSpec("h100", (1, 1), ("data", "model"))
+#: four cards of one host, all to all over NVLink, as a (2, 2) mesh: a
+#: training plan binds on it through ``torch.distributed``, one rank a card
+H100X4 = MeshSpec("h100x4", (2, 2), ("data", "model"))
 
-MESHES = {m.name: m for m in (H100,)}
+MESHES = {m.name: m for m in (H100, H100X4)}
 
 
 @dataclass

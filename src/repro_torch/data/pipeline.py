@@ -4,7 +4,9 @@ the same seed gives the same batches in both packages.
 Synthetic data is generated from a seeded Markov-ish process so training
 loss *decreases* measurably (structure to learn) while remaining fully
 offline/deterministic.  The loader prefetches on a background thread
-(double buffering) and slices per-host shards for multi-host launches."""
+(double buffering) and slices per-host shards for multi-host launches;
+on a mesh of ranks each rank takes its block of the global batch's rows
+(:func:`rank_rows`)."""
 
 from __future__ import annotations
 
@@ -61,6 +63,22 @@ class SyntheticLM:
         """Random access by step index: exact replay after restart (the
         recovery path re-reads the same batches from the last cut)."""
         return self._batch(step)
+
+
+def rank_rows(batch: Dict[str, np.ndarray], blocks: int,
+              index: int) -> Dict[str, np.ndarray]:
+    """Block ``index`` of ``blocks`` contiguous blocks of rows of every
+    array of a global batch: a rank's rows when the batch dim is split
+    over ``blocks`` ranks (the planner's ``batch_spec``; every rank draws
+    the same global batch from the seed)."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % blocks:
+            raise ValueError(f"{k}: {v.shape[0]} rows do not split into "
+                             f"{blocks} blocks")
+        n = v.shape[0] // blocks
+        out[k] = v[index * n:(index + 1) * n]
+    return out
 
 
 class PrefetchLoader:

@@ -2,8 +2,9 @@
 runtime.
 
 Counterpart of ``repro/launch/train.py``: it describes the training
-application and submits it to a one-pod ``Cluster`` on the card's mesh
-(``H100``) with a :class:`TorchExecutor`; the cluster sizes it from the
+application and submits it to a one-pod ``Cluster`` on a mesh (``--mesh``:
+one card, ``h100``, by default) with a :class:`TorchExecutor`; the
+cluster sizes it from the
 history store (§9.3), places it at the footprint of the plan it will
 run (two-level scheduler), materializes that plan (the locality ladder
 with the given ``overrides``), and the executor runs the step loop:
@@ -24,6 +25,19 @@ request it raises.
         --device cpu --steps 8
     python -m repro_torch.launch.train --arch gemma3-12b --reduced \
         --device cpu --steps 8
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train \
+        --mesh h100x4 --batch 8
+
+On a mesh of several cards (``h100x4``: (2, 2) over ``("data",
+"model")``) every rank runs this same program: it joins the
+``torch.distributed`` world (``--dist-backend``, NCCL by default, from
+``torchrun``'s environment, unless the caller joined one already),
+builds the same one-pod ``Cluster`` and submits the same application,
+and the executor binds the rank's block of the plan on its own card
+(``cuda:{local rank}``; with fewer cards than ranks, which only gloo
+allows, every rank on ``cuda:0``).  Only rank 0 prints and saves the
+sizing history.  There the ladder's own plan is taken unless
+``overrides`` are given.
 
 The MoE family (qwen2-moe-a2.7b, dbrx-132b) trains like any LM here, and
 phi-3-vision-4.2b on its text alone: the synthetic batches hold tokens
@@ -55,10 +69,13 @@ import argparse
 import dataclasses
 from typing import Any, Dict, Optional, Tuple, Union
 
+import torch.distributed as dist
+
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs import SHAPES, ModelConfig, ShapeConfig
 from repro_torch.core.history import HistoryStore
-from repro_torch.core.materializer import H100, materialize
+from repro_torch.core.materializer import H100, MESHES, MeshSpec, materialize
+from repro_torch.launch.mesh import init_world
 from repro_torch.models.model import check_trainable
 from repro_torch.runtime import Application, Cluster, TorchExecutor
 from repro_torch.training import optimizer as opt
@@ -75,17 +92,19 @@ def one_card_overrides(shape: ShapeConfig) -> Dict[str, Any]:
 
 def training_app(arch: Union[str, ModelConfig], shape: ShapeConfig, *,
                  reduced: bool = False, overrides: Optional[Dict] = None,
-                 history: Optional[HistoryStore] = None
+                 history: Optional[HistoryStore] = None,
+                 mesh: MeshSpec = H100
                  ) -> Tuple[Application, Optional[Dict]]:
     """The training application ``train`` submits and the plan overrides
-    it submits it with (``one_card_overrides`` for a full-size run given
-    none).  The application's demand is the estimate of that plan, not
-    the profile's estimate for the whole batch without remat."""
-    if overrides is None and not reduced:
+    it submits it with (``one_card_overrides`` for a full-size run on one
+    card given none).  The application's demand is the per-device
+    estimate of that plan on ``mesh``, not the profile's estimate for the
+    whole batch without remat."""
+    if overrides is None and not reduced and mesh.num_devices == 1:
         overrides = one_card_overrides(shape)
     app = Application.train(arch, shape=shape, reduced=reduced)
     check_trainable(app.config)
-    app.demand_bytes = materialize(app.config, app.shape, H100,
+    app.demand_bytes = materialize(app.config, app.shape, mesh,
                                    history=history, overrides=overrides
                                    ).est_bytes_per_device
     return app, overrides
@@ -98,7 +117,9 @@ def train(arch: Union[str, ModelConfig] = "tinyllama-1.1b", *,
           reduced: bool = False, device: DeviceLike = None, steps: int = 100,
           seed: int = 0, ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
           resume: bool = False, verbose: bool = True,
-          history_dir: Optional[str] = None) -> Dict[str, Any]:
+          history_dir: Optional[str] = None,
+          mesh: Union[str, MeshSpec] = "h100",
+          dist_backend: str = "nccl") -> Dict[str, Any]:
     """Train ``steps`` steps (counting from a resumed cut) and return the
     per-step metrics (floats), the final params and optimizer state, the
     model, plan and shape used, and the job's final grant and the bytes
@@ -114,13 +135,24 @@ def train(arch: Union[str, ModelConfig] = "tinyllama-1.1b", *,
     and grows its grant to what it holds on the card.  ``seed`` seeds
     the weights.  Checkpoints go to
     ``ckpt_dir``/<app name>; the sizing history lives in ``history_dir``
-    (loaded, and saved at the end) or in memory when None."""
+    (loaded, and saved at the end) or in memory when None.
+
+    ``mesh`` (a name in ``MESHES`` or a ``MeshSpec``) of several devices
+    runs on every rank of a ``torch.distributed`` world of that size
+    (joined here over ``dist_backend`` from the environment when this
+    process has not joined one); the returned params and optimizer state
+    are then this rank's blocks."""
     dev = resolve_device(device)
+    mesh = MESHES[mesh] if isinstance(mesh, str) else mesh
+    if mesh.num_devices > 1:
+        init_world(dist_backend)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    verbose = verbose and rank0
     history = HistoryStore(history_dir)
     app, overrides = training_app(
         arch, SHAPES[shape] if isinstance(shape, str) else shape,
-        reduced=reduced, overrides=overrides, history=history)
-    cluster = Cluster(pods=1, mesh=H100, history=history,
+        reduced=reduced, overrides=overrides, history=history, mesh=mesh)
+    cluster = Cluster(pods=1, mesh=mesh, history=history,
                       executor=TorchExecutor(device=dev, seed=seed,
                                              ckpt_dir=ckpt_dir,
                                              ckpt_every=ckpt_every,
@@ -131,15 +163,17 @@ def train(arch: Union[str, ModelConfig] = "tinyllama-1.1b", *,
             f"{handle.app.name} at {handle.app.shape.name} (batch "
             f"{handle.app.shape.global_batch}): demand "
             f"{handle.job.demand_bytes / 2**30:.2f} GiB does not fit the "
-            f"card ({H100.hbm_per_device / 2**30:.2f} GiB); cut the batch "
+            f"card ({mesh.hbm_per_device / 2**30:.2f} GiB); cut the batch "
             "or add microbatches")
     cfg, sh, plan = handle.app.config, handle.app.shape, handle.plan
     if verbose:
         print(f"[plan] {cfg.name} {sh.name} (seq {sh.seq_len} x batch "
-              f"{sh.global_batch}) remat={plan.remat} "
+              f"{sh.global_batch}) on {mesh.name} {mesh.shape}: "
+              f"batch_axes={plan.batch_axes} tp={plan.tp} zero={plan.zero} "
+              f"fsdp={plan.fsdp} remat={plan.remat} "
               f"microbatch={plan.microbatch} est="
               f"{plan.est_bytes_per_device / 2**30:.2f} GiB/device "
-              f"notes={plan.notes} on {dev}")
+              f"notes={plan.notes} on {cluster.executor.device}")
         print(f"[placed] pod={handle.pod} "
               f"demand={handle.job.demand_bytes / 2**30:.2f} GiB")
         if handle.cursor:
@@ -161,11 +195,12 @@ def train(arch: Union[str, ModelConfig] = "tinyllama-1.1b", *,
     st = handle.exec_state
     out = {"metrics": metrics, "params": st["params"],
            "opt_state": st["opt_state"], "model": st["model"],
-           "plan": plan, "shape": sh, "device": dev,
+           "plan": plan, "shape": sh, "device": cluster.executor.device,
            "cursor": handle.cursor, "grant": handle.job.demand_bytes,
            "held": held}
     handle.release()
-    history.save()
+    if rank0:
+        history.save()
     return out
 
 
@@ -186,6 +221,12 @@ def main(argv=None):
                     help="sizing-history directory (loaded and saved); "
                          "default: in memory for this run")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default="h100", choices=sorted(MESHES),
+                    help="one card (h100), or four as a (2, 2) mesh "
+                         "(h100x4, under torchrun --nproc-per-node 4)")
+    ap.add_argument("--dist-backend", default="nccl",
+                    help="torch.distributed backend of a multi-card mesh "
+                         "(gloo lets ranks share a card)")
     args = ap.parse_args(argv)
     shape = SHAPES[args.shape]
     if args.batch is not None:
@@ -194,11 +235,14 @@ def main(argv=None):
     out = train(args.arch, shape=shape, reduced=args.reduced,
                 device=args.device, steps=args.steps, seed=args.seed,
                 ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
-                resume=args.resume, history_dir=args.history_dir)
+                resume=args.resume, history_dir=args.history_dir,
+                mesh=args.mesh, dist_backend=args.dist_backend)
     losses = [m["loss"] for m in out["metrics"]]
-    if losses:
+    if losses and (not dist.is_initialized() or dist.get_rank() == 0):
         print(f"[done] loss {losses[0]:.4f} -> {losses[-1]:.4f} over "
               f"{len(losses)} steps")
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

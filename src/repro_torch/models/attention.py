@@ -20,11 +20,14 @@ GQA is handled inside the kernels, without expanding KV heads.
 
 Where the reference returns an updated copy of the dense cache, the port
 writes the new token's K and V into the cache tensors in place.
+
+``self_attention_train`` with a :class:`TensorParallel` group runs this
+rank's heads when the planner split them (:func:`tp_weights`).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 
@@ -34,6 +37,8 @@ from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention_fwd)
 from repro_torch.models.layers import (CacheSpec, Spec, apply_rope,
                                        needs_grad, rms_norm, rms_norm_spec)
+from repro_torch.sharding.collectives import (TensorParallel, copy_to_tp,
+                                              reduce_from_tp)
 
 Params = Dict[str, Any]
 
@@ -44,8 +49,10 @@ def attn_specs(cfg: ModelConfig, cross: bool = False) -> Params:
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
 
     def proj():
-        return {"wq": Spec((d, h, hd)), "wk": Spec((d, kv, hd)),
-                "wv": Spec((d, kv, hd)), "wo": Spec((h, hd, d))}
+        return {"wq": Spec((d, h, hd), ("embed", "q_heads", "head_dim")),
+                "wk": Spec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+                "wv": Spec((d, kv, hd), ("embed", "kv_heads", "head_dim")),
+                "wo": Spec((h, hd, d), ("q_heads", "head_dim", "embed"))}
 
     p = proj()
     if cfg.use_qk_norm:
@@ -96,17 +103,50 @@ def attn_out(p: Params, o: torch.Tensor, prefix: str = "") -> torch.Tensor:
     return torch.matmul(o.reshape(*o.shape[:-2], h * hd), w.reshape(h * hd, d))
 
 
+def tp_weights(p: Params, cfg: ModelConfig, tp: TensorParallel) -> Params:
+    """The weights of this rank's q heads when the planner split them
+    over the group (``p["wq"]`` holds ``h`` of ``cfg.num_heads``): the K/V
+    heads they read -- this rank's own when the K/V heads were split too,
+    else the ones its q heads map to, picked from the replicated ``wk`` /
+    ``wv`` (KV heads that do not divide the group) -- and the qk-norm
+    gains.  A replicated weight applied to this rank's heads only enters
+    through :func:`copy_to_tp`, so its gradient is summed over the
+    group."""
+    h, kv = p["wq"].shape[1], p["wk"].shape[1]
+    out = dict(p)
+    if kv == cfg.num_kv_heads:
+        g = cfg.num_heads // cfg.num_kv_heads
+        h0 = tp.rank * h
+        if h % g and g % h:
+            raise ValueError(f"{cfg.name}: {h} local q heads of group size "
+                             f"{g} do not pair with whole K/V heads")
+        sel = slice(h0 // g, h0 // g + max(h // g, 1))
+        for name in ("wk", "wv"):
+            out[name] = copy_to_tp(p[name], tp)[:, sel]
+    for name in ("q_norm", "k_norm"):
+        if name in p:
+            out[name] = copy_to_tp(p[name], tp)
+    return out
+
+
 def self_attention_train(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                          causal: bool = True, window: int = 0,
-                         prefix: str = "") -> torch.Tensor:
+                         prefix: str = "",
+                         tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """x: (B, S, d) at positions 0..S-1 -> (B, S, d): projections, RoPE,
     attention (the kernels on CUDA, whatever the reference's ``impl``
     would pick), and the output projection; ``prefix`` picks a decoder
-    block's ``self_`` weights."""
+    block's ``self_`` weights.  With ``tp`` and split heads, this rank's
+    heads: the input enters through :func:`copy_to_tp` and the output
+    projection's partial sums are summed over the group."""
     positions = torch.arange(x.shape[1], device=x.device)
+    split = tp is not None and p[prefix + "wq"].shape[1] < cfg.num_heads
+    if split:
+        p, x = tp_weights(p, cfg, tp), copy_to_tp(x, tp)
     q, k, v = project_qkv(p, x, cfg, positions, prefix)
     o = sdpa(q, k, v, causal=causal, window=window)
-    return attn_out(p, o, prefix)
+    out = attn_out(p, o, prefix)
+    return reduce_from_tp(out, tp) if split else out
 
 
 # ---------------------------------------------------------------------------

@@ -8,6 +8,12 @@ differentiated by autograd, on CPU tensors); the large products stay
 ``torch.matmul`` (the reference leaves them to XLA).  Where no gradient
 is taken (serving), ``rms_norm`` calls the kernel's wrapper directly and
 builds no autograd node.
+
+The functions that take ``tp`` (a :class:`TensorParallel` group) run
+this rank's part of a tensor-parallel layer when one is given: the
+gated MLP column-parallel into ``wi_*`` and row-parallel out of ``wo``,
+the embedding and the CE vocab-parallel; without one they are the
+one-card code, with no collective.
 """
 
 from __future__ import annotations
@@ -16,17 +22,41 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch.kernels.rmsnorm import RMSNorm, rmsnorm
+from repro_torch.sharding.collectives import (TensorParallel, all_reduce,
+                                              copy_to_tp, reduce_from_tp)
 
 Params = Dict[str, Any]
 
 
 class Spec(NamedTuple):
-    """Parameter leaf spec: shape + init std (0 = zeros)."""
+    """Parameter leaf spec: shape, the reference's logical axis names (one
+    per dim, ``None`` for a dim it names none; ``axes=None`` names none at
+    all) and init std (0 = zeros).  The sharding planner reads the axes;
+    init reads only shape and std."""
     shape: Tuple[int, ...]
+    axes: Optional[Tuple[Optional[str], ...]] = None
     std: float = 0.02
+
+
+def spec_axes(spec: Spec) -> Tuple[Optional[str], ...]:
+    """A spec's logical axes, one per dim."""
+    if spec.axes is None:
+        return (None,) * len(spec.shape)
+    if len(spec.axes) != len(spec.shape):
+        raise ValueError(f"spec {spec.shape} names {len(spec.axes)} axes "
+                         f"{spec.axes}")
+    return tuple(spec.axes)
+
+
+def logical_axes(specs):
+    """Spec tree -> logical-axes tree (tuples of axis names)."""
+    if isinstance(specs, Spec):
+        return spec_axes(specs)
+    return {k: logical_axes(v) for k, v in specs.items()}
 
 
 class CacheSpec(NamedTuple):
@@ -95,7 +125,7 @@ def param_bytes(specs, bytes_per_param: int = 2) -> int:
 
 
 def rms_norm_spec(d: int) -> Spec:
-    return Spec((d,), std=0.0)       # zero-init: (1+g) parameterization
+    return Spec((d,), ("embed",), std=0.0)   # zero-init: (1+g) form
 
 
 def rms_norm(x: torch.Tensor, gain: torch.Tensor,
@@ -169,19 +199,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 
 
 def gated_mlp_specs(d_model: int, d_ff: int) -> Params:
-    return {"wi_gate": Spec((d_model, d_ff)), "wi_up": Spec((d_model, d_ff)),
-            "wo": Spec((d_ff, d_model))}
+    return {"wi_gate": Spec((d_model, d_ff), ("embed", "ffn")),
+            "wi_up": Spec((d_model, d_ff), ("embed", "ffn")),
+            "wo": Spec((d_ff, d_model), ("ffn", "embed"))}
 
 
-def gated_mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+def gated_mlp(p: Params, x: torch.Tensor,
+              tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """With ``tp``, ``p`` holds this rank's ffn columns: the replicated
+    input enters through :func:`copy_to_tp` and the partial outputs are
+    summed over the group."""
+    if tp is not None:
+        x = copy_to_tp(x, tp)
     g = torch.matmul(x, p["wi_gate"])
     u = torch.matmul(x, p["wi_up"])
-    return torch.matmul(F.silu(g) * u, p["wo"])
+    y = torch.matmul(F.silu(g) * u, p["wo"])
+    return y if tp is None else reduce_from_tp(y, tp)
 
 
 def mlp_specs(d_model: int, d_ff: int) -> Params:
-    return {"wi": Spec((d_model, d_ff)), "bi": Spec((d_ff,), std=0.0),
-            "wo": Spec((d_ff, d_model)), "bo": Spec((d_model,), std=0.0)}
+    return {"wi": Spec((d_model, d_ff), ("embed", "ffn")),
+            "bi": Spec((d_ff,), ("ffn",), std=0.0),
+            "wo": Spec((d_ff, d_model), ("ffn", "embed")),
+            "bo": Spec((d_model,), ("embed",), std=0.0)}
 
 
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
@@ -193,14 +233,26 @@ def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed_specs(vocab: int, d_model: int, tie: bool) -> Params:
-    out = {"tok": Spec((vocab, d_model))}
+    out = {"tok": Spec((vocab, d_model), ("vocab", "embed"))}
     if not tie:
-        out["head"] = Spec((d_model, vocab))
+        out["head"] = Spec((d_model, vocab), ("embed", "vocab"))
     return out
 
 
-def embed(p: Params, tokens: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
-    x = p["tok"][tokens]
+def embed(p: Params, tokens: torch.Tensor, scale: float = 1.0,
+          tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """With ``tp``, ``p["tok"]`` holds this rank's run of vocab rows: ids
+    outside it look up zeros, and the rows are summed over the group (one
+    rank holds each id, so the sum is exact)."""
+    if tp is None:
+        x = p["tok"][tokens]
+    else:
+        rows = p["tok"].shape[0]
+        ids = tokens.long() - tp.rank * rows
+        inside = (ids >= 0) & (ids < rows)
+        x = p["tok"][ids.clamp(0, rows - 1)] * inside[..., None].to(
+            p["tok"].dtype)
+        x = reduce_from_tp(x, tp)
     if scale != 1.0:
         x = (x.float() * scale).to(x.dtype)
     return x
@@ -218,22 +270,35 @@ def unembed(p: Params, x: torch.Tensor,
     return logits
 
 
-def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+def token_nll(logits: torch.Tensor, labels: torch.Tensor,
+              tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """Per-position negative log-likelihood, fp32: logsumexp minus the
-    label logit."""
+    label logit.  With ``tp``, ``logits`` are this rank's run of the vocab:
+    the max and the sum of exponentials are reduced over the group, and
+    the label's logit comes from the rank that holds it."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    return lse - logits.gather(-1, labels.long()[..., None])[..., 0]
+    if tp is None:
+        lse = torch.logsumexp(logits, dim=-1)
+        return lse - logits.gather(-1, labels.long()[..., None])[..., 0]
+    v = logits.shape[-1]
+    m = all_reduce(logits.detach().amax(-1), tp.group, dist.ReduceOp.MAX)
+    lse = m + reduce_from_tp((logits - m[..., None]).exp().sum(-1), tp).log()
+    ids = labels.long() - tp.rank * v
+    inside = (ids >= 0) & (ids < v)
+    lab = logits.gather(-1, ids.clamp(0, v - 1)[..., None])[..., 0]
+    return lse - reduce_from_tp(lab * inside, tp)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                          mask: Optional[torch.Tensor] = None
+                          mask: Optional[torch.Tensor] = None,
+                          tp: Optional[TensorParallel] = None
                           ) -> torch.Tensor:
     """Mean CE over valid positions (:func:`token_nll`).  logits fp32
     (..., V); labels (...) integer; mask (...) or None.  (The reference
     contracts with a one-hot to keep a vocab-sharded gather off its SPMD
-    partitioner; a gather is exact and the port is not sharded.)"""
-    nll = token_nll(logits, labels)
+    partitioner; a gather is exact, and the port's vocab-parallel CE takes
+    the label's logit from the rank that holds it.)"""
+    nll = token_nll(logits, labels, tp)
     if mask is not None:
         mask = mask.float()
         return (nll * mask).sum() / mask.sum().clamp(min=1.0)

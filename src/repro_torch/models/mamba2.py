@@ -43,18 +43,19 @@ def mamba2_specs(cfg: ModelConfig) -> Params:
     d_inner, h, _, n = mamba_dims(cfg)
     conv_dim = d_inner + 2 * n  # x, B, C share the depthwise conv
     return {
-        "w_in_z": Spec((d, d_inner)),
-        "w_in_x": Spec((d, d_inner)),
-        "w_in_b": Spec((d, n)),
-        "w_in_c": Spec((d, n)),
-        "w_in_dt": Spec((d, h)),
-        "conv_w": Spec((cfg.ssm.conv_width, conv_dim)),
-        "conv_b": Spec((conv_dim,), std=0.0),
-        "a_log": Spec((h,), std=0.02),
-        "dt_bias": Spec((h,), std=0.02),
-        "d_skip": Spec((h,), std=0.02),
-        "norm": Spec((d_inner,), std=0.0),
-        "w_out": Spec((d_inner, d)),
+        "w_in_z": Spec((d, d_inner), ("embed", "ssm_inner")),
+        "w_in_x": Spec((d, d_inner), ("embed", "ssm_inner")),
+        "w_in_b": Spec((d, n), ("embed", "ssm_state")),
+        "w_in_c": Spec((d, n), ("embed", "ssm_state")),
+        "w_in_dt": Spec((d, h), ("embed", "ssm_heads")),
+        "conv_w": Spec((cfg.ssm.conv_width, conv_dim),
+                       ("conv_w", "ssm_conv")),
+        "conv_b": Spec((conv_dim,), ("ssm_conv",), std=0.0),
+        "a_log": Spec((h,), ("ssm_heads",), std=0.02),
+        "dt_bias": Spec((h,), ("ssm_heads",), std=0.02),
+        "d_skip": Spec((h,), ("ssm_heads",), std=0.02),
+        "norm": Spec((d_inner,), ("ssm_inner",), std=0.0),
+        "w_out": Spec((d_inner, d), ("ssm_inner", "embed")),
     }
 
 

@@ -30,6 +30,7 @@ from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, ATTN_SHARED,
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import ImplConfig
+from repro_torch.sharding.collectives import TensorParallel, copy_to_tp
 
 Params = Dict[str, Any]
 MOE_AUX_WEIGHT = 0.01           # the balance loss's weight in the training loss
@@ -124,28 +125,54 @@ def layer_params(params: Params, cfg: ModelConfig) -> List[Params]:
     return out
 
 
-def embed_tokens(cfg: ModelConfig, params: Params,
-                 tokens: torch.Tensor) -> torch.Tensor:
+def _vocab_split(cfg: ModelConfig, params: Params,
+                 tp: Optional[TensorParallel]) -> Optional[TensorParallel]:
+    """``tp`` when the planner split the vocab over it, else None."""
+    if tp is None or params["embed"]["tok"].shape[0] == cfg.vocab_size:
+        return None
+    return tp
+
+
+def embed_tokens(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                 tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """Token embedding, times ``sqrt(d_model)`` where the config asks for
-    gemma's scale."""
+    gemma's scale; vocab-parallel over ``tp`` where the vocab is split."""
     scale = math.sqrt(cfg.d_model) if cfg.scale_embed else 1.0
-    return L.embed(params["embed"], tokens, scale)
+    return L.embed(params["embed"], tokens, scale,
+                   _vocab_split(cfg, params, tp))
 
 
 def _shared(params: Params) -> Params:
     return {k: params[k] for k in ("shared_attn",) if k in params}
 
 
+#: the block kinds whose training forward runs tensor-parallel
+TP_KINDS = (ATTN_GLOBAL, ATTN_LOCAL)
+
+
 class Model:
     """The reference's ``Model``: the training loss and the dense serving
     entry points (``prefill``, ``decode_step``), functions over a
     parameter tree with the execution strategy of an :class:`ImplConfig`.
-    The serving entry points write into a dense cache tree in place."""
+    The serving entry points write into a dense cache tree in place.
 
-    def __init__(self, cfg: ModelConfig, impl: Optional[ImplConfig] = None):
+    With ``tp`` (the rank's :class:`TensorParallel` group), ``loss_fn``
+    runs on this rank's blocks of the planner's compute layout: the heads,
+    ffn columns and vocab rows it split over the group, the rest whole.
+    That covers the attention + MLP stacks (``TP_KINDS``); without ``tp``
+    no collective runs."""
+
+    def __init__(self, cfg: ModelConfig, impl: Optional[ImplConfig] = None,
+                 tp: Optional[TensorParallel] = None):
         check_family(cfg)
+        if tp is not None and any(k not in TP_KINDS for k in cfg.pattern):
+            raise NotImplementedError(
+                f"{cfg.name}: the tensor-parallel forward covers attention "
+                f"+ MLP stacks ({TP_KINDS}); pattern {cfg.pattern} trains "
+                "data-parallel (tp=False)")
         self.cfg = cfg
         self.impl = impl or ImplConfig()
+        self.tp = tp
 
     # -- positions (non-RoPE stacks: rwkv6, whisper) -------------------------
     def _add_positional(self, x: torch.Tensor, offset: int = 0
@@ -270,7 +297,7 @@ class Model:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for i, kind in enumerate(cfg.pattern):
                 x, a = T.apply_block_train(cfg, kind, bp[f"p{i}_{kind}"], x,
-                                           shared, enc_out)
+                                           shared, enc_out, self.tp)
                 aux = aux + a
             return x, aux
 
@@ -292,7 +319,7 @@ class Model:
         the text alone); an encoder-decoder needs "enc_feats" (B, T, d),
         the encoder's input frames."""
         cfg = self.cfg
-        x = embed_tokens(cfg, params, batch["tokens"])
+        x = embed_tokens(cfg, params, batch["tokens"], self.tp)
         n_img = 0
         if cfg.family == "vlm" and "img_feats" in batch:
             x = torch.cat([self._vlm_prefix(params, batch["img_feats"]), x],
@@ -320,19 +347,23 @@ class Model:
         """CE over the vocab head.  With ``impl.loss_chunk`` > 0 dividing
         the sequence, the unembed and CE run over sequence chunks, each
         recomputed in the backward, so the fp32 logits (B, S, V) never
-        exist at once."""
+        exist at once.  Vocab-parallel where the planner split the vocab
+        over ``tp``: each rank's logits are its run of the vocab."""
         cfg = self.cfg
         c = self.impl.loss_chunk
         s = x.shape[1]
+        tp = _vocab_split(cfg, params, self.tp)
+        if tp is not None:
+            x = copy_to_tp(x, tp)
         if c <= 0 or s <= c or s % c:
             logits = L.unembed(params["embed"], x, cfg.logit_softcap)
-            return L.softmax_cross_entropy(logits, labels, mask)
+            return L.softmax_cross_entropy(logits, labels, mask, tp)
         m = (mask.float() if mask is not None
              else torch.ones(labels.shape, device=x.device))
 
         def chunk(xi, li, mi):
             logits = L.unembed(params["embed"], xi, cfg.logit_softcap)
-            return (L.token_nll(logits, li) * mi).sum()
+            return (L.token_nll(logits, li, tp) * mi).sum()
 
         tot = sum(checkpoint(chunk, x[:, i:i + c], labels[:, i:i + c],
                              m[:, i:i + c], use_reentrant=False)

@@ -21,7 +21,7 @@ prefill decides the tokens served:
   and rounding once) is not.
 
 The expert-parallel dispatches (the reference's psum and a2a shard_map
-paths) need a mesh of several cards and wait for the multi-card slice.
+paths) need a mesh of several cards and wait for ROADMAP item A8b.
 """
 
 from __future__ import annotations
@@ -44,13 +44,15 @@ def moe_specs(cfg: ModelConfig) -> Params:
     m = cfg.moe
     d = cfg.d_model
     e = padded_num_experts(m.num_experts)
-    p: Params = {"router": Spec((d, e)),
-                 "we_gate": Spec((e, d, m.d_expert)),
-                 "we_up": Spec((e, d, m.d_expert)),
-                 "we_down": Spec((e, m.d_expert, d))}
+    p: Params = {
+        "router": Spec((d, e), ("embed", "experts")),
+        "we_gate": Spec((e, d, m.d_expert), ("experts", "embed", "expert_ffn")),
+        "we_up": Spec((e, d, m.d_expert), ("experts", "embed", "expert_ffn")),
+        "we_down": Spec((e, m.d_expert, d),
+                        ("experts", "expert_ffn", "embed"))}
     if m.num_shared_experts > 0:
         p["shared"] = gated_mlp_specs(d, m.d_shared_expert)
-        p["shared_gate"] = Spec((d, 1))
+        p["shared_gate"] = Spec((d, 1), ("embed", None))
     return p
 
 
@@ -171,8 +173,8 @@ def moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if shard_ctx is not None:
         raise NotImplementedError(
             "moe_block: the expert-parallel dispatch over a mesh comes with "
-            "the multi-card slice (ROADMAP item A8); the port runs the "
-            "single-shard path")
+            "the multi-card slice of expert parallelism (ROADMAP item A8b); "
+            "the port runs the single-shard path")
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
     m = cfg.moe

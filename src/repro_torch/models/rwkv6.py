@@ -40,22 +40,22 @@ def rwkv6_specs(cfg: ModelConfig) -> Params:
     d, h, hd, f = cfg.d_model, cfg.num_heads, cfg.head_dim, cfg.d_ff
     return {
         # time-mix
-        "mu": Spec((5, d), std=0.02),                 # r, k, v, w, g shifts
-        "wr": Spec((d, h, hd)),
-        "wk": Spec((d, h, hd)),
-        "wv": Spec((d, h, hd)),
-        "wg": Spec((d, h, hd)),
-        "wo": Spec((h, hd, d)),
-        "w0": Spec((h, hd), std=0.02),
-        "wa": Spec((d, DECAY_LORA)),                  # decay LoRA in
-        "wb": Spec((DECAY_LORA, h, hd)),
-        "bonus_u": Spec((h, hd), std=0.02),
-        "ln_x": Spec((h, hd), std=1.0),
+        "mu": Spec((5, d), (None, "embed"), std=0.02),  # r,k,v,w,g shifts
+        "wr": Spec((d, h, hd), ("embed", "q_heads", "head_dim")),
+        "wk": Spec((d, h, hd), ("embed", "q_heads", "head_dim")),
+        "wv": Spec((d, h, hd), ("embed", "q_heads", "head_dim")),
+        "wg": Spec((d, h, hd), ("embed", "q_heads", "head_dim")),
+        "wo": Spec((h, hd, d), ("q_heads", "head_dim", "embed")),
+        "w0": Spec((h, hd), ("q_heads", "head_dim"), std=0.02),
+        "wa": Spec((d, DECAY_LORA), ("embed", "lora")),  # decay LoRA in
+        "wb": Spec((DECAY_LORA, h, hd), ("lora", "q_heads", "head_dim")),
+        "bonus_u": Spec((h, hd), ("q_heads", "head_dim"), std=0.02),
+        "ln_x": Spec((h, hd), ("q_heads", "head_dim"), std=1.0),
         # channel-mix
-        "mu_c": Spec((2, d), std=0.02),
-        "ck": Spec((d, f)),
-        "cv": Spec((f, d)),
-        "cr": Spec((d, d)),
+        "mu_c": Spec((2, d), (None, "embed"), std=0.02),
+        "ck": Spec((d, f), ("embed", "ffn")),
+        "cv": Spec((f, d), ("ffn", "embed")),
+        "cr": Spec((d, d), ("embed", "embed2")),
     }
 
 

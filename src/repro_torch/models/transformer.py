@@ -96,8 +96,8 @@ def apply_norm(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def norm_specs(cfg: ModelConfig) -> Params:
     if cfg.family == "audio":
-        return {"g": L.Spec((cfg.d_model,), std=1.0),
-                "b": L.Spec((cfg.d_model,), std=0.0)}
+        return {"g": L.Spec((cfg.d_model,), ("embed",), std=1.0),
+                "b": L.Spec((cfg.d_model,), ("embed",), std=0.0)}
     return {"g": L.rms_norm_spec(cfg.d_model)}
 
 
@@ -134,9 +134,11 @@ def block_specs(cfg: ModelConfig, kind: str) -> Params:
 
 
 def stack_specs(specs: Params, n: int) -> Params:
-    """Every leaf of a spec tree with a leading stacked dim of ``n``."""
+    """Every leaf of a spec tree with a leading stacked dim of ``n``, its
+    logical axis ``"blocks"``."""
     return {k: (stack_specs(v, n) if isinstance(v, dict)
-                else L.Spec((n,) + v.shape, v.std))
+                else L.Spec((n,) + v.shape, ("blocks",) + L.spec_axes(v),
+                            v.std))
             for k, v in specs.items()}
 
 
@@ -148,7 +150,7 @@ def shared_specs(cfg: ModelConfig) -> Params:
     if ATTN_SHARED in cfg.pattern:
         out["shared_attn"] = _attn_mlp_specs(cfg)
     if cfg.family == "vlm":
-        out["img_proj"] = L.Spec((1024, cfg.d_model))
+        out["img_proj"] = L.Spec((1024, cfg.d_model), (None, "embed"))
     if cfg.is_encdec:
         out["encoder"] = {
             "blocks": stack_specs(block_specs(cfg, ENC_ATTN),
@@ -357,12 +359,16 @@ def _store_kv(cache: Params, kv: Params, window: int = 0) -> Params:
 
 
 def _attn_mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
-                    window: int) -> torch.Tensor:
+                    window: int, tp=None) -> torch.Tensor:
+    """With ``tp``, the attention and the MLP each run this rank's heads
+    or ffn columns where the planner split them (the residual stream and
+    the norms stay whole on every rank)."""
     h = apply_norm(cfg, p["ln1"], x)
     x = x + attn.self_attention_train(p["attn"], h, cfg, causal=True,
-                                      window=window)
+                                      window=window, tp=tp)
     h = apply_norm(cfg, p["ln2"], x)
-    return x + L.gated_mlp(p["mlp"], h)
+    split = tp is not None and p["mlp"]["wi_gate"].shape[-1] < cfg.d_ff
+    return x + L.gated_mlp(p["mlp"], h, tp if split else None)
 
 
 def _shared_attn_apply(cfg: ModelConfig, sp: Params,
@@ -378,18 +384,20 @@ def _shared_attn_apply(cfg: ModelConfig, sp: Params,
 
 def apply_block_train(cfg: ModelConfig, kind: str, p: Params,
                       x: torch.Tensor, shared: Optional[Params] = None,
-                      enc_out: Optional[torch.Tensor] = None
+                      enc_out: Optional[torch.Tensor] = None, tp=None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block of kind ``kind`` -> (x, aux): ``aux`` is the MoE balance
     loss, an fp32 0 for every other kind.  ``shared`` holds the model's
     shared components (zamba2's ``shared_attn``), whose gradients
     accumulate over every block that applies them; ``enc_out`` is
     whisper's encoder output (B, T, d), whose cross K/V a decoder block
-    projects inside the block, so that a recompute runs them again."""
+    projects inside the block, so that a recompute runs them again.
+    ``tp``, a ``TensorParallel`` group, reaches the attention and MLP
+    blocks only (``Model`` refuses it for a stack of other kinds)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in (ATTN_GLOBAL, ATTN_LOCAL):
         window = cfg.sliding_window if kind == ATTN_LOCAL else 0
-        x = _attn_mlp_block(cfg, p, x, window=window)
+        x = _attn_mlp_block(cfg, p, x, window=window, tp=tp)
     elif kind == DEC_ATTN:
         h = apply_norm(cfg, p["ln1"], x)
         x = x + attn.self_attention_train(p["attn"], h, cfg, causal=True,

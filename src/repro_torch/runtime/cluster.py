@@ -325,8 +325,9 @@ class AppHandle:
 
 class Cluster:
     """Resource-centric entry point: owns pods, scheduler, and executor.
-    One pod by default (the reference's default is two): the port's mesh
-    is one card."""
+    One pod by default (the reference's default is two): a pod is one
+    mesh (one card, or ``H100X4``'s four), and a ``TorchExecutor`` binds
+    on its own host's cards."""
 
     def __init__(self, pods: Union[int, List[PodState]] = 1, *,
                  mesh: Union[str, MeshSpec] = H100,
@@ -338,9 +339,9 @@ class Cluster:
         if npods > 1 and isinstance(executor, TorchExecutor):
             raise NotImplementedError(
                 f"a Cluster of {npods} pods with a TorchExecutor: the "
-                "executor binds every app on its one card, so each pod "
-                "would count that card's bytes again; one pod until a "
-                "multi-card slice")
+                "executor binds every app on its own host's cards, so each "
+                "pod would count those cards' bytes again; one pod until the "
+                "multi-card slice of ROADMAP item A8c")
         if isinstance(pods, int):
             pods = [PodState(f"pod{i}", self.mesh.num_devices,
                              self.mesh.hbm_per_device) for i in range(pods)]

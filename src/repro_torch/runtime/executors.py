@@ -17,9 +17,17 @@ executor instance can drive many applications on one cluster.
 A serve app's pool is a view of the pod's shared page pool by default
 (``private_pool=True`` gives it a private pool); same-shape paged tenants
 and an app's replicas alias one ``KVArrayStore`` and, with
-``prefix_cache=True``, one pod-global prefix cache.  ``TorchExecutor``
-refuses a plan on more than one device with ``NotImplementedError``
-naming the slice that brings it (``ROADMAP.md``).
+``prefix_cache=True``, one pod-global prefix cache.
+
+``TorchExecutor`` binds a training plan on a mesh of several devices
+inside a ``torch.distributed`` world of that many ranks (``torchrun``,
+or ranks spawned with a ``file://`` rendezvous): every rank submits the
+same application to the same one-pod ``Cluster``, binds its block of
+the plan's layouts (``sharding.planner``) on its own card, and runs the
+sharded train step; the footprint is the largest of the ranks', so
+every rank's control plane takes the same decisions, and rank 0 alone
+writes checkpoints.  Outside such a world, and for serving, a
+multi-card plan is refused with ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -191,12 +199,8 @@ class TorchExecutor(Executor):
 
     # -- binding ------------------------------------------------------------
     def bind(self, handle: "AppHandle") -> None:
-        mesh = handle.plan.mesh
-        if mesh.num_devices > 1:
-            raise NotImplementedError(
-                f"{handle.app.name}: the plan's mesh {mesh.name!r} has "
-                f"{mesh.num_devices} devices; the port binds plans on one "
-                "card until a multi-card slice")
+        if handle.plan.mesh.num_devices > 1:
+            self._join_mesh(handle)
         if self.device.type == "cuda":
             import torch
             # the allocator's high-water mark from here on is this app's
@@ -210,6 +214,31 @@ class TorchExecutor(Executor):
         else:
             self._bind_serve(handle)
 
+    def _join_mesh(self, handle: "AppHandle") -> None:
+        """Lay the plan's mesh over the current ``torch.distributed``
+        world and move this executor to the rank's device, or refuse."""
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import TorchMesh, rank_device
+        mesh = handle.plan.mesh
+        world = dist.get_world_size() if dist.is_initialized() else None
+        if handle.app.kind != "train" or world != mesh.num_devices:
+            where = ("no torch.distributed world" if world is None
+                     else f"a world of {world} ranks")
+            raise NotImplementedError(
+                f"{handle.app.name}: the plan's mesh {mesh.name!r} has "
+                f"{mesh.num_devices} devices; the port binds a multi-card "
+                f"plan for training only, inside a world of "
+                f"{mesh.num_devices} ranks (here: {handle.app.kind}, "
+                f"{where}); launch it with torchrun --nproc-per-node "
+                f"{mesh.num_devices} -m repro_torch.launch.train --mesh "
+                f"{mesh.name}")
+        self.device = rank_device(self.device)
+        if self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        handle.exec_state["mesh"] = TorchMesh(mesh)
+
     def _bind_train(self, handle: "AppHandle") -> None:
         import dataclasses
 
@@ -217,28 +246,39 @@ class TorchExecutor(Executor):
         from repro_torch.data.pipeline import DataConfig, SyntheticLM
         from repro_torch.models.model import Model, check_trainable
         from repro_torch.training import optimizer as opt
+        from repro_torch.sharding.collectives import tensor_parallel
         from repro_torch.training.train_step import (impl_from_plan,
-                                                     make_train_step)
+                                                     layouts_of,
+                                                     make_train_step,
+                                                     shard_state)
 
         app, plan = handle.app, handle.plan
         cfg, shape = app.config, app.shape
         check_trainable(cfg)         # before any weights are made
+        mesh = handle.exec_state.get("mesh")
+        tp = tensor_parallel(mesh) if mesh is not None and plan.tp else None
         # reduced runs keep remat off: the ladder's remat choice targets
         # the card's HBM budget, not the smoke-scale footprint
         model = Model(cfg, impl_from_plan(
-            dataclasses.replace(plan, remat="none") if app.reduced else plan))
+            dataclasses.replace(plan, remat="none") if app.reduced else plan),
+            tp=tp)
         params = self.init_params(handle)
-        opt_state = opt.init_opt_state(params)
+        layouts = None
+        if mesh is None:
+            opt_state = opt.init_opt_state(params)
+        else:
+            layouts = layouts_of(model, plan, mesh)
+            params, opt_state = shard_state(params, layouts)
         key = plan_layout_key(cfg.name, shape.name, plan.mesh.name, plan)
         step = self.cache.get_or_compile(
-            key, lambda: make_train_step(model, plan, self.opt_cfg))
+            key, lambda: make_train_step(model, plan, self.opt_cfg, mesh))
         data = SyntheticLM(DataConfig(cfg.vocab_size, shape.seq_len,
                                       shape.global_batch))
         ckpt_dir = self.ckpt_path(handle)
         ck = AsyncCheckpointer(ckpt_dir, keep=3) if ckpt_dir else None
         handle.exec_state.update(model=model, params=params,
                                  opt_state=opt_state, step=step, data=data,
-                                 checkpointer=ck)
+                                 checkpointer=ck, layouts=layouts)
         if self.resume:
             handle.cursor = max(handle.cursor, self.restore(handle))
 
@@ -246,7 +286,8 @@ class TorchExecutor(Executor):
     def footprint(self, handle: "AppHandle") -> int:
         """Bytes the app holds on its device: the distinct tensors it
         bound (weights, optimizer state, every replica's KV pages or
-        dense cache) and, on CUDA, the allocator's peak since bind
+        dense cache; on a mesh, the largest rank's) and, on CUDA, the
+        allocator's peak since bind
         (activations and temporaries included) when that is larger and
         the app is the only one bound on the card -- with a co-tenant the
         peak holds the co-tenant's allocations too, so only the tensors
@@ -266,6 +307,15 @@ class TorchExecutor(Executor):
             import torch
             held = max(held, torch.cuda.max_memory_allocated(self.device)
                        - st["cuda_base"])
+        mesh = st.get("mesh")
+        if mesh is not None:
+            # every rank's control plane must grant, record and escalate
+            # alike: the largest rank's footprint
+            import torch
+            import torch.distributed as dist
+            t = torch.tensor([held], dtype=torch.int64, device=self.device)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.world)
+            held = int(t.item())
         return held
 
     def account(self, handle: "AppHandle") -> None:
@@ -287,9 +337,13 @@ class TorchExecutor(Executor):
     def train_step(self, handle: "AppHandle") -> Dict[str, float]:
         import torch
 
+        from repro_torch.data.pipeline import rank_rows
         st = handle.exec_state
+        batch = st["data"].batch_at(handle.cursor)
+        if st.get("layouts") is not None:
+            batch = rank_rows(batch, *st["layouts"].batch.part(0))
         batch = {k: torch.from_numpy(v).to(self.device)
-                 for k, v in st["data"].batch_at(handle.cursor).items()}
+                 for k, v in batch.items()}
         st["params"], st["opt_state"], m = st["step"](
             st["params"], st["opt_state"], batch)
         return {k: float(v) for k, v in m.items()}     # waits for the step
@@ -305,7 +359,8 @@ class TorchExecutor(Executor):
             return
         st = handle.exec_state
         ck.save(handle.cursor, {"params": st["params"], "opt": st["opt_state"]},
-                extra={"cursor": handle.cursor}, block=block)
+                extra={"cursor": handle.cursor}, block=block,
+                layouts=_state_layouts(st))
 
     def restore(self, handle: "AppHandle") -> int:
         from repro_torch.checkpoint.checkpointer import (latest_step,
@@ -315,7 +370,8 @@ class TorchExecutor(Executor):
             return 0
         st = handle.exec_state
         tree = {"params": st["params"], "opt": st["opt_state"]}
-        restored, extra, _ = restore_checkpoint(ckpt_dir, None, tree)
+        restored, extra, _ = restore_checkpoint(ckpt_dir, None, tree,
+                                                shardings=_state_layouts(st))
         st["params"], st["opt_state"] = restored["params"], restored["opt"]
         return int(extra.get("cursor", 0))
 
@@ -421,6 +477,18 @@ class TorchExecutor(Executor):
             ck.wait()
         super().release(handle)
         self.bound_jobs.discard(handle.job.job_id)
+
+
+def _state_layouts(st: Dict) -> Optional[Dict]:
+    """The layouts of a sharded train app's checkpoint tree ({"params",
+    "opt"}), or None on one card."""
+    lay = st.get("layouts")
+    if lay is None:
+        return None
+    from repro_torch.sharding.planner import Layout
+    return {"params": lay.params,
+            "opt": {"m": lay.opt, "v": lay.opt, "master": lay.opt,
+                    "count": Layout(st["mesh"], ())}}
 
 
 def _tensor_bytes(trees) -> int:

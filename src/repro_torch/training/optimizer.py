@@ -19,9 +19,10 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 Params = Any
 
@@ -92,18 +93,36 @@ def init_opt_state(params: Params) -> Dict[str, Any]:
     }
 
 
-def global_norm(tree: Params) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum() for g in leaves(tree)))
+def global_norm(tree: Params, counted: Optional[List[bool]] = None,
+                group=None) -> torch.Tensor:
+    """The L2 norm of every leaf.  On a mesh, ``tree`` holds this rank's
+    slices: ``counted`` says, leaf by leaf, whether this rank counts its
+    slice (one rank of each set of replicas does), and the sums of squares
+    are added over ``group``, the whole mesh."""
+    if counted is None:
+        return torch.sqrt(sum(g.float().square().sum()
+                              for g in leaves(tree)))
+    flat = leaves(tree)
+    sq = torch.zeros((), dtype=torch.float32, device=flat[0].device)
+    for g, c in zip(flat, counted):
+        if c:
+            sq = sq + g.float().square().sum()
+    if group is not None:
+        dist.all_reduce(sq, group=group)
+    return torch.sqrt(sq)
 
 
 def adamw_update(grads: Params, opt_state: Dict[str, Any],
-                 cfg: OptimizerConfig
+                 cfg: OptimizerConfig, counted: Optional[List[bool]] = None,
+                 group=None
                  ) -> Tuple[Params, Dict[str, Any], Dict[str, Any]]:
     """Returns (new bf16 params, new opt state, metrics).  Updates the
     state's ``m``, ``v`` and ``master`` in place, and fp32 gradients too
-    (see the module doc)."""
+    (see the module doc).  On a mesh the gradients and the state are this
+    rank's slices of the optimizer-state layout, and so are the new
+    params; ``counted`` and ``group`` go to :func:`global_norm`."""
     count = opt_state["count"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, counted, group)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = lr_at(cfg, count)

@@ -188,11 +188,14 @@ def test_resource_graph_matches_reference(arch, reduced):
 # ---------------------------------------------------------------------------
 
 def test_h100_mesh_carries_the_cards_figures():
-    m = tmat.H100
+    m, m4 = tmat.H100, tmat.H100X4
     assert (m.shape, m.axes, m.num_devices) == ((1, 1), ("data", "model"), 1)
-    assert (m.hbm_per_device, m.peak_flops, m.hbm_bw, m.ici_bw) == \
-        (80_000_000_000, 989e12, 3.35e12, 900e9)
-    assert tmat.MESHES == {"h100": m}
+    assert (m4.shape, m4.axes, m4.num_devices) == \
+        ((2, 2), ("data", "model"), 4)
+    for mesh in (m, m4):
+        assert (mesh.hbm_per_device, mesh.peak_flops, mesh.hbm_bw,
+                mesh.ici_bw) == (80_000_000_000, 989e12, 3.35e12, 900e9)
+    assert tmat.MESHES == {"h100": m, "h100x4": m4}
 
 
 @pytest.mark.parametrize("mesh_i", range(len(MESHES)))

@@ -1,7 +1,8 @@
 """Import and device hygiene of the port.
 
 The port (``src/repro_torch``, its serving modules ``prefix_cache`` and
-``tenancy`` and its autoscale and observability modules among them) and
+``tenancy``, its autoscale and observability modules and its sharding
+planner, collectives and mesh among them) and
 ``chip_smoke.py`` import nothing of JAX and nothing of the JAX package;
 the port imports, serves (on the pod-shared pool, with the prefix cache
 too, and parked and unparked by its controller with a trace written and
@@ -46,7 +47,9 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "obs/__main__.py", "runtime/simulate.py",
                    "models/moe.py", "configs/qwen2_moe_a2_7b.py",
                    "configs/dbrx_132b.py", "configs/phi3_vision_4_2b.py",
-                   "configs/whisper_base.py"):
+                   "configs/whisper_base.py", "sharding/__init__.py",
+                   "sharding/planner.py", "sharding/collectives.py",
+                   "launch/mesh.py"):
         assert PORT / module in files
     bad = [(f.relative_to(ROOT), m) for f in files
            for m in _imported_modules(f)
@@ -185,6 +188,29 @@ def test_port_trains_with_jax_absent():
             "out = train(reduced=True, device='cpu', steps=2, verbose=False)\n"
             "assert len(out['metrics']) == 2\n"
             "assert out['plan'].mesh.name == 'h100'  # via Cluster.submit\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin"},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_sharding_imports_with_jax_absent():
+    """The planner, the collectives and the mesh import with JAX and the
+    reference unimportable, and plan the h100x4 mesh's layouts."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "from repro_torch.configs import get_config\n"
+            "from repro_torch.core.materializer import H100X4, Plan\n"
+            "from repro_torch.launch import mesh\n"
+            "from repro_torch.models.model import param_specs\n"
+            "from repro_torch.sharding import collectives, planner\n"
+            "cfg = get_config('tinyllama-1.1b')\n"
+            "plan = Plan(cfg.name, 'train_4k', H100X4, batch_axes=('data',),"
+            " fsdp=True)\n"
+            "specs = planner.param_specs_tree(plan, cfg, param_specs(cfg))\n"
+            "assert specs['embed']['tok'] == (('model', 'data'), None)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          env={"PYTHONPATH": str(ROOT / "src"),
                               "PATH": "/usr/bin:/bin"},
