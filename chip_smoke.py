@@ -238,9 +238,12 @@ Phases, each of which must pass (any failure exits nonzero):
    expandable; then the step time, tokens/s, the model-FLOPs share (a
    windowed layer's attention over its window's pairs) and a profiled
    step (busy share; K2, K5, K3 and cuBLAS);
-20. sharded training: one card first runs phase 5's plan (seed-0
-   weights, phase 5's batches and optimizer) for ``SHARDED_STEPS`` steps
-   and keeps its losses, step-1 gradients and final params on the host;
+20. sharded training (one spawn of ranks with phase 21): one card first
+   runs phase 5's plan (seed-0 weights, phase 5's batches and
+   optimizer; tinyllama-1.1b at full width, its 22 layers on four cards
+   and ``SHARDED_ONE_CARD_LAYERS`` = 4 on one) for ``SHARDED_STEPS``
+   steps and keeps its losses, step-1 gradients and final params on the
+   host;
    then ``SHARDED_WORLD`` = 4 rank processes (``sharded_rank``; a
    ``file://`` rendezvous in a temporary directory under ``build/``;
    NCCL and a card each with four cards, else gloo with every rank on
@@ -262,7 +265,33 @@ Phases, each of which must pass (any failure exits nonzero):
    estimate, each rank's peak, and, from the last step, which rank 0
    runs under ``torch.profiler``, the step time, the NCCL kernels'
    share of the device busy time and the host time inside gloo's
-   collectives.
+   collectives;
+21. expert parallelism, over the same ranks: full-width qwen2-moe-a2.7b
+   (d 2048, 60 experts padded to 64, top 4, d_expert 1408, vocab
+   151936) through ``launch.train`` on ``h100x4`` at phase 5's 4096 x 8
+   and optimizer, seed 0.  One card first runs the parity function
+   (``ep_references``: ``EP_LAYERS`` = 2 layers, capacity factor
+   ``EP_NO_DROP`` = 16 so that no pair drops, the parity plan's
+   microbatches, the balance loss over each dispatch's shards of a
+   routing as the mesh takes it), keeping its step-1 expert ids by
+   token; then each rank runs (``ep_runs``) the ladder's plan for the
+   full depth (TP + EP with ``a2a`` + ZeRO + FSDP over 'data', full
+   remat, the CE in chunks of 1024) at that capacity with one row a
+   microbatch, once with ``a2a`` and once with ``psum``, step 1 routed
+   as one card routed each rank's own tokens (swaps counted), each rank
+   holding its blocks of the step-1 gradients and params against one
+   card's within ``TRAIN_*_RTOL``; then the ladder's plan as it is at
+   the config's capacity factor 1.25, 2 of 24 layers on one card and
+   ``EP_FOUR_CARD_LAYERS`` = 12 on four (the port's step holds 3.9 GB
+   a rank a layer: 24 do not fit), ``EP_STEPS`` = 2 steps, the second
+   profiled on rank 0: finite, falling losses, rank 0's launch counts
+   of K2, K5a, K5b (8 of the 16 heads of 128 a rank, G = 1), K3 and its
+   backward what the path implies, every rank's peak under the grant.
+   Printed: each run's plan and estimate beside each rank's peak, the
+   pairs the capacity drops (on the run's own routes, and for each
+   dispatch on one card's pinned routing), the all-to-alls' bytes a
+   step and route (``nccl`` or ``gloo``), and the collectives' share of
+   the profiled step.
 
 A failed comparison of a kernel with its plain version prints, before
 the run stops, its first 8 bad elements with both values, the count of
@@ -348,7 +377,7 @@ and (2,64,4096,64).
 
 A kernel's ``launches`` in the JSON record is its count over the serve
 (phases 3, 7, 8, 11, 12, 13, 16) and train (phases 5, 14, 15, 18, 19,
-and rank 0's of phase 20) runs;
+and rank 0's of phase 20 and of phase 21's ladder run) runs;
 K3's are also printed by shape class; the ``*_d256`` records count phase
 11's runs only, the forward ``*_d128`` records phase 12's mistral-nemo-12b
 runs only, the ``*_d80`` backward records phase 14's, the forward
@@ -369,6 +398,7 @@ line is the run's JSON verdict.
 
 from __future__ import annotations
 
+import dataclasses
 import inspect
 import json
 import math
@@ -496,8 +526,9 @@ def main() -> None:
     for name, n in trained.items():
         launches[name] = launches.get(name, 0) + n
     launches.update(trained_records)
-    for name, n in train_sharded(torch).items():
-        launches[name] = launches.get(name, 0) + n
+    for phase in train_on_ranks(torch):
+        for name, n in phase.items():
+            launches[name] = launches.get(name, 0) + n
     for rec in records:
         rec["launches"] = launches.get(rec["name"])
     print(f"[launches] rmsnorm by shape class over the main paths: "
@@ -3378,8 +3409,9 @@ def frontend_inputs(torch, cfg, batch, step, device, dtype=None):
 @contextmanager
 def pinned_routes(torch, record=None, replay=None):
     """Record each MoE routing's expert ids (``record``, a list) or replay
-    recorded ones (``replay``): the router's probabilities, weights and
-    balance loss are the run's own, gathered at the replayed ids.  A
+    recorded ones (``replay``, in call order; the run routes itself once
+    they are spent): the router's probabilities, weights and balance loss
+    are the run's own, gathered at the replayed ids.  A
     routing is a discrete choice: an ulp of difference in a router logit
     can swap a near-tied token's experts, and one swap moves the capacity
     ranks of an expert's later tokens, so gradients are compared on the
@@ -3392,9 +3424,10 @@ def pinned_routes(torch, record=None, replay=None):
         weights, ids, aux = plain(p, x, cfg)
         if record is not None:
             record.append(ids.detach().cpu())
-        if pending is None:
+        want = None if pending is None else next(pending, None)
+        if want is None:
             return weights, ids, aux
-        want = next(pending).to(ids.device)
+        want = want.to(ids.device)
         seen["swapped"] += int((want != ids).any(-1).sum())
         seen["tokens"] += ids.shape[0]
         weights, aux = moe_mod.routed(moe_mod.router_probs(p, x, cfg), want,
@@ -5639,6 +5672,11 @@ def train_gemma3_full(torch):
 # ---------------------------------------------------------------------------
 
 SHARDED_WORLD = 4                 # the h100x4 mesh, (2, 2) over (data, model)
+# tinyllama-1.1b's depth in phase 20 on one card, where gloo's host copies
+# of the gradients and params take 0.9 of a step and the script's time
+# must leave room for phase 21: 4 of its 22 layers, full width; four cards
+# run all 22
+SHARDED_ONE_CARD_LAYERS = 4
 # the last step profiled on rank 0: two steps, so that the phase stays
 # near 150 s on one card, where gloo reduces through the host (a third,
 # unprofiled step took 12-21 s a plan there)
@@ -5713,6 +5751,16 @@ def profiled_train_step(torch, index, result):
         TorchExecutor.train_step = plain
 
 
+def sharded_cfg(torch):
+    """Phase 20's tinyllama-1.1b: full width, its 22 layers on four cards
+    and ``SHARDED_ONE_CARD_LAYERS`` on one."""
+    from repro_torch.configs import get_config
+    cfg = get_config("tinyllama-1.1b")
+    if torch.cuda.device_count() < SHARDED_WORLD:
+        cfg = cfg.scaled(num_layers=SHARDED_ONE_CARD_LAYERS)
+    return cfg
+
+
 def _sharded_reference(torch, cfg, shape, ocfg):
     """The one-card run phase 20 holds the ranks against: phase 5's plan,
     weights (seed 0) and batches, ``SHARDED_STEPS`` steps of
@@ -5744,42 +5792,47 @@ def _sharded_reference(torch, cfg, shape, ocfg):
     return losses, grads[0], final
 
 
-def train_sharded(torch):
-    """Phase 20: full-width tinyllama-1.1b trained over the four ranks of
-    the ``h100x4`` mesh through ``launch.train`` (``Cluster.submit``, the
-    ``TorchExecutor`` on each rank), with each plan of ``SHARDED_PLANS``,
-    ``SHARDED_STEPS`` steps at phase 5's sequence 4096 x batch 8 and
-    optimizer, against one card's run of phase 5's plan on the same
-    seeded weights and batches (here, first; its step-1 gradients and
-    final params go to the ranks through a file, each rank compares its
-    own blocks).  NCCL, a rank a card, with four cards; else gloo, every
-    rank on ``cuda:0``.  Returns the launch counts of rank 0's runs."""
+def train_on_ranks(torch):
+    """Phases 20 and 21 over one spawn of ``SHARDED_WORLD`` rank processes
+    and one rendezvous: first the one-card runs each phase holds its ranks
+    against (phase 20's, :func:`_sharded_reference`; phase 21's,
+    :func:`ep_references`), their results to files in a temporary
+    directory under ``build/``; then the ranks (:func:`sharded_rank`), each
+    running phase 20's plans and phase 21's runs; then each phase's gates
+    on the ranks' reports.  NCCL, a rank a card, with four cards; else
+    gloo, every rank on ``cuda:0``.  Returns the launch counts of rank
+    0's runs of each phase."""
     import tempfile
-    from repro_torch.configs import get_config
     t_phase = time.perf_counter()
-    cfg = get_config("tinyllama-1.1b")
+    cfg = sharded_cfg(torch)
     shape, _, ocfg, _ = _train_setup()
     ref_losses, ref_grads, ref_params = _sharded_reference(torch, cfg, shape,
                                                            ocfg)
     cards = torch.cuda.device_count()
     backend = "nccl" if cards >= SHARDED_WORLD else "gloo"
-    print(f"[sharded] one card's run (phase 5's plan, {SHARDED_STEPS} steps): "
-          f"losses {ref_losses}, {time.perf_counter() - t_phase:.1f} s; "
+    print(f"[sharded] one card's run of {cfg.name} ({cfg.num_layers} of 22 "
+          f"layers; phase 5's plan, {SHARDED_STEPS} steps): losses "
+          f"{ref_losses}, {time.perf_counter() - t_phase:.1f} s; "
           f"{SHARDED_WORLD} ranks over {backend} on {cards} card(s) | "
           f"{card_line()}", flush=True)
-    launches = {}
+    sharded, ep = {}, {}
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
         torch.save({"grads": ref_grads, "params": ref_params},
                    f"{d}/reference.pt")
         del ref_grads, ref_params
+        ep_ref = ep_references(torch, d, backend)
+        t_ranks = time.perf_counter()
         _spawn_ranks(d, backend)
+        print(f"[sharded] the ranks' runs of phases 20 and 21: "
+              f"{time.perf_counter() - t_ranks:.1f} s", flush=True)
         for name in SHARDED_PLANS:
-            for k, n in _sharded_gates(d, name, ref_losses).items():
-                launches[k] = launches.get(k, 0) + n
-    print(f"[sharded] phase: {time.perf_counter() - t_phase:.1f} s",
-          flush=True)
-    return launches
+            for k, n in _sharded_gates(d, name, ref_losses, cfg).items():
+                sharded[k] = sharded.get(k, 0) + n
+        ep = ep_gates(d, backend, ep_ref)
+    print(f"[sharded] phases 20 and 21: {time.perf_counter() - t_phase:.1f} "
+          "s", flush=True)
+    return sharded, ep
 
 
 def _spawn_ranks(d, backend):
@@ -5811,10 +5864,11 @@ def _spawn_ranks(d, backend):
 
 
 def sharded_rank(rank, world, d, backend):
-    """One rank of phase 20: joins the world (a ``file://`` store in
-    ``d``) on its card, runs each plan of ``SHARDED_PLANS``
-    (:func:`_sharded_run`) and leaves its reports in ``d``; any failure
-    ends the process with a nonzero code."""
+    """One rank of phases 20 and 21: joins the world (a ``file://`` store
+    in ``d``) on its card, runs each plan of ``SHARDED_PLANS``
+    (:func:`_sharded_run`) and each run of :func:`ep_runs`
+    (:func:`_ep_run`) and leaves its reports in ``d``; any failure ends
+    the process with a nonzero code."""
     import traceback
     import torch
     import torch.distributed as dist
@@ -5828,6 +5882,8 @@ def sharded_rank(rank, world, d, backend):
         torch.cuda.set_device(rank_device(torch.device("cuda")))
         for name, overrides in SHARDED_PLANS.items():
             _sharded_run(torch, rank, d, name, overrides, backend)
+        for name, run in ep_runs(backend).items():
+            _ep_run(torch, rank, d, name, run, backend)
         dist.barrier()
         dist.destroy_process_group()
     except BaseException:
@@ -5865,13 +5921,12 @@ def _sharded_run(torch, rank, d, name, overrides, backend):
     blocks and restored onto a (4, 1) mesh bit for bit.  The report goes
     to ``d/<name>_<rank>.json``."""
     import torch.distributed as dist
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import TorchMesh
     from repro_torch.launch.train import train
     from repro_torch.models.model import param_specs
     from repro_torch.sharding.planner import plan_layouts
     from repro_torch.training import optimizer as opt
-    cfg = get_config("tinyllama-1.1b")
+    cfg = sharded_cfg(torch)
     shape, _, ocfg, _ = _train_setup()
     kernels = _train_kernels()
     torch.cuda.synchronize()
@@ -5969,16 +6024,19 @@ def _restore_checks(torch, d, cfg, out, lay, dev, rank):
     return eq41, eq_one
 
 
-def _sharded_gates(d, name, ref_losses):
-    """Phase 20's gates on one plan's rank reports (see the module doc);
-    returns rank 0's launch counts."""
-    from repro_torch.configs import get_config
+def _rank_reports(d, name):
     reports = []
     for r in range(SHARDED_WORLD):
         with open(f"{d}/{name}_{r}.json") as f:
             reports.append(json.load(f))
+    return reports
+
+
+def _sharded_gates(d, name, ref_losses, cfg):
+    """Phase 20's gates on one plan's rank reports (see the module doc);
+    returns rank 0's launch counts."""
+    reports = _rank_reports(d, name)
     r0 = reports[0]
-    cfg = get_config("tinyllama-1.1b")
     plan, losses = r0["plan"], r0["losses"]
     per_mb = _attention_counts(cfg.num_layers)
     want = {k: per_mb.get(k, 0) * plan["microbatch"] * SHARDED_STEPS
@@ -5986,7 +6044,8 @@ def _sharded_gates(d, name, ref_losses):
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
     grad_err, param_err = max(r0["grad_errs"]), r0["param_err"]
     prof, walls = r0["profile"], r0["walls"]
-    print(f"[sharded {name}] plan batch_axes={plan['batch_axes']} "
+    print(f"[sharded {name}] {cfg.name} ({cfg.num_layers} layers) plan "
+          f"batch_axes={plan['batch_axes']} "
           f"tp={plan['tp']} zero={plan['zero']} fsdp={plan['fsdp']} "
           f"remat={plan['remat']} microbatch={plan['microbatch']}, est "
           f"{plan['est_bytes_per_device'] / 2**30:.3f} GiB/device; peaks "
@@ -6030,6 +6089,423 @@ def _sharded_gates(d, name, ref_losses):
         if not (one and all(r["restored_41"] for r in reports)):
             fail(f"sharded {name}: the restore is not bit-equal")
     return r0["launches"]
+
+
+# ---------------------------------------------------------------------------
+# phase 21: expert parallelism over four ranks
+# ---------------------------------------------------------------------------
+
+EP_ARCH = "qwen2-moe-a2.7b"
+# the depth of the parity runs, and on one card of the ladder's run: 2 of
+# the 24 layers at full width (~1.83 B parameters with the embedding and
+# the head: 12.53 GiB a rank estimated under the ladder's plan, four ranks'
+# state on one card; 4 layers, ~3.0 B, would not fit four ranks)
+EP_LAYERS = 2
+# the ladder's run on four cards: the port's sharded step holds every
+# leaf's fp32 gradient sum and the FSDP-gathered params on the compute
+# layout for the whole step, 3.9 GB a rank a layer under this plan (98.5
+# GB at the full 24 layers, past the card); 12 layers hold ~51 GB
+EP_FOUR_CARD_LAYERS = 12
+EP_NO_DROP = 16.0                 # e_pad / top_k: a routing's cap >= its tokens
+EP_STEPS = 2                      # the ladder's run, the second profiled
+# the parity runs (no drop, routes pinned): one step on one card, where
+# every step of four ranks goes through gloo's host copies; two on four
+EP_PARITY_STEPS = {"gloo": 1, "nccl": 2}
+# the parity runs' plan beside the ladder's: one row a microbatch, so a
+# no-drop routing's (E, C, D) buffers of four ranks fit one card
+EP_PARITY_PLAN = {"microbatch": 4, "loss_chunk": 1024}
+
+
+def ep_ladder_overrides():
+    """The plan the ladder gives full-depth qwen2-moe-a2.7b at phase 5's
+    4096 x 8 on ``h100x4`` (TP + EP with ``a2a`` + ZeRO + FSDP over
+    'data', full remat), as overrides for a cut depth (at 2 layers the
+    ladder would take all-local DP), with the CE in chunks of 1024
+    positions: one microbatch's fp32 logits over 75968 ids a rank are
+    4.98 GB, and four ranks share one card."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.materializer import H100X4, materialize
+    plan = materialize(get_config(EP_ARCH), _train_setup()[0], H100X4)
+    out = {k: getattr(plan, k) for k in (
+        "batch_axes", "tp", "ep", "zero", "fsdp", "remat", "microbatch",
+        "moe_dispatch", "attn_impl")}
+    return dict(out, loss_chunk=1024)
+
+
+def ep_runs(backend):
+    """Phase 21's runs on the ranks, in order: the no-drop parity runs of
+    both dispatches (``EP_NO_DROP``, step 1 routed as one card routed it)
+    and the ladder's run at the config's capacity factor."""
+    ladder = ep_ladder_overrides()
+    parity = dict(ladder, **EP_PARITY_PLAN)
+    steps = EP_PARITY_STEPS[backend]
+    return {
+        "ep parity a2a": {"overrides": parity, "layers": EP_LAYERS,
+                          "cf": EP_NO_DROP, "steps": steps, "pinned": True},
+        "ep parity psum": {"overrides": dict(parity, moe_dispatch="psum"),
+                           "layers": EP_LAYERS, "cf": EP_NO_DROP,
+                           "steps": steps, "pinned": True},
+        "ep ladder": {"overrides": ladder, "cf": None, "steps": EP_STEPS,
+                      "pinned": False,
+                      "layers": EP_LAYERS if backend == "gloo"
+                      else EP_FOUR_CARD_LAYERS}}
+
+
+def ep_cfg(layers, cf=None):
+    from repro_torch.configs import get_config
+    cfg = get_config(EP_ARCH).scaled(num_layers=layers)
+    if cf is not None:
+        cfg = cfg.scaled(moe=dataclasses.replace(cfg.moe,
+                                                 capacity_factor=cf))
+    return cfg
+
+
+def _ep_order(layers, remat):
+    """The layer of each MoE routing of a microbatch in call order: the
+    forward's, then under remat each block's recompute, last first."""
+    order = list(range(layers))
+    return order + (order[::-1] if remat != "none" else [])
+
+
+@contextmanager
+def mesh_aux(parts):
+    """One card computing the mesh's balance loss: each routing's is the
+    mean of its ``parts`` equal runs of tokens' (the ranks' shards of
+    them, in order), as the reference's ``pmean`` of the shards'."""
+    from repro_torch.models import moe as moe_mod
+    plain = moe_mod.route
+
+    def route(p, x, cfg):
+        weights, ids, _ = plain(p, x, cfg)
+        probs = moe_mod.router_probs(p, x, cfg)
+        aux = sum(moe_mod.routed(pr, i, cfg, x.dtype)[1]
+                  for pr, i in zip(probs.chunk(parts), ids.chunk(parts)))
+        return weights, ids, aux / parts
+
+    moe_mod.route = route
+    try:
+        yield
+    finally:
+        moe_mod.route = plain
+
+
+def ep_references(torch, d, backend):
+    """Phase 21's one-card runs: the parity runs' function on one card
+    (``EP_LAYERS``, ``EP_NO_DROP``, the parity plan's microbatches, seed-0
+    weights and phase 5's batches and optimizer), once a dispatch with
+    the balance loss over that dispatch's shards of each routing
+    (:func:`mesh_aux`: a data shard's tokens for psum, a (data, model)
+    slice for a2a), ``EP_PARITY_STEPS`` steps; losses, step-1 gradients
+    and final params (bf16) to ``d/ep_reference_<dispatch>.pt`` and step
+    1's expert ids by token (per layer, (B, S, k)) to ``d/ep_routes.pt``.
+    Prints the (token, k) pairs each dispatch's capacity at the config's
+    factor would drop on that routing.  Returns the losses by dispatch."""
+    from repro_torch.core.materializer import H100, materialize
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import impl_from_plan, make_train_step
+    t0 = time.perf_counter()
+    cfg = ep_cfg(EP_LAYERS, EP_NO_DROP)
+    shape, _, ocfg, _ = _train_setup()
+    parity = ep_runs(backend)["ep parity a2a"]["overrides"]
+    mb = parity["microbatch"]
+    plan = materialize(cfg, shape, H100, overrides={
+        "remat": parity["remat"], "microbatch": mb,
+        "loss_chunk": parity["loss_chunk"]})
+    model = Model(cfg, impl_from_plan(plan))
+    data = SyntheticLM(DataConfig(cfg.vocab_size, shape.seq_len,
+                                  shape.global_batch))
+    steps = EP_PARITY_STEPS[backend]
+    per = len(_ep_order(cfg.num_layers, plan.remat))
+    dp, n = 2, 2                          # h100x4: (data, model)
+    losses, record = {}, []
+    for dispatch, parts in (("psum", dp), ("a2a", dp * n)):
+        params = init_params(cfg, 0, "cuda")
+        state = opt.init_opt_state(params)
+        step = make_train_step(model, plan, ocfg)
+        grads, losses[dispatch] = [], []
+        with first_update_grads(grads), mesh_aux(parts), pinned_routes(
+                torch, record=record if not record else None):
+            for i in range(steps):
+                batch = {k: torch.from_numpy(v).cuda()
+                         for k, v in data.batch_at(i).items()}
+                params, state, m = step(params, state, batch)
+                losses[dispatch].append(float(m["loss"]))
+        torch.save({"grads": [g.to(torch.bfloat16) for g in grads[0]],
+                    "params": [p.cpu() for p in opt.leaves(params)]},
+                   f"{d}/ep_reference_{dispatch}.pt")
+        del params, state, step, grads
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    k, seq = cfg.moe.top_k, shape.seq_len
+    table = torch.zeros(cfg.num_layers, shape.global_batch, seq, k,
+                        dtype=torch.long)
+    for i in range(mb):
+        for layer in range(cfg.num_layers):
+            table[layer, i::mb] = record[i * per + layer].view(-1, seq, k)
+    torch.save(table, f"{d}/ep_routes.pt")
+    print(f"[ep] one card's parity runs ({cfg.name}, {cfg.num_layers} "
+          f"layers, capacity factor {EP_NO_DROP}, {mb} microbatches, "
+          f"{steps} step(s)): losses {losses}, "
+          f"{time.perf_counter() - t0:.1f} s | {card_line()}", flush=True)
+    _pinned_drops(torch, table, ep_runs(backend)["ep ladder"]["overrides"])
+    return losses
+
+
+def _pinned_drops(torch, table, ladder):
+    """The share of (token, k) pairs each dispatch's capacity, at the
+    config's factor, drops on one routing (the table's, step 1's on one
+    card) under the ladder's microbatches: psum's over each data shard's
+    tokens, a2a's over each (data, model) slice; one card's over each of
+    its phase 5 microbatches beside them."""
+    from repro_torch.core.profiles import padded_num_experts
+    from repro_torch.models import moe as moe_mod
+    cfg = ep_cfg(EP_LAYERS)
+    e_pad = padded_num_experts(cfg.moe.num_experts)
+    layers, batch, seq, k = table.shape
+    mb = ladder["microbatch"]
+
+    def share(groups):
+        dropped = total = 0
+        for layer in range(layers):
+            for rows, parts in groups:
+                ids = table[layer][rows].flatten(0, 1)
+                for chunk in ids.chunk(parts):
+                    cap = moe_mod._capacity(chunk.shape[0], e_pad, k,
+                                            cfg.moe.capacity_factor)
+                    _, keep = moe_mod.dispatch_slots(chunk, e_pad, cap)
+                    dropped += int((~keep).sum())
+                    total += keep.numel()
+        return dropped / total
+
+    shards = [torch.arange(batch).view(2, -1)[dd][i::mb]
+              for dd in range(2) for i in range(mb)]
+    one = _train_setup()[1]["microbatch"]
+    print(f"[ep] pairs the capacity factor {cfg.moe.capacity_factor} drops "
+          f"on one card's step-1 routing (pinned routes): psum "
+          f"{share([(r, 1) for r in shards]):.6f}, a2a "
+          f"{share([(r, 2) for r in shards]):.6f}, one card's "
+          f"{one} microbatches "
+          f"{share([(torch.arange(batch)[i::one], 1) for i in range(one)]):.6f}",
+          flush=True)
+
+
+@contextmanager
+def ep_tallies(torch):
+    """While the block runs: each routing's dropped and total (token, k)
+    pairs, the all-to-alls' send bytes, and the flash-attention calls'
+    (q heads, K/V heads, head dim)."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.sharding import collectives as C
+    plain_slots, plain_exchange = moe_mod.dispatch_slots, C._exchange
+    function = attn.FlashAttention
+    out = {"dropped": [], "pairs": 0, "a2a_bytes": 0, "a2a_calls": 0,
+           "heads": set()}
+
+    def slots(ids, e_total, cap):
+        slot, keep = plain_slots(ids, e_total, cap)
+        out["dropped"].append((~keep).sum())
+        out["pairs"] += keep.numel()
+        return slot, keep
+
+    def exchange(x, tp):
+        out["a2a_bytes"] += x.numel() * x.element_size()
+        out["a2a_calls"] += 1
+        return plain_exchange(x, tp)
+
+    class Counted:
+        @staticmethod
+        def apply(q, k, v, *args):
+            out["heads"].add((q.shape[1], k.shape[1], q.shape[-1]))
+            return function.apply(q, k, v, *args)
+
+    moe_mod.dispatch_slots, C._exchange = slots, exchange
+    attn.FlashAttention = Counted
+    try:
+        yield out
+    finally:
+        moe_mod.dispatch_slots, C._exchange = plain_slots, plain_exchange
+        attn.FlashAttention = function
+
+
+def _ep_run(torch, rank, d, name, run, backend):
+    """One of phase 21's runs on this rank: ``launch.train`` of
+    qwen2-moe-a2.7b at the run's depth and capacity factor on ``h100x4``
+    with the run's plan, the kernels' counts zeroed just before and read
+    just after, the last step profiled on rank 0 (the ladder's run); a
+    pinned run's step 1 routed as one card routed it (each rank replays
+    its own tokens' ids: its data shard's rows, microbatch i their rows
+    i::mb, under a2a its model slice) with the swaps counted, and its
+    step-1 gradients and final params held block by block against one
+    card's.  The report goes to ``d/<name>_<rank>.json``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import TorchMesh
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import param_specs
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.planner import plan_layouts
+    from repro_torch.training import optimizer as opt
+    cfg = ep_cfg(run["layers"], run["cf"])
+    ov = run["overrides"]
+    shape, _, ocfg, _ = _train_setup()
+    kernels = _train_kernels()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    replay = []
+    if run["pinned"]:
+        from repro_torch.core.materializer import H100X4
+        coords = dict(zip(H100X4.axes, divmod(rank, 2)))
+        table = torch.load(f"{d}/ep_routes.pt")
+        rows = torch.arange(shape.global_batch).view(2, -1)[coords["data"]]
+        slices = 2 if ov["moe_dispatch"] == "a2a" else 1
+        index = coords["model"] if slices > 1 else 0
+        mb = ov["microbatch"]
+        for i in range(mb):
+            for layer in _ep_order(cfg.num_layers, ov["remat"]):
+                ids = table[layer][rows[i::mb]].flatten(0, 1)
+                size = ids.shape[0] // slices
+                replay.append(ids[index * size:(index + 1) * size])
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in kernels.values():
+        fn.launches = 0
+    routes0 = dict(C.all_to_all.routes)
+    grads, prof, t0 = [], {}, time.perf_counter()
+    profiled = run["steps"] - 1 if rank == 0 and not run["pinned"] else None
+    with first_update_grads(grads), profiled_train_step(
+            torch, profiled, prof), ep_tallies(torch) as tally, \
+            pinned_routes(torch, replay=replay or None) as swaps:
+        out = train(cfg, shape=shape, overrides=ov, opt_cfg=ocfg,
+                    device="cuda", steps=run["steps"], seed=0,
+                    mesh="h100x4", dist_backend=backend, verbose=rank == 0)
+    torch.cuda.synchronize(dev)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    t_train, t0 = time.perf_counter() - t0, time.perf_counter()
+    report = {"plan": {k: v for k, v in out["plan"].describe().items()
+                       if k != "notes"},
+              "layers": cfg.num_layers,
+              "losses": [m["loss"] for m in out["metrics"]],
+              "walls": [m["wall_s"] for m in out["metrics"]],
+              "launches": launches, "peak": peak, "grant": out["grant"],
+              "held": out["held"], "device": str(dev), "profile": prof,
+              "dropped": sum(int(x) for x in tally["dropped"]),
+              "pairs": tally["pairs"], "a2a_bytes": tally["a2a_bytes"],
+              "a2a_calls": tally["a2a_calls"],
+              "heads": sorted(tally["heads"]), "swaps": dict(swaps),
+              "routes": {k: v - routes0[k]
+                         for k, v in C.all_to_all.routes.items()}}
+    if run["pinned"]:
+        mesh = TorchMesh(out["plan"].mesh)
+        lay = plan_layouts(out["plan"], cfg, param_specs(cfg), mesh)
+        ref = torch.load(f"{d}/ep_reference_{ov['moe_dispatch']}.pt",
+                         mmap=True)
+        grad_sums = _block_errs(torch, grads[0], ref["grads"],
+                                opt.leaves(lay.opt), mesh, dev)
+        param_sums = _block_errs(torch, opt.leaves(out["params"]),
+                                 ref["params"], opt.leaves(lay.params), mesh,
+                                 dev)
+        del ref
+        report["grad_errs"] = (grad_sums[:, 0] / grad_sums[:, 1]).sqrt() \
+            .tolist()
+        report["param_err"] = float((param_sums[:, 0].sum()
+                                     / param_sums[:, 1].sum()).sqrt())
+    report["seconds"] = {"train": t_train, "gates": time.perf_counter() - t0}
+    del out
+    with open(f"{d}/{name}_{rank}.json", "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+
+
+def ep_gates(d, backend, ref_losses):
+    """Phase 21's gates on the ranks' reports (see the module doc);
+    returns rank 0's launch counts of the ladder's run."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_paths
+    from repro_torch.models.model import param_specs
+    names = None
+    launches = {}
+    for name, run in ep_runs(backend).items():
+        reports = _rank_reports(d, name)
+        r0 = reports[0]
+        plan, losses = r0["plan"], r0["losses"]
+        peaks = [round(r["peak"] / 2**30, 3) for r in reports]
+        pairs = sum(r["pairs"] for r in reports)
+        drop = sum(r["dropped"] for r in reports) / max(pairs, 1)
+        print(f"[{name}] {EP_ARCH} ({r0['layers']} layers, capacity factor "
+              f"{run['cf'] or 'the config'}'s) plan batch_axes="
+              f"{plan['batch_axes']} tp={plan['tp']} ep={plan['ep']} "
+              f"dispatch={plan['moe_dispatch']} zero={plan['zero']} "
+              f"fsdp={plan['fsdp']} remat={plan['remat']} microbatch="
+              f"{plan['microbatch']} loss_chunk={plan['loss_chunk']}; est "
+              f"{plan['est_bytes_per_device'] / 2**30:.3f} GiB/device beside "
+              f"the peaks {peaks} GiB on {[r['device'] for r in reports]}, "
+              f"grant {r0['grant'] / 2**30:.3f} GiB over "
+              f"{r0['held'] / 2**30:.3f} GiB held; losses {losses}; "
+              f"walls {[round(w, 4) for w in r0['walls']]} s; the pairs the "
+              f"capacity dropped: {drop:.6f} of {pairs} routed (every rank, "
+              f"forward and recompute); all-to-alls on rank 0: "
+              f"{r0['a2a_calls']} moving {r0['a2a_bytes'] / 2**20:.1f} MiB "
+              f"sent ({r0['a2a_bytes'] / 2**20 / len(losses):.1f} MiB a "
+              f"step), routes {r0['routes']}; rank 0's attention calls "
+              f"(q heads, K/V heads, head dim) {r0['heads']}; launches "
+              f"{r0['launches']}; rank 0's seconds {r0['seconds']} | "
+              f"{card_line()}", flush=True)
+        if not all(math.isfinite(x) for x in losses):
+            fail(f"{name}: losses {losses} not finite")
+        if not all(r0["grant"] >= r["held"] >= r["peak"] for r in reports) \
+                or any(r["grant"] != r0["grant"] for r in reports):
+            fail(f"{name}: the grant does not cover every rank's peak")
+        if run["pinned"]:
+            if names is None:
+                names = [key for key, _ in _flatten_with_paths(
+                    param_specs(ep_cfg(EP_LAYERS)))]
+            want = ref_losses[plan["moe_dispatch"]]
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want))
+            errs = dict(zip(names, r0["grad_errs"]))
+            worst = max(errs, key=errs.get)
+            swaps = [r["swaps"] for r in reports]
+            print(f"[{name}] against one card's run: losses {want} (max rel "
+                  f"{loss_err:.3e} <= {TRAIN_LOSS_RTOL}), params rel norm "
+                  f"{r0['param_err']:.3e} <= {TRAIN_PARAM_RTOL}, step-1 grads "
+                  f"worst rel norm {errs[worst]:.3e} ({worst}) <= "
+                  f"{TRAIN_GRAD_RTOL}; router "
+                  f"{errs['blocks/p0_moe/moe/router']:.3e}, shared expert "
+                  f"{errs['blocks/p0_moe/moe/shared/wi_gate']:.3e}; step 1 "
+                  f"routed as on one card, the ranks' own routing swapping "
+                  f"{sum(s['swapped'] for s in swaps)} of "
+                  f"{sum(s['tokens'] for s in swaps)} token routings",
+                  flush=True)
+            if not (loss_err <= TRAIN_LOSS_RTOL
+                    and r0["param_err"] <= TRAIN_PARAM_RTOL
+                    and errs[worst] <= TRAIN_GRAD_RTOL):
+                fail(f"{name}: the ranks' run disagrees with one card's")
+            continue
+        per_mb = _attention_counts(r0["layers"])
+        want = {k: per_mb.get(k, 0) * plan["microbatch"] * len(losses)
+                for k in r0["launches"]}
+        prof = r0["profile"]
+        print(f"[{name}] rank 0's profiled step: wall "
+              f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} "
+              f"ms; collectives: NCCL kernels {prof['nccl_ms']:.1f} ms "
+              f"({prof['nccl_ms'] / max(prof['busy_ms'], 1e-9):.4f} of the "
+              f"busy time), host time in gloo's collectives "
+              f"{prof['gloo_host_ms']:.1f} ms "
+              f"({prof['gloo_host_ms'] / prof['wall_ms']:.4f} of the wall); "
+              f"launches expected {want}", flush=True)
+        if not losses[-1] < losses[0]:
+            fail(f"{name}: losses {losses} not decreasing")
+        if r0["launches"] != want:
+            fail(f"{name}: rank 0's launch counts differ from what the path "
+                 "implies")
+        if r0["heads"] != [[8, 8, 128]]:
+            fail(f"{name}: rank 0's attention ran {r0['heads']}, not 8 of "
+                 "the 16 heads at head dim 128")
+        launches = r0["launches"]
+    return launches
+
 
 if __name__ == "__main__":
     main()

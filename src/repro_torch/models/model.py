@@ -146,8 +146,9 @@ def _shared(params: Params) -> Params:
     return {k: params[k] for k in ("shared_attn",) if k in params}
 
 
-#: the block kinds whose training forward runs tensor-parallel
-TP_KINDS = (ATTN_GLOBAL, ATTN_LOCAL)
+#: the block kinds whose training forward runs tensor-parallel (an MoE
+#: block's attention; its routed experts run expert-parallel)
+TP_KINDS = (ATTN_GLOBAL, ATTN_LOCAL, MOE)
 
 
 class Model:
@@ -159,8 +160,11 @@ class Model:
     With ``tp`` (the rank's :class:`TensorParallel` group), ``loss_fn``
     runs on this rank's blocks of the planner's compute layout: the heads,
     ffn columns and vocab rows it split over the group, the rest whole.
-    That covers the attention + MLP stacks (``TP_KINDS``); without ``tp``
-    no collective runs."""
+    That covers the attention + MLP stacks and the MoE stacks
+    (``TP_KINDS``), whose routed experts then run expert-parallel over
+    the same axis (``impl.ep_shard_ctx``, which the planner's expert
+    layout implies under TP); without ``tp`` and ``ep_shard_ctx`` no
+    collective runs."""
 
     def __init__(self, cfg: ModelConfig, impl: Optional[ImplConfig] = None,
                  tp: Optional[TensorParallel] = None):
@@ -168,8 +172,15 @@ class Model:
         if tp is not None and any(k not in TP_KINDS for k in cfg.pattern):
             raise NotImplementedError(
                 f"{cfg.name}: the tensor-parallel forward covers attention "
-                f"+ MLP stacks ({TP_KINDS}); pattern {cfg.pattern} trains "
-                "data-parallel (tp=False)")
+                f"+ MLP and MoE stacks ({TP_KINDS}); pattern {cfg.pattern} "
+                "trains data-parallel (tp=False)")
+        if tp is not None and MOE in cfg.pattern and (
+                impl is None or impl.ep_shard_ctx is None):
+            raise NotImplementedError(
+                f"{cfg.name}: under tensor parallelism the routed experts "
+                "run expert-parallel over the 'model' axis (the plan's ep, "
+                "ImplConfig.ep_shard_ctx); the experts' ffn columns split "
+                "over it are not ported")
         self.cfg = cfg
         self.impl = impl or ImplConfig()
         self.tp = tp
@@ -260,7 +271,7 @@ class Model:
                 key = f"p{i}_{kind}"
                 bc = {leaf: t[j, rows] for leaf, t in cache[key].items()}
                 x, _ = T.apply_block_prefill(cfg, kind, bp[key], x, shared,
-                                             bc, enc_out)
+                                             bc, enc_out, self.impl)
         x = T.apply_norm(cfg, params["ln_f"], x[:, -1:])
         return L.unembed(params["embed"], x, cfg.logit_softcap), cache
 
@@ -278,7 +289,7 @@ class Model:
                 key = f"p{i}_{kind}"
                 bc = {leaf: t[j] for leaf, t in cache[key].items()}
                 x, _ = T.apply_block_decode(cfg, kind, bp[key], x, bc, pos,
-                                            shared)
+                                            shared, self.impl)
         x = T.apply_norm(cfg, params["ln_f"], x)
         return L.unembed(params["embed"], x, cfg.logit_softcap), cache
 
@@ -297,7 +308,8 @@ class Model:
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for i, kind in enumerate(cfg.pattern):
                 x, a = T.apply_block_train(cfg, kind, bp[f"p{i}_{kind}"], x,
-                                           shared, enc_out, self.tp)
+                                           shared, enc_out, self.tp,
+                                           self.impl)
                 aux = aux + a
             return x, aux
 

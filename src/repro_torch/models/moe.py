@@ -1,5 +1,5 @@
 """Mixture-of-Experts FFN with capacity dispatch: the counterpart of
-``repro/models/moe.py`` on its single-shard path (``shard_ctx=None``).
+``repro/models/moe.py``, on one shard and over a mesh.
 
 Routing, top-k, the capacity dispatch and the combine follow the
 reference step for step, since which tokens a full expert drops at
@@ -20,8 +20,22 @@ prefill decides the tokens served:
   which a sum over the slots or ``index_add_`` (both accumulating in fp32
   and rounding once) is not.
 
-The expert-parallel dispatches (the reference's psum and a2a shard_map
-paths) need a mesh of several cards and wait for ROADMAP item A8b.
+Over a mesh (``shard_ctx``), the reference's two expert-parallel
+dispatches, with the collectives its ``shard_map`` implies written out
+(``sharding.collectives``); each rank holds its block of ``e_pad / n``
+experts along the ``model`` axis of n ranks, and the router's columns
+are all-gathered:
+
+* ``psum``: every model rank routes its data shard's tokens, runs its own
+  experts' pairs (the others write the trash row) and the partial
+  outputs are summed over ``model``;
+* ``a2a``: the data shard's tokens are split over ``model``; each rank
+  routes its slice, with the capacity over the slice's tokens (so its
+  drops differ from the single-shard path's, as in the reference), and
+  two all-to-alls carry each expert's rows to the rank that owns it and
+  back.
+
+In both the balance loss is the mean over every rank of the mesh.
 """
 
 from __future__ import annotations
@@ -34,6 +48,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.profiles import padded_num_experts
 from repro_torch.models.layers import Spec, gated_mlp, gated_mlp_specs
+from repro_torch.sharding import collectives as C
 
 Params = Dict[str, Any]
 
@@ -134,52 +149,165 @@ def combine(gathered: torch.Tensor, k: int) -> torch.Tensor:
     return y
 
 
+def _experts(ebuf: torch.Tensor, p: Params) -> torch.Tensor:
+    """The (E, C, D) buffer through each expert's gated MLP: three bf16
+    batched products."""
+    h = F.silu(torch.bmm(ebuf, p["we_gate"])) * torch.bmm(ebuf, p["we_up"])
+    return torch.bmm(h, p["we_down"])
+
+
+def _pair_rows(out: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """Each (token, k) pair's row of the expert outputs ``out`` (R, D) at
+    its ``slot`` (zeros at the trash slot R), the reference's
+    ``out[slot]``, as a scatter of every slot's row to the pair that
+    filled it (empty slots, zero rows, to a trash pair): its gradient is
+    a gather, where the gather's is an accumulating scatter in which
+    every dropped pair's trash index serialises on the card."""
+    n, rows = slot.numel(), out.shape[0]
+    pair = torch.full((rows + 1,), n, device=out.device).index_put_(
+        (slot,), torch.arange(n, device=out.device))[:rows]
+    return out.new_zeros(n + 1, out.shape[1]).index_put((pair,), out)[:n]
+
+
+def _dispatch(x: torch.Tensor, slot: torch.Tensor, rows: int,
+              k: int) -> torch.Tensor:
+    """The (rows, D) expert buffer: each token's row once per (token, k)
+    pair, token-major (the reference's ``x[token_of]``), at the pair's
+    slot; trash-slot pairs land on a row past ``rows`` that is cut off.
+    The rows go in as an expand, whose gradient is a sum over k in a
+    fixed order, where a gather's is a scatter-add."""
+    t, d = x.shape
+    buf = torch.zeros((rows + 1, d), dtype=x.dtype, device=x.device)
+    buf[slot] = x.unsqueeze(1).expand(t, k, d).reshape(t * k, d)
+    return buf[:rows]
+
+
 def _local_expert_ffn(x: torch.Tensor, p: Params, cfg: ModelConfig,
-                      e_total: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                      e_total: int, e_index: int = 0
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Routed experts on (T, D) tokens -> (y (T, D), aux).  ``p["we_*"]``
-    hold all ``e_total`` (padded) experts."""
+    hold ``e_loc`` of the ``e_total`` (padded) experts, the block
+    ``e_index`` (all of them on a single shard): pairs routed to other
+    experts write the trash row, and ``y`` is this block's part of the
+    output."""
     m = cfg.moe
     t, d = x.shape
     k = m.top_k
+    e_loc = p["we_gate"].shape[0]
     cap = _capacity(t, e_total, k, m.capacity_factor)
     weights, ids, aux = route(p["router"], x, cfg)
     slot, _ = dispatch_slots(ids, e_total, cap)
+    if e_loc < e_total:
+        # this block owns the slots [e0 * cap, (e0 + e_loc) * cap)
+        local = slot - e_index * e_loc * cap
+        slot = torch.where((local >= 0) & (local < e_loc * cap), local,
+                           torch.full_like(local, e_loc * cap))
+    ebuf = _dispatch(x, slot, e_loc * cap, k).view(e_loc, cap, d)
+    out = _experts(ebuf, p).reshape(e_loc * cap, d)
+    return combine(_pair_rows(out, slot) * weights.reshape(-1, 1), k), aux
 
-    buf = torch.zeros((e_total * cap + 1, d), dtype=x.dtype, device=x.device)
-    # each token's row once per (token, k) pair, token-major (the
-    # reference's ``x[token_of]``): as an expand, whose gradient is a sum
-    # over k in a fixed order, where a gather's is a scatter-add
-    buf[slot] = x.unsqueeze(1).expand(t, k, d).reshape(t * k, d)
-    ebuf = buf[:e_total * cap].view(e_total, cap, d)
-    h = F.silu(torch.bmm(ebuf, p["we_gate"])) * torch.bmm(ebuf, p["we_up"])
-    out = torch.bmm(h, p["we_down"]).reshape(e_total * cap, d)
-    # each pair's output row (zeros for a dropped pair), the reference's
-    # ``out[slot]``, as a scatter of every slot's row to the pair that
-    # filled it (empty slots, zero rows, to a trash pair): its gradient is
-    # a gather, where the gather's is an accumulating scatter in which
-    # every dropped pair's trash index serialises on the card
-    n = t * k
-    pair = torch.full((e_total * cap + 1,), n, device=x.device).index_put_(
-        (slot,), torch.arange(n, device=x.device))[:e_total * cap]
-    gathered = out.new_zeros(n + 1, d).index_put((pair,), out)[:n]
-    return combine(gathered * weights.reshape(-1, 1), k), aux
+
+def _a2a_expert_ffn(x: torch.Tensor, p: Params, cfg: ModelConfig,
+                    tp: C.TensorParallel, e_total: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """All-to-all expert parallelism on this rank's slice (T_loc, D) of
+    the tokens -> (its y (T_loc, D), its aux).  Routing, top-k and the
+    capacity (over the slice's tokens, per (destination rank, local
+    expert)) are the slice's own; the (n, e_loc * cap, D) send buffer
+    goes to the experts' owners, which run their (e_loc, n * cap, D)
+    buffer (the source ranks' rows side by side, the reference's
+    transpose), and a second exchange brings the rows back."""
+    m = cfg.moe
+    t, d = x.shape
+    k, n = m.top_k, tp.size
+    e_loc = e_total // n
+    cap = _capacity(t, e_total, k, m.capacity_factor)
+    weights, ids, aux = route(p["router"], x, cfg)
+    slot, _ = dispatch_slots(ids, e_total, cap)
+    send = _dispatch(x, slot, e_total * cap, k).view(n, e_loc * cap, d)
+    recv = C.all_to_all(send, tp)
+    ebuf = recv.view(n, e_loc, cap, d).transpose(0, 1).reshape(
+        e_loc, n * cap, d)
+    out = _experts(ebuf, p)
+    back = out.view(e_loc, n, cap, d).transpose(0, 1).reshape(
+        n, e_loc * cap, d)
+    ret = C.all_to_all(back, tp).view(e_total * cap, d)
+    return combine(_pair_rows(ret, slot) * weights.reshape(-1, 1), k), aux
+
+
+def _expert_parallel(p: Params, flat: torch.Tensor, cfg: ModelConfig,
+                     shard_ctx, dispatch: str
+                     ) -> Tuple[torch.Tensor, torch.Tensor, C.TensorParallel]:
+    """The routed experts over the mesh of ``shard_ctx`` -> (y, aux, the
+    ``model`` group).  ``flat`` (T, D), this rank's data shard's tokens,
+    is the same on every rank of the group, and so is ``y``."""
+    if dispatch not in ("psum", "a2a"):
+        raise ValueError(f"unknown MoE dispatch {dispatch!r}")
+    mesh, axis, batch_axes = shard_ctx
+    if axis != "model" or axis in batch_axes:
+        raise ValueError(f"moe_block: experts split over {axis!r} with "
+                         f"batch axes {batch_axes}; expert parallelism runs "
+                         "over the 'model' axis, which the batch must not "
+                         "split")
+    tp = C.TensorParallel(mesh.group((axis,)), mesh.size((axis,)),
+                          mesh.coords[axis])
+    e_pad = padded_num_experts(cfg.moe.num_experts)
+    if p["we_gate"].shape[0] * tp.size != e_pad:
+        raise ValueError(
+            f"moe_block: {p['we_gate'].shape[0]} experts on this rank; "
+            f"expert parallelism over {tp.size} ranks holds {e_pad} / "
+            f"{tp.size} a rank")
+    router = p["router"]
+    if router.shape[-1] < e_pad:
+        router = C.gather_from_tp(router, tp, dim=-1)
+    # the router's gradient on each rank is a part: its own experts'
+    # pairs (psum) or its own slice's tokens (a2a)
+    ep = {"router": C.copy_to_tp(router, tp),
+          **{key: p[key] for key in ("we_gate", "we_up", "we_down")}}
+    if dispatch == "psum":
+        # the tokens' gradient is a part too (under a2a the scatter's
+        # backward gathers the slices' instead)
+        y, aux = _local_expert_ffn(C.copy_to_tp(flat, tp), ep, cfg, e_pad,
+                                   tp.rank)
+        y = C.reduce_from_tp(y, tp)
+    else:
+        if flat.shape[0] % tp.size:
+            raise ValueError(f"moe_block: {flat.shape[0]} tokens do not "
+                             f"split over the {tp.size} ranks of {axis!r}")
+        y, aux = _a2a_expert_ffn(C.scatter_to_tp(flat, tp), ep, cfg, tp,
+                                 e_pad)
+        y = C.gather_from_tp(y, tp)
+    return y, C.mesh_mean(aux, tp, mesh), tp
 
 
 def moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
-              shard_ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, D) -> (y, aux), every token of the B x S routed together
-    (the capacity is over all of them).  Shared experts (qwen2) add an
-    fp32 sigmoid gate, cast to x's dtype, times their gated MLP."""
-    if shard_ctx is not None:
-        raise NotImplementedError(
-            "moe_block: the expert-parallel dispatch over a mesh comes with "
-            "the multi-card slice of expert parallelism (ROADMAP item A8b); "
-            "the port runs the single-shard path")
+              shard_ctx=None, dispatch: str = "psum"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (y, aux); on one shard every token of the B x S is
+    routed together (the capacity is over all of them).  Shared experts
+    (qwen2) add an fp32 sigmoid gate, cast to x's dtype, times their
+    gated MLP.
+
+    ``shard_ctx`` = (a ``launch.mesh.TorchMesh``, ``"model"``, the batch
+    axes) runs the expert-parallel ``dispatch``, ``"psum"`` or ``"a2a"``
+    (see the module doc) on this rank's blocks of the routed experts and
+    router; the shared experts' MLP runs on its ffn columns where the
+    planner split them over ``model``, as the dense MLP does under TP."""
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
     m = cfg.moe
-    y, aux = _local_expert_ffn(flat, p, cfg, padded_num_experts(m.num_experts))
+    tp = None
+    if shard_ctx is None:
+        y, aux = _local_expert_ffn(flat, p, cfg,
+                                   padded_num_experts(m.num_experts))
+    else:
+        y, aux, tp = _expert_parallel(p, flat, cfg, shard_ctx, dispatch)
     if m.num_shared_experts > 0:
+        # the gate's weight and input are whole on every rank, and so
+        # are their gradients: no collective
         gate = torch.sigmoid(torch.matmul(flat, p["shared_gate"]).float())
-        y = y + gate.to(flat.dtype) * gated_mlp(p["shared"], flat)
+        split = tp is not None and \
+            p["shared"]["wi_gate"].shape[-1] < m.d_shared_expert
+        y = y + gate.to(flat.dtype) * gated_mlp(p["shared"], flat,
+                                                tp if split else None)
     return y.reshape(b, s, d), aux

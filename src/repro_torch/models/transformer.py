@@ -50,6 +50,10 @@ class ImplConfig:
     remat: str = "full"               # none | dots | full
     # stream the unembed+CE over sequence chunks (0 = monolithic logits)
     loss_chunk: int = 0
+    # expert parallelism: (TorchMesh, "model", batch axes), or None for the
+    # single-shard MoE block; and its dispatch, "psum" | "a2a"
+    ep_shard_ctx: Optional[tuple] = None
+    moe_dispatch: str = "psum"
 
 
 # matmuls without batch dims (``torch.matmul`` of a (B, S, d) activation
@@ -212,11 +216,14 @@ def _store(cache: Params, new: Params) -> Params:
     return cache
 
 
-def apply_block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, cache: Params, pos: int,
-                       shared: Params) -> Tuple[torch.Tensor, Params]:
+def apply_block_decode(cfg: ModelConfig, kind: str, p: Params,
+                       x: torch.Tensor, cache: Params, pos: int,
+                       shared: Params, impl: Optional[ImplConfig] = None
+                       ) -> Tuple[torch.Tensor, Params]:
     """One token through one block at the shared position ``pos``.  x:
     (B, 1, d); ``cache`` holds this block's (B, ...) state and is updated
-    in place.  Returns (x, cache)."""
+    in place.  ``impl`` carries an MoE block's expert-parallel context.
+    Returns (x, cache)."""
     if kind in (ATTN_GLOBAL, ATTN_LOCAL):
         window = cfg.sliding_window if kind == ATTN_LOCAL else 0
         h = apply_norm(cfg, p["ln1"], x)
@@ -232,7 +239,7 @@ def apply_block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, 
         y, cache = attn.self_attention_decode(p["attn"], h, cache, pos, cfg)
         x = x + y
         h = apply_norm(cfg, p["ln2"], x)
-        y, _ = moe_mod.moe_block(p["moe"], h, cfg)
+        y, _ = _moe(cfg, p, h, impl)
         return x + y, cache
     if kind == DEC_ATTN:
         h = apply_norm(cfg, p["ln1"], x)
@@ -271,15 +278,16 @@ def apply_block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor, 
 
 def apply_block_prefill(cfg: ModelConfig, kind: str, p: Params,
                         x: torch.Tensor, shared: Params, cache: Params,
-                        enc_out: Optional[torch.Tensor] = None
+                        enc_out: Optional[torch.Tensor] = None,
+                        impl: Optional[ImplConfig] = None
                         ) -> Tuple[torch.Tensor, Params]:
     """A whole prompt through one block.  x: (B, S, d); ``cache`` holds
     this block's (B, ...) decode state, which is overwritten in place with
     the state after the prompt (KV rows past S zeroed; a sliding-window
     block's ring holds the prompt's last ``window`` positions; a whisper
     decoder block's cross K/V are the encoder output's).  ``enc_out`` is
-    the encoder's output (B, T, d) for decoder blocks.  Returns (x,
-    cache)."""
+    the encoder's output (B, T, d) for decoder blocks; ``impl`` carries
+    an MoE block's expert-parallel context.  Returns (x, cache)."""
     if kind in (ATTN_GLOBAL, ATTN_LOCAL, MOE):
         window = cfg.sliding_window if kind == ATTN_LOCAL else 0
         h = apply_norm(cfg, p["ln1"], x)
@@ -287,7 +295,7 @@ def apply_block_prefill(cfg: ModelConfig, kind: str, p: Params,
         x = x + y
         h = apply_norm(cfg, p["ln2"], x)
         if kind == MOE:
-            y, _ = moe_mod.moe_block(p["moe"], h, cfg)
+            y, _ = _moe(cfg, p, h, impl)
         else:
             y = L.gated_mlp(p["mlp"], h)
         return x + y, _store_kv(cache, kv, window)
@@ -358,6 +366,15 @@ def _store_kv(cache: Params, kv: Params, window: int = 0) -> Params:
     return cache
 
 
+def _moe(cfg: ModelConfig, p: Params, h: torch.Tensor,
+         impl: Optional[ImplConfig]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An MoE block's routed and shared experts on the normed ``h``, over
+    the mesh of ``impl.ep_shard_ctx`` where it is set."""
+    impl = impl or ImplConfig()
+    return moe_mod.moe_block(p["moe"], h, cfg, impl.ep_shard_ctx,
+                             impl.moe_dispatch)
+
+
 def _attn_mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                     window: int, tp=None) -> torch.Tensor:
     """With ``tp``, the attention and the MLP each run this rank's heads
@@ -384,7 +401,8 @@ def _shared_attn_apply(cfg: ModelConfig, sp: Params,
 
 def apply_block_train(cfg: ModelConfig, kind: str, p: Params,
                       x: torch.Tensor, shared: Optional[Params] = None,
-                      enc_out: Optional[torch.Tensor] = None, tp=None
+                      enc_out: Optional[torch.Tensor] = None, tp=None,
+                      impl: Optional[ImplConfig] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One block of kind ``kind`` -> (x, aux): ``aux`` is the MoE balance
     loss, an fp32 0 for every other kind.  ``shared`` holds the model's
@@ -393,7 +411,9 @@ def apply_block_train(cfg: ModelConfig, kind: str, p: Params,
     whisper's encoder output (B, T, d), whose cross K/V a decoder block
     projects inside the block, so that a recompute runs them again.
     ``tp``, a ``TensorParallel`` group, reaches the attention and MLP
-    blocks only (``Model`` refuses it for a stack of other kinds)."""
+    blocks and an MoE block's attention (``Model`` refuses it for a stack
+    of other kinds); an MoE block's routed experts run expert-parallel
+    under ``impl.ep_shard_ctx``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in (ATTN_GLOBAL, ATTN_LOCAL):
         window = cfg.sliding_window if kind == ATTN_LOCAL else 0
@@ -409,9 +429,10 @@ def apply_block_train(cfg: ModelConfig, kind: str, p: Params,
         x = x + L.mlp(p["mlp"], h)
     elif kind == MOE:
         h = apply_norm(cfg, p["ln1"], x)
-        x = x + attn.self_attention_train(p["attn"], h, cfg, causal=True)
+        x = x + attn.self_attention_train(p["attn"], h, cfg, causal=True,
+                                          tp=tp)
         h = apply_norm(cfg, p["ln2"], x)
-        y, aux = moe_mod.moe_block(p["moe"], h, cfg)
+        y, aux = _moe(cfg, p, h, impl)
         x = x + y
     elif kind == RWKV6:
         h = apply_norm(cfg, p["ln1"], x)

@@ -260,8 +260,8 @@ class TorchExecutor(Executor):
         # reduced runs keep remat off: the ladder's remat choice targets
         # the card's HBM budget, not the smoke-scale footprint
         model = Model(cfg, impl_from_plan(
-            dataclasses.replace(plan, remat="none") if app.reduced else plan),
-            tp=tp)
+            dataclasses.replace(plan, remat="none") if app.reduced else plan,
+            mesh), tp=tp)
         params = self.init_params(handle)
         layouts = None
         if mesh is None:

@@ -15,7 +15,12 @@ slices) and gets its rows of the batch; the forward and backward run on
 the ``compute`` layout (FSDP's data-split dims gathered once a step,
 before the forward); the fp32 gradient sums are averaged over the batch
 axes, each rank updates its optimizer slice, and the new bf16 params are
-all-gathered back into the ``params`` layout.
+all-gathered back into the ``params`` layout.  Under expert parallelism
+an expert leaf's compute block is the rank's own experts: its gradient
+is averaged over the batch axes only, like every leaf's (a leaf whose
+whole several ``model`` ranks apply sums its parts over ``model`` in the
+backward, ``collectives.copy_to_tp``), and the global norm counts each
+expert block once.
 """
 
 from __future__ import annotations
@@ -32,9 +37,17 @@ from repro_torch.sharding.planner import PlanLayouts, plan_layouts
 from repro_torch.training import optimizer as opt
 
 
-def impl_from_plan(plan: Plan) -> ImplConfig:
+def impl_from_plan(plan: Plan, mesh=None) -> ImplConfig:
+    """The plan's execution strategy.  On ``mesh`` (a ``TorchMesh``) of
+    several ``model`` ranks, a plan with expert parallelism (``ep``) runs
+    the MoE blocks' routed experts over that axis with the plan's
+    dispatch (the reference's ``ep_shard_ctx``)."""
+    ep_ctx = None
+    if plan.ep and mesh is not None and mesh.size(("model",)) > 1:
+        ep_ctx = (mesh, "model", tuple(plan.batch_axes))
     return ImplConfig(attn_impl=plan.attn_impl, remat=plan.remat,
-                      loss_chunk=plan.loss_chunk)
+                      loss_chunk=plan.loss_chunk, ep_shard_ctx=ep_ctx,
+                      moe_dispatch=plan.moe_dispatch)
 
 
 def _compress_int8(g: torch.Tensor) -> torch.Tensor:

@@ -13,10 +13,6 @@ a world of the wrong size) and 4 ranks on ``h100x4`` (``launch.train``
 through ``Cluster.submit`` with both of its training plans).
 """
 
-import os
-import subprocess
-import sys
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -44,11 +40,8 @@ from repro_torch.models.transformer import ImplConfig
 from repro_torch.runtime import Application, Cluster, TorchExecutor
 from repro_torch.training import optimizer as topt
 from repro_torch.training.train_step import make_train_step
-from torch_ranks import captured_grads
+from torch_ranks import captured_grads, run_world
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-RANKS = os.path.join(ROOT, "tests", "torch_ranks.py")
-WORLD_TIMEOUT_S = 150
 # the reference test's plan: TP over 'model', ZeRO over 'data'
 REF_PLAN = dict(batch_axes=("data",), tp=True, zero=True, remat="none",
                 microbatch=1)
@@ -59,29 +52,6 @@ TRAIN_PLANS = {
     "tp": {"tp": True, "zero": True, "fsdp": True, "batch_axes": ("data",),
            "remat": "full", "microbatch": 2},
 }
-
-
-def run_world(program, world, d):
-    """``program`` of ``tests/torch_ranks.py`` on ``world`` ranks, each in
-    its own process; every rank must exit 0 within the timeout."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
-               OMP_NUM_THREADS="1")
-    procs = [subprocess.Popen([sys.executable, RANKS, program, str(r),
-                               str(world), str(d)], env=env,
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for r in range(world)]
-    logs = []
-    try:
-        for p in procs:
-            out, err = p.communicate(timeout=WORLD_TIMEOUT_S)
-            logs.append((p.returncode, out, err))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    bad = [(r, rc, err[-3000:]) for r, (rc, _, err) in enumerate(logs) if rc]
-    assert not bad, bad
 
 
 def _keys(tree):

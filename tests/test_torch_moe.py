@@ -201,12 +201,17 @@ def test_moe_block_matches_reference(arch, b, s, drops):
 
 
 def test_moe_block_with_a_shard_ctx_names_the_multi_card_item():
+    """A ``shard_ctx`` runs the expert-parallel dispatch over a mesh
+    (``tests/test_torch_expert_parallel.py``, the multi-card item A8b);
+    one it cannot run is refused before any collective: experts split
+    over an axis the batch splits too, or another axis than 'model'."""
     _, tcfg, _, tparams = _bridged("qwen2-moe-a2.7b")
     tp = jax.tree.map(lambda t: t[0], tparams["blocks"]["p0_moe"]["moe"])
-    with pytest.raises(NotImplementedError, match="A8"):
-        moe.moe_block(tp, torch.zeros(1, 2, tcfg.d_model,
-                                      dtype=torch.bfloat16), tcfg,
-                      shard_ctx=("mesh", "model", ("data",)))
+    x = torch.zeros(1, 2, tcfg.d_model, dtype=torch.bfloat16)
+    for ctx in (("mesh", "model", ("data", "model")),
+                ("mesh", "data", ("model",))):
+        with pytest.raises(ValueError, match="'model' axis"):
+            moe.moe_block(tp, x, tcfg, shard_ctx=ctx)
 
 
 def test_init_draws_a_large_leaf_a_slice_at_a_time(monkeypatch):

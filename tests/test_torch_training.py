@@ -338,17 +338,24 @@ def test_remat_and_loss_chunk_do_not_change_the_gradients():
 
 
 def test_unported_training_paths_raise():
-    """What later slices bring raises and names its slice: the MoE
-    block's expert-parallel dispatch over a mesh (a ``shard_ctx``), ROADMAP
-    item A8 (every block kind trains since its slice:
-    ``tests/test_torch_recurrent_training.py``,
-    ``tests/test_torch_family_training.py``); an unknown remat policy
-    raises too."""
+    """What later slices bring raises: the tensor-parallel forward of the
+    Mamba-2 and RWKV-6 stacks (ROADMAP item A8c; the MoE block's
+    expert-parallel dispatch came with A8b,
+    ``tests/test_torch_expert_parallel.py``, and every block kind trains
+    on one card since its slice: ``tests/test_torch_recurrent_training.py``,
+    ``tests/test_torch_family_training.py``); an unknown MoE dispatch and
+    an unknown remat policy raise too."""
     from repro_torch.models.moe import moe_block
+    from repro_torch.sharding.collectives import TensorParallel
+    tp = TensorParallel(None, 2, 0)
+    for arch in ("zamba2-2.7b", "rwkv6-7b"):
+        with pytest.raises(NotImplementedError, match="data-parallel"):
+            Model(reduced_config(get_config(arch)), tp=tp)
     mcfg = reduced_config(get_config("qwen2-moe-a2.7b"))
     x = torch.zeros(1, 4, mcfg.d_model)
-    with pytest.raises(NotImplementedError, match="A8"):
-        moe_block({}, x, mcfg, shard_ctx=object())
+    with pytest.raises(ValueError, match="unknown MoE dispatch"):
+        moe_block({}, x, mcfg, shard_ctx=("mesh", "model", ("data",)),
+                  dispatch="ring")
     with pytest.raises(ValueError, match="unknown remat policy"):
         T._remat(lambda x: x, "everything")
 

@@ -1,6 +1,8 @@
-"""Rank programs of ``tests/test_torch_distributed.py``.
+"""Rank programs of ``tests/test_torch_distributed.py`` and
+``tests/test_torch_expert_parallel.py``.
 
-Each rank of a world runs in its own process::
+Each rank of a world runs in its own process (:func:`run_world` starts
+them)::
 
     python tests/torch_ranks.py <program> <rank> <world> <dir>
 
@@ -15,6 +17,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import subprocess
 import sys
 import traceback
 
@@ -32,6 +35,31 @@ from repro_torch.sharding.planner import (param_specs_tree,  # noqa: E402
 from repro_torch.training import optimizer as opt  # noqa: E402
 
 DGX8 = MeshSpec("dgx8", (2, 4), ("data", "model"))
+WORLD_TIMEOUT_S = 150
+
+
+def run_world(program: str, world: int, d) -> None:
+    """``program`` of this module on ``world`` ranks, each in its own
+    process; every rank must exit 0 within the timeout."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
+               OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               program, str(r), str(world), str(d)],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=WORLD_TIMEOUT_S)
+            logs.append((p.returncode, out, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [(r, rc, err[-3000:]) for r, (rc, _, err) in enumerate(logs) if rc]
+    assert not bad, bad
 
 
 @contextlib.contextmanager
@@ -175,7 +203,162 @@ def launch_train(rank: int, d: str) -> None:
         torch.save(out, os.path.join(d, "train_out.pt"))
 
 
-PROGRAMS = {"world8": world8, "launch_train": launch_train}
+def ep_blocks(rank: int, d: str) -> None:
+    """``moe_block`` of each case in ``d/blocks.pt`` over the ``h100x4``
+    mesh, (2, 2) over ('data', 'model'): this rank's rows of the case's x
+    (the data shard's) and its blocks of the MoE leaves under the
+    TP + EP compute layout, under the case's config where it has one;
+    its y rows and the aux go to ``d/blocks_<rank>.pt``."""
+    from repro_torch.models.moe import moe_block, moe_specs
+    from repro_torch.sharding.planner import compute_specs_tree
+    blocks = torch.load(os.path.join(d, "blocks.pt"), weights_only=False)
+    cfg, mesh = blocks["cfg"], TorchMesh(H100X4)
+    plan = Plan(cfg.name, "t", H100X4, batch_axes=("data",), tp=True,
+                ep=True)
+    lay = to_layout(compute_specs_tree(plan, cfg, moe_specs(cfg)), mesh)
+    out = {}
+    for name, case in blocks["cases"].items():
+        local = opt.tree_unflatten(case["params"], [
+            la.local(p) for p, la in zip(opt.leaves(case["params"]),
+                                         opt.leaves(lay))])
+        x = case["x"]
+        rows = x.shape[0] // mesh.size(("data",))
+        x = x[mesh.coords["data"] * rows:(mesh.coords["data"] + 1) * rows]
+        y, aux = moe_block(local, x, case.get("cfg", cfg),
+                           shard_ctx=(mesh, "model", ("data",)),
+                           dispatch=case["dispatch"])
+        out[name] = {"y": y, "aux": float(aux),
+                     "experts": tuple(local["we_gate"].shape)}
+    out["routes"] = dict(C.all_to_all.routes)
+    torch.save(out, os.path.join(d, f"blocks_{rank}.pt"))
+
+
+def routing_order(layers: int, remat: str):
+    """The layer of each MoE routing of one microbatch, in call order:
+    the forward's, then under remat each block's recompute, last block
+    first."""
+    order = list(range(layers))
+    return order + (order[::-1] if remat != "none" else [])
+
+
+@contextlib.contextmanager
+def replayed_routes(replay: list):
+    """Each MoE routing takes the next expert ids of ``replay`` (consumed
+    in call order) while it lasts, the router's own after: its
+    probabilities, weights and balance loss are the run's own, gathered
+    at the replayed ids.  A routing is a discrete choice, and one ulp of
+    a router logit can swap a near-tied token's experts: the step-1
+    gradients are compared on one routing."""
+    from repro_torch.models import moe
+    plain, pending = moe.route, list(replay)
+
+    def route(p, x, cfg):
+        if not pending:
+            return plain(p, x, cfg)
+        ids = pending.pop(0).to(x.device)
+        weights, aux = moe.routed(moe.router_probs(p, x, cfg), ids, cfg,
+                                  x.dtype)
+        return weights, ids, aux
+
+    moe.route = route
+    try:
+        yield
+    finally:
+        moe.route = plain
+
+
+def rank_routes(table, rows, plan, slices: int, index: int) -> list:
+    """This rank's step-1 routings from ``table`` (per layer, the (B, S,
+    k) expert ids of every token of the global batch): microbatch i
+    routes the rank's global ``rows`` i::mb, flattened row-major, and
+    under a2a slice ``index`` of ``slices`` of them."""
+    out, mb = [], max(plan["microbatch"], 1)
+    for i in range(mb):
+        for layer in routing_order(len(table), plan["remat"]):
+            ids = table[layer][rows[i::mb]].flatten(0, 1)
+            n = ids.shape[0] // slices
+            out.append(ids[index * n:(index + 1) * n])
+    return out
+
+
+def ep_train(rank: int, d: str) -> None:
+    """``launch.train`` of each case in ``d/ep_train.pt`` on ``h100x4``
+    (TP + EP with the case's dispatch, ZeRO and FSDP), step 1 routed to
+    the case's ``routes`` (:func:`rank_routes`): the step-1 gradients
+    (the first ``adamw_update``'s) and the final params gathered whole,
+    saved by rank 0 to ``d/ep_train_out.pt``.  The
+    ``restore`` case's final params are then saved from the ranks' blocks
+    and restored onto a (4, 1) mesh (each rank's block bit-equal to its
+    block of the whole, in ``d/ep_restore_<rank>.pt``) and, on rank 0,
+    whole."""
+    from repro_torch.checkpoint.checkpointer import (restore_checkpoint,
+                                                     save_checkpoint)
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import param_specs
+    from repro_torch.sharding.planner import plan_layouts
+    out = {}
+    cases = torch.load(os.path.join(d, "ep_train.pt"), weights_only=False)
+    mesh = TorchMesh(H100X4)
+    for name, case in cases.items():
+        rows = torch.arange(case["shape"].global_batch).view(
+            mesh.size(("data",)), -1)[mesh.coords["data"]]
+        a2a = case["overrides"]["moe_dispatch"] == "a2a"
+        replay = rank_routes(case["routes"], rows, case["overrides"],
+                             mesh.size(("model",)) if a2a else 1,
+                             mesh.coords["model"] if a2a else 0)
+        with captured_grads([]) as grads, replayed_routes(replay):
+            res = train(case["cfg"], shape=case["shape"],
+                        overrides=case["overrides"], opt_cfg=case["opt"],
+                        device="cpu", steps=case["steps"], seed=0,
+                        mesh="h100x4", dist_backend="gloo", verbose=False)
+        specs = param_specs(case["cfg"])
+        lay = plan_layouts(res["plan"], case["cfg"], specs, mesh)
+        out[name] = {"metrics": res["metrics"],
+                     "plan": res["plan"].describe(),
+                     "local_shapes": [tuple(p.shape) for p in
+                                      opt.leaves(res["params"])],
+                     "grads": [C.gather_full(g, lo) for g, lo in
+                               zip(grads[0], opt.leaves(lay.opt))],
+                     "params": _gathered(res["params"], lay.params)}
+        if not case.get("restore"):
+            continue
+        ckpt = os.path.join(d, "ep_ckpt")
+        save_checkpoint(ckpt, 3, res["params"], extra={"plan": name},
+                        layouts=lay.params)
+        mesh41 = make_local_mesh(shape=(4, 1))
+        lay41 = plan_layouts(Plan(case["cfg"].name, "t", mesh41.spec,
+                                  **{k: res["plan"].describe()[k] for k in
+                                     ("batch_axes", "tp", "ep", "zero",
+                                      "fsdp")}),
+                             case["cfg"], specs, mesh41).params
+        like = opt.tree_unflatten(specs, [
+            torch.empty(l41.local_shape(s.shape), dtype=torch.bfloat16)
+            for s, l41 in zip(opt.leaves(specs), opt.leaves(lay41))])
+        restored, _, _ = restore_checkpoint(ckpt, 3, like, shardings=lay41)
+        whole = opt.leaves(out[name]["params"])
+        equal = [torch.equal(r, l41.local(w)) for r, w, l41 in zip(
+            opt.leaves(restored), whole, opt.leaves(lay41))]
+        one = None
+        if rank == 0:
+            got, _, _ = restore_checkpoint(ckpt, 3, opt.tree_map(
+                lambda s: torch.empty(s.shape, dtype=torch.bfloat16),
+                specs))
+            one = all(torch.equal(a, b)
+                      for a, b in zip(opt.leaves(got), whole))
+        torch.save({"equal": equal, "one": one,
+                    "specs": [l41.spec for l41 in opt.leaves(lay41)]},
+                   os.path.join(d, f"ep_restore_{rank}.pt"))
+    if rank == 0:
+        torch.save(out, os.path.join(d, "ep_train_out.pt"))
+
+
+def expert_parallel(rank: int, d: str) -> None:
+    ep_blocks(rank, d)
+    ep_train(rank, d)
+
+
+PROGRAMS = {"world8": world8, "launch_train": launch_train,
+            "expert_parallel": expert_parallel}
 
 
 def main(argv) -> None:
