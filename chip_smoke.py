@@ -34,7 +34,12 @@ Phases, each of which must pass (any failure exits nonzero):
    1000 x 2560 and 1000 x 5120 in bf16
    (dx at one bf16 ulp, dgain at one ulp and, from an fp32 gain, by
    ``RMS_DGAIN_REL_NORM``) and 33 x 128 in fp32, two launches bit-equal
-   at the training shapes and timed there;
+   at the training shapes and timed there; K3's split rows (a row's
+   channels split over a group, its sums of squares summed between a
+   stats launch and the norm: Mamba-2's gated norm under TP) forward and
+   backward at 4096 x 2560 of 5120 against the plain versions with the
+   same split; the profile reports' raw-event totals
+   (``ProfileTotals``) against ``key_averages()`` on one small window;
 3. serve: full-width tinyllama-1.1b (random weights from seed 0) serves 8
    requests with prompts of 64..1024 tokens (native and chunked prefill)
    and 32 new tokens each through ``launch.serve``, that is
@@ -238,10 +243,10 @@ Phases, each of which must pass (any failure exits nonzero):
    expandable; then the step time, tokens/s, the model-FLOPs share (a
    windowed layer's attention over its window's pairs) and a profiled
    step (busy share; K2, K5, K3 and cuBLAS);
-20. sharded training (one spawn of ranks with phase 21): one card first
-   runs phase 5's plan (seed-0 weights, phase 5's batches and
+20. sharded training (one spawn of ranks with phases 21 and 22): one
+   card first runs phase 5's plan (seed-0 weights, phase 5's batches and
    optimizer; tinyllama-1.1b at full width, its 22 layers on four cards
-   and ``SHARDED_ONE_CARD_LAYERS`` = 4 on one) for ``SHARDED_STEPS``
+   and ``SHARDED_ONE_CARD_LAYERS`` = 2 on one) for ``SHARDED_STEPS``
    steps and keeps its losses, step-1 gradients and final params on the
    host;
    then ``SHARDED_WORLD`` = 4 rank processes (``sharded_rank``; a
@@ -270,9 +275,10 @@ Phases, each of which must pass (any failure exits nonzero):
    (d 2048, 60 experts padded to 64, top 4, d_expert 1408, vocab
    151936) through ``launch.train`` on ``h100x4`` at phase 5's 4096 x 8
    and optimizer, seed 0.  One card first runs the parity function
-   (``ep_references``: ``EP_LAYERS`` = 2 layers, capacity factor
-   ``EP_NO_DROP`` = 16 so that no pair drops, the parity plan's
-   microbatches, the balance loss over each dispatch's shards of a
+   (``ep_references``: ``EP_LAYERS`` = 1 layer, capacity factor
+   ``EP_NO_DROP`` = 16 so that no pair drops, ``PARITY_ROWS`` = 2 of
+   phase 5's rows, one a microbatch, the balance loss over each
+   dispatch's shards of a
    routing as the mesh takes it), keeping its step-1 expert ids by
    token; then each rank runs (``ep_runs``) the ladder's plan for the
    full depth (TP + EP with ``a2a`` + ZeRO + FSDP over 'data', full
@@ -281,17 +287,47 @@ Phases, each of which must pass (any failure exits nonzero):
    as one card routed each rank's own tokens (swaps counted), each rank
    holding its blocks of the step-1 gradients and params against one
    card's within ``TRAIN_*_RTOL``; then the ladder's plan as it is at
-   the config's capacity factor 1.25, 2 of 24 layers on one card and
-   ``EP_FOUR_CARD_LAYERS`` = 12 on four (the port's step holds 3.9 GB
-   a rank a layer: 24 do not fit), ``EP_STEPS`` = 2 steps, the second
-   profiled on rank 0: finite, falling losses, rank 0's launch counts
+   the config's capacity factor 1.25, ``EP_LADDER_LAYERS`` = 4 of 24
+   layers on one card and ``EP_FOUR_CARD_LAYERS`` = 24 on four,
+   ``EP_STEPS`` = 2 steps, the second profiled on rank 0 (its memory
+   account printed beside the peaks, as phase 22's): finite, falling
+   losses, rank 0's launch counts
    of K2, K5a, K5b (8 of the 16 heads of 128 a rank, G = 1), K3 and its
    backward what the path implies, every rank's peak under the grant.
    Printed: each run's plan and estimate beside each rank's peak, the
    pairs the capacity drops (on the run's own routes, and for each
    dispatch on one card's pinned routing), the all-to-alls' bytes a
    step and route (``nccl`` or ``gloo``), and the collectives' share of
-   the profiled step.
+   the profiled step;
+22. deep sharded training, over the same ranks: zamba2-2.7b (Mamba-2,
+   40 of its 80 heads of 64 a rank, and its shared attention, 16 of 32
+   heads of 80) and rwkv6-7b (32 of 64 heads) through ``launch.train``
+   on ``h100x4`` with the ladder's ``train_4k`` plan for the full depth
+   (TP + ZeRO + FSDP over 'data', full remat, one row a microbatch,
+   :func:`deep_overrides`), seed 0, phase 5's optimizer.  On one card
+   (gloo) the parity runs (:func:`deep_references` first on one card):
+   zamba2 at one pattern block in bf16 and rwkv6 at 2 of 32 layers in
+   fp32 and in bf16 weights (``DEEP_PARITY_DTYPES``), ``PARITY_ROWS``
+   rows, one step, each rank's blocks of the step-1 gradients and params
+   held against one card's within ``TRAIN_*_RTOL`` -- but in rwkv6's bf16
+   run, whose one-card gradients lie far from its fp32 ones, the leaves
+   of ``DEEP_BF16_NOISY`` past the gradient limit, each held no further
+   from one card's fp32 gradient than ``DEEP_BF16_LEAF_FACTOR`` times
+   one card's bf16 gradient is and all the leaves together than
+   ``DEEP_BF16_NOISE_FACTOR`` times; on four cards (NCCL) 54 and 32
+   layers at 4096 x 8, ``DEEP_STEPS`` = 2 steps, the second profiled
+   on rank 0.  Gates: finite losses, falling over two steps; rank 0's
+   launch counts of K7, K6, K2, K5a, K5b, K3 and its backward what the
+   path implies (Mamba-2's inner gated norm through K3's split rows: the
+   row's sums of squares summed over 'model' between a stats launch and
+   the norm) and its scan and attention calls at half the heads; every
+   rank's peak at or
+   under its account (:func:`deep_account`: the plan's estimate, the
+   fp32 sums on the optimizer layout, one block's and the shared
+   components' gathered bytes, 2 GiB), under the grant.  Printed: each
+   term, the peak after each step, the gathered bytes alive at most,
+   each collective's bytes a step, the reduce-scatter's route, the
+   collectives' share of the profiled step.
 
 A failed comparison of a kernel with its plain version prints, before
 the run stops, its first 8 bad elements with both values, the count of
@@ -377,7 +413,8 @@ and (2,64,4096,64).
 
 A kernel's ``launches`` in the JSON record is its count over the serve
 (phases 3, 7, 8, 11, 12, 13, 16) and train (phases 5, 14, 15, 18, 19,
-and rank 0's of phase 20 and of phase 21's ladder run) runs;
+and rank 0's of phase 20, of phase 21's ladder run and of phase 22)
+runs;
 K3's are also printed by shape class; the ``*_d256`` records count phase
 11's runs only, the forward ``*_d128`` records phase 12's mistral-nemo-12b
 runs only, the ``*_d80`` backward records phase 14's, the forward
@@ -398,7 +435,9 @@ line is the run's JSON verdict.
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
+import datetime
 import inspect
 import json
 import math
@@ -693,6 +732,7 @@ def check_kernels(torch):
 
     # -- K3 rmsnorm, forward and backward ----------------------------------
     records += check_rmsnorm(torch, randn, tol)
+    check_profile_totals(torch)
 
     # -- K1 paged attention -------------------------------------------------
     def paged_case(b, h, kvh, d, pool, maxp, vlens, dtype, window=0,
@@ -1069,7 +1109,45 @@ def check_rmsnorm(torch, randn, tol):
                              "autograd's backward through F.rms_norm")
     print(f"[time] rmsnorm_bwd {shape}: share of bound {b_ms / ms:.3f}, "
           f"kernel / plain {ms / plain:.4f}", flush=True)
+    check_rmsnorm_split(torch, randn, tol)
     return [fwd, bwd]
+
+
+def check_rmsnorm_split(torch, randn, tol):
+    """K3's split rows at the shape Mamba-2's gated norm gives them under
+    phase 22's TP (4096 rows, 2560 of a row's 5120 channels on a rank):
+    forward and backward, with ``reduce`` doubling a rank's sums (as the
+    group's all-reduce sums two equal halves), against the plain versions
+    with the same ``split``; each printed with its time."""
+    from repro_torch.kernels import rmsnorm as rms
+    bf16, f32 = torch.bfloat16, torch.float32
+    split = (5120, lambda t: t.mul_(2))
+    x, dy = randn(4096, 2560, dtype=bf16), randn(4096, 2560, dtype=bf16)
+    g = randn(2560, dtype=bf16, scale=0.1)
+    label = "split rows=4096 d=2560 of 5120 bf16"
+    compare(torch, f"rmsnorm {label}", rms.rmsnorm(x, g, split=split),
+            rms.rmsnorm_ref(x, g, split=split), *tol[bf16],
+            rerun=lambda: rms.rmsnorm(x, g, split=split))
+    dx, dg = rms.rmsnorm_bwd(dy, x, g, split=split)
+    want_dx, want_dg = rms.rmsnorm_bwd_ref(dy, x, g, split=split)
+    compare(torch, f"rmsnorm_bwd dx {label}", dx, want_dx, *tol[bf16],
+            rerun=lambda: rms.rmsnorm_bwd(dy, x, g, split=split)[0])
+    compare(torch, f"rmsnorm_bwd dgain {label}", dg, want_dg, *tol[bf16],
+            rerun=lambda: rms.rmsnorm_bwd(dy, x, g, split=split)[1])
+    g32 = g.to(f32)
+    rel_norm(torch, f"rmsnorm_bwd dgain {label}, fp32 gain",
+             rms.rmsnorm_bwd(dy, x, g32, split=split)[1],
+             rms.rmsnorm_bwd_ref(dy, x, g32, split=split)[1],
+             RMS_DGAIN_REL_NORM)
+    times = [timed_ms(torch, fn) for fn in (
+        lambda: rms.rmsnorm(x, g, split=split),
+        lambda: rms.rmsnorm_ref(x, g, split=split),
+        lambda: rms.rmsnorm_bwd(dy, x, g, split=split),
+        lambda: rms.rmsnorm_bwd_ref(dy, x, g, split=split))]
+    print(f"[time] rmsnorm {label}: kernel {times[0]:.4f} ms (the stats "
+          f"launch and the norm), plain {times[1]:.4f} ms; rmsnorm_bwd: "
+          f"kernel {times[2]:.4f} ms (stats, rows, dgain), plain "
+          f"{times[3]:.4f} ms | {card_line()}", flush=True)
 
 
 # bf16 forward: the tensor-core kernel rounds p to bf16 where it becomes
@@ -3152,9 +3230,9 @@ def profile_train(torch, out, ocfg):
         wall = time.perf_counter() - t0
     total = report_profile(prof, wall, "train 1 step")
     if cfg.moe is not None and total:
-        avgs = prof.key_averages()
-        fwd_us = routed_experts_us(avgs)
-        bwd_us = sum(_device_us(e) for e in avgs if e.key == "BmmBackward0")
+        totals = profile_totals(prof)
+        fwd_us = totals.device_under(lambda n: n == ANNOTATIONS[0])
+        bwd_us = totals.device_under(lambda n: n == "BmmBackward0")
         print(f"[profile] routed experts: forward and recompute "
               f"{fwd_us / 1e3:.3f} ms ({100 * fwd_us / 1e3 / total:.1f}%), "
               f"their products' backward {bwd_us / 1e3:.3f} ms "
@@ -3200,19 +3278,140 @@ def routed_experts_us(avgs):
                and not str(getattr(e, "device_type", "")).endswith("CUDA"))
 
 
+class ProfileTotals:
+    """The times a profiled window's reports read, from the profiler's raw
+    events (``prof.profiler.kineto_results.events()``), in us.
+    ``key_averages()`` builds a Python event per raw event and their tree
+    first, which over a deep training step's events took 40-90 s where
+    this takes a few (``PERF.md`` section 5); the numbers are the ones it
+    gives (:func:`check_profile_totals`).
+
+    ``kernels``: each device event's time by name (``key_averages()``'
+    ``self_device_time_total`` of a device key), but the device-side
+    annotations of ``record_function`` ranges, which span the kernels they
+    hold.  :meth:`device_under`: for the host ops whose name ``match``
+    takes, the device time of the kernels launched inside each such op
+    (by the op that launched them: its thread and start), summed over the
+    ops of one name, the most over the names (``key_averages()``'
+    ``device_time_total``, the most over the matching keys).
+    :meth:`host_us`: the summed durations of the host events ``match``
+    takes, asynchronous ones (gloo's collectives) included
+    (``cpu_time_total``)."""
+
+    def __init__(self, prof):
+        self.kernels, self._launched, self._ops, self._host = {}, [], {}, []
+        for e in prof.profiler.kineto_results.events():
+            if str(e.device_type()).endswith("CUDA"):
+                if e.is_user_annotation() or e.name() in ANNOTATIONS:
+                    continue
+                us = e.duration_ns() / 1e3
+                self.kernels[e.name()] = self.kernels.get(e.name(), 0.0) + us
+                self._launched.append((e.linked_correlation_id(), us))
+                continue
+            self._host.append((e.name(), e.duration_ns() / 1e3))
+            if (e.linked_correlation_id() == 0 and not e.is_async()
+                    and e.start_thread_id() == e.end_thread_id()):
+                self._ops[e.correlation_id()] = (
+                    e.name(), e.start_thread_id(), e.start_ns(), e.end_ns())
+
+    def device_under(self, match) -> float:
+        spans = {}                        # name -> thread -> [(start, end)]
+        for name, thread, start, end in self._ops.values():
+            if match(name):
+                spans.setdefault(name, {}).setdefault(thread, []).append(
+                    (start, end))
+        best = 0.0
+        for threads in spans.values():
+            for v in threads.values():
+                v.sort()
+            starts = {t: [a for a, _ in v] for t, v in threads.items()}
+            total = 0.0
+            for corr, us in self._launched:
+                op = self._ops.get(corr)
+                if op is None or op[1] not in threads:
+                    continue
+                i = bisect.bisect_right(starts[op[1]], op[2]) - 1
+                if i >= 0 and op[2] <= threads[op[1]][i][1]:
+                    total += us
+            best = max(best, total)
+        return best
+
+    def host_us(self, match) -> float:
+        return sum(us for name, us in self._host if match(name))
+
+
+def profile_totals(prof) -> ProfileTotals:
+    """``prof``'s :class:`ProfileTotals`, made once."""
+    if getattr(prof, "_chip_totals", None) is None:
+        prof._chip_totals = ProfileTotals(prof)
+    return prof._chip_totals
+
+
+def check_profile_totals(torch):
+    """:class:`ProfileTotals` against ``key_averages()`` on one profiled
+    window small enough for both (K3's forward and backward through its
+    Function, a product, under a ``record_function`` range): the kernels'
+    times by name, their sum, the device time under ``RMSNormBackward``
+    and the host time of the range, each within 1e-6 relative; fails
+    otherwise: every profile report of the script reads these.  Printed
+    beside them: the device time under the range, which
+    ``key_averages()`` gives with the span of the range's device-side
+    annotation added (its kernels and the gaps between them, counted
+    again), and that span."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.kernels.rmsnorm import RMSNorm
+    x = torch.randn(4096, 2048, device="cuda", dtype=torch.bfloat16,
+                    requires_grad=True)
+    g = torch.zeros(2048, device="cuda", requires_grad=True)
+    w = torch.randn(2048, 2048, device="cuda", dtype=torch.bfloat16)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function(ANNOTATIONS[0]):
+            y = torch.matmul(RMSNorm.apply(x, g, 1e-6), w)
+        y.float().sum().backward()
+        torch.cuda.synchronize()
+    raw = profile_totals(prof)
+    avgs = prof.key_averages()
+    want = {e.key: getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+            for e in avgs
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and not getattr(e, "is_user_annotation", False)
+            and e.key not in ANNOTATIONS}
+    pairs = [(raw.kernels.get(k, 0.0), v) for k, v in want.items()]
+    pairs += [(sum(raw.kernels.values()), sum(want.values())),
+              (raw.device_under(lambda n: "RMSNormBackward" in n),
+               max(_device_us(e) for e in avgs if "RMSNormBackward" in e.key)),
+              (raw.host_us(lambda n: n == ANNOTATIONS[0]),
+               sum(e.cpu_time_total for e in avgs
+                   if e.key == ANNOTATIONS[0]
+                   and not str(getattr(e, "device_type", "")).endswith(
+                       "CUDA")))]
+    worst = max(abs(a - b) / max(abs(b), 1e-9) for a, b in pairs)
+    span = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in avgs if e.key == ANNOTATIONS[0]
+               and str(getattr(e, "device_type", "")).endswith("CUDA"))
+    print(f"[profile] raw-event totals against key_averages() on a K3 "
+          f"forward and backward and a product: {len(want)} kernel names "
+          f"({sorted(raw.kernels) == sorted(want)} same names), busy "
+          f"{pairs[-3][0]:.1f} / {pairs[-3][1]:.1f} us, under "
+          f"RMSNormBackward {pairs[-2][0]:.1f} / {pairs[-2][1]:.1f} us, "
+          f"the range's host time {pairs[-1][0]:.1f} / {pairs[-1][1]:.1f} "
+          f"us; worst rel {worst:.2e}.  Under the range: its kernels "
+          f"{raw.device_under(lambda n: n == ANNOTATIONS[0]):.1f} us, "
+          f"key_averages() {routed_experts_us(avgs):.1f} us, the device-side "
+          f"annotation's span {span:.1f} us", flush=True)
+    if sorted(raw.kernels) != sorted(want) or not worst <= 1e-6 \
+            or not pairs[-2][1] > 0:
+        fail("profile: the raw-event totals differ from key_averages()'")
+
+
 def report_profile(prof, wall, what):
     """Busy share and device time by kernel of a profiled window; returns
     the device busy ms (None when not measured)."""
-    avgs = prof.key_averages()            # aggregated once: it is slow
-    # a ``record_function`` range also shows as a device-side annotation,
-    # which spans the kernels it holds: not a kernel of its own
-    kernels = [e for e in avgs
-               if str(getattr(e, "device_type", "")).endswith("CUDA")
-               and not getattr(e, "is_user_annotation", False)
-               and e.key not in ANNOTATIONS]
-    dev_us = {e.key: getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0.0))
-              for e in kernels}
+    totals = profile_totals(prof)
+    dev_us = totals.kernels
     total_ms = sum(dev_us.values()) / 1e3
     if total_ms <= 0:
         print("[profile] device time not measured: the profiler recorded "
@@ -3229,8 +3428,7 @@ def report_profile(prof, wall, what):
     # replaced); 0 on a path that takes no gradient
     fwd_us = sum(t for key, t in dev_us.items() if "rmsnorm" in key
                  and "bwd" not in key and "dgain" not in key)
-    bwd_us = max((_device_us(e) for e in avgs if "RMSNormBackward" in e.key),
-                 default=0.0)
+    bwd_us = totals.device_under(lambda n: "RMSNormBackward" in n)
     for name, us in (("K3 rmsnorm forward kernels", fwd_us),
                      ("K3 norm backward (under RMSNormBackward)", bwd_us)):
         if us:
@@ -3253,7 +3451,7 @@ def report_profile(prof, wall, what):
                   "kernels", flush=True)
     # the scan gradients: PyTorch ops under the Functions' autograd nodes
     for node in ("SSDScanBackward", "WKVBackward"):
-        us = max((_device_us(e) for e in avgs if node in e.key), default=0.0)
+        us = totals.device_under(lambda n: node in n)
         if us:
             print(f"[profile]   {us / 1e3:10.3f} ms  "
                   f"{100 * us / 1e3 / total_ms:5.1f}%  scan backward (under "
@@ -3733,12 +3931,10 @@ def profile_dense(torch, arch, runner, requests=8, prompt_range=(64, 1024)):
                                        f"{stats.decode_steps})")
     if runner.cfg.moe is None or not total:
         return
-    avgs = prof.key_averages()
-    experts_us = routed_experts_us(avgs)
-    attn_us = sum(getattr(e, "self_device_time_total",
-                          getattr(e, "self_cuda_time_total", 0.0))
-                  for e in avgs if any(m in e.key for m in (
-                      "flash_fwd", "decode_split", "combine")))
+    totals = profile_totals(prof)
+    experts_us = totals.device_under(lambda n: n == ANNOTATIONS[0])
+    attn_us = sum(t for k, t in totals.kernels.items() if any(
+        m in k for m in ("flash_fwd", "decode_split", "combine")))
     print(f"[profile] {arch}: device time under the routed experts "
           f"(dispatch, the three batched products, combine) "
           f"{experts_us / 1e3:.3f} ms ({100 * experts_us / 1e3 / total:.1f}%"
@@ -5673,10 +5869,10 @@ def train_gemma3_full(torch):
 
 SHARDED_WORLD = 4                 # the h100x4 mesh, (2, 2) over (data, model)
 # tinyllama-1.1b's depth in phase 20 on one card, where gloo's host copies
-# of the gradients and params take 0.9 of a step and the script's time
-# must leave room for phase 21: 4 of its 22 layers, full width; four cards
-# run all 22
-SHARDED_ONE_CARD_LAYERS = 4
+# of the gradients and params take most of a step and the script's time
+# must leave room for phases 21 and 22: 2 of its 22 layers, full width;
+# four cards run all 22
+SHARDED_ONE_CARD_LAYERS = 2
 # the last step profiled on rank 0: two steps, so that the phase stays
 # near 150 s on one card, where gloo reduces through the host (a third,
 # unprofiled step took 12-21 s a plan there)
@@ -5689,6 +5885,7 @@ SHARDED_PLANS = {
            "remat": "full", "microbatch": 2},
 }
 SHARDED_TIMEOUT_S = 900
+SHARDED_COLLECTIVE_TIMEOUT_S = 300
 
 
 @contextmanager
@@ -5730,18 +5927,14 @@ def profiled_train_step(torch, index, result):
             t0 = time.perf_counter()
             m = plain(self, handle)            # waits for the step
             wall = time.perf_counter() - t0
-        avgs = prof.key_averages()
-        dev_us = {e.key: getattr(e, "self_device_time_total",
-                                 getattr(e, "self_cuda_time_total", 0.0))
-                  for e in avgs
-                  if str(getattr(e, "device_type", "")).endswith("CUDA")
-                  and not getattr(e, "is_user_annotation", False)}
+        totals = profile_totals(prof)
+        dev_us = totals.kernels
         result.update(
             wall_ms=wall * 1e3, busy_ms=sum(dev_us.values()) / 1e3,
             nccl_ms=sum(t for k, t in dev_us.items()
                         if "nccl" in k.lower()) / 1e3,
-            gloo_host_ms=sum(e.cpu_time_total for e in avgs
-                             if e.key.startswith("gloo:")) / 1e3)
+            gloo_host_ms=totals.host_us(lambda n: n.startswith("gloo:"))
+            / 1e3)
         return m
 
     TorchExecutor.train_step = train_step
@@ -5793,15 +5986,16 @@ def _sharded_reference(torch, cfg, shape, ocfg):
 
 
 def train_on_ranks(torch):
-    """Phases 20 and 21 over one spawn of ``SHARDED_WORLD`` rank processes
-    and one rendezvous: first the one-card runs each phase holds its ranks
-    against (phase 20's, :func:`_sharded_reference`; phase 21's,
-    :func:`ep_references`), their results to files in a temporary
-    directory under ``build/``; then the ranks (:func:`sharded_rank`), each
-    running phase 20's plans and phase 21's runs; then each phase's gates
-    on the ranks' reports.  NCCL, a rank a card, with four cards; else
-    gloo, every rank on ``cuda:0``.  Returns the launch counts of rank
-    0's runs of each phase."""
+    """Phases 20, 21 and 22 over one spawn of ``SHARDED_WORLD`` rank
+    processes and one rendezvous: first the one-card runs each phase holds
+    its ranks against (phase 20's, :func:`_sharded_reference`; phase 21's,
+    :func:`ep_references`; phase 22's, :func:`deep_references`), their
+    results to files in a temporary directory under ``build/``; then the
+    ranks (:func:`sharded_rank`), each running phase 20's plans, phase
+    21's runs and phase 22's; then each phase's gates on the ranks'
+    reports.  NCCL, a rank a card, with four cards; else gloo, every rank
+    on ``cuda:0``.  Returns the launch counts of rank 0's runs of each
+    phase."""
     import tempfile
     t_phase = time.perf_counter()
     cfg = sharded_cfg(torch)
@@ -5822,23 +6016,27 @@ def train_on_ranks(torch):
                    f"{d}/reference.pt")
         del ref_grads, ref_params
         ep_ref = ep_references(torch, d, backend)
+        deep_ref = deep_references(torch, d, backend)
         t_ranks = time.perf_counter()
         _spawn_ranks(d, backend)
-        print(f"[sharded] the ranks' runs of phases 20 and 21: "
+        print(f"[sharded] the ranks' runs of phases 20, 21 and 22: "
               f"{time.perf_counter() - t_ranks:.1f} s", flush=True)
         for name in SHARDED_PLANS:
             for k, n in _sharded_gates(d, name, ref_losses, cfg).items():
                 sharded[k] = sharded.get(k, 0) + n
         ep = ep_gates(d, backend, ep_ref)
-    print(f"[sharded] phases 20 and 21: {time.perf_counter() - t_phase:.1f} "
-          "s", flush=True)
-    return sharded, ep
+        deep = deep_gates(d, backend, deep_ref)
+    print(f"[sharded] phases 20, 21 and 22: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return sharded, ep, deep
 
 
 def _spawn_ranks(d, backend):
-    """Start the ``SHARDED_WORLD`` rank processes (:func:`sharded_rank`)
-    and wait for them; every one must exit 0 within the timeout, and none
-    outlives this call."""
+    """Start the ``SHARDED_WORLD`` rank processes (:func:`sharded_rank`),
+    each with the allocator's expandable segments (four ranks' state
+    shares one card there, and a fragmented cache ran phase 21's ladder
+    run out of it), and wait for them; every one must exit 0 within the
+    timeout, and none outlives this call."""
     procs = []
     for r in range(SHARDED_WORLD):
         code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
@@ -5846,7 +6044,8 @@ def _spawn_ranks(d, backend):
                 f"{SHARDED_WORLD}, {d!r}, {backend!r})")
         procs.append(subprocess.Popen(
             [sys.executable, "-c", code], cwd=ROOT,
-            env=dict(os.environ, LOCAL_RANK=str(r))))
+            env=dict(os.environ, LOCAL_RANK=str(r),
+                     PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")))
     deadline = time.time() + SHARDED_TIMEOUT_S
     try:
         for p in procs:
@@ -5864,11 +6063,12 @@ def _spawn_ranks(d, backend):
 
 
 def sharded_rank(rank, world, d, backend):
-    """One rank of phases 20 and 21: joins the world (a ``file://`` store
-    in ``d``) on its card, runs each plan of ``SHARDED_PLANS``
-    (:func:`_sharded_run`) and each run of :func:`ep_runs`
-    (:func:`_ep_run`) and leaves its reports in ``d``; any failure ends
-    the process with a nonzero code."""
+    """One rank of phases 20, 21 and 22: joins the world (a ``file://``
+    store in ``d``) on its card, runs each plan of ``SHARDED_PLANS``
+    (:func:`_sharded_run`), each run of :func:`ep_runs` (:func:`_ep_run`)
+    and each of :func:`deep_runs` (:func:`_deep_run`) and leaves its
+    reports in ``d``; any failure ends the process with a nonzero
+    code."""
     import traceback
     import torch
     import torch.distributed as dist
@@ -5876,14 +6076,20 @@ def sharded_rank(rank, world, d, backend):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     try:
+        # a rank that fails ends its process; the others' collectives then
+        # wait this long, not the default 10 minutes, before they fail too
         dist.init_process_group(backend, init_method=f"file://{d}/rendezvous",
-                                rank=rank, world_size=world)
+                                rank=rank, world_size=world,
+                                timeout=datetime.timedelta(
+                                    seconds=SHARDED_COLLECTIVE_TIMEOUT_S))
         from repro_torch.launch.mesh import rank_device
         torch.cuda.set_device(rank_device(torch.device("cuda")))
         for name, overrides in SHARDED_PLANS.items():
             _sharded_run(torch, rank, d, name, overrides, backend)
         for name, run in ep_runs(backend).items():
             _ep_run(torch, rank, d, name, run, backend)
+        for name, run in deep_runs(backend).items():
+            _deep_run(torch, rank, d, name, run, backend)
         dist.barrier()
         dist.destroy_process_group()
     except BaseException:
@@ -6096,24 +6302,34 @@ def _sharded_gates(d, name, ref_losses, cfg):
 # ---------------------------------------------------------------------------
 
 EP_ARCH = "qwen2-moe-a2.7b"
-# the depth of the parity runs, and on one card of the ladder's run: 2 of
-# the 24 layers at full width (~1.83 B parameters with the embedding and
-# the head: 12.53 GiB a rank estimated under the ladder's plan, four ranks'
-# state on one card; 4 layers, ~3.0 B, would not fit four ranks)
-EP_LAYERS = 2
-# the ladder's run on four cards: the port's sharded step holds every
-# leaf's fp32 gradient sum and the FSDP-gathered params on the compute
-# layout for the whole step, 3.9 GB a rank a layer under this plan (98.5
-# GB at the full 24 layers, past the card); 12 layers hold ~51 GB
-EP_FOUR_CARD_LAYERS = 12
+# the depth of the parity runs: 1 of the 24 layers at full width (cut
+# from 2 for the script's time)
+EP_LAYERS = 1
+# the ladder's run on one card: 4 of the 24 layers, four ranks' state on
+# the card (the step holds each leaf's fp32 gradient sum on the optimizer
+# layout and gathers one block at a time: ~2.7 GB a rank a layer)
+EP_LADDER_LAYERS = 4
+# the ladder's run on four cards: the full depth
+EP_FOUR_CARD_LAYERS = 24
 EP_NO_DROP = 16.0                 # e_pad / top_k: a routing's cap >= its tokens
 EP_STEPS = 2                      # the ladder's run, the second profiled
 # the parity runs (no drop, routes pinned): one step on one card, where
 # every step of four ranks goes through gloo's host copies; two on four
 EP_PARITY_STEPS = {"gloo": 1, "nccl": 2}
+# the parity runs of phases 21 and 22: phase 5's sequence at 2 of its 8
+# rows (one a data rank), so that gloo's host copies of each step's
+# collectives fit the script's time on one card
+PARITY_ROWS = 2
 # the parity runs' plan beside the ladder's: one row a microbatch, so a
 # no-drop routing's (E, C, D) buffers of four ranks fit one card
-EP_PARITY_PLAN = {"microbatch": 4, "loss_chunk": 1024}
+EP_PARITY_PLAN = {"microbatch": PARITY_ROWS // 2, "loss_chunk": 1024}
+
+
+def parity_shape():
+    """Phase 5's sequence of 4096 at ``PARITY_ROWS`` rows."""
+    from repro_torch.configs import ShapeConfig
+    return ShapeConfig(f"train_4k_b{PARITY_ROWS}", "train", 4096,
+                       PARITY_ROWS)
 
 
 def ep_ladder_overrides():
@@ -6147,7 +6363,7 @@ def ep_runs(backend):
                            "steps": steps, "pinned": True},
         "ep ladder": {"overrides": ladder, "cf": None, "steps": EP_STEPS,
                       "pinned": False,
-                      "layers": EP_LAYERS if backend == "gloo"
+                      "layers": EP_LADDER_LAYERS if backend == "gloo"
                       else EP_FOUR_CARD_LAYERS}}
 
 
@@ -6207,7 +6423,8 @@ def ep_references(torch, d, backend):
     from repro_torch.training.train_step import impl_from_plan, make_train_step
     t0 = time.perf_counter()
     cfg = ep_cfg(EP_LAYERS, EP_NO_DROP)
-    shape, _, ocfg, _ = _train_setup()
+    _, _, ocfg, _ = _train_setup()
+    shape = parity_shape()
     parity = ep_runs(backend)["ep parity a2a"]["overrides"]
     mb = parity["microbatch"]
     plan = materialize(cfg, shape, H100, overrides={
@@ -6281,7 +6498,7 @@ def _pinned_drops(torch, table, ladder):
 
     shards = [torch.arange(batch).view(2, -1)[dd][i::mb]
               for dd in range(2) for i in range(mb)]
-    one = _train_setup()[1]["microbatch"]
+    one = min(_train_setup()[1]["microbatch"], batch)
     print(f"[ep] pairs the capacity factor {cfg.moe.capacity_factor} drops "
           f"on one card's step-1 routing (pinned routes): psum "
           f"{share([(r, 1) for r in shards]):.6f}, a2a "
@@ -6350,6 +6567,8 @@ def _ep_run(torch, rank, d, name, run, backend):
     cfg = ep_cfg(run["layers"], run["cf"])
     ov = run["overrides"]
     shape, _, ocfg, _ = _train_setup()
+    if run["pinned"]:
+        shape = parity_shape()
     kernels = _train_kernels()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -6398,9 +6617,10 @@ def _ep_run(torch, rank, d, name, run, backend):
               "heads": sorted(tally["heads"]), "swaps": dict(swaps),
               "routes": {k: v - routes0[k]
                          for k, v in C.all_to_all.routes.items()}}
+    mesh = TorchMesh(out["plan"].mesh)
+    lay = plan_layouts(out["plan"], cfg, param_specs(cfg), mesh)
+    report["account"] = deep_account(cfg, out["plan"], lay)
     if run["pinned"]:
-        mesh = TorchMesh(out["plan"].mesh)
-        lay = plan_layouts(out["plan"], cfg, param_specs(cfg), mesh)
         ref = torch.load(f"{d}/ep_reference_{ov['moe_dispatch']}.pt",
                          mmap=True)
         grad_sums = _block_errs(torch, grads[0], ref["grads"],
@@ -6486,6 +6706,18 @@ def ep_gates(d, backend, ref_losses):
         per_mb = _attention_counts(r0["layers"])
         want = {k: per_mb.get(k, 0) * plan["microbatch"] * len(losses)
                 for k in r0["launches"]}
+        acc = r0["account"]
+        print(f"[{name}] account a rank (printed, not gated): est "
+              f"{acc['est'] / 2**30:.3f} + the weights beyond bf16 "
+              f"{acc['weights'] / 2**30:.3f} + fp32 sums "
+              f"{acc['sums'] / 2**30:.3f}"
+              f" + one block gathered {acc['block'] / 2**30:.3f} + the shared "
+              f"components gathered {acc['shared'] / 2**30:.3f} + slack "
+              f"{acc['slack'] / 2**30:.3f} = "
+              f"{sum(acc.values()) / 2**30:.3f} GiB beside the peaks {peaks} "
+              f"GiB (the step that summed on the compute layout: 11.654 GiB "
+              f"at 2 layers on one card)",
+              flush=True)
         prof = r0["profile"]
         print(f"[{name}] rank 0's profiled step: wall "
               f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} "
@@ -6505,6 +6737,703 @@ def ep_gates(d, backend, ref_losses):
                  "the 16 heads at head dim 128")
         launches = r0["launches"]
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 22: the recurrent stacks under TP + ZeRO + FSDP, deep
+# ---------------------------------------------------------------------------
+
+DEEP_ARCHS = ("zamba2-2.7b", "rwkv6-7b")
+# the parity runs on one card: zamba2 at one pattern block (5 Mamba-2
+# layers and the shared attention), rwkv6 at 2 of its 32 layers, full
+# width, one step (every step of four ranks on one card goes through
+# gloo's host copies)
+DEEP_PARITY_LAYERS = {"zamba2-2.7b": 6, "rwkv6-7b": 2}
+DEEP_PARITY_STEPS = 1
+# the weights' dtypes of each arch's parity runs: rwkv6 in fp32, where the
+# tensor-parallel arithmetic is held to the chip limits alone, and in
+# bf16, where one card's own step-1 gradients lie 0.15-0.73 from its
+# fp32 ones at full width: the gradient is ill-conditioned there, and
+# rounding the WKV's r, k, v alone to bf16 in an fp32 step moves it
+# 0.19-0.75 (``rwkv6_bf16_study``, PERF.md section 6).  In that run the
+# leaves of ``DEEP_BF16_NOISY`` may pass the gradient limit: all the
+# leaves together lie no further from one card's fp32 gradients than
+# ``DEEP_BF16_NOISE_FACTOR`` times one card's bf16 gradients do (root sum
+# of squares of the leaves' relative distances), and each such leaf no
+# further than ``DEEP_BF16_LEAF_FACTOR`` times: TP sums bf16 partials
+# of the activations' gradients over 'model', one rounding more than one
+# card takes, which two independent roundings' sqrt(2) bounds (rwkv6's
+# ``mu``, whose gradient cancels over the sequence, moves 1.33 times
+# one card's there)
+DEEP_PARITY_DTYPES = {"zamba2-2.7b": ("bfloat16",),
+                      "rwkv6-7b": ("float32", "bfloat16")}
+DEEP_BF16_NOISY = {"rwkv6-7b": (
+    "embed/tok", "ln1/g", "ln2/g", "rwkv/bonus_u", "rwkv/ck", "rwkv/cr",
+    "rwkv/cv", "rwkv/ln_x", "rwkv/mu", "rwkv/mu_c", "rwkv/w0", "rwkv/wa",
+    "rwkv/wb", "rwkv/wg", "rwkv/wk", "rwkv/wo", "rwkv/wr", "rwkv/wv")}
+DEEP_BF16_NOISE_FACTOR = 1.25
+DEEP_BF16_LEAF_FACTOR = 2 ** 0.5
+# the full-depth runs on four cards: two steps, the second profiled
+DEEP_STEPS = 2
+# what a rank's peak may pass the sum of its account's terms by (the
+# activations of one microbatch, the remat boundaries' inputs, the
+# allocator's rounding)
+DEEP_SLACK = 2 * 2**30
+
+
+def deep_overrides(arch, shape):
+    """The plan the ladder gives full-depth ``arch`` at train_4k on
+    ``h100x4`` (TP + ZeRO + FSDP over 'data', full remat), as overrides
+    at ``shape``, whose rows a rank take one microbatch each, up to the
+    ladder's 4 (its microbatches of 32 rows at batch 256)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.materializer import H100X4, materialize
+    plan = materialize(get_config(arch), SHAPES["train_4k"], H100X4)
+    ranks = 1
+    for a in plan.batch_axes:
+        ranks *= H100X4.axis_size(a)
+    out = {k: getattr(plan, k) for k in (
+        "batch_axes", "tp", "ep", "zero", "fsdp", "remat", "attn_impl")}
+    return dict(out, microbatch=min(plan.microbatch,
+                                    shape.global_batch // ranks))
+
+
+def deep_runs(backend):
+    """Phase 22's runs on the ranks: on one card (gloo) the parity runs at
+    ``DEEP_PARITY_LAYERS`` and ``PARITY_ROWS``; on four (NCCL) the full
+    depths at phase 5's 4096 x 8, not held against one card, whose
+    memory they pass."""
+    if backend == "gloo":
+        shape, runs = parity_shape(), {}
+        for a in DEEP_ARCHS:
+            first = f"deep parity {a}"
+            for dtype in DEEP_PARITY_DTYPES[a]:
+                name = first if dtype == DEEP_PARITY_DTYPES[a][0] else \
+                    f"{first} {dtype}"
+                runs[name] = {"arch": a, "shape": shape,
+                              "overrides": deep_overrides(a, shape),
+                              "layers": DEEP_PARITY_LAYERS[a],
+                              "steps": DEEP_PARITY_STEPS, "dtype": dtype,
+                              "parity": True,
+                              # the fp32 run whose one-card gradients are
+                              # a bf16 run's yardstick
+                              "exact": first if dtype == "bfloat16"
+                              and "float32" in DEEP_PARITY_DTYPES[a]
+                              else None}
+        return runs
+    from repro_torch.configs import get_config
+    shape = _train_setup()[0]
+    return {f"deep {a}": {"arch": a, "shape": shape,
+                          "overrides": deep_overrides(a, shape),
+                          "layers": get_config(a).num_layers,
+                          "steps": DEEP_STEPS, "dtype": "bfloat16",
+                          "parity": False}
+            for a in DEEP_ARCHS}
+
+
+def deep_cfg(arch, layers):
+    from repro_torch.configs import get_config
+    return get_config(arch).scaled(num_layers=layers)
+
+
+def _deep_file(d, name):
+    return f"{d}/deep_reference_{name.replace(' ', '_')}.pt"
+
+
+def deep_references(torch, d, backend):
+    """Phase 22's one-card runs: each parity run's config, seed-0 weights
+    in the run's dtype (``DEEP_PARITY_DTYPES``), phase 5's optimizer and
+    its batches at ``PARITY_ROWS`` rows through ``make_train_step`` with
+    full remat and one row a microbatch, ``DEEP_PARITY_STEPS`` step(s);
+    losses, step-1 gradients and final params to :func:`_deep_file`.
+    Returns by run its losses and, for a bf16 run with an fp32 yardstick
+    (``exact``), each step-1 gradient leaf's relative distance (norm) from
+    the yardstick's: one card's own bf16 noise."""
+    from repro_torch.core.materializer import H100, materialize
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import impl_from_plan, make_train_step
+    _, _, ocfg, _ = _train_setup()
+    losses = {}
+    for name, run in deep_runs(backend).items():
+        if not run["parity"]:
+            continue
+        t0 = time.perf_counter()
+        shape = run["shape"]
+        cfg = deep_cfg(run["arch"], run["layers"])
+        plan = materialize(cfg, shape, H100, overrides={
+            "remat": "full", "microbatch": shape.global_batch})
+        model = Model(cfg, impl_from_plan(plan))
+        dtype = getattr(torch, run["dtype"])
+        params = opt.tree_map(lambda p: p.to(dtype),
+                              init_params(cfg, 0, "cuda"))
+        state = opt.init_opt_state(params)
+        step = make_train_step(model, plan, ocfg)
+        data = SyntheticLM(DataConfig(cfg.vocab_size, shape.seq_len,
+                                      shape.global_batch))
+        grads, out = [], []
+        with first_update_grads(grads):
+            for i in range(run["steps"]):
+                batch = {k: torch.from_numpy(v).cuda()
+                         for k, v in data.batch_at(i).items()}
+                params, state, m = step(params, state, batch)
+                out.append(float(m["loss"]))
+        noise = None
+        if run["exact"]:
+            exact = torch.load(_deep_file(d, run["exact"]))["grads"]
+            noise = [float((g.cuda().float() - e.cuda().float()).norm()
+                           / e.cuda().float().norm())
+                     for g, e in zip(grads[0], exact)]
+            del exact
+        losses[name] = {"losses": out, "noise": noise}
+        torch.save({"grads": [g.to(dtype) for g in grads[0]],
+                    "params": [p.cpu() for p in opt.leaves(params)]},
+                   _deep_file(d, name))
+        del params, state, step, grads
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        print(f"[deep] one card's parity run of {cfg.name} ({cfg.num_layers} "
+              f"layers, full width, {run['dtype']} weights, one row a "
+              f"microbatch, {run['steps']} step(s)): losses {out}, "
+              f"{time.perf_counter() - t0:.1f} s | {card_line()}", flush=True)
+    return losses
+
+
+def deep_account(cfg, plan, lay, itemsize=2):
+    """A rank's memory account under ``plan`` (its layouts ``lay``) with
+    weights of ``itemsize`` bytes, term by term, in bytes, from the
+    layouts' local shapes: the plan's ``est_bytes_per_device`` (bf16
+    weights); the stored weights' bytes beyond bf16's; the fp32 gradient
+    sums on the optimizer layout; the largest stacked block's compute
+    bytes that FSDP gathers (one block at a time), and the gathered
+    components outside the blocks (once a microbatch);
+    ``DEEP_SLACK``."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_paths
+    from repro_torch.models.model import param_specs
+
+    def at(tree, path):
+        for k in path.split("/"):
+            tree = tree[k]
+        return tree
+
+    def count(shape):
+        n = 1
+        for s in shape:
+            n *= s
+        return n
+
+    terms = {"est": plan.est_bytes_per_device, "weights": 0, "sums": 0,
+             "block": 0, "shared": 0, "slack": DEEP_SLACK}
+    for path, s in _flatten_with_paths(param_specs(cfg)):
+        lp, lc, lo = (at(t, path) for t in (lay.params, lay.compute,
+                                            lay.opt))
+        terms["weights"] += count(lp.local_shape(s.shape)) * (itemsize - 2)
+        terms["sums"] += count(lo.local_shape(s.shape)) * 4
+        if lp != lc:
+            shape = lc.local_shape(s.shape)
+            if path.startswith("blocks/"):
+                terms["block"] += count(shape[1:]) * itemsize
+            else:
+                terms["shared"] += count(shape) * itemsize
+    return terms
+
+
+@contextmanager
+def weights_in(torch, dtype):
+    """The ``TorchExecutor`` binds its seeded weights in ``dtype`` (a
+    ``torch`` dtype's name) while the block runs."""
+    from repro_torch.runtime.executors import TorchExecutor
+    from repro_torch.training.optimizer import tree_map
+    plain = TorchExecutor.init_params
+
+    def init_params(self, handle):
+        return tree_map(lambda p: p.to(getattr(torch, dtype)),
+                        plain(self, handle))
+
+    TorchExecutor.init_params = init_params
+    try:
+        yield
+    finally:
+        TorchExecutor.init_params = plain
+
+
+@contextmanager
+def deep_tallies(torch):
+    """While the block runs: the (heads, ...) of every SSD scan, WKV and
+    flash-attention call the model makes through their Functions, the
+    bytes each ``torch.distributed`` collective is handed (all-reduce and
+    all-to-all: the input; reduce-scatter: the blocks summed; all-gather:
+    the blocks gathered), each rank's allocator peak after each step, and
+    the most bytes of FSDP-gathered blocks alive at once."""
+    import torch.distributed as dist
+    from repro_torch.models import attention as attn
+    from repro_torch.models import mamba2 as m2
+    from repro_torch.models import rwkv6 as rw
+    from repro_torch.runtime.executors import TorchExecutor
+    from repro_torch.sharding import collectives as C
+    out = {"heads": {"ssd": set(), "wkv": set(), "attn": set()},
+           "bytes": {}, "step_peaks": []}
+    plain = {"ssd": (m2, "SSDScan"), "wkv": (rw, "WKV"),
+             "attn": (attn, "FlashAttention")}
+    saved = {k: getattr(mod, name) for k, (mod, name) in plain.items()}
+    colls = ("all_reduce", "all_gather", "reduce_scatter", "all_to_all_single")
+    saved_dist = {n: getattr(dist, n) for n in colls}
+    step = TorchExecutor.train_step
+
+    def counted(kind):
+        function = saved[kind]
+
+        class Counted:
+            @staticmethod
+            def apply(*args):
+                shape = args[0].shape
+                out["heads"][kind].add(
+                    (shape[1], args[1].shape[1], shape[-1])
+                    if kind == "attn" else (shape[1], shape[-1]))
+                return function.apply(*args)
+        return Counted
+
+    def nbytes(t):
+        if isinstance(t, (list, tuple)):
+            return sum(nbytes(x) for x in t)
+        return t.numel() * t.element_size()
+
+    def tallied(name):
+        fn = saved_dist[name]
+        which = {"all_reduce": 0, "all_gather": 0, "reduce_scatter": 1,
+                 "all_to_all_single": 1}[name]
+
+        def call(*args, **kwargs):
+            out["bytes"][name] = out["bytes"].get(name, 0) + nbytes(args[which])
+            return fn(*args, **kwargs)
+        return call
+
+    def train_step(self, handle):
+        m = step(self, handle)
+        out["step_peaks"].append(torch.cuda.max_memory_allocated(self.device))
+        return m
+
+    for kind, (mod, name) in plain.items():
+        setattr(mod, name, counted(kind))
+    for n in colls:
+        setattr(dist, n, tallied(n))
+    TorchExecutor.train_step = train_step
+    C.gathered_bytes["peak"] = C.gathered_bytes["live"]
+    try:
+        yield out
+    finally:
+        for kind, (mod, name) in plain.items():
+            setattr(mod, name, saved[kind])
+        for n in colls:
+            setattr(dist, n, saved_dist[n])
+        TorchExecutor.train_step = step
+        out["gathered_peak"] = C.gathered_bytes["peak"]
+
+
+def _deep_run(torch, rank, d, name, run, backend):
+    """One of phase 22's runs on this rank: ``launch.train`` of the run's
+    config on ``h100x4`` with the ladder's plan, the kernels' counts
+    zeroed just before and read just after, the last step of a run of
+    several profiled on rank 0; the account of :func:`deep_account`; a
+    parity run's step-1 gradients and final params held block by block
+    against one card's.  The report goes to ``d/<name>_<rank>.json``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import TorchMesh
+    from repro_torch.launch.train import train
+    from repro_torch.models.model import param_specs
+    from repro_torch.sharding import collectives as C
+    from repro_torch.sharding.planner import plan_layouts
+    from repro_torch.training import optimizer as opt
+    cfg = deep_cfg(run["arch"], run["layers"])
+    shape, ocfg = run["shape"], _train_setup()[2]
+    kernels = _train_kernels()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in kernels.values():
+        fn.launches = 0
+    routes0 = dict(C.reduce_scatter.routes)
+    grads, prof, t0 = [], {}, time.perf_counter()
+    profiled = run["steps"] - 1 if rank == 0 and run["steps"] > 1 else None
+    with first_update_grads(grads), profiled_train_step(
+            torch, profiled, prof), deep_tallies(torch) as tally, \
+            weights_in(torch, run["dtype"]):
+        out = train(cfg, shape=shape, overrides=run["overrides"],
+                    opt_cfg=ocfg, device="cuda", steps=run["steps"], seed=0,
+                    mesh="h100x4", dist_backend=backend, verbose=rank == 0)
+    torch.cuda.synchronize(dev)
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    peak = torch.cuda.max_memory_allocated(dev) - base
+    t_train, t0 = time.perf_counter() - t0, time.perf_counter()
+    mesh = TorchMesh(out["plan"].mesh)
+    lay = plan_layouts(out["plan"], cfg, param_specs(cfg), mesh)
+    report = {"plan": {k: v for k, v in out["plan"].describe().items()
+                       if k != "notes"},
+              "layers": cfg.num_layers,
+              "losses": [m["loss"] for m in out["metrics"]],
+              "walls": [m["wall_s"] for m in out["metrics"]],
+              "launches": launches, "peak": peak, "grant": out["grant"],
+              "held": out["held"], "device": str(dev), "profile": prof,
+              "account": deep_account(
+                  cfg, out["plan"], lay,
+                  getattr(torch, run["dtype"]).itemsize),
+              "heads": {k: sorted(v) for k, v in tally["heads"].items()},
+              "bytes": tally["bytes"],
+              "step_peaks": [p - base for p in tally["step_peaks"]],
+              "gathered_peak": tally["gathered_peak"],
+              "routes": {k: v - routes0[k]
+                         for k, v in C.reduce_scatter.routes.items()}}
+    if run["parity"]:
+        ref = torch.load(_deep_file(d, name), mmap=True)
+        grad_sums = _block_errs(torch, grads[0], ref["grads"],
+                                opt.leaves(lay.opt), mesh, dev)
+        if run["exact"]:
+            exact = torch.load(_deep_file(d, run["exact"]), mmap=True)
+            sums = _block_errs(torch, grads[0], exact["grads"],
+                               opt.leaves(lay.opt), mesh, dev)
+            report["grad_errs_exact"] = (sums[:, 0] / sums[:, 1]).sqrt() \
+                .tolist()
+            del exact
+        param_sums = _block_errs(torch, opt.leaves(out["params"]),
+                                 ref["params"], opt.leaves(lay.params), mesh,
+                                 dev)
+        del ref
+        report["grad_errs"] = (grad_sums[:, 0] / grad_sums[:, 1]).sqrt() \
+            .tolist()
+        report["param_err"] = float((param_sums[:, 0].sum()
+                                     / param_sums[:, 1].sum()).sqrt())
+    report["seconds"] = {"train": t_train, "gates": time.perf_counter() - t0}
+    del out, grads
+    with open(f"{d}/{name}_{rank}.json", "w") as f:
+        json.dump(report, f)
+    dist.barrier()
+
+
+def _deep_expected(cfg):
+    """A microbatch's kernel launches under full remat with the Mamba-2
+    and RWKV-6 blocks tensor-parallel: K7 / K6 in the forward and the
+    recompute, K2 in both and K5a/K5b once for each shared-attention
+    application; K3 in both (and ``ln_f`` once) for every norm (Mamba-2's
+    ``ln1`` and its inner gated norm, whose rows are split over the group:
+    K3's split rows; the shared block's ``ln_in``, ``ln1``, ``ln2``;
+    RWKV-6's ``ln1``, ``ln2``), its backward once a norm."""
+    from repro_torch.configs.base import ATTN_SHARED, MAMBA2, RWKV6
+    per = {k: cfg.pattern.count(k) * cfg.num_blocks
+           for k in (MAMBA2, ATTN_SHARED, RWKV6)}
+    norms = 2 * per[MAMBA2] + 3 * per[ATTN_SHARED] + 2 * per[RWKV6]
+    out = {"rmsnorm": 2 * norms + 1, "rmsnorm_bwd": norms + 1}
+    if per[MAMBA2]:
+        out["ssd_scan"] = 2 * per[MAMBA2]
+    if per[RWKV6]:
+        out["rwkv6_wkv"] = 2 * per[RWKV6]
+    if per[ATTN_SHARED]:
+        out.update(flash_attention_fwd=2 * per[ATTN_SHARED],
+                   flash_attention_bwd_dq=per[ATTN_SHARED],
+                   flash_attention_bwd_dkv=per[ATTN_SHARED])
+    return out
+
+
+def _deep_heads(arch):
+    """The (heads, head dim) each rank's scan calls and the (q heads, K/V
+    heads, head dim) its attention calls take under the ladder's TP over
+    two ranks: half of each."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if arch.startswith("zamba2"):
+        inner = cfg.ssm.expand * cfg.d_model
+        return {"ssd": [[inner // cfg.ssm.head_dim // 2, cfg.ssm.head_dim]],
+                "wkv": [], "attn": [[cfg.num_heads // 2,
+                                     cfg.num_kv_heads // 2, cfg.head_dim]]}
+    return {"ssd": [], "wkv": [[cfg.num_heads // 2, cfg.head_dim]],
+            "attn": []}
+
+
+def _print_account(tag, reports):
+    acc = reports[0]["account"]
+    total = sum(acc.values())
+    print(f"[{tag}] account a rank: est {acc['est'] / 2**30:.3f} + the "
+          f"weights beyond bf16 {acc['weights'] / 2**30:.3f} + fp32 sums "
+          f"{acc['sums'] / 2**30:.3f} + one block gathered "
+          f"{acc['block'] / 2**30:.3f} + the shared components gathered "
+          f"{acc['shared'] / 2**30:.3f} + slack {acc['slack'] / 2**30:.3f} = "
+          f"{total / 2**30:.3f} GiB; peaks "
+          f"{[round(r['peak'] / 2**30, 3) for r in reports]} GiB; after each "
+          f"step {[[round(p / 2**30, 3) for p in r['step_peaks']] for r in reports]}"
+          f" GiB; gathered blocks alive at most "
+          f"{[round(r['gathered_peak'] / 2**30, 3) for r in reports]} GiB",
+          flush=True)
+    return total
+
+
+def _deep_noisy(name, run, names, errs, r0, ref):
+    """A bf16 parity run's leaves past the gradient limit whose kind
+    (the name past a stacked block's ``blocks/p<i>_<kind>/``) is in
+    ``DEEP_BF16_NOISY``: each -> whether the ranks' gradient lies no
+    further from one card's fp32 gradient than ``DEEP_BF16_LEAF_FACTOR``
+    times one card's bf16 gradient does, and all the leaves' together
+    (root sum of squares) no further than ``DEEP_BF16_NOISE_FACTOR``
+    times.  Prints every leaf's three distances and their ratio."""
+    import re
+    if not run["exact"]:
+        return {}
+    kinds = DEEP_BF16_NOISY.get(run["arch"], ())
+    rows, out = {}, {}
+    for n, to_exact, noise in zip(names, r0["grad_errs_exact"],
+                                  ref["noise"]):
+        ratio = to_exact / max(noise, 1e-30)
+        rows[n] = (round(errs[n], 4), round(to_exact, 4), round(noise, 4),
+                   round(ratio, 3))
+        kind = re.sub(r"^blocks/p\d+_[a-z0-9]+(_[a-z]+)*/", "", n)
+        if errs[n] > TRAIN_GRAD_RTOL and kind in kinds:
+            out[n] = ratio <= DEEP_BF16_LEAF_FACTOR
+    total = [sum(v[i] ** 2 for v in rows.values()) ** 0.5 for i in (1, 2)]
+    together = total[0] <= DEEP_BF16_NOISE_FACTOR * total[1]
+    print(f"[{name}] step-1 gradients, each leaf's (ranks against one "
+          f"card's bf16, ranks against one card's fp32, one card's bf16 "
+          f"against its fp32, the ratio of the last two): {rows}; root sum "
+          f"of squares of the middle two {total[0]:.4f} / {total[1]:.4f} "
+          f"= {total[0] / total[1]:.4f} (<= {DEEP_BF16_NOISE_FACTOR}: "
+          f"{together}); the leaves past {TRAIN_GRAD_RTOL} held as bf16 "
+          f"noise (ratio <= {DEEP_BF16_LEAF_FACTOR:.4f}): {out}", flush=True)
+    if out:
+        out["all leaves together"] = together
+    return out
+
+
+def deep_gates(d, backend, refs):
+    """Phase 22's gates on the ranks' reports (see the module doc); returns
+    rank 0's launch counts summed over the runs."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_paths
+    from repro_torch.models.model import param_specs
+    launches = {}
+    for name, run in deep_runs(backend).items():
+        reports = _rank_reports(d, name)
+        r0 = reports[0]
+        plan, losses = r0["plan"], r0["losses"]
+        cfg = deep_cfg(run["arch"], run["layers"])
+        steps = len(losses)
+        per_mb = _deep_expected(cfg)
+        want = {k: per_mb.get(k, 0) * plan["microbatch"] * steps
+                for k in r0["launches"]}
+        heads = _deep_heads(run["arch"])
+        mib = {k: round(v / 2**20 / steps, 1) for k, v in r0["bytes"].items()}
+        print(f"[{name}] {cfg.name} ({cfg.num_layers} layers) plan batch_axes="
+              f"{plan['batch_axes']} tp={plan['tp']} zero={plan['zero']} "
+              f"fsdp={plan['fsdp']} remat={plan['remat']} microbatch="
+              f"{plan['microbatch']}; est "
+              f"{plan['est_bytes_per_device'] / 2**30:.3f} GiB/device, grant "
+              f"{r0['grant'] / 2**30:.3f} GiB over {r0['held'] / 2**30:.3f} "
+              f"GiB held; losses {losses}; walls "
+              f"{[round(w, 4) for w in r0['walls']]} s; rank 0's calls "
+              f"(heads, ...) {r0['heads']}; collectives' MiB a step on rank 0 "
+              f"{mib}; reduce-scatter routes {r0['routes']}; launches "
+              f"{r0['launches']} expected {want}; rank 0's seconds "
+              f"{r0['seconds']} | {card_line()}", flush=True)
+        total = _print_account(name, reports)
+        if not all(math.isfinite(x) for x in losses) or (
+                steps > 1 and not losses[-1] < losses[0]):
+            fail(f"{name}: losses {losses} not finite or not decreasing")
+        if r0["launches"] != want:
+            fail(f"{name}: rank 0's launch counts differ from what the path "
+                 "implies")
+        if r0["heads"] != heads:
+            fail(f"{name}: rank 0's calls took {r0['heads']}, not {heads}")
+        if not all(r["peak"] <= total for r in reports):
+            fail(f"{name}: a rank's peak passes its account")
+        if not all(r0["grant"] >= r["held"] >= r["peak"] for r in reports) \
+                or any(r["grant"] != r0["grant"] for r in reports):
+            fail(f"{name}: the grant does not cover every rank's peak")
+        if steps > 1:
+            prof = r0["profile"]
+            print(f"[{name}] rank 0's profiled step: wall "
+                  f"{prof['wall_ms']:.1f} ms, device busy "
+                  f"{prof['busy_ms']:.1f} ms; collectives: NCCL kernels "
+                  f"{prof['nccl_ms']:.1f} ms ("
+                  f"{prof['nccl_ms'] / max(prof['busy_ms'], 1e-9):.4f} of the "
+                  f"busy time), host time in gloo's collectives "
+                  f"{prof['gloo_host_ms']:.1f} ms "
+                  f"({prof['gloo_host_ms'] / prof['wall_ms']:.4f} of the "
+                  "wall)", flush=True)
+        if run["parity"]:
+            names = [k for k, _ in _flatten_with_paths(param_specs(cfg))]
+            want_l = refs[name]["losses"]
+            loss_err = max(abs(a - b) / abs(b) for a, b in zip(losses, want_l))
+            errs = dict(zip(names, r0["grad_errs"]))
+            noisy = _deep_noisy(name, run, names, errs, r0, refs[name])
+            worst = max((k for k in errs if k not in noisy), key=errs.get)
+            repl = {k.split("/")[-1]: f"{e:.3e}" for k, e in errs.items()
+                    if k.split("/")[-1] in ("conv_w", "conv_b", "w_in_b",
+                                            "w_in_c", "mu", "mu_c", "wa")}
+            print(f"[{name}] against one card's run ({run['dtype']} "
+                  f"weights): losses {want_l} (max rel {loss_err:.3e} <= "
+                  f"{TRAIN_LOSS_RTOL}), params rel norm "
+                  f"{r0['param_err']:.3e} <= {TRAIN_PARAM_RTOL}, step-1 grads "
+                  f"worst rel norm {errs[worst]:.3e} ({worst}) <= "
+                  f"{TRAIN_GRAD_RTOL} but the {sum(k in errs for k in noisy)} "
+                  f"leaves held as "
+                  f"bf16 noise; the leaves whole on every rank, each "
+                  f"summed over 'model' (the last block's): {repl}",
+                  flush=True)
+            if not (loss_err <= TRAIN_LOSS_RTOL
+                    and r0["param_err"] <= TRAIN_PARAM_RTOL
+                    and errs[worst] <= TRAIN_GRAD_RTOL
+                    and all(noisy.values())):
+                fail(f"{name}: the ranks' run disagrees with one card's")
+        for k, n in r0["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# a study, not a phase: rwkv6-7b's bf16 gradients against its fp32 ones
+# ---------------------------------------------------------------------------
+
+def rwkv6_bf16_study(cfg=None, shape=None, device="cuda") -> None:
+    """Where rwkv6-7b's bf16 step-1 gradients part from its fp32 ones at
+    full width on one card (``PERF.md`` section 6), run as::
+
+        python3 -c "import chip_smoke; chip_smoke.rwkv6_bf16_study()"
+
+    rwkv6-7b at phase 22's 2 of its 32 layers, full width, seed-0
+    weights (bf16 values in either dtype), phase 5's sequence at
+    ``PARITY_ROWS`` rows, no remat, one card; the gradients of the model's
+    loss (``step_grads``) with (a) fp32 weights; (b) bf16 weights; (c)
+    bf16 weights, the WKV's r, k, v cast to fp32 (K6's fp32 route); (e)
+    fp32 weights, the WKV's r, k, v rounded to bf16 (K6's bf16 route).
+    Prints each run's loss and every leaf's relative distance (norm) from
+    (a)'s; the relative distance of each run's outputs from (a)'s at each
+    layer's time mix, WKV and channel mix; then K6 alone on (a)'s first
+    WKV inputs (one row, 8 heads) rounded to bf16: the output and the
+    gradients for a seeded output gradient of its bf16 route and of its
+    fp32 route on the same values, against the plain version's
+    (``rwkv6_wkv_ref``, autograd; its pair tensors bound the slice).
+    Prints only.  ``cfg``, ``shape`` and ``device`` (a reduced config on
+    the CPU) make a dry run of the study's code."""
+    import torch
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.checkpoint.checkpointer import _flatten_with_paths
+    from repro_torch.core.materializer import H100, materialize
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import rwkv6_scan as k6
+    from repro_torch.models import rwkv6 as rw
+    from repro_torch.models.model import Model, init_params, param_specs
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import impl_from_plan
+    if device == "cuda":
+        _build.build()
+    t0 = time.perf_counter()
+    cfg = cfg or deep_cfg("rwkv6-7b", DEEP_PARITY_LAYERS["rwkv6-7b"])
+    shape = shape or parity_shape()
+    plan = materialize(cfg, shape, H100,
+                       overrides={"remat": "none", "microbatch": 1})
+    model = Model(cfg, impl_from_plan(plan))
+    names = [k for k, _ in _flatten_with_paths(param_specs(cfg))]
+    base = init_params(cfg, 0, device)
+    data = SyntheticLM(DataConfig(cfg.vocab_size, shape.seq_len,
+                                  shape.global_batch))
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in data.batch_at(0).items()}
+    plain = {n: getattr(rw, n) for n in ("time_mix_train",
+                                         "channel_mix_train", "wkv_chunked")}
+
+    def wkv_as(kind):
+        def wkv(r, k, v, logw, u):
+            if kind == "fp32":
+                r, k, v = r.float(), k.float(), v.float()
+            elif kind == "bf16":
+                r, k, v = (t.to(torch.bfloat16) for t in (r, k, v))
+            return plain["wkv_chunked"](r, k, v, logw, u)
+        return wkv
+
+    def recorded(name, outs):
+        def call(*args, **kwargs):
+            out = plain[name](*args, **kwargs)
+            o = out[0] if isinstance(out, tuple) else out
+            outs.append((name, o.detach().float()))
+            return out
+        return call
+
+    runs = {"a fp32": (torch.float32, None), "b bf16": (torch.bfloat16, None),
+            "c bf16, WKV fp32 route": (torch.bfloat16, "fp32"),
+            "e fp32, WKV bf16 route": (torch.float32, "bf16")}
+    grads, outs, losses, first = {}, {}, {}, {}
+    for run, (dtype, wkv) in runs.items():
+        params = opt.tree_map(lambda p: p.to(dtype), base)
+        outs[run] = []
+        rw.time_mix_train = recorded("time_mix_train", outs[run])
+        rw.channel_mix_train = recorded("channel_mix_train", outs[run])
+        inner = wkv_as(wkv) if wkv else plain["wkv_chunked"]
+
+        def wkv_rec(r, k, v, logw, u, inner=inner, run=run):
+            if run == "a fp32" and "in" not in first:
+                first["in"] = [t.detach().clone() for t in (r, k, v, logw, u)]
+            o = inner(r, k, v, logw, u)
+            outs[run].append(("wkv", o[0].detach().float()))
+            return o
+        rw.wkv_chunked = wkv_rec
+        m = {}
+        try:
+            grads[run] = step_grads(torch, model, plan, params, batch, m)
+        finally:
+            for n, f in plain.items():
+                setattr(rw, n, f)
+        losses[run] = m["ce"]
+        del params
+
+    def rel(a, b):
+        return float((a.float() - b.float()).norm() / b.float().norm())
+
+    ref = grads["a fp32"]
+    print(f"[rwkv6 bf16] rwkv6-7b ({cfg.num_layers} layers, full width, "
+          f"{shape.global_batch} x {shape.seq_len}): losses {losses} | "
+          f"{card_line()}", flush=True)
+    for run in runs:
+        if run == "a fp32":
+            continue
+        d = {n: rel(g, r) for n, g, r in zip(names, grads[run], ref)}
+        print(f"[rwkv6 bf16] ({run}) step-1 gradients' relative distance "
+              f"from (a)'s: min {min(d.values()):.4f} max "
+              f"{max(d.values()):.4f}; "
+              f"{ {n: round(e, 4) for n, e in d.items()} }", flush=True)
+    for run in ("b bf16", "c bf16, WKV fp32 route", "e fp32, WKV bf16 route"):
+        print(f"[rwkv6 bf16] ({run}) outputs' relative distance from (a)'s "
+              f"in call order: "
+              f"{[(n, round(rel(o, w), 5)) for (n, o), (_, w) in zip(outs[run], outs['a fp32'])]}",
+              flush=True)
+    del grads, outs
+
+    # K6 alone, on (a)'s first WKV inputs (one row, 8 heads) in bf16
+    r, k, v, logw = (t[:1, :, :8] for t in first["in"][:4])
+    u = first["in"][4][:8]
+    ins = [t.to(torch.bfloat16).transpose(1, 2) for t in (r, k, v)]
+    lw, uu = logw.transpose(1, 2), u.float()
+    gen = torch.Generator(device=device).manual_seed(5)
+    do = torch.randn(ins[0].shape, generator=gen, device=device)
+    res = {}
+    for route, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32),
+                         ("plain", torch.float32)):
+        args = [t.detach().to(dtype).clone().requires_grad_()
+                for t in ins] + [t.detach().clone().requires_grad_()
+                                 for t in (lw, uu)]
+        fn = k6.rwkv6_wkv_ref if route == "plain" else k6.WKV.apply
+        o, _ = fn(*args)
+        o.backward(do)
+        res[route] = [o.detach()] + [a.grad for a in args]
+    for route in ("bf16", "fp32"):
+        errs = [rel(a, b) for a, b in zip(res[route], res["plain"])]
+        print(f"[rwkv6 bf16] K6's {route} route on layer 0's inputs (r, k, v "
+              f"{tuple(ins[0].shape)} rounded to bf16; logw in "
+              f"[{float(lw.min()):.3f}, {float(lw.max()):.3f}]) against the "
+              f"plain version: output {errs[0]:.3e}, gradients r "
+              f"{errs[1]:.3e} k {errs[2]:.3e} v {errs[3]:.3e} logw "
+              f"{errs[4]:.3e} u {errs[5]:.3e}", flush=True)
+    print(f"[rwkv6 bf16] {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 if __name__ == "__main__":

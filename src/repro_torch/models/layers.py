@@ -128,11 +128,15 @@ def rms_norm_spec(d: int) -> Spec:
     return Spec((d,), ("embed",), std=0.0)   # zero-init: (1+g) form
 
 
-def rms_norm(x: torch.Tensor, gain: torch.Tensor,
-             eps: float = 1e-6) -> torch.Tensor:
-    if x.device.type != "cpu" and needs_grad(x, gain):
-        return RMSNorm.apply(x, gain, eps)
-    return rmsnorm(x, gain, eps)
+def rms_norm(x: torch.Tensor, gain: torch.Tensor, eps: float = 1e-6,
+             split=None) -> torch.Tensor:
+    """K3 (``kernels.rmsnorm``) with its Function where a gradient is
+    taken on the card; on the CPU plain ops, or the Function with
+    ``split`` (rows split over a group: ``kernels.rmsnorm.rmsnorm``),
+    whose sums over the group autograd cannot see."""
+    if needs_grad(x, gain) and (x.device.type != "cpu" or split is not None):
+        return RMSNorm.apply(x, gain, eps, split)
+    return rmsnorm(x, gain, eps, split)
 
 
 def layer_norm(x: torch.Tensor, gain: torch.Tensor, bias: torch.Tensor,

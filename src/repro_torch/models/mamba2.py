@@ -13,7 +13,11 @@ its plain chunked version on CPU tensors), and through its autograd
 Function ``SSDScan`` where a gradient is taken.  Decode is the
 single-step recurrence in plain ops: a one-token update has no Pallas
 counterpart.  The conv state is bf16 and
-the SSM state fp32, as in the reference.
+the SSM state fp32, as in the reference.  Training under tensor
+parallelism (``mamba2_train`` with ``tp``) runs this rank's heads; the
+inner gated norm, whose rows are then split over the group, takes the
+whole row's mean square into the RMSNorm kernel from outside (its
+partial sums of squares summed over the group).
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import SSDScan, ssd_scan
 from repro_torch.models.layers import (CacheSpec, Spec, needs_grad,
                                       rms_norm)
+from repro_torch.sharding.collectives import (TensorParallel, all_reduce,
+                                              copy_to_tp, reduce_from_tp)
 
 Params = Dict[str, Any]
 
@@ -85,7 +91,9 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
 def _projections(p: Params, x: torch.Tensor, cfg: ModelConfig,
                  conv_state: Optional[torch.Tensor]):
-    d_inner, _, _, n = mamba_dims(cfg)
+    """(z, x heads' channels, B, C, dt, the new conv state); the widths are
+    ``p``'s own (under TP this rank's channels and heads)."""
+    d_inner, n = p["w_in_x"].shape[1], p["w_in_b"].shape[1]
     z = torch.matmul(x, p["w_in_z"])
     xbc = torch.cat([torch.matmul(x, p["w_in_x"]),
                      torch.matmul(x, p["w_in_b"]),
@@ -116,30 +124,65 @@ def ssd_chunked(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 def _gate_out(p: Params, y: torch.Tensor, z: torch.Tensor,
-              cfg: ModelConfig) -> torch.Tensor:
-    """The inner (1+g) RMSNorm of y * silu(z), then the out projection."""
-    y = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps)
-    return torch.matmul(y, p["w_out"])
+              cfg: ModelConfig, tp: Optional[TensorParallel] = None
+              ) -> torch.Tensor:
+    """The inner (1+g) RMSNorm of y * silu(z), then the out projection.
+    With ``tp``, ``y`` and ``z`` are this rank's channels: the norm's mean
+    square is summed over the group (K3's split rows:
+    ``kernels.rmsnorm.rmsnorm``) and the row-parallel projection's
+    partial outputs too."""
+    split = None if tp is None else (
+        mamba_dims(cfg)[0], lambda t: all_reduce(t, tp.group))
+    v = rms_norm(y * F.silu(z), p["norm"], cfg.norm_eps, split)
+    out = torch.matmul(v, p["w_out"])
+    return out if tp is None else reduce_from_tp(out, tp)
+
+
+def _ssd_block(p: Params, x: torch.Tensor, cfg: ModelConfig):
+    """x: (B, S, d) -> (y (B, S, p's channels) in x's dtype, z, the SSM
+    state after the sequence, the conv state)."""
+    bsz, s, _ = x.shape
+    p_dim = cfg.ssm.head_dim
+    z, xh, b_in, c_in, dt, conv_state = _projections(p, x, cfg, None)
+    xh_r = xh.unflatten(-1, (-1, p_dim))
+    y, ssm = ssd_chunked(xh_r, dt, p["a_log"], b_in, c_in)
+    y = y + xh_r.float() * p["d_skip"].float()[:, None]
+    return y.reshape(bsz, s, -1).to(x.dtype), z, ssm, conv_state
 
 
 def mamba2_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig
                    ) -> Tuple[torch.Tensor, Params]:
     """x: (B, S, d) -> (out (B, S, d), {"ssm", "conv"} after the prompt)."""
-    bsz, s, _ = x.shape
-    d_inner, h, p_dim, _ = mamba_dims(cfg)
-    z, xh, b_in, c_in, dt, conv_state = _projections(p, x, cfg, None)
-    xh_r = xh.unflatten(-1, (h, p_dim))
-    y, ssm = ssd_chunked(xh_r, dt, p["a_log"], b_in, c_in)
-    y = y + xh_r.float() * p["d_skip"].float()[:, None]
-    y = y.reshape(bsz, s, d_inner).to(x.dtype)
+    y, z, ssm, conv_state = _ssd_block(p, x, cfg)
     return _gate_out(p, y, z, cfg), {"ssm": ssm, "conv": conv_state}
 
 
-def mamba2_train(p: Params, x: torch.Tensor, cfg: ModelConfig
-                 ) -> torch.Tensor:
+def mamba2_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                 tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """x: (B, S, d) -> out (B, S, d): the reference's ``mamba2_train``, the
-    prefill's output (the states after the sequence go unused)."""
-    return mamba2_prefill(p, x, cfg)[0]
+    prefill's output (the states after the sequence go unused).
+
+    With ``tp`` and the heads split over it (``p`` holds this rank's
+    columns of ``w_in_z``/``w_in_x``/``w_in_dt``/``norm``, heads of
+    ``a_log``/``dt_bias``/``d_skip`` and rows of ``w_out``), this rank's
+    heads: the conv runs over its block of x's channels and the whole B
+    and C channels.  ``w_in_b``, ``w_in_c``, ``conv_w`` and ``conv_b`` are
+    whole on every rank and applied to this rank's heads (B and C feed
+    every head; the conv's x columns are disjoint between ranks), so each
+    enters through ``copy_to_tp`` and its gradient is summed over the
+    group, as is the input's."""
+    d_inner = mamba_dims(cfg)[0]
+    dl = p["w_in_x"].shape[1]
+    if tp is None or dl == d_inner:
+        return mamba2_prefill(p, x, cfg)[0]
+    own = slice(tp.rank * dl, (tp.rank + 1) * dl)
+    conv_w, conv_b = (copy_to_tp(p[k], tp) for k in ("conv_w", "conv_b"))
+    local = dict(p, w_in_b=copy_to_tp(p["w_in_b"], tp),
+                 w_in_c=copy_to_tp(p["w_in_c"], tp),
+                 conv_w=torch.cat([conv_w[:, own], conv_w[:, d_inner:]], 1),
+                 conv_b=torch.cat([conv_b[own], conv_b[d_inner:]]))
+    y, z, _, _ = _ssd_block(local, copy_to_tp(x, tp), cfg)
+    return _gate_out(local, y, z, cfg, tp)
 
 
 def mamba2_decode(p: Params, x: torch.Tensor, state: Params,

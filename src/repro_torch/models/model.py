@@ -147,8 +147,9 @@ def _shared(params: Params) -> Params:
 
 
 #: the block kinds whose training forward runs tensor-parallel (an MoE
-#: block's attention; its routed experts run expert-parallel)
-TP_KINDS = (ATTN_GLOBAL, ATTN_LOCAL, MOE)
+#: block's attention, its routed experts expert-parallel; Mamba-2 and
+#: RWKV-6 over their heads; zamba2's shared attention block)
+TP_KINDS = (ATTN_GLOBAL, ATTN_LOCAL, MOE, MAMBA2, ATTN_SHARED, RWKV6)
 
 
 class Model:
@@ -160,20 +161,28 @@ class Model:
     With ``tp`` (the rank's :class:`TensorParallel` group), ``loss_fn``
     runs on this rank's blocks of the planner's compute layout: the heads,
     ffn columns and vocab rows it split over the group, the rest whole.
-    That covers the attention + MLP stacks and the MoE stacks
-    (``TP_KINDS``), whose routed experts then run expert-parallel over
-    the same axis (``impl.ep_shard_ctx``, which the planner's expert
-    layout implies under TP); without ``tp`` and ``ep_shard_ctx`` no
-    collective runs."""
+    That covers the attention + MLP, MoE, Mamba-2, zamba2 and RWKV-6
+    stacks (``TP_KINDS``); an MoE stack's routed experts then run
+    expert-parallel over the same axis (``impl.ep_shard_ctx``, which the
+    planner's expert layout implies under TP); without ``tp`` and
+    ``ep_shard_ctx`` no collective runs.
+
+    With ``shards`` (a sharded train step's
+    ``collectives.ShardedParams``), ``loss_fn`` takes this rank's stored
+    blocks of the params: the components outside the stacked blocks are
+    put on their compute layout at its start, and each pattern block's
+    stored slices inside the block's remat body, so that an FSDP-split
+    block is gathered for its forward and again for its recompute, and
+    its gradient goes to the step's sums as the backward produces it."""
 
     def __init__(self, cfg: ModelConfig, impl: Optional[ImplConfig] = None,
-                 tp: Optional[TensorParallel] = None):
+                 tp: Optional[TensorParallel] = None, shards=None):
         check_family(cfg)
         if tp is not None and any(k not in TP_KINDS for k in cfg.pattern):
             raise NotImplementedError(
-                f"{cfg.name}: the tensor-parallel forward covers attention "
-                f"+ MLP and MoE stacks ({TP_KINDS}); pattern {cfg.pattern} "
-                "trains data-parallel (tp=False)")
+                f"{cfg.name}: the tensor-parallel forward covers the block "
+                f"kinds {TP_KINDS}; pattern {cfg.pattern} trains "
+                "data-parallel (tp=False)")
         if tp is not None and MOE in cfg.pattern and (
                 impl is None or impl.ep_shard_ctx is None):
             raise NotImplementedError(
@@ -184,6 +193,7 @@ class Model:
         self.cfg = cfg
         self.impl = impl or ImplConfig()
         self.tp = tp
+        self.shards = shards
 
     # -- positions (non-RoPE stacks: rwkv6, whisper) -------------------------
     def _add_positional(self, x: torch.Tensor, offset: int = 0
@@ -301,10 +311,13 @@ class Model:
         its inputs (and under ``"dots"`` its matmuls' outputs too) and is
         recomputed in the backward.  The shared components and the
         encoder's output pass the remat boundary as arguments, so every
-        pattern block's recompute reaches them."""
-        cfg = self.cfg
+        pattern block's recompute reaches them; with ``shards`` the block's
+        stored slices are put on their compute layout inside the body."""
+        cfg, shards = self.cfg, self.shards
 
-        def block_body(x, bp, shared, enc_out):
+        def block_body(x, bp, shared, enc_out, j):
+            if shards is not None:
+                bp = shards.block(bp, j)
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for i, kind in enumerate(cfg.pattern):
                 x, a = T.apply_block_train(cfg, kind, bp[f"p{i}_{kind}"], x,
@@ -316,8 +329,8 @@ class Model:
         body = T._remat(block_body, self.impl.remat)
         shared = _shared(params)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for bp in _unstack(params["blocks"], cfg.num_blocks):
-            x, a = body(x, bp, shared, enc_out)
+        for j, bp in enumerate(_unstack(params["blocks"], cfg.num_blocks)):
+            x, a = body(x, bp, shared, enc_out, j)
             aux = aux + a
         return x, aux
 
@@ -331,6 +344,8 @@ class Model:
         the text alone); an encoder-decoder needs "enc_feats" (B, T, d),
         the encoder's input frames."""
         cfg = self.cfg
+        if self.shards is not None:
+            params = self.shards.shared(params)
         x = embed_tokens(cfg, params, batch["tokens"], self.tp)
         n_img = 0
         if cfg.family == "vlm" and "img_feats" in batch:

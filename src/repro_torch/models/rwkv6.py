@@ -16,7 +16,9 @@ the reference's chunked form clamps a split of the pairwise decay and is
 wrong once a chunk's cumulative log-decay falls below -30 (see
 ``kernels/rwkv6_scan.py``).  Decode is the single-step recurrence in plain
 ops.  As in the reference, the token-shift mix coefficients are plain
-learned vectors; the decay LoRA is kept.
+learned vectors; the decay LoRA is kept.  Training under tensor
+parallelism (``time_mix_train`` and ``channel_mix_train`` with ``tp``)
+runs this rank's heads and ffn columns.
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rwkv6_scan import WKV, rwkv6_wkv
 from repro_torch.models.layers import (CacheSpec, Spec, group_norm_heads,
                                       needs_grad)
+from repro_torch.sharding.collectives import (TensorParallel, copy_to_tp,
+                                              gather_from_tp, reduce_from_tp)
 
 Params = Dict[str, Any]
 
@@ -85,25 +89,38 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x, w.reshape(d, n * hd)).unflatten(-1, (n, hd))
 
 
-def decay_logw(p: Params, xw: torch.Tensor) -> torch.Tensor:
+def decay_logw(p: Params, xw: torch.Tensor,
+               tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """Data-dependent decay log(w_t) in (-inf, 0).  xw: (B, S, d) -> (B, S,
-    H, hd) fp32."""
-    lora = torch.matmul(xw, p["wa"])
-    delta = _heads(torch.tanh(lora), p["wb"])
+    H, hd) fp32.  With ``tp``, ``wb`` holds this rank's heads: the LoRA's
+    hidden activation, whole on every rank, enters them through
+    ``copy_to_tp``."""
+    lora = torch.tanh(torch.matmul(xw, p["wa"]))
+    if tp is not None:
+        lora = copy_to_tp(lora, tp)
+    delta = _heads(lora, p["wb"])
     raw = p["w0"].float() + delta.float()
     return -torch.exp(raw)
 
 
 def time_mix_projections(p: Params, x: torch.Tensor,
-                         x_prev: Optional[torch.Tensor], cfg: ModelConfig):
+                         x_prev: Optional[torch.Tensor], cfg: ModelConfig,
+                         tp: Optional[TensorParallel] = None):
+    """(r, k, v, g, log w) of ``p``'s heads.  With ``tp`` (``p`` this
+    rank's heads), each token-shift mix, whole on every rank, enters this
+    rank's heads through ``copy_to_tp``: its gradient is summed over the
+    group per element before it reaches ``mu`` and ``x``, which then take
+    theirs from one full-width sum, as on one card."""
     xx = token_shift(x, x_prev)
     mu = p["mu"]
     xr, xk, xv, xw, xg = (_mix(x, xx, mu[i]) for i in range(5))
+    if tp is not None:
+        xr, xk, xv, xg = (copy_to_tp(t, tp) for t in (xr, xk, xv, xg))
     r = _heads(xr, p["wr"])
     k = _heads(xk, p["wk"])
     v = _heads(xv, p["wv"])
     g = _heads(xg, p["wg"])
-    return r, k, v, g, decay_logw(p, xw)
+    return r, k, v, g, decay_logw(p, xw, tp)
 
 
 def wkv_chunked(r, k, v, logw, u):
@@ -133,12 +150,24 @@ def time_mix_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig
     return _time_mix_out(p, o.to(x.dtype), g), wkv
 
 
-def time_mix_train(p: Params, x: torch.Tensor, cfg: ModelConfig
-                   ) -> torch.Tensor:
+def time_mix_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                   tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """x: (B, S, d) -> out (B, S, d): the reference's ``time_mix_train``,
-    the prefill's output (the WKV state after the sequence goes
-    unused)."""
-    return time_mix_prefill(p, x, cfg)[0]
+    the prefill's output (the WKV state after the sequence goes unused).
+
+    With ``tp`` and the heads split over it (``p`` holds this rank's heads
+    of ``wr``/``wk``/``wv``/``wg``/``wo``/``w0``/``wb``/``bonus_u``/
+    ``ln_x``), this rank's heads, the group norm per head as it is, and
+    ``wo``'s partial outputs summed over the group.  The token-shift mixes
+    ``mu`` and the decay LoRA's ``wa`` are whole on every rank; the
+    activations they make enter this rank's heads through ``copy_to_tp``
+    (:func:`time_mix_projections`), so ``mu`` and ``wa`` take their
+    gradients from one full-width sum, as on one card."""
+    if tp is None or p["wr"].shape[1] == cfg.num_heads:
+        return time_mix_prefill(p, x, cfg)[0]
+    r, k, v, g, logw = time_mix_projections(p, x, None, cfg, tp)
+    o, _ = wkv_chunked(r, k, v, logw, p["bonus_u"])
+    return reduce_from_tp(_time_mix_out(p, o.to(x.dtype), g), tp)
 
 
 def time_mix_decode(p: Params, x: torch.Tensor, state: Params,
@@ -158,11 +187,36 @@ def time_mix_decode(p: Params, x: torch.Tensor, state: Params,
 
 
 def channel_mix(p: Params, x: torch.Tensor,
-                x_prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+                x_prev: Optional[torch.Tensor] = None,
+                tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """With ``tp``, ``p`` holds this rank's ffn columns of ``ck``, rows of
+    ``cv`` and output columns of ``cr`` (the model's ``channel_mix_train``
+    gives it only then): the two mixes enter them through
+    ``copy_to_tp``."""
     xx = token_shift(x, x_prev)
     mu = p["mu_c"]
     xk = _mix(x, xx, mu[0])
     xr = _mix(x, xx, mu[1])
+    if tp is not None:
+        xk, xr = copy_to_tp(xk, tp), copy_to_tp(xr, tp)
     kk = torch.square(F.relu(torch.matmul(xk, p["ck"])))
     rr = torch.sigmoid(torch.matmul(xr, p["cr"]).float())
-    return rr.to(x.dtype) * torch.matmul(kk, p["cv"])
+    v = torch.matmul(kk, p["cv"])
+    if tp is None:
+        return rr.to(x.dtype) * v
+    return gather_from_tp(rr.to(x.dtype), tp, -1) * reduce_from_tp(v, tp)
+
+
+def channel_mix_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                      tp: Optional[TensorParallel] = None) -> torch.Tensor:
+    """The channel mix of a training forward.  With ``tp`` and the ffn
+    split over it, this rank's part: ``kk @ cv`` is a partial sum of full
+    width, summed over the group, and ``rr`` this rank's columns,
+    all-gathered."""
+    split = tp is not None and p["ck"].shape[1] < cfg.d_ff
+    if split != (tp is not None and p["cr"].shape[1] < cfg.d_model):
+        raise NotImplementedError(
+            f"{cfg.name}: the channel mix splits its ffn ({cfg.d_ff}) and "
+            f"its receptance columns ({cfg.d_model}) over the group "
+            "together or neither")
+    return channel_mix(p, x, tp=tp if split else None)

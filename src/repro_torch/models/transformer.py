@@ -388,15 +388,17 @@ def _attn_mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     return x + L.gated_mlp(p["mlp"], h, tp if split else None)
 
 
-def _shared_attn_apply(cfg: ModelConfig, sp: Params,
-                       x: torch.Tensor) -> torch.Tensor:
+def _shared_attn_apply(cfg: ModelConfig, sp: Params, x: torch.Tensor,
+                       tp=None) -> torch.Tensor:
     """zamba2's shared attention block on the normed input ``x``: its
     attention (head dim 80 through the flash kernels) and gated MLP, the
-    residual left to the caller."""
+    residual left to the caller; with ``tp``, this rank's heads and ffn
+    columns where the planner split them, as in :func:`_attn_mlp_block`."""
     h = apply_norm(cfg, sp["ln1"], x)
-    y = attn.self_attention_train(sp["attn"], h, cfg, causal=True)
+    y = attn.self_attention_train(sp["attn"], h, cfg, causal=True, tp=tp)
     h2 = apply_norm(cfg, sp["ln2"], x + y)
-    return y + L.gated_mlp(sp["mlp"], h2)
+    split = tp is not None and sp["mlp"]["wi_gate"].shape[-1] < cfg.d_ff
+    return y + L.gated_mlp(sp["mlp"], h2, tp if split else None)
 
 
 def apply_block_train(cfg: ModelConfig, kind: str, p: Params,
@@ -411,9 +413,10 @@ def apply_block_train(cfg: ModelConfig, kind: str, p: Params,
     whisper's encoder output (B, T, d), whose cross K/V a decoder block
     projects inside the block, so that a recompute runs them again.
     ``tp``, a ``TensorParallel`` group, reaches the attention and MLP
-    blocks and an MoE block's attention (``Model`` refuses it for a stack
-    of other kinds); an MoE block's routed experts run expert-parallel
-    under ``impl.ep_shard_ctx``."""
+    blocks, an MoE block's attention, the Mamba-2 and RWKV-6 blocks and
+    zamba2's shared block (``Model`` refuses it for a stack of other
+    kinds); an MoE block's routed experts run expert-parallel under
+    ``impl.ep_shard_ctx``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if kind in (ATTN_GLOBAL, ATTN_LOCAL):
         window = cfg.sliding_window if kind == ATTN_LOCAL else 0
@@ -436,15 +439,15 @@ def apply_block_train(cfg: ModelConfig, kind: str, p: Params,
         x = x + y
     elif kind == RWKV6:
         h = apply_norm(cfg, p["ln1"], x)
-        x = x + rw.time_mix_train(p["rwkv"], h, cfg)
+        x = x + rw.time_mix_train(p["rwkv"], h, cfg, tp)
         h = apply_norm(cfg, p["ln2"], x)
-        x = x + rw.channel_mix(p["rwkv"], h)
+        x = x + rw.channel_mix_train(p["rwkv"], h, cfg, tp)
     elif kind == MAMBA2:
         h = apply_norm(cfg, p["ln1"], x)
-        x = x + m2.mamba2_train(p["mamba"], h, cfg)
+        x = x + m2.mamba2_train(p["mamba"], h, cfg, tp)
     elif kind == ATTN_SHARED:
         h = apply_norm(cfg, p["ln_in"], x)
-        x = x + _shared_attn_apply(cfg, shared["shared_attn"], h)
+        x = x + _shared_attn_apply(cfg, shared["shared_attn"], h, tp)
     else:
         raise ValueError(f"unknown block kind {kind!r}")
     return x, aux

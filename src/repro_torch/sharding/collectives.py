@@ -6,24 +6,35 @@ collectives.  The port has no partitioner, so this module holds the ones
 it needs, as ``torch.distributed`` calls over a
 :class:`~repro_torch.launch.mesh.TorchMesh`'s groups (NCCL on cards with
 a rank each; gloo on the CPU or ranks sharing a card): moving a leaf
-between two of the planner's layouts (:func:`narrow_to`,
-:func:`gather_to`), the tensor-parallel pair of autograd ops
-(:func:`copy_to_tp`, :func:`reduce_from_tp`), and the expert-parallel
-ones: the scatter/gather pair of activations over the ``model`` axis
+between two of the planner's layouts (:func:`gather_to`), the step's
+view of its stored params (:class:`ShardedParams`: each stacked block
+all-gathered into its compute layout where the model applies it, one
+block at a time, by an autograd op whose backward sums the block's
+gradients over the batch axes straight into this rank's optimizer
+slices: a :func:`reduce_scatter` over the axes a slice splits beyond
+the compute layout, an all-reduce over the rest, one collective for the
+leaves of a block that share their axes), the
+tensor-parallel pair of autograd ops (:func:`copy_to_tp`,
+:func:`reduce_from_tp`), and the expert-parallel ones: the
+scatter/gather pair of activations over the ``model`` axis
 (:func:`scatter_to_tp`, :func:`gather_from_tp`), the token exchange
 (:func:`all_to_all`) and the balance loss's mean over the mesh
-(:func:`mesh_mean`).  Only ``all_reduce``, ``all_gather`` and
-``all_to_all_single`` are used, which both backends have (gloo has no
-``reduce_scatter``), so the same code runs on both.
+(:func:`mesh_mean`).  Only ``all_reduce``, ``all_gather``,
+``reduce_scatter`` and ``all_to_all_single`` are used, which both
+backends have, card tensors included, so the same code runs on both.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, List, Tuple
+import math
+import weakref
+from typing import TYPE_CHECKING, Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.training.optimizer import tree_unflatten
 
 if TYPE_CHECKING:  # pragma: no cover - typing only
     from repro_torch.sharding.planner import Layout
@@ -76,18 +87,6 @@ def _refined(fine: "Layout", coarse: "Layout", dim: int) -> Tuple[str, ...]:
     return f[len(c):]
 
 
-def narrow_to(local: torch.Tensor, src: "Layout", dst: "Layout") -> torch.Tensor:
-    """This rank's block under ``dst`` of a leaf whose block under ``src``
-    (a coarser layout) is ``local``: a view, no communication."""
-    for d in range(local.dim()):
-        rest = _refined(dst, src, d)
-        n = dst.mesh.size(rest)
-        if n > 1:
-            size = local.shape[d] // n
-            local = local.narrow(d, dst.mesh.index(rest) * size, size)
-    return local
-
-
 def gather_to(local: torch.Tensor, src: "Layout", dst: "Layout") -> torch.Tensor:
     """This rank's block under ``dst`` (a coarser layout) of a leaf whose
     block under ``src`` is ``local``: all-gathered along the axes ``src``
@@ -103,6 +102,251 @@ def gather_full(local: torch.Tensor, layout: "Layout") -> torch.Tensor:
     """The whole leaf, on every rank."""
     return gather_to(local, layout, dataclasses.replace(
         layout, dims=((),) * len(layout.dims)))
+
+
+def reduce_scatter(inputs: List[torch.Tensor], mesh, axes) -> torch.Tensor:
+    """The sum over the ranks along ``axes`` of their ``inputs[j]``, on
+    the ``j``-th rank of the group (``mesh.members(axes)``'s order): this
+    rank's block of the sum.  ``reduce_scatter.routes`` counts the calls
+    by backend (gloo takes a card's tensors here as NCCL does)."""
+    group = mesh.group(axes)
+    out = torch.empty_like(inputs[0])
+    dist.reduce_scatter(out, inputs, group=group)
+    reduce_scatter.routes[str(dist.get_backend(group))] += 1
+    return out
+
+
+reduce_scatter.routes = {"nccl": 0, "gloo": 0}
+
+
+#: the bytes of gathered compute blocks alive at once (``live``) and the
+#: most alive at any time since ``peak`` was last set to 0; each gathered
+#: tensor's storage is counted until it is freed
+gathered_bytes = {"live": 0, "peak": 0}
+
+
+def _release(n: int) -> None:
+    gathered_bytes["live"] -= n
+
+
+def _track(t: torch.Tensor) -> None:
+    n = t.numel() * t.element_size()
+    gathered_bytes["live"] += n
+    gathered_bytes["peak"] = max(gathered_bytes["peak"],
+                                 gathered_bytes["live"])
+    weakref.finalize(t.untyped_storage(), _release, n)
+
+
+@dataclasses.dataclass(frozen=True)
+class _Slot:
+    """One stored block of a leaf: its three layouts and where its fp32
+    gradient sum is (block ``index`` of the leaf ``path`` of the step's
+    sums, or the whole leaf when ``index`` is None)."""
+    params: "Layout"
+    compute: "Layout"
+    opt: "Layout"
+    owner: "ShardedParams"
+    path: Tuple[str, ...]
+    index: Optional[int] = None
+
+    def acc(self) -> torch.Tensor:
+        t = self.owner.sum_of(self.path)
+        return t if self.index is None else t[self.index]
+
+
+def _split(fine: "Layout", coarse: "Layout"):
+    """(dim, axes): the one dim ``fine`` splits beyond ``coarse`` and the
+    mesh axes it splits it over, or None when ``fine`` is ``coarse``."""
+    found = [(d, _refined(fine, coarse, d)) for d in range(len(fine.dims))]
+    found = [(d, a) for d, a in found if fine.mesh.size(a) > 1]
+    if len(found) > 1:
+        raise NotImplementedError(f"{fine.spec} splits {coarse.spec} further "
+                                  "along more than one dim")
+    return found[0] if found else None
+
+
+def _gather_blocks(locals_, slots) -> List[torch.Tensor]:
+    """Each stored block on its compute layout: the ones the params layout
+    splits further all-gathered, one collective for the blocks split over
+    the same axes (their flat concatenation), the rest as they are."""
+    outs = [t.view_as(t) for t in locals_]
+    by_axes: Dict[Tuple[str, ...], List[Tuple[int, int]]] = {}
+    for i, s in enumerate(slots):
+        split = _split(s.params, s.compute)
+        if split is not None:
+            by_axes.setdefault(split[1], []).append((i, split[0]))
+    for axes, items in by_axes.items():
+        mesh = slots[items[0][0]].params.mesh
+        flat = torch.cat([locals_[i].reshape(-1) for i, _ in items])
+        parts = [p.split([locals_[i].numel() for i, _ in items])
+                 for p in _blocks(flat, mesh, axes)]
+        del flat
+        for j, (i, d) in enumerate(items):
+            outs[i] = torch.cat([p[j].view(locals_[i].shape) for p in parts],
+                                dim=d)
+            _track(outs[i])
+    return outs
+
+
+#: the most gradient elements one reduction takes at once (their fp32
+#: copy is 256 MiB); a larger leaf is reduced alone
+REDUCE_BUCKET_ELEMS = 1 << 26
+
+
+def _reduce_blocks(grads, slots, batch_axes) -> None:
+    """Each block's gradient (compute layout) summed over ``batch_axes``
+    into its fp32 sum on the optimizer layout: reduce-scattered over the
+    axes the optimizer layout splits beyond the compute layout (ZeRO's and
+    FSDP's, each one of the batch axes) and all-reduced over the other
+    batch axes, in fp32, one collective each for a run of blocks of one
+    such pattern (their flat concatenation, up to
+    ``REDUCE_BUCKET_ELEMS``).  A block that took no gradient adds
+    nothing."""
+    buckets: Dict[Tuple[str, ...], list] = {}
+    for g, s in zip(grads, slots):
+        if g is None:
+            continue
+        split = _split(s.opt, s.compute)
+        d, axes = split if split is not None else (None, ())
+        if not set(axes) <= set(batch_axes):
+            raise ValueError(f"the optimizer layout {s.opt.spec} splits over "
+                             f"{axes}, outside the batch axes "
+                             f"{tuple(batch_axes)}")
+        run = buckets.setdefault(axes, [[]])
+        if run[-1] and sum(x[0].numel() for x in run[-1]) + g.numel() \
+                > REDUCE_BUCKET_ELEMS:
+            run.append([])
+        run[-1].append((g, s, d))
+    for axes, items in ((a, i) for a, runs in buckets.items()
+                        for i in runs):
+        mesh = items[0][1].compute.mesh
+        n = mesh.size(axes)
+        shapes = []
+        for g, _, d in items:
+            shape = list(g.shape)
+            if d is not None:
+                shape[d] //= n
+            shapes.append(shape)
+        sizes = [math.prod(shape) for shape in shapes]
+        inputs = []
+        for r in mesh.members(axes):
+            k = mesh.index(axes, mesh.coords_of(r))
+            buf = torch.empty(sum(sizes), dtype=torch.float32,
+                              device=items[0][0].device)
+            for piece, (g, _, d), shape in zip(buf.split(sizes), items,
+                                               shapes):
+                block = g if d is None else g.narrow(d, k * shape[d],
+                                                     shape[d])
+                piece.view(shape).copy_(block)
+            inputs.append(buf)
+        out = reduce_scatter(inputs, mesh, axes) if axes else inputs[0]
+        del inputs
+        all_reduce(out, mesh.group(tuple(a for a in batch_axes
+                                         if a not in axes)))
+        for piece, (_, s, _), shape in zip(out.split(sizes), items, shapes):
+            s.acc().add_(piece.view(shape))
+
+
+class _Materialize(torch.autograd.Function):
+    """Stored blocks forward: their compute blocks, all-gathered where the
+    params layout splits them further (FSDP; :func:`_gather_blocks`).
+    Backward: their gradients summed over the batch axes into their fp32
+    sums on the optimizer layout (:func:`_reduce_blocks`); no gradient is
+    returned, so none is held.  ``anchor`` is a 0-d tensor that requires
+    a gradient, which makes autograd call the backward."""
+
+    @staticmethod
+    def forward(ctx, anchor, slots, batch_axes, *locals_):
+        ctx.slots, ctx.batch_axes = slots, batch_axes
+        ctx.set_materialize_grads(False)
+        return tuple(_gather_blocks(locals_, slots))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        _reduce_blocks(grads, ctx.slots, ctx.batch_axes)
+        return (None,) * (3 + len(grads))
+
+
+def _drop_dim0(lay: "Layout") -> "Layout":
+    return dataclasses.replace(lay, dims=lay.dims[1:])
+
+
+def _paths(tree, prefix=()) -> List[Tuple[str, ...]]:
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in _paths(tree[k],
+                                                         prefix + (k,))]
+    return [prefix]
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+class ShardedParams:
+    """A sharded train step's view of this rank's stored params (``lay``,
+    a ``PlanLayouts``): :meth:`shared` gives the components outside the
+    stacked blocks (the embedding and head, ``ln_f``, zamba2's
+    ``shared_attn``, ...) on their compute layout, once a microbatch, and
+    :meth:`block` one stacked block's leaves, which the model calls inside
+    each block's remat body, so an FSDP-split block is gathered for its
+    forward, freed, and gathered again in its recompute; each is one
+    autograd op (:class:`_Materialize`).  Each leaf's gradient goes into
+    its fp32 sum on the optimizer layout, reduced over ``batch_axes``,
+    when the backward has produced the gradients of its block (or of the
+    shared components); a sum is allocated at its first gradient
+    (:meth:`begin`, :meth:`end`), so the first microbatch's forward holds
+    none."""
+
+    def __init__(self, lay, batch_axes, device):
+        self.lay = lay
+        self.batch_axes = tuple(batch_axes)
+        self.anchor = torch.zeros((), device=device, requires_grad=True)
+        self._like: Any = None
+        self._sums: Dict[Tuple[str, ...], torch.Tensor] = {}
+
+    def begin(self, like) -> None:
+        """Sums shaped as ``like``'s leaves (the fp32 master params on the
+        optimizer layout), made as the gradients come."""
+        self._like, self._sums = like, {}
+
+    def sum_of(self, path) -> torch.Tensor:
+        if path not in self._sums:
+            self._sums[path] = torch.zeros_like(_at(self._like, path))
+        return self._sums[path]
+
+    def end(self) -> Any:
+        """The sums as a tree of ``like``'s (zeros for a leaf no gradient
+        reached, as under ``jax.grad``)."""
+        out = tree_unflatten(self._like, [self.sum_of(p)
+                                          for p in _paths(self._like)])
+        self._like, self._sums = None, {}
+        return out
+
+    def _materialize(self, tree, prefix, index=None):
+        paths = _paths(tree)
+        slots = []
+        for path in paths:
+            lays = [_at(t, prefix + path) for t in (
+                self.lay.params, self.lay.compute, self.lay.opt)]
+            if index is not None:
+                lays = [_drop_dim0(x) for x in lays]
+            slots.append(_Slot(*lays, self, prefix + path, index))
+        outs = _Materialize.apply(self.anchor, tuple(slots), self.batch_axes,
+                                  *(_at(tree, p) for p in paths))
+        return tree_unflatten(tree, outs)
+
+    def shared(self, params: Dict[str, Any]) -> Dict[str, Any]:
+        """``params`` with every component but ``blocks`` on its compute
+        layout (gathered here, held through the microbatch's backward)."""
+        rest = {k: v for k, v in params.items() if k != "blocks"}
+        return dict(self._materialize(rest, ()), blocks=params["blocks"])
+
+    def block(self, bp: Dict[str, Any], index: int) -> Dict[str, Any]:
+        """Block ``index`` of the stacked ``blocks`` (``bp``, its stored
+        slices by pattern key) on its compute layout."""
+        return self._materialize(bp, ("blocks",), index)
 
 
 class _CopyToTP(torch.autograd.Function):

@@ -173,8 +173,8 @@ def opt_state_specs_tree(plan: Plan, cfg: ModelConfig, specs) -> Any:
 def compute_specs_tree(plan: Plan, cfg: ModelConfig, specs) -> Any:
     """The layout the forward and backward run on: the params' layout
     without FSDP's split over 'data' (the reference's partitioner gathers
-    those dims where a product needs them; the port gathers them once a
-    step, before the forward)."""
+    those dims where a product needs them; the port gathers a stacked
+    block's inside its remat body, ``collectives.ShardedParams``)."""
     return param_specs_tree(dataclasses.replace(plan, fsdp=False), cfg,
                             specs)
 

@@ -12,19 +12,29 @@ reference's partitioner makes of the planner's layouts
 (``sharding.collectives``): each rank holds its block of the params
 (``params`` layout) and of the fp32 optimizer state (``opt``: ZeRO/FSDP
 slices) and gets its rows of the batch; the forward and backward run on
-the ``compute`` layout (FSDP's data-split dims gathered once a step,
-before the forward); the fp32 gradient sums are averaged over the batch
-axes, each rank updates its optimizer slice, and the new bf16 params are
-all-gathered back into the ``params`` layout.  Under expert parallelism
-an expert leaf's compute block is the rank's own experts: its gradient
-is averaged over the batch axes only, like every leaf's (a leaf whose
-whole several ``model`` ranks apply sums its parts over ``model`` in the
-backward, ``collectives.copy_to_tp``), and the global norm counts each
-expert block once.
+the ``compute`` layout, through ``collectives.ShardedParams``: an
+FSDP-split stacked block is all-gathered inside its remat body (for its
+forward, and again for its recompute), the components outside the
+blocks once a microbatch, and each block's gradients are summed over the
+batch axes straight into this rank's fp32 slices of the optimizer
+layout as the backward produces them (a reduce-scatter over ZeRO's and
+FSDP's axes, an all-reduce over the rest), so no compute-layout gradient
+sum and no whole gathered tree exists.  The sums are divided by the
+microbatches and the batch ranks, each rank updates its optimizer slice
+(AdamW a stacked leaf one block slice at a time), and the new bf16 params
+are written into the stored ones in place (all-gathered from the ZeRO
+slices where those are finer), as the reference's ``donate_argnums``
+lets its step reuse them: the caller's params are the step's.  Under
+expert parallelism an expert leaf's compute block is the rank's own
+experts: its gradient is summed over the batch axes only, like every
+leaf's (a leaf whose whole several ``model`` ranks apply sums its parts
+over ``model`` in the backward, ``collectives.copy_to_tp``), and the
+global norm counts each expert block once.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional
 
 import torch
@@ -115,7 +125,7 @@ def make_train_step(model: Model, plan: Plan,
         return loss.detach()
 
     if mesh is not None and mesh.spec.num_devices > 1:
-        return _sharded_step(model, plan, opt_cfg, mesh, accumulate)
+        return _sharded_step(model, plan, opt_cfg, mesh)
 
     def step(params, opt_state, batch):
         if mb == 1:
@@ -155,23 +165,33 @@ def _counted(lay) -> bool:
 
 def shard_state(params, lay: PlanLayouts):
     """(this rank's params, its optimizer state) from the whole
-    ``params``: the blocks of the ``params`` and ``opt`` layouts, copied,
-    so that the whole tree can be freed."""
-    flat = opt.leaves(params)
-    p_local = opt.tree_unflatten(params, [
-        lp.local(p).clone(memory_format=torch.contiguous_format)
-        for p, lp in zip(flat, opt.leaves(lay.params))])
-    master = opt.tree_unflatten(params, [
-        lo.local(p).to(torch.float32, copy=True)
-        for p, lo in zip(flat, opt.leaves(lay.opt))])
+    ``params``: the blocks of the ``params`` and ``opt`` layouts, copied.
+    ``params`` is consumed: each whole leaf leaves its tree once its
+    blocks are copied, so the whole tree and this rank's state are never
+    on the device together (qwen2-moe-a2.7b's 24 layers are 28.6 GB of
+    bf16 weights on each rank)."""
+    p_local, master = _shard(params, lay.params, lay.opt)
     return p_local, {"m": opt.tree_map(torch.zeros_like, master),
                      "v": opt.tree_map(torch.zeros_like, master),
                      "master": master,
                      "count": torch.zeros((), dtype=torch.int32)}
 
 
-def _sharded_step(model: Model, plan: Plan, opt_cfg, mesh,
-                  accumulate) -> Callable:
+def _shard(tree, lp_tree, lo_tree):
+    p_local, master = {}, {}
+    for k in sorted(tree):
+        whole = tree.pop(k)
+        if isinstance(whole, dict):
+            p_local[k], master[k] = _shard(whole, lp_tree[k], lo_tree[k])
+        else:
+            p_local[k] = lp_tree[k].local(whole).clone(
+                memory_format=torch.contiguous_format)
+            master[k] = lo_tree[k].local(whole).to(torch.float32, copy=True)
+        del whole
+    return p_local, master
+
+
+def _sharded_step(model: Model, plan: Plan, opt_cfg, mesh) -> Callable:
     if plan.grad_compression is not None:
         raise NotImplementedError(
             f"grad_compression={plan.grad_compression!r} on a mesh: the "
@@ -180,36 +200,56 @@ def _sharded_step(model: Model, plan: Plan, opt_cfg, mesh,
     lay = layouts_of(model, plan, mesh)
     mb = max(plan.microbatch, 1)
     dp_group, dp = mesh.group(plan.batch_axes), mesh.size(plan.batch_axes)
-    p_lay, c_lay, o_lay = (opt.leaves(t) for t in (lay.params, lay.compute,
-                                                    lay.opt))
+    p_lay, o_lay = opt.leaves(lay.params), opt.leaves(lay.opt)
     counted = [_counted(lo) for lo in o_lay]
+    stacks = opt.stacked(lay.params)
 
     def step(params, opt_state, batch):
-        flat = opt.leaves(params)
-        if plan.fsdp:
-            flat = [C.gather_to(p, lp, lc)
-                    for p, lp, lc in zip(flat, p_lay, c_lay)]
-        sums = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for p in flat]
-        cparams = opt.tree_unflatten(params, flat)
-        del flat
-        loss = torch.zeros((), dtype=torch.float32, device=sums[0].device)
+        device = batch["tokens"].device
+        shards = C.ShardedParams(lay, plan.batch_axes, device)
+        smodel = Model(model.cfg, model.impl, model.tp, shards=shards)
+        shards.begin(opt_state["master"])
+        loss = torch.zeros((), dtype=torch.float32, device=device)
         for i in range(mb):
-            loss = loss + accumulate(cparams, {k: v[i::mb] for k, v in
-                                               batch.items()}, sums)
-        del cparams
+            mloss, _ = smodel.loss_fn(params, {k: v[i::mb] for k, v in
+                                               batch.items()})
+            mloss.backward()
+            loss = loss + mloss.detach()
+        sums = shards.end()
         # the mean over the batch: over the microbatches, then the ranks
         loss = C.all_reduce(loss / mb, dp_group).div_(dp)
-        for g in sums:
-            C.all_reduce(g.div_(mb), dp_group).div_(dp)
-        grads = opt.tree_unflatten(params, [
-            C.narrow_to(g, lc, lo) for g, lc, lo in zip(sums, c_lay, o_lay)])
-        new_o, new_opt, om = opt.adamw_update(grads, opt_state, opt_cfg,
-                                              counted, mesh.world)
-        new_params = opt.tree_unflatten(params, [
-            C.gather_to(w, lo, lp)
-            for w, lo, lp in zip(opt.leaves(new_o), o_lay, p_lay)])
+        grads = opt.tree_map(lambda g: g.div_(mb).div_(dp), sums)
+        _, new_opt, om = opt.adamw_update(grads, opt_state, opt_cfg,
+                                          counted, mesh.world,
+                                          new_params=False)
+        del grads, sums
+        flat = opt.leaves(params)
+        for i, (p, w, lo, lp, stack) in enumerate(zip(
+                flat, opt.leaves(new_opt["master"]), o_lay, p_lay, stacks)):
+            flat[i] = _write_params(p, w, lo, lp, stack)
         metrics = {"ce": loss, "aux": torch.zeros_like(loss)}
-        return new_params, new_opt, dict(metrics, loss=loss, **om)
+        return (opt.tree_unflatten(params, flat), new_opt,
+                dict(metrics, loss=loss, **om))
 
     return step
+
+
+def _write_params(p: torch.Tensor, w: torch.Tensor, lo, lp,
+                  stack: bool) -> torch.Tensor:
+    """The new params ``p`` (this rank's block under ``lp``) from the fp32
+    master ``w`` (its block under ``lo``, the same or finer), rounded to
+    bf16: written into ``p`` in place when it is bf16 (the reference's
+    ``donate_argnums``: no second copy of the params), block slice by
+    block slice for a stack, each all-gathered from the ZeRO slices
+    where ``lo`` splits further; a new bf16 tensor for params of another
+    dtype (fp32 weights), as the one-device step returns."""
+    if p.dtype != torch.bfloat16:
+        return C.gather_to(w.to(torch.bfloat16), lo, lp)
+    if lo == lp:
+        return p.copy_(w)
+    if not stack:
+        return p.copy_(C.gather_to(w.to(torch.bfloat16), lo, lp))
+    lo1, lp1 = (dataclasses.replace(x, dims=x.dims[1:]) for x in (lo, lp))
+    for pj, wj in zip(p, w):
+        pj.copy_(C.gather_to(wj.to(torch.bfloat16), lo1, lp1))
+    return p

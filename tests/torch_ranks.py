@@ -1,5 +1,6 @@
-"""Rank programs of ``tests/test_torch_distributed.py`` and
-``tests/test_torch_expert_parallel.py``.
+"""Rank programs of ``tests/test_torch_distributed.py``,
+``tests/test_torch_expert_parallel.py`` and
+``tests/test_torch_deep_sharded.py``.
 
 Each rank of a world runs in its own process (:func:`run_world` starts
 them)::
@@ -27,6 +28,8 @@ import torch.distributed as dist
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.checkpoint.checkpointer import (  # noqa: E402
+    _flatten_with_paths)
 from repro_torch.core.materializer import H100X4, MeshSpec, Plan  # noqa: E402
 from repro_torch.launch.mesh import TorchMesh, make_local_mesh  # noqa: E402
 from repro_torch.sharding import collectives as C  # noqa: E402
@@ -86,37 +89,79 @@ def _gathered(tree, layouts):
         for t, lay in zip(opt.leaves(tree), opt.leaves(layouts))])
 
 
-def sharded_step(rank: int, d: str) -> None:
-    """One train step of each case in ``d/steps.pt`` on the (2, 4) mesh
-    (the step's own layouts, the case's plan), its gradients and final
-    params gathered whole; rank 0 saves them with the metrics to
-    ``d/steps_out.pt``."""
-    from repro_torch.models.model import Model
+def _block_bytes(lay, specs, under_blocks):
+    """The bytes of the compute blocks this rank gathers (the leaves whose
+    params layout splits further than their compute layout), of the
+    stacked blocks' one block (``under_blocks``) or of the components
+    outside them, in bf16."""
+    total = 0
+    for path, s in _flatten_with_paths(specs):
+        if (path.split("/")[0] == "blocks") != under_blocks:
+            continue
+        lp, lc = (_leaf_at(t, path) for t in (lay.params, lay.compute))
+        if lp != lc:
+            shape = lc.local_shape(s.shape)
+            total += int(torch.tensor(shape[1:] if under_blocks
+                                      else shape).prod()) * 2
+    return total
+
+
+def _leaf_at(tree, path):
+    for k in path.split("/"):
+        tree = tree[k]
+    return tree
+
+
+def _step_cases(spec, cases) -> dict:
+    """One train step of each case (the mesh ``spec``, the case's plan),
+    its gradients and final params gathered whole, with the most bytes of
+    gathered compute blocks alive at once in the step and the bounds the
+    per-block gathering keeps it to, the gradient sums' local shapes
+    beside the optimizer layout's, and the reduce-scatters' routes."""
+    from repro_torch.data.pipeline import rank_rows
+    from repro_torch.models.model import Model, param_specs
     from repro_torch.training.train_step import (impl_from_plan, layouts_of,
                                                  make_train_step,
                                                  shard_state)
-    from repro_torch.data.pipeline import rank_rows
-    mesh = TorchMesh(DGX8)
+    mesh = TorchMesh(spec)
     out = {}
-    for name, case in torch.load(os.path.join(d, "steps.pt"), weights_only=False).items():
-        plan = Plan(case["cfg"].name, "t", DGX8, **case["plan"])
+    for name, case in cases.items():
+        plan = Plan(case["cfg"].name, "t", spec, **case["plan"])
         tp = C.tensor_parallel(mesh) if plan.tp else None
-        model = Model(case["cfg"], impl_from_plan(plan), tp=tp)
+        model = Model(case["cfg"], impl_from_plan(plan, mesh), tp=tp)
         lay = layouts_of(model, plan, mesh)
         params, state = shard_state(case["params"], lay)
         rows = rank_rows({k: v.numpy() for k, v in case["batch"].items()},
                          *lay.batch.part(0))
         step = make_train_step(model, plan, case.get("opt"), mesh)
+        C.gathered_bytes["peak"] = C.gathered_bytes["live"]
         with captured_grads([]) as grads:
             params, state, m = step(params, state,
                                     {k: torch.from_numpy(v)
                                      for k, v in rows.items()})
+        specs = param_specs(case["cfg"])
         out[name] = {"loss": float(m["loss"]),
                      "grad_norm": float(m["grad_norm"]),
                      "grads": [C.gather_full(g, lay_o) for g, lay_o in
                                zip(grads[0], opt.leaves(lay.opt))],
                      "params": _gathered(params, lay.params),
-                     "master": _gathered(state["master"], lay.opt)}
+                     "master": _gathered(state["master"], lay.opt),
+                     "gathered_peak": C.gathered_bytes["peak"],
+                     "block_bytes": _block_bytes(lay, specs, True),
+                     "shared_bytes": _block_bytes(lay, specs, False),
+                     "sum_shapes": [tuple(g.shape) for g in grads[0]],
+                     "opt_shapes": [lo.local_shape(s.shape) for s, lo in zip(
+                         opt.leaves(specs), opt.leaves(lay.opt))],
+                     "routes": dict(C.reduce_scatter.routes)}
+    return out
+
+
+def sharded_step(rank: int, d: str) -> None:
+    """One train step of each case in ``d/steps.pt`` on the (2, 4) mesh
+    (:func:`_step_cases`); rank 0 saves the results to
+    ``d/steps_out.pt``."""
+    out = _step_cases(DGX8, torch.load(os.path.join(d, "steps.pt"),
+                                       weights_only=False))
     if rank == 0:
         torch.save(out, os.path.join(d, "steps_out.pt"))
 
@@ -357,8 +402,19 @@ def expert_parallel(rank: int, d: str) -> None:
     ep_train(rank, d)
 
 
+def deep_sharded(rank: int, d: str) -> None:
+    """One train step of each case in ``d/deep.pt`` on ``h100x4``, (2, 2)
+    over ('data', 'model') (:func:`_step_cases`); rank 0 saves the results
+    to ``d/deep_out.pt``."""
+    out = _step_cases(H100X4, torch.load(os.path.join(d, "deep.pt"),
+                                         weights_only=False))
+    if rank == 0:
+        torch.save(out, os.path.join(d, "deep_out.pt"))
+
+
 PROGRAMS = {"world8": world8, "launch_train": launch_train,
-            "expert_parallel": expert_parallel}
+            "expert_parallel": expert_parallel,
+            "deep_sharded": deep_sharded}
 
 
 def main(argv) -> None:
