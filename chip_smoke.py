@@ -243,7 +243,7 @@ Phases, each of which must pass (any failure exits nonzero):
    expandable; then the step time, tokens/s, the model-FLOPs share (a
    windowed layer's attention over its window's pairs) and a profiled
    step (busy share; K2, K5, K3 and cuBLAS);
-20. sharded training (one spawn of ranks with phases 21 and 22): one
+20. sharded training (one spawn of ranks with phases 21, 22 and 23): one
    card first runs phase 5's plan (seed-0 weights, phase 5's batches and
    optimizer; tinyllama-1.1b at full width, its 22 layers on four cards
    and ``SHARDED_ONE_CARD_LAYERS`` = 2 on one) for ``SHARDED_STEPS``
@@ -327,7 +327,47 @@ Phases, each of which must pass (any failure exits nonzero):
    components' gathered bytes, 2 GiB), under the grant.  Printed: each
    term, the peak after each step, the gathered bytes alive at most,
    each collective's bytes a step, the reduce-scatter's route, the
-   collectives' share of the profiled step.
+   collectives' share of the profiled step;
+23. sharded serving, over the same ranks: full-width command-r-35b (d
+   8192, 64 query heads over 8 KV heads of 128, vocab 256000; random
+   bf16 weights from seed 0, each rank drawing only its blocks of them)
+   at ``SERVE_ONE_CARD_LAYERS`` = 4 of its 40 layers on one card (gloo,
+   four ranks on ``cuda:0``) and all 40 on four (NCCL).  One card first
+   runs both references (:func:`serving_references`).  (i) Each rank
+   calls ``launch.serve`` on ``h100x4`` (``Cluster.submit``, the
+   ``TorchExecutor``, the dense backend) under the ladder's plan, which
+   must place as its ``decode_32k`` plan does (TP, KV heads over
+   'model', the lanes over 'data', no FSDP): ``SERVE_REQUESTS`` = 8
+   requests of 512..2016-token prompts (seed 0), 32 new tokens, a decode
+   call profiled on rank 0.  (ii) The sequence-sharded decode
+   (:func:`seqshard_decode`): the cache's sequence over 'model' in two
+   blocks of 512, the lanes over 'data', the weights whole, 8 lanes of
+   a 504-token prompt and 16 steps across the block boundary, each
+   decoding one card's greedy token (so that every step compares on one
+   history), each rank running K4 with its log-sum-exp over its block
+   and the ranks merging their partial softmax states.  (iii) The fp32
+   anchor (:func:`fp32_greedy`): command-r-35b at
+   ``SERVE_ONE_CARD_LAYERS`` in fp32, weights and cache, each request's
+   prefill and ``SERVE_NEW`` greedy tokens, on one card and on the ranks
+   under (i)'s plan (over NCCL on four cards).  Gates: (iii)'s first-step
+   logits within ``SERVE_FP32_RTOL`` of one card's and its greedy tokens
+   equal to one card's under the ``TIE_GAP`` rule (``check_parity``); in
+   (i) each prompt's bf16 first-step logits within
+   ``SERVE_NOISE_FACTOR`` times one card's own bf16 distance from fp32
+   logits of the same weights (one card's from (iii) where the depth is
+   the anchor's, else the ranks' fp32 prefill,
+   :func:`tp_fp32_first_logits`), in (ii) every step's within that
+   factor of the prompts' mean distance (relative norms); the bf16
+   greedy tokens (in (ii) each step's) equal to one card's but where one
+   card's top-2 gap is below ``TIE_GAP`` or ``TIE_NOISE_SIGMAS``
+   standard deviations of one card's own bf16 rounding of a logit gap
+   (:func:`parity_noise_ties`), and equal on every rank; rank 0's launch
+   counts of K2, K3 and K4 (with and without lse) what the path implies;
+   every rank's peak within its weight and cache blocks plus
+   ``SERVE_SLACK``.  Printed: the plans, TTFT and the decode step beside
+   one card's, rank 0's every decode call's wall, each rank's peak, the
+   collectives' share of the profiled step.  :func:`serve_on_ranks` runs
+   the phase alone.
 
 A failed comparison of a kernel with its plain version prints, before
 the run stops, its first 8 bad elements with both values, the count of
@@ -385,6 +425,13 @@ K4 over a full 1024-slot ring) and times K3 at gemma3's widths (3840,
 and 256 for q_norm/k_norm); phase 4 also serves reduced gemma3-12b on
 ring pages, CUDA against CPU, past the ring wrap.
 
+Phase 2 also holds K4 with ``return_lse`` (:func:`check_decode_lse`:
+phase 23's block of a sequence-sharded cache) against its plain
+version at head dims 128 and 256, lanes of valid length 0 giving zeros
+and lse -inf, the output bit-equal to the call without lse, and times
+it with and without lse (the ``decode_attention_lse`` record, whose
+launches are rank 0's in phase 23).
+
 Phase 2 also holds K4 (decode attention), K6 (RWKV-6 WKV), K7 (Mamba-2
 SSD scan) and K2 at head dim 80 against their plain versions, at small
 shapes and at the full-width shapes of phases 7 and 8.  K4, split over
@@ -412,9 +459,9 @@ kernel's and the backward's time at the training shapes (2,80,4096,64)
 and (2,64,4096,64).
 
 A kernel's ``launches`` in the JSON record is its count over the serve
-(phases 3, 7, 8, 11, 12, 13, 16) and train (phases 5, 14, 15, 18, 19,
-and rank 0's of phase 20, of phase 21's ladder run and of phase 22)
-runs;
+(phases 3, 7, 8, 11, 12, 13, 16, and rank 0's of phase 23) and train
+(phases 5, 14, 15, 18, 19, and rank 0's of phase 20, of phase 21's
+ladder run and of phase 22) runs;
 K3's are also printed by shape class; the ``*_d256`` records count phase
 11's runs only, the forward ``*_d128`` records phase 12's mistral-nemo-12b
 runs only, the ``*_d80`` backward records phase 14's, the forward
@@ -888,6 +935,7 @@ def check_kernels(torch):
     check_functions(torch, randn)
     records += check_backward_shapes(torch, randn, tol)
     records += check_dense_kernels(torch, randn, tol)
+    records.append(check_decode_lse(torch, randn, tol))
     check_scan_grads(torch, randn)
     records += check_head_dim_256(torch, randn, tol)
     records += check_head_dim_128(torch, randn, tol)
@@ -1253,23 +1301,26 @@ def _fwd_times(torch, q, k, v, causal, window=0):
     return ms, plain, lib, b_ms, b_by
 
 
-def _decode_times(torch, q, k, v, vlen):
-    """K4's time, its plain version's, SDPA's (with a length mask where a
-    lane attends to fewer than all S keys), and the bound over the keys
-    the valid lengths cover."""
+def _decode_times(torch, q, k, v, vlen, return_lse=False):
+    """K4's time (with ``return_lse``: the call that also writes each
+    row's log-sum-exp), its plain version's, SDPA's (with a length mask
+    where a lane attends to fewer than all S keys), and the bound over the
+    keys the valid lengths cover (and the lse written)."""
     import torch.nn.functional as F
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_ref)
     b, kvh, s, d = k.shape
     h = q.shape[1]
-    ms = timed_ms(torch, lambda: decode_attention(q, k, v, vlen))
-    plain = timed_ms(torch, lambda: decode_attention_ref(q, k, v, vlen))
+    ms = timed_ms(torch, lambda: decode_attention(q, k, v, vlen, return_lse))
+    plain = timed_ms(torch, lambda: decode_attention_ref(q, k, v, vlen,
+                                                         return_lse))
     mask = torch.arange(s, device=q.device)[None, :] < vlen[:, None]
     mask = None if bool(mask.all()) else mask[:, None, None]
     lib = timed_ms(torch, lambda: F.scaled_dot_product_attention(
         q[:, :, None], k, v, attn_mask=mask, enable_gqa=True))
     attended = int(vlen.clamp(max=s).sum())
-    nbytes = 2 * q.numel() * 2 + vlen.numel() * 4 + 2 * attended * kvh * d * 2
+    nbytes = (2 * q.numel() * 2 + vlen.numel() * 4 + 2 * attended * kvh * d * 2
+              + (b * h * 4 if return_lse else 0))
     b_ms, b_by = bound(nbytes, 4 * h * d * attended, H100_BF16_FLOPS)
     return ms, plain, lib, b_ms, b_by
 
@@ -1391,6 +1442,108 @@ def check_decode(torch, randn, tol):
                 shape=f"B=8 H=32 KV=32 D=80 S=2048, vlen 897 every lane, "
                       f"{splits} splits of {kps} keys; library_ms is SDPA "
                       "with a length mask")
+
+
+def merged_blocks(torch, randn, tol):
+    """Phase 23's merge on the card: a cache of 1024 positions cut at 512,
+    each block's K4 with lse over its part of every lane's valid length
+    (513, 520, 512 and 1: one block empty for the last two), the parts
+    merged (``collectives.merge_softmax_parts``) against K4 with lse over
+    the whole cache within the fp32 tolerance, and, rounded to bf16,
+    against its bf16 output (the count of elements that differ printed)."""
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.sharding.collectives import merge_softmax_parts
+    dev = torch.device("cuda")
+    q = randn(4, 64, 128)
+    k, v = randn(4, 8, 1024, 128), randn(4, 8, 1024, 128)
+    vlen = torch.tensor([513, 520, 512, 1], dtype=torch.int32, device=dev)
+    whole, _ = decode_attention(q, k, v, vlen, return_lse=True)
+    parts = [decode_attention(q, k[:, :, lo:lo + 512].contiguous(),
+                              v[:, :, lo:lo + 512].contiguous(),
+                              (vlen - lo).clamp(0, 512), return_lse=True)
+             for lo in (0, 512)]
+    merged = merge_softmax_parts(torch.stack([o for o, _ in parts]),
+                                 torch.stack([s for _, s in parts]))
+    compare(torch, "decode_attention lse, two blocks merged against the "
+            "whole", merged, whole, *tol[torch.float32])
+    bf = decode_attention(q, k, v, vlen)
+    print(f"[kernel] decode_attention lse, two blocks merged and rounded to "
+          f"bf16: {int((merged.to(bf.dtype) != bf).sum())} of {bf.numel()} "
+          f"elements differ from the whole cache's bf16 output", flush=True)
+
+
+def check_decode_lse(torch, randn, tol):
+    """K4 with ``return_lse`` (a rank's block of a sequence-sharded cache,
+    phase 23) against ``decode_attention_ref(..., return_lse=True)`` on
+    fp32 copies: the output, fp32 there, within the fp32 tolerance and,
+    rounded to the input dtype, bit-equal to the call without lse; the
+    lse within (1e-4, 1e-5) (the K2 lse's); a lane of valid length 0
+    giving exact zeros and lse -inf; at head dim 128
+    (command-r-35b's block: 64 q heads over 8 KV heads, 512 keys a rank)
+    and 256 (gemma3-12b's), lanes of 0, 1, inside, the whole block and
+    past it; two launches bit-equal.  Timed with and without lse at phase
+    23's block on one rank (the record)."""
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    half = SEQSHARD_CACHE // 2
+    cases = [
+        ("d=128 command-r block", 4, 64, 8, half, 128,
+         [0, 1, 300, half], bf16),
+        ("d=128 past the block", 4, 64, 8, half, 128,
+         [half + 7, 0, 0, 17], bf16),
+        ("d=256 gemma3", 4, 16, 8, half, 256, [0, 7, half - 1, half], bf16),
+        ("d=128 fp32", 2, 8, 2, 300, 128, [0, 300], f32),
+    ]
+    errs = []
+    for label, b, h, kvh, s, d, vlens, dtype in cases:
+        q = randn(b, h, d, dtype=dtype)
+        k, v = randn(b, kvh, s, d, dtype=dtype), randn(b, kvh, s, d,
+                                                         dtype=dtype)
+        vlen = torch.tensor(vlens, dtype=torch.int32, device=dev)
+        got, lse = decode_attention(q, k, v, vlen, return_lse=True)
+        if got.dtype != f32 or not torch.equal(
+                got.to(dtype), decode_attention(q, k, v, vlen)):
+            fail(f"decode_attention {label}: the output with lse, rounded, "
+                 "differs from the one without")
+        want, want_lse = decode_attention_ref(q.float(), k.float(),
+                                              v.float(), vlen,
+                                              return_lse=True)
+        errs.append(compare(torch, f"decode_attention lse {label}", got,
+                            want, *tol[f32]))
+        empty = vlen == 0
+        if not (bool(torch.isneginf(lse[empty]).all())
+                and float(got[empty].abs().sum()) == 0.0):
+            fail(f"decode_attention {label}: a lane of valid length 0 must "
+                 "give zeros and lse -inf")
+        live = ~empty
+        errs.append(compare(torch, f"decode_attention lse {label} (lse)",
+                            lse[live], want_lse[live], 1e-4, 1e-5))
+    same_twice(torch, "decode_attention lse gemma3",
+               lambda: decode_attention(q, k, v, vlen, return_lse=True))
+    merged_blocks(torch, randn, tol)
+    q = randn(4, 64, 128)
+    k, v = randn(4, 8, half, 128), randn(4, 8, half, 128)
+    vlen = torch.full((4,), half, dtype=torch.int32, device=dev)
+    without = _decode_times(torch, q, k, v, vlen)
+    ms, plain, lib, b_ms, b_by = _decode_times(torch, q, k, v, vlen,
+                                               return_lse=True)
+    print(f"[time] decode_attention at phase 23's block (B=4 H=64 KV=8 D=128 "
+          f"S={half}, every lane full): with lse {ms:.4f} ms (plain "
+          f"{plain:.4f}), without {without[0]:.4f} ms (plain "
+          f"{without[1]:.4f}); library {lib:.4f} ms (SDPA); bound "
+          f"{b_ms:.4f} ms ({b_by}), share of bound {b_ms / ms:.3f} | "
+          f"{card_line()}", flush=True)
+    return dict(name="decode_attention_lse", route="cuda",
+                source="src/repro_torch/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:63",
+                max_abs_err=max(errs), ms=ms, plain_ms=plain, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib,
+                shape=f"with lse, one rank's block: B=4 H=64 KV=8 D=128 "
+                      f"S={half}, vlen {half} every lane; launches are rank "
+                      "0's in phase 23; library_ms is SDPA (no mask: every "
+                      "lane full)")
 
 
 # ---------------------------------------------------------------------------
@@ -5909,39 +6062,55 @@ def first_update_grads(store):
 
 
 @contextmanager
-def profiled_train_step(torch, index, result):
-    """The ``TorchExecutor``'s train step number ``index`` (None: none)
-    under ``torch.profiler`` while the block runs; ``result`` gets its
-    wall, the device busy time, the NCCL kernels' device time and the
-    host time inside gloo's collectives (gloo reduces on the host), in
-    ms."""
+def profiled_call(torch, owner, attr, index, result):
+    """The ``index``-th call (from 0; None: none) of ``owner.attr`` under
+    ``torch.profiler`` while the block runs: ``result`` gets its wall, the
+    device busy time, the NCCL kernels' device time and the host time
+    inside gloo's collectives (gloo reduces on the host), in ms, and every
+    call's wall on the host's clock (``calls_ms``, the profiled one with
+    the profiler's start and tally)."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.runtime.executors import TorchExecutor
-    plain = TorchExecutor.train_step
+    plain, calls = getattr(owner, attr), [0]
 
-    def train_step(self, handle):
-        if handle.cursor != index:
-            return plain(self, handle)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            m = plain(self, handle)            # waits for the step
-            wall = time.perf_counter() - t0
-        totals = profile_totals(prof)
-        dev_us = totals.kernels
-        result.update(
-            wall_ms=wall * 1e3, busy_ms=sum(dev_us.values()) / 1e3,
-            nccl_ms=sum(t for k, t in dev_us.items()
-                        if "nccl" in k.lower()) / 1e3,
-            gloo_host_ms=totals.host_us(lambda n: n.startswith("gloo:"))
-            / 1e3)
-        return m
+    def call(self, *args, **kwargs):
+        calls[0] += 1
+        t_call = time.perf_counter()
+        if calls[0] - 1 != index:
+            out = plain(self, *args, **kwargs)
+        else:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = plain(self, *args, **kwargs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            totals = profile_totals(prof)
+            dev_us = totals.kernels
+            result.update(
+                wall_ms=wall * 1e3, busy_ms=sum(dev_us.values()) / 1e3,
+                nccl_ms=sum(t for k, t in dev_us.items()
+                            if "nccl" in k.lower()) / 1e3,
+                gloo_host_ms=totals.host_us(
+                    lambda n: n.startswith("gloo:")) / 1e3)
+        if index is not None:
+            result.setdefault("calls_ms", []).append(
+                (time.perf_counter() - t_call) * 1e3)
+        return out
 
-    TorchExecutor.train_step = train_step
+    setattr(owner, attr, call)
     try:
         yield result
     finally:
-        TorchExecutor.train_step = plain
+        setattr(owner, attr, plain)
+
+
+def profiled_train_step(torch, index, result):
+    """The ``TorchExecutor``'s train step number ``index`` (None: none;
+    a fresh executor's calls count its steps) under ``torch.profiler``
+    while the block runs (:func:`profiled_call`)."""
+    from repro_torch.runtime.executors import TorchExecutor
+    return profiled_call(torch, TorchExecutor, "train_step", index, result)
 
 
 def sharded_cfg(torch):
@@ -6017,31 +6186,43 @@ def train_on_ranks(torch):
         del ref_grads, ref_params
         ep_ref = ep_references(torch, d, backend)
         deep_ref = deep_references(torch, d, backend)
+        t_serve = time.perf_counter()
+        serving_references(torch, d)
+        t_serve = time.perf_counter() - t_serve
         t_ranks = time.perf_counter()
         _spawn_ranks(d, backend)
-        print(f"[sharded] the ranks' runs of phases 20, 21 and 22: "
+        print(f"[sharded] the ranks' runs of phases 20, 21, 22 and 23: "
               f"{time.perf_counter() - t_ranks:.1f} s", flush=True)
         for name in SHARDED_PLANS:
             for k, n in _sharded_gates(d, name, ref_losses, cfg).items():
                 sharded[k] = sharded.get(k, 0) + n
         ep = ep_gates(d, backend, ep_ref)
         deep = deep_gates(d, backend, deep_ref)
-    print(f"[sharded] phases 20, 21 and 22: "
+        served = serving_gates(torch, d)
+        ranks_serve = [torch.load(f"{d}/serve_{r}.pt", weights_only=False)
+                       for r in range(SHARDED_WORLD)]
+        r0 = ranks_serve[0]
+        print(f"[sharded] phase 23: one card's runs {t_serve:.1f} s, rank "
+              f"0's runs "
+              f"{sum(r0[p]['seconds'] for p in ('serve', 'seqshard')):.1f} s"
+              f" and its fp32 runs {r0['fp32_s']:.1f} s", flush=True)
+    print(f"[sharded] phases 20, 21, 22 and 23: "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    return sharded, ep, deep
+    return sharded, ep, deep, served
 
 
-def _spawn_ranks(d, backend):
-    """Start the ``SHARDED_WORLD`` rank processes (:func:`sharded_rank`),
-    each with the allocator's expandable segments (four ranks' state
-    shares one card there, and a fragmented cache ran phase 21's ladder
-    run out of it), and wait for them; every one must exit 0 within the
-    timeout, and none outlives this call."""
+def _spawn_ranks(d, backend, phases=None):
+    """Start the ``SHARDED_WORLD`` rank processes (:func:`sharded_rank`,
+    running ``phases``, every one by default), each with the allocator's
+    expandable segments (four ranks' state shares one card there, and a
+    fragmented cache ran phase 21's ladder run out of it), and wait for
+    them; every one must exit 0 within the timeout, and none outlives
+    this call."""
     procs = []
     for r in range(SHARDED_WORLD):
         code = (f"import sys; sys.path.insert(0, {str(ROOT)!r}); "
                 f"import chip_smoke; chip_smoke.sharded_rank({r}, "
-                f"{SHARDED_WORLD}, {d!r}, {backend!r})")
+                f"{SHARDED_WORLD}, {d!r}, {backend!r}, {phases!r})")
         procs.append(subprocess.Popen(
             [sys.executable, "-c", code], cwd=ROOT,
             env=dict(os.environ, LOCAL_RANK=str(r),
@@ -6062,13 +6243,18 @@ def _spawn_ranks(d, backend):
         fail(f"sharded: rank exit codes {codes}")
 
 
-def sharded_rank(rank, world, d, backend):
-    """One rank of phases 20, 21 and 22: joins the world (a ``file://``
-    store in ``d``) on its card, runs each plan of ``SHARDED_PLANS``
-    (:func:`_sharded_run`), each run of :func:`ep_runs` (:func:`_ep_run`)
-    and each of :func:`deep_runs` (:func:`_deep_run`) and leaves its
-    reports in ``d``; any failure ends the process with a nonzero
-    code."""
+RANK_PHASES = (20, 21, 22, 23)
+
+
+def sharded_rank(rank, world, d, backend, phases=None):
+    """One rank of phases 20 to 23 (``phases``, a subset of
+    ``RANK_PHASES``; all of them by default): joins the world (a
+    ``file://`` store in ``d``) on its card, runs each plan of
+    ``SHARDED_PLANS`` (:func:`_sharded_run`), each run of :func:`ep_runs`
+    (:func:`_ep_run`), each of :func:`deep_runs` (:func:`_deep_run`) and
+    phase 23's serving (:func:`serving_runs`) and leaves its reports in
+    ``d``; any failure ends the process with a nonzero code."""
+    phases = RANK_PHASES if phases is None else phases
     import traceback
     import torch
     import torch.distributed as dist
@@ -6084,12 +6270,16 @@ def sharded_rank(rank, world, d, backend):
                                     seconds=SHARDED_COLLECTIVE_TIMEOUT_S))
         from repro_torch.launch.mesh import rank_device
         torch.cuda.set_device(rank_device(torch.device("cuda")))
-        for name, overrides in SHARDED_PLANS.items():
+        for name, overrides in SHARDED_PLANS.items() if 20 in phases \
+                else ():
             _sharded_run(torch, rank, d, name, overrides, backend)
-        for name, run in ep_runs(backend).items():
+        for name, run in ep_runs(backend).items() if 21 in phases else ():
             _ep_run(torch, rank, d, name, run, backend)
-        for name, run in deep_runs(backend).items():
+        for name, run in deep_runs(backend).items() if 22 in phases \
+                else ():
             _deep_run(torch, rank, d, name, run, backend)
+        if 23 in phases:
+            serving_runs(torch, rank, d, backend)
         dist.barrier()
         dist.destroy_process_group()
     except BaseException:
@@ -7290,6 +7480,671 @@ def deep_gates(d, backend, refs):
 # ---------------------------------------------------------------------------
 # a study, not a phase: rwkv6-7b's bf16 gradients against its fp32 ones
 # ---------------------------------------------------------------------------
+
+# ---------------------------------------------------------------------------
+# phase 23: sharded serving over four ranks
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "command-r-35b"
+# command-r-35b's depth on one card, where four ranks' blocks share the
+# card with one card's reference: 4 of its 40 layers at full width; four
+# cards serve all 40
+SERVE_ONE_CARD_LAYERS = 4
+SERVE_REQUESTS = 8
+# prompts of 512..2016 tokens (seed 0): with the 32 new tokens each fits
+# the dense backend's cache of 2048 positions a slot
+SERVE_PROMPTS = (512, 2016)
+SERVE_NEW = 32
+# the sequence-sharded decode: 8 lanes of a 504-token prompt, a cache of
+# 1024 positions in two blocks of 512 over 'model', the lanes over 'data',
+# the weights whole on every rank (the reference test's layout), 16 greedy
+# steps from position 504, across the block boundary at 512
+SEQSHARD_LANES = 8
+SEQSHARD_CACHE = 1024
+SEQSHARD_PROMPT = 504
+SEQSHARD_STEPS = 16
+SEQSHARD_PLAN = {"batch_axes": ("data",), "seq_axes": ("model",),
+                 "tp": False, "zero": False, "kv_shard_seq": True}
+# the ranks' logits against one card's (relative norm over the vocab): at
+# most this many times one card's own bf16 distance from the fp32 logits
+# of the same weights (one card's fp32 prefill of the serve run's prompts,
+# :func:`fp32_greedy`, where those weights fit one card; else the ranks',
+# :func:`tp_fp32_first_logits`, whose path the fp32 anchor holds against
+# one card's) -- each prompt's own in the serve run, the prompts' mean
+# for every step of the sequence-sharded run.  Two bf16
+# computations of the same sums lie about sqrt(2) times one's distance
+# from the exact sums apart: TP sums the bf16 partial products of every
+# attention and MLP output over 'model' (one rounding more than one
+# card's), and a single element rounded the other way (the merge of two
+# blocks' fp32 states sitting on a bf16 midpoint) grows through the
+# layers to that distance.  It grows with depth (one card's own: ~3% at
+# 4 layers), so a fixed limit does not hold from 4 to 40 layers.
+SERVE_NOISE_FACTOR = 2
+# the fp32 anchor's first-step logits, the ranks' against one card's (at
+# ``SERVE_ONE_CARD_LAYERS``, on one card and on four): fp32 summation
+# orders only
+SERVE_FP32_RTOL = 1e-4
+# a rank's peak over its weight and cache blocks: a prefill's activations,
+# the logits, init's one drawn run (``INIT_SLICE_ELEMS``: 1 GiB in fp32,
+# cast straight into the block)
+SERVE_SLACK = 2 * 2**30
+# the plan fields that place a serve: equal to the ladder's at decode_32k
+SERVE_PLAN_FIELDS = ("batch_axes", "seq_axes", "tp", "fsdp",
+                     "kv_shard_heads", "kv_shard_seq")
+SERVE_PROFILED_STEP = 8
+# phase 23's bf16 near ties: a request may diverge from one card's
+# tokens at a step whose one-card top-2 gap is below ``TIE_GAP`` or below
+# this many standard deviations of the difference of two logits, each
+# moved by one card's own bf16 rounding (sqrt(2) x the rms distance of
+# one card's bf16 first-step logits from fp32 logits of the same weights,
+# over the vocab: measured without the ranks' bf16 output).  At
+# command-r's width (d 8192, vocab 256000) one bf16 run's logits lie 3%
+# (4 layers) to 14% (40) from fp32 ones, so ``TIE_GAP`` alone is below
+# the bf16 logits' own resolution; the ``TIE_GAP`` rule itself holds the
+# ranks' fp32 tokens against one card's (``fp32_greedy``)
+TIE_NOISE_SIGMAS = 4
+
+
+def serve_cfg(torch):
+    """Phase 23's command-r-35b: full width, its 40 layers on four cards
+    and ``SERVE_ONE_CARD_LAYERS`` on one."""
+    from repro_torch.configs import get_config
+    cfg = get_config(SERVE_ARCH)
+    if torch.cuda.device_count() < SHARDED_WORLD:
+        cfg = cfg.scaled(num_layers=SERVE_ONE_CARD_LAYERS)
+    return cfg
+
+
+@contextmanager
+def first_logits(store):
+    """Each prompt's first-step logits (its last position's, fp32, on the
+    host) by request id, as the dense runner prefills it while the block
+    runs (on a mesh: the prompts this rank's lanes hold)."""
+    from repro_torch.models.model import Model
+    from repro_torch.serving.model_runner import DenseRunner
+    plain, plain_runner, current = Model.prefill, DenseRunner.prefill, {}
+
+    def prefill(self, *args, **kwargs):
+        logits, cache = plain(self, *args, **kwargs)
+        store[current["rid"]] = logits[0, -1].float().cpu()
+        return logits, cache
+
+    def runner_prefill(self, req):
+        current["rid"] = req.req_id
+        return plain_runner(self, req)
+
+    Model.prefill, DenseRunner.prefill = prefill, runner_prefill
+    try:
+        yield store
+    finally:
+        Model.prefill, DenseRunner.prefill = plain, plain_runner
+
+
+def _serve_kernels():
+    from repro_torch.kernels.decode_attention import decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.rmsnorm import rmsnorm
+    return {"flash_attention_fwd": flash_attention_fwd, "rmsnorm": rmsnorm,
+            "decode_attention": decode_attention}
+
+
+def _serve_counts(kernels):
+    out = {k: fn.launches for k, fn in kernels.items()}
+    out["decode_attention_lse"] = kernels["decode_attention"].lse_launches
+    return out
+
+
+def _zero_counts(kernels):
+    for fn in kernels.values():
+        fn.launches = 0
+    kernels["decode_attention"].lse_launches = 0
+
+
+def _serve_expected(cfg, prefills, steps, lse):
+    """Rank 0's launches of phase 23's path: per prefill a K2 a layer, per
+    prefill and decode step two K3 a layer and ``ln_f``'s, per step a K4
+    a layer (with lse where the cache splits its sequence)."""
+    n = cfg.num_layers
+    return {"flash_attention_fwd": n * prefills,
+            "rmsnorm": (2 * n + 1) * (prefills + steps),
+            "decode_attention": n * steps,
+            "decode_attention_lse": n * steps if lse else 0}
+
+
+def seqshard_decode(torch, cfg, mesh=None, prof=None, feed=None):
+    """Phase 23 (ii): seed-0 weights, ``SEQSHARD_LANES`` lanes of a
+    ``SEQSHARD_PROMPT``-token prompt (numpy, seed 0) prefilled into a
+    cache of ``SEQSHARD_CACHE`` positions (``make_prefill_step``), then
+    ``SEQSHARD_STEPS`` greedy steps (``make_decode_step``).  On ``mesh``
+    (a ``TorchMesh``) under ``SEQSHARD_PLAN``: each rank its lanes over
+    'data' and its block of the positions over 'model', the weights whole
+    (step ``SERVE_PROFILED_STEP`` profiled into ``prof`` where given);
+    with no mesh, one card's.  With ``feed`` (one card's tokens by lane)
+    each step decodes one card's token, not its own greedy one, so every
+    step's logits compare on the same history.  Returns every lane's
+    prefill and decode logits (host, (1 + steps, lanes, V)), each lane's
+    greedy tokens and top-2 gaps, the seconds of each step, and the
+    rank's weight and cache bytes."""
+    import numpy as np
+    from repro_torch.core.materializer import Plan
+    from repro_torch.models.model import Model, init_params, param_specs
+    from repro_torch.models.transformer import ImplConfig
+    from repro_torch.serving.model_runner import top2
+    from repro_torch.serving.serve_step import (impl_from_plan,
+                                                make_decode_step,
+                                                make_prefill_step)
+    from repro_torch.sharding.planner import ServeLayout
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(0)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (SEQSHARD_LANES, SEQSHARD_PROMPT))).to(dev)
+    rows, layouts = slice(0, SEQSHARD_LANES), None
+    model = Model(cfg, ImplConfig(remat="none"))
+    if mesh is not None:
+        plan = Plan(cfg.name, "decode", mesh.spec, **SEQSHARD_PLAN)
+        layout = ServeLayout(plan, mesh)
+        model = Model(cfg, impl_from_plan(plan, mesh), layout=layout)
+        layouts = layout.params(cfg, param_specs(cfg))
+        per = SEQSHARD_LANES // mesh.size(("data",))
+        rows = slice(mesh.index(("data",)) * per,
+                     (mesh.index(("data",)) + 1) * per)
+    params = init_params(cfg, 0, dev, layouts=layouts)
+    first, cache = make_prefill_step(model, SEQSHARD_CACHE)(
+        params, prompt[rows])
+    step = make_decode_step(model)
+    nxt = first[:, -1].argmax(-1).to(torch.int32)[:, None]
+    toks, pairs, times = [nxt[:, 0].tolist()], [top2(first[:, -1])], []
+    every = [first[:, -1].float().cpu()]
+    for j in range(SEQSHARD_STEPS):
+        if feed is not None:
+            nxt = torch.tensor([[feed[f"lane{i}"][j]]
+                                for i in range(SEQSHARD_LANES)],
+                               dtype=torch.int32, device=dev)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        if prof is not None and j == SERVE_PROFILED_STEP:
+            with profiled_call(torch, type(model), "decode_step", 0, prof):
+                nxt, logits, cache = step(params, nxt[rows], cache,
+                                          SEQSHARD_PROMPT + j)
+        else:
+            nxt, logits, cache = step(params, nxt[rows], cache,
+                                      SEQSHARD_PROMPT + j)
+        toks.append(nxt[:, 0].tolist())
+        pairs.append(top2(logits[:, -1]))
+        every.append(logits[:, -1].float().cpu())
+        torch.cuda.synchronize(dev)
+        times.append(time.perf_counter() - t0)
+    pairs = torch.stack(pairs).transpose(0, 1).tolist()   # lane, step, 2
+    out = {"first": every[0], "logits": torch.stack(every),
+           "tokens": {f"lane{i}": [t[i] for t in toks]
+                      for i in range(SEQSHARD_LANES)},
+           "margins": {f"lane{i}": [g for g, _ in pairs[i]]
+                       for i in range(SEQSHARD_LANES)},
+           "tops": {f"lane{i}": [t for _, t in pairs[i]]
+                    for i in range(SEQSHARD_LANES)},
+           "step_s": times, "device": str(dev), "bytes": _tree_bytes(params)
+           + _tree_bytes(cache)}
+    del params, cache, first
+    return out
+
+
+def anchor_cfg():
+    """Phase 23's fp32 anchor: command-r-35b at full width and
+    ``SERVE_ONE_CARD_LAYERS`` deep, whose fp32 weights fit one card."""
+    from repro_torch.configs import get_config
+    return get_config(SERVE_ARCH).scaled(num_layers=SERVE_ONE_CARD_LAYERS)
+
+
+def _to_fp32(tree):
+    """Every leaf of ``tree`` cast to fp32, leaf by leaf, in place."""
+    for k in sorted(tree):
+        tree[k] = _to_fp32(tree[k]) if isinstance(tree[k], dict) \
+            else tree[k].float()
+    return tree
+
+
+def fp32_greedy(torch, cfg, reqs, plan=None, mesh=None):
+    """Each request's first-step logits and ``SERVE_NEW`` greedy tokens
+    with their top-2 gaps, from seed-0 weights in fp32 and an fp32 cache,
+    a request at a time from its own position (``make_decode_step``): on
+    one card, or under ``plan`` on ``mesh`` (a ``TorchMesh``), every lane
+    of the batch axes holding the request, each rank its blocks of the
+    weights cast leaf by leaf.  fp32 on the host, by request id."""
+    import gc
+    from repro_torch.models.model import (Model, gather_lanes, init_params,
+                                          param_specs)
+    from repro_torch.models.transformer import ImplConfig
+    from repro_torch.serving.model_runner import prompt_for, top2
+    from repro_torch.serving.serve_step import (impl_from_plan,
+                                                make_decode_step)
+    from repro_torch.sharding.planner import ServeLayout
+    dev = torch.device("cuda", torch.cuda.current_device())
+    model, layouts, n = Model(cfg, ImplConfig(remat="none")), None, 1
+    if mesh is not None:
+        layout = ServeLayout(plan, mesh)
+        model = Model(cfg, impl_from_plan(plan, mesh), layout=layout)
+        layouts = layout.params(cfg, param_specs(cfg))
+        n = mesh.size(plan.batch_axes)
+    params = _to_fp32(init_params(cfg, 0, dev, layouts=layouts))
+    step = make_decode_step(model)
+    out = {"first": {}, "tokens": {}, "margins": {}}
+    for r in reqs:
+        toks = prompt_for(r, cfg.vocab_size).to(dev)
+        cl = r.prompt_len + SERVE_NEW
+        cache = model.init_cache(n, cl, dev, torch.float32)
+        logits, cache = model.prefill(params, toks, cl, cache=cache)
+        row = gather_lanes(logits[:, -1], model.lanes)[0]
+        out["first"][r.req_id] = row.cpu()
+        got, gaps = [int(row.argmax())], [float(top2(row)[0])]
+        for j in range(SERVE_NEW - 1):
+            nxt = torch.full((1, 1), got[-1], dtype=torch.int32, device=dev)
+            nxt, logits, cache = step(params, nxt, cache, r.prompt_len + j)
+            got.append(int(nxt[0, 0]))
+            gaps.append(float(top2(logits[0, -1])[0]))
+        out["tokens"][r.req_id], out["margins"][r.req_id] = got, gaps
+        del cache, logits
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def serving_references(torch, d):
+    """Phase 23's one-card runs, before the ranks': (i) ``launch.serve`` of
+    :func:`serve_cfg` on one card (the dense backend, seed 0,
+    ``SERVE_REQUESTS`` prompts of ``SERVE_PROMPTS``, ``SERVE_NEW`` new
+    tokens, the top-2 gaps recorded) with each prompt's first-step
+    logits; (ii) :func:`seqshard_decode` on one card; (iii) the fp32
+    anchor, :func:`fp32_greedy` of :func:`anchor_cfg` on one card.  Saved
+    to ``d/serve_reference.pt``."""
+    import gc
+    from repro_torch.launch.serve import serve
+    cfg = serve_cfg(torch)
+    t0 = time.perf_counter()
+    first = {}
+    with first_logits(first):
+        out = serve(cfg, backend="dense", device="cuda",
+                    requests=SERVE_REQUESTS, max_batch=8,
+                    prompt_range=SERVE_PROMPTS, max_new=SERVE_NEW, seed=0,
+                    executor=_margin_executor(), verbose=False)
+    ref = {"tokens": {r.req_id: r.output_tokens for r in out["requests"]},
+           "margins": out["runner"].margins, "tops": out["runner"].tops,
+           "first": first,
+           "ttft": out["stats"].mean_ttft_s,
+           "step": out["stats"].mean_decode_step_s,
+           "prompts": [r.prompt_len for r in out["requests"]],
+           "peak": torch.cuda.max_memory_allocated()}
+    reqs = out["requests"]
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref["seqshard"] = seqshard_decode(torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref["anchor"] = fp32_greedy(torch, anchor_cfg(), reqs)
+    torch.save(ref, f"{d}/serve_reference.pt")
+    print(f"[serve sharded] one card's runs of {cfg.name} ({cfg.num_layers} "
+          f"of 40 layers, full width): serve prompts {ref['prompts']}, mean "
+          f"TTFT {ref['ttft'] * 1e3:.3f} ms, decode step "
+          f"{ref['step'] * 1e3:.3f} ms; sequence-sharded decode's "
+          f"counterpart {SEQSHARD_LANES} x {SEQSHARD_PROMPT} + "
+          f"{SEQSHARD_STEPS} steps; {time.perf_counter() - t0:.1f} s | "
+          f"{card_line()}", flush=True)
+
+
+def serving_runs(torch, rank, d, backend):
+    """Phase 23 on this rank: (i) ``launch.serve`` on ``h100x4`` with the
+    ladder's plan (``Cluster.submit``, the ``TorchExecutor``, the dense
+    backend; decode call ``SERVE_PROFILED_STEP`` profiled on rank 0),
+    (ii) :func:`seqshard_decode` on the mesh; the kernels' counts zeroed
+    just before each and read just after, the peak against the rank's
+    weight and cache blocks; then the fp32 anchor (:func:`fp32_greedy` of
+    :func:`anchor_cfg` under the serve's plan) and, deeper than that, the
+    ranks' fp32 first-step logits (:func:`tp_fp32_first_logits`).  The
+    report goes to ``d/serve_<rank>.pt``."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import TorchMesh
+    from repro_torch.launch.serve import serve
+    from repro_torch.core.materializer import H100X4
+    from repro_torch.serving.model_runner import DenseRunner
+    cfg, kernels = serve_cfg(torch), _serve_kernels()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    report = {}
+    for part in ("serve", "seqshard"):
+        gc.collect()
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        _zero_counts(kernels)
+        prof, t0 = {}, time.perf_counter()
+        if part == "serve":
+            first = {}
+            with first_logits(first), profiled_call(
+                    torch, DenseRunner, "decode",
+                    SERVE_PROFILED_STEP if rank == 0 else None, prof):
+                out = serve(cfg, backend="dense", device="cuda",
+                            requests=SERVE_REQUESTS, max_batch=8,
+                            prompt_range=SERVE_PROMPTS, max_new=SERVE_NEW,
+                            seed=0, verbose=rank == 0, mesh="h100x4",
+                            dist_backend=backend)
+            torch.cuda.synchronize(dev)
+            runner, stats, plan = out["runner"], out["stats"], out["plan"]
+            reqs = out["requests"]
+            rep = {"tokens": {r.req_id: r.output_tokens for r in reqs},
+                   "first": first, "prefills": runner.local_prefills,
+                   "steps": stats.decode_steps,
+                   "ttft": stats.mean_ttft_s,
+                   "step": stats.mean_decode_step_s,
+                   "plan": {k: getattr(out["plan"], k)
+                            for k in SERVE_PLAN_FIELDS},
+                   "est": out["plan"].est_bytes_per_device,
+                   "bytes": _tree_bytes(runner.params)
+                   + _tree_bytes(runner.cache),
+                   "device": str(out["device"])}
+            del out, runner
+        else:
+            one = torch.load(f"{d}/serve_reference.pt", weights_only=False)
+            rep = seqshard_decode(torch, cfg, TorchMesh(H100X4),
+                                  prof if rank == 0 else None,
+                                  one["seqshard"]["tokens"])
+            del one
+            if rank:
+                del rep["logits"]          # the gates read rank 0's
+            rep.update(prefills=1, steps=SEQSHARD_STEPS)
+        rep.update(launches=_serve_counts(kernels), profile=prof,
+                   peak=torch.cuda.max_memory_allocated(dev) - base,
+                   seconds=time.perf_counter() - t0)
+        report[part] = rep
+        dist.barrier()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the fp32 anchor, and at a depth whose fp32 weights only the ranks
+    # hold, the ranks' fp32 first-step logits: the bf16 runs' yardstick
+    t0 = time.perf_counter()
+    report["anchor"] = fp32_greedy(torch, anchor_cfg(), reqs, plan,
+                                   TorchMesh(H100X4))
+    if cfg.num_layers > SERVE_ONE_CARD_LAYERS:
+        report["first32"] = tp_fp32_first_logits(
+            torch, cfg, plan, TorchMesh(H100X4), reqs)
+    report["fp32_s"] = time.perf_counter() - t0
+    torch.save(report, f"{d}/serve_{rank}.pt")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def tp_fp32_first_logits(torch, cfg, plan, mesh, reqs):
+    """Each request's first-step logits from the ranks' prefill under
+    ``plan`` with the same seed-0 weights in fp32 (each rank's blocks,
+    cast leaf by leaf): the yardstick of both bf16 runs' rounding where
+    fp32 weights do not fit one card (the fp32 anchor holds the same
+    path against one card's at ``SERVE_ONE_CARD_LAYERS``).  Each data
+    group prefills one of every ``n`` requests (``n`` the batch axes'
+    size); every rank returns all of them, fp32 on the host."""
+    import gc
+    from repro_torch.models.model import (Model, gather_lanes, init_params,
+                                          param_specs)
+    from repro_torch.serving.model_runner import prompt_for
+    from repro_torch.serving.serve_step import impl_from_plan
+    from repro_torch.sharding.planner import ServeLayout
+    dev = torch.device("cuda", torch.cuda.current_device())
+    layout = ServeLayout(plan, mesh)
+    model = Model(cfg, impl_from_plan(plan, mesh), layout=layout)
+    params = _to_fp32(init_params(
+        cfg, 0, dev, layouts=layout.params(cfg, param_specs(cfg))))
+    n, i = mesh.size(plan.batch_axes), mesh.index(plan.batch_axes)
+    out = {}
+    for k in range(0, len(reqs), n):
+        group = reqs[k:k + n]
+        cl = max(r.prompt_len for r in group)
+        cache = model.init_cache(n, cl, dev, torch.float32)
+        logits, _ = model.prefill(params, prompt_for(
+            group[i], cfg.vocab_size).to(dev), cl, cache=cache)
+        every = gather_lanes(logits[:, -1], model.lanes)
+        for j, r in enumerate(group):
+            out[r.req_id] = every[j].cpu()
+        del cache, logits, every
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at ``x`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def parity_noise_ties(ref_toks, toks, ref_margins, ref_tops, band,
+                      forced=False):
+    """:func:`check_parity`'s rule for bf16 logits with the near-tie band
+    ``band`` (phase 23: ``TIE_NOISE_SIGMAS``): a request may diverge at a
+    step where the reference's top-2 gap is below ``band`` or at most one
+    bf16 ulp of its top logit (the two logits were adjacent bf16 values,
+    which no other rounding of the same sums need order alike), and is
+    not compared after; with ``forced`` (both runs decoded the
+    reference's tokens) every step is compared on its own.  Returns (each
+    divergence as (request, step, gap, the gap in bf16 ulps of the top
+    logit), the messages of those the rule does not allow)."""
+    flips, bad = [], []
+    for rid, want in ref_toks.items():
+        got = toks[rid]
+        if got is None or len(got) != len(want):
+            bad.append(f"{rid} has {got} vs {want}")
+            continue
+        for j, (a, b) in enumerate(zip(want, got)):
+            if a != b:
+                gap, ulp = ref_margins[rid][j], bf16_ulp(ref_tops[rid][j])
+                flips.append((rid, j, round(gap, 5), round(gap / ulp, 2)))
+                if gap >= band and gap > ulp:
+                    bad.append(f"{rid} token {j}: {b} vs {a} at a top-2 gap "
+                               f"of {gap:.3e} >= {band:.3e} "
+                               f"({gap / ulp:.2f} bf16 ulps of the top logit "
+                               f"{ref_tops[rid][j]:.4f})")
+                if not forced:
+                    break
+    return flips, bad
+
+
+def _worst_by(errs, part):
+    """Phase 23's logits distances for printing: by request (the serve
+    run's first step), or each step's worst lane."""
+    if part == "serve":
+        return {k: round(v, 5) for k, v in sorted(errs.items())}
+    steps = {}
+    for k, v in errs.items():
+        j = int(k.split("step")[1])
+        steps[j] = max(steps.get(j, 0.0), round(v, 5))
+    return {f"step {j}": v for j, v in sorted(steps.items())}
+
+
+def _logit_errs(torch, got, want):
+    """Per key, the relative norm of ``got[key]`` against ``want[key]``."""
+    return {k: float((v - want[k]).norm() / want[k].norm())
+            for k, v in got.items()}
+
+
+def serve_on_ranks(torch):
+    """Phase 23 alone over a spawn of its own: one card's runs, the ranks'
+    (:func:`serving_runs`; NCCL, a rank a card, with four cards, else
+    gloo on ``cuda:0``), the gates: the phase run on its own (a first
+    call after a change to its path, a four-card run); ``main`` runs it
+    in phases 20-22's spawn.  Returns rank 0's launch counts."""
+    import tempfile
+    t0 = time.perf_counter()
+    backend = "nccl" if torch.cuda.device_count() >= SHARDED_WORLD \
+        else "gloo"
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        serving_references(torch, d)
+        _spawn_ranks(d, backend, phases=(23,))
+        out = serving_gates(torch, d)
+    print(f"[serve sharded] phase 23 alone over {backend}: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def serving_gates(torch, d):
+    """Phase 23's gates on the ranks' reports against one card's (module
+    doc); returns rank 0's launch counts of both runs."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.materializer import H100X4, materialize
+    cfg = serve_cfg(torch)
+    ref = torch.load(f"{d}/serve_reference.pt", weights_only=False)
+    ranks = [torch.load(f"{d}/serve_{r}.pt", weights_only=False)
+             for r in range(SHARDED_WORLD)]
+    ladder = materialize(get_config(SERVE_ARCH), SHAPES["decode_32k"],
+                         H100X4)
+    # the fp32 anchor: the ranks' path (over NCCL on four cards) in fp32
+    # against one card's, at SERVE_ONE_CARD_LAYERS
+    one32, got32 = ref["anchor"], ranks[0]["anchor"]
+    if any(r["anchor"]["tokens"] != got32["tokens"] for r in ranks):
+        fail("serve sharded anchor: the ranks hold different fp32 tokens")
+    check32 = _logit_errs(torch, got32["first"], one32["first"])
+    print(f"[serve sharded anchor] {SERVE_ARCH} ({SERVE_ONE_CARD_LAYERS} "
+          f"layers, full width) in fp32: the ranks' first-step logits "
+          f"against one card's {_worst_by(check32, 'serve')} (limit "
+          f"{SERVE_FP32_RTOL}); one card's top-2 gaps below TIE_GAP "
+          f"{sum(g < TIE_GAP for m in one32['margins'].values() for g in m)}"
+          f" of {sum(len(m) for m in one32['margins'].values())}",
+          flush=True)
+    if max(check32.values()) > SERVE_FP32_RTOL:
+        fail("serve sharded anchor: the ranks' fp32 logits differ from one "
+             "card's")
+    flips32 = check_parity(one32["tokens"], got32["tokens"],
+                           one32["margins"], TIE_GAP)
+    print(f"[serve sharded anchor] the ranks' fp32 greedy tokens equal one "
+          f"card's under the TIE_GAP rule ({TIE_GAP}): {flips32} near-tie "
+          f"divergence(s)", flush=True)
+    # the bf16 runs' yardstick: fp32 logits of the same weights, one
+    # card's where they fit it, else the ranks' (anchored above)
+    exact = (one32["first"] if cfg.num_layers == SERVE_ONE_CARD_LAYERS
+             else ranks[0]["first32"])
+    own = _logit_errs(torch, ref["first"], exact)
+    own_sigma = float(torch.stack([ref["first"][k] - exact[k]
+                                   for k in exact]).square().mean().sqrt())
+    band = max(TIE_GAP, TIE_NOISE_SIGMAS * math.sqrt(2) * own_sigma)
+    launches = {}
+    for part, want_ref in (("serve", ref), ("seqshard", ref["seqshard"])):
+        reps = [r[part] for r in ranks]
+        r0 = reps[0]
+        if any(r["tokens"] != r0["tokens"] for r in reps):
+            fail(f"serve sharded {part}: the ranks' engines hold different "
+                 "tokens")
+        if part == "serve":
+            errs = {}
+            for r in reps:
+                errs.update(_logit_errs(torch, r["first"], want_ref["first"]))
+            if sorted(errs) != sorted(want_ref["first"]):
+                fail(f"serve sharded: first-step logits of {sorted(errs)}, "
+                     f"one card's of {sorted(want_ref['first'])}")
+            theirs = {}
+            for r in reps:
+                theirs.update(_logit_errs(torch, r["first"], exact))
+            limits = {k: SERVE_NOISE_FACTOR * v for k, v in own.items()}
+            whose = ("one card's" if exact is one32["first"]
+                     else "the ranks'")
+            print(f"[serve sharded serve] first-step logits against {whose} "
+                  f"fp32 ones: one card's bf16 {_worst_by(own, part)} "
+                  f"(rms {own_sigma:.4e}), the ranks' bf16 "
+                  f"{_worst_by(theirs, part)}", flush=True)
+        else:
+            # every step on one card's history: the prefill's and each
+            # decode step's logits
+            errs = {f"lane{i} step{j}": float(
+                (r0["logits"][j, i] - want_ref["logits"][j, i]).norm()
+                / want_ref["logits"][j, i].norm())
+                for j in range(1 + SEQSHARD_STEPS)
+                for i in range(SEQSHARD_LANES)}
+            noise = sum(own.values()) / len(own)
+            limits = {k: SERVE_NOISE_FACTOR * noise for k in errs}
+        want = _serve_expected(cfg, r0["prefills"], r0["steps"],
+                               part == "seqshard")
+        accounts = [r["bytes"] + SERVE_SLACK for r in reps]
+        prof = r0["profile"]
+        lim = round(max(limits.values()), 5)
+        print(f"[serve sharded {part}] {cfg.name} ({cfg.num_layers} layers, "
+              f"full width) on {[r.get('device', '') for r in reps]}: "
+              f"logits' relative norm against one card's "
+              f"{_worst_by(errs, part)} (limit "
+              f"{_worst_by(limits, part) if part == 'serve' else lim}"
+              f"); rank 0's "
+              f"launches {r0['launches']} expected {want}; peaks "
+              f"{[round(r['peak'] / 2**30, 3) for r in reps]} GiB, accounts "
+              f"(weight and cache blocks + 2 GiB) "
+              f"{[round(a / 2**30, 3) for a in accounts]} GiB; rank 0 "
+              f"{r0['seconds']:.1f} s | {card_line()}", flush=True)
+        if part == "serve":
+            print(f"[serve sharded serve] plan {r0['plan']} (the ladder's at "
+                  f"decode_32k: "
+                  f"{ {k: getattr(ladder, k) for k in SERVE_PLAN_FIELDS} }), "
+                  f"est {r0['est'] / 2**30:.3f} GiB/device; mean TTFT "
+                  f"{r0['ttft'] * 1e3:.3f} ms (one card "
+                  f"{ref['ttft'] * 1e3:.3f}), decode step "
+                  f"{r0['step'] * 1e3:.3f} ms (one card "
+                  f"{ref['step'] * 1e3:.3f}); rank 0 prefilled "
+                  f"{r0['prefills']} of {SERVE_REQUESTS} prompts", flush=True)
+            if r0["plan"] != {k: getattr(ladder, k)
+                              for k in SERVE_PLAN_FIELDS}:
+                fail("serve sharded: the serve's plan is not the ladder's "
+                     "decode_32k placement")
+        else:
+            print(f"[serve sharded seqshard] decode step "
+                  f"{sorted(r0['step_s'])[len(r0['step_s']) // 2] * 1e3:.3f} "
+                  f"ms (median of {SEQSHARD_STEPS}; one card "
+                  f"{sorted(want_ref['step_s'])[SEQSHARD_STEPS // 2] * 1e3:.3f}"
+                  f" ms)", flush=True)
+        if prof:
+            print(f"[serve sharded {part}] rank 0's profiled decode step: "
+                  f"wall {prof['wall_ms']:.1f} ms, device busy "
+                  f"{prof['busy_ms']:.1f} ms; NCCL kernels "
+                  f"{prof['nccl_ms']:.1f} ms "
+                  f"({prof['nccl_ms'] / max(prof['busy_ms'], 1e-9):.4f} of the "
+                  f"busy time), host time in gloo's collectives "
+                  f"{prof['gloo_host_ms']:.1f} ms "
+                  f"({prof['gloo_host_ms'] / prof['wall_ms']:.4f} of the "
+                  f"wall)", flush=True)
+        walls = prof.get("calls_ms") if part == "serve" else None
+        if walls:
+            rest = walls[:SERVE_PROFILED_STEP] + walls[SERVE_PROFILED_STEP
+                                                       + 1:]
+            print(f"[serve sharded {part}] rank 0's {len(walls)} decode "
+                  f"calls on the host's clock (the engine's decode steps): "
+                  f"median {sorted(walls)[len(walls) // 2]:.3f} ms, max "
+                  f"{max(walls):.3f} (call {walls.index(max(walls))}); the "
+                  f"profiled call {walls[SERVE_PROFILED_STEP]:.3f} ms with "
+                  f"the profiler's start and tally, the others' mean "
+                  f"{sum(rest) / len(rest):.3f} ms; every call "
+                  f"{[round(w, 1) for w in walls]}", flush=True)
+        flips, bad = parity_noise_ties(want_ref["tokens"], r0["tokens"],
+                                       want_ref["margins"], want_ref["tops"],
+                                       band, forced=part == "seqshard")
+        print(f"[serve sharded {part}] bf16 tokens against one card's: "
+              f"near-tie band {band:.4e} (from one card's own rms distance "
+              f"from fp32); "
+              f"{len(flips)} divergence(s) (request, step, top-2 gap, in "
+              f"bf16 ulps of the top logit): {flips}; not near ties: {bad}",
+              flush=True)
+        if any(v > limits[k] for k, v in errs.items()):
+            fail(f"serve sharded {part}: the logits differ from one card's")
+        if bad:
+            fail(f"serve sharded {part}: tokens differ from one card's "
+                 "where no near tie allows it")
+        if r0["launches"] != want:
+            fail(f"serve sharded {part}: rank 0's launch counts differ from "
+                 "what the path implies")
+        if any(r["peak"] > a for r, a in zip(reps, accounts)):
+            fail(f"serve sharded {part}: a rank's peak passes its account")
+        for k, n in r0["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+    norms = 2 * cfg.num_layers + 1
+    RMS_LAUNCHES["prefill"] += norms * sum(
+        r[p]["prefills"] for r in ranks[:1] for p in ("serve", "seqshard"))
+    RMS_LAUNCHES["decode"] += norms * sum(
+        r[p]["steps"] for r in ranks[:1] for p in ("serve", "seqshard"))
+    return launches
+
 
 def rwkv6_bf16_study(cfg=None, shape=None, device="cuda") -> None:
     """Where rwkv6-7b's bf16 step-1 gradients part from its fp32 ones at

@@ -47,7 +47,12 @@
 //   the split's partial goes in fp32 to the wrapper's workspace; the
 //   combine kernel of split_decode.cuh (shared with K1) merges the splits,
 //   launched as a programmatic dependent so that its launch overlaps the
-//   split kernel's tail.
+//   split kernel's tail.  Given an `lse` buffer it also writes each row's
+//   log-sum-exp from the (m, l) it reduces, and the output in fp32: a rank
+//   holding one block of a sequence-sharded cache returns its partial
+//   softmax state, which the ranks merge in fp32 and round once
+//   (`sharding/collectives.combine_softmax_parts`); a row with no live key
+//   gets out = 0 and lse = -inf.
 // - Deterministic: no atomics, a fixed order of every sum.
 //
 // Head dim 256 (gemma3-12b's dense ring) in bf16: a row is 32 units of 16
@@ -282,7 +287,7 @@ decode_split_kernel(const T* __restrict__ q,            // (B, H, D)
 
 struct Args {
   const void *q, *k, *v, *valid_len;
-  void *out, *ws_ml, *ws_acc;
+  void *out, *lse, *ws_ml, *ws_acc;
   int B, H, KV, S, D, kps, splits;
   float scale;
   cudaStream_t stream;
@@ -337,24 +342,32 @@ int launch(const Args& a) {
     default: return (int)cudaErrorInvalidValue;
   }
   if (code != 0) return code;
-  return launch_combine<T>(a.ws_ml, a.ws_acc, a.out, a.B * a.H, a.D,
+  // a rank's partial state (lse asked for): its output in fp32 too, so
+  // that the ranks' merge rounds once, as one card's output does
+  if (a.lse != nullptr)
+    return launch_combine<float>(a.ws_ml, a.ws_acc, a.out, a.lse, a.B * a.H,
+                                 a.D, a.splits, a.stream);
+  return launch_combine<T>(a.ws_ml, a.ws_acc, a.out, nullptr, a.B * a.H, a.D,
                            a.splits, a.stream);
 }
 
 }  // namespace
 
 // The split kernel and then the combine kernel, on `stream`.  q (B, H, D),
-// k and v (B, KV, S, D) and out (B, H, D) contiguous and 16-byte aligned;
-// valid_len (B,) int32; `ws_ml` (B, H, splits, 2) and `ws_acc` (B, H,
-// splits, D) fp32 workspaces of the caller, splits = ceil(S /
-// keys_per_split).  dtype: 0 = bfloat16, 1 = float32.  Returns
-// cudaGetLastError().
+// k and v (B, KV, S, D) and out (B, H, D) contiguous and 16-byte aligned,
+// out in q's dtype, or fp32 where `lse` is given; valid_len (B,) int32;
+// `lse` (B, H) fp32, each row's log-sum-exp of its scaled scores (-inf at
+// valid length 0), or null for none; `ws_ml` (B,
+// H, splits, 2) and `ws_acc` (B, H, splits, D) fp32 workspaces of the
+// caller, splits = ceil(S / keys_per_split).  dtype: 0 = bfloat16, 1 =
+// float32.  Returns cudaGetLastError().
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
-                                const void* valid_len, void* out, void* ws_ml,
-                                void* ws_acc, int B, int H, int KV, int S,
-                                int D, int keys_per_split, int splits,
-                                float scale, int dtype, void* stream) {
-  const Args a{q, k, v, valid_len, out, ws_ml, ws_acc, B, H, KV, S, D,
+                                const void* valid_len, void* out, void* lse,
+                                void* ws_ml, void* ws_acc, int B, int H,
+                                int KV, int S, int D, int keys_per_split,
+                                int splits, float scale, int dtype,
+                                void* stream) {
+  const Args a{q, k, v, valid_len, out, lse, ws_ml, ws_acc, B, H, KV, S, D,
                keys_per_split, splits, scale,
                static_cast<cudaStream_t>(stream)};
   if (dtype == 0) return launch<__nv_bfloat16>(a);

@@ -311,8 +311,8 @@ int launch(const Args& a) {
     default: return (int)cudaErrorInvalidValue;
   }
   if (code != 0) return code;
-  return launch_combine<T>(a.ws_ml, a.ws_acc, a.out, a.B * a.H, a.D,
-                           a.splits, a.stream);
+  return launch_combine<T>(a.ws_ml, a.ws_acc, a.out, nullptr, a.B * a.H,
+                           a.D, a.splits, a.stream);
 }
 
 }  // namespace

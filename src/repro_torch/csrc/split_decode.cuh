@@ -8,6 +8,11 @@
 // splits, D) for acc, and `split_combine_kernel` merges the splits of each
 // (lane, query head) into o.  A split that saw no live key writes m = -inf
 // and l = 0 and adds nothing; a row with no live split gets 0 / 1e-30 = 0.
+// Where the caller asks for it (K4's `return_lse`, a rank's block of a
+// sequence-sharded cache), the combine also writes the row's log-sum-exp
+// of its scaled scores, max m + log(sum l), from the (m, l) it reduces
+// anyway (-inf for a row with no live key), so that the ranks' partial
+// softmax states can be merged across blocks.
 
 #pragma once
 
@@ -72,7 +77,8 @@ __device__ __forceinline__ void merge(float& m, float& l, float* acc,
 
 // One warp per (lane, query head): o = sum_s w_s acc_s / sum_s w_s l_s
 // with w_s = exp(m_s - max m); splits with m_s = -inf are skipped, and a
-// row with no live split gets 0 / 1e-30 = 0.  Launched as a programmatic
+// row with no live split gets 0 / 1e-30 = 0.  `lse`, where not null,
+// takes max m + log(sum_s w_s l_s), or -inf for such a row.  Launched as a programmatic
 // dependent of the split kernel (`launch_combine`): its blocks may start
 // while the split kernel's last blocks run, and `griddepcontrol.wait`
 // holds them until that grid has finished and its writes are visible.
@@ -80,7 +86,7 @@ template <typename T>
 __global__ void __launch_bounds__(kCombineThreads)
 split_combine_kernel(const float* __restrict__ ws_ml,
                      const float* __restrict__ ws_acc, T* __restrict__ out,
-                     int rows, int D, int splits) {
+                     float* __restrict__ lse, int rows, int D, int splits) {
   asm volatile("griddepcontrol.wait;" ::: "memory");
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kCombineWarps + (threadIdx.x >> 5);
@@ -92,7 +98,10 @@ split_combine_kernel(const float* __restrict__ ws_ml,
   float ll = 0.f;
   for (int s = lane; s < splits; s += 32)
     if (ml[2 * s] != -INFINITY) ll += expf(ml[2 * s] - mm) * ml[2 * s + 1];
-  ll = fmaxf(warp_sum(ll), 1e-30f);
+  ll = warp_sum(ll);
+  if (lse != nullptr && lane == 0)
+    lse[row] = mm == -INFINITY ? -INFINITY : mm + logf(ll);
+  ll = fmaxf(ll, 1e-30f);
   const float* ac = ws_acc + (size_t)row * splits * D;
   for (int d = lane; d < D; d += 32) {
     float a = 0.f;
@@ -104,10 +113,11 @@ split_combine_kernel(const float* __restrict__ ws_ml,
 
 // the combine on `stream`, after the split kernel launched just before it
 // there; programmatic stream serialization lets its launch overlap that
-// kernel's tail (Hopper)
+// kernel's tail (Hopper).  `lse` (rows,) fp32, or null for none.
 template <typename T>
-int launch_combine(const void* ws_ml, const void* ws_acc, void* out, int rows,
-                   int D, int splits, cudaStream_t stream) {
+int launch_combine(const void* ws_ml, const void* ws_acc, void* out,
+                   void* lse, int rows, int D, int splits,
+                   cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((rows + kCombineWarps - 1) / kCombineWarps);
   cfg.blockDim = dim3(kCombineThreads);
@@ -120,8 +130,8 @@ int launch_combine(const void* ws_ml, const void* ws_acc, void* out, int rows,
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, split_combine_kernel<T>, static_cast<const float*>(ws_ml),
-      static_cast<const float*>(ws_acc), static_cast<T*>(out), rows, D,
-      splits);
+      static_cast<const float*>(ws_acc), static_cast<T*>(out),
+      static_cast<float*>(lse), rows, D, splits);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

@@ -21,6 +21,17 @@ keeps scores and probabilities in fp32 throughout, so on bf16 inputs it
 differs from that version by the reference's own roundings; on the card
 the two are compared on fp32 copies.  :func:`decode_split_ref` repeats
 the kernel's split and combine in plain PyTorch, for the CPU tests.
+
+With ``return_lse`` each function returns a block's partial softmax
+state: the output in fp32 (probabilities and sums kept in fp32, not
+rounded to the input dtype) and every query row's log-sum-exp of its
+scaled, masked scores, (B, H) fp32, -inf for a lane of valid length 0.
+A rank that holds one block of a sequence-sharded cache hands both to
+the merge of the ranks' partial states
+(``sharding/collectives.combine_softmax_parts``), which rounds once.
+The kernel's combine writes the lse from the (m, l) it reduces anyway;
+such a call counts in ``decode_attention.launches`` and in
+``decode_attention.lse_launches``.
 """
 
 from __future__ import annotations
@@ -44,7 +55,7 @@ SPLIT_UNIT = 128
 # over-provisioned
 BLOCKS_PER_SM = 8
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_SIGNATURE = {"decode_attention": (_P,) * 7 + (_I,) * 7 + (_F, _I, _P)}
+_SIGNATURE = {"decode_attention": (_P,) * 8 + (_I,) * 7 + (_F, _I, _P)}
 _DTYPES = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -67,10 +78,12 @@ def _lengths(valid_len, b: int, device) -> torch.Tensor:
                            device=device).expand(b)
 
 
-def decode_attention_ref(q, k, v, valid_len):
+def decode_attention_ref(q, k, v, valid_len, return_lse: bool = False):
     """q: (B, H, D); k, v: (B, KV, S, D); valid_len: scalar or (B,) ->
     (B, H, D) in q's dtype, in the reference ``gqa_decode_sdpa``'s rounding
-    order.  A lane with valid length 0 returns zeros, as the kernel does."""
+    order.  A lane with valid length 0 returns zeros, as the kernel does.
+    With ``return_lse``, (out, lse (B, H)), both fp32: the probabilities
+    are not rounded to the input dtype, as the kernel keeps them."""
     b, h, d = q.shape
     kvh, s = k.shape[1], k.shape[2]
     g = h // kvh
@@ -79,19 +92,25 @@ def decode_attention_ref(q, k, v, valid_len):
     vlen = _lengths(valid_len, b, q.device)
     ok = torch.arange(s, device=q.device)[None, :] < vlen[:, None]
     ok = ok[:, None, None, :]                            # (B, 1, 1, S)
-    scores = torch.where(ok, scores, NEG_INF)
-    probs = torch.where(ok, torch.softmax(scores, dim=-1), 0.0)
-    out = torch.matmul(probs.to(q.dtype), v)             # (B, KV, G, D)
-    return out.reshape(b, h, d)
+    masked = torch.where(ok, scores, NEG_INF)
+    probs = torch.where(ok, torch.softmax(masked, dim=-1), 0.0)
+    if not return_lse:
+        return torch.matmul(probs.to(q.dtype), v).reshape(b, h, d)
+    out = torch.matmul(probs, v.float()).reshape(b, h, d)
+    lse = torch.logsumexp(torch.where(ok, scores, -torch.inf), dim=-1)
+    return out, lse.reshape(b, h)
 
 
-def decode_split_ref(q, k, v, valid_len, keys_per_split: int):
+def decode_split_ref(q, k, v, valid_len, keys_per_split: int,
+                     return_lse: bool = False):
     """The kernel's split and combine in plain PyTorch, in fp32: each run
     of ``keys_per_split`` keys gives a partial (m, l, acc) per query row
     (m = -inf, l = 0 where it holds no key below the valid length), and the
     partials are combined with weights exp(m - max m), empty ones adding
     nothing.  A lane with valid length 0 returns zeros; one above S reads S
-    keys.  Returns (B, H, D) in q's dtype."""
+    keys.  Returns (B, H, D) in q's dtype; with ``return_lse`` that output
+    in fp32 and the rows' max m + log(sum of the weighted l), (B, H) fp32,
+    -inf for an empty row, as the kernel's combine writes them."""
     b, h, d = q.shape
     kvh, s = k.shape[1], k.shape[2]
     g = h // kvh
@@ -113,23 +132,28 @@ def decode_split_ref(q, k, v, valid_len, keys_per_split: int):
     top = m.amax(-1, keepdim=True)
     w = torch.where(m == -torch.inf, 0.0,
                     torch.exp(m - torch.where(top == -torch.inf, 0.0, top)))
-    out = (w[..., None] * acc).sum(-2) / (w * l).sum(-1, keepdim=True).clamp(
-        min=1e-30)
-    return out.reshape(b, h, d).to(q.dtype)
+    ll = (w * l).sum(-1, keepdim=True)
+    out = ((w[..., None] * acc).sum(-2) / ll.clamp(min=1e-30)).reshape(
+        b, h, d)
+    if not return_lse:
+        return out.to(q.dtype)
+    lse = torch.where(top == -torch.inf, -torch.inf, top + ll.log())
+    return out, lse.reshape(b, h)
 
 
-def decode_attention(q, k, v, valid_len):
+def decode_attention(q, k, v, valid_len, return_lse: bool = False):
     """q: (B, H, D); k, v: (B, KV, S, D) bf16 or fp32; valid_len: scalar or
     (B,) int32.  Attends over positions ``[0, valid_len)`` of each lane,
     the G = H / KV query heads of a KV head together.  Returns (B, H, D) in
-    q's dtype.  The kernel splits each lane's cache as :func:`split_keys`
-    says, into fp32 workspaces allocated here; one call is one launch of
-    the count (a split kernel and a combine kernel on the card).
+    q's dtype, and with ``return_lse`` (out, lse (B, H)), both fp32.  The kernel
+    splits each lane's cache as :func:`split_keys` says, into fp32
+    workspaces allocated here; one call is one launch of the count (a
+    split kernel and a combine kernel on the card).
 
     On CPU tensors this is :func:`decode_attention_ref`; on CUDA tensors
     it launches the kernel or raises."""
     if q.device.type == "cpu":
-        return decode_attention_ref(q, k, v, valid_len)
+        return decode_attention_ref(q, k, v, valid_len, return_lse)
     b, h, d = q.shape
     kvh, s = k.shape[1], k.shape[2]
     if k.device != q.device or v.device != q.device:
@@ -154,9 +178,13 @@ def decode_attention(q, k, v, valid_len):
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("decode_attention: q, k and v must be 16-byte "
                          "aligned")
-    out = torch.empty_like(q)
+    out = torch.empty(q.shape, device=q.device,
+                      dtype=torch.float32 if return_lse else q.dtype)
+    lse = (torch.empty((b, h), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if b == 0 or s == 0:
-        return out.zero_()
+        out.zero_()
+        return (out, lse.fill_(-torch.inf)) if return_lse else out
     kps, splits = split_keys(b, kvh, s, _build.sm_count(q.device.index))
     ws_ml = torch.empty((b, h, splits, 2), dtype=torch.float32,
                         device=q.device)
@@ -165,11 +193,16 @@ def decode_attention(q, k, v, valid_len):
     lib = _build.library("decode_attention", _SIGNATURE)
     code = lib.decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), vlen.data_ptr(),
-        out.data_ptr(), ws_ml.data_ptr(), ws_acc.data_ptr(), b, h, kvh, s, d,
-        kps, splits, d ** -0.5, _DTYPES[q.dtype], _build.stream_ptr(q))
+        out.data_ptr(), None if lse is None else lse.data_ptr(),
+        ws_ml.data_ptr(), ws_acc.data_ptr(), b, h, kvh, s, d, kps, splits,
+        d ** -0.5, _DTYPES[q.dtype], _build.stream_ptr(q))
     _build.check(code, "decode_attention")
     decode_attention.launches += 1
+    if return_lse:
+        decode_attention.lse_launches += 1
+        return out, lse
     return out
 
 
 decode_attention.launches = 0
+decode_attention.lse_launches = 0

@@ -29,6 +29,20 @@ fit one card for tinyllama-1.1b or zamba2-2.7b.
         --prefix-cache --shared-prefix 1500 --prompt-min 1564 \
         --prompt-max 2012 --pool-pages 192
 
+On a mesh of several cards (``--mesh h100x4``: (2, 2) over ``("data",
+"model")``) every rank runs this same program, as ``launch.train``'s
+ranks do: it joins the ``torch.distributed`` world (``--dist-backend``,
+NCCL by default, from ``torchrun``'s environment), submits the same
+application to the same one-pod ``Cluster``, and the executor serves it
+on the dense backend with the rank's blocks of the weights and the cache
+under the ladder's plan (tensor parallel over ``model``, the lanes over
+``data``); every rank's engine holds the same requests and tokens, and
+only rank 0 prints and saves the sizing history.  The paged backend and
+an FSDP plan on a mesh are refused (ROADMAP item A8d)::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --mesh h100x4 --backend dense --arch command-r-35b
+
 ``--shared-prefix N`` (this port's own; the reference sets prompt overlap
 with explicit ``prompt_tokens``) gives every synthetic prompt the same
 first N tokens, as a service whose requests all begin with one system
@@ -58,14 +72,16 @@ The reference's control-plane and observability flags:
 from __future__ import annotations
 
 import argparse
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch import DeviceLike, obs
 from repro_torch.configs import ShapeConfig
 from repro_torch.core.history import HistoryStore
-from repro_torch.core.materializer import H100
+from repro_torch.core.materializer import MESHES, MeshSpec
+from repro_torch.launch.mesh import init_world
 from repro_torch.runtime import (Application, Cluster, ScalePolicy,
                                  ServeOptions, TorchExecutor)
 from repro_torch.serving.kv_cache import PAGE_SIZE, Request
@@ -109,7 +125,7 @@ def submit_app(cluster: Cluster, arch: str, *, backend: str = "paged",
         raise RuntimeError(
             f"{handle.app.name} at {handle.app.shape.name}: demand "
             f"{handle.job.demand_bytes / 2**30:.2f} GiB does not fit the "
-            f"card ({H100.hbm_per_device / 2**30:.2f} GiB)")
+            f"card ({cluster.mesh.hbm_per_device / 2**30:.2f} GiB)")
     return handle
 
 
@@ -149,7 +165,9 @@ def serve(arch: str = "tinyllama-1.1b", *, backend: str = "paged",
           max_replicas: Optional[int] = None, trace: Optional[str] = None,
           metrics_dump: bool = False, metrics_port: Optional[int] = None,
           verbose: bool = True, history_dir: Optional[str] = None,
-          executor: Optional[TorchExecutor] = None) -> Dict[str, Any]:
+          executor: Optional[TorchExecutor] = None,
+          mesh: Union[str, MeshSpec] = "h100",
+          dist_backend: str = "nccl") -> Dict[str, Any]:
     """Serve ``requests`` requests (:func:`synth_requests`) on ``backend``
     ("paged", or "dense" with a cache of ``DENSE_CACHE_LEN`` tokens per
     slot), weights random from ``seed``, through ``replicas`` engine
@@ -163,7 +181,18 @@ def serve(arch: str = "tinyllama-1.1b", *, backend: str = "paged",
     are the flags of the module docstring.  Returns the engine stats,
     the serving stats view's cumulative dict, the pool, the runner, the
     completed requests, the device and the plan, and with ``autoscale``
-    what the control plane did (:func:`_two_bursts`)."""
+    what the control plane did (:func:`_two_bursts`).
+
+    ``mesh`` (a name in ``MESHES`` or a ``MeshSpec``) of several devices
+    serves on every rank of a ``torch.distributed`` world of that size
+    (joined here over ``dist_backend`` from the environment when this
+    process has not joined one); the runner then holds this rank's
+    blocks, and only rank 0 prints."""
+    mesh = MESHES[mesh] if isinstance(mesh, str) else mesh
+    if mesh.num_devices > 1:
+        init_world(dist_backend)
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+    verbose = verbose and rank0
     tracer = obs.enable() if trace else None
     if metrics_dump or metrics_port is not None:
         obs.enable_metrics()
@@ -175,7 +204,7 @@ def serve(arch: str = "tinyllama-1.1b", *, backend: str = "paged",
     executor = executor or TorchExecutor(device=device, seed=seed)
     dev = executor.device
     history = HistoryStore(history_dir)
-    cluster = Cluster(pods=1, mesh=H100, history=history,
+    cluster = Cluster(pods=1, mesh=mesh, history=history,
                       executor=executor)
     scale = (ScalePolicy(min_replicas=1, max_replicas=max_replicas)
              if max_replicas is not None else None)
@@ -248,9 +277,10 @@ def serve(arch: str = "tinyllama-1.1b", *, backend: str = "paged",
         obs.disable_metrics()
     plan = handle.plan
     handle.release()
-    history.save()
+    if rank0:
+        history.save()
     return {"stats": stats, "view": view, "pool": pool, "runner": runner,
-            "requests": reqs, "device": dev, "plan": plan,
+            "requests": reqs, "device": cluster.executor.device, "plan": plan,
             "autoscale": auto, "trace_events": n_events}
 
 
@@ -363,6 +393,13 @@ def main(argv=None):
                          "run's duration (0 = ephemeral; implies metrics "
                          "recording)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default="h100", choices=sorted(MESHES),
+                    help="one card (h100), or four as a (2, 2) mesh "
+                         "(h100x4, under torchrun --nproc-per-node 4; "
+                         "--backend dense)")
+    ap.add_argument("--dist-backend", default="nccl",
+                    help="torch.distributed backend of a multi-card mesh "
+                         "(gloo lets ranks share a card)")
     args = ap.parse_args(argv)
     if args.prefix_cache and args.backend != "paged":
         ap.error("--prefix-cache needs --backend paged: the dense cache "
@@ -377,7 +414,10 @@ def main(argv=None):
           shared_prefix=args.shared_prefix, autoscale=args.autoscale,
           max_replicas=args.max_replicas, trace=args.trace,
           metrics_dump=args.metrics_dump, metrics_port=args.metrics_port,
-          history_dir=args.history_dir)
+          history_dir=args.history_dir, mesh=args.mesh,
+          dist_backend=args.dist_backend)
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

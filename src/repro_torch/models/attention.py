@@ -22,7 +22,18 @@ Where the reference returns an updated copy of the dense cache, the port
 writes the new token's K and V into the cache tensors in place.
 
 ``self_attention_train`` with a :class:`TensorParallel` group runs this
-rank's heads when the planner split them (:func:`tp_weights`).
+rank's heads when the planner split them (:func:`tp_weights`), and so do
+``self_attention_decode`` and ``self_attention_prefill`` under a serving
+plan of a mesh: the rank's query and KV heads, the output projection's
+partial sums summed over the group.  Where the dense cache's stored
+layout splits its sequence dim over mesh axes (the reference's
+flash-decode materialization), ``self_attention_decode`` takes the
+reference's ``shard_ctx``: only the rank that owns the new token's slot
+writes it (:func:`seqshard_cache_update`), each rank runs the
+decode-attention kernel over its own block up to its part of the valid
+length, returning its partial softmax state (the output and its
+log-sum-exp), and the ranks merge those
+(``collectives.combine_softmax_parts``).
 """
 
 from __future__ import annotations
@@ -37,8 +48,9 @@ from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention_fwd)
 from repro_torch.models.layers import (CacheSpec, Spec, apply_rope,
                                        needs_grad, rms_norm, rms_norm_spec)
-from repro_torch.sharding.collectives import (TensorParallel, copy_to_tp,
-                                              reduce_from_tp)
+from repro_torch.sharding.collectives import (TensorParallel,
+                                              combine_softmax_parts,
+                                              copy_to_tp, reduce_from_tp)
 
 Params = Dict[str, Any]
 
@@ -129,6 +141,15 @@ def tp_weights(p: Params, cfg: ModelConfig, tp: TensorParallel) -> Params:
     return out
 
 
+def rank_heads(p: Params, cfg: ModelConfig, tp: Optional[TensorParallel],
+               prefix: str = "") -> Tuple[Params, bool]:
+    """(``p`` for this rank's heads, whether they are split): the weights
+    of :func:`tp_weights` when ``tp`` is given and the planner split the
+    q heads over it, else ``p`` as it is."""
+    split = tp is not None and p[prefix + "wq"].shape[1] < cfg.num_heads
+    return (tp_weights(p, cfg, tp) if split else p), split
+
+
 def self_attention_train(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                          causal: bool = True, window: int = 0,
                          prefix: str = "",
@@ -140,9 +161,9 @@ def self_attention_train(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     heads: the input enters through :func:`copy_to_tp` and the output
     projection's partial sums are summed over the group."""
     positions = torch.arange(x.shape[1], device=x.device)
-    split = tp is not None and p[prefix + "wq"].shape[1] < cfg.num_heads
+    p, split = rank_heads(p, cfg, tp, prefix)
     if split:
-        p, x = tp_weights(p, cfg, tp), copy_to_tp(x, tp)
+        x = copy_to_tp(x, tp)
     q, k, v = project_qkv(p, x, cfg, positions, prefix)
     o = sdpa(q, k, v, causal=causal, window=window)
     out = attn_out(p, o, prefix)
@@ -174,9 +195,26 @@ def gqa_decode_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return decode_attention(q[:, 0], k, v, valid_len)[:, None]
 
 
+def seqshard_cache_update(cache: torch.Tensor, new: torch.Tensor, slot: int,
+                          mesh, seq_axes) -> torch.Tensor:
+    """Write one token row into a sequence-sharded cache, in place and
+    without a collective.  cache: this rank's block (B, KV, S_local, hd)
+    of a cache whose S dim is split over ``seq_axes`` (blocks numbered by
+    the rank's index along them, the first axis major, as the reference
+    numbers them); new: (B, KV, hd); slot: the global row.  Only the rank
+    whose block holds ``slot`` writes it, at ``slot - offset``."""
+    s_local = cache.shape[2]
+    off = mesh.index(seq_axes) * s_local
+    if off <= slot < off + s_local:
+        cache[:, :, slot - off] = new.to(cache.dtype)
+    return cache
+
+
 def self_attention_decode(p: Params, x: torch.Tensor, cache: Params,
                           pos: int, cfg: ModelConfig, *, window: int = 0,
-                          prefix: str = "") -> Tuple[torch.Tensor, Params]:
+                          prefix: str = "",
+                          tp: Optional[TensorParallel] = None,
+                          shard_ctx=None) -> Tuple[torch.Tensor, Params]:
     """One-token decode at the shared position ``pos``.  x: (B, 1, d);
     cache k/v: (B, KV, S, hd), written in place at slot ``pos`` for every
     lane, or at ``pos % S`` when ``window > 0`` (a ring of S = min(cache_len,
@@ -187,8 +225,23 @@ def self_attention_decode(p: Params, x: torch.Tensor, cache: Params,
     i) % S)``, which always lies in ``(pos - S, pos]`` with ``S <=
     window``, so the window never masks a written slot, and a slot is
     written once ``pos >= i``.  The slots are not in position order, and
-    need not be: RoPE was applied before the write."""
-    s_cache = cache["k"].shape[2]
+    need not be: RoPE was applied before the write.
+
+    With ``tp`` and split heads, this rank's query heads and the KV heads
+    they read (the cache holds those KV heads), the output projection's
+    partial sums summed over the group.  ``shard_ctx`` (mesh, seq_axes,
+    batch_axes) says that the cache holds this rank's block of S, split
+    over ``seq_axes``: S above is then the whole cache's, the new row goes
+    to its owner (:func:`seqshard_cache_update`), the rank attends over
+    its block's part of ``[0, min(pos + 1, S))`` (none at all early in a
+    sequence: out 0 and lse -inf), and the ranks' partial softmax states
+    are combined over ``seq_axes``."""
+    s_local = cache["k"].shape[2]
+    mesh = seq_axes = None
+    s_cache = s_local
+    if shard_ctx is not None:
+        mesh, seq_axes = shard_ctx[0], tuple(shard_ctx[1])
+        s_cache = s_local * mesh.size(seq_axes)
     if window > 0:
         slot = pos % max(s_cache, 1)
     elif 0 <= pos < s_cache:
@@ -196,31 +249,59 @@ def self_attention_decode(p: Params, x: torch.Tensor, cache: Params,
     else:
         raise ValueError(f"decode position {pos} outside the dense cache of "
                          f"{s_cache} slots")
+    p, split = rank_heads(p, cfg, tp, prefix)
+    if split and seq_axes is not None and "model" in seq_axes:
+        raise NotImplementedError(
+            f"{cfg.name}: the q heads are split over 'model' and the cache's "
+            f"sequence over {seq_axes}: each rank would need the other "
+            "ranks' blocks of its heads' keys (ROADMAP item A8d)")
     positions = torch.full((1,), pos, dtype=torch.long, device=x.device)
     q, k, v = project_qkv(p, x, cfg, positions, prefix)
-    cache["k"][:, :, slot] = k[:, 0].to(cache["k"].dtype)     # in place
-    cache["v"][:, :, slot] = v[:, 0].to(cache["v"].dtype)
-    o = gqa_decode_sdpa(q, cache["k"], cache["v"], min(pos + 1, s_cache))
-    return attn_out(p, o, prefix), cache
+    if k.shape[2] != cache["k"].shape[1]:
+        raise NotImplementedError(
+            f"{cfg.name}: this rank's {k.shape[2]} KV heads against a cache "
+            f"of {cache['k'].shape[1]}: serving with q heads split over a "
+            "group that does not split the KV heads is ROADMAP item A8d")
+    if seq_axes is None:
+        cache["k"][:, :, slot] = k[:, 0].to(cache["k"].dtype)     # in place
+        cache["v"][:, :, slot] = v[:, 0].to(cache["v"].dtype)
+        o = gqa_decode_sdpa(q, cache["k"], cache["v"], min(pos + 1, s_cache))
+    else:
+        seqshard_cache_update(cache["k"], k[:, 0], slot, mesh, seq_axes)
+        seqshard_cache_update(cache["v"], v[:, 0], slot, mesh, seq_axes)
+        off = mesh.index(seq_axes) * s_local
+        valid = min(max(min(pos + 1, s_cache) - off, 0), s_local)
+        o, lse = decode_attention(q[:, 0], cache["k"], cache["v"], valid,
+                                  return_lse=True)
+        o = combine_softmax_parts(o, lse, mesh, seq_axes)[:, None].to(q.dtype)
+    out = attn_out(p, o, prefix)
+    return (reduce_from_tp(out, tp) if split else out), cache
 
 
 def self_attention_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                           window: int = 0, prefix: str = ""
+                           window: int = 0, prefix: str = "",
+                           tp: Optional[TensorParallel] = None
                            ) -> Tuple[torch.Tensor, Params]:
     """Forward over a prompt at positions 0..S-1 -> (out (B, S, d), its KV
     {"k", "v"} laid out (B, KV, S', hd)).  With ``window > 0`` and S >
     window the KV is the prompt's last ``window`` entries, rolled by ``S %
     window`` so that position p sits at slot ``p % window`` (the ring
-    decode's layout), as the reference keeps it."""
+    decode's layout), as the reference keeps it.  With ``tp`` and split
+    heads, this rank's heads and the KV heads they read, the output
+    projection's partial sums summed over the group; a cache that splits
+    its sequence keeps the rank's block of the positions
+    (``transformer._store_kv``)."""
     s = x.shape[1]
     positions = torch.arange(s, device=x.device)
+    p, split = rank_heads(p, cfg, tp, prefix)
     q, k, v = project_qkv(p, x, cfg, positions, prefix)
     o = sdpa(q, k, v, causal=True, window=window)
     if window > 0 and s > window:
         k = torch.roll(k[:, -window:], s % window, dims=1)
         v = torch.roll(v[:, -window:], s % window, dims=1)
-    return attn_out(p, o, prefix), {"k": k.transpose(1, 2),
-                                    "v": v.transpose(1, 2)}
+    out = attn_out(p, o, prefix)
+    return (reduce_from_tp(out, tp) if split else out), \
+        {"k": k.transpose(1, 2), "v": v.transpose(1, 2)}
 
 
 # ---------------------------------------------------------------------------

@@ -18,6 +18,7 @@ one-card code, with no collective.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -73,43 +74,82 @@ INIT_SLICE_ELEMS = 1 << 28
 
 
 def _normal(shape: Tuple[int, ...], std: float, generator: torch.Generator,
-            device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+            device: torch.device, dtype: torch.dtype,
+            out: Optional[torch.Tensor] = None, lay=None) -> torch.Tensor:
     """normal(0, std) drawn in fp32 and cast, in runs of the leading dim of
     at most ``INIT_SLICE_ELEMS`` elements (each slice in turn so, where one
-    alone is larger)."""
+    alone is larger), each run cast straight into ``out`` (a new tensor
+    when None), so no more than one run's fp32 draw is held.  With ``lay``
+    (a ``planner.Layout``) ``out`` is this rank's block of the leaf: each
+    run is drawn whole, so the generator advances as by the whole draw,
+    and only its part of the block is kept."""
     if len(shape) == 1 or int(np.prod(shape)) <= INIT_SLICE_ELEMS:
-        return torch.randn(shape, generator=generator, device=device,
-                           dtype=torch.float32).mul_(std).to(dtype)
-    out = torch.empty(shape, dtype=dtype, device=device)
+        t = torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32).mul_(std)
+        if lay is None and out is None:
+            return t.to(dtype)
+        if lay is not None:
+            t = lay.local(t)
+        if out is None:
+            out = torch.empty(t.shape, dtype=dtype, device=device)
+        return out.copy_(t)
+    if out is None:
+        out = torch.empty(shape if lay is None else lay.local_shape(shape),
+                          dtype=dtype, device=device)
+    n0, i0 = (1, 0) if lay is None else lay.part(0)
+    lo, hi = i0 * shape[0] // n0, (i0 + 1) * shape[0] // n0
     run = max(1, INIT_SLICE_ELEMS // int(np.prod(shape[1:])))
     for i in range(0, shape[0], run):
         n = min(run, shape[0] - i)
-        out[i:i + n] = (_normal((n,) + tuple(shape[1:]), std, generator,
-                                device, dtype) if n > 1 else
-                        _normal(tuple(shape[1:]), std, generator, device,
-                                dtype))
+        sub = (n,) + tuple(shape[1:]) if n > 1 else tuple(shape[1:])
+        if lay is None:
+            _normal(sub, std, generator, device, dtype,
+                    out[i:i + n] if n > 1 else out[i])
+            continue
+        # the run in fp32 where it is one draw (a larger row comes cast),
+        # its rows in the block cast as they are copied
+        drawn = _normal(sub, std, generator, device,
+                        torch.float32 if int(np.prod(sub)) <= INIT_SLICE_ELEMS
+                        else dtype).view((n,) + tuple(shape[1:]))
+        a, b = max(i, lo), min(i + n, hi)
+        if a < b:
+            rest = dataclasses.replace(lay, dims=((),) + tuple(lay.dims[1:]))
+            out[a - lo:b - lo].copy_(rest.local(drawn[a - i:b - i]))
+        del drawn
     return out
 
 
 def init_from_specs(specs, generator: torch.Generator,
-                    device: torch.device, dtype=torch.bfloat16) -> Params:
+                    device: torch.device, dtype=torch.bfloat16,
+                    layouts=None) -> Params:
     """Materialize a parameter tree from a spec tree, leaves in sorted key
     order, by the reference's rules: zeros for std 0 (the ``(1+g)`` norm
     gains, biases), ones for an unstacked std-1 gain (a vector or a square
-    matrix), else normal(0, std) drawn in fp32 and cast (:func:`_normal`)."""
+    matrix), else normal(0, std) drawn in fp32 and cast (:func:`_normal`).
+    With ``layouts`` (a tree of ``planner.Layout`` keyed as ``specs``)
+    only this rank's block of each leaf is kept, its values one
+    process's (:func:`_normal`'s ``lay``): no whole leaf larger than one
+    drawn run is ever held."""
     out = {}
     for key in sorted(specs):
         spec = specs[key]
+        lay = None if layouts is None else layouts[key]
         if isinstance(spec, dict):
-            out[key] = init_from_specs(spec, generator, device, dtype)
-        elif spec.std == 0.0:
-            out[key] = torch.zeros(spec.shape, dtype=dtype, device=device)
+            out[key] = init_from_specs(spec, generator, device, dtype, lay)
+            continue
+        shape = spec.shape
+        if lay is not None and lay.local_shape(shape) != tuple(shape):
+            shape = lay.local_shape(shape)
+        else:
+            lay = None
+        if spec.std == 0.0:
+            out[key] = torch.zeros(shape, dtype=dtype, device=device)
         elif spec.std == 1.0 and (len(spec.shape) == 1 or (
                 len(spec.shape) == 2 and spec.shape[0] == spec.shape[1])):
-            out[key] = torch.ones(spec.shape, dtype=dtype, device=device)
+            out[key] = torch.ones(shape, dtype=dtype, device=device)
         else:
             out[key] = _normal(spec.shape, spec.std, generator, device,
-                               dtype)
+                               dtype, lay=lay)
     return out
 
 

@@ -12,6 +12,15 @@ RWKV-6, zamba2's hybrid stack, the MoE family, phi-3-vision (image
 tokens through ``img_feats``) and whisper (its encoder over
 ``enc_feats``); the paged backend serves none of the last three, as in
 the reference (:func:`pageable`).
+
+Under a serving plan of a mesh (``Model(layout=...)``, a
+``planner.ServeLayout``) the attention stacks serve sharded as the
+reference's ``lower_cell`` lays out a prefill or decode cell: each rank
+holds its blocks of the weights (``param_specs_tree``) and of the dense
+cache (``cache_specs_tree``, laid out once a model:
+``Model.cache_layouts``), takes its lanes of the batch, runs its query
+and KV heads and ffn columns, and returns whole-vocab logits for its
+lanes.
 """
 
 from __future__ import annotations
@@ -30,7 +39,9 @@ from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, ATTN_SHARED,
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import ImplConfig
-from repro_torch.sharding.collectives import TensorParallel, copy_to_tp
+from repro_torch.sharding.collectives import (TensorParallel, copy_to_tp,
+                                              gather_along, gather_from_tp,
+                                              tensor_parallel)
 
 Params = Dict[str, Any]
 MOE_AUX_WEIGHT = 0.01           # the balance loss's weight in the training loss
@@ -92,13 +103,15 @@ def param_specs(cfg: ModelConfig) -> Params:
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
-                device: DeviceLike = None) -> Params:
+                device: DeviceLike = None, layouts=None) -> Params:
     """Random weights from ``seed`` with a ``torch.Generator`` on the
     target device.  They are not the reference's ``jax.random`` weights:
-    parity runs bridge those in (``repro_torch.bridge``)."""
+    parity runs bridge those in (``repro_torch.bridge``).  With
+    ``layouts`` (a tree of ``planner.Layout``) each leaf is drawn as one
+    process draws it and only this rank's block of it is kept."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    return L.init_from_specs(param_specs(cfg), gen, dev)
+    return L.init_from_specs(param_specs(cfg), gen, dev, layouts=layouts)
 
 
 def _unstack(tree: Params, n: int) -> List[Params]:
@@ -146,6 +159,21 @@ def _shared(params: Params) -> Params:
     return {k: params[k] for k in ("shared_attn",) if k in params}
 
 
+def lane_block(lanes) -> Tuple[int, int]:
+    """(blocks, this rank's block) of the lanes laid out by ``lanes`` (a
+    serving model's ``Model.lanes``); (1, 0) for a model of one
+    process."""
+    return (1, 0) if lanes is None else lanes.part(1)
+
+
+def gather_lanes(t: torch.Tensor, lanes) -> torch.Tensor:
+    """``t`` (B_local, ...) over this rank's lanes -> every lane's, in
+    order, on every rank (all-gathered over the axes ``lanes``, a serving
+    model's ``Model.lanes``, splits the batch dim over); ``t`` as it is
+    for a model of one process."""
+    return t if lanes is None else gather_along(t, lanes.mesh, lanes.dims[1])
+
+
 #: the block kinds whose training forward runs tensor-parallel (an MoE
 #: block's attention, its routed experts expert-parallel; Mamba-2 and
 #: RWKV-6 over their heads; zamba2's shared attention block)
@@ -173,11 +201,32 @@ class Model:
     put on their compute layout at its start, and each pattern block's
     stored slices inside the block's remat body, so that an FSDP-split
     block is gathered for its forward and again for its recompute, and
-    its gradient goes to the step's sums as the backward produces it."""
+    its gradient goes to the step's sums as the backward produces it.
+
+    With ``layout`` (a ``planner.ServeLayout``: a serving plan over a
+    ``TorchMesh``), ``prefill`` and ``decode_step`` serve sharded: the
+    params are this rank's blocks of the plan's ``param_specs_tree``
+    (``init_params(..., layouts=layout.params(...))``), ``init_cache``
+    makes this rank's blocks of the plan's ``cache_specs_tree`` (their
+    layouts ``cache_layouts``, the lanes' ``lanes``), the tokens are this
+    rank's lanes, ``tp`` (the plan's ``model`` axis unless given) splits
+    the heads, ffn columns and vocab, and a block whose cache layout
+    splits the sequence decodes under ``impl.decode_shard_ctx``.  Only
+    attention stacks serve so, with the weights split by TP and not FSDP
+    (ROADMAP item A8d)."""
 
     def __init__(self, cfg: ModelConfig, impl: Optional[ImplConfig] = None,
-                 tp: Optional[TensorParallel] = None, shards=None):
+                 tp: Optional[TensorParallel] = None, shards=None,
+                 layout=None):
         check_family(cfg)
+        if layout is not None:
+            bad = [k for k in cfg.pattern if k not in T.SERVE_MESH_KINDS]
+            if bad or layout.plan.fsdp:
+                raise T.serve_mesh_refusal(
+                    f"{cfg.name} (pattern {cfg.pattern}) under the plan "
+                    f"{layout.plan.mesh.name} fsdp={layout.plan.fsdp}")
+            if tp is None and layout.plan.tp:
+                tp = tensor_parallel(layout.mesh)
         if tp is not None and any(k not in TP_KINDS for k in cfg.pattern):
             raise NotImplementedError(
                 f"{cfg.name}: the tensor-parallel forward covers the block "
@@ -194,6 +243,18 @@ class Model:
         self.impl = impl or ImplConfig()
         self.tp = tp
         self.shards = shards
+        self.layout = layout
+        # the cache's stored layout (``cache_specs_tree`` at a batch and a
+        # length that split evenly: every cache this model makes has it)
+        # and the lanes' (its batch dim's split)
+        self.cache_layouts = self.lanes = None
+        if layout is not None:
+            plan = layout.plan
+            self.cache_layouts = layout.cache(cfg, T.cache_specs(
+                cfg, layout.mesh.size(plan.batch_axes),
+                layout.mesh.size(plan.seq_axes or ("model",))))
+            self.lanes = next(iter(next(iter(
+                self.cache_layouts.values())).values()))
 
     # -- positions (non-RoPE stacks: rwkv6, whisper) -------------------------
     def _add_positional(self, x: torch.Tensor, offset: int = 0
@@ -219,9 +280,61 @@ class Model:
 
     # -- dense cache ---------------------------------------------------------
     def init_cache(self, batch: int, cache_len: int,
-                   device: DeviceLike = None) -> Params:
-        return T.init_cache(self.cfg, batch, cache_len,
-                            resolve_device(device))
+                   device: DeviceLike = None, dtype=None) -> Params:
+        """Zeros for ``batch`` lanes of ``cache_len`` positions (the leaves'
+        dtypes, or ``dtype``); under a ``layout``, this rank's blocks of
+        them, laid out as ``cache_layouts`` (a ``ValueError`` where the
+        lanes or positions do not split so)."""
+        dev = resolve_device(device)
+        if self.layout is None:
+            return T.init_cache(self.cfg, batch, cache_len, dev, dtype)
+        specs = T.cache_specs(self.cfg, batch, cache_len)
+        lay = self.layout.cache(self.cfg, specs)
+        if lay != self.cache_layouts:
+            plan = self.layout.plan
+            raise ValueError(
+                f"{self.cfg.name}: a cache of {batch} lanes and {cache_len} "
+                f"positions does not split as the plan lays it out (the "
+                f"lanes over {plan.batch_axes}, the sequence over "
+                f"{plan.seq_axes or ('model',)} where it is split): make "
+                f"both multiples of those axes' sizes")
+        return {key: {k: torch.zeros(
+            lay[key][k].local_shape(s.shape), dtype=dtype or s.dtype,
+            device=dev) for k, s in leaf.items()}
+            for key, leaf in specs.items()}
+
+    def _seq_split(self, key: str):
+        """(mesh, axes) over which block ``key``'s cache stores its
+        sequence dim split (``cache_layouts``); None where it is whole."""
+        if self.cache_layouts is None or "k" not in self.cache_layouts[key]:
+            return None
+        lay = self.cache_layouts[key]["k"]
+        axes = lay.dims[3]                 # (NB, B, KV, S, hd)
+        return (lay.mesh, axes) if lay.mesh.size(axes) > 1 else None
+
+    def _decode_ctx(self, key: str):
+        """The ``decode_shard_ctx`` block ``key``'s attention decodes
+        under: the impl's where the stored layout splits the sequence
+        (over the axes it names), else None (the update and the attention
+        are local, as where the planner kept S whole)."""
+        split = self._seq_split(key)
+        if split is None:
+            return None
+        ctx = self.impl.decode_shard_ctx
+        if ctx is None or tuple(ctx[1]) != split[1]:
+            raise ValueError(
+                f"{self.cfg.name}: the cache of {key} stores its sequence "
+                f"split over {split[1]}; decode needs "
+                f"ImplConfig.decode_shard_ctx over those axes (given: "
+                f"{None if ctx is None else tuple(ctx[1])})")
+        return ctx
+
+    def _logits(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        """fp32 logits over the whole vocab: a vocab-parallel head's
+        blocks all-gathered over ``tp``."""
+        logits = L.unembed(params["embed"], x, self.cfg.logit_softcap)
+        tp = _vocab_split(self.cfg, params, self.tp)
+        return logits if tp is None else gather_from_tp(logits, tp, dim=-1)
 
     # -- frontends (stubs, as in the reference) -------------------------------
     def _encoder(self, params: Params, enc_feats: torch.Tensor,
@@ -260,12 +373,18 @@ class Model:
         projections go ahead of the tokens, so the prompt fills N + S
         positions and decode continues at ``S + N``.  An encoder-decoder
         config needs ``enc_feats`` (B, T, d), the encoder's input frames;
-        its decoder blocks attend over the encoder's output."""
+        its decoder blocks attend over the encoder's output.
+
+        Under a ``layout``, ``tokens`` are this rank's lanes, ``cache`` and
+        ``slot`` this rank's (a new cache: its blocks of the lanes of every
+        rank), and the logits are those lanes' over the whole vocab."""
         cfg = self.cfg
         if cache is None:
-            cache = self.init_cache(tokens.shape[0], cache_len, tokens.device)
+            cache = self.init_cache(
+                tokens.shape[0] * lane_block(self.lanes)[0], cache_len,
+                tokens.device)
         rows = slice(slot, slot + tokens.shape[0])
-        x = embed_tokens(cfg, params, tokens)
+        x = embed_tokens(cfg, params, tokens, self.tp)
         if cfg.family == "vlm" and img_feats is not None:
             x = torch.cat([self._vlm_prefix(params, img_feats), x], dim=1)
         x = self._add_positional(x)
@@ -280,28 +399,34 @@ class Model:
             for i, kind in enumerate(cfg.pattern):
                 key = f"p{i}_{kind}"
                 bc = {leaf: t[j, rows] for leaf, t in cache[key].items()}
+                split = self._seq_split(key)
+                block = None if split is None else (
+                    split[0].size(split[1]), split[0].index(split[1]))
                 x, _ = T.apply_block_prefill(cfg, kind, bp[key], x, shared,
-                                             bc, enc_out, self.impl)
+                                             bc, enc_out, self.impl, self.tp,
+                                             block)
         x = T.apply_norm(cfg, params["ln_f"], x[:, -1:])
-        return L.unembed(params["embed"], x, cfg.logit_softcap), cache
+        return self._logits(params, x), cache
 
     # -- entry point: decode (one token) -------------------------------------
     def decode_step(self, params: Params, tokens: torch.Tensor,
                     cache: Params, pos: int) -> Tuple[torch.Tensor, Params]:
         """tokens (B, 1) at the shared position ``pos`` -> (logits (B, 1,
-        V) fp32, cache updated in place)."""
+        V) fp32, cache updated in place).  Under a ``layout``, this rank's
+        lanes and cache blocks, the logits over the whole vocab."""
         cfg = self.cfg
-        x = self._add_positional_decode(embed_tokens(cfg, params, tokens),
-                                        pos)
+        x = self._add_positional_decode(
+            embed_tokens(cfg, params, tokens, self.tp), pos)
         shared = _shared(params)
         for j, bp in enumerate(_unstack(params["blocks"], cfg.num_blocks)):
             for i, kind in enumerate(cfg.pattern):
                 key = f"p{i}_{kind}"
                 bc = {leaf: t[j] for leaf, t in cache[key].items()}
                 x, _ = T.apply_block_decode(cfg, kind, bp[key], x, bc, pos,
-                                            shared, self.impl)
+                                            shared, self.impl, self.tp,
+                                            self._decode_ctx(key))
         x = T.apply_norm(cfg, params["ln_f"], x)
-        return L.unembed(params["embed"], x, cfg.logit_softcap), cache
+        return self._logits(params, x), cache
 
     def _run_blocks_train(self, params: Params, x: torch.Tensor,
                           enc_out: Optional[torch.Tensor] = None

@@ -18,6 +18,14 @@ keep their own.
 
 Prefill and decode update the dense cache in place: each writes its
 block's new state into the cache tensors it is given.
+
+Under a serving plan of a mesh the global and sliding-window attention
+blocks take ``tp`` (this rank's query and KV heads and ffn columns, the
+row-parallel outputs summed over the group, as in training) and, where
+the cache's stored layout splits its sequence, the reference's
+``decode_shard_ctx`` (decode) or the rank's block of positions
+(prefill).  Every other block kind refuses both
+(:data:`SERVE_MESH_KINDS`; ROADMAP item A8d).
 """
 
 from __future__ import annotations
@@ -50,10 +58,28 @@ class ImplConfig:
     remat: str = "full"               # none | dots | full
     # stream the unembed+CE over sequence chunks (0 = monolithic logits)
     loss_chunk: int = 0
+    # (TorchMesh, seq_axes, batch_axes) when the decode KV cache is
+    # sequence-sharded (the reference's flash-decode materialization)
+    decode_shard_ctx: Optional[tuple] = None
     # expert parallelism: (TorchMesh, "model", batch axes), or None for the
     # single-shard MoE block; and its dispatch, "psum" | "a2a"
     ep_shard_ctx: Optional[tuple] = None
     moe_dispatch: str = "psum"
+
+
+#: the block kinds that serve under a plan of a mesh (tensor-parallel
+#: heads and ffn, a sequence-sharded cache); the MoE, recurrent,
+#: vision-language and encoder-decoder blocks are ROADMAP item A8d
+SERVE_MESH_KINDS = (ATTN_GLOBAL, ATTN_LOCAL)
+
+
+def serve_mesh_refusal(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: serving under a plan of a mesh covers attention stacks "
+        f"(block kinds {SERVE_MESH_KINDS}) on the dense backend with the "
+        "weights split by TP, not FSDP; MoE, Mamba-2/zamba2, RWKV-6, "
+        "phi-3-vision and whisper serving, the paged backend on a mesh and "
+        "weight-gathered serving are ROADMAP item A8d")
 
 
 # matmuls without batch dims (``torch.matmul`` of a (B, S, d) activation
@@ -199,8 +225,10 @@ def cache_specs(cfg: ModelConfig, batch: int, cache_len: int) -> Params:
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               device: torch.device) -> Params:
-    return {key: {k: torch.zeros(s.shape, dtype=s.dtype, device=device)
+               device: torch.device, dtype=None) -> Params:
+    """Zeros of :func:`cache_specs`, in ``dtype`` when given."""
+    return {key: {k: torch.zeros(s.shape, dtype=dtype or s.dtype,
+                                 device=device)
                   for k, s in leaf.items()}
             for key, leaf in cache_specs(cfg, batch, cache_len).items()}
 
@@ -218,20 +246,28 @@ def _store(cache: Params, new: Params) -> Params:
 
 def apply_block_decode(cfg: ModelConfig, kind: str, p: Params,
                        x: torch.Tensor, cache: Params, pos: int,
-                       shared: Params, impl: Optional[ImplConfig] = None
+                       shared: Params, impl: Optional[ImplConfig] = None,
+                       tp=None, shard_ctx=None
                        ) -> Tuple[torch.Tensor, Params]:
     """One token through one block at the shared position ``pos``.  x:
     (B, 1, d); ``cache`` holds this block's (B, ...) state and is updated
     in place.  ``impl`` carries an MoE block's expert-parallel context.
-    Returns (x, cache)."""
+    An attention block takes ``tp`` (this rank's heads and ffn columns)
+    and ``shard_ctx`` (the reference's ``decode_shard_ctx``, given where
+    this block's cache holds the rank's block of the sequence).  Returns
+    (x, cache)."""
+    if (tp is not None or shard_ctx is not None) \
+            and kind not in SERVE_MESH_KINDS:
+        raise serve_mesh_refusal(f"{cfg.name}'s {kind!r} blocks")
     if kind in (ATTN_GLOBAL, ATTN_LOCAL):
         window = cfg.sliding_window if kind == ATTN_LOCAL else 0
         h = apply_norm(cfg, p["ln1"], x)
         y, cache = attn.self_attention_decode(p["attn"], h, cache, pos, cfg,
-                                              window=window)
+                                              window=window, tp=tp,
+                                              shard_ctx=shard_ctx)
         x = x + y
         h = apply_norm(cfg, p["ln2"], x)
-        return x + L.gated_mlp(p["mlp"], h), cache
+        return x + _gated_mlp(cfg, p["mlp"], h, tp), cache
     if kind == MOE:
         # every lane of the batch routes, idle ones too, as in the
         # reference (B <= 8 tokens: no expert reaches its capacity of 8)
@@ -279,7 +315,8 @@ def apply_block_decode(cfg: ModelConfig, kind: str, p: Params,
 def apply_block_prefill(cfg: ModelConfig, kind: str, p: Params,
                         x: torch.Tensor, shared: Params, cache: Params,
                         enc_out: Optional[torch.Tensor] = None,
-                        impl: Optional[ImplConfig] = None
+                        impl: Optional[ImplConfig] = None, tp=None,
+                        seq_block: Optional[Tuple[int, int]] = None
                         ) -> Tuple[torch.Tensor, Params]:
     """A whole prompt through one block.  x: (B, S, d); ``cache`` holds
     this block's (B, ...) decode state, which is overwritten in place with
@@ -287,18 +324,25 @@ def apply_block_prefill(cfg: ModelConfig, kind: str, p: Params,
     block's ring holds the prompt's last ``window`` positions; a whisper
     decoder block's cross K/V are the encoder output's).  ``enc_out`` is
     the encoder's output (B, T, d) for decoder blocks; ``impl`` carries
-    an MoE block's expert-parallel context.  Returns (x, cache)."""
+    an MoE block's expert-parallel context.  An attention block takes
+    ``tp`` (this rank's heads and ffn columns) and ``seq_block`` (blocks,
+    this rank's block) where its cache splits the sequence: the cache
+    keeps that block of the positions.  Returns (x, cache)."""
+    if (tp is not None or seq_block is not None) \
+            and kind not in SERVE_MESH_KINDS:
+        raise serve_mesh_refusal(f"{cfg.name}'s {kind!r} blocks")
     if kind in (ATTN_GLOBAL, ATTN_LOCAL, MOE):
         window = cfg.sliding_window if kind == ATTN_LOCAL else 0
         h = apply_norm(cfg, p["ln1"], x)
-        y, kv = attn.self_attention_prefill(p["attn"], h, cfg, window=window)
+        y, kv = attn.self_attention_prefill(p["attn"], h, cfg, window=window,
+                                            tp=tp)
         x = x + y
         h = apply_norm(cfg, p["ln2"], x)
         if kind == MOE:
             y, _ = _moe(cfg, p, h, impl)
         else:
-            y = L.gated_mlp(p["mlp"], h)
-        return x + y, _store_kv(cache, kv, window)
+            y = _gated_mlp(cfg, p["mlp"], h, tp)
+        return x + y, _store_kv(cache, kv, window, seq_block)
     if kind == DEC_ATTN:
         h = apply_norm(cfg, p["ln1"], x)
         y, kv = attn.self_attention_prefill(p["attn"], h, cfg,
@@ -349,18 +393,26 @@ def apply_encoder_block(cfg: ModelConfig, p: Params,
     return x + L.mlp(p["mlp"], h)
 
 
-def _store_kv(cache: Params, kv: Params, window: int = 0) -> Params:
+def _store_kv(cache: Params, kv: Params, window: int = 0,
+              seq_block: Optional[Tuple[int, int]] = None) -> Params:
     """Write prefill KV ((B, KV, S, hd) layout) into the front of the
     cache's sequence axis and zero the rest, in place (the reference's
     ``_pad_cache``).  A ring cache (``window > 0``) of S' slots takes the
-    first S' entries of the prefill's ring layout."""
+    first S' entries of the prefill's ring layout.  With ``seq_block`` =
+    (n, i) the cache tensors hold block i of n of the sequence, and take
+    that block of the padded rows."""
+    n, i = seq_block or (1, 0)
     for name, a in kv.items():
-        s, cache_len = a.shape[2], cache[name].shape[2]
+        s, local = a.shape[2], cache[name].shape[2]
+        cache_len = local * n
         if s > cache_len:
             if window <= 0:
                 raise ValueError(f"a prompt of {s} tokens does not fit the "
                                  f"dense cache of {cache_len}")
             a, s = a[:, :, :cache_len], cache_len
+        if n > 1:
+            a = a[:, :, i * local:(i + 1) * local]
+            s = a.shape[2]
         cache[name][:, :, :s].copy_(a)
         cache[name][:, :, s:].zero_()
     return cache
@@ -375,6 +427,14 @@ def _moe(cfg: ModelConfig, p: Params, h: torch.Tensor,
                              impl.moe_dispatch)
 
 
+def _gated_mlp(cfg: ModelConfig, p: Params, h: torch.Tensor,
+               tp=None) -> torch.Tensor:
+    """The gated MLP, on this rank's ffn columns where the planner split
+    them over ``tp``."""
+    split = tp is not None and p["wi_gate"].shape[-1] < cfg.d_ff
+    return L.gated_mlp(p, h, tp if split else None)
+
+
 def _attn_mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                     window: int, tp=None) -> torch.Tensor:
     """With ``tp``, the attention and the MLP each run this rank's heads
@@ -384,8 +444,7 @@ def _attn_mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
     x = x + attn.self_attention_train(p["attn"], h, cfg, causal=True,
                                       window=window, tp=tp)
     h = apply_norm(cfg, p["ln2"], x)
-    split = tp is not None and p["mlp"]["wi_gate"].shape[-1] < cfg.d_ff
-    return x + L.gated_mlp(p["mlp"], h, tp if split else None)
+    return x + _gated_mlp(cfg, p["mlp"], h, tp)
 
 
 def _shared_attn_apply(cfg: ModelConfig, sp: Params, x: torch.Tensor,
@@ -397,8 +456,7 @@ def _shared_attn_apply(cfg: ModelConfig, sp: Params, x: torch.Tensor,
     h = apply_norm(cfg, sp["ln1"], x)
     y = attn.self_attention_train(sp["attn"], h, cfg, causal=True, tp=tp)
     h2 = apply_norm(cfg, sp["ln2"], x + y)
-    split = tp is not None and sp["mlp"]["wi_gate"].shape[-1] < cfg.d_ff
-    return y + L.gated_mlp(sp["mlp"], h2, tp if split else None)
+    return y + _gated_mlp(cfg, sp["mlp"], h2, tp)
 
 
 def apply_block_train(cfg: ModelConfig, kind: str, p: Params,

@@ -341,7 +341,7 @@ class Cluster:
                 f"a Cluster of {npods} pods with a TorchExecutor: the "
                 "executor binds every app on its own host's cards, so each "
                 "pod would count those cards' bytes again; one pod until the "
-                "multi-card slice of ROADMAP item A8c")
+                "multi-card slice of ROADMAP item A8d")
         if isinstance(pods, int):
             pods = [PodState(f"pod{i}", self.mesh.num_devices,
                              self.mesh.hbm_per_device) for i in range(pods)]

@@ -19,15 +19,19 @@ A serve app's pool is a view of the pod's shared page pool by default
 and an app's replicas alias one ``KVArrayStore`` and, with
 ``prefix_cache=True``, one pod-global prefix cache.
 
-``TorchExecutor`` binds a training plan on a mesh of several devices
-inside a ``torch.distributed`` world of that many ranks (``torchrun``,
-or ranks spawned with a ``file://`` rendezvous): every rank submits the
-same application to the same one-pod ``Cluster``, binds its block of
-the plan's layouts (``sharding.planner``) on its own card, and runs the
-sharded train step; the footprint is the largest of the ranks', so
-every rank's control plane takes the same decisions, and rank 0 alone
-writes checkpoints.  Outside such a world, and for serving, a
-multi-card plan is refused with ``NotImplementedError``.
+``TorchExecutor`` binds a plan on a mesh of several devices inside a
+``torch.distributed`` world of that many ranks (``torchrun``, or ranks
+spawned with a ``file://`` rendezvous): every rank submits the same
+application to the same one-pod ``Cluster``, binds its block of the
+plan's layouts (``sharding.planner``) on its own card, and runs the
+sharded train step, or serves on the dense backend with its blocks of
+the weights and the cache (an attention stack under a plan without
+FSDP: ``DenseRunner(layout=...)``), its engine in step with the other
+ranks'; the footprint is the largest of the ranks', so every rank's
+control plane takes the same decisions, and rank 0 alone writes
+checkpoints.  Outside such a world a multi-card plan is refused with
+``NotImplementedError``, and so are the paged backend and an FSDP plan
+on a mesh (ROADMAP item A8d).
 """
 
 from __future__ import annotations
@@ -192,10 +196,15 @@ class TorchExecutor(Executor):
 
     def init_params(self, handle: "AppHandle"):
         """The weights an application binds with: random from ``seed`` on
-        the executor's device.  A parity run overrides this to bridge in
-        the reference's weights."""
-        from repro_torch.models.model import init_params
-        return init_params(handle.app.config, self.seed, self.device)
+        the executor's device (a serve app on a mesh: this rank's blocks of
+        them, drawn leaf by leaf).  A parity run overrides this to bridge
+        in the reference's weights."""
+        from repro_torch.models.model import init_params, param_specs
+        cfg = handle.app.config
+        layout = handle.exec_state.get("serve_layout")
+        return init_params(cfg, self.seed, self.device, layouts=None
+                           if layout is None else
+                           layout.params(cfg, param_specs(cfg)))
 
     # -- binding ------------------------------------------------------------
     def bind(self, handle: "AppHandle") -> None:
@@ -221,23 +230,40 @@ class TorchExecutor(Executor):
         import torch.distributed as dist
 
         from repro_torch.launch.mesh import TorchMesh, rank_device
-        mesh = handle.plan.mesh
+        from repro_torch.sharding.planner import ServeLayout
+        plan, app = handle.plan, handle.app
+        mesh = plan.mesh
         world = dist.get_world_size() if dist.is_initialized() else None
-        if handle.app.kind != "train" or world != mesh.num_devices:
+        if world != mesh.num_devices:
             where = ("no torch.distributed world" if world is None
                      else f"a world of {world} ranks")
             raise NotImplementedError(
-                f"{handle.app.name}: the plan's mesh {mesh.name!r} has "
+                f"{app.name}: the plan's mesh {mesh.name!r} has "
                 f"{mesh.num_devices} devices; the port binds a multi-card "
-                f"plan for training only, inside a world of "
-                f"{mesh.num_devices} ranks (here: {handle.app.kind}, "
-                f"{where}); launch it with torchrun --nproc-per-node "
-                f"{mesh.num_devices} -m repro_torch.launch.train --mesh "
-                f"{mesh.name}")
+                f"plan inside a world of {mesh.num_devices} ranks only "
+                f"(here: {app.kind}, {where}); launch it with torchrun "
+                f"--nproc-per-node {mesh.num_devices} -m "
+                f"repro_torch.launch.{app.kind} --mesh {mesh.name}"
+                + ("; a serve plan outside its world is ROADMAP item A8d"
+                   if app.kind == "serve" else ""))
+        if app.kind == "serve":
+            opts = self.serve_opts(handle)
+            if opts.backend != "dense" or plan.fsdp:
+                what = (f"the {opts.backend} backend" if opts.backend
+                        != "dense" else "a plan with fsdp (weight-gathered "
+                        "serving)")
+                raise NotImplementedError(
+                    f"{app.name}: {what} on the mesh {mesh.name!r}: the port "
+                    "serves a multi-card plan on the dense backend with the "
+                    "weights split by TP; the paged backend on a mesh and "
+                    "weight-gathered serving are ROADMAP item A8d")
         self.device = rank_device(self.device)
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         handle.exec_state["mesh"] = TorchMesh(mesh)
+        if app.kind == "serve":
+            handle.exec_state["serve_layout"] = ServeLayout(
+                plan, handle.exec_state["mesh"])
 
     def _bind_train(self, handle: "AppHandle") -> None:
         import dataclasses
@@ -453,7 +479,9 @@ class TorchExecutor(Executor):
                                   kv_store=kv_store,
                                   prefix_cache=prefix_cache,
                                   chunk_pages=opts.chunk_pages or 4,
-                                  params=params, device=self.device)
+                                  params=params, device=self.device,
+                                  layout=handle.exec_state.get(
+                                      "serve_layout"))
         except Exception:
             # the pool view is already registered on the pod: an orphan
             # would dilute every tenant's fair share (close also unbinds

@@ -58,7 +58,14 @@ whisper, whose prefill cannot run without its frames.
 It copies the reference's behaviour exactly, since token parity depends
 on it: prompts are never padded, and decode runs the whole slot batch at
 one shared position.  A sliding-window layer's dense cache is a ring of
-``min(cache_len, window)`` slots.
+``min(cache_len, window)`` slots.  Under a serving plan of a mesh
+(``layout``, a ``planner.ServeLayout``; the attention stacks) each rank
+holds its blocks of the weights and of the cache: its slots are its
+block of the lanes over the plan's batch axes, a request's prompt is
+prefilled by the ranks that hold its slot, a decode step runs each
+rank's lanes, and the first and next tokens are all-gathered over the
+batch axes, so that every rank's engine holds the same requests and
+tokens.
 
 Idle parking (``autoscale/parking.py``): ``park`` snapshots a runner's
 decode state and weights to the host in the checkpointer's array format
@@ -85,11 +92,13 @@ from repro_torch.kernels.paged_attention import paged_attention
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models.model import (Model, check_family, embed_tokens,
-                                      init_params, layer_params, pageable)
+                                      gather_lanes, init_params, lane_block,
+                                      layer_params, pageable, param_specs)
 from repro_torch.models.transformer import ImplConfig
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.kv_cache import (PAGE_SIZE, PageGroups, Request,
                                          page_table)
+from repro_torch.serving.serve_step import impl_from_plan
 
 KV_DTYPE = torch.bfloat16
 
@@ -244,9 +253,12 @@ class ModelRunner:
         self.engine = None
         self.generated: Dict[str, List[int]] = {}
         # parity checks: the top-1 minus top-2 logit gap of every emitted
-        # token, per request (a near-tie may flip under other roundings)
+        # token, per request (a near-tie may flip under other roundings),
+        # and, recorded with them, the top-1 logit (the scale of its bf16
+        # rounding)
         self.margins: Optional[Dict[str, List[float]]] = (
             {} if record_margins else None)
+        self.tops: Dict[str, List[float]] = {}
 
     def bind(self, engine) -> None:
         self.engine = engine
@@ -321,22 +333,35 @@ class ModelRunner:
         """logits: one (V,) row per request in ``reqs``."""
         if self.margins is None:
             return
-        top = logits.topk(2, dim=-1).values
-        for req, gap in zip(reqs, (top[:, 0] - top[:, 1]).tolist()):
+        self._record_top2(reqs, top2(logits).tolist())
+
+    def _record_top2(self, reqs: List[Request], pairs) -> None:
+        """``pairs``: one (gap, top-1 logit) per request in ``reqs``."""
+        for req, (gap, top) in zip(reqs, pairs):
             self.margins.setdefault(req.req_id, []).append(gap)
+            self.tops.setdefault(req.req_id, []).append(top)
+
+
+def top2(logits: torch.Tensor) -> torch.Tensor:
+    """Each row's (top-1 minus top-2 logit, top-1 logit), (..., 2)."""
+    top = logits.topk(2, dim=-1).values
+    return torch.stack([top[..., 0] - top[..., 1], top[..., 0]], dim=-1)
 
 
 class DenseRunner(ModelRunner):
     """Slot-indexed dense cache; prefill through ``Model.prefill`` and
     decode through ``Model.decode_step`` (the reference's
-    ``DenseRunner``)."""
+    ``DenseRunner``).  With ``layout`` (a serving plan over a mesh) the
+    rank's blocks of the weights (``params`` as they are, or drawn from
+    ``seed`` block by block) and of the cache, the rank's block of the
+    slots (module doc)."""
 
     backend = "dense"
 
     def __init__(self, cfg: ModelConfig, *, seed: int = 0,
                  max_batch: int = 4, cache_len: int = 256,
                  params: Optional[dict] = None, device: DeviceLike = None,
-                 record_margins: bool = False):
+                 record_margins: bool = False, layout=None):
         super().__init__(record_margins)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -348,18 +373,33 @@ class DenseRunner(ModelRunner):
                 "encoder-decoder whose prefill needs its encoder's frame "
                 "features: drive Model.prefill(..., enc_feats=...) and "
                 "Model.decode_step directly")
-        self.model = Model(cfg, ImplConfig(remat="none"))
+        self.model = (Model(cfg, ImplConfig(remat="none")) if layout is None
+                      else Model(cfg, impl_from_plan(layout.plan, layout.mesh),
+                                 layout=layout))
         # first: it refuses the kinds the dense path does not serve yet
         # before any weight is made
         self.cache = self.model.init_cache(max_batch, cache_len, self.device)
-        self.params = (init_params(cfg, seed, self.device) if params is None
-                       else params)
+        self.params = (init_params(cfg, seed, self.device, layouts=None
+                                   if layout is None else
+                                   layout.params(cfg, param_specs(cfg)))
+                       if params is None else params)
         self.slots: Dict[str, tuple] = {}      # req_id -> (slot, prompt_len)
+        # this rank's block of the slots: (blocks, its block)
+        self.lanes = lane_block(self.model.lanes)
+        # prompts this rank prefilled (its slots' requests)
+        self.local_prefills = 0
+
+    def _rows(self) -> slice:
+        n, i = self.lanes
+        per = self.max_batch // n
+        return slice(i * per, (i + 1) * per)
 
     def prefill(self, req: Request) -> None:
         """Forward over the whole prompt -- never padded or bucketed: the
         recurrent state after padded tokens cannot be masked back out --
-        writing its decode state into the request's slot."""
+        writing its decode state into the request's slot.  On a mesh only
+        the ranks holding the slot run it; its first token (and its top-2
+        gap) reach every rank from them."""
         toks = prompt_for(req, self.cfg.vocab_size).to(self.device)
         # evict slots of preempted requests (the engine re-queues them;
         # only completion frees a slot via finish) before picking one
@@ -373,10 +413,27 @@ class DenseRunner(ModelRunner):
             slot = min(set(range(self.max_batch))
                        - {s for s, _ in self.slots.values()})
         self.slots[req.req_id] = (slot, req.prompt_len)
-        logits, _ = self.model.prefill(self.params, toks, self.cache_len,
-                                       cache=self.cache, slot=slot)
-        self._record_margins([req], logits[:, -1])
-        self.generated[req.req_id] = [int(logits[0, -1].argmax())]
+        rows, n = self._rows(), self.lanes[0]
+        first, pair = None, [0.0, 0.0]
+        if rows.start <= slot < rows.stop:
+            logits, _ = self.model.prefill(self.params, toks, self.cache_len,
+                                           cache=self.cache,
+                                           slot=slot - rows.start)
+            self.local_prefills += 1
+            first = int(logits[0, -1].argmax())
+            if self.margins is not None:
+                pair = top2(logits[0, -1]).tolist()
+        if n > 1:
+            # the holders' token and (gap, top) to every rank, by block
+            # order
+            mine = torch.tensor([[-1.0 if first is None else first] + pair],
+                                dtype=torch.float64, device=self.device)
+            first, *pair = gather_lanes(mine, self.model.lanes)[
+                slot // (rows.stop - rows.start)].tolist()
+            first = int(first)
+        if self.margins is not None:
+            self._record_top2([req], [pair])
+        self.generated[req.req_id] = [first]
 
     def decode(self, running: List[Request]) -> None:
         """One step for the whole slot batch at ONE shared position, the
@@ -385,7 +442,9 @@ class DenseRunner(ModelRunner):
         lane attends over ``[0, pos]`` (a shorter request's cache holds
         zero K/V rows in between, which take part in its softmax), and
         RWKV-6's sinusoidal position is that ``pos`` too.  Idle slots run
-        token 0; their state is overwritten by the next prefill."""
+        token 0; their state is overwritten by the next prefill.  On a
+        mesh each rank runs its block of the slots, and the next tokens
+        (and top-2 gaps) are all-gathered over the batch axes."""
         if not running:
             return
         toks = np.zeros((self.max_batch, 1), np.int64)
@@ -395,12 +454,15 @@ class DenseRunner(ModelRunner):
             toks[slot, 0] = self.generated[req.req_id][-1]
             pos = max(pos, plen + req.generated)
         logits, _ = self.model.decode_step(
-            self.params, torch.from_numpy(toks).to(self.device), self.cache,
-            pos)
+            self.params, torch.from_numpy(toks[self._rows()]).to(self.device),
+            self.cache, pos)
         slots = [self.slots[r.req_id][0] for r in running]
-        self._record_margins(running, logits[slots, -1])
+        if self.margins is not None:
+            pairs = gather_lanes(top2(logits[:, -1]), self.model.lanes)
+            self._record_top2(running, pairs[slots].tolist())
         # the one batched device->host fetch of the step
-        nxt = logits[:, -1].argmax(-1).tolist()
+        nxt = gather_lanes(logits[:, -1].argmax(-1),
+                           self.model.lanes).tolist()
         for req, slot in zip(running, slots):
             self.generated[req.req_id].append(nxt[slot])
 
@@ -994,12 +1056,13 @@ def build_runner(backend: str, cfg: ModelConfig, *, seed: int = 0,
                  prefix_cache=None,
                  chunk_pages: int = 4, params: Optional[dict] = None,
                  device: DeviceLike = None,
-                 record_margins: bool = False) -> ModelRunner:
+                 record_margins: bool = False, layout=None) -> ModelRunner:
     """Factory keyed by the serving backend name.  ``kv_store`` aliases
     the paged backend onto the pod's shared page tensors;
     ``prefix_cache`` attaches a prefix cache, and is refused on the dense
     backend (it has no page identity to share), as the reference refuses
-    it, rather than silently dropped."""
+    it, rather than silently dropped.  ``layout`` (a serving plan over a
+    mesh) is the dense backend's only."""
     if backend == "dense":
         if prefix_cache is not None:
             raise ValueError(
@@ -1008,7 +1071,11 @@ def build_runner(backend: str, cfg: ModelConfig, *, seed: int = 0,
                 "backend='paged' or drop the option")
         return DenseRunner(cfg, seed=seed, max_batch=max_batch,
                            cache_len=cache_len, params=params, device=device,
-                           record_margins=record_margins)
+                           record_margins=record_margins, layout=layout)
+    if layout is not None:
+        raise NotImplementedError(
+            f"backend={backend!r} under a plan of a mesh: the paged backend "
+            "on a mesh is ROADMAP item A8d (serve it with backend='dense')")
     if backend == "paged":
         return PagedRunner(cfg, seed=seed, pool_pages=pool_pages,
                            max_batch=max_batch, use_rings=use_rings,

@@ -5,6 +5,13 @@ Plain torch callables over the port's :class:`Model`: the serving
 runners (``serving/model_runner.py``) drive the same entry points with
 the engine's slots and pages; these are the step functions of one
 batch on its own.  Greedy decoding is ``argmax`` of the last logits.
+
+Under a serving plan of a mesh (``Model(layout=...)``) each rank calls
+the steps with its lanes and its blocks of the params and cache, and the
+steps return every lane's logits and next tokens on every rank, as the
+reference's jitted steps return them replicated (``out_shardings``
+None): the rank's lanes' logits are all-gathered over the axes the
+cache's lanes are split over.
 """
 
 from __future__ import annotations
@@ -14,23 +21,33 @@ from typing import Callable
 import torch
 
 from repro_torch.core.materializer import Plan
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, gather_lanes
 from repro_torch.models.transformer import ImplConfig
 
 
-def impl_from_plan(plan: Plan) -> ImplConfig:
+def impl_from_plan(plan: Plan, mesh=None) -> ImplConfig:
     """The serving execution strategy of ``plan``: its attention
-    implementation, no rematerialization (nothing is differentiated).
-    The reference's block scan/unroll knobs have no counterpart: the
-    port's blocks are always a Python loop."""
-    return ImplConfig(attn_impl=plan.attn_impl, remat="none")
+    implementation, no rematerialization (nothing is differentiated), and
+    on ``mesh`` (a ``TorchMesh``), where the plan shards the KV cache's
+    sequence (``kv_shard_seq`` or ``seq_axes``), the reference's
+    ``decode_shard_ctx`` (mesh, the sequence axes, the batch axes), as
+    ``dryrun._model_impl`` sets it for a decode cell.  The reference's
+    block scan/unroll knobs have no counterpart: the port's blocks are
+    always a Python loop."""
+    shard_ctx = None
+    if mesh is not None and (plan.kv_shard_seq or plan.seq_axes):
+        shard_ctx = (mesh, tuple(plan.seq_axes or ("model",)),
+                     tuple(plan.batch_axes))
+    return ImplConfig(attn_impl=plan.attn_impl, remat="none",
+                      decode_shard_ctx=shard_ctx)
 
 
 def make_prefill_step(model: Model, cache_len: int) -> Callable:
     """prefill(params, tokens (B, S)) -> (last-token logits (B, 1, V),
     a dense cache of ``cache_len`` positions)."""
     def prefill(params, tokens):
-        return model.prefill(params, tokens, cache_len)
+        logits, cache = model.prefill(params, tokens, cache_len)
+        return gather_lanes(logits, model.lanes), cache
     return prefill
 
 
@@ -39,6 +56,7 @@ def make_decode_step(model: Model) -> Callable:
     logits, cache), the cache updated in place."""
     def decode(params, tokens, cache, pos):
         logits, cache = model.decode_step(params, tokens, cache, pos)
+        logits = gather_lanes(logits, model.lanes)
         nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
         return nxt, logits, cache
     return decode

@@ -1,4 +1,5 @@
-"""The collectives of a sharded train step, written out.
+"""The collectives of a sharded train step and of sharded serving,
+written out.
 
 The reference's sharded training is GSPMD: ``jax.jit`` over the
 planner's PartitionSpecs, with the partitioner inserting the
@@ -19,9 +20,16 @@ tensor-parallel pair of autograd ops (:func:`copy_to_tp`,
 scatter/gather pair of activations over the ``model`` axis
 (:func:`scatter_to_tp`, :func:`gather_from_tp`), the token exchange
 (:func:`all_to_all`) and the balance loss's mean over the mesh
-(:func:`mesh_mean`).  Only ``all_reduce``, ``all_gather``,
-``reduce_scatter`` and ``all_to_all_single`` are used, which both
-backends have, card tensors included, so the same code runs on both.
+(:func:`mesh_mean`).  Sharded serving adds two forward-only ones: the
+blocks of a tensor along a dim, concatenated in the mesh's block order
+on every rank (:func:`gather_along`: the lanes' next tokens over the
+batch axes), and the merge of the partial softmax states of a
+sequence-sharded decode (:func:`combine_softmax_parts`: each rank's
+attention output over its block of the cache and its log-sum-exp,
+all-gathered over the sequence axes and combined in fp32).  Only
+``all_reduce``, ``all_gather``, ``reduce_scatter`` and
+``all_to_all_single`` are used, which both backends have, card tensors
+included, so the same code runs on both; a collective's error raises.
 """
 
 from __future__ import annotations
@@ -76,6 +84,44 @@ def _blocks(t: torch.Tensor, mesh, axes) -> List[torch.Tensor]:
     for r, o in zip(members, outs):
         blocks[mesh.index(axes, mesh.coords_of(r))] = o
     return blocks
+
+
+def gather_along(t: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``t`` along ``axes`` concatenated along ``dim`` in
+    their block order (the first axis major), the same on every rank;
+    ``t`` itself when ``axes`` span one rank."""
+    if mesh.size(axes) == 1:
+        return t
+    return torch.cat(_blocks(t, mesh, axes), dim=dim)
+
+
+def merge_softmax_parts(outs: torch.Tensor,
+                        lses: torch.Tensor) -> torch.Tensor:
+    """The attention over the union of disjoint key blocks from each
+    block's own: ``outs`` (R, ..., D), each block's softmax-weighted
+    values, and ``lses`` (R, ...), each block's log-sum-exp of its scores
+    (-inf for a block with no key).  In fp32: lse* = logsumexp_r lse_r,
+    out = sum_r exp(lse_r - lse*) out_r, summed in block order; a row
+    whose every block is empty gives 0.  Returns (..., D) in ``outs``'
+    dtype."""
+    lses = lses.float()
+    top = torch.logsumexp(lses, dim=0)
+    top = torch.where(torch.isfinite(top), top, 0.0)
+    w = torch.exp(lses - top)                 # 0 where lse_r = -inf
+    out = (w[..., None] * outs.float()).sum(0)
+    return out.to(outs.dtype)
+
+
+def combine_softmax_parts(out: torch.Tensor, lse: torch.Tensor, mesh,
+                          axes) -> torch.Tensor:
+    """A sequence-sharded decode's attention: this rank's ``out`` (B, H,
+    D) over its block of the cache and ``lse`` (B, H) fp32, all-gathered
+    over the sequence ``axes`` in block order and merged
+    (:func:`merge_softmax_parts`), the same on every rank of the group.
+    Forward only."""
+    outs = _blocks(out, mesh, axes)
+    lses = _blocks(lse.float(), mesh, axes)
+    return merge_softmax_parts(torch.stack(outs), torch.stack(lses))
 
 
 def _refined(fine: "Layout", coarse: "Layout", dim: int) -> Tuple[str, ...]:

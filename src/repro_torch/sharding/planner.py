@@ -323,6 +323,22 @@ class PlanLayouts(NamedTuple):
     batch: Layout
 
 
+class ServeLayout(NamedTuple):
+    """A serving plan laid over a torch mesh: where the weights live
+    (:meth:`params`, ``param_specs_tree``) and where the dense cache's
+    leaves live (:meth:`cache`, ``cache_specs_tree``: the lanes over the
+    plan's batch axes, the KV heads over ``model`` or the sequence over
+    the plan's sequence axes)."""
+    plan: Plan
+    mesh: Any
+
+    def params(self, cfg: ModelConfig, specs) -> Any:
+        return to_layout(param_specs_tree(self.plan, cfg, specs), self.mesh)
+
+    def cache(self, cfg: ModelConfig, specs) -> Any:
+        return to_layout(cache_specs_tree(self.plan, cfg, specs), self.mesh)
+
+
 def plan_layouts(plan: Plan, cfg: ModelConfig, specs, mesh) -> PlanLayouts:
     """The :class:`PlanLayouts` of ``plan`` for the spec tree ``specs``."""
     return PlanLayouts(

@@ -209,8 +209,10 @@ def test_chrome_trace_shape_matches_reference(tmp_path):
 
 
 def _summary_lines(out):
-    """The summary's lines with every decimal (a time or a rate) masked."""
-    return [re.sub(r"\d+\.\d+", "#", line) for line in out.splitlines()]
+    """The summary's lines with every decimal (a time or a rate) masked,
+    its exponent too (a time under 1e-4 s prints as ``1.23e-05``)."""
+    return [re.sub(r"\d+\.\d+(?:e[-+]\d+)?", "#", line)
+            for line in out.splitlines()]
 
 
 def test_cli_summary_matches_reference(tmp_path):

@@ -1,6 +1,7 @@
 """Rank programs of ``tests/test_torch_distributed.py``,
-``tests/test_torch_expert_parallel.py`` and
-``tests/test_torch_deep_sharded.py``.
+``tests/test_torch_expert_parallel.py``,
+``tests/test_torch_deep_sharded.py`` and
+``tests/test_torch_sharded_serving.py``.
 
 Each rank of a world runs in its own process (:func:`run_world` starts
 them)::
@@ -412,9 +413,141 @@ def deep_sharded(rank: int, d: str) -> None:
         torch.save(out, os.path.join(d, "deep_out.pt"))
 
 
+def _serve_decode(model, params, cache, feed, pos0):
+    """``make_decode_step`` over the fed tokens (B, steps) from ``pos0``,
+    this rank's lanes of them -> (each step's logits, every lane's, on
+    this rank; its next tokens; the cache)."""
+    from repro_torch.models.model import lane_block
+    from repro_torch.serving.serve_step import make_decode_step
+    n, i = lane_block(model.lanes)
+    per = feed.shape[0] // n
+    step, logits, nxt = make_decode_step(model), [], []
+    for j in range(feed.shape[1]):
+        tok, lg, cache = step(params, feed[i * per:(i + 1) * per, j:j + 1],
+                              cache, pos0 + j)
+        logits.append(lg)
+        nxt.append(tok)
+    return torch.stack(logits), torch.stack(nxt), cache
+
+
+def _local_cache(model, cache):
+    """This rank's blocks of the whole cache tree ``cache`` under the
+    model's serving layout (the reference test's ``device_put`` of one
+    device's cache onto the mesh), copied."""
+    lay = model.cache_layouts
+    return {key: {k: lay[key][k].local(t).clone() for k, t in leaf.items()}
+            for key, leaf in cache.items()}
+
+
+def _whole_cache(model, cache):
+    """Every rank's blocks of ``model``'s cache put together, on every
+    rank."""
+    lay = model.cache_layouts
+    return {key: {k: C.gather_full(t, lay[key][k]) for k, t in leaf.items()}
+            for key, leaf in cache.items()}
+
+
+def _local_params(params, layouts):
+    return opt.tree_unflatten(params, [
+        lay.local(p).clone() for p, lay in zip(opt.leaves(params),
+                                               opt.leaves(layouts))])
+
+
+def _refusal(fn):
+    try:
+        fn()
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def sharded_serving(rank: int, d: str) -> None:
+    """The cases of ``d/serving.pt`` on ``h100x4`` (rank's lanes, its
+    blocks of the weights and the cache): the sequence-sharded decode
+    from the one-process prefill's cache (``seqshard``), the TP prefill
+    and decode under the ladder's plan (``tp``), ``launch.serve`` through
+    ``Cluster.submit`` (``serve``) and the refusals; each rank saves what
+    it returned to ``d/serving_<rank>.pt``."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.model import (Model, gather_lanes, lane_block,
+                                          param_specs)
+    from repro_torch.runtime import (Application, Cluster, ServeOptions,
+                                     TorchExecutor)
+    from repro_torch.serving.serve_step import (impl_from_plan,
+                                                make_prefill_step)
+    from repro_torch.sharding.planner import ServeLayout
+    cases = torch.load(os.path.join(d, "serving.pt"), weights_only=False)
+    mesh, out = TorchMesh(H100X4), {}
+    for name, case in cases["seqshard"].items():
+        cfg, plan = case["cfg"], case["plan"]
+        layout = ServeLayout(plan, mesh)
+        model = Model(cfg, impl_from_plan(plan, mesh), layout=layout)
+        params = _local_params(case["params"],
+                               layout.params(cfg, param_specs(cfg)))
+        cache = _local_cache(model, case["cache"])
+        logits, nxt, cache = _serve_decode(model, params, cache,
+                                           case["feed"], case["pos"])
+        out[name] = {"logits": logits, "next": nxt,
+                     "cache": _whole_cache(model, cache),
+                     "lanes": lane_block(model.lanes),
+                     "cache_shape": tuple(cache["p0_attn_global"]["k"].shape)}
+    for name, case in cases["tp"].items():
+        cfg, plan, cl = case["cfg"], case["plan"], case["cache_len"]
+        layout = ServeLayout(plan, mesh)
+        model = Model(cfg, impl_from_plan(plan, mesh), layout=layout)
+        params = _local_params(case["params"],
+                               layout.params(cfg, param_specs(cfg)))
+        prompt = case["prompt"]
+        n = mesh.size(plan.batch_axes)
+        per = prompt.shape[0] // n
+        rows = prompt[mesh.index(plan.batch_axes) * per:][:per]
+        if case["dtype"] == torch.bfloat16:
+            first, cache = make_prefill_step(model, cl)(params, rows)
+        else:
+            cache = model.init_cache(prompt.shape[0], cl, "cpu",
+                                     case["dtype"])
+            first, cache = model.prefill(params, rows, cl, cache=cache)
+            first = gather_lanes(first, model.lanes)
+        logits, nxt, cache = _serve_decode(model, params, cache,
+                                           case["feed"], prompt.shape[1])
+        out[name] = {"first": first, "logits": logits, "next": nxt,
+                     "cache": _whole_cache(model, cache),
+                     "wq": tuple(params["blocks"][next(iter(
+                         params["blocks"]))]["attn"]["wq"].shape),
+                     "cache_k": tuple(next(iter(cache.values()))["k"].shape)}
+    sv = cases["serve"]
+    res = serve(sv["arch"], backend="dense", reduced=True, device="cpu",
+                requests=sv["requests"], max_batch=sv["max_batch"],
+                prompt_range=sv["prompt_range"], max_new=sv["max_new"],
+                verbose=False, mesh="h100x4", dist_backend="gloo")
+    out["serve"] = {"tokens": {r.req_id: r.output_tokens
+                               for r in res["requests"]},
+                    "local_prefills": res["runner"].local_prefills,
+                    "plan": res["plan"].describe(),
+                    "wq": tuple(res["runner"].params["blocks"][
+                        "p0_attn_global"]["attn"]["wq"].shape)}
+
+    def submit(arch, backend="dense", mesh_spec=H100X4, overrides=None):
+        c = Cluster(pods=1, mesh=mesh_spec,
+                    executor=TorchExecutor(device="cpu"))
+        c.submit(Application.serve(arch, reduced=True,
+                                   serve=ServeOptions(backend=backend)),
+                 overrides=overrides)
+
+    out["refused"] = {
+        "paged": _refusal(lambda: submit("command-r-35b", "paged")),
+        "fsdp": _refusal(lambda: submit("command-r-35b",
+                                        overrides={"fsdp": True})),
+        "world": _refusal(lambda: submit("command-r-35b", mesh_spec=DGX8)),
+        "moe": _refusal(lambda: submit("qwen2-moe-a2.7b")),
+        "mamba": _refusal(lambda: submit("zamba2-2.7b"))}
+    torch.save(out, os.path.join(d, f"serving_{rank}.pt"))
+
+
 PROGRAMS = {"world8": world8, "launch_train": launch_train,
             "expert_parallel": expert_parallel,
-            "deep_sharded": deep_sharded}
+            "deep_sharded": deep_sharded,
+            "sharded_serving": sharded_serving}
 
 
 def main(argv) -> None:
