@@ -368,6 +368,41 @@ Phases, each of which must pass (any failure exits nonzero):
    one card's, rank 0's every decode call's wall, each rank's peak, the
    collectives' share of the profiled step.  :func:`serve_on_ranks` runs
    the phase alone.
+24. sharded serving of the families, over the same ranks: full-width
+   qwen2-moe-a2.7b (TP over its 16 heads of 128 at G = 1 and its shared
+   experts' ffn, EP over its 64 padded experts, the ``psum`` dispatch),
+   zamba2-2.7b (Mamba-2 over 40 of 80 heads a rank, the SSM state split
+   by heads, the conv state whole on every rank; the shared attention
+   block over 16 of 32 heads of 80), rwkv6-7b (32 of 64 heads, the WKV
+   state split by heads, the token shifts whole) and phi-3-vision-4.2b
+   (16 of 32 heads of 96), random bf16 weights from seed 0 (qwen2-moe at
+   the capacity factor ``FAMILY_NO_DROP``, where no expert drops a
+   pair: its drops are held against the reference's on the CPU), each rank
+   drawing only its blocks, at ``FAMILY_ONE_CARD_LAYERS`` (4 layers;
+   zamba2 one pattern block of 6) on one card (gloo, four ranks on
+   ``cuda:0``) and the full depth on four (NCCL).  One card first runs
+   every reference (:func:`family_references`).  For each family (i) each
+   rank calls ``launch.serve`` on ``h100x4`` under the ladder's plan,
+   which must place as its ``decode_32k`` plan does (TP, EP where the
+   family has experts, KV heads over 'model', the lanes over 'data', no
+   FSDP), phase 23's traffic (8 requests of 512..2016 tokens, 32 new),
+   one decode call of qwen2-moe's profiled on rank 0; (ii) the lanes run
+   (:func:`family_lanes`): 8 lanes of a 504-token prompt and 16 steps
+   decoding one card's tokens -- qwen2-moe under the ``a2a`` dispatch,
+   and phi-3-vision with 576 seeded image embeddings ahead of each prompt;
+   (iii) the fp32 anchor at ``FAMILY_ONE_CARD_LAYERS``: the first
+   ``FAMILY_ANCHOR_DECODED`` requests' prefill and greedy tokens in fp32
+   on one card and on the ranks (one card prefills every request: the
+   bf16 runs' yardstick).  Gates as phase 23's
+   (:func:`family_gates`): the anchor within ``SERVE_FP32_RTOL`` and the
+   strict ``TIE_GAP`` rule; the bf16 logits within
+   ``SERVE_NOISE_FACTOR`` times one card's own distance from fp32, the
+   tokens under the near-tie band; rank 0's launches of K2, K3 (and its
+   split rows), K4, K6 and K7 what the path implies and every rank's
+   nonzero; every rank's peak within its blocks plus ``SERVE_SLACK``.
+   Printed: each rank's launches and peak, the median decode call and
+   TTFT beside one card's, the collectives' share of the profiled call.
+   :func:`families_on_ranks` runs the phase alone.
 
 A failed comparison of a kernel with its plain version prints, before
 the run stops, its first 8 bad elements with both values, the count of
@@ -410,6 +445,15 @@ K3 forward and backward at gemma3's training widths, (4096, 3840) and
 its q- and k-norms' (65536, 256) and (32768, 256), the backward at every
 training shape beside its plain version and autograd through
 ``F.rms_norm``.
+
+Phase 2 also holds the kernels at phase 24's rank shapes
+(:func:`check_rank_shapes`): K2 at a rank's prefill heads, (1,8,1024,128)
+for qwen2-moe, (1,16,1024,80) for zamba2's shared block and
+(1,16,1600,96) for phi-3-vision behind its image tokens; K4 at a rank's 4
+decode lanes of those heads over 2048 positions; K6 at (1,32,1000,64);
+K7 at (1,40,1000,64) with N 64; K3's split rows at 1000 and 4 rows of
+2560 of 5120 channels; two launches bit-equal, each timed with its bound
+(the ``*_tp*`` records, whose launches are phase 24's).
 
 Phase 2 also holds K1 and K2 at mistral-nemo-12b's head dim 128 (K1
 over 8 lanes of 1600..2012 tokens whose tables lead with the same 12
@@ -940,6 +984,7 @@ def check_kernels(torch):
     records += check_head_dim_256(torch, randn, tol)
     records += check_head_dim_128(torch, randn, tol)
     records += check_families_kernels(torch, randn, tol)
+    records += check_rank_shapes(torch, randn, tol)
     for rec in records:
         lib_txt = ("none" if rec["library_ms"] is None
                    else f"{rec['library_ms']:.4f} ms")
@@ -1198,6 +1243,158 @@ def check_rmsnorm_split(torch, randn, tol):
           f"{times[3]:.4f} ms | {card_line()}", flush=True)
 
 
+# phase 24's rank shapes: four ranks of h100x4 split the heads over two
+# 'model' ranks and the 8 lanes over two 'data' ranks.  K2 at a prefill's
+# heads of a rank (phi-3-vision's prompt behind its 576 image tokens), K4
+# at a decode step's 4 lanes (lengths 1..2048) and heads of a rank
+# (record, label, q heads, KV heads, S, head dim)
+RANK_FWD_CASES = (
+    ("flash_attention_fwd_tp_d128", "qwen2-moe prefill, 8 of 16 heads", 8,
+     8, 1024, 128),
+    ("flash_attention_fwd_tp_d80", "zamba2 shared block prefill, 16 of 32 "
+     "heads", 16, 16, 1024, 80),
+    ("flash_attention_fwd_tp_d96", "phi-3-vision prefill of 576 image and "
+     "1024 text tokens, 16 of 32 heads", 16, 16, 1600, 96),
+)
+RANK_DECODE_CASES = (
+    ("decode_attention_tp_d128", "qwen2-moe decode, 8 of 16 heads", 8, 8,
+     128),
+    ("decode_attention_tp_d80", "zamba2 shared block decode, 16 of 32 heads",
+     16, 16, 80),
+    ("decode_attention_tp_d96", "phi-3-vision decode, 16 of 32 heads", 16,
+     16, 96),
+)
+RANK_DECODE_LENS = (1, 2048, 1055, 600)
+
+
+def check_rank_shapes(torch, randn, tol):
+    """The kernels at the shapes phase 24's ranks give them, bf16, against
+    their plain versions at phase 2's limits (K2 by relative norm, as
+    ``check_fwd`` holds every bf16 case; K4 elementwise on fp32 copies; K6
+    and K7 by ``SCAN_REL_NORM``; K3's split rows elementwise), two
+    launches bit-equal, each timed beside its plain version (and SDPA for
+    K2 and K4) with its bound: ``RANK_FWD_CASES``, ``RANK_DECODE_CASES``,
+    K6 at rwkv6-7b's prefill, 32 of 64 heads of 64 over 1000 tokens, K7 at
+    zamba2's, 40 of 80 heads of P 64 and N 64 over 1000 tokens, and K3's
+    split rows at zamba2's gated norm, 2560 of a row's 5120 channels, at a
+    prompt's 1000 rows and a decode step's 4.  A failed comparison prints
+    ``diagnose``'s output and fails the run.  Returns the records (their
+    launches are phase 24's)."""
+    from repro_torch.kernels import rmsnorm as rms
+    from repro_torch.kernels.decode_attention import (decode_attention,
+                                                      decode_attention_ref)
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.rwkv6_scan import rwkv6_wkv, rwkv6_wkv_ref
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_ref
+    dev = torch.device("cuda")
+    bf16 = torch.bfloat16
+    records = []
+
+    def record(name, source, replaces, err, times, shape):
+        ms, plain, lib, b_ms, b_by = times
+        lib_txt = "none" if lib is None else f"{lib:.4f} ms"
+        print(f"[time] {name} ({shape}): kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, library {lib_txt}, bound {b_ms:.4f} ms "
+              f"({b_by}), share of bound {b_ms / ms:.3f} | {card_line()}",
+              flush=True)
+        records.append(dict(name=name, route=("triton" if source.endswith(
+            ".py") else "cuda"), source=source, replaces=replaces,
+            max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+            bound_by=b_by, library_ms=lib, shape=shape))
+
+    for name, label, h, kvh, s, d in RANK_FWD_CASES:
+        q = randn(1, s, h, d).transpose(1, 2)               # model layout
+        k = randn(1, s, kvh, d).transpose(1, 2)
+        v = randn(1, s, kvh, d).transpose(1, 2)
+        kw = dict(causal=True, window=0, q_offset=0)
+        err = check_fwd(torch, label, q, k, v, kw, tol)[0]
+        same_twice(torch, f"flash_attention_fwd {label}",
+                   lambda: flash_attention_fwd(q, k, v))
+        record(name, "src/repro_torch/csrc/flash_attention_fwd.cu",
+               "src/repro/kernels/flash_attention.py:96", err,
+               _fwd_times(torch, q, k, v, True),
+               f"{label}: B=1 H={h} KV={kvh} D={d} S={s} causal; plain_ms "
+               "is the plain version with bf16 operands")
+        del q, k, v
+        torch.cuda.empty_cache()
+    vlen = torch.tensor(RANK_DECODE_LENS, dtype=torch.int32, device=dev)
+    for name, label, h, kvh, d in RANK_DECODE_CASES:
+        b, s = len(RANK_DECODE_LENS), 2048
+        q, k, v = randn(b, h, d), randn(b, kvh, s, d), randn(b, kvh, s, d)
+        err = compare(torch, f"decode_attention {label}",
+                      decode_attention(q, k, v, vlen),
+                      decode_attention_ref(q.float(), k.float(), v.float(),
+                                           vlen), *tol[bf16],
+                      rerun=lambda: decode_attention(q, k, v, vlen))
+        same_twice(torch, f"decode_attention {label}",
+                   lambda: (decode_attention(q, k, v, vlen),))
+        record(name, "src/repro_torch/csrc/decode_attention.cu",
+               "src/repro/kernels/decode_attention.py:63", err,
+               _decode_times(torch, q, k, v, vlen),
+               f"{label}: B={b} H={h} KV={kvh} D={d} S={s}, vlen "
+               f"{list(RANK_DECODE_LENS)}; library_ms is SDPA with a length "
+               "mask")
+        del q, k, v
+
+    b, h, s, hd = 1, 32, 1000, 64
+    ins = _wkv_inputs(torch, randn, b, h, s, hd, bf16)
+    (o, st), (o_r, st_r) = rwkv6_wkv(*ins), rwkv6_wkv_ref(*ins)
+    label = f"rwkv6 prefill, 32 of 64 heads: h={h} s={s} hd={hd}"
+    err = rel_norm(torch, f"rwkv6_wkv o {label}", o, o_r, SCAN_REL_NORM,
+                   lambda: rwkv6_wkv(*ins)[0])
+    rel_norm(torch, f"rwkv6_wkv state {label}", st, st_r, SCAN_REL_NORM,
+             lambda: rwkv6_wkv(*ins)[1])
+    del o_r, st_r
+    same_twice(torch, f"rwkv6_wkv {label}", lambda: rwkv6_wkv(*ins))
+    record("rwkv6_wkv_tp", "src/repro_torch/csrc/rwkv6_scan.cu",
+           "src/repro/kernels/rwkv6_scan.py:73", err,
+           (timed_ms(torch, lambda: rwkv6_wkv(*ins)),
+            timed_ms(torch, lambda: rwkv6_wkv_ref(*ins), iters=3, reps=3),
+            None) + _wkv_bound(b, h, s, hd),
+           f"{label}: r,k,v (B={b}, H={h}, S={s}, hd={hd}) bf16 strided, "
+           "logw fp32")
+
+    b, h, s, p, n = 1, 40, 1000, 64, 64
+    ins = _ssd_inputs(torch, randn, b, h, s, p, n, bf16)
+    (y, st), (y_r, st_r) = ssd_scan(*ins), ssd_scan_ref(*ins)
+    label = f"zamba2 prefill, 40 of 80 heads: h={h} s={s} p={p} n={n}"
+    err = rel_norm(torch, f"ssd_scan y {label}", y, y_r, SCAN_REL_NORM,
+                   lambda: ssd_scan(*ins)[0])
+    rel_norm(torch, f"ssd_scan state {label}", st, st_r, SCAN_REL_NORM,
+             lambda: ssd_scan(*ins)[1])
+    del y_r, st_r
+    same_twice(torch, f"ssd_scan {label}", lambda: ssd_scan(*ins))
+    record("ssd_scan_tp", "src/repro_torch/csrc/ssd_scan.cu",
+           "src/repro/kernels/ssd_scan.py:69", err,
+           (timed_ms(torch, lambda: ssd_scan(*ins)),
+            timed_ms(torch, lambda: ssd_scan_ref(*ins), iters=3, reps=3),
+            None) + _ssd_bound(b, h, s, p, n),
+           f"{label}: x (B={b}, H={h}, S={s}, P={p}) bf16 strided, N={n}")
+
+    # K3's split rows: ``reduce`` doubles a rank's sums, as the group's
+    # all-reduce sums two equal halves
+    split = (5120, lambda t: t.mul_(2))
+    errs = []
+    for rows in (4, 1000):
+        x, g = randn(rows, 2560), randn(2560, scale=0.1)
+        errs.append(compare(
+            torch, f"rmsnorm split rows={rows} d=2560 of 5120 bf16",
+            rms.rmsnorm(x, g, split=split), rms.rmsnorm_ref(x, g,
+                                                            split=split),
+            *tol[bf16], rerun=lambda: rms.rmsnorm(x, g, split=split)))
+        same_twice(torch, f"rmsnorm split rows={rows}",
+                   lambda: (rms.rmsnorm(x, g, split=split),))
+    record("rmsnorm_split_tp", "src/repro_torch/kernels/rmsnorm.py",
+           "src/repro/kernels/rmsnorm.py:24", max(errs),
+           (timed_ms(torch, lambda: rms.rmsnorm(x, g, split=split)),
+            timed_ms(torch, lambda: rms.rmsnorm_ref(x, g, split=split)),
+            None) + rms_bound(rows, 2560, 2, 2, 1, 4),
+           "zamba2's gated norm under TP, x (1000, 2560 of 5120) bf16: the "
+           "stats launch, the group's sum and the norm launch; no library "
+           "call takes the row's mean square from outside")
+    return records
+
+
 # bf16 forward: the tensor-core kernel rounds p to bf16 where it becomes
 # the operand of p.V.  Against the plain version that rounds at the same
 # place over the kernel's key tiles they differ by fp32 summation order and
@@ -1234,13 +1431,17 @@ def check_fwd(torch, label, q, k, v, kw, tol):
     del lse_f
     o_b, _ = flash_attention_fwd_ref(q, k, v, operand_dtype=torch.bfloat16,
                                      block_k=fwd_block_k(q.shape[-1]), **kw)
+    def rerun():
+        return flash_attention_fwd(q, k, v, **kw)[0]
+
     worst = rel_norm(torch, f"{name} vs plain (bf16 operands)", o, o_b,
-                     FWD_KERNEL_REL_NORM)
+                     FWD_KERNEL_REL_NORM, rerun)
     compare(torch, f"{name} vs plain (bf16 operands), information only", o,
             o_b, *tol[torch.bfloat16], gate=False)
     del o_b
     torch.cuda.empty_cache()
-    rel_norm(torch, f"{name} vs plain (fp32)", o, o_f, FWD_FP32_REL_NORM)
+    rel_norm(torch, f"{name} vs plain (fp32)", o, o_f, FWD_FP32_REL_NORM,
+             rerun)
     ok = _visible(q.shape[2], k.shape[2], kw["causal"], kw["window"],
                   kw["q_offset"], q.device)
     # on contiguous copies: on rows 4 elements off 16-byte alignment SDPA
@@ -1357,9 +1558,16 @@ def check_dense_kernels(torch, randn, tol):
             check_wkv(torch, randn)]
 
 
-def rel_norm(torch, name, got, want, limit):
+def rel_norm(torch, name, got, want, limit, rerun=None):
+    """The relative norm of ``got - want`` within ``limit``; a failure (or
+    a non-finite output) first prints :func:`diagnose`'s output where
+    ``rerun`` launches the kernel again (the elements off by more than
+    ``limit`` times ``want``'s largest magnitude count as bad)."""
+    raw = got
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
+        if rerun is not None:
+            diagnose(torch, name, raw, want, None, rerun)
         fail(f"{name}: kernel output not finite")
     err = float((got - want).norm() / want.norm())
     worst = float((got - want).abs().max())
@@ -1367,6 +1575,9 @@ def rel_norm(torch, name, got, want, limit):
     print(f"[kernel] {name}: relative norm {err:.3e} (limit {limit:g}), "
           f"max_abs={worst:.3e} -> {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
+        if rerun is not None:
+            diagnose(torch, name, raw, want, (got - want).abs()
+                     > limit * want.abs().max(), rerun)
         fail(f"{name}: kernel disagrees with its plain version")
     return worst
 
@@ -2076,11 +2287,7 @@ def check_ssd(torch, randn):
     ins32 = (x.float(), dt, a, bm.float(), cm.float())
     fp32 = timed_ms(torch, lambda: ssd_scan(*ins32), iters=3, reps=3)
     kernel_split(torch, lambda: ssd_scan(*ins), "ssd_scan at zamba2's shape")
-    nbytes = (b * h * s * p * 2 + 2 * b * h * s * 4 + 2 * b * s * n * 2
-              + b * h * s * p * 4 + b * h * p * n * 4)
-    # per token and state element: h*exp(a) + (x dt) B (3), y += C h (2);
-    # bf16 inputs: the bf16 matrix peak, at which a chunked form runs them
-    b_ms, b_by = bound(nbytes, 5 * b * h * s * p * n, H100_BF16_FLOPS)
+    b_ms, b_by = _ssd_bound(b, h, s, p, n)
     print(f"[time] ssd_scan at zamba2's shape: kernel {ms:.4f} ms (bf16, "
           f"chunked, tensor cores), fp32 route {fp32:.4f} ms (token by "
           f"token), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
@@ -2104,6 +2311,26 @@ def _wkv_inputs(torch, randn, b, h, s, hd, dtype, decay=1.0, pad=0):
                       + math.log(decay)).transpose(1, 2)
     u = randn(h, hd, dtype=dtype, scale=0.3)
     return r, k, v, logw, u
+
+
+def _ssd_bound(b, h, s, p, n):
+    """K7's bound on bf16 x, B, C: x, dt, a, B and C read, y and the
+    state written; per token and state element h*exp(a) + (x dt) B (3)
+    and y += C h (2) at the bf16 matrix peak, at which a chunked form
+    runs them."""
+    nbytes = (b * h * s * p * 2 + 2 * b * h * s * 4 + 2 * b * s * n * 2
+              + b * h * s * p * 4 + b * h * p * n * 4)
+    return bound(nbytes, 5 * b * h * s * p * n, H100_BF16_FLOPS)
+
+
+def _wkv_bound(b, h, s, hd):
+    """K6's bound on bf16 r, k, v: r, k, v, logw and u read, o and the
+    state written; per token and state element r S (2) and S w + k v (3)
+    (the bonus (r . u k) v is per channel, not per state element) at the
+    bf16 matrix peak, at which a chunked form runs these products."""
+    nbytes = (3 * b * h * s * hd * 2 + 2 * b * h * s * hd * 4 + h * hd * 2
+              + b * h * hd * hd * 4)
+    return bound(nbytes, 5 * b * h * s * hd * hd, H100_BF16_FLOPS)
 
 
 def check_wkv(torch, randn):
@@ -2140,12 +2367,7 @@ def check_wkv(torch, randn):
     fp32 = timed_ms(torch, lambda: rwkv6_wkv(*ins32), iters=3, reps=3)
     kernel_split(torch, lambda: rwkv6_wkv(*ins),
                  "rwkv6_wkv at rwkv6-7b's shape")
-    nbytes = (3 * b * h * s * hd * 2 + 2 * b * h * s * hd * 4 + h * hd * 2
-              + b * h * hd * hd * 4)
-    # per token and state element: r S (2), S w + k v (3); the bonus
-    # (r . u k) v is per channel, not per state element.  bf16 inputs: the
-    # bf16 matrix peak, at which a chunked form runs these products
-    b_ms, b_by = bound(nbytes, 5 * b * h * s * hd * hd, H100_BF16_FLOPS)
+    b_ms, b_by = _wkv_bound(b, h, s, hd)
     print(f"[time] rwkv6_wkv at rwkv6-7b's shape: kernel {ms:.4f} ms (bf16, "
           f"chunked, tensor cores), fp32 route {fp32:.4f} ms (token by "
           f"token), plain {plain:.4f} ms, bound {b_ms:.4f} ms ({b_by})",
@@ -6155,16 +6377,17 @@ def _sharded_reference(torch, cfg, shape, ocfg):
 
 
 def train_on_ranks(torch):
-    """Phases 20, 21 and 22 over one spawn of ``SHARDED_WORLD`` rank
-    processes and one rendezvous: first the one-card runs each phase holds
-    its ranks against (phase 20's, :func:`_sharded_reference`; phase 21's,
-    :func:`ep_references`; phase 22's, :func:`deep_references`), their
-    results to files in a temporary directory under ``build/``; then the
-    ranks (:func:`sharded_rank`), each running phase 20's plans, phase
-    21's runs and phase 22's; then each phase's gates on the ranks'
-    reports.  NCCL, a rank a card, with four cards; else gloo, every rank
-    on ``cuda:0``.  Returns the launch counts of rank 0's runs of each
-    phase."""
+    """Phases 20 to 24 over one spawn of ``SHARDED_WORLD`` rank processes
+    and one rendezvous: first the one-card runs each phase holds its ranks
+    against (phase 20's, :func:`_sharded_reference`; phase 21's,
+    :func:`ep_references`; phase 22's, :func:`deep_references`; phase
+    23's, :func:`serving_references`; phase 24's,
+    :func:`family_references`), their results to files in a temporary
+    directory under ``build/``; then the ranks (:func:`sharded_rank`),
+    each running every phase's runs; then each phase's gates on the
+    ranks' reports.  NCCL, a rank a card, with four cards; else gloo,
+    every rank on ``cuda:0``.  Returns the launch counts of rank 0's runs
+    of each phase (phase 24's by phase-2 record too)."""
     import tempfile
     t_phase = time.perf_counter()
     cfg = sharded_cfg(torch)
@@ -6189,9 +6412,12 @@ def train_on_ranks(torch):
         t_serve = time.perf_counter()
         serving_references(torch, d)
         t_serve = time.perf_counter() - t_serve
+        t_families = time.perf_counter()
+        family_references(torch, d)
+        t_families = time.perf_counter() - t_families
         t_ranks = time.perf_counter()
         _spawn_ranks(d, backend)
-        print(f"[sharded] the ranks' runs of phases 20, 21, 22 and 23: "
+        print(f"[sharded] the ranks' runs of phases 20 to 24: "
               f"{time.perf_counter() - t_ranks:.1f} s", flush=True)
         for name in SHARDED_PLANS:
             for k, n in _sharded_gates(d, name, ref_losses, cfg).items():
@@ -6206,9 +6432,12 @@ def train_on_ranks(torch):
               f"0's runs "
               f"{sum(r0[p]['seconds'] for p in ('serve', 'seqshard')):.1f} s"
               f" and its fp32 runs {r0['fp32_s']:.1f} s", flush=True)
-    print(f"[sharded] phases 20, 21, 22 and 23: "
-          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    return sharded, ep, deep, served
+        families = family_gates(torch, d)
+        print(f"[sharded] phase 24: one card's runs {t_families:.1f} s",
+              flush=True)
+    print(f"[sharded] phases 20 to 24: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return sharded, ep, deep, served, families
 
 
 def _spawn_ranks(d, backend, phases=None):
@@ -6243,17 +6472,18 @@ def _spawn_ranks(d, backend, phases=None):
         fail(f"sharded: rank exit codes {codes}")
 
 
-RANK_PHASES = (20, 21, 22, 23)
+RANK_PHASES = (20, 21, 22, 23, 24)
 
 
 def sharded_rank(rank, world, d, backend, phases=None):
-    """One rank of phases 20 to 23 (``phases``, a subset of
+    """One rank of phases 20 to 24 (``phases``, a subset of
     ``RANK_PHASES``; all of them by default): joins the world (a
     ``file://`` store in ``d``) on its card, runs each plan of
     ``SHARDED_PLANS`` (:func:`_sharded_run`), each run of :func:`ep_runs`
-    (:func:`_ep_run`), each of :func:`deep_runs` (:func:`_deep_run`) and
-    phase 23's serving (:func:`serving_runs`) and leaves its reports in
-    ``d``; any failure ends the process with a nonzero code."""
+    (:func:`_ep_run`), each of :func:`deep_runs` (:func:`_deep_run`),
+    phase 23's serving (:func:`serving_runs`) and phase 24's
+    (:func:`family_runs`) and leaves its reports in ``d``; any failure
+    ends the process with a nonzero code."""
     phases = RANK_PHASES if phases is None else phases
     import traceback
     import torch
@@ -6280,6 +6510,8 @@ def sharded_rank(rank, world, d, backend, phases=None):
             _deep_run(torch, rank, d, name, run, backend)
         if 23 in phases:
             serving_runs(torch, rank, d, backend)
+        if 24 in phases:
+            family_runs(torch, rank, d, backend)
         dist.barrier()
         dist.destroy_process_group()
     except BaseException:
@@ -7478,10 +7710,6 @@ def deep_gates(d, backend, refs):
 
 
 # ---------------------------------------------------------------------------
-# a study, not a phase: rwkv6-7b's bf16 gradients against its fp32 ones
-# ---------------------------------------------------------------------------
-
-# ---------------------------------------------------------------------------
 # phase 23: sharded serving over four ranks
 # ---------------------------------------------------------------------------
 
@@ -7629,10 +7857,7 @@ def seqshard_decode(torch, cfg, mesh=None, prof=None, feed=None):
     from repro_torch.core.materializer import Plan
     from repro_torch.models.model import Model, init_params, param_specs
     from repro_torch.models.transformer import ImplConfig
-    from repro_torch.serving.model_runner import top2
-    from repro_torch.serving.serve_step import (impl_from_plan,
-                                                make_decode_step,
-                                                make_prefill_step)
+    from repro_torch.serving.serve_step import impl_from_plan
     from repro_torch.sharding.planner import ServeLayout
     dev = torch.device("cuda", torch.cuda.current_device())
     rng = np.random.default_rng(0)
@@ -7649,26 +7874,49 @@ def seqshard_decode(torch, cfg, mesh=None, prof=None, feed=None):
         rows = slice(mesh.index(("data",)) * per,
                      (mesh.index(("data",)) + 1) * per)
     params = init_params(cfg, 0, dev, layouts=layouts)
-    first, cache = make_prefill_step(model, SEQSHARD_CACHE)(
-        params, prompt[rows])
+    out, cache = _lanes_run(torch, model, params, prompt, rows,
+                            SEQSHARD_CACHE, SEQSHARD_STEPS, feed, prof)
+    out["bytes"] = _tree_bytes(params) + _tree_bytes(cache)
+    del params, cache
+    return out
+
+
+def _lanes_run(torch, model, params, prompt, rows, cache_len, steps,
+               feed=None, prof=None, img=None):
+    """Every lane of ``prompt`` (lanes, S) on the card -- with ``img``
+    (lanes, N, 1024), a vision-language model's image embeddings, ahead
+    of it -- prefilled by ``make_prefill_step`` into a cache of
+    ``cache_len`` positions, then ``steps`` greedy steps of
+    ``make_decode_step`` from position N + S; a model under a layout runs
+    its ``rows`` of the lanes.  With ``feed`` (one card's tokens by lane)
+    each step decodes one card's token; step ``SERVE_PROFILED_STEP`` is
+    profiled into ``prof`` where given.  Returns (every lane's prefill and
+    decode logits (host, (1 + steps, lanes, V)), each lane's greedy
+    tokens and top-2 gaps and top logits, each step's seconds; the
+    cache)."""
+    from repro_torch.serving.model_runner import top2
+    from repro_torch.serving.serve_step import (make_decode_step,
+                                                make_prefill_step)
+    dev = prompt.device
+    lanes = prompt.shape[0]
+    pos0 = prompt.shape[1] + (0 if img is None else img.shape[1])
+    first, cache = make_prefill_step(model, cache_len)(
+        params, prompt[rows], None if img is None else img[rows])
     step = make_decode_step(model)
     nxt = first[:, -1].argmax(-1).to(torch.int32)[:, None]
     toks, pairs, times = [nxt[:, 0].tolist()], [top2(first[:, -1])], []
     every = [first[:, -1].float().cpu()]
-    for j in range(SEQSHARD_STEPS):
+    for j in range(steps):
         if feed is not None:
-            nxt = torch.tensor([[feed[f"lane{i}"][j]]
-                                for i in range(SEQSHARD_LANES)],
+            nxt = torch.tensor([[feed[f"lane{i}"][j]] for i in range(lanes)],
                                dtype=torch.int32, device=dev)
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
         if prof is not None and j == SERVE_PROFILED_STEP:
             with profiled_call(torch, type(model), "decode_step", 0, prof):
-                nxt, logits, cache = step(params, nxt[rows], cache,
-                                          SEQSHARD_PROMPT + j)
+                nxt, logits, cache = step(params, nxt[rows], cache, pos0 + j)
         else:
-            nxt, logits, cache = step(params, nxt[rows], cache,
-                                      SEQSHARD_PROMPT + j)
+            nxt, logits, cache = step(params, nxt[rows], cache, pos0 + j)
         toks.append(nxt[:, 0].tolist())
         pairs.append(top2(logits[:, -1]))
         every.append(logits[:, -1].float().cpu())
@@ -7676,16 +7924,13 @@ def seqshard_decode(torch, cfg, mesh=None, prof=None, feed=None):
         times.append(time.perf_counter() - t0)
     pairs = torch.stack(pairs).transpose(0, 1).tolist()   # lane, step, 2
     out = {"first": every[0], "logits": torch.stack(every),
-           "tokens": {f"lane{i}": [t[i] for t in toks]
-                      for i in range(SEQSHARD_LANES)},
+           "tokens": {f"lane{i}": [t[i] for t in toks] for i in range(lanes)},
            "margins": {f"lane{i}": [g for g, _ in pairs[i]]
-                       for i in range(SEQSHARD_LANES)},
+                       for i in range(lanes)},
            "tops": {f"lane{i}": [t for _, t in pairs[i]]
-                    for i in range(SEQSHARD_LANES)},
-           "step_s": times, "device": str(dev), "bytes": _tree_bytes(params)
-           + _tree_bytes(cache)}
-    del params, cache, first
-    return out
+                    for i in range(lanes)},
+           "step_s": times, "device": str(dev)}
+    return out, cache
 
 
 def anchor_cfg():
@@ -7703,13 +7948,15 @@ def _to_fp32(tree):
     return tree
 
 
-def fp32_greedy(torch, cfg, reqs, plan=None, mesh=None):
+def fp32_greedy(torch, cfg, reqs, plan=None, mesh=None, decoded=None):
     """Each request's first-step logits and ``SERVE_NEW`` greedy tokens
     with their top-2 gaps, from seed-0 weights in fp32 and an fp32 cache,
     a request at a time from its own position (``make_decode_step``): on
     one card, or under ``plan`` on ``mesh`` (a ``TorchMesh``), every lane
     of the batch axes holding the request, each rank its blocks of the
-    weights cast leaf by leaf.  fp32 on the host, by request id."""
+    weights cast leaf by leaf.  With ``decoded`` only the first that many
+    requests decode (every one prefills).  fp32 on the host, by request
+    id."""
     import gc
     from repro_torch.models.model import (Model, gather_lanes, init_params,
                                           param_specs)
@@ -7728,13 +7975,16 @@ def fp32_greedy(torch, cfg, reqs, plan=None, mesh=None):
     params = _to_fp32(init_params(cfg, 0, dev, layouts=layouts))
     step = make_decode_step(model)
     out = {"first": {}, "tokens": {}, "margins": {}}
-    for r in reqs:
+    for idx, r in enumerate(reqs):
         toks = prompt_for(r, cfg.vocab_size).to(dev)
         cl = r.prompt_len + SERVE_NEW
         cache = model.init_cache(n, cl, dev, torch.float32)
         logits, cache = model.prefill(params, toks, cl, cache=cache)
         row = gather_lanes(logits[:, -1], model.lanes)[0]
         out["first"][r.req_id] = row.cpu()
+        if decoded is not None and idx >= decoded:
+            del cache, logits
+            continue
         got, gaps = [int(row.argmax())], [float(top2(row)[0])]
         for j in range(SERVE_NEW - 1):
             nxt = torch.full((1, 1), got[-1], dtype=torch.int32, device=dev)
@@ -7911,6 +8161,43 @@ def tp_fp32_first_logits(torch, cfg, plan, mesh, reqs):
     return out
 
 
+def anchor_gates(torch, tag, what, one32, anchors):
+    """An fp32 anchor's gates (phases 23 and 24): every rank's greedy
+    tokens (``anchors``, each rank's :func:`fp32_greedy`) the same, rank
+    0's first-step logits within ``SERVE_FP32_RTOL`` of one card's
+    (``one32``), and its tokens equal to one card's under the
+    ``TIE_GAP`` rule (:func:`check_parity`)."""
+    got32 = anchors[0]
+    if any(a["tokens"] != got32["tokens"] for a in anchors):
+        fail(f"{tag}: the ranks hold different fp32 tokens")
+    check32 = _logit_errs(torch, got32["first"], one32["first"])
+    print(f"[{tag}] {what} in fp32: the ranks' first-step logits against "
+          f"one card's {_worst_by(check32, 'serve')} (limit "
+          f"{SERVE_FP32_RTOL}); one card's top-2 gaps below TIE_GAP "
+          f"{sum(g < TIE_GAP for m in one32['margins'].values() for g in m)}"
+          f" of {sum(len(m) for m in one32['margins'].values())} | "
+          f"{card_line()}", flush=True)
+    if max(check32.values()) > SERVE_FP32_RTOL:
+        fail(f"{tag}: the ranks' fp32 logits differ from one card's")
+    flips32 = check_parity(one32["tokens"], got32["tokens"],
+                           one32["margins"], TIE_GAP)
+    print(f"[{tag}] the ranks' fp32 greedy tokens equal one card's under "
+          f"the TIE_GAP rule ({TIE_GAP}): {flips32} near-tie "
+          f"divergence(s)", flush=True)
+
+
+def bf16_band(torch, first, exact):
+    """One card's bf16 first-step logits ``first`` against fp32 logits of
+    the same weights ``exact`` (by request): each prompt's relative
+    distance, their rms over every logit, and the bf16 tokens' near-tie
+    band, ``TIE_NOISE_SIGMAS`` x sqrt(2) x that rms (``TIE_GAP`` at
+    least)."""
+    own = _logit_errs(torch, first, exact)
+    sigma = float(torch.stack([first[k] - exact[k] for k in exact])
+                  .square().mean().sqrt())
+    return own, sigma, max(TIE_GAP, TIE_NOISE_SIGMAS * math.sqrt(2) * sigma)
+
+
 def bf16_ulp(x: float) -> float:
     """The spacing of bf16 values at ``x`` (8 significant bits)."""
     return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126))) - 7)
@@ -7998,33 +8285,15 @@ def serving_gates(torch, d):
                          H100X4)
     # the fp32 anchor: the ranks' path (over NCCL on four cards) in fp32
     # against one card's, at SERVE_ONE_CARD_LAYERS
-    one32, got32 = ref["anchor"], ranks[0]["anchor"]
-    if any(r["anchor"]["tokens"] != got32["tokens"] for r in ranks):
-        fail("serve sharded anchor: the ranks hold different fp32 tokens")
-    check32 = _logit_errs(torch, got32["first"], one32["first"])
-    print(f"[serve sharded anchor] {SERVE_ARCH} ({SERVE_ONE_CARD_LAYERS} "
-          f"layers, full width) in fp32: the ranks' first-step logits "
-          f"against one card's {_worst_by(check32, 'serve')} (limit "
-          f"{SERVE_FP32_RTOL}); one card's top-2 gaps below TIE_GAP "
-          f"{sum(g < TIE_GAP for m in one32['margins'].values() for g in m)}"
-          f" of {sum(len(m) for m in one32['margins'].values())}",
-          flush=True)
-    if max(check32.values()) > SERVE_FP32_RTOL:
-        fail("serve sharded anchor: the ranks' fp32 logits differ from one "
-             "card's")
-    flips32 = check_parity(one32["tokens"], got32["tokens"],
-                           one32["margins"], TIE_GAP)
-    print(f"[serve sharded anchor] the ranks' fp32 greedy tokens equal one "
-          f"card's under the TIE_GAP rule ({TIE_GAP}): {flips32} near-tie "
-          f"divergence(s)", flush=True)
+    one32 = ref["anchor"]
+    anchor_gates(torch, "serve sharded anchor",
+                 f"{SERVE_ARCH} ({SERVE_ONE_CARD_LAYERS} layers, full width)",
+                 one32, [r["anchor"] for r in ranks])
     # the bf16 runs' yardstick: fp32 logits of the same weights, one
     # card's where they fit it, else the ranks' (anchored above)
     exact = (one32["first"] if cfg.num_layers == SERVE_ONE_CARD_LAYERS
              else ranks[0]["first32"])
-    own = _logit_errs(torch, ref["first"], exact)
-    own_sigma = float(torch.stack([ref["first"][k] - exact[k]
-                                   for k in exact]).square().mean().sqrt())
-    band = max(TIE_GAP, TIE_NOISE_SIGMAS * math.sqrt(2) * own_sigma)
+    own, own_sigma, band = bf16_band(torch, ref["first"], exact)
     launches = {}
     for part, want_ref in (("serve", ref), ("seqshard", ref["seqshard"])):
         reps = [r[part] for r in ranks]
@@ -8145,6 +8414,615 @@ def serving_gates(torch, d):
         r[p]["steps"] for r in ranks[:1] for p in ("serve", "seqshard"))
     return launches
 
+
+# ---------------------------------------------------------------------------
+# phase 24: sharded serving of the MoE, recurrent and vision-language
+# families over four ranks
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("qwen2-moe-a2.7b", "zamba2-2.7b", "rwkv6-7b",
+                "phi-3-vision-4.2b")
+# each family's depth on one card, where four ranks' blocks share the card
+# with one card's runs and the phase must stay near 150 s (gloo's host
+# path costs every layer's collectives a decode step): 4 layers at full
+# width, zamba2 one pattern block (5 Mamba-2 layers and the shared
+# attention block); four cards serve the full depth.  The fp32 anchor
+# runs at these depths on one card and on four
+FAMILY_ONE_CARD_LAYERS = {"qwen2-moe-a2.7b": 4, "zamba2-2.7b": 6,
+                          "rwkv6-7b": 4, "phi-3-vision-4.2b": 4}
+# the fp32 anchor: one card prefills every serve request (the bf16 runs'
+# yardstick) and decodes the greedy tokens of this many of them; the ranks
+# prefill and decode only those, the anchor's comparison
+FAMILY_ANCHOR_DECODED = 2
+# the lanes runs: 8 lanes of a 504-token prompt (seed 24; phi-3-vision's
+# behind 576 seeded image embeddings), 16 steps each decoding one card's
+# token, so that every step compares on one history; the families that
+# run one, with its dispatch (None: the plan's)
+FAMILY_LANE_DISPATCH = {"qwen2-moe-a2.7b": "a2a", "phi-3-vision-4.2b": None}
+FAMILY_LANES = 8
+FAMILY_LANE_PROMPT = 504
+FAMILY_LANE_STEPS = 16
+FAMILY_IMAGE_TOKENS = 576
+# qwen2-moe's capacity factor in every phase 24 run (its config's is 1.25):
+# the padded experts over top-k, 64 / 4, at which an expert's capacity is at
+# least the tokens routed, so that none can drop a (token, k) pair (at 4 the
+# seeded prompts' skewed routing dropped 10654 pairs on one card); every
+# qwen2-moe run's dropped pairs, one card's and each rank's, are counted and
+# must be 0.  Under a2a a rank routes its slice of the data shard's tokens
+# with the capacity over the slice (the reference's shard_map), one card all
+# of them; and at the config's factor a bf16 router logit one rounding apart
+# moves a token across an expert's capacity, and every later pair of that
+# expert with it (on an H100 at 1.25 two of eight prompts' first-step logits
+# lay 0.07 and 0.11 from one card's, where the fp32 anchor agreed exactly).
+# Only where nothing drops do the ranks and one card route alike; the drops
+# themselves are held against the reference's on the CPU
+# (tests/test_torch_sharded_families.py)
+FAMILY_NO_DROP = 16.0
+# the family whose serve run profiles a decode call on rank 0 (the
+# profiler's start costs 6-15 s a run); the others keep every call's wall
+FAMILY_PROFILED = "qwen2-moe-a2.7b"
+FAMILY_PLAN_FIELDS = SERVE_PLAN_FIELDS + ("ep", "moe_dispatch")
+# the phase-2 records each family's runs give their launches
+FAMILY_RECORDS = {
+    "qwen2-moe-a2.7b": {"flash_attention_fwd": "flash_attention_fwd_tp_d128",
+                        "decode_attention": "decode_attention_tp_d128"},
+    "zamba2-2.7b": {"flash_attention_fwd": "flash_attention_fwd_tp_d80",
+                    "decode_attention": "decode_attention_tp_d80",
+                    "ssd_scan": "ssd_scan_tp",
+                    "rmsnorm_split": "rmsnorm_split_tp"},
+    "rwkv6-7b": {"rwkv6_wkv": "rwkv6_wkv_tp"},
+    "phi-3-vision-4.2b": {"flash_attention_fwd": "flash_attention_fwd_tp_d96",
+                          "decode_attention": "decode_attention_tp_d96"},
+}
+
+
+def _no_drop(cfg):
+    """``cfg``, an MoE's at ``FAMILY_NO_DROP``."""
+    return cfg if cfg.moe is None else dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=FAMILY_NO_DROP))
+
+
+def family_cfg(torch, arch):
+    """Phase 24's ``arch``: full width, its full depth on four cards and
+    ``FAMILY_ONE_CARD_LAYERS`` on one (:func:`_no_drop`)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    if torch.cuda.device_count() < SHARDED_WORLD:
+        cfg = cfg.scaled(num_layers=FAMILY_ONE_CARD_LAYERS[arch])
+    return _no_drop(cfg)
+
+
+def family_anchor_cfg(arch):
+    """Phase 24's fp32 anchor of ``arch``: full width,
+    ``FAMILY_ONE_CARD_LAYERS`` deep, whose fp32 weights fit one card
+    (:func:`_no_drop`)."""
+    from repro_torch.configs import get_config
+    return _no_drop(get_config(arch).scaled(
+        num_layers=FAMILY_ONE_CARD_LAYERS[arch]))
+
+
+def _moe_keys(torch, cfg, run, table, replay=None, mesh=None,
+              dispatch="psum"):
+    """:func:`keyed_routes` over a phase 24 run of an MoE ``cfg`` (the
+    serve's ``DenseRunner`` calls, or the lanes run's ``Model`` calls); a
+    context that does nothing for another family."""
+    from contextlib import nullcontext
+    from repro_torch.models.model import Model
+    from repro_torch.serving.model_runner import DenseRunner
+    if cfg.moe is None:
+        return nullcontext(table)
+    calls = ([(DenseRunner, "prefill"), (DenseRunner, "decode")]
+             if run == "serve" else [(Model, "prefill"),
+                                     (Model, "decode_step")])
+    return keyed_routes(torch, calls, table, replay, mesh, dispatch)
+
+
+def _family_kernels():
+    from repro_torch.kernels.rwkv6_scan import rwkv6_wkv
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return dict(_serve_kernels(), rwkv6_wkv=rwkv6_wkv, ssd_scan=ssd_scan)
+
+
+@contextmanager
+def _measured(torch, kernels):
+    """Around one of phase 24's runs on this rank: the kernels' counts
+    zeroed, the allocator's peak reset and the clock started just before
+    the block; just after, the dict it yields gets the counts (with
+    ``rmsnorm_split``, K3's launches over split rows: Mamba-2's gated norm
+    under TP), the peak over the bytes held before, the (token, k) pairs
+    the experts' capacity dropped (:func:`moe_drop_log`) and the
+    seconds."""
+    import gc
+    from repro_torch.models import layers
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gc.collect()
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts(kernels)
+    plain, k3, splits = layers.rmsnorm, kernels["rmsnorm"], [0]
+
+    def counted(x, gain, eps=1e-6, split=None):
+        n = k3.launches
+        out = plain(x, gain, eps, split)
+        splits[0] += split is not None and k3.launches > n
+        return out
+
+    layers.rmsnorm = counted
+    rep, t0 = {}, time.perf_counter()
+    try:
+        with moe_drop_log() as drops:
+            yield rep
+        torch.cuda.synchronize(dev)
+    finally:
+        layers.rmsnorm = plain
+    rep.update(launches=dict(_serve_counts(kernels), rmsnorm_split=splits[0]),
+               peak=torch.cuda.max_memory_allocated(dev) - base,
+               dropped=int(sum(drops)), seconds=time.perf_counter() - t0)
+
+
+def _family_expected(cfg, prefills, steps):
+    """The launches of a phase 24 run of ``prefills`` prefill calls and
+    ``steps`` decode calls: per prefill a K2 of every attention layer
+    (the MoE blocks' and zamba2's shared block's too), a K6 of every RWKV-6
+    layer and a K7 of every Mamba-2 layer; per prefill and step each
+    layer's norms through K3 (two a layer, the shared block's three, two
+    more with qk-norm) and ``ln_f``'s, Mamba-2's gated norm over split
+    rows; per step a K4 of every attention layer."""
+    from repro_torch.configs.base import ATTN_SHARED, MAMBA2, RWKV6
+    kinds = [cfg.pattern[i % len(cfg.pattern)] for i in range(cfg.num_layers)]
+    qk = 2 if cfg.use_qk_norm else 0
+    attn = sum(k not in (MAMBA2, RWKV6) for k in kinds)
+    norms = 1 + sum(2 if k in (MAMBA2, RWKV6) else
+                    (3 if k == ATTN_SHARED else 2) + qk for k in kinds)
+    calls = prefills + steps
+    return {"flash_attention_fwd": attn * prefills, "rmsnorm": norms * calls,
+            "decode_attention": attn * steps, "decode_attention_lse": 0,
+            "rwkv6_wkv": kinds.count(RWKV6) * prefills,
+            "ssd_scan": kinds.count(MAMBA2) * prefills,
+            "rmsnorm_split": kinds.count(MAMBA2) * calls}
+
+
+def family_lanes(torch, cfg, dispatch=None, plan=None, mesh=None,
+                 feed=None):
+    """Phase 24's lanes run (``_lanes_run``): seed-0 weights,
+    ``FAMILY_LANES`` lanes of a ``FAMILY_LANE_PROMPT``-token prompt
+    (numpy, seed 24) -- phi-3-vision's behind ``FAMILY_IMAGE_TOKENS``
+    seeded image embeddings -- and ``FAMILY_LANE_STEPS`` steps.  On
+    ``mesh`` under ``plan`` with ``dispatch`` (None: the plan's), each
+    rank its lanes over the batch axes and its blocks of the weights;
+    with no mesh, one card's.  Returns ``_lanes_run``'s report with the
+    rank's weight and cache bytes."""
+    import numpy as np
+    from repro_torch.models.model import Model, init_params, param_specs
+    from repro_torch.models.transformer import ImplConfig
+    from repro_torch.serving.serve_step import impl_from_plan
+    from repro_torch.sharding.planner import ServeLayout
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(24)
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (FAMILY_LANES, FAMILY_LANE_PROMPT))).to(dev)
+    img = None
+    if cfg.family == "vlm":
+        img = torch.from_numpy(rng.standard_normal(
+            (FAMILY_LANES, FAMILY_IMAGE_TOKENS, 1024)).astype(
+                np.float32)).to(dev, torch.bfloat16)
+    cache_len = (FAMILY_LANE_PROMPT + FAMILY_LANE_STEPS
+                 + (0 if img is None else img.shape[1]))
+    rows, layouts = slice(0, FAMILY_LANES), None
+    model = Model(cfg, ImplConfig(remat="none"))
+    if mesh is not None:
+        plan = dataclasses.replace(plan,
+                                   moe_dispatch=dispatch or plan.moe_dispatch)
+        layout = ServeLayout(plan, mesh)
+        model = Model(cfg, impl_from_plan(plan, mesh), layout=layout)
+        layouts = layout.params(cfg, param_specs(cfg))
+        per = FAMILY_LANES // mesh.size(plan.batch_axes)
+        i = mesh.index(plan.batch_axes)
+        rows = slice(i * per, (i + 1) * per)
+    params = init_params(cfg, 0, dev, layouts=layouts)
+    out, cache = _lanes_run(torch, model, params, prompt, rows, cache_len,
+                            FAMILY_LANE_STEPS, feed, img=img)
+    out.update(bytes=_tree_bytes(params) + _tree_bytes(cache),
+               dispatch=model.impl.moe_dispatch)
+    del params, cache
+    return out
+
+
+@contextmanager
+def keyed_routes(torch, calls, table, replay=None, mesh=None,
+                 dispatch="psum"):
+    """:func:`pinned_routes` by call: each MoE routing is keyed by the
+    call of ``calls`` ((owner, method) pairs) it runs in -- a
+    ``DenseRunner.prefill``'s by its request, any other by the method's
+    count -- and its place in that call.  Without ``replay`` each routing's
+    expert ids go to ``table`` (host); with ``replay`` (one card's table)
+    each takes one card's ids under its key, at this rank's rows of them
+    (:func:`_rank_rows` on ``mesh`` under ``dispatch``), and ``table``
+    counts the tokens routed and those the rank's own routing gave other
+    experts (``swapped``).  The probabilities and weights are the run's
+    own, gathered at the ids.  A routing is discrete: one bf16 rounding
+    of a router logit can move a token's experts, and with them its
+    output far past the rounding, so the ranks' bf16 logits are held
+    against one card's on one card's routing."""
+    from repro_torch.models import moe as moe_mod
+    plain_route, current, counts, saved = moe_mod.route, {}, {}, []
+    swapped, routed, on_card = [], [0], {}
+    for owner, attr in calls:
+        plain = getattr(owner, attr)
+
+        def call(self, *args, _plain=plain, _attr=attr, **kwargs):
+            ident = getattr(args[0], "req_id", None) if args else None
+            if ident is None:
+                ident = counts[_attr] = counts.get(_attr, -1) + 1
+            current.update(key=(_attr, ident), n=0)
+            return _plain(self, *args, **kwargs)
+
+        saved.append((owner, attr, plain))
+        setattr(owner, attr, call)
+
+    def route(p, x, cfg):
+        weights, ids, aux = plain_route(p, x, cfg)
+        key = current["key"] + (current["n"],)
+        current["n"] += 1
+        if replay is None:
+            table[key] = ids.detach()
+            return weights, ids, aux
+        if not on_card:            # one copy to the card, no sync a routing
+            on_card.update({k: v.to(ids.device) for k, v in replay.items()})
+        want = on_card[key]
+        want = want[_rank_rows(want.shape[0], ids.shape[0], mesh, dispatch)]
+        swapped.append((want != ids).any(-1).sum())
+        routed[0] += ids.shape[0]
+        weights, aux = moe_mod.routed(moe_mod.router_probs(p, x, cfg), want,
+                                      cfg, x.dtype)
+        return weights, want, aux
+
+    moe_mod.route = route
+    try:
+        yield table
+    finally:
+        moe_mod.route = plain_route
+        for owner, attr, plain in saved:
+            setattr(owner, attr, plain)
+        if replay is not None:
+            table.update(swapped=int(sum(swapped)), tokens=routed[0])
+        else:
+            table.update({k: v.cpu() for k, v in table.items()})
+
+
+def _rank_rows(rows, mine, mesh, dispatch):
+    """This rank's rows of one card's ``rows`` routed tokens where it
+    routes ``mine``: all of them (one request's prefill under ``psum``),
+    its data shard's block (a decode step's lanes under ``psum``), or
+    under ``a2a`` its slice of its data shard's block."""
+    n_d, n_m = mesh.size(("data",)), mesh.size(("model",))
+    i, j = mesh.index(("data",)), mesh.index(("model",))
+    blocks = ({1: 0, n_d * n_m: i * n_m + j} if dispatch == "a2a"
+              else {1: 0, n_d: i})
+    b = blocks[rows // mine]
+    return slice(b * mine, (b + 1) * mine)
+
+
+def _family_serve(torch, cfg, **kw):
+    """``launch.serve`` of phase 24's traffic (phase 23's: seed 0,
+    ``SERVE_REQUESTS`` prompts of ``SERVE_PROMPTS``, ``SERVE_NEW`` new
+    tokens, the dense backend, max batch 8) with each prompt's first-step
+    logits and every ``DenseRunner.decode`` call's wall (call ``index``
+    profiled, -1: none) -> (serve's output, the first logits, the
+    profile)."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.serving.model_runner import DenseRunner
+    first, prof = {}, {}
+    index = kw.pop("index", -1)
+    with first_logits(first), profiled_call(torch, DenseRunner, "decode",
+                                            index, prof):
+        out = serve(cfg, backend="dense", device="cuda",
+                    requests=SERVE_REQUESTS, max_batch=8,
+                    prompt_range=SERVE_PROMPTS, max_new=SERVE_NEW, seed=0,
+                    **kw)
+    return out, first, prof
+
+
+def family_references(torch, d):
+    """Phase 24's one-card runs of each family, before the ranks': the
+    serve (:func:`_family_serve`, the top-2 gaps recorded), the lanes run
+    where the family has one, and the fp32 anchor (:func:`fp32_greedy`
+    of :func:`family_anchor_cfg`).  Saved to
+    ``d/family_reference_<arch>.pt``."""
+    import gc
+    for arch in FAMILY_ARCHS:
+        t0 = time.perf_counter()
+        cfg = family_cfg(torch, arch)
+        routes = {"serve": {}, "lanes": {}}
+        with _moe_keys(torch, cfg, "serve", routes["serve"]), \
+                moe_drop_log() as drops:
+            out, first, prof = _family_serve(torch, cfg, verbose=False,
+                                             executor=_margin_executor())
+        ref = {"routes": routes, "dropped": int(sum(drops)),
+               "tokens": {r.req_id: r.output_tokens
+                          for r in out["requests"]},
+               "margins": out["runner"].margins, "tops": out["runner"].tops,
+               "first": first, "ttft": out["stats"].mean_ttft_s,
+               "calls_ms": prof["calls_ms"],
+               "prompts": [r.prompt_len for r in out["requests"]]}
+        reqs = out["requests"]
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        if arch in FAMILY_LANE_DISPATCH:
+            with _moe_keys(torch, cfg, "lanes", routes["lanes"]), \
+                    moe_drop_log() as drops:
+                ref["lanes"] = family_lanes(torch, cfg)
+            ref["lanes"]["dropped"] = int(sum(drops))
+            gc.collect()
+            torch.cuda.empty_cache()
+        ref["anchor"] = fp32_greedy(torch, family_anchor_cfg(arch), reqs,
+                                    decoded=FAMILY_ANCHOR_DECODED)
+        torch.save(ref, f"{d}/family_reference_{arch}.pt")
+        print(f"[serve families] one card's runs of {arch} "
+              f"({cfg.num_layers} layers, full width): prompts "
+              f"{ref['prompts']}, mean TTFT {ref['ttft'] * 1e3:.3f} ms, "
+              f"median decode call "
+              f"{sorted(ref['calls_ms'])[len(ref['calls_ms']) // 2]:.3f} ms;"
+              f" {time.perf_counter() - t0:.1f} s | {card_line()}",
+              flush=True)
+
+
+def family_runs(torch, rank, d, backend):
+    """Phase 24 on this rank, a family at a time: (i) ``launch.serve`` on
+    ``h100x4`` with the ladder's plan (``Cluster.submit``, the
+    ``TorchExecutor``, the dense backend; a decode call of
+    ``FAMILY_PROFILED``'s profiled on rank 0), (ii) the family's lanes
+    run (:func:`family_lanes`) under that plan, each inside
+    :func:`_measured`; then the fp32 anchor (:func:`fp32_greedy` of
+    :func:`family_anchor_cfg` under the serve's plan, the first
+    ``FAMILY_ANCHOR_DECODED`` requests) and, deeper than
+    that, the ranks' fp32 first-step logits
+    (:func:`tp_fp32_first_logits`).  Each family's report goes to
+    ``d/family_<arch>_<rank>.pt``."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import TorchMesh
+    from repro_torch.core.materializer import H100X4
+    kernels = _family_kernels()
+    mesh = TorchMesh(H100X4)
+    for arch in FAMILY_ARCHS:
+        cfg = family_cfg(torch, arch)
+        one = torch.load(f"{d}/family_reference_{arch}.pt",
+                         weights_only=False)
+        report = {}
+        index = SERVE_PROFILED_STEP if rank == 0 and arch == FAMILY_PROFILED \
+            else -1
+        with _measured(torch, kernels) as rep, _moe_keys(
+                torch, cfg, "serve", {}, one["routes"]["serve"],
+                mesh) as pinned:
+            out, first, prof = _family_serve(
+                torch, cfg, index=index, verbose=rank == 0, mesh="h100x4",
+                dist_backend=backend)
+        runner, stats, plan = out["runner"], out["stats"], out["plan"]
+        reqs = out["requests"]
+        rep.update(tokens={r.req_id: r.output_tokens for r in reqs},
+                   first=first, prefills=runner.local_prefills,
+                   steps=stats.decode_steps, ttft=stats.mean_ttft_s,
+                   profile=prof,
+                   plan={k: getattr(plan, k) for k in FAMILY_PLAN_FIELDS},
+                   est=plan.est_bytes_per_device,
+                   bytes=_tree_bytes(runner.params)
+                   + _tree_bytes(runner.cache), device=str(out["device"]),
+                   pinned=dict(pinned))
+        report["serve"] = rep
+        del out, runner
+        dist.barrier()
+        if arch in FAMILY_LANE_DISPATCH:
+            dispatch = FAMILY_LANE_DISPATCH[arch]
+            with _measured(torch, kernels) as rep, _moe_keys(
+                    torch, cfg, "lanes", {}, one["routes"]["lanes"], mesh,
+                    dispatch) as pinned:
+                rep.update(family_lanes(torch, cfg, dispatch, plan, mesh,
+                                        feed=one["lanes"]["tokens"]))
+            rep.update(prefills=1, steps=FAMILY_LANE_STEPS,
+                       pinned=dict(pinned))
+            if rank:
+                del rep["logits"]          # the gates read rank 0's
+            report["lanes"] = rep
+            dist.barrier()
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        del one
+        report["anchor"] = fp32_greedy(torch, family_anchor_cfg(arch),
+                                       reqs[:FAMILY_ANCHOR_DECODED], plan,
+                                       mesh)
+        if cfg.num_layers > FAMILY_ONE_CARD_LAYERS[arch]:
+            report["first32"] = tp_fp32_first_logits(torch, cfg, plan, mesh,
+                                                     reqs)
+        report["fp32_s"] = time.perf_counter() - t0
+        torch.save(report, f"{d}/family_{arch}_{rank}.pt")
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+
+
+def families_on_ranks(torch):
+    """Phase 24 alone over a spawn of its own (:func:`serve_on_ranks`'s
+    counterpart): one card's runs, the ranks' (:func:`family_runs`), the
+    gates.  ``main`` runs it in phases 20-23's spawn.  Returns rank 0's
+    launch counts by kernel and by phase-2 record."""
+    import tempfile
+    t0 = time.perf_counter()
+    backend = "nccl" if torch.cuda.device_count() >= SHARDED_WORLD \
+        else "gloo"
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        family_references(torch, d)
+        _spawn_ranks(d, backend, phases=(24,))
+        out = family_gates(torch, d)
+    print(f"[serve families] phase 24 alone over {backend}: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def family_gates(torch, d):
+    """Phase 24's gates on the ranks' reports against one card's, a
+    family at a time: the fp32 anchor (:func:`anchor_gates`); in the serve
+    and lanes runs every rank's tokens the same, the bf16 logits within
+    ``SERVE_NOISE_FACTOR`` times one card's own distance from fp32 ones
+    (each prompt's for the serve's first step, the prompts' mean for
+    every step of the lanes run), the tokens equal to one card's under
+    the near-tie band (:func:`parity_noise_ties`), rank 0's launches what
+    the path implies (:func:`_family_expected`) and every rank's nonzero
+    for every kernel the path runs, each rank's peak within its weight
+    and cache blocks plus ``SERVE_SLACK``; the serve's plan the ladder's
+    ``decode_32k`` placement.  Returns rank 0's launch counts by kernel
+    and by phase-2 record (``FAMILY_RECORDS``)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.materializer import H100X4, materialize
+    launches = {}
+    for arch in FAMILY_ARCHS:
+        cfg = family_cfg(torch, arch)
+        ref = torch.load(f"{d}/family_reference_{arch}.pt",
+                         weights_only=False)
+        ranks = [torch.load(f"{d}/family_{arch}_{r}.pt", weights_only=False)
+                 for r in range(SHARDED_WORLD)]
+        ladder = materialize(get_config(arch), SHAPES["decode_32k"], H100X4)
+        one32 = ref["anchor"]
+        anchor_gates(torch, f"serve families {arch} anchor",
+                     f"{arch} ({FAMILY_ONE_CARD_LAYERS[arch]} layers, full "
+                     "width)", one32, [r["anchor"] for r in ranks])
+        exact = (one32["first"]
+                 if cfg.num_layers == FAMILY_ONE_CARD_LAYERS[arch]
+                 else ranks[0]["first32"])
+        own, own_sigma, band = bf16_band(torch, ref["first"], exact)
+        theirs = {}
+        for r in ranks:
+            theirs.update(_logit_errs(torch, r["serve"]["first"], exact))
+        print(f"[serve families {arch}] first-step logits against fp32 "
+              f"ones: one card's bf16 {_worst_by(own, 'serve')} (rms "
+              f"{own_sigma:.4e}), the ranks' bf16 "
+              f"{_worst_by(theirs, 'serve')}; near-tie band {band:.4e}",
+              flush=True)
+        for part in ("serve", "lanes"):
+            if part not in ranks[0]:
+                continue
+            reps = [r[part] for r in ranks]
+            r0, want_ref = reps[0], ref if part == "serve" else ref[part]
+            _family_part_gates(torch, arch, cfg, part, reps, want_ref, own,
+                               band, ladder)
+            for k, n in r0["launches"].items():
+                launches[k] = launches.get(k, 0) + n
+                rec = FAMILY_RECORDS[arch].get(k)
+                if rec is not None:
+                    launches[rec] = launches.get(rec, 0) + n
+            norms = _family_expected(cfg, 1, 0)["rmsnorm"]
+            RMS_LAUNCHES["prefill"] += norms * r0["prefills"]
+            RMS_LAUNCHES["decode"] += norms * r0["steps"]
+        print(f"[serve families {arch}] rank 0: serve "
+              f"{ranks[0]['serve']['seconds']:.1f} s, lanes "
+              f"{ranks[0].get('lanes', {}).get('seconds', 0.0):.1f} s, fp32 "
+              f"runs {ranks[0]['fp32_s']:.1f} s", flush=True)
+    return launches
+
+
+def _family_part_gates(torch, arch, cfg, part, reps, want_ref, own, band,
+                       ladder):
+    """One phase 24 run's gates and report (:func:`family_gates`)."""
+    r0 = reps[0]
+    tag = f"serve families {arch} {part}"
+    if any(r["tokens"] != r0["tokens"] for r in reps):
+        fail(f"{tag}: the ranks hold different tokens")
+    if part == "serve":
+        errs = {}
+        for r in reps:
+            errs.update(_logit_errs(torch, r["first"], want_ref["first"]))
+        if sorted(errs) != sorted(want_ref["first"]):
+            fail(f"{tag}: first-step logits of {sorted(errs)}, one card's "
+                 f"of {sorted(want_ref['first'])}")
+        limits = {k: SERVE_NOISE_FACTOR * v for k, v in own.items()}
+        plan = {k: getattr(ladder, k) for k in FAMILY_PLAN_FIELDS}
+        calls, one_calls = r0["profile"]["calls_ms"], want_ref["calls_ms"]
+        print(f"[{tag}] plan {r0['plan']} (the ladder's at decode_32k: "
+              f"{plan}), est {r0['est'] / 2**30:.3f} GiB/device; mean TTFT "
+              f"{r0['ttft'] * 1e3:.3f} ms (one card "
+              f"{want_ref['ttft'] * 1e3:.3f}), median decode call "
+              f"{sorted(calls)[len(calls) // 2]:.3f} ms (one card "
+              f"{sorted(one_calls)[len(one_calls) // 2]:.3f}); rank 0 "
+              f"prefilled {r0['prefills']} of {SERVE_REQUESTS} prompts | "
+              f"{card_line()}", flush=True)
+        if r0["plan"] != plan:
+            fail(f"{tag}: the serve's plan is not the ladder's decode_32k "
+                 "placement")
+    else:
+        steps = want_ref["logits"].shape[0]
+        errs = {f"lane{i} step{j}": float(
+            (r0["logits"][j, i] - want_ref["logits"][j, i]).norm()
+            / want_ref["logits"][j, i].norm())
+            for j in range(steps) for i in range(FAMILY_LANES)}
+        noise = sum(own.values()) / len(own)
+        limits = {k: SERVE_NOISE_FACTOR * noise for k in errs}
+        print(f"[{tag}] {r0['dispatch']} dispatch; decode step "
+              f"{sorted(r0['step_s'])[len(r0['step_s']) // 2] * 1e3:.3f} ms "
+              f"(median of {FAMILY_LANE_STEPS}; one card "
+              f"{sorted(want_ref['step_s'])[FAMILY_LANE_STEPS // 2] * 1e3:.3f}"
+              f" ms) | {card_line()}", flush=True)
+    if cfg.moe is not None:
+        dropped = [want_ref["dropped"]] + [r["dropped"] for r in reps]
+        print(f"[{tag}] routed on one card's expert ids: the ranks' own "
+              f"routing chose other experts for "
+              f"{[r['pinned']['swapped'] for r in reps]} of "
+              f"{[r['pinned']['tokens'] for r in reps]} tokens; (token, k) "
+              f"pairs dropped at capacity factor {cfg.moe.capacity_factor} "
+              f"(one card, then each rank) {dropped}", flush=True)
+        if any(dropped):
+            fail(f"{tag}: an expert dropped a pair at the capacity factor "
+                 "meant to drop none")
+    want = _family_expected(cfg, r0["prefills"], r0["steps"])
+    accounts = [r["bytes"] + SERVE_SLACK for r in reps]
+    lim = round(max(limits.values()), 5)
+    print(f"[{tag}] {cfg.name} ({cfg.num_layers} layers, full width) on "
+          f"{[r.get('device', '') for r in reps]}: logits' relative norm "
+          f"against one card's {_worst_by(errs, part)} "
+          f"(limit {lim}); launches by rank "
+          f"{[r['launches'] for r in reps]}, rank 0's expected {want}; "
+          f"peaks {[round(r['peak'] / 2**30, 3) for r in reps]} GiB, "
+          f"accounts (weight and cache blocks + 2 GiB) "
+          f"{[round(a / 2**30, 3) for a in accounts]} GiB | {card_line()}",
+          flush=True)
+    prof = r0.get("profile") or {}
+    if "busy_ms" in prof:
+        print(f"[{tag}] rank 0's profiled decode call: wall "
+              f"{prof['wall_ms']:.1f} ms, device busy {prof['busy_ms']:.1f} "
+              f"ms; NCCL kernels {prof['nccl_ms']:.1f} ms "
+              f"({prof['nccl_ms'] / max(prof['busy_ms'], 1e-9):.4f} of the "
+              f"busy time), host time in gloo's collectives "
+              f"{prof['gloo_host_ms']:.1f} ms "
+              f"({prof['gloo_host_ms'] / prof['wall_ms']:.4f} of the wall) | "
+              f"{card_line()}", flush=True)
+    flips, bad = parity_noise_ties(want_ref["tokens"], r0["tokens"],
+                                   want_ref["margins"], want_ref["tops"],
+                                   band, forced=part == "lanes")
+    print(f"[{tag}] bf16 tokens against one card's: {len(flips)} "
+          f"divergence(s) (request, step, top-2 gap, in bf16 ulps of the "
+          f"top logit): {flips}; not near ties: {bad}", flush=True)
+    if any(v > limits[k] for k, v in errs.items()):
+        fail(f"{tag}: the logits differ from one card's")
+    if bad:
+        fail(f"{tag}: tokens differ from one card's where no near tie "
+             "allows it")
+    if r0["launches"] != want:
+        fail(f"{tag}: rank 0's launch counts differ from what the path "
+             "implies")
+    ran = [k for k, n in want.items() if n]
+    if any(r["launches"][k] == 0 for r in reps for k in ran):
+        fail(f"{tag}: a rank launched no {ran} kernel of its path")
+    if any(r["peak"] > a for r, a in zip(reps, accounts)):
+        fail(f"{tag}: a rank's peak passes its account")
+
+
+# ---------------------------------------------------------------------------
+# a study, not a phase: rwkv6-7b's bf16 gradients against its fp32 ones
+# ---------------------------------------------------------------------------
 
 def rwkv6_bf16_study(cfg=None, shape=None, device="cuda") -> None:
     """Where rwkv6-7b's bf16 step-1 gradients part from its fp32 ones at

@@ -35,13 +35,17 @@ ranks do: it joins the ``torch.distributed`` world (``--dist-backend``,
 NCCL by default, from ``torchrun``'s environment), submits the same
 application to the same one-pod ``Cluster``, and the executor serves it
 on the dense backend with the rank's blocks of the weights and the cache
-under the ladder's plan (tensor parallel over ``model``, the lanes over
-``data``); every rank's engine holds the same requests and tokens, and
-only rank 0 prints and saves the sizing history.  The paged backend and
+under the ladder's plan (tensor parallel over ``model``, an MoE stack's
+experts expert-parallel over it, the lanes over ``data``); every rank's
+engine holds the same requests and tokens, and only rank 0 prints and
+saves the sizing history.  The attention stacks, qwen2-moe, zamba2,
+rwkv6 and phi-3-vision's text serve so; whisper, the paged backend and
 an FSDP plan on a mesh are refused (ROADMAP item A8d)::
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
         --mesh h100x4 --backend dense --arch command-r-35b
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --mesh h100x4 --backend dense --arch qwen2-moe-a2.7b
 
 ``--shared-prefix N`` (this port's own; the reference sets prompt overlap
 with explicit ``prompt_tokens``) gives every synthetic prompt the same

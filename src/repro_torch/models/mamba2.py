@@ -13,11 +13,14 @@ its plain chunked version on CPU tensors), and through its autograd
 Function ``SSDScan`` where a gradient is taken.  Decode is the
 single-step recurrence in plain ops: a one-token update has no Pallas
 counterpart.  The conv state is bf16 and
-the SSM state fp32, as in the reference.  Training under tensor
-parallelism (``mamba2_train`` with ``tp``) runs this rank's heads; the
-inner gated norm, whose rows are then split over the group, takes the
-whole row's mean square into the RMSNorm kernel from outside (its
-partial sums of squares summed over the group).
+the SSM state fp32, as in the reference.  Training, prefill and decode
+under tensor parallelism (``tp``) run this rank's heads; the inner gated
+norm, whose rows are then split over the group, takes the whole row's
+mean square into the RMSNorm kernel from outside (its partial sums of
+squares summed over the group).  A serving plan of a mesh splits the SSM
+state by heads and keeps the conv state whole on every rank, so serving
+all-gathers the rank's block of the conv state's x columns over the
+group after each prefill and decode step.
 """
 
 from __future__ import annotations
@@ -32,7 +35,8 @@ from repro_torch.kernels.ssd_scan import SSDScan, ssd_scan
 from repro_torch.models.layers import (CacheSpec, Spec, needs_grad,
                                       rms_norm)
 from repro_torch.sharding.collectives import (TensorParallel, all_reduce,
-                                              copy_to_tp, reduce_from_tp)
+                                              copy_to_tp, gather_from_tp,
+                                              reduce_from_tp)
 
 Params = Dict[str, Any]
 
@@ -150,11 +154,54 @@ def _ssd_block(p: Params, x: torch.Tensor, cfg: ModelConfig):
     return y.reshape(bsz, s, -1).to(x.dtype), z, ssm, conv_state
 
 
-def mamba2_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig
+def _rank_params(p: Params, cfg: ModelConfig,
+                 tp: Optional[TensorParallel]) -> Optional[Params]:
+    """``p`` for this rank's heads where the planner split them over
+    ``tp`` (``p`` holds this rank's columns of ``w_in_z``/``w_in_x``/
+    ``w_in_dt``/``norm``, heads of ``a_log``/``dt_bias``/``d_skip`` and
+    rows of ``w_out``), else None.  ``w_in_b``, ``w_in_c``, ``conv_w`` and
+    ``conv_b`` are whole on every rank: B and C feed every head, and the
+    conv's x columns are disjoint between ranks, so the rank keeps its
+    block of x's columns and all of B's and C's.  Each whole weight
+    enters through ``copy_to_tp``, so that a gradient taken of it is
+    summed over the group."""
+    d_inner = mamba_dims(cfg)[0]
+    dl = p["w_in_x"].shape[1]
+    if tp is None or dl == d_inner:
+        return None
+    own = slice(tp.rank * dl, (tp.rank + 1) * dl)
+    conv_w, conv_b = (copy_to_tp(p[k], tp) for k in ("conv_w", "conv_b"))
+    return dict(p, w_in_b=copy_to_tp(p["w_in_b"], tp),
+                w_in_c=copy_to_tp(p["w_in_c"], tp),
+                conv_w=torch.cat([conv_w[:, own], conv_w[:, d_inner:]], 1),
+                conv_b=torch.cat([conv_b[own], conv_b[d_inner:]]))
+
+
+def _whole_conv(conv: torch.Tensor, dl: int,
+                tp: TensorParallel) -> torch.Tensor:
+    """The conv state (B, K-1, d_inner + 2N) whole, as every rank stores
+    it (``cache_specs_tree`` splits it over the batch only), from this
+    rank's (B, K-1, dl + 2N): its block of x's columns all-gathered over
+    the group in rank order, then B's and C's, which every rank holds."""
+    return torch.cat([gather_from_tp(conv[..., :dl], tp, -1),
+                      conv[..., dl:]], -1)
+
+
+def mamba2_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                   tp: Optional[TensorParallel] = None
                    ) -> Tuple[torch.Tensor, Params]:
-    """x: (B, S, d) -> (out (B, S, d), {"ssm", "conv"} after the prompt)."""
-    y, z, ssm, conv_state = _ssd_block(p, x, cfg)
-    return _gate_out(p, y, z, cfg), {"ssm": ssm, "conv": conv_state}
+    """x: (B, S, d) -> (out (B, S, d), {"ssm", "conv"} after the prompt).
+    With ``tp`` and the heads split over it (:func:`_rank_params`), this
+    rank's heads: the ``ssm`` state holds them, as the serving plan's
+    cache splits it by heads, and the ``conv`` state is whole
+    (:func:`_whole_conv`)."""
+    local = _rank_params(p, cfg, tp)
+    if local is None:
+        y, z, ssm, conv_state = _ssd_block(p, x, cfg)
+        return _gate_out(p, y, z, cfg), {"ssm": ssm, "conv": conv_state}
+    y, z, ssm, conv_state = _ssd_block(local, x, cfg)
+    conv_state = _whole_conv(conv_state, local["w_in_x"].shape[1], tp)
+    return _gate_out(local, y, z, cfg, tp), {"ssm": ssm, "conv": conv_state}
 
 
 def mamba2_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
@@ -162,36 +209,37 @@ def mamba2_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
     """x: (B, S, d) -> out (B, S, d): the reference's ``mamba2_train``, the
     prefill's output (the states after the sequence go unused).
 
-    With ``tp`` and the heads split over it (``p`` holds this rank's
-    columns of ``w_in_z``/``w_in_x``/``w_in_dt``/``norm``, heads of
-    ``a_log``/``dt_bias``/``d_skip`` and rows of ``w_out``), this rank's
-    heads: the conv runs over its block of x's channels and the whole B
-    and C channels.  ``w_in_b``, ``w_in_c``, ``conv_w`` and ``conv_b`` are
-    whole on every rank and applied to this rank's heads (B and C feed
-    every head; the conv's x columns are disjoint between ranks), so each
-    enters through ``copy_to_tp`` and its gradient is summed over the
-    group, as is the input's."""
-    d_inner = mamba_dims(cfg)[0]
-    dl = p["w_in_x"].shape[1]
-    if tp is None or dl == d_inner:
+    With ``tp`` and the heads split over it, this rank's heads
+    (:func:`_rank_params`): the conv runs over its block of x's channels
+    and the whole B and C channels; the input enters through
+    ``copy_to_tp``, so its gradient is summed over the group."""
+    local = _rank_params(p, cfg, tp)
+    if local is None:
         return mamba2_prefill(p, x, cfg)[0]
-    own = slice(tp.rank * dl, (tp.rank + 1) * dl)
-    conv_w, conv_b = (copy_to_tp(p[k], tp) for k in ("conv_w", "conv_b"))
-    local = dict(p, w_in_b=copy_to_tp(p["w_in_b"], tp),
-                 w_in_c=copy_to_tp(p["w_in_c"], tp),
-                 conv_w=torch.cat([conv_w[:, own], conv_w[:, d_inner:]], 1),
-                 conv_b=torch.cat([conv_b[own], conv_b[d_inner:]]))
     y, z, _, _ = _ssd_block(local, copy_to_tp(x, tp), cfg)
     return _gate_out(local, y, z, cfg, tp)
 
 
 def mamba2_decode(p: Params, x: torch.Tensor, state: Params,
-                  cfg: ModelConfig) -> Tuple[torch.Tensor, Params]:
+                  cfg: ModelConfig, tp: Optional[TensorParallel] = None
+                  ) -> Tuple[torch.Tensor, Params]:
     """x: (B, 1, d); the single-step recurrence.  Returns (out, the new
-    {"ssm", "conv"})."""
+    {"ssm", "conv"}).  With ``tp`` and the heads split over it, this
+    rank's heads: ``state["ssm"]`` holds them, ``state["conv"]`` is whole
+    and the rank reads its columns of it (its block of x's, all of B's
+    and C's); the new conv state is whole again (:func:`_whole_conv`)."""
+    local = _rank_params(p, cfg, tp)
+    conv = state["conv"]
+    if local is not None:
+        dl = local["w_in_x"].shape[1]
+        own = slice(tp.rank * dl, (tp.rank + 1) * dl)
+        conv = torch.cat([conv[..., own], conv[..., mamba_dims(cfg)[0]:]],
+                         -1)
+        p = local
     bsz = x.shape[0]
-    d_inner, h, p_dim, _ = mamba_dims(cfg)
-    z, xh, b_in, c_in, dt, new_conv = _projections(p, x, cfg, state["conv"])
+    d_inner, p_dim = p["w_in_x"].shape[1], cfg.ssm.head_dim
+    h = d_inner // p_dim
+    z, xh, b_in, c_in, dt, new_conv = _projections(p, x, cfg, conv)
     xh32 = xh.reshape(bsz, h, p_dim).float()
     dt1 = dt[:, 0]                                             # (B, H)
     a = torch.exp(-torch.exp(p["a_log"].float())[None] * dt1)  # (B, H)
@@ -202,4 +250,7 @@ def mamba2_decode(p: Params, x: torch.Tensor, state: Params,
     y = torch.einsum("bhpn,bn->bhp", new_ssm, c32)
     y = y + xh32 * p["d_skip"].float()[None, :, None]
     y = y.reshape(bsz, 1, d_inner).to(x.dtype)
-    return _gate_out(p, y, z, cfg), {"ssm": new_ssm, "conv": new_conv}
+    if local is not None:
+        new_conv = _whole_conv(new_conv, d_inner, tp)
+    return _gate_out(p, y, z, cfg, tp if local is not None else None), \
+        {"ssm": new_ssm, "conv": new_conv}

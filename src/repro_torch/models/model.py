@@ -14,13 +14,13 @@ tokens through ``img_feats``) and whisper (its encoder over
 the reference (:func:`pageable`).
 
 Under a serving plan of a mesh (``Model(layout=...)``, a
-``planner.ServeLayout``) the attention stacks serve sharded as the
-reference's ``lower_cell`` lays out a prefill or decode cell: each rank
-holds its blocks of the weights (``param_specs_tree``) and of the dense
-cache (``cache_specs_tree``, laid out once a model:
-``Model.cache_layouts``), takes its lanes of the batch, runs its query
-and KV heads and ffn columns, and returns whole-vocab logits for its
-lanes.
+``planner.ServeLayout``) the attention, MoE, Mamba-2, zamba2, RWKV-6 and
+phi-3-vision stacks serve sharded as the reference's ``lower_cell`` lays
+out a prefill or decode cell: each rank holds its blocks of the weights
+(``param_specs_tree``) and of the dense cache and recurrent state
+(``cache_specs_tree``, laid out once a model: ``Model.cache_layouts``),
+takes its lanes of the batch, runs its query and KV heads, ffn columns,
+experts and SSM/WKV heads, and returns whole-vocab logits for its lanes.
 """
 
 from __future__ import annotations
@@ -210,10 +210,13 @@ class Model:
     makes this rank's blocks of the plan's ``cache_specs_tree`` (their
     layouts ``cache_layouts``, the lanes' ``lanes``), the tokens are this
     rank's lanes, ``tp`` (the plan's ``model`` axis unless given) splits
-    the heads, ffn columns and vocab, and a block whose cache layout
-    splits the sequence decodes under ``impl.decode_shard_ctx``.  Only
-    attention stacks serve so, with the weights split by TP and not FSDP
-    (ROADMAP item A8d)."""
+    the heads, ffn columns and vocab, an MoE stack's experts run
+    expert-parallel under ``impl.ep_shard_ctx`` (``serve_step.
+    impl_from_plan`` sets it where the plan's ``ep`` is), and a block
+    whose cache layout splits the sequence decodes under
+    ``impl.decode_shard_ctx``.  Every kind but whisper's decoder blocks
+    serves so (``transformer.SERVE_MESH_KINDS``), with the weights split
+    by TP and not FSDP (ROADMAP item A8d)."""
 
     def __init__(self, cfg: ModelConfig, impl: Optional[ImplConfig] = None,
                  tp: Optional[TensorParallel] = None, shards=None,

@@ -236,11 +236,14 @@ def _a2a_expert_ffn(x: torch.Tensor, p: Params, cfg: ModelConfig,
 
 
 def _expert_parallel(p: Params, flat: torch.Tensor, cfg: ModelConfig,
-                     shard_ctx, dispatch: str
+                     shard_ctx, dispatch: str, mesh_aux: bool = True
                      ) -> Tuple[torch.Tensor, torch.Tensor, C.TensorParallel]:
     """The routed experts over the mesh of ``shard_ctx`` -> (y, aux, the
     ``model`` group).  ``flat`` (T, D), this rank's data shard's tokens,
-    is the same on every rank of the group, and so is ``y``."""
+    is the same on every rank of the group, and so is ``y``.  Every
+    collective runs over the ``model`` group but the balance loss's mean
+    over the whole mesh, which ``mesh_aux`` False leaves out (aux is then
+    this rank's own)."""
     if dispatch not in ("psum", "a2a"):
         raise ValueError(f"unknown MoE dispatch {dispatch!r}")
     mesh, axis, batch_axes = shard_ctx
@@ -277,11 +280,11 @@ def _expert_parallel(p: Params, flat: torch.Tensor, cfg: ModelConfig,
         y, aux = _a2a_expert_ffn(C.scatter_to_tp(flat, tp), ep, cfg, tp,
                                  e_pad)
         y = C.gather_from_tp(y, tp)
-    return y, C.mesh_mean(aux, tp, mesh), tp
+    return y, (C.mesh_mean(aux, tp, mesh) if mesh_aux else aux), tp
 
 
 def moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
-              shard_ctx=None, dispatch: str = "psum"
+              shard_ctx=None, dispatch: str = "psum", mesh_aux: bool = True
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D) -> (y, aux); on one shard every token of the B x S is
     routed together (the capacity is over all of them).  Shared experts
@@ -292,7 +295,11 @@ def moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
     axes) runs the expert-parallel ``dispatch``, ``"psum"`` or ``"a2a"``
     (see the module doc) on this rank's blocks of the routed experts and
     router; the shared experts' MLP runs on its ffn columns where the
-    planner split them over ``model``, as the dense MLP does under TP."""
+    planner split them over ``model``, as the dense MLP does under TP.
+    Serving passes ``mesh_aux`` False: it reads no balance loss, and a
+    prefill runs on the data group that holds the prompt's lane alone, so
+    the loss's mean over every rank of the mesh would wait on ranks that
+    do not run it."""
     b, s, d = x.shape
     flat = x.reshape(b * s, d)
     m = cfg.moe
@@ -301,7 +308,8 @@ def moe_block(p: Params, x: torch.Tensor, cfg: ModelConfig,
         y, aux = _local_expert_ffn(flat, p, cfg,
                                    padded_num_experts(m.num_experts))
     else:
-        y, aux, tp = _expert_parallel(p, flat, cfg, shard_ctx, dispatch)
+        y, aux, tp = _expert_parallel(p, flat, cfg, shard_ctx, dispatch,
+                                      mesh_aux)
     if m.num_shared_experts > 0:
         # the gate's weight and input are whole on every rank, and so
         # are their gradients: no collective

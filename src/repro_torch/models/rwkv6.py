@@ -16,9 +16,10 @@ the reference's chunked form clamps a split of the pairwise decay and is
 wrong once a chunk's cumulative log-decay falls below -30 (see
 ``kernels/rwkv6_scan.py``).  Decode is the single-step recurrence in plain
 ops.  As in the reference, the token-shift mix coefficients are plain
-learned vectors; the decay LoRA is kept.  Training under tensor
-parallelism (``time_mix_train`` and ``channel_mix_train`` with ``tp``)
-runs this rank's heads and ffn columns.
+learned vectors; the decay LoRA is kept.  Training, prefill and decode
+under tensor parallelism (``tp``) run this rank's heads and ffn columns;
+a serving plan of a mesh splits the WKV state by heads and keeps the
+token-shift carries, the block's whole inputs, whole on every rank.
 """
 
 from __future__ import annotations
@@ -142,39 +143,52 @@ def _time_mix_out(p: Params, o: torch.Tensor, g: torch.Tensor
     return torch.matmul(o.flatten(-2), p["wo"].reshape(h * hd, d))
 
 
-def time_mix_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig
+def _split(p: Params, cfg: ModelConfig,
+           tp: Optional[TensorParallel]) -> Optional[TensorParallel]:
+    """``tp`` where the planner split the time mix's heads over it (``p``
+    holds this rank's heads of ``wr``/``wk``/``wv``/``wg``/``wo``/``w0``/
+    ``wb``/``bonus_u``/``ln_x``), else None."""
+    return tp if tp is not None and p["wr"].shape[1] < cfg.num_heads \
+        else None
+
+
+def time_mix_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                     tp: Optional[TensorParallel] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out (B, S, d), the WKV state after the prompt)."""
-    r, k, v, g, logw = time_mix_projections(p, x, None, cfg)
+    """x: (B, S, d) -> (out (B, S, d), the WKV state after the prompt).
+
+    With ``tp`` and the heads split over it, this rank's heads: the group
+    norm per head as it is, ``wo``'s partial outputs summed over the
+    group, and the WKV state of this rank's heads (the serving plan's
+    cache splits it by heads).  The token-shift mixes ``mu`` and the decay
+    LoRA's ``wa`` are whole on every rank; the activations they make enter
+    this rank's heads through ``copy_to_tp``
+    (:func:`time_mix_projections`), so a gradient taken of ``mu`` and
+    ``wa`` comes from one full-width sum, as on one card."""
+    tp = _split(p, cfg, tp)
+    r, k, v, g, logw = time_mix_projections(p, x, None, cfg, tp)
     o, wkv = wkv_chunked(r, k, v, logw, p["bonus_u"])
-    return _time_mix_out(p, o.to(x.dtype), g), wkv
+    out = _time_mix_out(p, o.to(x.dtype), g)
+    return (out if tp is None else reduce_from_tp(out, tp)), wkv
 
 
 def time_mix_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
                    tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """x: (B, S, d) -> out (B, S, d): the reference's ``time_mix_train``,
-    the prefill's output (the WKV state after the sequence goes unused).
-
-    With ``tp`` and the heads split over it (``p`` holds this rank's heads
-    of ``wr``/``wk``/``wv``/``wg``/``wo``/``w0``/``wb``/``bonus_u``/
-    ``ln_x``), this rank's heads, the group norm per head as it is, and
-    ``wo``'s partial outputs summed over the group.  The token-shift mixes
-    ``mu`` and the decay LoRA's ``wa`` are whole on every rank; the
-    activations they make enter this rank's heads through ``copy_to_tp``
-    (:func:`time_mix_projections`), so ``mu`` and ``wa`` take their
-    gradients from one full-width sum, as on one card."""
-    if tp is None or p["wr"].shape[1] == cfg.num_heads:
-        return time_mix_prefill(p, x, cfg)[0]
-    r, k, v, g, logw = time_mix_projections(p, x, None, cfg, tp)
-    o, _ = wkv_chunked(r, k, v, logw, p["bonus_u"])
-    return reduce_from_tp(_time_mix_out(p, o.to(x.dtype), g), tp)
+    the prefill's output (the WKV state after the sequence goes unused),
+    on this rank's heads where ``tp`` splits them."""
+    return time_mix_prefill(p, x, cfg, tp)[0]
 
 
 def time_mix_decode(p: Params, x: torch.Tensor, state: Params,
-                    cfg: ModelConfig) -> Tuple[torch.Tensor, Params]:
+                    cfg: ModelConfig, tp: Optional[TensorParallel] = None
+                    ) -> Tuple[torch.Tensor, Params]:
     """x: (B, 1, d); the single-step recurrence.  Returns (out, the new
-    {"wkv", "shift_t"})."""
-    r, k, v, g, logw = time_mix_projections(p, x, state["shift_t"], cfg)
+    {"wkv", "shift_t"}).  With ``tp`` and the heads split over it, this
+    rank's heads, as in :func:`time_mix_prefill`: ``state["wkv"]`` holds
+    them; ``shift_t``, the block's whole input, is whole on every rank."""
+    tp = _split(p, cfg, tp)
+    r, k, v, g, logw = time_mix_projections(p, x, state["shift_t"], cfg, tp)
     r32, k32, v32 = (t.float()[:, 0] for t in (r, k, v))
     w = torch.exp(logw.float())[:, 0]                         # (B, H, hd)
     u = p["bonus_u"].float()
@@ -183,6 +197,8 @@ def time_mix_decode(p: Params, x: torch.Tensor, state: Params,
     o = torch.einsum("bnh,bnhp->bnp", r32, s_old + u[None, :, :, None] * kv)
     s_new = s_old * w[..., None] + kv
     out = _time_mix_out(p, o[:, None].to(x.dtype), g)
+    if tp is not None:
+        out = reduce_from_tp(out, tp)
     return out, {"wkv": s_new, "shift_t": x}
 
 
@@ -208,15 +224,17 @@ def channel_mix(p: Params, x: torch.Tensor,
 
 
 def channel_mix_train(p: Params, x: torch.Tensor, cfg: ModelConfig,
-                      tp: Optional[TensorParallel] = None) -> torch.Tensor:
-    """The channel mix of a training forward.  With ``tp`` and the ffn
-    split over it, this rank's part: ``kk @ cv`` is a partial sum of full
-    width, summed over the group, and ``rr`` this rank's columns,
-    all-gathered."""
+                      tp: Optional[TensorParallel] = None,
+                      x_prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The channel mix of a training forward or of a serving step under a
+    plan (``x_prev``: the decode carry, as in :func:`channel_mix`).  With
+    ``tp`` and the ffn split over it, this rank's part: ``kk @ cv`` is a
+    partial sum of full width, summed over the group, and ``rr`` this
+    rank's columns, all-gathered."""
     split = tp is not None and p["ck"].shape[1] < cfg.d_ff
     if split != (tp is not None and p["cr"].shape[1] < cfg.d_model):
         raise NotImplementedError(
             f"{cfg.name}: the channel mix splits its ffn ({cfg.d_ff}) and "
             f"its receptance columns ({cfg.d_model}) over the group "
             "together or neither")
-    return channel_mix(p, x, tp=tp if split else None)
+    return channel_mix(p, x, x_prev, tp if split else None)

@@ -19,13 +19,16 @@ keep their own.
 Prefill and decode update the dense cache in place: each writes its
 block's new state into the cache tensors it is given.
 
-Under a serving plan of a mesh the global and sliding-window attention
-blocks take ``tp`` (this rank's query and KV heads and ffn columns, the
-row-parallel outputs summed over the group, as in training) and, where
-the cache's stored layout splits its sequence, the reference's
+Under a serving plan of a mesh the blocks of :data:`SERVE_MESH_KINDS`
+take ``tp``, as in training: the attention blocks (an MoE block's and
+zamba2's shared one too) this rank's query and KV heads and ffn columns,
+the row-parallel outputs summed over the group; an MoE block's routed
+experts run expert-parallel under ``impl.ep_shard_ctx``; the Mamba-2 and
+RWKV-6 blocks this rank's heads, their SSM and WKV states split by heads
+and their conv and token-shift states whole.  An attention block whose
+cache's stored layout splits its sequence takes the reference's
 ``decode_shard_ctx`` (decode) or the rank's block of positions
-(prefill).  Every other block kind refuses both
-(:data:`SERVE_MESH_KINDS`; ROADMAP item A8d).
+(prefill).  whisper's decoder blocks refuse both (ROADMAP item A8d).
 """
 
 from __future__ import annotations
@@ -68,18 +71,18 @@ class ImplConfig:
 
 
 #: the block kinds that serve under a plan of a mesh (tensor-parallel
-#: heads and ffn, a sequence-sharded cache); the MoE, recurrent,
-#: vision-language and encoder-decoder blocks are ROADMAP item A8d
-SERVE_MESH_KINDS = (ATTN_GLOBAL, ATTN_LOCAL)
+#: heads and ffn, expert-parallel experts, a sequence-sharded cache);
+#: whisper's decoder blocks are ROADMAP item A8d
+SERVE_MESH_KINDS = (ATTN_GLOBAL, ATTN_LOCAL, MOE, MAMBA2, ATTN_SHARED, RWKV6)
 
 
 def serve_mesh_refusal(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what}: serving under a plan of a mesh covers attention stacks "
-        f"(block kinds {SERVE_MESH_KINDS}) on the dense backend with the "
-        "weights split by TP, not FSDP; MoE, Mamba-2/zamba2, RWKV-6, "
-        "phi-3-vision and whisper serving, the paged backend on a mesh and "
-        "weight-gathered serving are ROADMAP item A8d")
+        f"{what}: serving under a plan of a mesh covers the block kinds "
+        f"{SERVE_MESH_KINDS} on the dense backend with the weights split by "
+        "TP (and the experts by EP), not FSDP; whisper's decoder blocks "
+        f"({DEC_ATTN!r}), weight-gathered (FSDP) serving and the paged "
+        "backend on a mesh are ROADMAP item A8d")
 
 
 # matmuls without batch dims (``torch.matmul`` of a (B, S, d) activation
@@ -252,10 +255,11 @@ def apply_block_decode(cfg: ModelConfig, kind: str, p: Params,
     """One token through one block at the shared position ``pos``.  x:
     (B, 1, d); ``cache`` holds this block's (B, ...) state and is updated
     in place.  ``impl`` carries an MoE block's expert-parallel context.
-    An attention block takes ``tp`` (this rank's heads and ffn columns)
-    and ``shard_ctx`` (the reference's ``decode_shard_ctx``, given where
-    this block's cache holds the rank's block of the sequence).  Returns
-    (x, cache)."""
+    A block of :data:`SERVE_MESH_KINDS` takes ``tp`` (this rank's heads,
+    ffn columns and states; module doc) and an attention block
+    ``shard_ctx`` (the reference's ``decode_shard_ctx``, given where this
+    block's cache holds the rank's block of the sequence).  Returns (x,
+    cache)."""
     if (tp is not None or shard_ctx is not None) \
             and kind not in SERVE_MESH_KINDS:
         raise serve_mesh_refusal(f"{cfg.name}'s {kind!r} blocks")
@@ -272,10 +276,11 @@ def apply_block_decode(cfg: ModelConfig, kind: str, p: Params,
         # every lane of the batch routes, idle ones too, as in the
         # reference (B <= 8 tokens: no expert reaches its capacity of 8)
         h = apply_norm(cfg, p["ln1"], x)
-        y, cache = attn.self_attention_decode(p["attn"], h, cache, pos, cfg)
+        y, cache = attn.self_attention_decode(p["attn"], h, cache, pos, cfg,
+                                              tp=tp, shard_ctx=shard_ctx)
         x = x + y
         h = apply_norm(cfg, p["ln2"], x)
-        y, _ = _moe(cfg, p, h, impl)
+        y, _ = _moe(cfg, p, h, impl, mesh_aux=False)
         return x + y, cache
     if kind == DEC_ATTN:
         h = apply_norm(cfg, p["ln1"], x)
@@ -292,23 +297,24 @@ def apply_block_decode(cfg: ModelConfig, kind: str, p: Params,
         return x + L.mlp(p["mlp"], h), cache
     if kind == RWKV6:
         h = apply_norm(cfg, p["ln1"], x)
-        y, tm = rw.time_mix_decode(p["rwkv"], h, cache, cfg)
+        y, tm = rw.time_mix_decode(p["rwkv"], h, cache, cfg, tp)
         x = x + y
         h = apply_norm(cfg, p["ln2"], x)
-        cm = rw.channel_mix(p["rwkv"], h, cache["shift_c"])
+        cm = rw.channel_mix_train(p["rwkv"], h, cfg, tp, cache["shift_c"])
         _store(cache, dict(tm, shift_c=h))
         return x + cm, cache
     if kind == MAMBA2:
         h = apply_norm(cfg, p["ln1"], x)
-        y, new = m2.mamba2_decode(p["mamba"], h, cache, cfg)
+        y, new = m2.mamba2_decode(p["mamba"], h, cache, cfg, tp)
         return x + y, _store(cache, new)
     if kind == ATTN_SHARED:
         sp = shared["shared_attn"]
         h = apply_norm(cfg, p["ln_in"], x)
         hh = apply_norm(cfg, sp["ln1"], h)
-        y, cache = attn.self_attention_decode(sp["attn"], hh, cache, pos, cfg)
+        y, cache = attn.self_attention_decode(sp["attn"], hh, cache, pos, cfg,
+                                              tp=tp, shard_ctx=shard_ctx)
         h2 = apply_norm(cfg, sp["ln2"], h + y)
-        return x + y + L.gated_mlp(sp["mlp"], h2), cache
+        return x + y + _gated_mlp(cfg, sp["mlp"], h2, tp), cache
     raise ValueError(f"{kind!r} blocks have no decode step")
 
 
@@ -324,8 +330,9 @@ def apply_block_prefill(cfg: ModelConfig, kind: str, p: Params,
     block's ring holds the prompt's last ``window`` positions; a whisper
     decoder block's cross K/V are the encoder output's).  ``enc_out`` is
     the encoder's output (B, T, d) for decoder blocks; ``impl`` carries
-    an MoE block's expert-parallel context.  An attention block takes
-    ``tp`` (this rank's heads and ffn columns) and ``seq_block`` (blocks,
+    an MoE block's expert-parallel context.  A block of
+    :data:`SERVE_MESH_KINDS` takes ``tp`` (this rank's heads, ffn columns
+    and states; module doc) and an attention block ``seq_block`` (blocks,
     this rank's block) where its cache splits the sequence: the cache
     keeps that block of the positions.  Returns (x, cache)."""
     if (tp is not None or seq_block is not None) \
@@ -339,7 +346,7 @@ def apply_block_prefill(cfg: ModelConfig, kind: str, p: Params,
         x = x + y
         h = apply_norm(cfg, p["ln2"], x)
         if kind == MOE:
-            y, _ = _moe(cfg, p, h, impl)
+            y, _ = _moe(cfg, p, h, impl, mesh_aux=False)
         else:
             y = _gated_mlp(cfg, p["mlp"], h, tp)
         return x + y, _store_kv(cache, kv, window, seq_block)
@@ -358,24 +365,24 @@ def apply_block_prefill(cfg: ModelConfig, kind: str, p: Params,
         return x + L.mlp(p["mlp"], h), cache
     if kind == RWKV6:
         h = apply_norm(cfg, p["ln1"], x)
-        y, wkv = rw.time_mix_prefill(p["rwkv"], h, cfg)
+        y, wkv = rw.time_mix_prefill(p["rwkv"], h, cfg, tp)
         x = x + y
         h2 = apply_norm(cfg, p["ln2"], x)
-        x = x + rw.channel_mix(p["rwkv"], h2)
+        x = x + rw.channel_mix_train(p["rwkv"], h2, cfg, tp)
         return x, _store(cache, {"wkv": wkv, "shift_t": h[:, -1:],
                                  "shift_c": h2[:, -1:]})
     if kind == MAMBA2:
         h = apply_norm(cfg, p["ln1"], x)
-        y, state = m2.mamba2_prefill(p["mamba"], h, cfg)
+        y, state = m2.mamba2_prefill(p["mamba"], h, cfg, tp)
         return x + y, _store(cache, state)
     if kind == ATTN_SHARED:
         sp = shared["shared_attn"]
         h = apply_norm(cfg, p["ln_in"], x)
         hh = apply_norm(cfg, sp["ln1"], h)
-        y, kv = attn.self_attention_prefill(sp["attn"], hh, cfg)
+        y, kv = attn.self_attention_prefill(sp["attn"], hh, cfg, tp=tp)
         h2 = apply_norm(cfg, sp["ln2"], h + y)
-        x = x + y + L.gated_mlp(sp["mlp"], h2)
-        return x, _store_kv(cache, kv)
+        x = x + y + _gated_mlp(cfg, sp["mlp"], h2, tp)
+        return x, _store_kv(cache, kv, 0, seq_block)
     raise ValueError(f"{kind!r} blocks have no prefill")
 
 
@@ -419,12 +426,14 @@ def _store_kv(cache: Params, kv: Params, window: int = 0,
 
 
 def _moe(cfg: ModelConfig, p: Params, h: torch.Tensor,
-         impl: Optional[ImplConfig]) -> Tuple[torch.Tensor, torch.Tensor]:
+         impl: Optional[ImplConfig], mesh_aux: bool = True
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """An MoE block's routed and shared experts on the normed ``h``, over
-    the mesh of ``impl.ep_shard_ctx`` where it is set."""
+    the mesh of ``impl.ep_shard_ctx`` where it is set; serving passes
+    ``mesh_aux`` False (``moe.moe_block``)."""
     impl = impl or ImplConfig()
     return moe_mod.moe_block(p["moe"], h, cfg, impl.ep_shard_ctx,
-                             impl.moe_dispatch)
+                             impl.moe_dispatch, mesh_aux)
 
 
 def _gated_mlp(cfg: ModelConfig, p: Params, h: torch.Tensor,

@@ -25,13 +25,14 @@ spawned with a ``file://`` rendezvous): every rank submits the same
 application to the same one-pod ``Cluster``, binds its block of the
 plan's layouts (``sharding.planner``) on its own card, and runs the
 sharded train step, or serves on the dense backend with its blocks of
-the weights and the cache (an attention stack under a plan without
-FSDP: ``DenseRunner(layout=...)``), its engine in step with the other
+the weights, the cache and the recurrent state (every block kind but
+whisper's decoder blocks, under a plan without FSDP:
+``DenseRunner(layout=...)``), its engine in step with the other
 ranks'; the footprint is the largest of the ranks', so every rank's
 control plane takes the same decisions, and rank 0 alone writes
 checkpoints.  Outside such a world a multi-card plan is refused with
-``NotImplementedError``, and so are the paged backend and an FSDP plan
-on a mesh (ROADMAP item A8d).
+``NotImplementedError``, and so are the paged backend, an FSDP plan and
+whisper on a mesh (ROADMAP item A8d).
 """
 
 from __future__ import annotations

@@ -59,8 +59,9 @@ It copies the reference's behaviour exactly, since token parity depends
 on it: prompts are never padded, and decode runs the whole slot batch at
 one shared position.  A sliding-window layer's dense cache is a ring of
 ``min(cache_len, window)`` slots.  Under a serving plan of a mesh
-(``layout``, a ``planner.ServeLayout``; the attention stacks) each rank
-holds its blocks of the weights and of the cache: its slots are its
+(``layout``, a ``planner.ServeLayout``; every family but whisper) each
+rank holds its blocks of the weights and of the cache (an SSM or WKV
+state its heads, a conv or token-shift state whole): its slots are its
 block of the lanes over the plan's batch axes, a request's prompt is
 prefilled by the ranks that hold its slot, a decode step runs each
 rank's lanes, and the first and next tokens are all-gathered over the
@@ -367,17 +368,17 @@ class DenseRunner(ModelRunner):
         self.device = resolve_device(device)
         self.max_batch = max_batch
         self.cache_len = cache_len
+        # first: under a layout it refuses the kinds that do not serve on
+        # a mesh (ROADMAP item A8d) before the encoder-decoder's refusal
+        self.model = (Model(cfg, ImplConfig(remat="none")) if layout is None
+                      else Model(cfg, impl_from_plan(layout.plan, layout.mesh),
+                                 layout=layout))
         if cfg.is_encdec:
             raise ValueError(
                 f"backend='dense' serves prompts of tokens; {cfg.name} is an "
                 "encoder-decoder whose prefill needs its encoder's frame "
                 "features: drive Model.prefill(..., enc_feats=...) and "
                 "Model.decode_step directly")
-        self.model = (Model(cfg, ImplConfig(remat="none")) if layout is None
-                      else Model(cfg, impl_from_plan(layout.plan, layout.mesh),
-                                 layout=layout))
-        # first: it refuses the kinds the dense path does not serve yet
-        # before any weight is made
         self.cache = self.model.init_cache(max_batch, cache_len, self.device)
         self.params = (init_params(cfg, seed, self.device, layouts=None
                                    if layout is None else

@@ -26,27 +26,36 @@ from repro_torch.models.transformer import ImplConfig
 
 
 def impl_from_plan(plan: Plan, mesh=None) -> ImplConfig:
-    """The serving execution strategy of ``plan``: its attention
-    implementation, no rematerialization (nothing is differentiated), and
-    on ``mesh`` (a ``TorchMesh``), where the plan shards the KV cache's
-    sequence (``kv_shard_seq`` or ``seq_axes``), the reference's
-    ``decode_shard_ctx`` (mesh, the sequence axes, the batch axes), as
-    ``dryrun._model_impl`` sets it for a decode cell.  The reference's
-    block scan/unroll knobs have no counterpart: the port's blocks are
-    always a Python loop."""
-    shard_ctx = None
+    """The serving execution strategy of ``plan``, as
+    ``dryrun._model_impl`` sets it for a prefill or decode cell: its
+    attention implementation and MoE dispatch, no rematerialization
+    (nothing is differentiated), and on ``mesh`` (a ``TorchMesh``) where
+    the plan shards the KV cache's sequence (``kv_shard_seq`` or
+    ``seq_axes``), the reference's ``decode_shard_ctx`` (mesh, the
+    sequence axes, the batch axes; the prefill reads the cache's layout
+    instead), and where the plan's ``ep`` is set, the expert-parallel
+    ``ep_shard_ctx`` (mesh, ``"model"``, the batch axes).  The
+    reference's block scan/unroll knobs have no counterpart: the port's
+    blocks are always a Python loop."""
+    shard_ctx = ep_ctx = None
     if mesh is not None and (plan.kv_shard_seq or plan.seq_axes):
         shard_ctx = (mesh, tuple(plan.seq_axes or ("model",)),
                      tuple(plan.batch_axes))
+    if mesh is not None and plan.ep:
+        ep_ctx = (mesh, "model", tuple(plan.batch_axes))
     return ImplConfig(attn_impl=plan.attn_impl, remat="none",
-                      decode_shard_ctx=shard_ctx)
+                      decode_shard_ctx=shard_ctx, ep_shard_ctx=ep_ctx,
+                      moe_dispatch=plan.moe_dispatch)
 
 
 def make_prefill_step(model: Model, cache_len: int) -> Callable:
-    """prefill(params, tokens (B, S)) -> (last-token logits (B, 1, V),
-    a dense cache of ``cache_len`` positions)."""
-    def prefill(params, tokens):
-        logits, cache = model.prefill(params, tokens, cache_len)
+    """prefill(params, tokens (B, S)[, img_feats (B, N, 1024)]) ->
+    (last-token logits (B, 1, V), a dense cache of ``cache_len``
+    positions).  A vision-language model's ``img_feats`` (the
+    reference's ``batch["img_feats"]``) go ahead of the tokens."""
+    def prefill(params, tokens, img_feats=None):
+        logits, cache = model.prefill(params, tokens, cache_len,
+                                      img_feats=img_feats)
         return gather_lanes(logits, model.lanes), cache
     return prefill
 

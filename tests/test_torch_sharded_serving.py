@@ -20,7 +20,10 @@ and its blocks of the weights and the dense cache:
   gemma3-12b (five sliding-window layers whose rings of 8 slots wrap, and
   a global one);
 * ``launch.serve`` through ``Cluster.submit`` on the dense backend, and
-  the refusals that remain (ROADMAP item A8d).
+  the refusals that remain (ROADMAP item A8d: whisper, FSDP plans, the
+  paged backend on a mesh, a world of another size).  The MoE, recurrent
+  and vision-language families' sharded serving is
+  ``tests/test_torch_sharded_families.py``'s.
 
 Both sides decode the same fed tokens (numpy, seeded), so every step's
 logits compare; each step's greedy token (the step's ``next``) must
@@ -50,7 +53,8 @@ from repro_torch.kernels.decode_attention import (decode_attention_ref,
                                                   decode_split_ref)
 from repro_torch.launch.serve import serve
 from repro_torch.models.model import Model, init_params
-from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, MAMBA2
+from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL, ATTN_SHARED,
+                                      DEC_ATTN, MAMBA2, MOE, RWKV6)
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import (ImplConfig, SERVE_MESH_KINDS,
                                             apply_block_decode)
@@ -500,12 +504,14 @@ def test_cluster_serves_on_the_mesh(world):
         assert r["serve"]["plan"]["batch_axes"] == ("data",)
 
 
-@pytest.mark.parametrize("what", ["paged", "fsdp", "world", "moe", "mamba"])
+@pytest.mark.parametrize("what", ["paged", "fsdp", "world", "whisper",
+                                  "dbrx_fsdp"])
 def test_refused_in_the_world(world, what):
     """Inside the 4-rank world: the paged backend on a mesh, an FSDP
-    (weight-gathered) serve plan, a serve plan of an 8-device mesh and a
-    stack of other block kinds (MoE, Mamba-2) raise NotImplementedError
-    naming ROADMAP item A8d, on every rank."""
+    (weight-gathered) serve plan, a serve plan of an 8-device mesh,
+    whisper's decoder blocks and dbrx-132b under an FSDP plan (its
+    ``decode_32k`` plan's placement at full size) raise
+    NotImplementedError naming ROADMAP item A8d, on every rank."""
     for r in world["ranks"]:
         said = r["refused"][what]
         assert said is not None and "A8d" in said
@@ -513,23 +519,31 @@ def test_refused_in_the_world(world, what):
 
 def test_refused_outside_the_world():
     """With no world a serve plan of ``h100x4`` is refused, naming
-    multi-card binding and A8d; a serving layout over a stack of other
-    kinds, and a block of another kind given ``tp`` or a ``shard_ctx``,
-    raise before any weight is made."""
+    multi-card binding and A8d; a serving layout over whisper's decoder
+    blocks or under dbrx-132b's FSDP plan, and a decoder block given
+    ``tp`` or a ``shard_ctx``, raise before any weight is made; every
+    other block kind serves on a mesh."""
     c = Cluster(pods=1, mesh=H100X4, executor=TorchExecutor(device="cpu"))
     with pytest.raises(NotImplementedError, match="multi-card.*A8d"):
         c.submit(Application.serve("command-r-35b", reduced=True,
                                    serve=ServeOptions(backend="dense")))
-    cfg = reduced_config(get_config("zamba2-2.7b"))
+    cfg = reduced_config(get_config("whisper-base"))
     plan = Plan(cfg.name, "decode", H100X4, batch_axes=("data",))
     with pytest.raises(NotImplementedError, match="A8d"):
         DenseRunner(cfg, device="cpu", layout=ServeLayout(plan, None))
+    dbrx = reduced_config(get_config("dbrx-132b"))
+    with pytest.raises(NotImplementedError, match="A8d"):
+        Model(dbrx, layout=ServeLayout(Plan(
+            dbrx.name, "decode", H100X4, batch_axes=("data",), tp=True,
+            ep=True, fsdp=True), None))
     x = torch.zeros(1, 1, cfg.d_model)
     for kw in ({"tp": TensorParallel(None, 2, 0)},
                {"shard_ctx": ("mesh", ("model",), ("data",))}):
         with pytest.raises(NotImplementedError, match="A8d"):
-            apply_block_decode(cfg, MAMBA2, {}, x, {}, 0, {}, **kw)
-    assert SERVE_MESH_KINDS == (ATTN_GLOBAL, ATTN_LOCAL)
+            apply_block_decode(cfg, DEC_ATTN, {}, x, {}, 0, {}, **kw)
+    assert DEC_ATTN not in SERVE_MESH_KINDS
+    assert set(SERVE_MESH_KINDS) == {ATTN_GLOBAL, ATTN_LOCAL, MOE, MAMBA2,
+                                     ATTN_SHARED, RWKV6}
 
 
 def test_serving_plans_lay_out_the_cache():

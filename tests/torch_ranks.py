@@ -1,7 +1,8 @@
 """Rank programs of ``tests/test_torch_distributed.py``,
 ``tests/test_torch_expert_parallel.py``,
-``tests/test_torch_deep_sharded.py`` and
-``tests/test_torch_sharded_serving.py``.
+``tests/test_torch_deep_sharded.py``,
+``tests/test_torch_sharded_serving.py`` and
+``tests/test_torch_sharded_families.py``.
 
 Each rank of a world runs in its own process (:func:`run_world` starts
 them)::
@@ -539,15 +540,64 @@ def sharded_serving(rank: int, d: str) -> None:
         "fsdp": _refusal(lambda: submit("command-r-35b",
                                         overrides={"fsdp": True})),
         "world": _refusal(lambda: submit("command-r-35b", mesh_spec=DGX8)),
-        "moe": _refusal(lambda: submit("qwen2-moe-a2.7b")),
-        "mamba": _refusal(lambda: submit("zamba2-2.7b"))}
+        "whisper": _refusal(lambda: submit("whisper-base")),
+        "dbrx_fsdp": _refusal(lambda: submit("dbrx-132b",
+                                             overrides={"fsdp": True}))}
     torch.save(out, os.path.join(d, f"serving_{rank}.pt"))
+
+
+def sharded_families(rank: int, d: str) -> None:
+    """The cases of ``d/families.pt`` on ``h100x4`` under their plans
+    (TP, the lanes over 'data'; an MoE stack's experts over 'model'):
+    this rank's lanes of the prompt (and of the image features), its
+    blocks of the weights and the cache; the prefill (in bf16 through
+    ``make_prefill_step``, in fp32 into a cache of fp32), then the fed
+    decode steps; each rank saves every lane's logits and next tokens,
+    the whole cache and its own cache leaves' shapes to
+    ``d/families_<rank>.pt``."""
+    from repro_torch.models.model import Model, gather_lanes, param_specs
+    from repro_torch.serving.serve_step import (impl_from_plan,
+                                                make_prefill_step)
+    from repro_torch.sharding.planner import ServeLayout
+    cases = torch.load(os.path.join(d, "families.pt"), weights_only=False)
+    mesh, out = TorchMesh(H100X4), {}
+    for name, case in cases.items():
+        cfg, plan, cl = case["cfg"], case["plan"], case["cache_len"]
+        layout = ServeLayout(plan, mesh)
+        model = Model(cfg, impl_from_plan(plan, mesh), layout=layout)
+        params = _local_params(case["params"],
+                               layout.params(cfg, param_specs(cfg)))
+        prompt, img = case["prompt"], case["img"]
+        per = prompt.shape[0] // mesh.size(plan.batch_axes)
+        lanes = slice(mesh.index(plan.batch_axes) * per,
+                      (mesh.index(plan.batch_axes) + 1) * per)
+        rows = prompt[lanes]
+        img = None if img is None else img[lanes].to(case["dtype"])
+        if case["dtype"] == torch.bfloat16:
+            first, cache = make_prefill_step(model, cl)(params, rows, img)
+        else:
+            cache = model.init_cache(prompt.shape[0], cl, "cpu",
+                                     case["dtype"])
+            first, cache = model.prefill(params, rows, cl, cache=cache,
+                                         img_feats=img)
+            first = gather_lanes(first, model.lanes)
+        shapes = {key: {k: tuple(t.shape) for k, t in leaf.items()}
+                  for key, leaf in cache.items()}
+        logits, nxt, cache = _serve_decode(model, params, cache,
+                                           case["feed"], case["pos"])
+        out[name] = {"first": first, "logits": logits, "next": nxt,
+                     "cache": _whole_cache(model, cache),
+                     "cache_shapes": shapes,
+                     "ep": model.impl.ep_shard_ctx is not None,
+                     "dispatch": model.impl.moe_dispatch}
+    torch.save(out, os.path.join(d, f"families_{rank}.pt"))
 
 
 PROGRAMS = {"world8": world8, "launch_train": launch_train,
             "expert_parallel": expert_parallel,
             "deep_sharded": deep_sharded,
-            "sharded_serving": sharded_serving}
+            "sharded_serving": sharded_serving,
+            "sharded_families": sharded_families}
 
 
 def main(argv) -> None:
