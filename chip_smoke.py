@@ -287,7 +287,7 @@ Phases, each of which must pass (any failure exits nonzero):
    as one card routed each rank's own tokens (swaps counted), each rank
    holding its blocks of the step-1 gradients and params against one
    card's within ``TRAIN_*_RTOL``; then the ladder's plan as it is at
-   the config's capacity factor 1.25, ``EP_LADDER_LAYERS`` = 4 of 24
+   the config's capacity factor 1.25, ``EP_LADDER_LAYERS`` = 2 of 24
    layers on one card and ``EP_FOUR_CARD_LAYERS`` = 24 on four,
    ``EP_STEPS`` = 2 steps, the second profiled on rank 0 (its memory
    account printed beside the peaks, as phase 22's): finite, falling
@@ -331,7 +331,7 @@ Phases, each of which must pass (any failure exits nonzero):
 23. sharded serving, over the same ranks: full-width command-r-35b (d
    8192, 64 query heads over 8 KV heads of 128, vocab 256000; random
    bf16 weights from seed 0, each rank drawing only its blocks of them)
-   at ``SERVE_ONE_CARD_LAYERS`` = 4 of its 40 layers on one card (gloo,
+   at ``SERVE_ONE_CARD_LAYERS`` = 2 of its 40 layers on one card (gloo,
    four ranks on ``cuda:0``) and all 40 on four (NCCL).  One card first
    runs both references (:func:`serving_references`).  (i) Each rank
    calls ``launch.serve`` on ``h100x4`` (``Cluster.submit``, the
@@ -378,7 +378,7 @@ Phases, each of which must pass (any failure exits nonzero):
    (16 of 32 heads of 96), random bf16 weights from seed 0 (qwen2-moe at
    the capacity factor ``FAMILY_NO_DROP``, where no expert drops a
    pair: its drops are held against the reference's on the CPU), each rank
-   drawing only its blocks, at ``FAMILY_ONE_CARD_LAYERS`` (4 layers;
+   drawing only its blocks, at ``FAMILY_ONE_CARD_LAYERS`` (2 layers;
    zamba2 one pattern block of 6) on one card (gloo, four ranks on
    ``cuda:0``) and the full depth on four (NCCL).  One card first runs
    every reference (:func:`family_references`).  For each family (i) each
@@ -403,6 +403,38 @@ Phases, each of which must pass (any failure exits nonzero):
    Printed: each rank's launches and peak, the median decode call and
    TTFT beside one card's, the collectives' share of the profiled call.
    :func:`families_on_ranks` runs the phase alone.
+25. whisper-base under TP and dbrx-132b served weight-gathered, over the
+   same ranks (:func:`fsdp_references`, :func:`fsdp_runs`,
+   :func:`fsdp_gates`).  (a) Full-width, full-depth whisper-base under
+   its ladder's ``decode_32k`` plan (4 of 8 heads a rank in the encoder
+   and in the decoder's self and cross attention, the cross K/V cache
+   split by its KV heads, the vocab of 51865 whole, the lanes over
+   'data'): ``WHISPER_RANK_LANES`` lanes of a seeded prompt over seeded
+   1500 frames, the prefill and ``WHISPER_RANK_STEPS`` steps decoding one
+   card's tokens in bf16, greedy in fp32 (the anchor); then two train
+   steps under ``train_4k``'s TP + ZeRO plan (``WHISPER_TRAIN_ROWS`` rows
+   of ``WHISPER_TRAIN_SEQ`` tokens over seeded frames), held against one
+   card's: losses at ``TRAIN_LOSS_RTOL``, every step-1 gradient at
+   ``TRAIN_GRAD_RTOL``, K2/K5 launched at every TP call shape.  (b)
+   Full-width dbrx-132b (``DBRX_ONE_CARD_LAYERS`` on one card, its 40 on
+   four) under the placement of its full-depth ladder plan, TP + EP +
+   FSDP (:func:`dbrx_overrides`): each rank stores a quarter of the
+   weights and gathers each block to its TP + EP layout just before its
+   forward (the components outside the blocks once a call), at a capacity
+   factor where no pair drops; ``launch.serve`` (1 request on one card,
+   8 on four), the lanes run and an fp32 anchor at
+   ``DBRX_ANCHOR_LAYERS``.  Gates: (a)'s and, on one card, (b)'s logits
+   band, near-tie token rule and fp32 anchor as phase 24's (the MoE on
+   one card's expert ids); 0 dropped pairs; rank 0's launches what the
+   path implies; every rank's stored bytes a quarter of the weights', the
+   gathered bytes alive at once at most one block's and the components',
+   each rank's peak within its account (stored slices, one gathered
+   block, the components on their compute layout, the cache, plus
+   ``SERVE_SLACK``) and under the card's 80 GB; on four cards the two
+   data groups, given the same prompts, decode the same tokens.
+   Printed: the stored, gathered and whole bytes, the median decode call,
+   on four cards NCCL's share of a profiled call.  :func:`fsdp_on_ranks`
+   runs the phase alone.
 
 A failed comparison of a kernel with its plain version prints, before
 the run stops, its first 8 bad elements with both values, the count of
@@ -446,14 +478,21 @@ its q- and k-norms' (65536, 256) and (32768, 256), the backward at every
 training shape beside its plain version and autograd through
 ``F.rms_norm``.
 
-Phase 2 also holds the kernels at phase 24's rank shapes
+Phase 2 also holds the kernels at phases 24 and 25's rank shapes
 (:func:`check_rank_shapes`): K2 at a rank's prefill heads, (1,8,1024,128)
-for qwen2-moe, (1,16,1024,80) for zamba2's shared block and
-(1,16,1600,96) for phi-3-vision behind its image tokens; K4 at a rank's 4
-decode lanes of those heads over 2048 positions; K6 at (1,32,1000,64);
-K7 at (1,40,1000,64) with N 64; K3's split rows at 1000 and 4 rows of
-2560 of 5120 channels; two launches bit-equal, each timed with its bound
-(the ``*_tp*`` records, whose launches are phase 24's).
+for qwen2-moe, (1,16,1024,80) for zamba2's shared block,
+(1,16,1600,96) for phi-3-vision behind its image tokens, whisper's
+encoder (2,4,1500,64) non-causal, its 64-token self prefill and its
+cross attention over 1500 frames, and dbrx's q (1,24,1024,128) over
+(1,4,1024,128), G = 6; K4 at a rank's decode lanes of those heads
+(whisper's self cache of 448 and its cross over all 1500 frames, dbrx's
+(4,24,128) over (4,4,2048,128)); K6 at (1,32,1000,64); K7 at
+(1,40,1000,64) with N 64; K3's split rows at 1000 and 4 rows of 2560 of
+5120 channels, and K3 at dbrx's width 6144 over 4 and 1024 rows; K5a/K5b
+at whisper's TP training shapes (``TRAIN_BWD_CASES``' ``whisper_tp_*``);
+two launches bit-equal, each timed with its bound (the ``*_tp*``,
+``rmsnorm_d6144`` and ``*_whisper_tp_*`` records, whose launches are
+phases 24 and 25's).
 
 Phase 2 also holds K1 and K2 at mistral-nemo-12b's head dim 128 (K1
 over 8 lanes of 1600..2012 tokens whose tables lead with the same 12
@@ -1248,38 +1287,62 @@ def check_rmsnorm_split(torch, randn, tol):
 # heads of a rank (phi-3-vision's prompt behind its 576 image tokens), K4
 # at a decode step's 4 lanes (lengths 1..2048) and heads of a rank
 # (record, label, q heads, KV heads, S, head dim)
+# (record, label, B, H, KV, Sq, Sk, D, causal): K2 at a rank's shapes in
+# phases 24 and 25 (whisper-base's: a data group's 2 of 4 lanes, 4 of 8
+# heads over its 1500 frames and phase 25's 64-token prompt; dbrx-132b's:
+# 24 of 48 q heads over 4 of 8 KV heads, G = 6)
 RANK_FWD_CASES = (
-    ("flash_attention_fwd_tp_d128", "qwen2-moe prefill, 8 of 16 heads", 8,
-     8, 1024, 128),
+    ("flash_attention_fwd_tp_d128", "qwen2-moe prefill, 8 of 16 heads", 1,
+     8, 8, 1024, 1024, 128, True),
     ("flash_attention_fwd_tp_d80", "zamba2 shared block prefill, 16 of 32 "
-     "heads", 16, 16, 1024, 80),
+     "heads", 1, 16, 16, 1024, 1024, 80, True),
     ("flash_attention_fwd_tp_d96", "phi-3-vision prefill of 576 image and "
-     "1024 text tokens, 16 of 32 heads", 16, 16, 1600, 96),
-)
-RANK_DECODE_CASES = (
-    ("decode_attention_tp_d128", "qwen2-moe decode, 8 of 16 heads", 8, 8,
-     128),
-    ("decode_attention_tp_d80", "zamba2 shared block decode, 16 of 32 heads",
-     16, 16, 80),
-    ("decode_attention_tp_d96", "phi-3-vision decode, 16 of 32 heads", 16,
-     16, 96),
+     "1024 text tokens, 16 of 32 heads", 1, 16, 16, 1600, 1600, 96, True),
+    ("flash_attention_fwd_tp_whisper_enc", "whisper encoder, 4 of 8 heads "
+     "over 1500 frames, non-causal", 2, 4, 4, 1500, 1500, 64, False),
+    ("flash_attention_fwd_tp_whisper_self", "whisper decoder prefill, 4 of 8 "
+     "heads, causal", 2, 4, 4, 64, 64, 64, True),
+    ("flash_attention_fwd_tp_whisper_cross", "whisper cross attention, 4 of "
+     "8 heads over 1500 frames, non-causal", 2, 4, 4, 64, 1500, 64, False),
+    ("flash_attention_fwd_tp_dbrx", "dbrx-132b prefill, 24 of 48 q heads "
+     "over 4 of 8 KV heads", 1, 24, 4, 1024, 1024, 128, True),
 )
 RANK_DECODE_LENS = (1, 2048, 1055, 600)
+# (record, label, B, H, KV, S, D, valid lengths)
+RANK_DECODE_CASES = (
+    ("decode_attention_tp_d128", "qwen2-moe decode, 8 of 16 heads", 4, 8, 8,
+     2048, 128, RANK_DECODE_LENS),
+    ("decode_attention_tp_d80", "zamba2 shared block decode, 16 of 32 heads",
+     4, 16, 16, 2048, 80, RANK_DECODE_LENS),
+    ("decode_attention_tp_d96", "phi-3-vision decode, 16 of 32 heads", 4,
+     16, 16, 2048, 96, RANK_DECODE_LENS),
+    ("decode_attention_tp_whisper_self", "whisper self decode, 4 of 8 heads "
+     "over its 448-slot cache", 2, 4, 4, 448, 64, (65, 72)),
+    ("decode_attention_tp_whisper_cross", "whisper cross decode, 4 of 8 "
+     "heads over all 1500 frames", 2, 4, 4, 1500, 64, (1500, 1500)),
+    ("decode_attention_tp_dbrx", "dbrx-132b decode, 24 of 48 q heads over 4 "
+     "of 8 KV heads", 4, 24, 4, 2048, 128, RANK_DECODE_LENS),
+)
+# K3 at dbrx-132b's width: a rank's decode step (its 4 lanes) and a prompt
+RANK_RMS_D = 6144
+RANK_RMS_ROWS = (4, 1024)
 
 
 def check_rank_shapes(torch, randn, tol):
-    """The kernels at the shapes phase 24's ranks give them, bf16, against
-    their plain versions at phase 2's limits (K2 by relative norm, as
-    ``check_fwd`` holds every bf16 case; K4 elementwise on fp32 copies; K6
-    and K7 by ``SCAN_REL_NORM``; K3's split rows elementwise), two
-    launches bit-equal, each timed beside its plain version (and SDPA for
-    K2 and K4) with its bound: ``RANK_FWD_CASES``, ``RANK_DECODE_CASES``,
-    K6 at rwkv6-7b's prefill, 32 of 64 heads of 64 over 1000 tokens, K7 at
-    zamba2's, 40 of 80 heads of P 64 and N 64 over 1000 tokens, and K3's
-    split rows at zamba2's gated norm, 2560 of a row's 5120 channels, at a
-    prompt's 1000 rows and a decode step's 4.  A failed comparison prints
-    ``diagnose``'s output and fails the run.  Returns the records (their
-    launches are phase 24's)."""
+    """The kernels at the shapes phases 24 and 25's ranks give them, bf16,
+    against their plain versions at phase 2's limits (K2 by relative norm,
+    as ``check_fwd`` holds every bf16 case; K4 elementwise on fp32 copies;
+    K6 and K7 by ``SCAN_REL_NORM``; K3 elementwise), two launches
+    bit-equal, each timed beside its plain version (and SDPA for K2 and
+    K4, ``F.rms_norm`` for K3's whole rows) with its bound:
+    ``RANK_FWD_CASES``, ``RANK_DECODE_CASES``, K6 at rwkv6-7b's prefill,
+    32 of 64 heads of 64 over 1000 tokens, K7 at zamba2's, 40 of 80 heads
+    of P 64 and N 64 over 1000 tokens, K3's split rows at zamba2's gated
+    norm, 2560 of a row's 5120 channels, at a prompt's 1000 rows and a
+    decode step's 4, and K3 at dbrx-132b's width (``RANK_RMS_D``) over
+    ``RANK_RMS_ROWS``.  A failed comparison prints ``diagnose``'s output
+    and fails the run.  Returns the records (their launches are phases 24
+    and 25's)."""
     from repro_torch.kernels import rmsnorm as rms
     from repro_torch.kernels.decode_attention import (decode_attention,
                                                       decode_attention_ref)
@@ -1302,24 +1365,24 @@ def check_rank_shapes(torch, randn, tol):
             max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
             bound_by=b_by, library_ms=lib, shape=shape))
 
-    for name, label, h, kvh, s, d in RANK_FWD_CASES:
-        q = randn(1, s, h, d).transpose(1, 2)               # model layout
-        k = randn(1, s, kvh, d).transpose(1, 2)
-        v = randn(1, s, kvh, d).transpose(1, 2)
-        kw = dict(causal=True, window=0, q_offset=0)
+    for name, label, b, h, kvh, sq, sk, d, causal in RANK_FWD_CASES:
+        q = randn(b, sq, h, d).transpose(1, 2)               # model layout
+        k = randn(b, sk, kvh, d).transpose(1, 2)
+        v = randn(b, sk, kvh, d).transpose(1, 2)
+        kw = dict(causal=causal, window=0, q_offset=0)
         err = check_fwd(torch, label, q, k, v, kw, tol)[0]
         same_twice(torch, f"flash_attention_fwd {label}",
-                   lambda: flash_attention_fwd(q, k, v))
+                   lambda: flash_attention_fwd(q, k, v, causal=causal))
         record(name, "src/repro_torch/csrc/flash_attention_fwd.cu",
                "src/repro/kernels/flash_attention.py:96", err,
-               _fwd_times(torch, q, k, v, True),
-               f"{label}: B=1 H={h} KV={kvh} D={d} S={s} causal; plain_ms "
-               "is the plain version with bf16 operands")
+               _fwd_times(torch, q, k, v, causal),
+               f"{label}: B={b} H={h} KV={kvh} D={d} Sq={sq} Sk={sk} "
+               f"{'causal' if causal else 'non-causal'}; plain_ms is the "
+               "plain version with bf16 operands")
         del q, k, v
         torch.cuda.empty_cache()
-    vlen = torch.tensor(RANK_DECODE_LENS, dtype=torch.int32, device=dev)
-    for name, label, h, kvh, d in RANK_DECODE_CASES:
-        b, s = len(RANK_DECODE_LENS), 2048
+    for name, label, b, h, kvh, s, d, lens in RANK_DECODE_CASES:
+        vlen = torch.tensor(lens, dtype=torch.int32, device=dev)
         q, k, v = randn(b, h, d), randn(b, kvh, s, d), randn(b, kvh, s, d)
         err = compare(torch, f"decode_attention {label}",
                       decode_attention(q, k, v, vlen),
@@ -1332,8 +1395,8 @@ def check_rank_shapes(torch, randn, tol):
                "src/repro/kernels/decode_attention.py:63", err,
                _decode_times(torch, q, k, v, vlen),
                f"{label}: B={b} H={h} KV={kvh} D={d} S={s}, vlen "
-               f"{list(RANK_DECODE_LENS)}; library_ms is SDPA with a length "
-               "mask")
+               f"{list(lens)}; library_ms is SDPA with a length mask where "
+               "a lane attends to fewer than S keys")
         del q, k, v
 
     b, h, s, hd = 1, 32, 1000, 64
@@ -1392,6 +1455,36 @@ def check_rank_shapes(torch, randn, tol):
            "zamba2's gated norm under TP, x (1000, 2560 of 5120) bf16: the "
            "stats launch, the group's sum and the norm launch; no library "
            "call takes the row's mean square from outside")
+
+    import itertools
+    import torch.nn.functional as F
+    d, errs = RANK_RMS_D, []
+    for rows in RANK_RMS_ROWS:
+        x, g = randn(rows, d), randn(d, scale=0.1)
+        errs.append(compare(
+            torch, f"rmsnorm rows={rows} d={d} bf16", rms.rmsnorm(x, g),
+            rms.rmsnorm_ref(x, g), *tol[bf16],
+            rerun=lambda: rms.rmsnorm(x, g)))
+        same_twice(torch, f"rmsnorm rows={rows} d={d}",
+                   lambda: (rms.rmsnorm(x, g),))
+    # timed over input sets that hold twice the L2, as phase 2's K3 rows
+    sets = [(randn(rows, d), randn(d, scale=0.1))
+            for _ in range(l2_sets(torch, rows * d * 2))]
+    sets = [(x, g, 1.0 + g) for x, g in sets]
+
+    def cycled(fn):
+        it = itertools.cycle(sets)
+        return lambda: fn(*next(it))
+    record("rmsnorm_d6144", "src/repro_torch/kernels/rmsnorm.py",
+           "src/repro/kernels/rmsnorm.py:24", max(errs),
+           (timed_ms(torch, cycled(lambda x, g, w: rms.rmsnorm(x, g))),
+            timed_ms(torch, cycled(lambda x, g, w: rms.rmsnorm_ref(x, g))),
+            timed_ms(torch, cycled(lambda x, g, w: F.rms_norm(
+                x, (d,), weight=w, eps=1e-6))))
+           + rms_bound(rows, d, 2, 2, 1, 4),
+           f"dbrx-132b's norms, x ({rows}, {d}) bf16 (checked at rows "
+           f"{list(RANK_RMS_ROWS)}; timed over input sets holding twice "
+           "the L2); library_ms is F.rms_norm with the gain 1 + g")
     return records
 
 
@@ -2892,6 +2985,14 @@ TRAIN_BWD_CASES = (
      "window=1024", 1, 16, 8, 4096, 4096, 256, True, 1024),
     ("d256_global", "gemma3 global training shape b=1 h=16/8 s=4096 d=256",
      1, 16, 8, 4096, 4096, 256, True, 0),
+    # phase 25: whisper-base under TP on a rank, 4 of its 8 heads, a data
+    # group's 2 rows of WHISPER_TRAIN_SEQ tokens over 1500 frames
+    ("whisper_tp_self", "whisper TP training self b=2 h=4/4 s=1024 d=64 "
+     "causal", 2, 4, 4, 1024, 1024, 64, True, 0),
+    ("whisper_tp_cross", "whisper TP training cross b=2 h=4/4 sq=1024 "
+     "sk=1500 d=64 non-causal", 2, 4, 4, 1024, 1500, 64, False, 0),
+    ("whisper_tp_enc", "whisper TP training encoder b=2 h=4/4 s=1500 d=64 "
+     "non-causal", 2, 4, 4, 1500, 1500, 64, False, 0),
 )
 
 
@@ -6273,7 +6374,9 @@ def first_update_grads(store):
 
     def spy(grads, *args, **kwargs):
         if not store:
-            store.append([g.detach().cpu() for g in opt.leaves(grads)])
+            # a copy on the host (AdamW then updates the gradients in place)
+            store.append([g.detach().to("cpu", copy=True)
+                          for g in opt.leaves(grads)])
         return plain(grads, *args, **kwargs)
 
     opt.adamw_update = spy
@@ -6377,12 +6480,13 @@ def _sharded_reference(torch, cfg, shape, ocfg):
 
 
 def train_on_ranks(torch):
-    """Phases 20 to 24 over one spawn of ``SHARDED_WORLD`` rank processes
+    """Phases 20 to 25 over one spawn of ``SHARDED_WORLD`` rank processes
     and one rendezvous: first the one-card runs each phase holds its ranks
     against (phase 20's, :func:`_sharded_reference`; phase 21's,
     :func:`ep_references`; phase 22's, :func:`deep_references`; phase
     23's, :func:`serving_references`; phase 24's,
-    :func:`family_references`), their results to files in a temporary
+    :func:`family_references`; phase 25's, :func:`fsdp_references`),
+    their results to files in a temporary
     directory under ``build/``; then the ranks (:func:`sharded_rank`),
     each running every phase's runs; then each phase's gates on the
     ranks' reports.  NCCL, a rank a card, with four cards; else gloo,
@@ -6415,9 +6519,12 @@ def train_on_ranks(torch):
         t_families = time.perf_counter()
         family_references(torch, d)
         t_families = time.perf_counter() - t_families
+        t_fsdp = time.perf_counter()
+        fsdp_references(torch, d)
+        t_fsdp = time.perf_counter() - t_fsdp
         t_ranks = time.perf_counter()
         _spawn_ranks(d, backend)
-        print(f"[sharded] the ranks' runs of phases 20 to 24: "
+        print(f"[sharded] the ranks' runs of phases 20 to 25: "
               f"{time.perf_counter() - t_ranks:.1f} s", flush=True)
         for name in SHARDED_PLANS:
             for k, n in _sharded_gates(d, name, ref_losses, cfg).items():
@@ -6435,9 +6542,12 @@ def train_on_ranks(torch):
         families = family_gates(torch, d)
         print(f"[sharded] phase 24: one card's runs {t_families:.1f} s",
               flush=True)
-    print(f"[sharded] phases 20 to 24: {time.perf_counter() - t_phase:.1f} s",
+        fsdp = fsdp_gates(torch, d, backend)
+        print(f"[sharded] phase 25: one card's runs {t_fsdp:.1f} s",
+              flush=True)
+    print(f"[sharded] phases 20 to 25: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
-    return sharded, ep, deep, served, families
+    return sharded, ep, deep, served, families, fsdp
 
 
 def _spawn_ranks(d, backend, phases=None):
@@ -6472,18 +6582,19 @@ def _spawn_ranks(d, backend, phases=None):
         fail(f"sharded: rank exit codes {codes}")
 
 
-RANK_PHASES = (20, 21, 22, 23, 24)
+RANK_PHASES = (20, 21, 22, 23, 24, 25)
 
 
 def sharded_rank(rank, world, d, backend, phases=None):
-    """One rank of phases 20 to 24 (``phases``, a subset of
+    """One rank of phases 20 to 25 (``phases``, a subset of
     ``RANK_PHASES``; all of them by default): joins the world (a
     ``file://`` store in ``d``) on its card, runs each plan of
     ``SHARDED_PLANS`` (:func:`_sharded_run`), each run of :func:`ep_runs`
     (:func:`_ep_run`), each of :func:`deep_runs` (:func:`_deep_run`),
-    phase 23's serving (:func:`serving_runs`) and phase 24's
-    (:func:`family_runs`) and leaves its reports in ``d``; any failure
-    ends the process with a nonzero code."""
+    phase 23's serving (:func:`serving_runs`), phase 24's
+    (:func:`family_runs`) and phase 25's (:func:`fsdp_runs`) and leaves
+    its reports in ``d``; any failure ends the process with a nonzero
+    code."""
     phases = RANK_PHASES if phases is None else phases
     import traceback
     import torch
@@ -6512,6 +6623,8 @@ def sharded_rank(rank, world, d, backend, phases=None):
             serving_runs(torch, rank, d, backend)
         if 24 in phases:
             family_runs(torch, rank, d, backend)
+        if 25 in phases:
+            fsdp_runs(torch, rank, d, backend)
         dist.barrier()
         dist.destroy_process_group()
     except BaseException:
@@ -6727,10 +6840,13 @@ EP_ARCH = "qwen2-moe-a2.7b"
 # the depth of the parity runs: 1 of the 24 layers at full width (cut
 # from 2 for the script's time)
 EP_LAYERS = 1
-# the ladder's run on one card: 4 of the 24 layers, four ranks' state on
-# the card (the step holds each leaf's fp32 gradient sum on the optimizer
-# layout and gathers one block at a time: ~2.7 GB a rank a layer)
-EP_LADDER_LAYERS = 4
+# the ladder's run on one card: 2 of the 24 layers (4 until phase 25 took
+# the script's time), the least depth at which the step hands its
+# per-block gather, release and reduce-scatter from one block to the
+# next; four ranks' state on the card (the step holds each leaf's fp32
+# gradient sum on the optimizer layout and gathers one block at a time:
+# ~2.7 GB a rank a layer)
+EP_LADDER_LAYERS = 2
 # the ladder's run on four cards: the full depth
 EP_FOUR_CARD_LAYERS = 24
 EP_NO_DROP = 16.0                 # e_pad / top_k: a routing's cap >= its tokens
@@ -7715,9 +7831,9 @@ def deep_gates(d, backend, refs):
 
 SERVE_ARCH = "command-r-35b"
 # command-r-35b's depth on one card, where four ranks' blocks share the
-# card with one card's reference: 4 of its 40 layers at full width; four
-# cards serve all 40
-SERVE_ONE_CARD_LAYERS = 4
+# card with one card's reference: 2 of its 40 layers at full width (4
+# until phase 25 took the script's time); four cards serve all 40
+SERVE_ONE_CARD_LAYERS = 2
 SERVE_REQUESTS = 8
 # prompts of 512..2016 tokens (seed 0): with the 32 new tokens each fits
 # the dense backend's cache of 2048 positions a slot
@@ -7882,26 +7998,36 @@ def seqshard_decode(torch, cfg, mesh=None, prof=None, feed=None):
 
 
 def _lanes_run(torch, model, params, prompt, rows, cache_len, steps,
-               feed=None, prof=None, img=None):
+               feed=None, prof=None, img=None, enc=None, cache_dtype=None):
     """Every lane of ``prompt`` (lanes, S) on the card -- with ``img``
     (lanes, N, 1024), a vision-language model's image embeddings, ahead
-    of it -- prefilled by ``make_prefill_step`` into a cache of
-    ``cache_len`` positions, then ``steps`` greedy steps of
-    ``make_decode_step`` from position N + S; a model under a layout runs
-    its ``rows`` of the lanes.  With ``feed`` (one card's tokens by lane)
-    each step decodes one card's token; step ``SERVE_PROFILED_STEP`` is
-    profiled into ``prof`` where given.  Returns (every lane's prefill and
-    decode logits (host, (1 + steps, lanes, V)), each lane's greedy
-    tokens and top-2 gaps and top logits, each step's seconds; the
-    cache)."""
+    of it; with ``enc`` (lanes, T, d), an encoder-decoder's frames --
+    prefilled by ``make_prefill_step`` into a cache of ``cache_len``
+    positions (of ``cache_dtype`` where given, else the leaves' own), then
+    ``steps`` greedy steps of ``make_decode_step`` from position N + S; a
+    model under a layout runs its ``rows`` of the lanes.  With ``feed``
+    (one card's tokens by lane) each step decodes one card's token; step
+    ``SERVE_PROFILED_STEP`` is profiled into ``prof`` where given.
+    Returns (every lane's prefill and decode logits (host, (1 + steps,
+    lanes, V)), each lane's greedy tokens and top-2 gaps and top logits,
+    each step's seconds; the cache)."""
+    from repro_torch.models.model import gather_lanes
     from repro_torch.serving.model_runner import top2
     from repro_torch.serving.serve_step import (make_decode_step,
                                                 make_prefill_step)
     dev = prompt.device
     lanes = prompt.shape[0]
     pos0 = prompt.shape[1] + (0 if img is None else img.shape[1])
-    first, cache = make_prefill_step(model, cache_len)(
-        params, prompt[rows], None if img is None else img[rows])
+    feats = dict(img_feats=None if img is None else img[rows],
+                 enc_feats=None if enc is None else enc[rows])
+    if cache_dtype is None:
+        first, cache = make_prefill_step(model, cache_len)(
+            params, prompt[rows], **feats)
+    else:
+        cache = model.init_cache(lanes, cache_len, dev, cache_dtype)
+        first, cache = model.prefill(params, prompt[rows], cache_len,
+                                     cache=cache, **feats)
+        first = gather_lanes(first, model.lanes)
     step = make_decode_step(model)
     nxt = first[:, -1].argmax(-1).to(torch.int32)[:, None]
     toks, pairs, times = [nxt[:, 0].tolist()], [top2(first[:, -1])], []
@@ -7948,8 +8074,9 @@ def _to_fp32(tree):
     return tree
 
 
-def fp32_greedy(torch, cfg, reqs, plan=None, mesh=None, decoded=None):
-    """Each request's first-step logits and ``SERVE_NEW`` greedy tokens
+def fp32_greedy(torch, cfg, reqs, plan=None, mesh=None, decoded=None,
+                new=SERVE_NEW):
+    """Each request's first-step logits and ``new`` greedy tokens
     with their top-2 gaps, from seed-0 weights in fp32 and an fp32 cache,
     a request at a time from its own position (``make_decode_step``): on
     one card, or under ``plan`` on ``mesh`` (a ``TorchMesh``), every lane
@@ -7977,7 +8104,7 @@ def fp32_greedy(torch, cfg, reqs, plan=None, mesh=None, decoded=None):
     out = {"first": {}, "tokens": {}, "margins": {}}
     for idx, r in enumerate(reqs):
         toks = prompt_for(r, cfg.vocab_size).to(dev)
-        cl = r.prompt_len + SERVE_NEW
+        cl = r.prompt_len + new
         cache = model.init_cache(n, cl, dev, torch.float32)
         logits, cache = model.prefill(params, toks, cl, cache=cache)
         row = gather_lanes(logits[:, -1], model.lanes)[0]
@@ -7986,7 +8113,7 @@ def fp32_greedy(torch, cfg, reqs, plan=None, mesh=None, decoded=None):
             del cache, logits
             continue
         got, gaps = [int(row.argmax())], [float(top2(row)[0])]
-        for j in range(SERVE_NEW - 1):
+        for j in range(new - 1):
             nxt = torch.full((1, 1), got[-1], dtype=torch.int32, device=dev)
             nxt, logits, cache = step(params, nxt, cache, r.prompt_len + j)
             got.append(int(nxt[0, 0]))
@@ -8423,13 +8550,13 @@ def serving_gates(torch, d):
 FAMILY_ARCHS = ("qwen2-moe-a2.7b", "zamba2-2.7b", "rwkv6-7b",
                 "phi-3-vision-4.2b")
 # each family's depth on one card, where four ranks' blocks share the card
-# with one card's runs and the phase must stay near 150 s (gloo's host
-# path costs every layer's collectives a decode step): 4 layers at full
-# width, zamba2 one pattern block (5 Mamba-2 layers and the shared
-# attention block); four cards serve the full depth.  The fp32 anchor
-# runs at these depths on one card and on four
-FAMILY_ONE_CARD_LAYERS = {"qwen2-moe-a2.7b": 4, "zamba2-2.7b": 6,
-                          "rwkv6-7b": 4, "phi-3-vision-4.2b": 4}
+# with one card's runs and the script must leave room for phase 25 (gloo's
+# host path costs every layer's collectives a decode step): 2 layers at
+# full width (4 until phase 25), zamba2 one pattern block (5 Mamba-2
+# layers and the shared attention block); four cards serve the full
+# depth.  The fp32 anchor runs at these depths on one card and on four
+FAMILY_ONE_CARD_LAYERS = {"qwen2-moe-a2.7b": 2, "zamba2-2.7b": 6,
+                          "rwkv6-7b": 2, "phi-3-vision-4.2b": 2}
 # the fp32 anchor: one card prefills every serve request (the bf16 runs'
 # yardstick) and decodes the greedy tokens of this many of them; the ranks
 # prefill and decode only those, the anchor's comparison
@@ -8585,15 +8712,19 @@ def _family_expected(cfg, prefills, steps):
 
 
 def family_lanes(torch, cfg, dispatch=None, plan=None, mesh=None,
-                 feed=None):
+                 feed=None, lanes=FAMILY_LANES, prompt_len=FAMILY_LANE_PROMPT,
+                 steps=FAMILY_LANE_STEPS, groups_alike=False, prof=None):
     """Phase 24's lanes run (``_lanes_run``): seed-0 weights,
     ``FAMILY_LANES`` lanes of a ``FAMILY_LANE_PROMPT``-token prompt
     (numpy, seed 24) -- phi-3-vision's behind ``FAMILY_IMAGE_TOKENS``
     seeded image embeddings -- and ``FAMILY_LANE_STEPS`` steps.  On
     ``mesh`` under ``plan`` with ``dispatch`` (None: the plan's), each
     rank its lanes over the batch axes and its blocks of the weights;
-    with no mesh, one card's.  Returns ``_lanes_run``'s report with the
-    rank's weight and cache bytes."""
+    with no mesh, one card's.  Phase 25 gives its own ``lanes``,
+    ``prompt_len`` and ``steps``; with ``groups_alike`` every data group's
+    lanes hold the same prompts (the first group's), and ``prof`` takes
+    the profile of decode step ``SERVE_PROFILED_STEP``.  Returns
+    ``_lanes_run``'s report with the rank's weight and cache bytes."""
     import numpy as np
     from repro_torch.models.model import Model, init_params, param_specs
     from repro_torch.models.transformer import ImplConfig
@@ -8602,15 +8733,18 @@ def family_lanes(torch, cfg, dispatch=None, plan=None, mesh=None,
     dev = torch.device("cuda", torch.cuda.current_device())
     rng = np.random.default_rng(24)
     prompt = torch.from_numpy(rng.integers(
-        0, cfg.vocab_size, (FAMILY_LANES, FAMILY_LANE_PROMPT))).to(dev)
+        0, cfg.vocab_size, (lanes, prompt_len))).to(dev)
+    if groups_alike:
+        half = lanes // mesh.size(plan.batch_axes)
+        prompt = prompt[:half].repeat(lanes // half, 1)
     img = None
     if cfg.family == "vlm":
         img = torch.from_numpy(rng.standard_normal(
-            (FAMILY_LANES, FAMILY_IMAGE_TOKENS, 1024)).astype(
+            (lanes, FAMILY_IMAGE_TOKENS, 1024)).astype(
                 np.float32)).to(dev, torch.bfloat16)
-    cache_len = (FAMILY_LANE_PROMPT + FAMILY_LANE_STEPS
+    cache_len = (prompt_len + steps
                  + (0 if img is None else img.shape[1]))
-    rows, layouts = slice(0, FAMILY_LANES), None
+    rows, layouts = slice(0, lanes), None
     model = Model(cfg, ImplConfig(remat="none"))
     if mesh is not None:
         plan = dataclasses.replace(plan,
@@ -8618,13 +8752,14 @@ def family_lanes(torch, cfg, dispatch=None, plan=None, mesh=None,
         layout = ServeLayout(plan, mesh)
         model = Model(cfg, impl_from_plan(plan, mesh), layout=layout)
         layouts = layout.params(cfg, param_specs(cfg))
-        per = FAMILY_LANES // mesh.size(plan.batch_axes)
+        per = lanes // mesh.size(plan.batch_axes)
         i = mesh.index(plan.batch_axes)
         rows = slice(i * per, (i + 1) * per)
     params = init_params(cfg, 0, dev, layouts=layouts)
     out, cache = _lanes_run(torch, model, params, prompt, rows, cache_len,
-                            FAMILY_LANE_STEPS, feed, img=img)
+                            steps, feed, prof=prof, img=img)
     out.update(bytes=_tree_bytes(params) + _tree_bytes(cache),
+               stored=_tree_bytes(params), gather=model.gather_bytes(),
                dispatch=model.impl.moe_dispatch)
     del params, cache
     return out
@@ -8705,24 +8840,48 @@ def _rank_rows(rows, mine, mesh, dispatch):
     return slice(b * mine, (b + 1) * mine)
 
 
-def _family_serve(torch, cfg, **kw):
+def _family_serve(torch, cfg, requests=SERVE_REQUESTS,
+                  prompt_range=SERVE_PROMPTS, max_new=SERVE_NEW, **kw):
     """``launch.serve`` of phase 24's traffic (phase 23's: seed 0,
     ``SERVE_REQUESTS`` prompts of ``SERVE_PROMPTS``, ``SERVE_NEW`` new
-    tokens, the dense backend, max batch 8) with each prompt's first-step
-    logits and every ``DenseRunner.decode`` call's wall (call ``index``
-    profiled, -1: none) -> (serve's output, the first logits, the
-    profile)."""
+    tokens, the dense backend, max batch 8; phase 25 gives its own
+    ``requests``, ``prompt_range``, ``max_new`` and the plan's
+    ``overrides``, :func:`forced_plan`) with each prompt's
+    first-step logits and every ``DenseRunner.decode`` call's wall (call
+    ``index`` profiled, -1: none) -> (serve's output, the first logits,
+    the profile)."""
     from repro_torch.launch.serve import serve
     from repro_torch.serving.model_runner import DenseRunner
     first, prof = {}, {}
     index = kw.pop("index", -1)
     with first_logits(first), profiled_call(torch, DenseRunner, "decode",
-                                            index, prof):
+                                            index, prof), \
+            forced_plan(kw.pop("overrides", None)):
         out = serve(cfg, backend="dense", device="cuda",
-                    requests=SERVE_REQUESTS, max_batch=8,
-                    prompt_range=SERVE_PROMPTS, max_new=SERVE_NEW, seed=0,
+                    requests=requests, max_batch=8,
+                    prompt_range=prompt_range, max_new=max_new, seed=0,
                     **kw)
     return out, first, prof
+
+
+@contextmanager
+def forced_plan(overrides):
+    """Every ``Cluster.submit`` in the block places its application under
+    the plan with the fields in ``overrides`` replaced (None: the ladder's
+    own): ``launch.serve`` of a cut depth under the plan the ladder picks
+    at the full one."""
+    from repro_torch.runtime import Cluster
+    plain = Cluster.submit
+
+    def submit(self, app, *, overrides=None):
+        return plain(self, app, overrides=forced)
+
+    forced = overrides
+    Cluster.submit = submit
+    try:
+        yield
+    finally:
+        Cluster.submit = plain
 
 
 def family_references(torch, d):
@@ -9016,6 +9175,705 @@ def _family_part_gates(torch, arch, cfg, part, reps, want_ref, own, band,
     ran = [k for k, n in want.items() if n]
     if any(r["launches"][k] == 0 for r in reps for k in ran):
         fail(f"{tag}: a rank launched no {ran} kernel of its path")
+    if any(r["peak"] > a for r, a in zip(reps, accounts)):
+        fail(f"{tag}: a rank's peak passes its account")
+
+
+# ---------------------------------------------------------------------------
+# phase 25: whisper-base under TP (served and trained) and dbrx-132b served
+# weight-gathered (TP + EP + FSDP), over the ranks
+# ---------------------------------------------------------------------------
+
+# (a) whisper-base at full width and depth under its ladder's decode_32k
+# plan on h100x4 (TP: 4 of 8 heads a rank, the cross K/V split by its KV
+# heads, the vocab of 51865 whole; the lanes over 'data'): 4 lanes of a
+# 64-token prompt (numpy, seed 25) over seeded (4, 1500, 512) frames, 8
+# decode steps, a cache of 448 positions (its context)
+WHISPER_ARCH = "whisper-base"
+WHISPER_RANK_LANES = 4
+WHISPER_RANK_PROMPT = 64
+WHISPER_RANK_STEPS = 8
+WHISPER_RANK_CACHE = 448
+# its training under the ladder's train_4k plan (TP + ZeRO, full remat,
+# one microbatch): 4 rows of 1024 tokens over seeded 1500 frames (2 rows a
+# data group), 2 steps from seed-0 weights with phase 5's optimizer
+WHISPER_TRAIN_ROWS = 4
+WHISPER_TRAIN_SEQ = 1024
+WHISPER_TRAIN_STEPS = 2
+# (b) dbrx-132b at full width: 2 of its 40 layers on one card (four
+# ranks' stored slices and gathered blocks and one card's 2-layer runs
+# share it), all 40 on four cards; its experts at a capacity factor of the
+# padded experts over top-k (16 / 4), where an expert's capacity is the
+# tokens routed and none can drop a pair (:func:`dbrx_cfg`)
+DBRX_ARCH = "dbrx-132b"
+DBRX_ONE_CARD_LAYERS = 2
+# gloo stages every gathered block through the host, each call (8.9 s a
+# decode call at 2 layers on one NVIDIA H100 80GB HBM3 at 700 W), so one
+# card runs few calls: the serve of 1 request of 512..1024 tokens and 2 new
+# (in the first data group's lanes: the other group joins its prefill's
+# gathers; one decode step), a lanes run of 4 lanes of a
+# 504-token prompt and 1 fed step, and the fp32 anchor at 1 layer (2
+# layers' fp32 stored slices and gathered blocks on four ranks would hold
+# ~67 GB of the card), its first token; four cards serve 8 requests and
+# 16 new, and run 8 lanes (the same 4 prompts in both data groups) for 12
+# steps
+DBRX_REQUESTS = {"gloo": 1, "nccl": 8}
+DBRX_PROMPTS = (512, 1024)
+DBRX_NEW = {"gloo": 2, "nccl": 16}
+DBRX_LANES = {"gloo": 4, "nccl": 8}
+DBRX_LANE_PROMPT = 504
+DBRX_LANE_STEPS = {"gloo": 1, "nccl": 12}
+DBRX_ANCHOR_LAYERS = 1
+DBRX_ANCHOR_DECODED = 1
+DBRX_ANCHOR_NEW = {"gloo": 1, "nccl": 4}
+# the bytes of one card (H100 80GB) every rank's peak stays under
+CARD_BYTES = 80 * 10**9
+# the phase-2 records phase 25's runs give their launches, by kernel and
+# call shape (K2: causal, Sq, Sk; K4: cache length, head dim)
+WHISPER_RECORDS = {
+    "flash_attention_fwd": {
+        (False, 1500, 1500): "flash_attention_fwd_tp_whisper_enc",
+        (True, WHISPER_RANK_PROMPT, WHISPER_RANK_PROMPT):
+            "flash_attention_fwd_tp_whisper_self",
+        (False, WHISPER_RANK_PROMPT, 1500):
+            "flash_attention_fwd_tp_whisper_cross"},
+    "decode_attention": {
+        (WHISPER_RANK_CACHE, 64): "decode_attention_tp_whisper_self",
+        (1500, 64): "decode_attention_tp_whisper_cross"}}
+WHISPER_TRAIN_RECORDS = {
+    (True, WHISPER_TRAIN_SEQ, WHISPER_TRAIN_SEQ, 0): "whisper_tp_self",
+    (False, WHISPER_TRAIN_SEQ, 1500, 0): "whisper_tp_cross",
+    (False, 1500, 1500, 0): "whisper_tp_enc"}
+DBRX_RECORDS = {"flash_attention_fwd": "flash_attention_fwd_tp_dbrx",
+                "decode_attention": "decode_attention_tp_dbrx",
+                "rmsnorm": "rmsnorm_d6144"}
+
+
+def four_cards(torch) -> bool:
+    return torch.cuda.device_count() >= SHARDED_WORLD
+
+
+def whisper_plans():
+    """whisper-base's ladder plans on ``h100x4``: ``decode_32k``'s (TP,
+    the lanes over 'data') and ``train_4k``'s (TP + ZeRO, full remat)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.materializer import H100X4, materialize
+    cfg = get_config(WHISPER_ARCH)
+    return (materialize(cfg, SHAPES["decode_32k"], H100X4),
+            materialize(cfg, SHAPES["train_4k"], H100X4))
+
+
+def whisper_lanes(torch, dtype, plan=None, mesh=None, feed=None):
+    """Phase 25 (a)'s serving run (:func:`_lanes_run`): full-width
+    whisper-base, seed-0 weights in ``dtype`` (fp32: cast leaf by leaf,
+    with an fp32 cache), ``WHISPER_RANK_LANES`` lanes of a seeded prompt
+    over seeded frames, greedy steps (one card's tokens with ``feed``);
+    under ``plan`` on ``mesh`` each rank its lanes and blocks."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, init_params, param_specs
+    from repro_torch.models.transformer import ImplConfig
+    from repro_torch.serving.serve_step import impl_from_plan
+    from repro_torch.sharding.planner import ServeLayout
+    cfg = get_config(WHISPER_ARCH)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(25)
+    lanes = WHISPER_RANK_LANES
+    prompt = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (lanes, WHISPER_RANK_PROMPT))).to(dev)
+    frames = torch.from_numpy(rng.standard_normal(
+        (lanes, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32)).to(
+            dev, dtype)
+    model, layouts, rows = Model(cfg, ImplConfig(remat="none")), None, \
+        slice(0, lanes)
+    if mesh is not None:
+        layout = ServeLayout(plan, mesh)
+        model = Model(cfg, impl_from_plan(plan, mesh), layout=layout)
+        layouts = layout.params(cfg, param_specs(cfg))
+        per = lanes // mesh.size(plan.batch_axes)
+        i = mesh.index(plan.batch_axes)
+        rows = slice(i * per, (i + 1) * per)
+    params = init_params(cfg, 0, dev, layouts=layouts)
+    if dtype == torch.float32:
+        params = _to_fp32(params)
+    out, cache = _lanes_run(torch, model, params, prompt, rows,
+                            WHISPER_RANK_CACHE, WHISPER_RANK_STEPS, feed,
+                            enc=frames, cache_dtype=dtype)
+    out.update(bytes=_tree_bytes(params) + _tree_bytes(cache),
+               heads=tuple(params["blocks"]["p0_dec_attn"]["attn"][
+                   "cross_wq"].shape), cross=tuple(
+                       cache["p0_dec_attn"]["cross_k"].shape))
+    del params, cache
+    return out
+
+
+def whisper_batches(cfg):
+    """Phase 25 (a)'s training batches: ``SyntheticLM`` rows of tokens and
+    labels and seeded frames (numpy), one a step."""
+    import numpy as np
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(cfg.vocab_size, WHISPER_TRAIN_SEQ,
+                                  WHISPER_TRAIN_ROWS))
+    out = []
+    for step in range(WHISPER_TRAIN_STEPS):
+        b = dict(data.batch_at(step))
+        b["enc_feats"] = np.random.default_rng(200 + step).standard_normal(
+            (WHISPER_TRAIN_ROWS, cfg.encoder_seq_len, cfg.d_model)).astype(
+                np.float32)
+        out.append(b)
+    return out
+
+
+def whisper_train(torch, plan, mesh=None):
+    """Phase 25 (a)'s training: ``WHISPER_TRAIN_STEPS`` steps of
+    ``make_train_step`` from seed-0 weights with phase 5's optimizer,
+    under ``plan``'s remat and microbatches: on one card, or on ``mesh``
+    with the rank's blocks (``shard_state``) and its rows of each batch,
+    K2 and K5 counted by call shape.  Returns the losses, the step-1
+    gradients (averaged over the batch, before clipping; every leaf whole,
+    fp32 on the host: on a mesh each rank's optimizer slices all-gathered)
+    and the launches by call shape."""
+    import dataclasses as dc
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import rank_rows
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.sharding import collectives as C
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_step import (impl_from_plan, layouts_of,
+                                                 make_train_step,
+                                                 shard_state)
+    cfg = get_config(WHISPER_ARCH)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    ocfg = _train_setup()[2]
+    params = init_params(cfg, 0, dev)
+    tp = lay = None
+    if mesh is None:
+        plan = dc.replace(plan, tp=False, zero=False, fsdp=False)
+    elif plan.tp:
+        tp = C.tensor_parallel(mesh)
+    model = Model(cfg, impl_from_plan(plan, mesh), tp=tp)
+    if mesh is None:
+        state = opt.init_opt_state(params)
+    else:
+        lay = layouts_of(model, plan, mesh)
+        params, state = shard_state(params, lay)
+    step = make_train_step(model, plan, ocfg, mesh)
+    losses, store = [], []
+    with first_update_grads(store), train_call_classes() as classes:
+        for b in whisper_batches(cfg):
+            if lay is not None:
+                b = rank_rows(b, *lay.batch.part(0))
+            b = {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+            b["enc_feats"] = b["enc_feats"].to(torch.bfloat16)
+            params, state, m = step(params, state, b)
+            losses.append(float(m["loss"]))
+    grads = store[0]
+    if lay is not None:
+        grads = [C.gather_full(g.to(dev), lo).cpu() for g, lo in
+                 zip(grads, opt.leaves(lay.opt))]
+    del params, state
+    return {"losses": losses, "grads": grads,
+            "classes": {k: dict(v) for k, v in classes.items()}}
+
+
+def dbrx_cfg(torch, layers=None):
+    """Phase 25 (b)'s dbrx-132b: full width, ``layers`` deep (its 40 on
+    four cards, ``DBRX_ONE_CARD_LAYERS`` on one), at the capacity factor
+    of its padded experts over its top-k, where no pair drops."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.profiles import padded_num_experts
+    cfg = get_config(DBRX_ARCH)
+    if layers is None:
+        layers = cfg.num_layers if four_cards(torch) \
+            else DBRX_ONE_CARD_LAYERS
+    no_drop = padded_num_experts(cfg.moe.num_experts) / cfg.moe.top_k
+    return dataclasses.replace(cfg.scaled(num_layers=layers),
+                               moe=dataclasses.replace(
+                                   cfg.moe, capacity_factor=no_drop))
+
+
+def dbrx_overrides():
+    """The placement of dbrx-132b's full-depth ladder plan at the serve
+    launcher's shape on ``h100x4`` (TP + EP + FSDP over 'data', the lanes
+    over 'data'): the plan fields phase 25 (b) runs under at any depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.materializer import H100X4, materialize
+    from repro_torch.launch.serve import serve_shape
+    plan = materialize(get_config(DBRX_ARCH), serve_shape("dense", 8, 128),
+                       H100X4)
+    return {k: getattr(plan, k) for k in FAMILY_PLAN_FIELDS}
+
+
+def _requests(backend):
+    from repro_torch.launch.serve import synth_requests
+    from repro_torch.configs import get_config
+    return synth_requests(DBRX_REQUESTS[backend],
+                          get_config(DBRX_ARCH).vocab_size,
+                          prompt_range=DBRX_PROMPTS,
+                          max_new=DBRX_NEW[backend], seed=0)
+
+
+def fsdp_references(torch, d):
+    """Phase 25's one-card runs before the ranks': (a) whisper-base's
+    lanes run in bf16 and in fp32 (:func:`whisper_lanes`) and its two
+    training steps (:func:`whisper_train`); (b) on one card only (the
+    ranks' 40 layers on four cards have no one-card run) dbrx-132b's
+    serve through ``launch.serve`` (:func:`_family_serve`, top-2 gaps and
+    expert ids recorded) and its lanes run (:func:`family_lanes`), and in
+    fp32 each prompt's first-step logits at the same depth (the bf16
+    runs' yardstick); on any host the fp32 anchor at
+    ``DBRX_ANCHOR_LAYERS`` (:func:`fp32_greedy`).  Saved to
+    ``d/fsdp_reference.pt``."""
+    import gc
+    t0 = time.perf_counter()
+    _, train_plan = whisper_plans()
+    ref = {"whisper": {"bf16": whisper_lanes(torch, torch.bfloat16),
+                       "fp32": whisper_lanes(torch, torch.float32),
+                       "train": whisper_train(torch, train_plan)}}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_whisper = time.perf_counter() - t0
+    backend = "nccl" if four_cards(torch) else "gloo"
+    reqs = _requests(backend)
+    dbrx = ref["dbrx"] = {}
+    if not four_cards(torch):
+        cfg = dbrx_cfg(torch)
+        routes = {"serve": {}, "lanes": {}}
+        with _moe_keys(torch, cfg, "serve", routes["serve"]), \
+                moe_drop_log() as drops:
+            out, first, _ = _family_serve(
+                torch, cfg, requests=DBRX_REQUESTS[backend],
+                prompt_range=DBRX_PROMPTS, max_new=DBRX_NEW[backend],
+                verbose=False, executor=_margin_executor())
+        dbrx.update(routes=routes, dropped=int(sum(drops)), first=first,
+                    tokens={r.req_id: r.output_tokens
+                            for r in out["requests"]},
+                    margins=out["runner"].margins, tops=out["runner"].tops)
+        del out
+        gc.collect()
+        torch.cuda.empty_cache()
+        with _moe_keys(torch, cfg, "lanes", routes["lanes"]), \
+                moe_drop_log() as drops:
+            dbrx["lanes"] = family_lanes(
+                torch, cfg, lanes=DBRX_LANES[backend],
+                prompt_len=DBRX_LANE_PROMPT, steps=DBRX_LANE_STEPS[backend])
+        dbrx["lanes"]["dropped"] = int(sum(drops))
+        gc.collect()
+        torch.cuda.empty_cache()
+        dbrx["exact"] = fp32_greedy(torch, cfg, reqs, decoded=0,
+                                    new=DBRX_NEW[backend])["first"]
+    dbrx["anchor"] = fp32_greedy(
+        torch, dbrx_cfg(torch, DBRX_ANCHOR_LAYERS), reqs,
+        decoded=DBRX_ANCHOR_DECODED, new=DBRX_ANCHOR_NEW[backend])
+    torch.save(ref, f"{d}/fsdp_reference.pt")
+    print(f"[fsdp] phase 25's one-card runs: whisper-base {t_whisper:.1f} s,"
+          f" dbrx-132b {time.perf_counter() - t0 - t_whisper:.1f} s | "
+          f"{card_line()}", flush=True)
+
+
+def fsdp_runs(torch, rank, d, backend):
+    """Phase 25 on this rank: (a) whisper-base's lanes run under its
+    ``decode_32k`` plan in bf16 (fed one card's tokens) and in fp32
+    (greedy), then its two training steps under ``train_4k``'s TP +
+    ZeRO; (b) dbrx-132b under its TP + EP + FSDP plan (:func:`
+    dbrx_overrides`): ``launch.serve`` (one card's expert ids replayed on
+    one card; on four cards a decode call of rank 0's profiled), the
+    lanes run (one card's tokens fed on one card; on four cards both data
+    groups given the same prompts, decode step ``SERVE_PROFILED_STEP``
+    profiled on rank 0), each inside :func:`_measured` with the most
+    gathered bytes alive at once, and the fp32 anchor at
+    ``DBRX_ANCHOR_LAYERS``.  Rank 0's report goes to
+    ``d/fsdp_<rank>.pt`` and every rank's peaks and bytes too."""
+    import gc
+    import torch.distributed as dist
+    from repro_torch.core.materializer import H100X4
+    from repro_torch.launch.mesh import TorchMesh
+    from repro_torch.sharding import collectives as C
+    kernels = _family_kernels()
+    mesh = TorchMesh(H100X4)
+    one = torch.load(f"{d}/fsdp_reference.pt", weights_only=False)
+    serve_plan, train_plan = whisper_plans()
+    report = {"whisper": {}, "dbrx": {}}
+    w = report["whisper"]
+    with _measured(torch, kernels) as rep, call_classes() as classes:
+        rep.update(whisper_lanes(torch, torch.bfloat16, serve_plan, mesh,
+                                 feed=one["whisper"]["bf16"]["tokens"]))
+    rep["classes"] = {k: dict(v) for k, v in classes.items()}
+    w["bf16"] = rep
+    dist.barrier()
+    t0 = time.perf_counter()
+    w["fp32"] = whisper_lanes(torch, torch.float32, serve_plan, mesh)
+    w["fp32"]["seconds"] = time.perf_counter() - t0
+    dist.barrier()
+    t0 = time.perf_counter()
+    w["train"] = whisper_train(torch, train_plan, mesh)
+    w["train"]["seconds"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+    x = report["dbrx"]
+    cfg = dbrx_cfg(torch)
+    four = four_cards(torch)
+    ref = one["dbrx"]
+    replay = (lambda part: None) if four else \
+        (lambda part: ref["routes"][part])
+    C.gathered_bytes["peak"] = C.gathered_bytes["live"]
+    with _measured(torch, kernels) as rep, _moe_keys(
+            torch, cfg, "serve", {}, replay("serve"), mesh) as pinned:
+        out, first, prof = _family_serve(
+            torch, cfg, requests=DBRX_REQUESTS[backend],
+            prompt_range=DBRX_PROMPTS, max_new=DBRX_NEW[backend],
+            index=SERVE_PROFILED_STEP if four and rank == 0 else -1,
+            verbose=rank == 0, mesh="h100x4", dist_backend=backend,
+            overrides=dbrx_overrides())
+    runner, stats, plan = out["runner"], out["stats"], out["plan"]
+    rep.update(tokens={r.req_id: r.output_tokens for r in out["requests"]},
+               first=first, prefills=runner.local_prefills,
+               steps=stats.decode_steps, profile=prof,
+               plan={k: getattr(plan, k) for k in FAMILY_PLAN_FIELDS},
+               stored=_tree_bytes(runner.params),
+               bytes=_tree_bytes(runner.params) + _tree_bytes(runner.cache),
+               gather=runner.model.gather_bytes(),
+               gathered_peak=C.gathered_bytes["peak"]
+               - C.gathered_bytes["live"],
+               pinned=dict(pinned), device=str(out["device"]))
+    x["serve"] = rep
+    del out, runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    C.gathered_bytes["peak"] = C.gathered_bytes["live"]
+    lane_prof = {}
+    with _measured(torch, kernels) as rep, _moe_keys(
+            torch, cfg, "lanes", {}, replay("lanes"), mesh) as pinned:
+        rep.update(family_lanes(
+            torch, cfg, plan=plan, mesh=mesh,
+            feed=None if four else ref["lanes"]["tokens"],
+            lanes=DBRX_LANES[backend], prompt_len=DBRX_LANE_PROMPT,
+            steps=DBRX_LANE_STEPS[backend], groups_alike=four,
+            prof=lane_prof if four and rank == 0 else None))
+    rep.update(prefills=1, steps=DBRX_LANE_STEPS[backend],
+               pinned=dict(pinned), profile=lane_prof,
+               gathered_peak=C.gathered_bytes["peak"]
+               - C.gathered_bytes["live"])
+    x["lanes"] = rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    t0 = time.perf_counter()
+    x["anchor"] = fp32_greedy(torch, dbrx_cfg(torch, DBRX_ANCHOR_LAYERS),
+                              _requests(backend)[:DBRX_ANCHOR_DECODED],
+                              plan, mesh, new=DBRX_ANCHOR_NEW[backend])
+    x["anchor"]["seconds"] = time.perf_counter() - t0
+    if rank:
+        for part in (w["bf16"], x["lanes"]):
+            part.pop("logits", None)
+        w["train"].pop("grads")
+    torch.save(report, f"{d}/fsdp_{rank}.pt")
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+
+
+def fsdp_on_ranks(torch):
+    """Phase 25 alone over a spawn of its own (:func:`serve_on_ranks`'s
+    counterpart): one card's runs, the ranks' (:func:`fsdp_runs`; NCCL, a
+    rank a card, with four cards -- dbrx-132b's 40 layers -- else gloo on
+    ``cuda:0``), the gates.  ``main`` runs it in phases 20-24's spawn.
+    Returns rank 0's launch counts by kernel and by phase-2 record."""
+    import tempfile
+    t0 = time.perf_counter()
+    backend = "nccl" if four_cards(torch) else "gloo"
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        fsdp_references(torch, d)
+        _spawn_ranks(d, backend, phases=(25,))
+        out = fsdp_gates(torch, d, backend)
+    print(f"[fsdp] phase 25 alone over {backend}: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
+def _whisper_expected(cfg, prefills, steps):
+    """A whisper-base serving run's launches: K2 in each encoder layer and
+    in each decoder layer's self and cross attention a prefill, K4 in
+    each decoder layer's self and cross attention a step, no K3 (its
+    norms are LayerNorm)."""
+    return {"flash_attention_fwd": (cfg.num_encoder_layers
+                                    + 2 * cfg.num_layers) * prefills,
+            "decode_attention": 2 * cfg.num_layers * steps,
+            "decode_attention_lse": 0, "rmsnorm": 0, "rwkv6_wkv": 0,
+            "ssd_scan": 0, "rmsnorm_split": 0}
+
+
+def fsdp_gates(torch, d, backend):
+    """Phase 25's gates on the ranks' reports against one card's.  (a)
+    whisper-base: the fp32 anchor (the lanes run in fp32: the ranks'
+    first-step logits within ``SERVE_FP32_RTOL`` of one card's, their
+    greedy tokens one card's under the ``TIE_GAP`` rule); in bf16 every
+    step's logits within ``SERVE_NOISE_FACTOR`` times one card's own
+    distance from fp32 (the lanes' mean at the first step), the fed
+    tokens one card's under the near-tie band (:func:`bf16_band`,
+    :func:`parity_noise_ties`), rank 0's launches what the path implies
+    and each rank's peak within its blocks plus ``SERVE_SLACK``; its two
+    TP + ZeRO training steps' losses within ``TRAIN_LOSS_RTOL`` and every
+    step-1 gradient within ``TRAIN_GRAD_RTOL`` of one card's.  (b)
+    dbrx-132b under TP + EP + FSDP: on one card the serve's and the lanes
+    run's logits and tokens as (a)'s against one card's 2-layer runs and
+    0 dropped pairs; on four cards the lanes run's two data groups' tokens
+    equal (the same prompts); anywhere the fp32 anchor at
+    ``DBRX_ANCHOR_LAYERS``, every rank's stored bytes a quarter of the
+    weights' (printed beside the whole), the gathered bytes alive at once
+    at most one block's and the components outside the blocks
+    (``Model.gather_bytes``), each rank's peak within its account (stored
+    slices, one gathered block, the components on their compute layout,
+    the cache, ``SERVE_SLACK``) and under the card's 80 GB.  Returns rank
+    0's launch counts by kernel and by phase-2 record."""
+    from repro_torch.checkpoint.checkpointer import _flatten_with_paths
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import param_specs
+    one = torch.load(f"{d}/fsdp_reference.pt", weights_only=False)
+    ranks = [torch.load(f"{d}/fsdp_{r}.pt", weights_only=False)
+             for r in range(SHARDED_WORLD)]
+    launches = {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    # (a) whisper-base
+    wcfg = get_config(WHISPER_ARCH)
+    tag = "fsdp whisper"
+    w1, ws = one["whisper"], [r["whisper"] for r in ranks]
+    first32 = {f"lane{i}": w1["fp32"]["first"][i]
+               for i in range(WHISPER_RANK_LANES)}
+    anchor_gates(torch, f"{tag} anchor", "whisper-base (6 layers, full "
+                 "width, 4 lanes)",
+                 {"first": first32, "tokens": w1["fp32"]["tokens"],
+                  "margins": w1["fp32"]["margins"]},
+                 [{"first": {f"lane{i}": r["fp32"]["first"][i]
+                             for i in range(WHISPER_RANK_LANES)},
+                   "tokens": r["fp32"]["tokens"]} for r in ws])
+    first16 = {f"lane{i}": w1["bf16"]["first"][i]
+               for i in range(WHISPER_RANK_LANES)}
+    own, _, band = bf16_band(torch, first16, first32)
+    r0 = ws[0]["bf16"]
+    _lanes_gates(torch, tag, r0, [r["bf16"] for r in ws], w1["bf16"], own,
+                 band, WHISPER_RANK_LANES)
+    _launch_and_peak_gates(tag, [r["bf16"] for r in ws],
+                           lambda r: _whisper_expected(wcfg, 1,
+                                                       WHISPER_RANK_STEPS))
+    print(f"[{tag}] a rank's cross_wq {r0['heads']} (4 of 8 heads), its "
+          f"cross K/V cache {r0['cross']} (its 2 lanes, 4 of 8 KV heads "
+          f"over 1500 frames); decode step "
+          f"{sorted(r0['step_s'])[len(r0['step_s']) // 2] * 1e3:.3f} ms "
+          f"(median; one card "
+          f"{sorted(w1['bf16']['step_s'])[WHISPER_RANK_STEPS // 2] * 1e3:.3f}"
+          f" ms) | {card_line()}", flush=True)
+    add(r0["launches"])
+    for kernel, by_shape in WHISPER_RECORDS.items():
+        for key, rec in by_shape.items():
+            launches[rec] = launches.get(rec, 0) + \
+                r0["classes"][kernel].get(key, 0)
+    t1, tr = w1["train"], ws[0]["train"]
+    loss_errs = [abs(a - b) / abs(b) for a, b in zip(tr["losses"],
+                                                     t1["losses"])]
+    names = [k for k, _ in _flatten_with_paths(param_specs(wcfg))]
+    grad_errs = {n: float((a - b).norm() / b.norm().clamp(min=1e-30))
+                 for n, a, b in zip(names, tr["grads"], t1["grads"])}
+    worst = sorted(grad_errs.items(), key=lambda kv: -kv[1])[:4]
+    print(f"[{tag} train] TP + ZeRO, {WHISPER_TRAIN_STEPS} steps of "
+          f"{WHISPER_TRAIN_ROWS} x {WHISPER_TRAIN_SEQ} over 1500 frames: "
+          f"losses {tr['losses']} (one card {t1['losses']}; relative "
+          f"{[round(e, 6) for e in loss_errs]}, limit {TRAIN_LOSS_RTOL}); "
+          f"step-1 gradients' worst relative norms {worst} (limit "
+          f"{TRAIN_GRAD_RTOL}); rank 0's steps {tr['seconds']:.1f} s | "
+          f"{card_line()}", flush=True)
+    if max(loss_errs) > TRAIN_LOSS_RTOL:
+        fail(f"{tag} train: the losses differ from one card's")
+    if max(grad_errs.values()) > TRAIN_GRAD_RTOL:
+        fail(f"{tag} train: a step-1 gradient differs from one card's")
+    if any(not math.isfinite(v) for v in tr["losses"]):
+        fail(f"{tag} train: a loss is not finite")
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        got = tr["classes"][name]
+        launches[name] = launches.get(name, 0) + sum(got.values())
+        for key, suffix in WHISPER_TRAIN_RECORDS.items():
+            if not got.get(key):
+                fail(f"{tag} train: no {name} launch at {key}")
+            if name != "flash_attention_fwd":
+                rec = f"{name}_{suffix}"
+                launches[rec] = launches.get(rec, 0) + got.get(key, 0)
+
+    # (b) dbrx-132b
+    cfg = dbrx_cfg(torch)
+    tag = "fsdp dbrx"
+    x1, xs = one["dbrx"], [r["dbrx"] for r in ranks]
+    anchor_gates(torch, f"{tag} anchor", f"dbrx-132b ({DBRX_ANCHOR_LAYERS} "
+                 "layer, full width, TP + EP + FSDP)", x1["anchor"],
+                 [x["anchor"] for x in xs])
+    whole = L.param_bytes(param_specs(cfg))
+    stored = [x["serve"]["stored"] for x in xs]
+    block, shared = xs[0]["serve"]["gather"]
+    alive = [tuple(round(x[p]["gathered_peak"] / 2**30, 3)
+                   for p in ("serve", "lanes")) for x in xs]
+    print(f"[{tag}] {cfg.name} ({cfg.num_layers} layers, full width) under "
+          f"{xs[0]['serve']['plan']}: the weights {whole / 2**30:.3f} GiB "
+          f"(bf16), a quarter {whole / 4 / 2**30:.3f} GiB; each rank's "
+          f"stored slices {[round(s / 2**30, 3) for s in stored]} GiB; one "
+          f"gathered block {block / 2**30:.3f} GiB, the components outside "
+          f"the blocks on their compute layout {shared / 2**30:.3f} GiB; "
+          f"the most gathered bytes alive at once (serve, lanes) "
+          f"{alive} GiB | {card_line()}", flush=True)
+    if any(abs(s - whole / 4) > 0.01 * whole / 4 for s in stored):
+        fail(f"{tag}: a rank's stored slices are not a quarter of the "
+             "weights")
+    if any(max(x[p]["gathered_peak"] for p in ("serve", "lanes"))
+           > block + shared for x in xs):
+        fail(f"{tag}: more than one gathered block alive at once")
+    if not xs[0]["serve"]["plan"]["fsdp"]:
+        fail(f"{tag}: the serve's plan is not weight-gathered")
+    for part in ("serve", "lanes"):
+        reps = [x[part] for x in xs]
+        r0 = reps[0]
+        if any(r["tokens"] != r0["tokens"] for r in reps):
+            fail(f"{tag} {part}: the ranks hold different tokens")
+        # the account: the stored slices and the cache, one gathered block
+        # and the components outside the blocks on their compute layout
+        for r in reps:
+            r["bytes"] += sum(r["gather"])
+        _launch_and_peak_gates(f"{tag} {part}", reps, lambda r: (
+            _family_expected(cfg, r["prefills"], r["steps"])))
+        if any(r["peak"] > CARD_BYTES for r in reps):
+            fail(f"{tag} {part}: a rank's peak passes the card's 80 GB")
+        dropped = [r["dropped"] for r in reps]
+        prof = r0.get("profile") or {}
+        # serve: every DenseRunner.decode call's wall; lanes: every step's
+        # (its profile wraps the profiled step alone, with the profiler's
+        # start and tally)
+        calls = prof["calls_ms"] if part == "serve" else [
+            t * 1e3 for t in r0["step_s"]]
+        if "routes" in x1:
+            dropped.append((x1["lanes"] if part == "lanes" else x1)[
+                "dropped"])
+        print(f"[{tag} {part}] rank 0 prefilled {r0['prefills']}, "
+              f"{r0['steps']} decode steps; median decode call "
+              f"{sorted(calls)[len(calls) // 2]:.3f} ms; pairs dropped at "
+              f"capacity factor {cfg.moe.capacity_factor} (each rank, then "
+              f"one card's) {dropped} | {card_line()}", flush=True)
+        if "busy_ms" in prof:
+            print(f"[{tag} {part}] rank 0's profiled decode call: wall "
+                  f"{prof['wall_ms']:.1f} ms, device busy "
+                  f"{prof['busy_ms']:.1f} ms, NCCL kernels "
+                  f"{prof['nccl_ms']:.1f} ms "
+                  f"({prof['nccl_ms'] / prof['wall_ms']:.4f} of the wall, "
+                  f"{prof['nccl_ms'] / max(prof['busy_ms'], 1e-9):.4f} of "
+                  f"the busy time), gloo's host time "
+                  f"{prof['gloo_host_ms']:.1f} ms | {card_line()}",
+                  flush=True)
+        if any(dropped):
+            fail(f"{tag} {part}: an expert dropped a pair at the capacity "
+                 "factor meant to drop none")
+        add(r0["launches"])
+        for k, rec in DBRX_RECORDS.items():
+            launches[rec] = launches.get(rec, 0) + r0["launches"][k]
+    w0, x0 = ws[0], xs[0]
+    print(f"[fsdp] rank 0's runs: whisper bf16 {w0['bf16']['seconds']:.1f} "
+          f"s, fp32 {w0['fp32']['seconds']:.1f} s, train "
+          f"{w0['train']['seconds']:.1f} s; dbrx serve "
+          f"{x0['serve']['seconds']:.1f} s, lanes {x0['lanes']['seconds']:.1f}"
+          f" s, fp32 anchor {x0['anchor']['seconds']:.1f} s | {card_line()}",
+          flush=True)
+    if four_cards(torch):
+        toks = xs[0]["lanes"]["tokens"]
+        half = DBRX_LANES[backend] // 2
+        same = all(toks[f"lane{i}"] == toks[f"lane{i + half}"]
+                   for i in range(half))
+        print(f"[{tag} lanes] the two data groups, given the same "
+              f"{half} prompts, decode the same tokens: {same}", flush=True)
+        if not same:
+            fail(f"{tag} lanes: the data groups' tokens differ")
+    else:
+        exact = x1["exact"]
+        own, _, band = bf16_band(torch, x1["first"], exact)
+        r0 = xs[0]["serve"]
+        errs = {}
+        for x in xs:
+            errs.update(_logit_errs(torch, x["serve"]["first"], x1["first"]))
+        limits = {k: SERVE_NOISE_FACTOR * v for k, v in own.items()}
+        print(f"[{tag} serve] first-step logits against one card's "
+              f"{_worst_by(errs, 'serve')} (limits "
+              f"{_worst_by(limits, 'serve')}); routed on one card's expert "
+              f"ids: the ranks' own routing chose others for "
+              f"{[x['serve']['pinned']['swapped'] for x in xs]} of "
+              f"{[x['serve']['pinned']['tokens'] for x in xs]} tokens",
+              flush=True)
+        if sorted(errs) != sorted(x1["first"]) or any(
+                v > limits[k] for k, v in errs.items()):
+            fail(f"{tag} serve: the logits differ from one card's")
+        flips, bad = parity_noise_ties(x1["tokens"], r0["tokens"],
+                                       x1["margins"], x1["tops"], band)
+        print(f"[{tag} serve] bf16 tokens against one card's: {len(flips)} "
+              f"divergence(s) {flips}; not near ties: {bad}", flush=True)
+        if bad:
+            fail(f"{tag} serve: tokens differ from one card's where no "
+                 "near tie allows it")
+        _lanes_gates(torch, f"{tag} lanes", xs[0]["lanes"],
+                     [x["lanes"] for x in xs], x1["lanes"], own, band,
+                     DBRX_LANES[backend])
+    return launches
+
+
+def _lanes_gates(torch, tag, r0, reps, want, own, band, lanes):
+    """A lanes run's logits and tokens against one card's: every step's
+    logits within ``SERVE_NOISE_FACTOR`` times one card's own mean
+    distance from fp32 (``own``), the fed tokens under the near-tie band
+    (every step compared on its own), every rank's tokens the same."""
+    if any(r["tokens"] != r0["tokens"] for r in reps):
+        fail(f"{tag}: the ranks hold different tokens")
+    steps = want["logits"].shape[0]
+    errs = {f"lane{i} step{j}": float(
+        (r0["logits"][j, i] - want["logits"][j, i]).norm()
+        / want["logits"][j, i].norm())
+        for j in range(steps) for i in range(lanes)}
+    noise = sum(own.values()) / len(own)
+    lim = SERVE_NOISE_FACTOR * noise
+    flips, bad = parity_noise_ties(want["tokens"], r0["tokens"],
+                                   want["margins"], want["tops"], band,
+                                   forced=True)
+    print(f"[{tag}] logits against one card's {_worst_by(errs, 'lanes')} "
+          f"(limit {lim:.5f}); bf16 tokens: {len(flips)} divergence(s) "
+          f"{flips}; not near ties: {bad} | {card_line()}", flush=True)
+    if any(v > lim for v in errs.values()):
+        fail(f"{tag}: the logits differ from one card's")
+    if bad:
+        fail(f"{tag}: tokens differ from one card's where no near tie "
+             "allows it")
+
+
+def _launch_and_peak_gates(tag, reps, expected):
+    """Rank 0's launches what its path implies (``expected`` of its
+    report: the prefills it ran, its steps), every rank's nonzero for each
+    kernel its own path runs (a data group that prefilled none of a
+    serve's prompts launches no K2 there), every rank's peak within its
+    account (``bytes`` + ``SERVE_SLACK``)."""
+    r0 = reps[0]
+    want = expected(r0)
+    accounts = [r["bytes"] + SERVE_SLACK for r in reps]
+    print(f"[{tag}] launches by rank {[r['launches'] for r in reps]}, rank "
+          f"0's expected {want}; peaks "
+          f"{[round(r['peak'] / 2**30, 3) for r in reps]} GiB, accounts "
+          f"{[round(a / 2**30, 3) for a in accounts]} GiB | {card_line()}",
+          flush=True)
+    if r0["launches"] != want:
+        fail(f"{tag}: rank 0's launch counts differ from what the path "
+             "implies")
+    if any(r["launches"][k] == 0 for r in reps
+           for k, n in expected(r).items() if n):
+        fail(f"{tag}: a rank launched no kernel of a kind its path runs")
     if any(r["peak"] > a for r, a in zip(reps, accounts)):
         fail(f"{tag}: a rank's peak passes its account")
 

@@ -30,13 +30,18 @@ def tensor_from_numpy(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
-                    device: DeviceLike = None) -> Dict[str, Any]:
+                    device: DeviceLike = None, layouts=None
+                    ) -> Dict[str, Any]:
     """The reference's parameter tree, as numpy arrays, -> the port's
     tensors on ``device``.  Keys and shapes are checked against the port's
-    spec tree, so a layout drift fails here and not deep in a forward."""
+    spec tree, so a layout drift fails here and not deep in a forward.
+    With ``layouts`` (a tree of ``planner.Layout``: a serving plan's
+    stored layout, ``ServeLayout.params``, or a train step's) each leaf
+    becomes this rank's block of it, copied, and no whole leaf reaches
+    ``device``."""
     dev = resolve_device(device)
 
-    def convert(sub, specs, path):
+    def convert(sub, specs, lays, path):
         if set(sub) != set(specs):
             raise ValueError(f"bridge: keys at {path or '/'} are "
                              f"{sorted(sub)}, the port expects "
@@ -44,14 +49,15 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig,
         out = {}
         for key, spec in specs.items():
             where = f"{path}/{key}"
+            lay = None if lays is None else lays[key]
             if isinstance(spec, dict):
-                out[key] = convert(sub[key], spec, where)
+                out[key] = convert(sub[key], spec, lay, where)
                 continue
-            t = tensor_from_numpy(sub[key], dev)
+            t = tensor_from_numpy(sub[key], torch.device("cpu"))
             if tuple(t.shape) != spec.shape:
                 raise ValueError(f"bridge: {where} has shape "
                                  f"{tuple(t.shape)}, expected {spec.shape}")
-            out[key] = t
+            out[key] = (t if lay is None else lay.local(t).clone()).to(dev)
         return out
 
-    return convert(tree, param_specs(cfg), "")
+    return convert(tree, param_specs(cfg), layouts, "")

@@ -38,14 +38,22 @@ on the dense backend with the rank's blocks of the weights and the cache
 under the ladder's plan (tensor parallel over ``model``, an MoE stack's
 experts expert-parallel over it, the lanes over ``data``); every rank's
 engine holds the same requests and tokens, and only rank 0 prints and
-saves the sizing history.  The attention stacks, qwen2-moe, zamba2,
-rwkv6 and phi-3-vision's text serve so; whisper, the paged backend and
-an FSDP plan on a mesh are refused (ROADMAP item A8d)::
+saves the sizing history.  Every family that serves prompts of tokens
+serves so, the backend dense by default there; under a plan with FSDP
+(weight-gathered serving: full-depth dbrx-132b's on ``h100x4``, whose
+245.1 GiB of bf16 weights no card holds under TP + EP alone) each rank
+stores its slices split over 'data' as well and gathers each block for
+its forward.  whisper-base serves on a mesh through ``Model.prefill`` /
+``decode_step`` with its encoder's frames (``enc_feats``), not through
+this launcher; the paged backend on a mesh is refused (ROADMAP item
+A8d)::
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
         --mesh h100x4 --backend dense --arch command-r-35b
     torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
         --mesh h100x4 --backend dense --arch qwen2-moe-a2.7b
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+        --mesh h100x4 --arch dbrx-132b
 
 ``--shared-prefix N`` (this port's own; the reference sets prompt overlap
 with explicit ``prompt_tokens``) gives every synthetic prompt the same
@@ -339,10 +347,11 @@ def _two_bursts(cluster: Cluster, handle, reqs: List[Request],
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="tinyllama-1.1b")
-    ap.add_argument("--backend", default="paged", choices=["paged", "dense"],
+    ap.add_argument("--backend", default=None, choices=["paged", "dense"],
                     help="paged: RoPE attention stacks over a page pool; "
                          "dense: a per-slot dense cache, which also serves "
-                         "the Mamba-2, RWKV-6 and zamba2 stacks")
+                         "the Mamba-2, RWKV-6 and zamba2 stacks (default: "
+                         "dense on a mesh of several cards, else paged)")
     ap.add_argument("--reduced", action="store_true",
                     help="serve the reduced same-family config")
     ap.add_argument("--device", default=None,
@@ -405,6 +414,9 @@ def main(argv=None):
                     help="torch.distributed backend of a multi-card mesh "
                          "(gloo lets ranks share a card)")
     args = ap.parse_args(argv)
+    if args.backend is None:
+        args.backend = "dense" if MESHES[args.mesh].num_devices > 1 \
+            else "paged"
     if args.prefix_cache and args.backend != "paged":
         ap.error("--prefix-cache needs --backend paged: the dense cache "
                  "has no page identity to share across requests")

@@ -6,7 +6,8 @@ dense serving and training run: ``project_qkv`` (with qk-norm and RoPE),
 ``sdpa``, ``attn_out``, ``self_attention_train``, the dense path's
 ``kv_cache_specs``, ``gqa_decode_sdpa``,
 ``self_attention_decode`` and ``self_attention_prefill``, and whisper's
-cross attention (``encode_cross_kv``, ``cross_attention``), in the
+cross attention (``encode_cross_kv``, ``cross_attention``,
+``cross_attention_decode``), in the
 reference's layouts: activations (B, S, H, hd), the dense cache (B, KV,
 S, hd).  ``prefix`` selects a decoder block's ``self_`` or ``cross_``
 weights, as in the reference.  ``sdpa`` goes through the Hopper
@@ -23,15 +24,15 @@ writes the new token's K and V into the cache tensors in place.
 
 ``self_attention_train`` with a :class:`TensorParallel` group runs this
 rank's heads when the planner split them (:func:`tp_weights`), and so do
-``self_attention_decode`` and ``self_attention_prefill`` under a serving
-plan of a mesh: the rank's query and KV heads, the output projection's
-partial sums summed over the group.  Where the dense cache's stored
-layout splits its sequence dim over mesh axes (the reference's
-flash-decode materialization), ``self_attention_decode`` takes the
-reference's ``shard_ctx``: only the rank that owns the new token's slot
-writes it (:func:`seqshard_cache_update`), each rank runs the
-decode-attention kernel over its own block up to its part of the valid
-length, returning its partial softmax state (the output and its
+``self_attention_decode``, ``self_attention_prefill`` and whisper's cross
+attention under a serving plan of a mesh: the rank's query and KV heads,
+the output projection's partial sums summed over the group.  Where the
+dense cache's stored layout splits its sequence dim over mesh axes (the
+reference's flash-decode materialization), ``self_attention_decode``
+takes the reference's ``shard_ctx``: only the rank that owns the new
+token's slot writes it (:func:`seqshard_cache_update`), each rank runs
+the decode-attention kernel over its own block up to its part of the
+valid length, returning its partial softmax state (the output and its
 log-sum-exp), and the ranks merge those
 (``collectives.combine_softmax_parts``).
 """
@@ -115,16 +116,18 @@ def attn_out(p: Params, o: torch.Tensor, prefix: str = "") -> torch.Tensor:
     return torch.matmul(o.reshape(*o.shape[:-2], h * hd), w.reshape(h * hd, d))
 
 
-def tp_weights(p: Params, cfg: ModelConfig, tp: TensorParallel) -> Params:
+def tp_weights(p: Params, cfg: ModelConfig, tp: TensorParallel,
+               prefix: str = "") -> Params:
     """The weights of this rank's q heads when the planner split them
-    over the group (``p["wq"]`` holds ``h`` of ``cfg.num_heads``): the K/V
+    over the group (``p[prefix + "wq"]`` holds ``h`` of ``cfg.num_heads``;
+    ``prefix`` a decoder block's ``self_`` or ``cross_`` set): the K/V
     heads they read -- this rank's own when the K/V heads were split too,
     else the ones its q heads map to, picked from the replicated ``wk`` /
     ``wv`` (KV heads that do not divide the group) -- and the qk-norm
     gains.  A replicated weight applied to this rank's heads only enters
     through :func:`copy_to_tp`, so its gradient is summed over the
     group."""
-    h, kv = p["wq"].shape[1], p["wk"].shape[1]
+    h, kv = p[prefix + "wq"].shape[1], p[prefix + "wk"].shape[1]
     out = dict(p)
     if kv == cfg.num_kv_heads:
         g = cfg.num_heads // cfg.num_kv_heads
@@ -133,7 +136,7 @@ def tp_weights(p: Params, cfg: ModelConfig, tp: TensorParallel) -> Params:
             raise ValueError(f"{cfg.name}: {h} local q heads of group size "
                              f"{g} do not pair with whole K/V heads")
         sel = slice(h0 // g, h0 // g + max(h // g, 1))
-        for name in ("wk", "wv"):
+        for name in (prefix + "wk", prefix + "wv"):
             out[name] = copy_to_tp(p[name], tp)[:, sel]
     for name in ("q_norm", "k_norm"):
         if name in p:
@@ -147,7 +150,7 @@ def rank_heads(p: Params, cfg: ModelConfig, tp: Optional[TensorParallel],
     of :func:`tp_weights` when ``tp`` is given and the planner split the
     q heads over it, else ``p`` as it is."""
     split = tp is not None and p[prefix + "wq"].shape[1] < cfg.num_heads
-    return (tp_weights(p, cfg, tp) if split else p), split
+    return (tp_weights(p, cfg, tp, prefix) if split else p), split
 
 
 def self_attention_train(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
@@ -308,17 +311,59 @@ def self_attention_prefill(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
 # cross attention (whisper's decoder)
 # ---------------------------------------------------------------------------
 
-def encode_cross_kv(p: Params, enc_out: torch.Tensor) -> Params:
-    """The encoder output's cross K and V, (B, T, KV, hd) each."""
+def encode_cross_kv(p: Params, enc_out: torch.Tensor,
+                    cfg: Optional[ModelConfig] = None,
+                    tp: Optional[TensorParallel] = None) -> Params:
+    """The encoder output's cross K and V, (B, T, KV, hd) each; with
+    ``tp`` (and ``cfg``) and split heads, the KV heads this rank's cross q
+    heads read (``enc_out``, whole on every rank, entering through
+    :func:`copy_to_tp`)."""
+    split = False
+    if tp is not None:
+        p, split = rank_heads(p, cfg, tp, "cross_")
+    if split:
+        enc_out = copy_to_tp(enc_out, tp)
     return {"k": project(enc_out, p["cross_wk"]),
             "v": project(enc_out, p["cross_wv"])}
 
 
 def cross_attention(p: Params, x: torch.Tensor, enc_kv: Params,
-                    cfg: ModelConfig) -> torch.Tensor:
+                    cfg: ModelConfig,
+                    tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """Every query row over every encoder frame (non-causal; the
     flash-attention kernels at Sq = prompt, Sk = frames, the backward
-    ones too when a gradient is taken)."""
+    ones too when a gradient is taken).  With ``tp`` and split heads,
+    this rank's cross q heads over ``enc_kv``'s heads (its
+    :func:`encode_cross_kv`), the output projection's partial sums summed
+    over the group."""
+    p, split = rank_heads(p, cfg, tp, "cross_")
+    if split:
+        x = copy_to_tp(x, tp)
     q = project(x, p["cross_wq"])
     o = sdpa(q, enc_kv["k"], enc_kv["v"], causal=False)
-    return attn_out(p, o, prefix="cross_")
+    out = attn_out(p, o, prefix="cross_")
+    return reduce_from_tp(out, tp) if split else out
+
+
+def cross_attention_decode(p: Params, x: torch.Tensor, cache: Params,
+                           cfg: ModelConfig,
+                           tp: Optional[TensorParallel] = None
+                           ) -> torch.Tensor:
+    """One query row (B, 1, d) over all of the encoder's frames in the
+    cache's ``cross_k`` / ``cross_v`` (B, KV, T, hd): the decode-attention
+    kernel at valid length T.  With ``tp`` and split heads, this rank's
+    cross q heads over the cache's KV heads (the rank's, as the plan's
+    cache layout splits them), the output projection's partial sums
+    summed over the group."""
+    p, split = rank_heads(p, cfg, tp, "cross_")
+    q = project(x, p["cross_wq"])
+    k, v = cache["cross_k"], cache["cross_v"]
+    if split and p["cross_wk"].shape[1] != k.shape[1]:
+        raise NotImplementedError(
+            f"{cfg.name}: this rank's {p['cross_wk'].shape[1]} cross KV "
+            f"heads against a cache of {k.shape[1]}: serving with q heads "
+            "split over a group that does not split the KV heads is "
+            "ROADMAP item A8d")
+    o = gqa_decode_sdpa(q, k, v, k.shape[2])
+    out = attn_out(p, o, prefix="cross_")
+    return reduce_from_tp(out, tp) if split else out

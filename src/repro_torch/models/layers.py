@@ -11,9 +11,9 @@ builds no autograd node.
 
 The functions that take ``tp`` (a :class:`TensorParallel` group) run
 this rank's part of a tensor-parallel layer when one is given: the
-gated MLP column-parallel into ``wi_*`` and row-parallel out of ``wo``,
-the embedding and the CE vocab-parallel; without one they are the
-one-card code, with no collective.
+gated MLP (and whisper's biased one) column-parallel into ``wi_*`` and
+row-parallel out of ``wo``, the embedding and the CE vocab-parallel;
+without one they are the one-card code, with no collective.
 """
 
 from __future__ import annotations
@@ -268,12 +268,20 @@ def mlp_specs(d_model: int, d_ff: int) -> Params:
             "bo": Spec((d_model,), ("embed",), std=0.0)}
 
 
-def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
+def mlp(p: Params, x: torch.Tensor,
+        tp: Optional[TensorParallel] = None) -> torch.Tensor:
     """whisper's biased MLP: each bias added to its product's output in the
     activation dtype, and the tanh form of GELU (``jax.nn.gelu``'s
-    default, which the reference calls)."""
+    default, which the reference calls).  With ``tp``, ``p`` holds this
+    rank's ffn columns of ``wi`` and ``bi`` and rows of ``wo``: the
+    replicated input enters through :func:`copy_to_tp`, the partial
+    products are summed over the group, and then the whole ``bo`` is
+    added once."""
+    if tp is not None:
+        x = copy_to_tp(x, tp)
     h = F.gelu(torch.matmul(x, p["wi"]) + p["bi"], approximate="tanh")
-    return torch.matmul(h, p["wo"]) + p["bo"]
+    y = torch.matmul(h, p["wo"])
+    return (y if tp is None else reduce_from_tp(y, tp)) + p["bo"]
 
 
 def embed_specs(vocab: int, d_model: int, tie: bool) -> Params:

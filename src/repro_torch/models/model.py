@@ -14,13 +14,21 @@ tokens through ``img_feats``) and whisper (its encoder over
 the reference (:func:`pageable`).
 
 Under a serving plan of a mesh (``Model(layout=...)``, a
-``planner.ServeLayout``) the attention, MoE, Mamba-2, zamba2, RWKV-6 and
-phi-3-vision stacks serve sharded as the reference's ``lower_cell`` lays
-out a prefill or decode cell: each rank holds its blocks of the weights
-(``param_specs_tree``) and of the dense cache and recurrent state
-(``cache_specs_tree``, laid out once a model: ``Model.cache_layouts``),
-takes its lanes of the batch, runs its query and KV heads, ffn columns,
-experts and SSM/WKV heads, and returns whole-vocab logits for its lanes.
+``planner.ServeLayout``) every stack the port serves -- the attention,
+MoE, Mamba-2, zamba2, RWKV-6, phi-3-vision and whisper stacks -- serves
+sharded as the reference's ``lower_cell`` lays out a prefill or decode
+cell: each rank holds its blocks of the weights (``param_specs_tree``)
+and of the dense cache and recurrent state (``cache_specs_tree``, laid
+out once a model: ``Model.cache_layouts``), takes its lanes of the
+batch, runs its query and KV heads, ffn columns, experts and SSM/WKV
+heads, and returns whole-vocab logits for its lanes.  Under a plan with
+FSDP (weight-gathered serving: dbrx-132b's on ``h100x4``) the stored
+slices are split over 'data' too; each call gathers the components
+outside the blocks to their compute layout once, and each stacked block
+just before its forward, freed just after it
+(``collectives.gather_for_serving``); with the cache's sequence split
+over 'data' as well (a long-context plan) it is refused (ROADMAP item
+A8d).
 """
 
 from __future__ import annotations
@@ -40,7 +48,9 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.transformer import ImplConfig
 from repro_torch.sharding.collectives import (TensorParallel, copy_to_tp,
-                                              gather_along, gather_from_tp,
+                                              gather_account, gather_along,
+                                              gather_for_serving,
+                                              gather_from_tp,
                                               tensor_parallel)
 
 Params = Dict[str, Any]
@@ -174,12 +184,6 @@ def gather_lanes(t: torch.Tensor, lanes) -> torch.Tensor:
     return t if lanes is None else gather_along(t, lanes.mesh, lanes.dims[1])
 
 
-#: the block kinds whose training forward runs tensor-parallel (an MoE
-#: block's attention, its routed experts expert-parallel; Mamba-2 and
-#: RWKV-6 over their heads; zamba2's shared attention block)
-TP_KINDS = (ATTN_GLOBAL, ATTN_LOCAL, MOE, MAMBA2, ATTN_SHARED, RWKV6)
-
-
 class Model:
     """The reference's ``Model``: the training loss and the dense serving
     entry points (``prefill``, ``decode_step``), functions over a
@@ -189,8 +193,9 @@ class Model:
     With ``tp`` (the rank's :class:`TensorParallel` group), ``loss_fn``
     runs on this rank's blocks of the planner's compute layout: the heads,
     ffn columns and vocab rows it split over the group, the rest whole.
-    That covers the attention + MLP, MoE, Mamba-2, zamba2 and RWKV-6
-    stacks (``TP_KINDS``); an MoE stack's routed experts then run
+    That covers every stack the port runs (``SUPPORTED_KINDS``: the
+    attention + MLP, MoE, Mamba-2, zamba2, RWKV-6 and whisper stacks, its
+    encoder too); an MoE stack's routed experts then run
     expert-parallel over the same axis (``impl.ep_shard_ctx``, which the
     planner's expert layout implies under TP); without ``tp`` and
     ``ep_shard_ctx`` no collective runs.
@@ -214,27 +219,42 @@ class Model:
     expert-parallel under ``impl.ep_shard_ctx`` (``serve_step.
     impl_from_plan`` sets it where the plan's ``ep`` is), and a block
     whose cache layout splits the sequence decodes under
-    ``impl.decode_shard_ctx``.  Every kind but whisper's decoder blocks
-    serves so (``transformer.SERVE_MESH_KINDS``), with the weights split
-    by TP and not FSDP (ROADMAP item A8d)."""
+    ``impl.decode_shard_ctx``.  Every kind serves so
+    (``transformer.SERVE_MESH_KINDS``).  Under a plan with ``fsdp`` the
+    params are this rank's stored slices, split over 'data' beyond the
+    compute layout (``layout.compute``): ``prefill`` and ``decode_step``
+    gather the components outside the blocks once a call and each stacked
+    block just before its forward, one block alive at a time
+    (``param_layouts``, ``compute_layouts``; :meth:`gather_bytes`).  A
+    plan with ``fsdp`` and ``seq_axes`` both (dbrx-132b's ``long_500k``
+    on ``h100x4``: the weights and the cache's sequence over 'data') is
+    refused, naming ROADMAP item A8d."""
 
     def __init__(self, cfg: ModelConfig, impl: Optional[ImplConfig] = None,
                  tp: Optional[TensorParallel] = None, shards=None,
                  layout=None):
         check_family(cfg)
+        # the stored and compute layouts of weight-gathered serving (None
+        # where the stored slices are the compute blocks)
+        self.param_layouts = self.compute_layouts = None
         if layout is not None:
             bad = [k for k in cfg.pattern if k not in T.SERVE_MESH_KINDS]
-            if bad or layout.plan.fsdp:
+            if bad:
                 raise T.serve_mesh_refusal(
                     f"{cfg.name} (pattern {cfg.pattern}) under the plan "
-                    f"{layout.plan.mesh.name} fsdp={layout.plan.fsdp}")
+                    f"{layout.plan.mesh.name}")
+            if layout.plan.fsdp and layout.plan.seq_axes:
+                raise NotImplementedError(
+                    f"{cfg.name}: weight-gathered serving with the cache's "
+                    f"sequence split over {layout.plan.seq_axes} as well "
+                    f"(the plan {layout.plan.mesh.name}'s fsdp and seq_axes: "
+                    "a long-context plan) is ROADMAP item A8d")
+            if layout.plan.fsdp:
+                specs = param_specs(cfg)
+                self.param_layouts = layout.params(cfg, specs)
+                self.compute_layouts = layout.compute(cfg, specs)
             if tp is None and layout.plan.tp:
                 tp = tensor_parallel(layout.mesh)
-        if tp is not None and any(k not in TP_KINDS for k in cfg.pattern):
-            raise NotImplementedError(
-                f"{cfg.name}: the tensor-parallel forward covers the block "
-                f"kinds {TP_KINDS}; pattern {cfg.pattern} trains "
-                "data-parallel (tp=False)")
         if tp is not None and MOE in cfg.pattern and (
                 impl is None or impl.ep_shard_ctx is None):
             raise NotImplementedError(
@@ -345,11 +365,14 @@ class Model:
         """whisper's encoder over precomputed frame embeddings (B, T, d)
         (the conv frontend is a stub): sinusoidal positions, the stacked
         bidirectional layers, each under the ``remat`` policy (training
-        passes the plan's, as the reference does), ``ln_f``."""
+        passes the plan's, as the reference does), ``ln_f``; with ``tp``,
+        each layer's heads and ffn columns this rank's where the planner
+        split them."""
         cfg = self.cfg
         enc = params["encoder"]
         x = self._add_positional(enc_feats)
-        layer = T._remat(functools.partial(T.apply_encoder_block, cfg), remat)
+        layer = T._remat(functools.partial(T.apply_encoder_block, cfg,
+                                           tp=self.tp), remat)
         for bp in _unstack(enc["blocks"], cfg.num_encoder_layers):
             x = layer(bp, x)
         return T.apply_norm(cfg, enc["ln_f"], x)
@@ -359,6 +382,53 @@ class Model:
         """Stubbed CLIP patch embeddings (B, N, 1024) projected into the
         token stream."""
         return torch.matmul(img_feats, params["img_proj"])
+
+    # -- weight-gathered (FSDP) serving ---------------------------------------
+    def _call_params(self, params: Params) -> Params:
+        """``params`` with the components outside the stacked blocks on
+        their compute layout: gathered here, once a call, where the plan
+        has FSDP; ``params`` as they are otherwise."""
+        if self.param_layouts is None:
+            return params
+        rest = {k: v for k, v in params.items() if k != "blocks"}
+        out = gather_for_serving(
+            rest, {k: self.param_layouts[k] for k in rest},
+            {k: self.compute_layouts[k] for k in rest})
+        out["blocks"] = params["blocks"]
+        return out
+
+    def _block_params(self, bp: Params) -> Params:
+        """One stacked block's stored slices (``bp``, by pattern key) on
+        their compute layout: gathered where the plan has FSDP (the caller
+        drops them before the next block's), ``bp`` otherwise."""
+        if self.param_layouts is None:
+            return bp
+        return gather_for_serving(bp, self.param_layouts["blocks"],
+                                  self.compute_layouts["blocks"],
+                                  stacked=True)
+
+    def join_gathers(self, params: Params) -> None:
+        """The gathers of a ``prefill`` or ``decode_step`` call that this
+        rank does not run, in the call's order (the components outside the
+        blocks, then each block), each dropped when done: a rank of a data
+        group that holds none of a prefill's lanes joins them, since its
+        peers over 'data' gather from it.  Nothing where the plan has no
+        FSDP."""
+        if self.param_layouts is None:
+            return
+        params = self._call_params(params)
+        for stored in _unstack(params["blocks"], self.cfg.num_blocks):
+            self._block_params(stored)
+
+    def gather_bytes(self, itemsize: int = 2) -> Tuple[int, int]:
+        """(one stacked block's gathered bytes, the gathered components'
+        outside the blocks) of weight-gathered serving at ``itemsize``
+        bytes a weight: what a call holds beside the stored slices at
+        most; (0, 0) where nothing is gathered."""
+        if self.param_layouts is None:
+            return 0, 0
+        return gather_account(param_specs(self.cfg), self.param_layouts,
+                              self.compute_layouts, itemsize)
 
     # -- entry point: prefill ------------------------------------------------
     def prefill(self, params: Params, tokens: torch.Tensor, cache_len: int,
@@ -380,8 +450,10 @@ class Model:
 
         Under a ``layout``, ``tokens`` are this rank's lanes, ``cache`` and
         ``slot`` this rank's (a new cache: its blocks of the lanes of every
-        rank), and the logits are those lanes' over the whole vocab."""
+        rank), ``img_feats`` / ``enc_feats`` those lanes' rows, and the
+        logits are those lanes' over the whole vocab."""
         cfg = self.cfg
+        params = self._call_params(params)
         if cache is None:
             cache = self.init_cache(
                 tokens.shape[0] * lane_block(self.lanes)[0], cache_len,
@@ -398,7 +470,9 @@ class Model:
                                  "needs enc_feats")
             enc_out = self._encoder(params, enc_feats)
         shared = _shared(params)
-        for j, bp in enumerate(_unstack(params["blocks"], cfg.num_blocks)):
+        for j, stored in enumerate(_unstack(params["blocks"],
+                                            cfg.num_blocks)):
+            bp = self._block_params(stored)
             for i, kind in enumerate(cfg.pattern):
                 key = f"p{i}_{kind}"
                 bc = {leaf: t[j, rows] for leaf, t in cache[key].items()}
@@ -408,6 +482,7 @@ class Model:
                 x, _ = T.apply_block_prefill(cfg, kind, bp[key], x, shared,
                                              bc, enc_out, self.impl, self.tp,
                                              block)
+            del bp          # a gathered block is freed before the next one
         x = T.apply_norm(cfg, params["ln_f"], x[:, -1:])
         return self._logits(params, x), cache
 
@@ -418,16 +493,20 @@ class Model:
         V) fp32, cache updated in place).  Under a ``layout``, this rank's
         lanes and cache blocks, the logits over the whole vocab."""
         cfg = self.cfg
+        params = self._call_params(params)
         x = self._add_positional_decode(
             embed_tokens(cfg, params, tokens, self.tp), pos)
         shared = _shared(params)
-        for j, bp in enumerate(_unstack(params["blocks"], cfg.num_blocks)):
+        for j, stored in enumerate(_unstack(params["blocks"],
+                                            cfg.num_blocks)):
+            bp = self._block_params(stored)
             for i, kind in enumerate(cfg.pattern):
                 key = f"p{i}_{kind}"
                 bc = {leaf: t[j] for leaf, t in cache[key].items()}
                 x, _ = T.apply_block_decode(cfg, kind, bp[key], x, bc, pos,
                                             shared, self.impl, self.tp,
                                             self._decode_ctx(key))
+            del bp          # a gathered block is freed before the next one
         x = T.apply_norm(cfg, params["ln_f"], x)
         return self._logits(params, x), cache
 

@@ -22,13 +22,16 @@ block's new state into the cache tensors it is given.
 Under a serving plan of a mesh the blocks of :data:`SERVE_MESH_KINDS`
 take ``tp``, as in training: the attention blocks (an MoE block's and
 zamba2's shared one too) this rank's query and KV heads and ffn columns,
-the row-parallel outputs summed over the group; an MoE block's routed
-experts run expert-parallel under ``impl.ep_shard_ctx``; the Mamba-2 and
-RWKV-6 blocks this rank's heads, their SSM and WKV states split by heads
-and their conv and token-shift states whole.  An attention block whose
-cache's stored layout splits its sequence takes the reference's
-``decode_shard_ctx`` (decode) or the rank's block of positions
-(prefill).  whisper's decoder blocks refuse both (ROADMAP item A8d).
+the row-parallel outputs summed over the group; whisper's decoder blocks
+their self and cross heads (the cross K/V cache split by its KV heads)
+and ffn columns, its encoder blocks their heads and ffn columns; an MoE
+block's routed experts run expert-parallel under ``impl.ep_shard_ctx``;
+the Mamba-2 and RWKV-6 blocks this rank's heads, their SSM and WKV
+states split by heads and their conv and token-shift states whole.  An
+attention block whose cache's stored layout splits its sequence takes
+the reference's ``decode_shard_ctx`` (decode) or the rank's block of
+positions (prefill); whisper's decoder blocks refuse that (ROADMAP item
+A8d: their cross K/V over a split sequence).
 """
 
 from __future__ import annotations
@@ -71,18 +74,19 @@ class ImplConfig:
 
 
 #: the block kinds that serve under a plan of a mesh (tensor-parallel
-#: heads and ffn, expert-parallel experts, a sequence-sharded cache);
-#: whisper's decoder blocks are ROADMAP item A8d
-SERVE_MESH_KINDS = (ATTN_GLOBAL, ATTN_LOCAL, MOE, MAMBA2, ATTN_SHARED, RWKV6)
+#: heads and ffn, expert-parallel experts, a sequence-sharded cache but
+#: for whisper's decoder blocks)
+SERVE_MESH_KINDS = (ATTN_GLOBAL, ATTN_LOCAL, MOE, MAMBA2, ATTN_SHARED, RWKV6,
+                    DEC_ATTN)
 
 
 def serve_mesh_refusal(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what}: serving under a plan of a mesh covers the block kinds "
-        f"{SERVE_MESH_KINDS} on the dense backend with the weights split by "
-        "TP (and the experts by EP), not FSDP; whisper's decoder blocks "
-        f"({DEC_ATTN!r}), weight-gathered (FSDP) serving and the paged "
-        "backend on a mesh are ROADMAP item A8d")
+        f"{SERVE_MESH_KINDS} on the dense backend, whisper's decoder blocks "
+        f"({DEC_ATTN!r}) with their sequence whole; their cross K/V over a "
+        "split sequence and the paged backend on a mesh are ROADMAP item "
+        "A8d")
 
 
 # matmuls without batch dims (``torch.matmul`` of a (B, S, d) activation
@@ -283,18 +287,18 @@ def apply_block_decode(cfg: ModelConfig, kind: str, p: Params,
         y, _ = _moe(cfg, p, h, impl, mesh_aux=False)
         return x + y, cache
     if kind == DEC_ATTN:
+        if shard_ctx is not None:
+            raise serve_mesh_refusal(f"{cfg.name}'s {kind!r} blocks over a "
+                                     "sequence-sharded cache")
         h = apply_norm(cfg, p["ln1"], x)
         y, _ = attn.self_attention_decode(p["attn"], h, cache, pos, cfg,
-                                          prefix="self_")
+                                          prefix="self_", tp=tp)
         x = x + y
         # the query over all of the encoder's frames (K4 at valid length T)
         h = apply_norm(cfg, p["ln_cross"], x)
-        q = attn.project(h, p["attn"]["cross_wq"])
-        o = attn.gqa_decode_sdpa(q, cache["cross_k"], cache["cross_v"],
-                                 cache["cross_k"].shape[2])
-        x = x + attn.attn_out(p["attn"], o, prefix="cross_")
+        x = x + attn.cross_attention_decode(p["attn"], h, cache, cfg, tp)
         h = apply_norm(cfg, p["ln2"], x)
-        return x + L.mlp(p["mlp"], h), cache
+        return x + _mlp(cfg, p["mlp"], h, tp), cache
     if kind == RWKV6:
         h = apply_norm(cfg, p["ln1"], x)
         y, tm = rw.time_mix_decode(p["rwkv"], h, cache, cfg, tp)
@@ -351,18 +355,21 @@ def apply_block_prefill(cfg: ModelConfig, kind: str, p: Params,
             y = _gated_mlp(cfg, p["mlp"], h, tp)
         return x + y, _store_kv(cache, kv, window, seq_block)
     if kind == DEC_ATTN:
+        if seq_block is not None:
+            raise serve_mesh_refusal(f"{cfg.name}'s {kind!r} blocks over a "
+                                     "sequence-sharded cache")
         h = apply_norm(cfg, p["ln1"], x)
         y, kv = attn.self_attention_prefill(p["attn"], h, cfg,
-                                            prefix="self_")
+                                            prefix="self_", tp=tp)
         x = x + y
         h = apply_norm(cfg, p["ln_cross"], x)
-        enc_kv = attn.encode_cross_kv(p["attn"], enc_out)
-        x = x + attn.cross_attention(p["attn"], h, enc_kv, cfg)
+        enc_kv = attn.encode_cross_kv(p["attn"], enc_out, cfg, tp)
+        x = x + attn.cross_attention(p["attn"], h, enc_kv, cfg, tp)
         h = apply_norm(cfg, p["ln2"], x)
         _store_kv(cache, kv)
         cache["cross_k"].copy_(enc_kv["k"].transpose(1, 2))
         cache["cross_v"].copy_(enc_kv["v"].transpose(1, 2))
-        return x + L.mlp(p["mlp"], h), cache
+        return x + _mlp(cfg, p["mlp"], h, tp), cache
     if kind == RWKV6:
         h = apply_norm(cfg, p["ln1"], x)
         y, wkv = rw.time_mix_prefill(p["rwkv"], h, cfg, tp)
@@ -386,18 +393,17 @@ def apply_block_prefill(cfg: ModelConfig, kind: str, p: Params,
     raise ValueError(f"{kind!r} blocks have no prefill")
 
 
-def apply_encoder_block(cfg: ModelConfig, p: Params,
-                        x: torch.Tensor) -> torch.Tensor:
+def apply_encoder_block(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                        tp=None) -> torch.Tensor:
     """One of whisper's encoder layers over the frames (B, T, d):
-    bidirectional self attention (the flash-attention forward, non-causal)
-    and the biased GELU MLP, each behind a LayerNorm."""
+    bidirectional self attention (the flash-attention forward, non-causal;
+    no RoPE, whisper's theta is 0) and the biased GELU MLP, each behind a
+    LayerNorm; with ``tp``, this rank's heads and ffn columns where the
+    planner split them."""
     h = apply_norm(cfg, p["ln1"], x)
-    q = attn.project(h, p["attn"]["wq"])
-    k = attn.project(h, p["attn"]["wk"])
-    v = attn.project(h, p["attn"]["wv"])
-    x = x + attn.attn_out(p["attn"], attn.sdpa(q, k, v, causal=False))
+    x = x + attn.self_attention_train(p["attn"], h, cfg, causal=False, tp=tp)
     h = apply_norm(cfg, p["ln2"], x)
-    return x + L.mlp(p["mlp"], h)
+    return x + _mlp(cfg, p["mlp"], h, tp)
 
 
 def _store_kv(cache: Params, kv: Params, window: int = 0,
@@ -444,6 +450,14 @@ def _gated_mlp(cfg: ModelConfig, p: Params, h: torch.Tensor,
     return L.gated_mlp(p, h, tp if split else None)
 
 
+def _mlp(cfg: ModelConfig, p: Params, h: torch.Tensor,
+         tp=None) -> torch.Tensor:
+    """whisper's biased MLP, on this rank's ffn columns where the planner
+    split them over ``tp``."""
+    split = tp is not None and p["wi"].shape[-1] < cfg.d_ff
+    return L.mlp(p, h, tp if split else None)
+
+
 def _attn_mlp_block(cfg: ModelConfig, p: Params, x: torch.Tensor, *,
                     window: int, tp=None) -> torch.Tensor:
     """With ``tp``, the attention and the MLP each run this rank's heads
@@ -480,8 +494,9 @@ def apply_block_train(cfg: ModelConfig, kind: str, p: Params,
     whisper's encoder output (B, T, d), whose cross K/V a decoder block
     projects inside the block, so that a recompute runs them again.
     ``tp``, a ``TensorParallel`` group, reaches the attention and MLP
-    blocks, an MoE block's attention, the Mamba-2 and RWKV-6 blocks and
-    zamba2's shared block (``Model`` refuses it for a stack of other
+    blocks, whisper's decoder blocks (self and cross heads, ffn), an MoE
+    block's attention, the Mamba-2 and RWKV-6 blocks and zamba2's shared
+    block (``Model`` refuses it for a stack of other
     kinds); an MoE block's routed experts run expert-parallel under
     ``impl.ep_shard_ctx``."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -491,12 +506,12 @@ def apply_block_train(cfg: ModelConfig, kind: str, p: Params,
     elif kind == DEC_ATTN:
         h = apply_norm(cfg, p["ln1"], x)
         x = x + attn.self_attention_train(p["attn"], h, cfg, causal=True,
-                                          prefix="self_")
+                                          prefix="self_", tp=tp)
         h = apply_norm(cfg, p["ln_cross"], x)
-        enc_kv = attn.encode_cross_kv(p["attn"], enc_out)
-        x = x + attn.cross_attention(p["attn"], h, enc_kv, cfg)
+        enc_kv = attn.encode_cross_kv(p["attn"], enc_out, cfg, tp)
+        x = x + attn.cross_attention(p["attn"], h, enc_kv, cfg, tp)
         h = apply_norm(cfg, p["ln2"], x)
-        x = x + L.mlp(p["mlp"], h)
+        x = x + _mlp(cfg, p["mlp"], h, tp)
     elif kind == MOE:
         h = apply_norm(cfg, p["ln1"], x)
         x = x + attn.self_attention_train(p["attn"], h, cfg, causal=True,

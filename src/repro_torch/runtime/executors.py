@@ -25,14 +25,14 @@ spawned with a ``file://`` rendezvous): every rank submits the same
 application to the same one-pod ``Cluster``, binds its block of the
 plan's layouts (``sharding.planner``) on its own card, and runs the
 sharded train step, or serves on the dense backend with its blocks of
-the weights, the cache and the recurrent state (every block kind but
-whisper's decoder blocks, under a plan without FSDP:
-``DenseRunner(layout=...)``), its engine in step with the other
-ranks'; the footprint is the largest of the ranks', so every rank's
-control plane takes the same decisions, and rank 0 alone writes
-checkpoints.  Outside such a world a multi-card plan is refused with
-``NotImplementedError``, and so are the paged backend, an FSDP plan and
-whisper on a mesh (ROADMAP item A8d).
+the weights, the cache and the recurrent state (``DenseRunner(layout=
+...)``; under a plan with FSDP the weights' stored slices, each block
+gathered for its forward), its engine in step with the other ranks';
+the footprint is the largest of the ranks', so every rank's control
+plane takes the same decisions, and rank 0 alone writes checkpoints.
+Outside such a world a multi-card plan is refused with
+``NotImplementedError``, and so is the paged backend on a mesh (ROADMAP
+item A8d).
 """
 
 from __future__ import annotations
@@ -249,15 +249,12 @@ class TorchExecutor(Executor):
                    if app.kind == "serve" else ""))
         if app.kind == "serve":
             opts = self.serve_opts(handle)
-            if opts.backend != "dense" or plan.fsdp:
-                what = (f"the {opts.backend} backend" if opts.backend
-                        != "dense" else "a plan with fsdp (weight-gathered "
-                        "serving)")
+            if opts.backend != "dense":
                 raise NotImplementedError(
-                    f"{app.name}: {what} on the mesh {mesh.name!r}: the port "
-                    "serves a multi-card plan on the dense backend with the "
-                    "weights split by TP; the paged backend on a mesh and "
-                    "weight-gathered serving are ROADMAP item A8d")
+                    f"{app.name}: the {opts.backend} backend on the mesh "
+                    f"{mesh.name!r}: the port serves a multi-card plan on the "
+                    "dense backend; the paged backend on a mesh is ROADMAP "
+                    "item A8d")
         self.device = rank_device(self.device)
         if self.device.type == "cuda":
             torch.cuda.set_device(self.device)
@@ -313,7 +310,10 @@ class TorchExecutor(Executor):
     def footprint(self, handle: "AppHandle") -> int:
         """Bytes the app holds on its device: the distinct tensors it
         bound (weights, optimizer state, every replica's KV pages or
-        dense cache; on a mesh, the largest rank's) and, on CUDA, the
+        dense cache; on a mesh, the largest rank's; under weight-gathered
+        serving, the stored slices and beside them one gathered block and
+        the components outside the blocks on their compute layout,
+        ``Model.gather_bytes``) and, on CUDA, the
         allocator's peak since bind
         (activations and temporaries included) when that is larger and
         the app is the only one bound on the card -- with a co-tenant the
@@ -330,6 +330,10 @@ class TorchExecutor(Executor):
             trees += [rep.runner.params, getattr(rep.runner, "cache", None),
                       store and (store.k_pages, store.v_pages)]
         held = _tensor_bytes(trees)
+        for rep in (rset.replicas if rset is not None else []):
+            model = getattr(rep.runner, "model", None)
+            if getattr(model, "param_layouts", None) is not None:
+                held += sum(model.gather_bytes())
         if "cuda_base" in st and self.bound_jobs == {handle.job.job_id}:
             import torch
             held = max(held, torch.cuda.max_memory_allocated(self.device)

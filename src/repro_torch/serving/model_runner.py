@@ -368,17 +368,17 @@ class DenseRunner(ModelRunner):
         self.device = resolve_device(device)
         self.max_batch = max_batch
         self.cache_len = cache_len
-        # first: under a layout it refuses the kinds that do not serve on
-        # a mesh (ROADMAP item A8d) before the encoder-decoder's refusal
-        self.model = (Model(cfg, ImplConfig(remat="none")) if layout is None
-                      else Model(cfg, impl_from_plan(layout.plan, layout.mesh),
-                                 layout=layout))
+        # an encoder-decoder is refused first, on one card and under a
+        # layout alike
         if cfg.is_encdec:
             raise ValueError(
                 f"backend='dense' serves prompts of tokens; {cfg.name} is an "
                 "encoder-decoder whose prefill needs its encoder's frame "
                 "features: drive Model.prefill(..., enc_feats=...) and "
                 "Model.decode_step directly")
+        self.model = (Model(cfg, ImplConfig(remat="none")) if layout is None
+                      else Model(cfg, impl_from_plan(layout.plan, layout.mesh),
+                                 layout=layout))
         self.cache = self.model.init_cache(max_batch, cache_len, self.device)
         self.params = (init_params(cfg, seed, self.device, layouts=None
                                    if layout is None else
@@ -399,8 +399,9 @@ class DenseRunner(ModelRunner):
         """Forward over the whole prompt -- never padded or bucketed: the
         recurrent state after padded tokens cannot be masked back out --
         writing its decode state into the request's slot.  On a mesh only
-        the ranks holding the slot run it; its first token (and its top-2
-        gap) reach every rank from them."""
+        the ranks holding the slot run it (the others join its weight
+        gathers where the plan has FSDP: ``Model.join_gathers``); its
+        first token (and its top-2 gap) reach every rank from them."""
         toks = prompt_for(req, self.cfg.vocab_size).to(self.device)
         # evict slots of preempted requests (the engine re-queues them;
         # only completion frees a slot via finish) before picking one
@@ -424,6 +425,8 @@ class DenseRunner(ModelRunner):
             first = int(logits[0, -1].argmax())
             if self.margins is not None:
                 pair = top2(logits[0, -1]).tolist()
+        else:
+            self.model.join_gathers(self.params)
         if n > 1:
             # the holders' token and (gap, top) to every rank, by block
             # order

@@ -34,9 +34,13 @@ def impl_from_plan(plan: Plan, mesh=None) -> ImplConfig:
     ``seq_axes``), the reference's ``decode_shard_ctx`` (mesh, the
     sequence axes, the batch axes; the prefill reads the cache's layout
     instead), and where the plan's ``ep`` is set, the expert-parallel
-    ``ep_shard_ctx`` (mesh, ``"model"``, the batch axes).  The
-    reference's block scan/unroll knobs have no counterpart: the port's
-    blocks are always a Python loop."""
+    ``ep_shard_ctx`` (mesh, ``"model"``, the batch axes).  A plan with
+    FSDP (weight-gathered serving) sets nothing more, as in the
+    reference, whose partitioner gathers the weights where the jitted
+    step needs them: the port's ``Model`` reads the plan's stored and
+    compute layouts from its ``layout`` instead.  The reference's block
+    scan/unroll knobs have no counterpart: the port's blocks are always a
+    Python loop."""
     shard_ctx = ep_ctx = None
     if mesh is not None and (plan.kv_shard_seq or plan.seq_axes):
         shard_ctx = (mesh, tuple(plan.seq_axes or ("model",)),
@@ -49,13 +53,16 @@ def impl_from_plan(plan: Plan, mesh=None) -> ImplConfig:
 
 
 def make_prefill_step(model: Model, cache_len: int) -> Callable:
-    """prefill(params, tokens (B, S)[, img_feats (B, N, 1024)]) ->
-    (last-token logits (B, 1, V), a dense cache of ``cache_len``
-    positions).  A vision-language model's ``img_feats`` (the
-    reference's ``batch["img_feats"]``) go ahead of the tokens."""
-    def prefill(params, tokens, img_feats=None):
+    """prefill(params, tokens (B, S)[, img_feats (B, N, 1024)][,
+    enc_feats=(B, T, d)]) -> (last-token logits (B, 1, V), a dense cache
+    of ``cache_len`` positions).  A vision-language model's ``img_feats``
+    (the reference's ``batch["img_feats"]``) go ahead of the tokens; an
+    encoder-decoder's ``enc_feats`` (``batch["enc_feats"]``) are its
+    encoder's input frames."""
+    def prefill(params, tokens, img_feats=None, enc_feats=None):
         logits, cache = model.prefill(params, tokens, cache_len,
-                                      img_feats=img_feats)
+                                      img_feats=img_feats,
+                                      enc_feats=enc_feats)
         return gather_lanes(logits, model.lanes), cache
     return prefill
 

@@ -26,10 +26,14 @@ on every rank (:func:`gather_along`: the lanes' next tokens over the
 batch axes), and the merge of the partial softmax states of a
 sequence-sharded decode (:func:`combine_softmax_parts`: each rank's
 attention output over its block of the cache and its log-sum-exp,
-all-gathered over the sequence axes and combined in fp32).  Only
+all-gathered over the sequence axes and combined in fp32), and
+weight-gathered serving's gather of a block's stored slices to its
+compute layout (:func:`gather_for_serving`, no autograd).  Only
 ``all_reduce``, ``all_gather``, ``reduce_scatter`` and
 ``all_to_all_single`` are used, which both backends have, card tensors
-included, so the same code runs on both; a collective's error raises.
+included (and, on NCCL, ``all_gather_into_tensor``: every all-gather
+writes one buffer of the ranks' blocks), so the same code runs on both;
+a collective's error raises.
 """
 
 from __future__ import annotations
@@ -74,16 +78,31 @@ def all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
     return t
 
 
-def _blocks(t: torch.Tensor, mesh, axes) -> List[torch.Tensor]:
-    """``t`` of every rank along ``axes``, ordered by their index along
-    ``axes`` (the first axis major)."""
+def _blocks(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``t`` of every rank along ``axes`` in one (n, *t.shape) buffer,
+    ordered by their index along ``axes`` (the first axis major): one
+    all-gather into the buffer on NCCL where the group's order is the
+    block order, else into its views block by block (gloo stages each
+    through the host anyway)."""
     members = mesh.members(axes)
-    outs = [torch.empty_like(t) for _ in members]
-    dist.all_gather(outs, t.contiguous(), group=mesh.group(axes))
-    blocks: List[torch.Tensor] = [t] * len(members)
-    for r, o in zip(members, outs):
-        blocks[mesh.index(axes, mesh.coords_of(r))] = o
-    return blocks
+    group = mesh.group(axes)
+    out = torch.empty((len(members),) + tuple(t.shape), dtype=t.dtype,
+                      device=t.device)
+    order = [mesh.index(axes, mesh.coords_of(r)) for r in members]
+    if order == list(range(len(order))) and \
+            dist.get_backend(group) == "nccl":
+        dist.all_gather_into_tensor(out, t.contiguous(), group=group)
+    else:
+        dist.all_gather([out[i] for i in order], t.contiguous(), group=group)
+    return out
+
+
+def _joined(blocks: torch.Tensor, dim: int) -> torch.Tensor:
+    """The blocks of :func:`_blocks` side by side along ``dim``: the
+    buffer itself, viewed, for dim 0."""
+    if dim == 0:
+        return blocks.flatten(0, 1)
+    return torch.cat(blocks.unbind(0), dim=dim)
 
 
 def gather_along(t: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
@@ -92,7 +111,7 @@ def gather_along(t: torch.Tensor, mesh, axes, dim: int = 0) -> torch.Tensor:
     ``t`` itself when ``axes`` span one rank."""
     if mesh.size(axes) == 1:
         return t
-    return torch.cat(_blocks(t, mesh, axes), dim=dim)
+    return _joined(_blocks(t, mesh, axes), dim)
 
 
 def merge_softmax_parts(outs: torch.Tensor,
@@ -119,9 +138,8 @@ def combine_softmax_parts(out: torch.Tensor, lse: torch.Tensor, mesh,
     over the sequence ``axes`` in block order and merged
     (:func:`merge_softmax_parts`), the same on every rank of the group.
     Forward only."""
-    outs = _blocks(out, mesh, axes)
-    lses = _blocks(lse.float(), mesh, axes)
-    return merge_softmax_parts(torch.stack(outs), torch.stack(lses))
+    return merge_softmax_parts(_blocks(out, mesh, axes),
+                               _blocks(lse.float(), mesh, axes))
 
 
 def _refined(fine: "Layout", coarse: "Layout", dim: int) -> Tuple[str, ...]:
@@ -140,7 +158,7 @@ def gather_to(local: torch.Tensor, src: "Layout", dst: "Layout") -> torch.Tensor
     for d in range(local.dim()):
         rest = _refined(src, dst, d)
         if src.mesh.size(rest) > 1:
-            local = torch.cat(_blocks(local, src.mesh, rest), dim=d)
+            local = _joined(_blocks(local, src.mesh, rest), d)
     return local
 
 
@@ -225,7 +243,7 @@ def _gather_blocks(locals_, slots) -> List[torch.Tensor]:
         mesh = slots[items[0][0]].params.mesh
         flat = torch.cat([locals_[i].reshape(-1) for i, _ in items])
         parts = [p.split([locals_[i].numel() for i, _ in items])
-                 for p in _blocks(flat, mesh, axes)]
+                 for p in _blocks(flat, mesh, axes).unbind(0)]
         del flat
         for j, (i, d) in enumerate(items):
             outs[i] = torch.cat([p[j].view(locals_[i].shape) for p in parts],
@@ -393,6 +411,54 @@ class ShardedParams:
         """Block ``index`` of the stacked ``blocks`` (``bp``, its stored
         slices by pattern key) on its compute layout."""
         return self._materialize(bp, ("blocks",), index)
+
+
+def gather_for_serving(tree, stored, compute, stacked: bool = False):
+    """This rank's stored slices ``tree`` (a dict tree of tensors) on their
+    compute layout, for a forward: weight-gathered (FSDP) serving's
+    gather, with no autograd and no gradient sum (the train step's is
+    :class:`ShardedParams`).  ``stored`` and ``compute`` are the leaves'
+    layout trees (``planner.ServeLayout.params`` / ``.compute``); with
+    ``stacked`` the tree is one block of stacked leaves, whose layouts
+    keep the stacked dim.  Each leaf split over 'data' beyond its compute
+    layout is all-gathered (:func:`gather_to`; a dim-0 split is the
+    gather's buffer as it lands), the others are returned as they are;
+    the gathered tensors count in ``gathered_bytes`` until they are
+    freed."""
+    with torch.no_grad():
+        return _serve_tree(tree, stored, compute, stacked)
+
+
+def _serve_tree(tree, stored, compute, stacked):
+    if isinstance(tree, dict):
+        return {k: _serve_tree(v, stored[k], compute[k], stacked)
+                for k, v in tree.items()}
+    if stacked:
+        stored, compute = _drop_dim0(stored), _drop_dim0(compute)
+    out = gather_to(tree, stored, compute)
+    if out is not tree:
+        _track(out)
+    return out
+
+
+def gather_account(specs, stored, compute, itemsize: int = 2):
+    """(bytes of one stacked block's gathered leaves, bytes of the gathered
+    components outside the blocks): the compute-layout bytes of each leaf
+    of the spec tree ``specs`` (``layers.Spec`` leaves) that ``stored``
+    splits beyond ``compute``, at ``itemsize`` bytes an element -- what
+    :func:`gather_for_serving` holds at most at once beside the stored
+    slices, block by block."""
+    block = shared = 0
+    for path in _paths(specs):
+        spec, lp, lc = (_at(t, path) for t in (specs, stored, compute))
+        if _split(lp, lc) is None:
+            continue
+        shape = lc.local_shape(spec.shape)
+        if path[0] == "blocks":
+            block += math.prod(shape[1:]) * itemsize
+        else:
+            shared += math.prod(shape) * itemsize
+    return block, shared
 
 
 class _CopyToTP(torch.autograd.Function):

@@ -325,15 +325,22 @@ class PlanLayouts(NamedTuple):
 
 class ServeLayout(NamedTuple):
     """A serving plan laid over a torch mesh: where the weights live
-    (:meth:`params`, ``param_specs_tree``) and where the dense cache's
-    leaves live (:meth:`cache`, ``cache_specs_tree``: the lanes over the
-    plan's batch axes, the KV heads over ``model`` or the sequence over
-    the plan's sequence axes)."""
+    (:meth:`params`, ``param_specs_tree``: under FSDP their slices split
+    over 'data' too), where the forward runs on them (:meth:`compute`,
+    ``compute_specs_tree``: the stored layout without FSDP's split, the
+    same as :meth:`params` for a plan without FSDP) and where the dense
+    cache's leaves live (:meth:`cache`, ``cache_specs_tree``: the lanes
+    over the plan's batch axes, the KV heads over ``model`` or the
+    sequence over the plan's sequence axes)."""
     plan: Plan
     mesh: Any
 
     def params(self, cfg: ModelConfig, specs) -> Any:
         return to_layout(param_specs_tree(self.plan, cfg, specs), self.mesh)
+
+    def compute(self, cfg: ModelConfig, specs) -> Any:
+        return to_layout(compute_specs_tree(self.plan, cfg, specs),
+                         self.mesh)
 
     def cache(self, cfg: ModelConfig, specs) -> Any:
         return to_layout(cache_specs_tree(self.plan, cfg, specs), self.mesh)

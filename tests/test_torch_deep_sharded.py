@@ -11,6 +11,12 @@ reference's step on the same weights runs jitted with its planner's
 shardings on a (2, 2) mesh of 4 forced host devices in a subprocess (as
 ``tests/test_distributed.py`` runs its own), at ``scan_chunk=16`` (its
 RWKV-6 chunk clamp bites at the default 128; ``ROADMAP.md``, queue C).
+The same world trains reduced whisper-base (its encoder's frames in the
+batch) under the placement of its ladder's ``train_4k`` plan on
+``h100x4``, TP + ZeRO, at an odd vocab that the planner leaves whole, as
+it leaves whisper-base's 51865; its loss and every gradient leaf are held
+against the reference's jitted ``value_and_grad`` with the planner's
+shardings.
 """
 
 import os
@@ -20,6 +26,7 @@ import sys
 import textwrap
 
 import jax
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -27,7 +34,7 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.configs.reduced import reduced_config as jax_reduced
 from repro.models import build_model
-from repro_torch.bridge import params_from_jax
+from repro_torch.bridge import params_from_jax, tensor_from_numpy
 from repro_torch.checkpoint.checkpointer import _flatten_with_paths
 from repro_torch.configs import get_config
 from repro_torch.configs.base import MoEConfig
@@ -87,6 +94,15 @@ BF16_NOISE_FACTOR = 1.25
 # (summed over 'model' through copy_to_tp)
 REPLICATED = {"zamba2-2.7b": ("conv_w", "conv_b", "w_in_b", "w_in_c"),
               "rwkv6-7b": ("mu", "mu_c", "wa")}
+# whisper-base reduced (2 encoder layers over 16 frames, one decoder
+# layer), at an odd vocab the planner keeps whole on every rank; the
+# placement of the ladder's train_4k plan on h100x4 (TP + ZeRO, full
+# remat); (loss, each gradient leaf) relative limits against the
+# reference's sharded step
+WHISPER = {"whisper-base": {"vocab_size": 251}}
+WHISPER_PLAN = {"tp": True, "zero": True, "batch_axes": ("data",),
+                "remat": "full", "microbatch": 1}
+WHISPER_TOL = (1e-3, 2e-2)
 
 # the reference's jitted step on the (2, 2) mesh with its planner's
 # shardings, on the weights and batch the test process gave it
@@ -133,11 +149,39 @@ for arch, layers in {layers!r}.items():
     for path, leaf in jax.tree_util.tree_flatten_with_path(new)[0]:
         out[arch + "/" + "/".join(k.key for k in path)] = np.asarray(
             leaf, np.float32)
+for arch, width in {whisper!r}.items():
+    cfg = reduced_config(get_config(arch), **width)
+    model = build_model(cfg, ImplConfig(remat="none"))
+    specs = model.param_specs()
+    flat, tree = jax.tree_util.tree_flatten_with_path(specs)
+    params = jax.tree_util.tree_unflatten(tree, [
+        jnp.asarray(given[arch + "/" + "/".join(k.key for k in path)],
+                    jnp.bfloat16) for path, _ in flat])
+    batch = {{k: jnp.asarray(given[arch + ":" + k])
+              for k in ("tokens", "labels")}}
+    batch["enc_feats"] = jnp.asarray(given[arch + ":enc_feats"],
+                                     jnp.bfloat16)
+    plan = Plan("t", "train_4k", MeshSpec("test", (2, 2), ("data", "model")),
+                batch_axes=("data",), tp=True, zero=True, remat="none")
+    psh = planner.to_named(planner.param_specs_tree(plan, cfg, specs), mesh)
+    bsh = {{k: NamedSharding(mesh, P("data", *([None] * (v.ndim - 1))))
+            for k, v in batch.items()}}
+    lg = jax.value_and_grad(lambda p, b: model.loss_fn(p, b)[0])
+    with mesh:
+        loss, grads = jax.jit(lg, in_shardings=(psh, bsh),
+                              out_shardings=(None, psh))(params, batch)
+    out[arch + ":loss"] = np.asarray(loss, np.float32)
+    for path, leaf in jax.tree_util.tree_flatten_with_path(grads)[0]:
+        out[arch + "/grad/" + "/".join(k.key for k in path)] = np.asarray(
+            leaf, np.float32)
 np.savez({path!r}, **out)
 """
 
 
 def _cfgs(arch):
+    if arch in WHISPER:
+        return (jax_reduced(jax_get_config(arch), **WHISPER[arch]),
+                reduced_config(get_config(arch), **WHISPER[arch]))
     return (jax_reduced(jax_get_config(arch), num_layers=LAYERS[arch],
                         **WIDTH),
             reduced_config(get_config(arch), num_layers=LAYERS[arch],
@@ -180,17 +224,28 @@ def world(tmp_path_factory):
     d = tmp_path_factory.mktemp("deep")
     given, cases = {}, {}
     ocfg = topt.OptimizerConfig(**OPT)
-    for arch in LAYERS:
+    for arch in list(LAYERS) + list(WHISPER):
         jcfg, tcfg = _cfgs(arch)
         jparams = _jax_params(jcfg)
-        nb = SyntheticLM(DataConfig(tcfg.vocab_size, 64, 8)).batch_at(0)
+        nb = dict(SyntheticLM(DataConfig(tcfg.vocab_size, 64, 8)).batch_at(0))
+        if arch in WHISPER:
+            nb["enc_feats"] = np.random.default_rng(100).standard_normal(
+                (8, tcfg.encoder_seq_len, tcfg.d_model)).astype(
+                    ml_dtypes.bfloat16)
         for path, leaf in jax.tree_util.tree_flatten_with_path(jparams)[0]:
             key = "/".join(k.key for k in path)
             given[f"{arch}/{key}"] = np.asarray(leaf, np.float32)
         for k, v in nb.items():
-            given[f"{arch}:{k}"] = v
+            given[f"{arch}:{k}"] = (v.astype(np.float32)
+                                    if v.dtype == ml_dtypes.bfloat16 else v)
         params = params_from_jax(jparams, tcfg, "cpu")
-        batch = {k: torch.from_numpy(v) for k, v in nb.items()}
+        batch = {k: tensor_from_numpy(v, torch.device("cpu"))
+                 for k, v in nb.items()}
+        if arch in WHISPER:
+            cases[f"{arch}/bf16"] = {"cfg": tcfg, "plan": WHISPER_PLAN,
+                                     "opt": ocfg, "batch": batch,
+                                     "params": params}
+            continue
         for dt, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
             cases[f"{arch}/{dt}"] = {
                 "cfg": tcfg, "plan": PLAN, "opt": ocfg, "batch": batch,
@@ -203,7 +258,7 @@ def world(tmp_path_factory):
         [sys.executable, "-c", textwrap.dedent(REFERENCE).format(
             src=os.path.join(ROOT, "src"), inp=str(d / "given.npz"),
             layers=LAYERS, width=WIDTH, mb=PLAN["microbatch"], opt=OPT,
-            path=str(d / "reference.npz"))],
+            whisper=WHISPER, path=str(d / "reference.npz"))],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
     moe_cfg = _mid_qwen2_moe()
@@ -223,7 +278,7 @@ def world(tmp_path_factory):
     one = {}
     try:
         for name, case in cases.items():
-            if name.startswith("qwen2"):
+            if name.startswith(("qwen2", "whisper")):
                 continue
             step = make_train_step(
                 Model(case["cfg"], ImplConfig(remat="none")),
@@ -309,6 +364,35 @@ def test_recurrent_sharded_step_matches_one_process(world, arch, dt):
         if not near(kind, err, to_exact, grad_tol):
             bad[n] = (err, to_exact)
     assert not bad, bad
+
+
+def test_whisper_tp_step_matches_the_reference(world):
+    """Reduced whisper-base trained one step under TP + ZeRO on the (2, 2)
+    mesh -- its encoder's and decoder's self and cross heads and ffn
+    columns over 'model', the vocab (odd) whole on every rank, the frames
+    split with the tokens over 'data' -- against the reference's jitted
+    ``value_and_grad`` with its planner's shardings on the same bridged
+    weights and batch: the loss within 1e-3 and every gradient leaf
+    (averaged over the batch, gathered whole; relative norm) within
+    2e-2."""
+    ref = world["reference"]
+    got = world["sharded"]["whisper-base/bf16"]
+    cfg = world["cases"]["whisper-base/bf16"]["cfg"]
+    loss_tol, grad_tol = WHISPER_TOL
+    want = float(ref["whisper-base:loss"])
+    assert abs(got["loss"] - want) <= loss_tol * abs(want)
+    names = _names(cfg)
+    assert any("/cross_wq" in n for n in names)
+    assert any(n.startswith("encoder/") for n in names)
+    bad = {}
+    for n, g in zip(names, got["grads"]):
+        w = torch.from_numpy(ref[f"whisper-base/grad/{n}"])
+        err = float((g.float() - w).norm() / w.norm().clamp(min=1e-30))
+        if err > grad_tol:
+            bad[n] = err
+    assert not bad, bad
+    # the vocab stayed whole: the embedding's rows on every rank
+    assert cfg.vocab_size % 2 == 1
 
 
 @pytest.mark.parametrize("name", ["qwen2-moe-a2.7b/bf16", "rwkv6-7b/bf16",

@@ -1,5 +1,6 @@
-"""The port's sharded serving of the MoE, recurrent and vision-language
-families against the JAX package's, on the CPU.
+"""The port's sharded serving of the MoE, recurrent, vision-language and
+encoder-decoder families, and weight-gathered (FSDP) serving, against
+the JAX package's, on the CPU.
 
 The prefill and decode cells that ``launch/dryrun.py``'s ``lower_cell``
 lowers under the ladder's ``decode_32k`` plan on ``h100x4`` (its batch
@@ -7,7 +8,14 @@ of 128 cut to 4 lanes, its 32768 positions to 64), for reduced
 qwen2-moe-a2.7b (TP over the attention heads and the shared expert's
 ffn, EP over the routed experts, under the plan's ``psum`` dispatch and
 under ``a2a``), zamba2-2.7b (Mamba-2 and its shared attention block),
-rwkv6-7b and phi-3-vision-4.2b with image features ahead of the prompt.
+rwkv6-7b, phi-3-vision-4.2b with image features ahead of the prompt,
+whisper-base with its encoder's frames (TP over the encoder's and the
+decoder's self and cross heads and ffn columns, the cross K/V cache split
+by its KV heads), and dbrx-132b under the placement of its full-size
+ladder plan, TP + EP + FSDP: the weights stored split over 'data' as
+well (at ``WIDTHS``, where the planner's FSDP splits the experts, the
+attention's q heads and the embedding and head), each block gathered
+for its forward.
 The reference runs jitted over a (2, 2) mesh of 4 forced host devices in
 a subprocess, with its planner's shardings and ``_model_impl``'s
 contexts; the port runs on one gloo world of 4 CPU processes laid out as
@@ -55,18 +63,29 @@ from test_torch_sharded_serving import (REF_TOL, ONE_TOL, PLAN_FIELDS,
 from torch_ranks import run_world
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ("qwen2-moe-a2.7b", "zamba2-2.7b", "rwkv6-7b", "phi-3-vision-4.2b")
-# (case, arch, the plan's fields replaced)
+ARCHS = ("qwen2-moe-a2.7b", "zamba2-2.7b", "rwkv6-7b", "phi-3-vision-4.2b",
+         "whisper-base", "dbrx-132b")
+# (case, arch, the plan's fields replaced; "ladder": the fields of the
+# full-size config's decode_32k plan)
 CASES = (("qwen2-moe/psum", "qwen2-moe-a2.7b", {}),
          ("qwen2-moe/a2a", "qwen2-moe-a2.7b", {"moe_dispatch": "a2a"}),
          ("zamba2", "zamba2-2.7b", {}),
          ("rwkv6", "rwkv6-7b", {"scan_chunk": 16}),
-         ("phi-3-vision", "phi-3-vision-4.2b", {}))
+         ("phi-3-vision", "phi-3-vision-4.2b", {}),
+         ("whisper", "whisper-base", {}),
+         ("dbrx/fsdp", "dbrx-132b", "ladder"))
+# the reduced configs' widths beside ``reduced_config``'s: dbrx's at which
+# leaves reach the planner's FSDP_MIN_ELEMS (the experts (16, 256, 32),
+# wq (256, 8, 32), the embedding and head (512, 256)), its GQA kept (8
+# q heads over 4 KV heads)
+WIDTHS = {"dbrx-132b": dict(d_model=256, num_heads=8, num_kv_heads=4,
+                            head_dim=32, vocab_size=512)}
 SHAPE = dataclasses.replace(SHAPES["decode_32k"], global_batch=4,
                             seq_len=64)
 # a 48-token prompt (even: a2a splits each data shard's tokens over
 # 'model'; a multiple of the reference's rwkv6 chunk of 16), phi-3's
-# 8 image tokens ahead of it, 8 fed steps
+# 8 image tokens ahead of it (whisper's encoder over its 16 frames), 8
+# fed steps
 PROMPT, STEPS = 48, 8
 # a capacity factor at which no expert of the reduced MoE overflows
 NO_DROP = 16.0
@@ -107,7 +126,7 @@ def params_of(arch):
 
 for name, c in cases.items():
     arch = c["arch"]
-    cfg = reduced_config(get_config(arch))
+    cfg = reduced_config(get_config(arch), **c["width"])
     plan = Plan(arch, "decode_32k", spec, **{
         k: tuple(v) if isinstance(v, list) else v
         for k, v in c["plan"].items()})
@@ -124,9 +143,10 @@ for name, c in cases.items():
     b_sh = NamedSharding(mesh, planner.batch_spec(plan, 1))
     batch = {"tokens": jnp.asarray(prompt)}
     in_batch = {"tokens": b_sh}
-    if f"{arch}/img" in inp.files:
-        batch["img_feats"] = jnp.asarray(inp[f"{arch}/img"], jnp.bfloat16)
-        in_batch["img_feats"] = NamedSharding(mesh, P("data", None, None))
+    for key, feats in (("img", "img_feats"), ("enc", "enc_feats")):
+        if f"{arch}/{key}" in inp.files:
+            batch[feats] = jnp.asarray(inp[f"{arch}/{key}"], jnp.bfloat16)
+            in_batch[feats] = NamedSharding(mesh, P("data", None, None))
     with mesh:
         prefill = jax.jit(make_prefill_step(pm, cl),
                           in_shardings=(p_sh, in_batch),
@@ -164,7 +184,7 @@ def world(tmp_path_factory):
     rng = np.random.default_rng(0)
     inputs, ref_cases, cases, one, data = {}, {}, {}, {}, {}
     for arch in ARCHS:
-        cfg = reduced_config(get_config(arch))
+        cfg = reduced_config(get_config(arch), **WIDTHS.get(arch, {}))
         params = _weights(cfg, rng)
         prompt = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (SHAPE.global_batch, PROMPT)))
@@ -176,24 +196,35 @@ def world(tmp_path_factory):
                 (SHAPE.global_batch, cfg.num_image_tokens, 1024)).astype(
                     np.float32)).to(torch.bfloat16)
             inputs[f"{arch}/img"] = img.float().numpy()
+        enc = None
+        if cfg.is_encdec:
+            enc = torch.from_numpy(rng.standard_normal(
+                (SHAPE.global_batch, cfg.encoder_seq_len,
+                 cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+            inputs[f"{arch}/enc"] = enc.float().numpy()
         for path, t in _flatten_with_paths(params):
             inputs[f"{arch}/p/{path}"] = t.float().numpy()
         inputs[f"{arch}/prompt"] = prompt.int().numpy()
         inputs[f"{arch}/feed"] = feed.int().numpy()
-        data[arch] = (cfg, params, prompt, feed, img)
+        data[arch] = (cfg, params, prompt, feed, img, enc)
     for name, arch, fields in CASES:
-        cfg, params, prompt, feed, img = data[arch]
+        cfg, params, prompt, feed, img, enc = data[arch]
+        if fields == "ladder":
+            full = materialize(get_config(arch), SHAPES["decode_32k"],
+                               H100X4)
+            fields = {k: getattr(full, k) for k in FIELDS}
         plan = dataclasses.replace(materialize(cfg, SHAPE, H100X4), **fields)
         pos = PROMPT + (0 if img is None else img.shape[1])
         ref_cases[name] = {"arch": arch, "cache_len": SHAPE.seq_len,
-                           "pos": pos,
+                           "pos": pos, "width": WIDTHS.get(arch, {}),
                            "plan": {k: getattr(plan, k) for k in FIELDS}}
         for dt, c, dtype in (("bf16", cfg, torch.bfloat16),
                              ("fp32", _no_drop(cfg), torch.float32)):
             cases[f"{name}/{dt}"] = {
                 "cfg": c, "plan": plan, "dtype": dtype,
                 "params": _as(params, dtype), "prompt": prompt, "feed": feed,
-                "img": img, "pos": pos, "cache_len": SHAPE.seq_len}
+                "img": img, "enc": enc, "pos": pos,
+                "cache_len": SHAPE.seq_len}
     np.savez(d / "inputs.npz", **inputs)
     (d / "cases.json").write_text(json.dumps(ref_cases))
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"),
@@ -203,7 +234,7 @@ def world(tmp_path_factory):
         [sys.executable, "-c", REFERENCE, str(d / "inputs.npz"),
          str(d / "cases.json"), str(d / "reference.npz")],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    for arch, (cfg, params, prompt, feed, img) in data.items():
+    for arch, (cfg, params, prompt, feed, img, enc) in data.items():
         cfg = _no_drop(cfg)
         p32 = _as(params, torch.float32)
         m = Model(cfg, ImplConfig(remat="none"))
@@ -211,7 +242,9 @@ def world(tmp_path_factory):
                              torch.float32)
         first, cache = m.prefill(p32, prompt, SHAPE.seq_len, cache=cache,
                                  img_feats=None if img is None
-                                 else img.float())
+                                 else img.float(),
+                                 enc_feats=None if enc is None
+                                 else enc.float())
         pos = PROMPT + (0 if img is None else img.shape[1])
         logits, nxt, cache = _one_decode(cfg, p32, cache, feed, pos)
         one[arch] = {"first": first, "logits": logits, "next": nxt,
@@ -255,7 +288,9 @@ def test_families_match_the_reference(world, name):
     want_leaves = {"qwen2-moe-a2.7b": {"k", "v"},
                    "zamba2-2.7b": {"k", "v", "ssm", "conv"},
                    "rwkv6-7b": {"wkv", "shift_t", "shift_c"},
-                   "phi-3-vision-4.2b": {"k", "v"}}[arch]
+                   "phi-3-vision-4.2b": {"k", "v"},
+                   "whisper-base": {"k", "v", "cross_k", "cross_v"},
+                   "dbrx-132b": {"k", "v"}}[arch]
     assert leaves == want_leaves
 
 
@@ -283,20 +318,26 @@ def test_families_match_one_process(world, name):
         assert rank[key]["dispatch"] == plan.moe_dispatch
 
 
-@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-7b"])
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "rwkv6-7b",
+                                  "whisper-base"])
 def test_rank_state_split_by_heads(world, arch):
     """Each rank's cache blocks as the reference's ``cache_specs_tree``
     lays them out: 2 of the 4 lanes, the SSM state (16 heads of 8 x 8) and
     the WKV state (4 heads of 16 x 16) split by heads over 'model', the
     conv state (d_inner 128 + 2 x 8) and the token-shift carries whole,
-    the shared block's KV heads split."""
-    name = {"zamba2-2.7b": "zamba2", "rwkv6-7b": "rwkv6"}[arch]
+    the shared block's KV heads split; whisper's self and cross K/V split
+    by their KV heads (2 of 4), the cross K/V over all 16 frames."""
+    name = {"zamba2-2.7b": "zamba2", "rwkv6-7b": "rwkv6",
+            "whisper-base": "whisper"}[arch]
     want = {"zamba2-2.7b": {
         "p0_mamba2": {"ssm": (1, 2, 8, 8, 8), "conv": (1, 2, 3, 144)},
         "p5_attn_shared": {"k": (1, 2, 2, 64, 16), "v": (1, 2, 2, 64, 16)}},
         "rwkv6-7b": {"p0_rwkv6": {"wkv": (1, 2, 2, 16, 16),
                                   "shift_t": (1, 2, 1, 64),
-                                  "shift_c": (1, 2, 1, 64)}}}[arch]
+                                  "shift_c": (1, 2, 1, 64)}},
+        "whisper-base": {"p0_dec_attn": {
+            "k": (1, 2, 2, 64, 16), "v": (1, 2, 2, 64, 16),
+            "cross_k": (1, 2, 2, 16, 16), "cross_v": (1, 2, 2, 16, 16)}}}[arch]
     for rank in world["ranks"]:
         for dt in ("bf16", "fp32"):
             shapes = rank[f"{name}/{dt}"]["cache_shapes"]
@@ -334,7 +375,9 @@ def test_state_specs_are_the_reference(arch):
     assert seen == {"qwen2-moe-a2.7b": {"k", "v"},
                     "zamba2-2.7b": {"k", "v", "ssm", "conv"},
                     "rwkv6-7b": {"wkv", "shift_t", "shift_c"},
-                    "phi-3-vision-4.2b": {"k", "v"}}[arch]
+                    "phi-3-vision-4.2b": {"k", "v"},
+                    "whisper-base": {"k", "v", "cross_k", "cross_v"},
+                    "dbrx-132b": {"k", "v"}}[arch]
 
 
 def _jax_plan(plan):
@@ -369,6 +412,53 @@ def test_impl_from_plan_is_the_reference_model_impl(dispatch, decode):
         assert got.decode_shard_ctx == want.decode_shard_ctx is None
         if plan.ep:
             assert got.ep_shard_ctx == ("mesh", "model", ("data",))
+
+
+@pytest.mark.parametrize("dt", ["bf16", "fp32"])
+def test_fsdp_serving_gathers_one_block_at_a_time(world, dt):
+    """Under dbrx-132b's TP + EP + FSDP plan each rank stores a quarter of
+    every leaf FSDP splits -- 4 of the 16 routed experts, 2 of wq's 8
+    heads, 128 of the embedding's and the head's 512 vocab rows -- and
+    the most gathered bytes alive at once over the prefill and the decode
+    steps are exactly one block's gathered leaves plus the components
+    outside the blocks on their compute layout (``Model.gather_bytes``):
+    each block is gathered for its forward and freed before the next."""
+    for rank in world["ranks"]:
+        got = rank[f"dbrx/fsdp/{dt}"]
+        stored = got["stored"]
+        for leaf in ("we_gate", "we_up"):
+            assert stored[f"blocks/p0_moe/moe/{leaf}"] == (1, 4, 256, 32)
+        assert stored["blocks/p0_moe/moe/we_down"] == (1, 4, 32, 256)
+        assert stored["blocks/p0_moe/attn/wq"] == (1, 256, 2, 32)
+        assert stored["embed/tok"] == (128, 256)
+        assert stored["embed/head"] == (256, 128)
+        block, shared = got["gather_bytes"]
+        itemsize = 2 if dt == "bf16" else 4
+        # the compute layout: 8 experts of 256 x 32 (three leaves), 4 q
+        # heads of wq and wo, 256 vocab rows of the embedding and head
+        assert block == (3 * 8 * 256 * 32 + 2 * 256 * 4 * 32) * itemsize
+        assert shared == 2 * 256 * 256 * itemsize
+        assert got["gathered_peak"] == block + shared
+
+
+def test_impl_from_plan_of_an_fsdp_plan_is_the_reference_model_impl():
+    """dbrx-132b's ``decode_32k`` plan on ``h100x4`` (TP + EP + FSDP):
+    ``impl_from_plan`` sets what the reference's ``dryrun._model_impl``
+    sets -- the expert-parallel context and the plan's dispatch, no
+    ``decode_shard_ctx`` -- and nothing for FSDP, which the port's
+    ``Model`` reads from its layout."""
+    from repro.launch.dryrun import _model_impl
+    plan = materialize(get_config("dbrx-132b"), SHAPES["decode_32k"], H100X4)
+    assert plan.fsdp and plan.ep and plan.tp
+    got = impl_from_plan(plan, "mesh")
+    for decode in (False, True):
+        want = _model_impl(_jax_plan(plan), False, None, "mesh",
+                           is_decode=decode)
+        assert got.ep_shard_ctx == want.ep_shard_ctx == (
+            "mesh", "model", ("data",))
+        assert got.moe_dispatch == want.moe_dispatch
+        assert got.decode_shard_ctx == want.decode_shard_ctx is None
+        assert got.remat == want.remat == "none"
 
 
 class _SeqMesh:

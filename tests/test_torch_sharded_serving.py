@@ -19,9 +19,10 @@ and its blocks of the weights and the dense cache:
   64: a 56-token prompt and 8 steps) of reduced command-r-35b and
   gemma3-12b (five sliding-window layers whose rings of 8 slots wrap, and
   a global one);
-* ``launch.serve`` through ``Cluster.submit`` on the dense backend, and
-  the refusals that remain (ROADMAP item A8d: whisper, FSDP plans, the
-  paged backend on a mesh, a world of another size).  The MoE, recurrent
+* ``launch.serve`` through ``Cluster.submit`` on the dense backend, under
+  weight-gathered (FSDP) plans too, and the refusals that remain
+  (ROADMAP item A8d: the paged backend on a mesh, a world of another
+  size, a long-context plan with FSDP).  The MoE, recurrent
   and vision-language families' sharded serving is
   ``tests/test_torch_sharded_families.py``'s.
 
@@ -85,7 +86,12 @@ TP_SHAPE = dataclasses.replace(SHAPES["decode_32k"], global_batch=4,
                                seq_len=64)
 TP_PROMPT, TP_STEPS = 56, 8
 SERVE = dict(arch="command-r-35b", requests=4, max_batch=4,
-             prompt_range=(20, 60), max_new=6)
+             prompt_range=(20, 60), max_new=6,
+             # reduced dbrx-132b at widths whose experts, q heads,
+             # embedding and head the planner's FSDP splits over 'data'
+             dbrx=reduced_config(get_config("dbrx-132b"), d_model=256,
+                                 num_heads=8, num_kv_heads=4, head_dim=32,
+                                 vocab_size=512))
 PLAN_FIELDS = ("batch_axes", "seq_axes", "tp", "ep", "fsdp", "zero",
                "remat", "attn_impl", "kv_shard_heads", "kv_shard_seq")
 
@@ -290,8 +296,10 @@ def world(tmp_path_factory):
                                "cache": cache}
     torch.save(cases, d / "serving.pt")
     run_world("sharded_serving", 4, d)
-    one["serve"] = serve(SERVE["arch"], backend="dense", reduced=True,
-                         device="cpu", requests=SERVE["requests"],
+    for key, arch in (("serve", SERVE["arch"]), ("dbrx", SERVE["dbrx"])):
+        one[key] = serve(arch, backend="dense",
+                         reduced=isinstance(arch, str), device="cpu",
+                         requests=SERVE["requests"],
                          max_batch=SERVE["max_batch"],
                          prompt_range=SERVE["prompt_range"],
                          max_new=SERVE["max_new"], verbose=False)
@@ -504,46 +512,101 @@ def test_cluster_serves_on_the_mesh(world):
         assert r["serve"]["plan"]["batch_axes"] == ("data",)
 
 
-@pytest.mark.parametrize("what", ["paged", "fsdp", "world", "whisper",
-                                  "dbrx_fsdp"])
+@pytest.mark.parametrize("what", ["paged", "world"])
 def test_refused_in_the_world(world, what):
-    """Inside the 4-rank world: the paged backend on a mesh, an FSDP
-    (weight-gathered) serve plan, a serve plan of an 8-device mesh,
-    whisper's decoder blocks and dbrx-132b under an FSDP plan (its
-    ``decode_32k`` plan's placement at full size) raise
-    NotImplementedError naming ROADMAP item A8d, on every rank."""
+    """Inside the 4-rank world: the paged backend on a mesh and a serve
+    plan of an 8-device mesh raise NotImplementedError naming ROADMAP
+    item A8d, on every rank."""
     for r in world["ranks"]:
         said = r["refused"][what]
         assert said is not None and "A8d" in said
 
 
+@pytest.mark.parametrize("what,one", [("fsdp", "serve"),
+                                      ("dbrx_fsdp", "dbrx")])
+def test_fsdp_plans_serve_in_the_world(world, what, one):
+    """Weight-gathered serving, refused until ROADMAP item A8d's part 5:
+    ``launch.serve`` on ``h100x4`` with the plan's ``fsdp`` set serves
+    reduced command-r-35b (TP; no leaf of it reaches the planner's FSDP
+    size) and dbrx-132b (TP + EP, at widths where FSDP splits its
+    experts, q heads, embedding and head, so each prefill's data group
+    gathers its blocks with the other group joining) through
+    ``Cluster.submit``, and every rank's engine returns the one process's
+    tokens."""
+    want = {r.req_id: r.output_tokens for r in world["one"][one]["requests"]}
+    assert len(want) == SERVE["requests"]
+    for r in world["ranks"]:
+        got = r["fsdp"][what]
+        assert got["tokens"] == want
+        assert got["plan"]["fsdp"]
+        assert got["plan"]["ep"] == (what == "dbrx_fsdp")
+        assert (min(got["gathers"]) > 0) == (what == "dbrx_fsdp")
+
+
+def test_whisper_on_the_mesh_is_refused_as_on_one_card(world):
+    """whisper-base submitted to the mesh's dense backend meets the
+    encoder-decoder's refusal of one card (a ValueError: its prompts need
+    the encoder's frames, which serve through ``Model.prefill``), no
+    longer ROADMAP item A8d's, on every rank."""
+    for r in world["ranks"]:
+        kind, said = r["whisper"]
+        assert kind == "ValueError" and "encoder-decoder" in said
+        assert "A8d" not in said
+
+
+class _HostMesh:
+    """``h100x4`` seen from its rank 0 with no world: what a serving
+    model's layouts read of a ``TorchMesh``."""
+    spec = H100X4
+    coords = {"data": 0, "model": 0}
+
+    def size(self, axes):
+        return int(np.prod([self.spec.axis_size(a) for a in axes]))
+
+    def index(self, axes, coords=None):
+        return 0
+
+
 def test_refused_outside_the_world():
     """With no world a serve plan of ``h100x4`` is refused, naming
-    multi-card binding and A8d; a serving layout over whisper's decoder
-    blocks or under dbrx-132b's FSDP plan, and a decoder block given
-    ``tp`` or a ``shard_ctx``, raise before any weight is made; every
-    other block kind serves on a mesh."""
+    multi-card binding and A8d; whisper under a serving layout meets the
+    encoder-decoder's refusal before any weight is made; a decoder block
+    over a sequence-sharded cache (``shard_ctx``) raises naming A8d;
+    every block kind, whisper's decoder blocks now too, serves on a mesh,
+    and dbrx-132b's FSDP plan builds its stored and compute layouts."""
     c = Cluster(pods=1, mesh=H100X4, executor=TorchExecutor(device="cpu"))
     with pytest.raises(NotImplementedError, match="multi-card.*A8d"):
         c.submit(Application.serve("command-r-35b", reduced=True,
                                    serve=ServeOptions(backend="dense")))
     cfg = reduced_config(get_config("whisper-base"))
     plan = Plan(cfg.name, "decode", H100X4, batch_axes=("data",))
-    with pytest.raises(NotImplementedError, match="A8d"):
+    with pytest.raises(ValueError, match="encoder-decoder"):
         DenseRunner(cfg, device="cpu", layout=ServeLayout(plan, None))
-    dbrx = reduced_config(get_config("dbrx-132b"))
-    with pytest.raises(NotImplementedError, match="A8d"):
-        Model(dbrx, layout=ServeLayout(Plan(
-            dbrx.name, "decode", H100X4, batch_axes=("data",), tp=True,
-            ep=True, fsdp=True), None))
+    dbrx = reduced_config(get_config("dbrx-132b"), d_model=128)
+    model = Model(dbrx, layout=ServeLayout(Plan(
+        dbrx.name, "decode", H100X4, batch_axes=("data",), tp=False,
+        ep=True, fsdp=True), _HostMesh()))
+    # the experts (16, 128, 32) split over ('model', 'data'): a block's
+    # gathered leaves are one 'model' rank's 8 experts
+    assert model.gather_bytes() == (3 * 8 * 128 * 32 * 2, 0)
     x = torch.zeros(1, 1, cfg.d_model)
-    for kw in ({"tp": TensorParallel(None, 2, 0)},
-               {"shard_ctx": ("mesh", ("model",), ("data",))}):
-        with pytest.raises(NotImplementedError, match="A8d"):
-            apply_block_decode(cfg, DEC_ATTN, {}, x, {}, 0, {}, **kw)
-    assert DEC_ATTN not in SERVE_MESH_KINDS
+    with pytest.raises(NotImplementedError, match="A8d"):
+        apply_block_decode(cfg, DEC_ATTN, {}, x, {}, 0, {},
+                           shard_ctx=("mesh", ("model",), ("data",)))
     assert set(SERVE_MESH_KINDS) == {ATTN_GLOBAL, ATTN_LOCAL, MOE, MAMBA2,
-                                     ATTN_SHARED, RWKV6}
+                                     ATTN_SHARED, RWKV6, DEC_ATTN}
+
+
+def test_long_context_fsdp_plan_is_refused():
+    """dbrx-132b's ``long_500k`` plan on ``h100x4`` (the ladder's: FSDP
+    and the cache's sequence both over 'data', batch 1) is refused before
+    any weight is made, naming ROADMAP item A8d: weight-gathered serving
+    holds its lanes' whole cache on a data group."""
+    cfg = get_config("dbrx-132b")
+    plan = materialize(cfg, SHAPES["long_500k"], H100X4)
+    assert plan.fsdp and plan.seq_axes == ("data",)
+    with pytest.raises(NotImplementedError, match="sequence.*A8d"):
+        Model(cfg, layout=ServeLayout(plan, _HostMesh()))
 
 
 def test_serving_plans_lay_out_the_cache():
@@ -608,3 +671,36 @@ def test_rank_blocks_of_init_are_one_process_values(monkeypatch, coords):
     for k, lay in lays.items():
         assert got[k].shape == lay.local_shape(specs[k].shape)
         assert torch.equal(got[k], lay.local(whole[k]))
+
+
+class _CoordsX4(_Coords):
+    """``_Coords`` that ``planner.to_layout`` accepts: the mesh's spec."""
+    spec = H100X4
+
+
+@pytest.mark.parametrize("coords", [(0, 0), (1, 1)])
+def test_bridge_takes_a_ranks_stored_slices(coords):
+    """``params_from_jax(..., layouts=...)`` puts the reference's weights
+    on this rank's stored slices of a weight-gathered serving plan
+    (reduced dbrx-132b at d 128 under TP + EP + FSDP, its experts split
+    over ('model', 'data'): 4 of 16 a rank), each leaf the block of the
+    whole bridged leaf, bit for bit."""
+    import jax
+    from repro.configs import get_config as jax_get_config
+    from repro.configs.reduced import reduced_config as jax_reduced
+    from repro.models import build_model
+    from repro_torch.bridge import params_from_jax
+    from repro_torch.models.model import param_specs
+    jcfg = jax_reduced(jax_get_config("dbrx-132b"), d_model=128)
+    cfg = reduced_config(get_config("dbrx-132b"), d_model=128)
+    tree = jax.tree.map(np.asarray, build_model(jcfg).init_params(
+        jax.random.PRNGKey(0)))
+    plan = Plan(cfg.name, "decode", H100X4, batch_axes=("data",), tp=True,
+                ep=True, fsdp=True)
+    lays = ServeLayout(plan, _CoordsX4(coords)).params(cfg, param_specs(cfg))
+    whole = params_from_jax(tree, cfg, "cpu")
+    got = params_from_jax(tree, cfg, "cpu", layouts=lays)
+    for (path, a), b, lay in zip(_flatten_with_paths(got),
+                                 topt.leaves(whole), topt.leaves(lays)):
+        assert torch.equal(a, lay.local(b)), path
+    assert got["blocks"]["p0_moe"]["moe"]["we_gate"].shape == (1, 4, 128, 32)

@@ -338,21 +338,23 @@ def test_remat_and_loss_chunk_do_not_change_the_gradients():
 
 
 def test_unported_training_paths_raise():
-    """What later slices bring raises: the tensor-parallel forward of
-    whisper's encoder-decoder blocks (the MoE block's expert-parallel
-    dispatch came with A8b, ``tests/test_torch_expert_parallel.py``; the
-    Mamba-2, zamba2 and RWKV-6 stacks' tensor-parallel forward with A8c's
-    training part, ``tests/test_torch_deep_sharded.py``; every block kind
-    trains on one card since its slice:
-    ``tests/test_torch_recurrent_training.py``,
-    ``tests/test_torch_family_training.py``); an unknown MoE dispatch and
-    an unknown remat policy raise too."""
+    """What is not ported raises: an MoE stack under tensor parallelism
+    without the expert-parallel context (its experts' ffn columns split
+    over 'model'), an unknown MoE dispatch and an unknown remat policy.
+    Every block kind now takes ``tp``: whisper's encoder-decoder blocks
+    last (A8d's part 4, ``tests/test_torch_deep_sharded.py``; the MoE
+    block's expert-parallel dispatch came with A8b,
+    ``tests/test_torch_expert_parallel.py``; the Mamba-2, zamba2 and
+    RWKV-6 stacks with A8c's training part; every block kind trains on one
+    card since its slice: ``tests/test_torch_recurrent_training.py``,
+    ``tests/test_torch_family_training.py``)."""
     from repro_torch.models.moe import moe_block
     from repro_torch.sharding.collectives import TensorParallel
     tp = TensorParallel(None, 2, 0)
-    with pytest.raises(NotImplementedError, match="data-parallel"):
-        Model(reduced_config(get_config("whisper-base")), tp=tp)
+    assert Model(reduced_config(get_config("whisper-base")), tp=tp).tp is tp
     mcfg = reduced_config(get_config("qwen2-moe-a2.7b"))
+    with pytest.raises(NotImplementedError, match="expert-parallel"):
+        Model(mcfg, tp=tp)
     x = torch.zeros(1, 4, mcfg.d_model)
     with pytest.raises(ValueError, match="unknown MoE dispatch"):
         moe_block({}, x, mcfg, shard_ctx=("mesh", "model", ("data",)),

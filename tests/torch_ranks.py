@@ -85,6 +85,25 @@ def captured_grads(store: list):
         opt.adamw_update = plain
 
 
+@contextlib.contextmanager
+def forced_plan(overrides):
+    """Every ``Cluster.submit`` in the block places its application under
+    the plan with the fields in ``overrides`` replaced: ``launch.serve``
+    of a reduced config under a plan its ladder keeps for the full one."""
+    from repro_torch.runtime import Cluster
+    plain = Cluster.submit
+
+    def submit(self, app, *, overrides=None):
+        return plain(self, app, overrides=forced)
+
+    forced = overrides
+    Cluster.submit = submit
+    try:
+        yield
+    finally:
+        Cluster.submit = plain
+
+
 def _gathered(tree, layouts):
     return opt.tree_unflatten(tree, [
         C.gather_full(t, lay).clone()
@@ -133,13 +152,15 @@ def _step_cases(spec, cases) -> dict:
         model = Model(case["cfg"], impl_from_plan(plan, mesh), tp=tp)
         lay = layouts_of(model, plan, mesh)
         params, state = shard_state(case["params"], lay)
-        rows = rank_rows({k: v.numpy() for k, v in case["batch"].items()},
+        batch = case["batch"]
+        rows = rank_rows({k: v.float().numpy() if v.is_floating_point()
+                          else v.numpy() for k, v in batch.items()},
                          *lay.batch.part(0))
         step = make_train_step(model, plan, case.get("opt"), mesh)
         C.gathered_bytes["peak"] = C.gathered_bytes["live"]
         with captured_grads([]) as grads:
             params, state, m = step(params, state,
-                                    {k: torch.from_numpy(v)
+                                    {k: torch.from_numpy(v).to(batch[k].dtype)
                                      for k, v in rows.items()})
         specs = param_specs(case["cfg"])
         out[name] = {"loss": float(m["loss"]),
@@ -517,16 +538,33 @@ def sharded_serving(rank: int, d: str) -> None:
                          params["blocks"]))]["attn"]["wq"].shape),
                      "cache_k": tuple(next(iter(cache.values()))["k"].shape)}
     sv = cases["serve"]
-    res = serve(sv["arch"], backend="dense", reduced=True, device="cpu",
-                requests=sv["requests"], max_batch=sv["max_batch"],
-                prompt_range=sv["prompt_range"], max_new=sv["max_new"],
-                verbose=False, mesh="h100x4", dist_backend="gloo")
+
+    def served(arch, overrides=None):
+        with forced_plan(overrides):
+            return serve(arch, backend="dense",
+                         reduced=isinstance(arch, str), device="cpu",
+                         requests=sv["requests"], max_batch=sv["max_batch"],
+                         prompt_range=sv["prompt_range"],
+                         max_new=sv["max_new"], verbose=False,
+                         mesh="h100x4", dist_backend="gloo")
+
+    res = served(sv["arch"])
     out["serve"] = {"tokens": {r.req_id: r.output_tokens
                                for r in res["requests"]},
                     "local_prefills": res["runner"].local_prefills,
                     "plan": res["plan"].describe(),
                     "wq": tuple(res["runner"].params["blocks"][
                         "p0_attn_global"]["attn"]["wq"].shape)}
+    # weight-gathered (FSDP) serve plans, refused until ROADMAP item A8d's
+    # part 5: command-r-35b and dbrx-132b (at widths whose leaves FSDP
+    # splits) with the plan's fsdp set
+    out["fsdp"] = {}
+    for what, arch in (("fsdp", sv["arch"]), ("dbrx_fsdp", sv["dbrx"])):
+        res = served(arch, {"fsdp": True})
+        out["fsdp"][what] = {
+            "tokens": {r.req_id: r.output_tokens for r in res["requests"]},
+            "plan": res["plan"].describe(),
+            "gathers": res["runner"].model.gather_bytes()}
 
     def submit(arch, backend="dense", mesh_spec=H100X4, overrides=None):
         c = Cluster(pods=1, mesh=mesh_spec,
@@ -537,23 +575,26 @@ def sharded_serving(rank: int, d: str) -> None:
 
     out["refused"] = {
         "paged": _refusal(lambda: submit("command-r-35b", "paged")),
-        "fsdp": _refusal(lambda: submit("command-r-35b",
-                                        overrides={"fsdp": True})),
-        "world": _refusal(lambda: submit("command-r-35b", mesh_spec=DGX8)),
-        "whisper": _refusal(lambda: submit("whisper-base")),
-        "dbrx_fsdp": _refusal(lambda: submit("dbrx-132b",
-                                             overrides={"fsdp": True}))}
+        "world": _refusal(lambda: submit("command-r-35b", mesh_spec=DGX8))}
+    try:
+        submit("whisper-base")
+        out["whisper"] = None
+    except Exception as e:     # the dense runner's encoder-decoder refusal
+        out["whisper"] = (type(e).__name__, str(e))
     torch.save(out, os.path.join(d, f"serving_{rank}.pt"))
 
 
 def sharded_families(rank: int, d: str) -> None:
     """The cases of ``d/families.pt`` on ``h100x4`` under their plans
-    (TP, the lanes over 'data'; an MoE stack's experts over 'model'):
-    this rank's lanes of the prompt (and of the image features), its
-    blocks of the weights and the cache; the prefill (in bf16 through
-    ``make_prefill_step``, in fp32 into a cache of fp32), then the fed
-    decode steps; each rank saves every lane's logits and next tokens,
-    the whole cache and its own cache leaves' shapes to
+    (TP, the lanes over 'data'; an MoE stack's experts over 'model'; under
+    FSDP the weights stored split over 'data' as well): this rank's lanes
+    of the prompt (and of the image features or the encoder's frames),
+    its blocks of the weights (the stored layout's) and the cache; the
+    prefill (in bf16 through ``make_prefill_step``, in fp32 into a cache
+    of fp32), then the fed decode steps; each rank saves every lane's
+    logits and next tokens, the whole cache, its own cache leaves' shapes,
+    its stored weight bytes and the most gathered bytes alive at once
+    beside what ``Model.gather_bytes`` accounts to
     ``d/families_<rank>.pt``."""
     from repro_torch.models.model import Model, gather_lanes, param_specs
     from repro_torch.serving.serve_step import (impl_from_plan,
@@ -573,23 +614,33 @@ def sharded_families(rank: int, d: str) -> None:
                       (mesh.index(plan.batch_axes) + 1) * per)
         rows = prompt[lanes]
         img = None if img is None else img[lanes].to(case["dtype"])
+        enc = case.get("enc")
+        enc = None if enc is None else enc[lanes].to(case["dtype"])
+        C.gathered_bytes["peak"] = C.gathered_bytes["live"]
         if case["dtype"] == torch.bfloat16:
-            first, cache = make_prefill_step(model, cl)(params, rows, img)
+            first, cache = make_prefill_step(model, cl)(params, rows, img,
+                                                        enc_feats=enc)
         else:
             cache = model.init_cache(prompt.shape[0], cl, "cpu",
                                      case["dtype"])
             first, cache = model.prefill(params, rows, cl, cache=cache,
-                                         img_feats=img)
+                                         img_feats=img, enc_feats=enc)
             first = gather_lanes(first, model.lanes)
         shapes = {key: {k: tuple(t.shape) for k, t in leaf.items()}
                   for key, leaf in cache.items()}
         logits, nxt, cache = _serve_decode(model, params, cache,
                                            case["feed"], case["pos"])
+        itemsize = case["dtype"].itemsize
         out[name] = {"first": first, "logits": logits, "next": nxt,
                      "cache": _whole_cache(model, cache),
                      "cache_shapes": shapes,
                      "ep": model.impl.ep_shard_ctx is not None,
-                     "dispatch": model.impl.moe_dispatch}
+                     "dispatch": model.impl.moe_dispatch,
+                     "stored": {path: tuple(t.shape) for path, t in
+                                _flatten_with_paths(params)},
+                     "gathered_peak": C.gathered_bytes["peak"]
+                     - C.gathered_bytes["live"],
+                     "gather_bytes": model.gather_bytes(itemsize)}
     torch.save(out, os.path.join(d, f"families_{rank}.pt"))
 
 
