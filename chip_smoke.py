@@ -133,7 +133,20 @@ Phases, each of which must pass (any failure exits nonzero):
    replica 1 drained mid-decode: its requests migrate with their KV and
    prefix, none requeued, tokens equal to (b)'s.  Every run's launch
    counts are what its path implies; every release returns the store's
-   bytes, and no run's peak passes (a)'s by more than 1 GiB;
+   bytes, and no run's peak passes (a)'s by more than 1 GiB.  Last, the
+   sanitized pass: under the port's strict runtime sanitizer
+   (``repro_torch.analysis.zensan``), on the same weights, (c)'s pressure
+   run (request 0 cold and request 1 warm through the prefix cache, the
+   co-tenant's evictions) and (d)'s migration run again: 0 violations,
+   every hook kind of that traffic seen (take, give, grant, release,
+   cache_donated, pinned, unpinned, inserted, evicted, table, check),
+   tokens equal to the unsanitized runs' under the ``TIE_GAP`` rule; the
+   hook counts, the ledger checks and the sanitizer's host ms per engine
+   step (the pass's mean step against the unsanitized one's over the
+   same requests) are printed beside the card; then a page given back
+   twice to the pod's ``SharedPagePool`` on the card's store must raise
+   ``ZensanViolation`` naming ``double-free``, and the sanitizer is
+   disabled and that pool discarded;
 13. park: idle parking and the autoscale control plane.  (a) two
    full-width tinyllama-1.1b serve apps (``submit_app``, max batch 4)
    on one pod pool of 128 pages and one aliased store: a (the prefix
@@ -160,7 +173,11 @@ Phases, each of which must pass (any failure exits nonzero):
    cache freed), tokens equal to a calm run's.  (d) reduced gemma3-12b
    on ring pages, 3 x 200 + 70, parked 3 times after 60 steps (its
    rings wrapped), tokens equal to a calm run's.  Each park's and
-   unpark's wall time and host-transfer rate are printed.
+   unpark's wall time and host-transfer rate are printed.  Last, the
+   sanitized pass: (a)'s parked schedule again under the strict
+   sanitizer, with phase 12's gates and report (the hook kinds parked,
+   regranted, unpark_done and check seen; tokens equal to the
+   unsanitized parked run's under the ``TIE_GAP`` rule).
 14. train zamba2: full-width zamba2-2.7b (54 layers: 9 x (5 Mamba-2 +
    the shared attention block at head dim 80); random weights from seed
    0) trains as phase 5 does -- sequence 4096, global batch 8, 4
@@ -5158,14 +5175,15 @@ def _sum_launches(*dicts):
 
 def _mistral_run(torch, params, *, prefix_cache, max_new=32, replicas=1,
                  drain_after=None, margins=True, kv_watch=None,
-                 chunk_pages=4):
+                 chunk_pages=4, before_release=None):
     """One serve of phase 12's traffic through ``launch.serve``'s
     ``submit_app`` (``Cluster.submit`` -> the ``TorchExecutor`` on a view
     of the pod's shared pool of ``MISTRAL_POOL_PAGES``, ``chunk_pages``
     4 unless given, max batch 8): request 0 alone, then the other 7
     together; with ``drain_after`` the highest replica is removed after
     that many steps of the 7.  Checks the launch counts against what the
-    path implies and that the release returns the store's bytes.  Returns
+    path implies and that the release returns the store's bytes;
+    ``before_release(h, cluster)`` runs just before the release.  Returns
     what it saw."""
     import types
     from repro_torch.configs import get_config
@@ -5236,6 +5254,8 @@ def _mistral_run(torch, params, *, prefix_cache, max_new=32, replicas=1,
         if len(toks) != 1 + max_new or not all(
                 0 <= t < runners[0].cfg.vocab_size for t in toks):
             fail(f"mistral serve: {r.req_id} returned {len(toks)} tokens")
+    if before_release is not None:
+        before_release(h, cluster)
     h.release()
     torch.cuda.synchronize()
     out["after"] = torch.cuda.memory_allocated() - base
@@ -5282,6 +5302,7 @@ def _pressure_run(torch, params, pressure, kv_watch):
     reqs = _mistral_requests(get_config("mistral-nemo-12b").vocab_size)
     for fn in kernels.values():
         fn.launches = 0
+    t0 = time.perf_counter()
     for r in reqs[:2]:
         a.submit_request(r)
         a.run()
@@ -5312,6 +5333,8 @@ def _pressure_run(torch, params, pressure, kv_watch):
         out["evicted"] = shared.stats["prefix_evictions"]
     a.run()
     torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t0
+    out["steps"] = sum(h.engine.stats.decode_steps for h in apps)
     launches = {name: fn.launches for name, fn in kernels.items()}
     want = _sum_launches(*(_expected_paged(h.runner, h.engine.stats)
                            for h in apps))
@@ -5340,6 +5363,135 @@ def _parting(ref, run):
                 out[rid] = (j, ref["margins"][rid][j])
                 break
     return out
+
+
+# the sanitized passes of phases 12 and 13: the port's runtime sanitizer,
+# strict, over traffic the phase has already served unsanitized
+
+ZENSAN_HOOKS = ("take", "give", "grant", "release", "cache_donated",
+                "grant_local", "release_local", "pinned", "unpinned",
+                "inserted", "evicted", "parked", "regranted", "park_cancel",
+                "unpark_done", "table", "dense_state", "view_closed",
+                "check")
+
+
+def _counting_sanitizer():
+    """Install a strict ``zensan`` sanitizer, as ``enable(strict=True)``
+    installs one, of a subclass that counts each hook kind and sums the
+    host time spent in the hooks.  Returns it."""
+    from repro_torch.analysis import zensan
+
+    class Counting(zensan.Sanitizer):
+        def __init__(self):
+            super().__init__(strict=True)
+            self.kinds = dict.fromkeys(ZENSAN_HOOKS, 0)
+            self.hook_s = 0.0
+
+    def counted(name):
+        base = getattr(zensan.Sanitizer, name)
+
+        def hook(self, *args):
+            t0 = time.perf_counter()
+            try:
+                return base(self, *args)
+            finally:
+                self.hook_s += time.perf_counter() - t0
+                self.kinds[name] += 1
+        return hook
+
+    for name in ZENSAN_HOOKS:
+        setattr(Counting, name, counted(name))
+    san = Counting()
+    zensan._install(san)
+    return san
+
+
+def _zensan_gates(tag, san, want_kinds, runs, card):
+    """Print the pass's hook counts, ledger checks, violations and the
+    sanitizer's host ms per engine step -- the hooks' own time, and each
+    run's mean step sanitized against unsanitized over the same requests
+    -- and fail on a violation or on a hook kind of ``want_kinds`` that
+    was never seen.  ``runs``: (label, unsanitized run, sanitized run),
+    each with its ``wall`` and its engine decode ``steps``."""
+    seen = {k: n for k, n in san.kinds.items() if n}
+    seeded = getattr(san, "seeded", [])
+    violations = [v for v in san.violations if v not in seeded]
+    steps = sum(r["steps"] for _, _, r in runs)
+    means = "; ".join(
+        f"{label} {r['wall'] / r['steps'] * 1e3:.3f} ms sanitized vs "
+        f"{u['wall'] / u['steps'] * 1e3:.3f} ms unsanitized ({r['steps']} "
+        f"steps)" for label, u, r in runs)
+    print(f"[zensan] {tag}: hooks {seen}; ledger checks "
+          f"{san.kinds['check']}; violations {len(violations)} (and "
+          f"{len(seeded)} seeded); "
+          f"sanitizer host time {san.hook_s * 1e3 / steps:.3f} ms per "
+          f"engine step ({san.hook_s * 1e3:.1f} ms over {steps} steps); "
+          f"mean step {means} | {card}", flush=True)
+    missing = [k for k in want_kinds if not san.kinds[k]]
+    if missing or violations:
+        fail(f"zensan {tag}: hook kinds never seen {missing}, violations "
+             f"{[v.render() for v in violations]}")
+
+
+def _seeded_double_free(h, cluster):
+    """On the pod's ``SharedPagePool`` of the card's store: a page granted
+    to the app's view and released, then given back to the pool again
+    must raise ``ZensanViolation`` naming ``double-free``.  Then the
+    sanitizer is disabled (the release that follows, and the cluster
+    going out of scope, discard the pool)."""
+    from repro_torch.analysis import zensan
+    from repro_torch.serving.kv_cache import Request
+    shared, view = cluster.pod_pool("pod0"), h.engine.pool
+    req = Request("zensan-seed", 100, 1, prompt_tokens=tuple(range(100)))
+    if view.shared is not shared or not view.try_admit(req):
+        fail("zensan: the seeded fault's page was not granted")
+    phys = view.to_physical(req.pages)
+    view.release(req)                          # the legal free
+    san, raised = zensan.SAN, None
+    before = len(san.violations)
+    try:
+        shared._give(phys)                     # the fault: freed again
+    except zensan.ZensanViolation as e:
+        raised = str(e)
+    zensan.disable()
+    # the pass's gates count the traffic's violations, not this one
+    san.seeded = san.violations[before:]
+    print(f"[zensan] seeded double free of page(s) {phys} on the card's "
+          f"store raised: {raised}", flush=True)
+    if (raised is None or "double-free" not in raised
+            or len(san.seeded) != 1):
+        fail(f"zensan: a page given back twice raised {raised!r}, not a "
+             f"double-free violation")
+
+
+def sanitized_mistral(torch, params, pressed, mig, card):
+    """Phase 12's sanitized pass (module doc): (c)'s pressure run and
+    (d)'s migration run again under the strict sanitizer, after the
+    phase's timed runs, then the seeded double free."""
+    from repro_torch.analysis import zensan
+    t_pass = time.perf_counter()
+    san = _counting_sanitizer()
+    try:
+        p_san = _pressure_run(torch, params, True, None)
+        m_san = _mistral_run(torch, params, prefix_cache=True, replicas=2,
+                             drain_after=3, before_release=_seeded_double_free)
+    finally:
+        zensan.disable()
+    flips = (check_parity(pressed["tokens"], p_san["tokens"],
+                          pressed["margins"], TIE_GAP)
+             + check_parity(mig["tokens"], m_san["tokens"], mig["margins"],
+                            TIE_GAP))
+    runs = [("pressure", pressed, p_san)] + [
+        ("migration", *(dict(r, steps=r["view"]["decode_steps"])
+                        for r in (mig, m_san)))]
+    _zensan_gates("phase 12 mistral-nemo-12b (pressure on 48 pages, "
+                  "2-replica migration on 192)", san,
+                  ("take", "give", "grant", "release", "cache_donated",
+                   "pinned", "unpinned", "inserted", "evicted", "table",
+                   "check"), runs, card)
+    print(f"[zensan] phase 12: tokens equal to the unsanitized runs' under "
+          f"the TIE_GAP rule ({flips} near-tie flips); the pass took "
+          f"{time.perf_counter() - t_pass:.1f} s", flush=True)
 
 
 def serve_mistral_full(torch):
@@ -5498,6 +5650,7 @@ def serve_mistral_full(torch):
           f"{cold_peak / 2**30:.3f}, warm {warm['peak'] / 2**30:.3f}, "
           f"migration {mig['peak'] / 2**30:.3f} GiB; bytes held after "
           f"each release <= {LEAK_BYTES >> 20} MiB", flush=True)
+    sanitized_mistral(torch, params, pressed, mig, card)
     del params, warm, mig, watch
     gc.collect()
     torch.cuda.empty_cache()
@@ -5708,6 +5861,7 @@ def _tenants_run(torch, parker=None):
     ra, rb, extra = _park_requests(a.app.config.vocab_size)
     for fn in kernels.values():
         fn.launches = 0
+    t0 = time.perf_counter()
     a.submit_request(ra[0])
     a.step()
     for r in ra[1:]:
@@ -5743,10 +5897,12 @@ def _tenants_run(torch, parker=None):
         b.step()
     at40 = {rid: list(t) for rid, t in a.runner.generated.items()}
     if parker is not None:
-        before = _requested(torch)
-        parker.park(a, "(a2) a", drop=weights, drained=4)
+        before = parker.park(a, "(a2) a", drop=weights, drained=4)
         dropped = parker.receipts[-1][1]["kv_arrays_dropped"]
         store_bytes = store.device_bytes()
+        # zenlint-torch: ignore[ZL005] -- _Parker.park checks the park's
+        # receipt itself (read next from parker.receipts); it returns the
+        # bytes requested before the park, which a's park above gave
         parker.park(b, "(a2) b", drop=weights + store_bytes, drained=4)
         if dropped or not parker.receipts[-1][1]["kv_arrays_dropped"]:
             fail(f"park (a2): kv_arrays_dropped {dropped} for a, "
@@ -5763,13 +5919,16 @@ def _tenants_run(torch, parker=None):
     alive = {"a": True, "b": True}
     while any(alive.values()):
         alive = {"a": a.step()["alive"], "b": b.step()["alive"]}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = sum(h.stats_view.cumulative()["decode_steps"] for h in (a, b))
     launches = {name: fn.launches for name, fn in kernels.items()}
     _count_paged([a.runner, b.runner], [a.stats_view.cumulative(),
                                         b.stats_view.cumulative()], launches)
     out = {"tokens": {r.req_id: r.output_tokens for r in ra + rb + [extra]},
            "margins": _sum_margins([a.runner, b.runner]), "at40": at40,
            "launches": launches, "weights": weights,
-           "store": store.device_bytes()}
+           "store": store.device_bytes(), "wall": wall, "steps": steps}
     a.release()
     b.release()
     if abs(_requested(torch) - base) > PARK_SLACK or cluster.capacity()[
@@ -5945,6 +6104,26 @@ def _rings_run(torch, parker=None):
     return tokens, launches
 
 
+def sanitized_park(torch, parked, card):
+    """Phase 13's sanitized pass (module doc): (a)'s parked schedule again
+    under the strict sanitizer, after the phase's timed runs."""
+    from repro_torch.analysis import zensan
+    t_pass = time.perf_counter()
+    san = _counting_sanitizer()
+    try:
+        run = _tenants_run(torch, _Parker(torch))
+    finally:
+        zensan.disable()
+    flips = check_parity(parked["tokens"], run["tokens"], parked["margins"],
+                         TIE_GAP)
+    _zensan_gates("phase 13 tinyllama-1.1b x 2 parked and unparked", san,
+                  ("parked", "regranted", "unpark_done", "check"),
+                  [("parked schedule", parked, run)], card)
+    print(f"[zensan] phase 13: tokens equal to the unsanitized parked run's "
+          f"under the TIE_GAP rule ({flips} near-tie flips); the pass took "
+          f"{time.perf_counter() - t_pass:.1f} s", flush=True)
+
+
 def serve_park(torch):
     """Phase 13.  (a) two aliased full-width tinyllama-1.1b tenants: a
     parked three times while b serves, then both parked (the store goes
@@ -5994,6 +6173,7 @@ def serve_park(torch):
           f"launches {launches}", flush=True)
     for label, receipt in parker.receipts:
         print(f"[park] {label}: {receipt}", flush=True)
+    sanitized_park(torch, parked, card)
     for name, n in _launcher_park(torch).items():
         launches[name] = launches.get(name, 0) + n
     dense_calm, n_calm = _dense_run(torch)

@@ -32,10 +32,9 @@ cannot be re-granted (co-tenants consumed the pool meanwhile), or whose
 shared prefix pages were flushed or evicted meanwhile, falls back to the
 at-least-once path: re-queued from scratch, still deterministic.
 
-The reference's runtime-sanitizer hooks (``zensan``: the quiescent-point
-checks and the park receipts it keeps per drained request) are left out,
-as the port's engine and router leave theirs out; they come back with
-queue item A11 (M9, analysis over the port).
+The reference's runtime-sanitizer hooks (``repro_torch.analysis.zensan``:
+the quiescent-point checks and the resolution of the park receipts it
+keeps per drained request) sit where the reference has them.
 """
 
 from __future__ import annotations
@@ -44,6 +43,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+from repro_torch.analysis import zensan
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.kv_cache import Request
 
@@ -110,6 +110,11 @@ def park_app(handle) -> Dict:
                    "arrays_dropped", runner_state is not None))}
     if migrated is not None:
         receipt["migrated_requests"] = migrated.get("migrated_requests", 0)
+    s = zensan.SAN
+    if s is not None:
+        # quiescent point: every drained page must be back on the free
+        # list, with one outstanding park receipt per drained request
+        s.check(eng.pool)
     t = obs_trace.TRACER
     if t is not None:
         t.instant("autoscale", "park", handle.app.name, dict(receipt))
@@ -164,11 +169,19 @@ def unpark_app(handle) -> Dict:
         if "params" in handle.exec_state:
             handle.exec_state["params"] = runner.params
     eng.running.extend(pr.req for pr in restored)
+    s = zensan.SAN
     for pr in requeued:          # at-least-once fallback: re-execute
         pr.req.generated = 0
         pr.req.state = "queued"
         eng.queue.appendleft(pr.req)
         eng.stats.preempted += 1
+        if s is not None:
+            # the requeued request re-enters from scratch: its park
+            # receipt is resolved (nothing left to regrant), not stranded
+            s.park_cancel(eng.pool, pr.req.req_id)
+    if s is not None:
+        s.unpark_done(eng.pool, getattr(eng.pool, "app", handle.app.name))
+        s.check(eng.pool)
     del handle.exec_state["parked"]
     receipt = {"restored_requests": len(restored),
                "requeued_requests": len(requeued),

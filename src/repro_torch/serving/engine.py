@@ -21,7 +21,8 @@ preempting its own newest request.  A runner with a prefix cache pins a
 request's cached prefix just before admission (``prefix_attach``).
 
 The tracing and metrics hooks are the reference's (``repro_torch.obs``,
-off unless enabled); its runtime sanitizer is not ported.
+off unless enabled), and so are its runtime sanitizer's checks at the
+step's two quiescent points (``repro_torch.analysis.zensan``).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import time
 from dataclasses import dataclass
 from typing import Callable, Deque, Dict, List, Optional, Tuple
 
+from repro_torch.analysis import zensan
 from repro_torch.core.history import HistoryStore
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
@@ -252,6 +254,9 @@ class ServingEngine:
                                 app=self._obs_app).observe(ttft)
 
         if not self.running:
+            s = zensan.SAN
+            if s is not None:
+                s.check(self.pool)
             return bool(self.queue)
 
         # grow before decoding (horizon=1: the next token's write slot must
@@ -300,6 +305,9 @@ class ServingEngine:
                     t.instant("request", "finish", req.req_id,
                               {"tokens": req.generated})
         self.stats.decode_steps += 1
+        s = zensan.SAN
+        if s is not None:
+            s.check(self.pool)
         return bool(self.queue or self.running)
 
     def run_to_completion(self, max_steps: int = 1_000_000) -> EngineStats:

@@ -18,7 +18,7 @@ size (``free_local``); a request holds at most ``ring_pages`` of those
 however long it grows.  The prefix-cache lifecycle (``cow_grant``,
 ``cache_donate``, ``prefix_detach``, refcount-0 eviction in ``_alloc``)
 serves ``serving/prefix_cache.py``.  The reference's runtime sanitizer
-hooks are not ported.
+hooks (``repro_torch.analysis.zensan``) sit where the reference has them.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.analysis import zensan
 from repro_torch.configs.base import ATTN_LOCAL
 from repro_torch.core.history import HistoryStore
 from repro_torch.core.sizing import SizingSolution, solve_init_step
@@ -215,26 +216,47 @@ class PagePool:
             self.stats["prefix_evictions"] += freed
         if n > len(self.free):
             return None
-        return [self.free.pop() for _ in range(n)]
+        got = [self.free.pop() for _ in range(n)]
+        s = zensan.SAN
+        if s is not None:
+            # a private pool's ids are physical AND request-visible:
+            # take+grant collapse into one step (no remap in between)
+            s.take(self, got)
+            s.grant(self, got, got)
+        return got
 
     def _dealloc(self, pages: List[int]) -> None:
+        s = zensan.SAN
+        if s is not None:
+            s.release(self, pages, pages)
+            s.give(self, pages)
         self.free.extend(pages)
 
     def _give(self, pages: List[int]) -> None:
         """Return PHYSICAL pages straight to the free list: the prefix
         cache's eviction path (cache pages were donated out of request
         accounting, so they come back without touching it)."""
+        s = zensan.SAN
+        if s is not None:
+            s.give(self, pages)
         self.free.extend(pages)
 
     def _alloc_local(self, n: int) -> Optional[List[int]]:
         """Take n ring pages from the local id space."""
         if self.free_local is None or n > len(self.free_local):
             return None
-        return [self.free_local.pop() for _ in range(n)]
+        got = [self.free_local.pop() for _ in range(n)]
+        s = zensan.SAN
+        if s is not None:
+            s.grant_local(self, got)
+        return got
 
     def _dealloc_local(self, pages: List[int]) -> None:
         """Return ring pages to the local id space."""
         if pages:
+            s = zensan.SAN
+            if s is not None:
+                s.release_local(self, pages)
             self.free_local.extend(pages)
 
     def _page_cap(self) -> int:
@@ -255,7 +277,11 @@ class PagePool:
         are physical and the pages simply stay off the free list (the
         cache's ``free_fn`` puts them back on eviction); a PoolView also
         uncharges its quota and forgets the remap."""
-        return list(ids)
+        phys = list(ids)
+        s = zensan.SAN
+        if s is not None:
+            s.cache_donated(self, phys, self.prefix_cache)
+        return phys
 
     def prefix_detach(self, req: Request, keep: bool = False) -> int:
         """Unpin a request's prefix-cache nodes (idempotent).  Returns
@@ -396,6 +422,9 @@ class PagePool:
         req.parked_shared = len(req.shared_pages)
         self.prefix_detach(req, keep=True)
         req.state = "parked"
+        s = zensan.SAN
+        if s is not None:
+            s.parked(self, req.req_id, len(phys), len(phys_local))
         return phys, phys_local
 
     def regrant(self, req: Request, n: int, n_local: int = 0) -> bool:
@@ -415,6 +444,9 @@ class PagePool:
         req.pages = got
         req.local_pages = got_local
         req.state = "running"
+        s = zensan.SAN
+        if s is not None:
+            s.regranted(self, req.req_id, n, n_local)
         return True
 
     @property

@@ -87,6 +87,7 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.analysis import zensan
 from repro_torch.checkpoint.checkpointer import _from_saved, _to_savable
 from repro_torch.configs.base import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
 from repro_torch.kernels.paged_attention import paged_attention
@@ -334,6 +335,8 @@ class ModelRunner:
         """logits: one (V,) row per request in ``reqs``."""
         if self.margins is None:
             return
+        # zenlint-torch: ignore[ZL004] -- margins are recorded only when
+        # asked (parity checks): one fetch of the step's (gap, top-1) pairs
         self._record_top2(reqs, top2(logits).tolist())
 
     def _record_top2(self, reqs: List[Request], pairs) -> None:
@@ -422,8 +425,13 @@ class DenseRunner(ModelRunner):
                                            cache=self.cache,
                                            slot=slot - rows.start)
             self.local_prefills += 1
+            # zenlint-torch: ignore[ZL004] -- the first token: once per
+            # request (not per token), and the engine needs its id to
+            # seed decode
             first = int(logits[0, -1].argmax())
             if self.margins is not None:
+                # zenlint-torch: ignore[ZL004] -- margins only when asked
+                # (parity checks), once per request
                 pair = top2(logits[0, -1]).tolist()
         else:
             self.model.join_gathers(self.params)
@@ -432,6 +440,8 @@ class DenseRunner(ModelRunner):
             # order
             mine = torch.tensor([[-1.0 if first is None else first] + pair],
                                 dtype=torch.float64, device=self.device)
+            # zenlint-torch: ignore[ZL004] -- on a mesh the holders' first
+            # token and top-2 reach every rank: one gathered fetch a request
             first, *pair = gather_lanes(mine, self.model.lanes)[
                 slot // (rows.stop - rows.start)].tolist()
             first = int(first)
@@ -451,6 +461,9 @@ class DenseRunner(ModelRunner):
         (and top-2 gaps) are all-gathered over the batch axes."""
         if not running:
             return
+        s = zensan.SAN
+        if s is not None:
+            s.dense_state(self, running)
         toks = np.zeros((self.max_batch, 1), np.int64)
         pos = 0
         for req in running:
@@ -463,8 +476,11 @@ class DenseRunner(ModelRunner):
         slots = [self.slots[r.req_id][0] for r in running]
         if self.margins is not None:
             pairs = gather_lanes(top2(logits[:, -1]), self.model.lanes)
+            # zenlint-torch: ignore[ZL004] -- margins only when asked
+            # (parity checks): one batched fetch of the step's pairs
             self._record_top2(running, pairs[slots].tolist())
-        # the one batched device->host fetch of the step
+        # zenlint-torch: ignore[ZL004] -- the one batched device->host
+        # fetch of the step: the engine needs the next tokens' ids
         nxt = gather_lanes(logits[:, -1].argmax(-1),
                            self.model.lanes).tolist()
         for req, slot in zip(running, slots):
@@ -725,6 +741,8 @@ class PagedRunner(ModelRunner):
     def _first_token(self, req: Request, x_last: torch.Tensor) -> None:
         logits = self._logits(x_last)[:, -1]
         self._record_margins([req], logits)
+        # zenlint-torch: ignore[ZL004] -- the first token: once per request
+        # (not per token), and the engine needs its id to seed decode
         self.generated[req.req_id] = [int(logits[0].argmax())]
 
     def _prefill_chunked(self, req: Request) -> None:
@@ -895,6 +913,13 @@ class PagedRunner(ModelRunner):
         g_phys = [list(r.shared_pages) + self._phys(r.pages) for r in running]
         l_phys = [self._phys_local(r.local_pages) if self.use_rings else []
                   for r in running]
+        s = zensan.SAN
+        if s is not None:
+            # runtime twin of zenlint ZL001: every id entering the table
+            # must be this view's grant or a cache page (host lists: the
+            # hook reads nothing from the card)
+            s.table(self.engine.pool if self.engine is not None else None,
+                    g_phys, l_phys)
         # padded to max_batch: idle lanes write into the trash page with an
         # all -1 table and valid length 1, so they attend to nothing and
         # the kernel writes zeros for them
@@ -947,7 +972,8 @@ class PagedRunner(ModelRunner):
             x = self._block_forward(bp, x, positions_t, mix)
         logits = self._logits(x)[:, -1]
         self._record_margins(running, logits)
-        # the one batched device->host fetch of the step
+        # zenlint-torch: ignore[ZL004] -- the one batched device->host
+        # fetch of the step: the engine needs the next tokens' ids
         nxt = logits.argmax(-1).tolist()
         for i, req in enumerate(running):
             self.generated[req.req_id].append(nxt[i])

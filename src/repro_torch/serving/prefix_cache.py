@@ -1,6 +1,6 @@
 """Global prefix cache: refcounted copy-on-write KV pages on the paged
-data plane.  A copy of ``repro/serving/prefix_cache.py`` without the
-runtime sanitizer's hooks.
+data plane.  A copy of ``repro/serving/prefix_cache.py``, with its runtime
+sanitizer's hooks (``repro_torch.analysis.zensan``).
 
 At high-overlap serving load most prompts share a long common prefix (a
 system prompt, a few-shot template), so the dominant prefill cost is
@@ -43,6 +43,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable, List, Optional, Sequence, Tuple
 
+from repro_torch.analysis import zensan
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.kv_cache import PAGE_SIZE
 
@@ -181,6 +182,9 @@ class PrefixCache:
         for n in chain:
             n.refs += 1
             self._touch(n)
+        s = zensan.SAN
+        if s is not None:
+            s.pinned(self, chain)
         if cached_len > 0:
             self.stats["hits"] += 1
             self.stats["hit_pages"] += len(full_pages)
@@ -208,6 +212,9 @@ class PrefixCache:
             self._touch(n)
             if n.refs == 0:
                 released += 1
+        s = zensan.SAN
+        if s is not None:
+            s.unpinned(self, nodes)
         self.stats["unpinned"] += released
         return released
 
@@ -278,6 +285,9 @@ class PrefixCache:
         for n in created:
             n.refs += 1
             self._touch(n)
+        s = zensan.SAN
+        if s is not None:
+            s.inserted(self, created)
         self.stats["inserted_pages"] += len(created)
         return created
 
@@ -305,6 +315,9 @@ class PrefixCache:
         else:
             parent.partials.remove(node)
         self.nodes.remove(node)
+        s = zensan.SAN
+        if s is not None:
+            s.evicted(self, node)
         freed = [node.page]
         self.free_fn(freed)
         self.stats["evicted_pages"] += len(freed)

@@ -24,8 +24,9 @@ on a survivor's view, and the KV is written back at the new grants
 decodes through the same page tensors.  Requests that do not fit the
 survivor (batch slots, pages, or a dense cache, which cannot migrate)
 fall back to the at-least-once path: requeued at the router,
-re-executed from scratch, still deterministic.  The runtime sanitizer
-hooks of the reference stay out (item M9).
+re-executed from scratch, still deterministic.  The migration resolves
+the runtime sanitizer's park receipts as the reference's does
+(``repro_torch.analysis.zensan``).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ import time
 from dataclasses import dataclass, field
 from typing import Callable, Deque, Dict, List, Optional
 
+from repro_torch.analysis import zensan
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.engine import EngineStats, ServingEngine
 from repro_torch.serving.kv_cache import Request
@@ -223,9 +225,19 @@ class ReplicaSet:
         if victim.runner is not None and restored:
             target.runner.migrate_in(state, restored)
         teng.running.extend(restored)
+        s = zensan.SAN
         for req in requeued:            # at-least-once fallback
             req.generated = 0
             req.state = "queued"
+        if s is not None:
+            # every drained request holds a park receipt on the VICTIM
+            # view (its regrant above landed on the target's ledger key):
+            # resolve them all, then assert none went stranded before the
+            # view closes
+            for req, _ in drained:
+                s.park_cancel(veng.pool, req.req_id)
+            s.unpark_done(veng.pool, getattr(veng.pool, "app", self.app))
+            s.check(veng.pool)
         if self.router is not None:
             self.router.requeue(self.app, requeued + queued)
         else:

@@ -1,7 +1,8 @@
 """Multi-tenant KV-page sharing: one physical pool per pod, many apps.
-A copy of ``repro/serving/tenancy.py`` without the runtime sanitizer's
-hooks; on the card a ``KVArrayStore``'s page tensors are the pod's device
-memory for one KV shape.
+A copy of ``repro/serving/tenancy.py``, with the runtime sanitizer's
+hooks (``repro_torch.analysis.zensan``) where the reference has them; on
+the card a ``KVArrayStore``'s page tensors are the pod's device memory
+for one KV shape.
 
 The paper's resource-centric claim (§9.3) is that co-located applications
 share a pod's memory through history-driven per-request grants instead of
@@ -42,6 +43,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
+from repro_torch.analysis import zensan
 from repro_torch.core.history import HistoryStore
 from repro_torch.obs import trace as obs_trace
 from repro_torch.serving.kv_cache import PageGroups, PagePool
@@ -107,9 +109,15 @@ class SharedPagePool:
         if n > len(self.free):
             return None
         got = [self.free.pop() for _ in range(n)]
+        s = zensan.SAN
+        if s is not None:
+            s.take(self, got)
         return got
 
     def _give(self, pages: List[int]) -> None:
+        s = zensan.SAN
+        if s is not None:
+            s.give(self, pages)
         self.free.extend(pages)
 
     def _evict_prefix(self, need: int) -> int:
@@ -397,6 +405,9 @@ class PoolView(PagePool):
         ids = self._new_ids(n)
         for vid, pid in zip(ids, got):
             self._remap[vid] = pid
+        s = zensan.SAN
+        if s is not None:
+            s.grant(self, ids, got)
         t = obs_trace.TRACER
         if t is not None:
             t.instant("pool", "grant", self.app,
@@ -407,6 +418,9 @@ class PoolView(PagePool):
         self.used -= len(pages)
         phys = [self._remap.pop(v) for v in pages]
         self._free_ids.extend(pages)
+        s = zensan.SAN
+        if s is not None:
+            s.release(self, pages, phys)
         self.shared._give(phys)
 
     def cache_donate(self, pages: Sequence[int]) -> List[int]:
@@ -418,6 +432,9 @@ class PoolView(PagePool):
         self.used -= len(pages)
         phys = [self._remap.pop(v) for v in pages]
         self._free_ids.extend(pages)
+        s = zensan.SAN
+        if s is not None:
+            s.cache_donated(self, phys, self.prefix_cache)
         t = obs_trace.TRACER
         if t is not None:
             t.instant("pool", "cache_donate", self.app,
@@ -445,6 +462,9 @@ class PoolView(PagePool):
         ids = self._new_ids(n, local=True)
         for vid, pid in zip(ids, got):
             self._remap_local[vid] = pid
+        s = zensan.SAN
+        if s is not None:
+            s.grant_local(self, got)
         return ids
 
     def _dealloc_local(self, pages: List[int]) -> None:
@@ -452,6 +472,9 @@ class PoolView(PagePool):
             self._used_local -= len(pages)
             phys = [self._remap_local.pop(v) for v in pages]
             self._free_ids_local.extend(pages)
+            s = zensan.SAN
+            if s is not None:
+                s.release_local(self, phys)
             self._local_free().extend(phys)
 
     def _note_denial(self) -> None:
@@ -479,6 +502,9 @@ class PoolView(PagePool):
         """Detach this app from the pod pool (on application release).
         The last aliasing tenant of a KV array store takes the store --
         and its device HBM -- with it."""
+        s = zensan.SAN
+        if s is not None:
+            s.view_closed(self)
         self.engine = None
         if self.kv_store is not None:
             st = self.kv_store

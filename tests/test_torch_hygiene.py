@@ -6,7 +6,8 @@ planner, collectives and mesh among them) and
 ``chip_smoke.py`` import nothing of JAX and nothing of the JAX package;
 the port imports, serves (on the pod-shared pool, with the prefix cache
 too, and parked and unparked by its controller with a trace written and
-summarized) and trains through ``Cluster.submit`` with JAX absent; its
+summarized, and under its runtime sanitizer) and trains through
+``Cluster.submit`` with JAX absent; its
 entry points run on CUDA unless the CPU is asked for, and
 raise when there is no CUDA device instead of carrying on on the CPU.
 """
@@ -49,7 +50,8 @@ def test_port_imports_neither_jax_nor_the_reference():
                    "configs/dbrx_132b.py", "configs/phi3_vision_4_2b.py",
                    "configs/whisper_base.py", "sharding/__init__.py",
                    "sharding/planner.py", "sharding/collectives.py",
-                   "launch/mesh.py"):
+                   "launch/mesh.py", "analysis/zensan.py",
+                   "analysis/engine.py", "analysis/rules/hostsync.py"):
         assert PORT / module in files
     bad = [(f.relative_to(ROOT), m) for f in files
            for m in _imported_modules(f)
@@ -128,6 +130,50 @@ def test_port_parks_and_traces_with_jax_absent(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "== autoscale decisions ==" in res.stdout
+
+
+def test_port_serves_sanitized_with_jax_absent():
+    """``REPRO_ZENSAN=1`` installs the port's strict sanitizer at import,
+    with JAX and the reference unimportable: two aliased paged tenants
+    with the prefix cache on the pod's shared pool, one parked mid-decode
+    and unparked with its requests restored, run to the end and released
+    with every hook seen and no violation."""
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['repro'] = None\n"
+            "from repro_torch.analysis import zensan\n"
+            "san = zensan.SAN\n"
+            "assert san is not None and san.strict\n"
+            "from repro_torch.core.history import HistoryStore\n"
+            "from repro_torch.runtime import (Application, Cluster, "
+            "ServeOptions, TorchExecutor)\n"
+            "from repro_torch.serving.kv_cache import Request\n"
+            "c = Cluster(pods=1, history=HistoryStore(), pool_pages=64, "
+            "executor=TorchExecutor(device='cpu', seed=0))\n"
+            "a, b = (c.submit(Application.serve('tinyllama-1.1b', "
+            "reduced=True, name=n, serve=ServeOptions(max_batch=2, "
+            "backend='paged', prefix_cache=True, cache_len=1024))) "
+            "for n in 'ab')\n"
+            "toks = tuple(i % 200 for i in range(300))\n"
+            "b.submit_request(Request('b0', 40, 8, "
+            "prompt_tokens=tuple(range(40))))\n"
+            "for i in range(2):\n"
+            "    a.submit_request(Request(f'a{i}', 300 + 10 * i, 4, "
+            "prompt_tokens=toks + tuple(range(10 * i))))\n"
+            "    a.step()\n"
+            "assert a.park()['drained_requests'] == 2\n"
+            "b.step()\n"
+            "assert a.unpark()['restored_requests'] == 2\n"
+            "while a.step()['alive'] | b.step()['alive']:\n"
+            "    pass\n"
+            "a.release()\n"
+            "b.release()\n"
+            "assert san.violations == [] and san.events > 50, san.events\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env={"PYTHONPATH": str(ROOT / "src"),
+                              "PATH": "/usr/bin:/bin", "REPRO_ZENSAN": "1"},
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
